@@ -1,0 +1,292 @@
+"""Decoder-only transformer forward pass (dense Qwen2/2.5, Qwen3, Llama-3).
+
+Counterpart of `mnn_tpu/models/decoder.py`, on the unrolled per-layer path
+(`_forward_unrolled`). Weights and the KV cache are stacked on a leading
+layer axis; every projection runs through the fused dequant-matmul kernel
+reading its layer in place, prefill attention through the flash kernel over
+the dequantized cache window, and decode attention (T = 1) through the
+fused decode kernel. The cache is updated in place.
+
+Not ported yet: the whole-model decode megakernel, MoE, the gemma family
+(sandwich norms, softcaps, alternating windows, dual rope), multimodal rope,
+LoRA, tensor parallelism, token-tree verify, PLE and deepstack.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from mnn_tpu_torch.kernels.decode_step import fused_decode_attention
+from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
+from mnn_tpu_torch.kernels.flash_attention import flash_attention
+from mnn_tpu_torch.models.config import ModelConfig
+from mnn_tpu_torch.models.layers import (apply_rope, rms_norm, rope_cos_sin,
+                                         split_gate_up, swiglu)
+from mnn_tpu_torch.quant.quantize import QuantizedLinear, choose_block_size
+from mnn_tpu_torch.runtime import kvcache
+from mnn_tpu_torch.runtime.kvcache import KVCache
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerParams:
+    """Per-layer weights, stacked on a leading num_layers axis.
+
+    wqkv's output columns are grouped by KV head, [Hkv, G+2, D] flattened:
+    the G query heads of the group, then its K row, then its V row."""
+
+    wqkv: QuantizedLinear        # [hidden, Hkv * (G+2) * D]
+    wo: QuantizedLinear          # [H*D, hidden]
+    wgu: QuantizedLinear         # [hidden, 2 * intermediate], 64-block gate/up interleave
+    wdown: QuantizedLinear       # [intermediate, hidden]
+    input_norm: torch.Tensor     # [L, hidden] f32
+    post_norm: torch.Tensor      # [L, hidden] f32
+    q_norm: Optional[torch.Tensor] = None   # [L, head_dim] (qwen3)
+    k_norm: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Params:
+    embedding: torch.Tensor      # [vocab, hidden] bf16
+    final_norm: torch.Tensor     # [hidden] f32
+    # [hidden, vocab] bf16, a quantized head, or None when tied
+    lm_head: Union[torch.Tensor, QuantizedLinear, None]
+    layers: LayerParams
+
+
+def _check_supported(c: ModelConfig):
+    gemma_like = (c.sandwich_norm or c.mlp_act != "silu" or c.attn_softcap
+                  or c.final_softcap or c.swa_every_other or c.swa_pattern
+                  or c.embed_scale)
+    if c.is_moe or gemma_like or c.mrope_section or c.kv_rotate:
+        raise NotImplementedError(
+            f"{c.name}: only dense qwen/llama configs are ported")
+
+
+def init_random_params(
+    config: ModelConfig,
+    generator: torch.Generator,
+    quant_bits: int = 4,
+    quant_block: int = 128,
+    scale: float = 0.02,
+    act_bits: int = 16,
+    lm_head_bits: int = 0,
+    device=None,
+) -> Params:
+    """Random weights built directly in packed form (the JAX package's
+    `fast=True` path): random bytes, scale 2*scale/qmax, bias -scale.
+
+    The generator must live on the CPU; the same seed then gives the same
+    weights whatever `device` is. Unlike the JAX fast path, each layer gets
+    its own bytes: a stack of one broadcast layer would serve the per-layer
+    weights from the H100's 50 MB L2 cache and flatter decode timings."""
+    c = config
+    _check_supported(c)
+    g = generator
+
+    def packed_rand(*shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def ql(k_dim, n_dim, with_bias, bits=quant_bits, lead=(c.num_layers,),
+           a_bits=act_bits):
+        bs = choose_block_size(k_dim, quant_block)
+        qmax = (1 << bits) - 1
+        s = torch.full((*lead, k_dim // bs, n_dim), 2 * scale / qmax,
+                       dtype=torch.bfloat16)
+        return QuantizedLinear(
+            packed=packed_rand(*lead, k_dim * bits // 8, n_dim),
+            scale=s, bias=-s * (qmax / 2),
+            out_bias=torch.zeros((*lead, n_dim)) if with_bias else None,
+            bits=bits, block_size=bs, act_bits=a_bits)
+
+    qkv_n = (c.num_heads + 2 * c.num_kv_heads) * c.head_dim
+    ones = lambda *s: torch.ones(s, dtype=torch.float32)
+    layers = LayerParams(
+        wqkv=ql(c.hidden_size, qkv_n, c.attention_bias),
+        wo=ql(c.q_dim, c.hidden_size, False),
+        wgu=ql(c.hidden_size, 2 * c.intermediate_size, False),
+        wdown=ql(c.intermediate_size, c.hidden_size, False),
+        input_norm=ones(c.num_layers, c.hidden_size),
+        post_norm=ones(c.num_layers, c.hidden_size),
+        q_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
+        k_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
+    )
+    emb = torch.randn((c.vocab_size, c.hidden_size), generator=g).to(
+        torch.bfloat16) * scale
+    if lm_head_bits in (4, 8):
+        head = ql(c.hidden_size, c.vocab_size, False, bits=lm_head_bits,
+                  lead=(), a_bits=16)
+    elif c.tie_word_embeddings:
+        head = None
+    else:
+        head = torch.randn((c.hidden_size, c.vocab_size), generator=g).to(
+            torch.bfloat16) * scale
+    return params_to(Params(embedding=emb, final_norm=ones(c.hidden_size),
+                            lm_head=head, layers=layers), device)
+
+
+def params_to(params: Params, device) -> Params:
+    """Move every tensor of `params` to `device` (None: leave them)."""
+    if device is None:
+        return params
+
+    def mv(x):   # a tensor or a QuantizedLinear
+        return None if x is None else x.to(device)
+
+    lay = params.layers
+    lay = dataclasses.replace(lay, **{f.name: mv(getattr(lay, f.name))
+                                      for f in dataclasses.fields(lay)})
+    return dataclasses.replace(
+        params, embedding=mv(params.embedding), final_norm=mv(params.final_norm),
+        lm_head=mv(params.lm_head), layers=lay)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, carrying ml_dtypes bfloat16 through its bits."""
+    a = np.require(a, requirements=["C", "W"])   # copies a read-only array
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
+                      device=None) -> Params:
+    """Build Params from the JAX package's Params fields as numpy arrays.
+
+    Keys are dotted field names: "embedding", "final_norm", "lm_head" (a
+    dense head) or "lm_head.packed"/".scale"/".bias" (quantized),
+    "layers.input_norm", "layers.wqkv.packed", "layers.wqkv.out_bias", ...
+    A quantized linear's static metadata comes under the same prefix as
+    ints: "layers.wqkv.bits", ".block_size", ".act_bits". Bytes are taken
+    as they are: the packed layout is the same in both packages."""
+    _check_supported(config)
+
+    def get(key):
+        return None if arrays.get(key) is None else _tensor(np.asarray(arrays[key]))
+
+    def ql(prefix):
+        return QuantizedLinear(
+            packed=get(prefix + ".packed"), scale=get(prefix + ".scale"),
+            bias=get(prefix + ".bias"), out_bias=get(prefix + ".out_bias"),
+            bits=int(arrays[prefix + ".bits"]),
+            block_size=int(arrays[prefix + ".block_size"]),
+            act_bits=int(arrays.get(prefix + ".act_bits", 16)))
+
+    layers = LayerParams(
+        wqkv=ql("layers.wqkv"), wo=ql("layers.wo"), wgu=ql("layers.wgu"),
+        wdown=ql("layers.wdown"), input_norm=get("layers.input_norm"),
+        post_norm=get("layers.post_norm"), q_norm=get("layers.q_norm"),
+        k_norm=get("layers.k_norm"))
+    if "lm_head.packed" in arrays:
+        head = ql("lm_head")
+    else:
+        head = get("lm_head")
+    return params_to(Params(embedding=get("embedding"),
+                            final_norm=get("final_norm"), lm_head=head,
+                            layers=layers), device)
+
+
+def _gated_act(c: ModelConfig, gu: torch.Tensor) -> torch.Tensor:
+    """Gated MLP activation: SwiGLU (qwen/llama)."""
+    gate, up = split_gate_up(gu)
+    return swiglu(gate, up)
+
+
+def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
+               kv_len, start, bits):
+    """Prefill (T > 1) attention of q [B, H, T, D] over one layer's cache,
+    which already holds the chunk's own K/V rows."""
+    kf = kvcache.dequant_kv(k_cache, k_scale, bits)
+    vf = kvcache.dequant_kv(v_cache, v_scale, bits)
+    return flash_attention(q, kf, vf, kv_len=kv_len[0], q_offset=start,
+                           window=c.sliding_window, sink=c.attention_sink)
+
+
+def forward(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,        # [B, T] int
+    cache: KVCache,
+    *,
+    all_logits: bool = False,
+    last_index: int = -1,
+):
+    """Run the model over `tokens`, appending T positions to the cache.
+
+    Returns (logits, cache): logits [B, T, V] with `all_logits`, else the
+    logits [B, V] of position `last_index`. The cache's buffers are
+    updated in place; the returned cache carries the new lengths."""
+    c = config
+    _check_supported(c)
+    b, t = tokens.shape
+    layers = params.layers
+    group = c.num_heads // c.num_kv_heads
+    x = params.embedding[tokens]                                # [B, T, hidden]
+    start = cache.length[0]
+    positions = cache.length[:, None].long() + torch.arange(t, device=x.device)[None]
+    cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
+                            scaling=c.rope_scaling)
+    kv_len = torch.clamp(cache.length + t, max=cache.capacity).to(torch.int32)
+    if t == 1:
+        # full-width rope phases for the fused kernel (neox halves tiled 2x)
+        cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)        # [B, D]
+        sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
+
+    for i in range(c.num_layers):
+        h = rms_norm(x, layers.input_norm[i], c.rms_norm_eps)
+        qkv = dequant_matmul(h, layers.wqkv, layer_index=i)
+        if t == 1:
+            qkv_g = qkv.reshape(b, c.num_kv_heads, group + 2, c.head_dim)
+            att, k_row, v_row, k_sc, v_sc = fused_decode_attention(
+                qkv_g, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                i, cache.length, cos_f, sin_f,
+                q_norm=layers.q_norm[i] if c.qk_norm else None,
+                k_norm=layers.k_norm[i] if c.qk_norm else None,
+                eps=c.rms_norm_eps, window=c.sliding_window,
+                sink=c.attention_sink)
+            kvcache.scatter_decode_row(cache, i, k_row, v_row, k_sc, v_sc,
+                                       cache.length)
+            att = att.reshape(b, t, c.q_dim)
+        else:
+            qkv5 = qkv.reshape(b, t, c.num_kv_heads, group + 2, c.head_dim)
+            q = qkv5[..., :group, :].reshape(b, t, c.num_heads, c.head_dim)
+            q = q.transpose(1, 2)                                 # [B, H, T, D]
+            k = qkv5[..., group, :].transpose(1, 2)               # [B, Hkv, T, D]
+            v = qkv5[..., group + 1, :].transpose(1, 2)
+            if c.qk_norm:
+                q = rms_norm(q, layers.q_norm[i], c.rms_norm_eps)
+                k = rms_norm(k, layers.k_norm[i], c.rms_norm_eps)
+            q = apply_rope(q, cos, sin).contiguous()
+            k = apply_rope(k, cos, sin)
+            kvcache.append_stacked(cache, i, k, v, start)
+            att = _attention(
+                c, q, cache.k[i], cache.v[i],
+                None if cache.k_scale is None else cache.k_scale[i],
+                None if cache.v_scale is None else cache.v_scale[i],
+                kv_len, start, cache.bits)
+            att = att.transpose(1, 2).reshape(b, t, c.q_dim)
+        o = dequant_matmul(att, layers.wo, layer_index=i)
+        x = x + o.to(x.dtype)
+        h2 = rms_norm(x, layers.post_norm[i], c.rms_norm_eps)
+        gu = dequant_matmul(h2, layers.wgu, layer_index=i)
+        d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
+        x = x + d.to(x.dtype)
+
+    new_cache = kvcache.with_length(cache, kv_len)
+    x = rms_norm(x, params.final_norm, c.rms_norm_eps)
+    if not all_logits:
+        x = x[:, last_index]
+    return head_logits(params, x), new_cache
+
+
+def head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Project final-normed hidden states [..., hidden] through the lm head
+    -> f32 logits. A quantized head runs the dequant-matmul kernel; a bf16
+    or tied head is a plain product of bf16 values accumulated in f32."""
+    if isinstance(params.lm_head, QuantizedLinear):
+        return dequant_matmul(x, params.lm_head, out_dtype=torch.float32)
+    head = params.embedding.T if params.lm_head is None else params.lm_head
+    return x.to(torch.bfloat16).float() @ head.float()

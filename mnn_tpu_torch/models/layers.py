@@ -1,0 +1,98 @@
+"""Layer primitives: RMSNorm, RoPE, SwiGLU, the gate/up column layout.
+
+Counterpart of `mnn_tpu/models/layers.py`, as plain PyTorch ops with the
+same rounding points (f32 math, result cast back to the input's dtype).
+Multimodal rope, the Hadamard rotation and `rotate_heads` are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 scaling=None):
+    """positions [B, T] int -> cos/sin [B, T, head_dim//2] f32.
+
+    scaling: optional (factor, low_freq_factor, high_freq_factor,
+    original_max_pos) llama3 rule, or (factor, 0, 0, -1) for linear
+    scaling (every band divided by factor)."""
+    half = head_dim // 2
+    dev = positions.device
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=dev) / half))
+    if scaling is not None and scaling[3] < 0:
+        freqs = freqs / scaling[0]
+        scaling = None
+    if scaling is not None:
+        factor, low_f, high_f, orig_max = scaling
+        wavelen = 2.0 * math.pi / freqs
+        low_wl = orig_max / low_f
+        high_wl = orig_max / high_f
+        smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
+        mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+        freqs = torch.where(
+            wavelen > low_wl, freqs / factor,
+            torch.where(wavelen < high_wl, freqs, mid))
+    angles = positions.float()[..., None] * freqs      # [B, T, half]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, H, T, D] with neox-style half rotation (HF convention)."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    c = cos[:, None]
+    s = sin[:, None]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+# Columns of the fused gate/up projection alternate GU_BLOCK-wide blocks
+# [gate | up | gate | up ...], the checkpoint layout of the JAX package.
+GU_BLOCK = 64
+
+
+def gu_block_for(intermediate: int) -> int:
+    """Largest power of two <= 64 dividing the intermediate size."""
+    blk = GU_BLOCK
+    while blk > 1 and intermediate % blk:
+        blk //= 2
+    return blk
+
+
+def split_gate_up(gu: torch.Tensor):
+    """gu [..., 2I] in the block-interleaved layout -> (gate, up) [..., I]."""
+    lead = gu.shape[:-1]
+    n = gu.shape[-1]
+    blk = gu_block_for(n // 2)
+    pairs = gu.reshape(*lead, n // (2 * blk), 2, blk)
+    gate = pairs[..., 0, :].reshape(*lead, n // 2)
+    up = pairs[..., 1, :].reshape(*lead, n // 2)
+    return gate, up
+
+
+def interleave_gate_up(wg, wu):
+    """numpy [K, I] x2 -> [K, 2I] in the 64-block-interleaved layout."""
+    k, i = wg.shape
+    blk = gu_block_for(i)
+    stacked = np.stack(
+        [wg.reshape(k, i // blk, blk), wu.reshape(k, i // blk, blk)], axis=2)
+    return stacked.reshape(k, 2 * i)

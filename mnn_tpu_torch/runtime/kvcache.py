@@ -1,0 +1,156 @@
+"""Fixed-capacity, optionally int8-quantized KV cache.
+
+Counterpart of `mnn_tpu/runtime/kvcache.py`: one preallocated buffer per
+tensor, [L, B, Hkv, S, D], with a per-sequence valid length. Rollback and
+reset move the length only; positions at or past it are masked by every
+reader. int8 storage keeps one f32 scale per (token, head), which the
+decode kernel folds into score and probability columns.
+
+Unlike the JAX package, the writes here update the buffers IN PLACE
+(`index_copy_` / `index_put_`): a functional copy of the whole cache per
+token would cost its full size in memory traffic. Lengths stay on the
+cache's device, so no write waits for the host.
+
+int4, TQ3 and TQ4 storage are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCache:
+    k: torch.Tensor                   # [L, B, Hkv, S, D] bf16 or int8
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]   # [L, B, Hkv, S] f32 when quantized
+    v_scale: Optional[torch.Tensor]
+    length: torch.Tensor              # [B] int32 valid prefix length
+    bits: int = 16                    # 16 = bf16, 8 = int8
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.bits < 16
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale,
+                             self.length) if t is not None)
+
+
+def create(
+    num_layers: int,
+    batch: int,
+    num_kv_heads: int,
+    capacity: int,
+    head_dim: int,
+    quantized: bool = True,
+    dtype=torch.bfloat16,
+    kv_bits: int = 8,
+    device=None,
+) -> KVCache:
+    bits = kv_bits if quantized else 16
+    if bits not in (8, 16):
+        raise ValueError(f"kv_bits={kv_bits} is not ported (int8 or bf16)")
+    shape = (num_layers, batch, num_kv_heads, capacity, head_dim)
+    if quantized:
+        k = torch.zeros(shape, dtype=torch.int8, device=device)
+        v = torch.zeros(shape, dtype=torch.int8, device=device)
+        ks = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+        vs = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    else:
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        ks = vs = None
+    return KVCache(k=k, v=v, k_scale=ks, v_scale=vs,
+                   length=torch.zeros((batch,), dtype=torch.int32,
+                                      device=device),
+                   bits=bits)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8: x [..., D] -> (q, scale [...])."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequant_kv(cache_vals: torch.Tensor, scale: Optional[torch.Tensor],
+               bits: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dequantize a KV buffer slice back to floats (prefill / ref paths)."""
+    if bits == 16:
+        return cache_vals.to(dtype)
+    if bits == 8:
+        return (cache_vals.float() * scale[..., None]).to(dtype)
+    raise ValueError(f"kv bits {bits} not ported")
+
+
+def append_stacked(
+    cache: KVCache,
+    layer: int,
+    k_new: torch.Tensor,          # [B, Hkv, T, D] bf16
+    v_new: torch.Tensor,
+    start: torch.Tensor,          # [] int32 write offset (uniform over batch)
+) -> KVCache:
+    """Prefill write of T positions into layer `layer`, in place. As a
+    dynamic-update-slice does, the offset is clamped so the T rows fit."""
+    t = k_new.shape[2]
+    first = torch.clamp(start.long(), 0, cache.capacity - t)
+    idx = first + torch.arange(t, device=k_new.device)
+    if cache.quantized:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        cache.k[layer].index_copy_(2, idx, kq)
+        cache.v[layer].index_copy_(2, idx, vq)
+        cache.k_scale[layer].index_copy_(2, idx, ks)
+        cache.v_scale[layer].index_copy_(2, idx, vs)
+    else:
+        cache.k[layer].index_copy_(2, idx, k_new.to(cache.k.dtype))
+        cache.v[layer].index_copy_(2, idx, v_new.to(cache.v.dtype))
+    return cache
+
+
+def scatter_decode_row(
+    cache: KVCache,
+    layer: int,
+    k_row: torch.Tensor,          # [B, Hkv, 1, D] quantized (or bf16) values
+    v_row: torch.Tensor,
+    k_sc: Optional[torch.Tensor],     # [B, Hkv, 1] f32 (quantized cache)
+    v_sc: Optional[torch.Tensor],
+    lengths: torch.Tensor,        # [B] int32 per-slot write offsets
+) -> KVCache:
+    """Write a pre-quantized decode row (from the fused decode kernel) into
+    layer `layer` at each sequence's length, in place. Offsets are clamped
+    to the capacity so a full slot never writes out of bounds."""
+    b = cache.k.shape[1]
+    pos = lengths.long().clamp(0, cache.capacity - 1)
+    bi = torch.arange(b, device=pos.device)
+    cache.k[layer, bi, :, pos] = k_row[:, :, 0].to(cache.k.dtype)
+    cache.v[layer, bi, :, pos] = v_row[:, :, 0].to(cache.v.dtype)
+    if cache.quantized:
+        cache.k_scale[layer, bi, :, pos] = k_sc[:, :, 0]
+        cache.v_scale[layer, bi, :, pos] = v_sc[:, :, 0]
+    return cache
+
+
+def with_length(cache: KVCache, length: torch.Tensor) -> KVCache:
+    return dataclasses.replace(cache, length=length)
+
+
+def rollback(cache: KVCache, n) -> KVCache:
+    """Drop the last n tokens."""
+    return with_length(cache, (cache.length - n).clamp(min=0))
+
+
+def reset(cache: KVCache) -> KVCache:
+    """Clear all history (lengths to zero; data is masked by length)."""
+    return with_length(cache, torch.zeros_like(cache.length))

@@ -1,0 +1,176 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda` and skipped where there is no card. On a machine with an
+NVIDIA Hopper card and nvcc, run them with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(`--noconftest`: the suite's conftest configures JAX, which this file does
+not use). Each case builds the kernels once, launches one on CUDA tensors,
+and holds the result against the plain version on the same inputs, at odd
+shapes the serving path does not reach: ragged N, a partial last row tile,
+group sizes 1 to 8, windows and sinks. Tolerances as in the CPU tests
+against JAX: rel-L2 1e-2 for the dequant matmuls, 2e-2 for flash prefill,
+3e-2 for decode attention; quantized K/V rows at most one int8 level apart
+(a rounding tie under another summation order).
+"""
+
+import pytest
+import torch
+
+from mnn_tpu_torch.kernels import build, decode_step, dequant_matmul, flash_attention
+from mnn_tpu_torch.models.config import RuntimeConfig
+from mnn_tpu_torch.quant.quantize import QuantizedLinear
+from mnn_tpu_torch.runtime import kvcache
+from mnn_tpu_torch.runtime.llm import Llm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc for sm_90a")
+    build.library()
+    return torch.device("cuda")
+
+
+def rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-12))
+
+
+def rand_ql(g, dev, k, n, bits, act_bits, layers, with_bias):
+    packed = torch.randint(-128, 128, (layers, k * bits // 8, n), dtype=torch.int8,
+                           device=dev, generator=g)
+    scale = (torch.rand((layers, k // 128, n), device=dev, generator=g) * 2e-3
+             + 1e-3).to(torch.bfloat16)
+    bias = (-(1 << (bits - 1)) * scale.float()).to(torch.bfloat16)
+    ob = (torch.randn((layers, n), device=dev, generator=g) * 0.1
+          if with_bias else None)
+    return QuantizedLinear(packed=packed, scale=scale, bias=bias, out_bias=ob,
+                           bits=bits, block_size=128, act_bits=act_bits)
+
+
+# (bits, act_bits, M, K, N, out f32, out_bias)
+GEMM = [(4, 16, 1, 256, 200, False, True), (4, 16, 5, 384, 1028, False, False),
+        (8, 16, 1, 256, 132, True, False), (8, 16, 40, 256, 200, False, True),
+        (4, 8, 1, 256, 200, False, True), (4, 8, 130, 384, 1028, False, False),
+        (8, 8, 70, 256, 132, True, True)]
+
+
+@pytest.mark.parametrize("bits,act_bits,m,k,n,f32,with_bias", GEMM)
+def test_dequant_matmul_kernel(dev, bits, act_bits, m, k, n, f32, with_bias):
+    g = torch.Generator(device=dev).manual_seed(m * n + bits)
+    ql = rand_ql(g, dev, k, n, bits, act_bits, 3, with_bias)
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    kern = dequant_matmul.KERNEL_A8 if act_bits == 8 else dequant_matmul.KERNEL_BF16
+    before = kern.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(2), out_dtype)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 1e-2
+
+
+# (H, Hkv, Tq, S, kv_len, q_offset, D, window, sink)
+FLASH = [(2, 2, 16, 64, 40, 24, 64, 0, 0), (4, 2, 45, 128, 77, 32, 64, 0, 0),
+         (14, 2, 100, 256, 228, 128, 64, 0, 0), (4, 2, 33, 96, 90, 57, 32, 16, 2),
+         (2, 1, 20, 64, 20, 0, 128, 0, 0)]
+
+
+@pytest.mark.parametrize("h,hkv,t,s,kv_len,q_off,d,window,sink", FLASH)
+def test_flash_prefill_kernel(dev, h, hkv, t, s, kv_len, q_off, d, window, sink):
+    g = torch.Generator(device=dev).manual_seed(h * t + s)
+    mk = lambda *shape: torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = mk(2, h, t, d), mk(2, hkv, s, d), mk(2, hkv, s, d)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo,
+                                          window=window, sink=sink)
+    want = flash_attention.flash_attention_plain(q, k, v, kl, qo, True, None,
+                                                 window, sink)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 2e-2
+
+
+# (G, D, int8 cache, qk-norm, window, sink, lengths)
+DECODE = [(7, 64, True, False, 0, 0, (0, 300)), (7, 64, True, True, 64, 4, (500, 37)),
+          (3, 32, True, False, 0, 0, (1, 255)), (2, 128, False, False, 0, 0, (33, 256)),
+          (8, 64, False, True, 0, 0, (100, 5))]
+
+
+@pytest.mark.parametrize("grp,d,int8,qkn,window,sink,lengths", DECODE)
+def test_decode_step_kernel(dev, grp, d, int8, qkn, window, sink, lengths):
+    nl, b, hkv, s = 3, 2, 2, 512
+    g = torch.Generator(device=dev).manual_seed(grp * d + len(lengths))
+    kf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    vf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    if int8:
+        (kc, ks), (vc, vs) = kvcache.quantize_kv(kf), kvcache.quantize_kv(vf)
+    else:
+        kc, vc, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    qkv = (torch.randn((b, hkv, grp + 2, d), device=dev, generator=g) * 2
+           ).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ang = torch.rand((b, d // 2), device=dev, generator=g) * 6.28
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    norms = ((torch.rand(d, device=dev, generator=g) + 0.5,
+              torch.rand(d, device=dev, generator=g) + 0.5) if qkn else (None, None))
+    before = decode_step.KERNEL.launches
+    got = decode_step.fused_decode_attention(
+        qkv, kc, vc, ks, vs, 1, lens, cos, sin, q_norm=norms[0], k_norm=norms[1],
+        window=window, sink=sink)
+    want = decode_step.fused_decode_attention_plain(
+        qkv, kc, vc, ks, vs, 1, lens, cos, sin, norms[0], norms[1], 1e-6,
+        d ** -0.5, window, sink, 0.0)
+    torch.cuda.synchronize()
+    assert decode_step.KERNEL.launches == before + 1
+    assert got[0].shape == (b, hkv * grp, d) and torch.isfinite(got[0]).all()
+    assert rel(got[0], want[0]) <= 3e-2
+    for j in (1, 2):
+        assert float((got[j] - want[j]).abs().max()) <= (1.0 if int8 else 0.0)
+    if int8:
+        for j in (3, 4):
+            assert rel(got[j], want[j]) <= 1e-6
+
+
+def test_cuda_tensors_never_take_the_plain_version(dev):
+    """A shape the kernel does not take raises on the card; it does not
+    fall back to the plain version."""
+    q = torch.zeros((1, 2, 8, 48), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q.cpu(), q)
+
+
+def test_tiny_slice_card_matches_cpu(dev):
+    """The serving slice at a tiny size, from one seed on the card and
+    through the plain versions on the CPU: every kernel launches on the
+    card and none on the CPU, and the prefill logits and first token agree
+    (the token where the CPU's top-2 margin exceeds the largest difference)."""
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4,
+                       sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
+                       max_new_tokens=6)
+    ids = list(range(3, 48))
+    runs = []
+    for device in (dev, "cpu"):
+        llm = Llm.synthetic("tiny", rt=rt, seed=1, device=device)
+        build.reset_launches()
+        toks = list(llm.stream(token_ids=ids))
+        runs.append((toks, llm.last_prefill_logits.float().cpu(),
+                     [k.launches for k in build.KERNELS]))
+    (card_toks, card, card_n), (cpu_toks, cpu, cpu_n) = runs
+    assert all(n > 0 for n in card_n) and not any(cpu_n)
+    assert len(card_toks) == len(cpu_toks) == rt.max_new_tokens
+    assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
+    top2 = cpu[0].topk(2).values
+    if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
+        assert card_toks[0] == cpu_toks[0]

@@ -1,0 +1,136 @@
+"""The port's quant format against the JAX package, bit for bit, on the CPU.
+
+The same numpy inputs go through `mnn_tpu.quant.quantize` and
+`mnn_tpu_torch.quant.quantize` (and the int8 KV quantizer of both
+`runtime/kvcache.py`). Packing, quantization and the bf16 bits of scales
+and biases must be identical; the dequantize-then-matmul reference agrees
+to f32 summation order. The JAX side is computed once per module.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mnn_tpu.runtime import kvcache as jkv
+from mnn_tpu_torch.quant import quantize as tq
+from mnn_tpu_torch.runtime import kvcache as tkv
+
+# the package re-exports a function named `quantize` over the module's name
+jq = importlib.import_module("mnn_tpu.quant.quantize")
+
+BS = 128
+QUANT_CASES = [(4, False), (4, True), (8, False), (8, True)]   # (bits, sym)
+
+
+def to_torch(a) -> torch.Tensor:
+    """numpy/JAX array -> torch tensor; bf16 crosses through its bits."""
+    a = np.array(np.asarray(a))                    # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def bits_of(t) -> np.ndarray:
+    """The raw bits of a torch or JAX array, for bit-exact comparison."""
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy()
+        return t.numpy()
+    a = np.asarray(t)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    return dict(
+        q4=rng.integers(0, 16, size=(256, 40)).astype(np.int32),
+        w=(rng.standard_normal((256, 72)) * 0.05).astype(np.float32),
+        x=rng.standard_normal((40, 256)).astype(np.float32),
+        kv=(rng.standard_normal((2, 2, 7, 32)) * 3).astype(np.float32),
+    )
+
+
+@pytest.fixture(scope="module")
+def ref(data):
+    """Every JAX result of this module, computed once."""
+    out = {}
+    packed = jq.pack_int4(jnp.asarray(data["q4"]), BS)
+    out["pack4"] = np.asarray(packed)
+    out["unpack4"] = np.asarray(jq.unpack_int4(packed, BS))
+    x_bf = jnp.asarray(data["x"]).astype(jnp.bfloat16)
+    out["x_bf"] = np.asarray(x_bf)
+    for bits, sym in QUANT_CASES:
+        ql = jq.quantize(jnp.asarray(data["w"]), bits=bits, block_size=BS, sym=sym)
+        out[("q", bits, sym)] = dict(
+            packed=np.asarray(ql.packed), scale=np.asarray(ql.scale),
+            bias=np.asarray(ql.bias),
+            unpack=np.asarray(jq.unpack_bits(ql.packed, bits, BS)),
+            deq=np.asarray(jq.dequantize(ql)),
+            mm=np.asarray(jq.matmul_dequant_ref(x_bf, ql, dtype=jnp.float32)))
+    xq, xs = jq.quantize_activations_int8(x_bf)
+    out["act8"] = (np.asarray(xq), np.asarray(xs))
+    kq, ks = jkv.quantize_kv(jnp.asarray(data["kv"]))
+    out["kv8"] = (np.asarray(kq), np.asarray(ks))
+    out["dq8"] = np.asarray(jkv.dequant_kv(kq, ks, 8))
+    return out
+
+
+def test_pack_int4_bit_exact(data, ref):
+    q = torch.from_numpy(data["q4"])
+    packed = tq.pack_int4(q, BS)
+    np.testing.assert_array_equal(bits_of(packed), ref["pack4"])
+    np.testing.assert_array_equal(tq.unpack_int4(packed, BS).numpy(), ref["unpack4"])
+    np.testing.assert_array_equal(tq.unpack_int4(packed, BS).numpy(), data["q4"])
+
+
+@pytest.mark.parametrize("bits,sym", QUANT_CASES)
+def test_quantize_bit_exact(data, ref, bits, sym):
+    want = ref[("q", bits, sym)]
+    ql = tq.quantize(data["w"], bits=bits, block_size=BS, sym=sym)
+    np.testing.assert_array_equal(bits_of(ql.packed), want["packed"])
+    np.testing.assert_array_equal(bits_of(ql.scale), bits_of(want["scale"]))
+    np.testing.assert_array_equal(bits_of(ql.bias), bits_of(want["bias"]))
+    np.testing.assert_array_equal(
+        tq.unpack_bits(ql.packed, bits, BS).numpy(), want["unpack"])
+    np.testing.assert_array_equal(tq.dequantize(ql).numpy(), want["deq"])
+
+
+@pytest.mark.parametrize("bits,sym", QUANT_CASES)
+def test_matmul_dequant_ref(data, ref, bits, sym):
+    """Carried across from JAX's bytes: f32 sums in another order only."""
+    want = ref[("q", bits, sym)]
+    ql = tq.QuantizedLinear(packed=to_torch(want["packed"]), scale=to_torch(want["scale"]),
+                            bias=to_torch(want["bias"]), out_bias=None, bits=bits,
+                            block_size=BS)
+    got = tq.matmul_dequant_ref(to_torch(ref["x_bf"]), ql, dtype=torch.float32)
+    assert _rel(got.numpy(), want["mm"]) < 1e-5
+
+
+def test_quantize_activations_int8_bit_exact(ref):
+    xq, xs = tq.quantize_activations_int8(to_torch(ref["x_bf"]))
+    np.testing.assert_array_equal(xq.numpy(), ref["act8"][0])
+    np.testing.assert_array_equal(xs.numpy(), ref["act8"][1])
+
+
+def test_quantize_kv_bit_exact(data, ref):
+    kq, ks = tkv.quantize_kv(torch.from_numpy(data["kv"]))
+    np.testing.assert_array_equal(kq.numpy(), ref["kv8"][0])
+    np.testing.assert_array_equal(ks.numpy(), ref["kv8"][1])
+    dq = tkv.dequant_kv(kq, ks, 8)
+    np.testing.assert_array_equal(bits_of(dq), bits_of(ref["dq8"]))
+
+
+@pytest.mark.parametrize("k,req,shards", [(896, 128, 1), (4864, 128, 1),
+                                          (4864, 128, 4), (100, 128, 1)])
+def test_choose_block_size(k, req, shards):
+    assert tq.choose_block_size(k, req, shards) == jq.choose_block_size(k, req, shards)
