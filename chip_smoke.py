@@ -7,18 +7,28 @@ Phases, each of which exits non-zero on failure:
 
 1. the card (`nvidia-smi` name and power limit) and the build of the
    hand-written kernels from `mnn_tpu_torch/csrc/` with nvcc for sm_90a;
-2. every kernel of the serving path at the shapes that path gives it,
+2. every kernel of the serving paths at the shapes those paths give it,
    held against its plain PyTorch version on the same inputs on the card,
    with its time, the plain version's time, one PyTorch library call's time
-   as a yardstick, and the least time the card could take (bound);
-3. the serving path itself: `Llm.synthetic("qwen2-0.5b")` at full width and
-   depth (W4 block-128 weights, int4 lm head, int8 KV cache, int8 prefill
-   activations) answers three greedy requests of 17, 300 and 600 prompt
-   tokens and 32 new tokens each; every kernel's launch count must rise;
+   as a yardstick where one call computes the same function, and the least
+   time the card could take (bound). The whole-model decode kernel runs
+   full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
+   two layers at `qwen2-7b` widths;
+3. the serving paths themselves on `Llm.synthetic("qwen2-0.5b")` at full
+   width and depth (W4 block-128 weights, int4 lm head, int8 prefill
+   activations), each with the launch counts set to 0 before and read after:
+   (a) three greedy requests of 17, 300 and 600 prompt tokens and 32 new
+   tokens each over an int8 KV cache, decoded by the whole-model kernel, one
+   launch per generated token; (b) one request over an int4 KV cache, the
+   same way; (c) the per-layer fallback (`forward(megakernel=False)`), a
+   prompt and 8 decode steps over an int8 and over an int4 cache, which
+   runs the decode-step and flash-decode kernels. A kernel of a path that
+   was launched no time in that path's run fails the script;
 4. the first request again, prefill and 8 decode steps, on the card and
    through the plain versions on the CPU with the same weights: logits
    within rel-L2 5e-2 and equal tokens wherever the CPU's top-2 margin
-   exceeds the largest logit difference seen.
+   exceeds the largest logit difference seen; then the whole-model kernel
+   against the per-layer path on the card from the same state.
 
 It then prints one JSON line with every kernel's numbers and, last, the
 device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
@@ -27,6 +37,7 @@ and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -41,9 +52,11 @@ import numpy as np
 import torch
 
 import mnn_tpu_torch
-from mnn_tpu_torch.kernels import build, decode_step, dequant_matmul, flash_attention
+from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
+                                   flash_attention)
 from mnn_tpu_torch.models import decoder
-from mnn_tpu_torch.models.config import RuntimeConfig
+from mnn_tpu_torch.models.config import PRESETS, RuntimeConfig
+from mnn_tpu_torch.models.layers import rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import generate, kvcache
@@ -57,6 +70,7 @@ L2_ROTATE_BYTES = 128 << 20  # rotate over this many weight bytes: > 50 MB L2
 PREFILL_LENS = (17, 300, 600)
 NEW_TOKENS = 32
 PARITY_STEPS = 8
+FALLBACK_PROMPT = 300       # phase 3c: the per-layer path's prompt
 PARITY_REL = 5e-2           # JAX megakernel logits bound, tests/test_decode_model.py:97
 SEED = 0                    # weights and inputs
 
@@ -105,6 +119,42 @@ def time_ms(fn, calls: int, replays: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def event_ms(fn, calls: int) -> float:
+    """Device time of one `fn(i)` call from CUDA events around a plain loop
+    of launches, for a kernel that takes far longer than its enqueue: the
+    whole-model decode kernel is a cooperative launch, which is kept out of
+    graph capture here."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def profiled_device_ms(fn, calls: int):
+    """(device ms, kernel launches) of one `fn()` call: the sum of the
+    kernels' device times that torch.profiler records over `calls` calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    check(bool(evs), "the profiler recorded no device time")
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / calls,
+            sum(e.count for e in evs) / calls)
 
 
 # --------------------------------------------------------------------------
@@ -297,14 +347,166 @@ def phase_decode(dev, g, results):
     results["decode_step"] = rows
 
 
+def rand_cache(g, dev, layers, batch, hkv, cap, d, bits):
+    """A cache filled with quantized random rows: (k, v, k_scale, v_scale)."""
+    kf = torch.randn((layers, batch, hkv, cap, d), device=dev, generator=g)
+    vf = torch.randn((layers, batch, hkv, cap, d), device=dev, generator=g)
+    if bits == 16:
+        return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    kq, ks = kvcache.quantize_for(bits, kf)
+    vq, vs = kvcache.quantize_for(bits, vf)
+    return kq, vq, ks, vs
+
+
+def phase_flash_decode(dev, g, results):
+    """K5 at the last decode step of each request over the 24-layer cache,
+    int8 and int4: `kv_len` counts the new token."""
+    L, hkv, grp, d, cap = 24, 2, 7, 64, 1024
+    tol = 3e-2                      # tests/test_attention.py:126
+    rows = []
+    for bits in (8, 4):
+        kq, vq, ks, vs = rand_cache(g, dev, L, 1, hkv, cap, d, bits)
+        for n_prompt in PREFILL_LENS:
+            kv_len = n_prompt + NEW_TOKENS
+            q = torch.randn((1, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+            lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+            got = flash_attention.decode_attention(q, kq, vq, lens, k_scale=ks,
+                                                   v_scale=vs, layer_index=3)
+            want = flash_attention.decode_attention_plain(q, kq, vq, lens, ks, vs, 3)
+            torch.cuda.synchronize()
+            err, rel = max_abs(got, want), rel_l2(got, want)
+            check(bool(torch.isfinite(got).all()), "flash_decode: non-finite output")
+            check(rel <= tol, f"flash_decode int{bits} kv_len={kv_len}: rel-L2 {rel:.3g} > {tol}")
+            ms = time_ms(lambda i: flash_attention.decode_attention(
+                q, kq, vq, lens, k_scale=ks, v_scale=vs, layer_index=i % L), calls=48)
+            plain_ms = time_ms(lambda i: flash_attention.decode_attention_plain(
+                q, kq, vq, lens, ks, vs, i % L), calls=8, replays=2)
+            # yardstick: SDPA of the 14 query rows over the dequantized rows
+            q4 = q.reshape(1, hkv * grp, 1, d)
+            kd = kvcache.dequant_kv(kq[3], ks[3], bits)[:, :, :kv_len].repeat_interleave(grp, 1)
+            vd = kvcache.dequant_kv(vq[3], vs[3], bits)[:, :, :kv_len].repeat_interleave(grp, 1)
+            mask = torch.ones((1, 1, 1, kv_len), dtype=torch.bool, device=dev)
+            lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask), calls=48)
+            nbytes = (2 * hkv * grp * d * 2                        # q in, out
+                      + 2 * hkv * kv_len * (d * bits // 8 + 4))    # K/V rows + scales
+            bound = nbytes / HBM_BYTES_S * 1e3
+            row = dict(shape=f"B=1 Hkv=2 G=7 D=64 kv_len={kv_len} S={cap} int{bits}",
+                       max_abs_err=err, rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+            rows.append(row)
+            print(f"  flash_decode       {row['shape']:40s} rel {rel:.2e} | kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.5f}", flush=True)
+    results["flash_decode"] = rows
+
+
+def decode_model_bytes(cfg, lay, head, batch, kv_bits, lengths) -> int:
+    """Bytes one step must move: every weight, plane, bias and norm byte and
+    the head once, the cached K/V rows and scales of this run's lengths, x in,
+    and x, the new rows and the logits out."""
+    def ql_bytes(ql):
+        return sum(t.numel() * t.element_size()
+                   for t in (ql.packed, ql.scale, ql.bias, ql.out_bias) if t is not None)
+    n = sum(ql_bytes(q) for q in (lay.wqkv, lay.wo, lay.wgu, lay.wdown, head))
+    n += (lay.input_norm.numel() + lay.post_norm.numel() + cfg.hidden_size) * 4
+    row = cfg.head_dim * kv_bits // 8 + (4 if kv_bits < 16 else 0)
+    n += 2 * cfg.num_layers * cfg.num_kv_heads * row * (sum(lengths) + batch)
+    n += batch * (2 * cfg.hidden_size + cfg.vocab_size) * 4
+    return n
+
+
+def step_inputs(params, cfg, lengths, dev, g):
+    """x, lengths and rope phases of one decode step, as `forward` makes them."""
+    b = len(lengths)
+    tok = torch.randint(0, cfg.vocab_size, (b,), device=dev, generator=g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    cos, sin = rope_cos_sin(lens[:, None].long(), cfg.head_dim, cfg.rope_theta,
+                            scaling=cfg.rope_scaling)
+    cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)
+    sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
+    return tok, params.embedding[tok], lens, cos_f, sin_f
+
+
+def phase_decode_model(dev, g, results, params05):
+    """K7: the whole-model decode kernel against its plain version from the
+    same state. Full-size qwen2-0.5b (the serving weights) over an int8 cache
+    at the three requests' last steps, an int4 and a bf16 cache, and batch 4
+    with unequal lengths; then two layers at qwen2-7b widths."""
+    cap = 1024
+    cfg05 = PRESETS["qwen2-0.5b"]
+    cfg7 = dataclasses.replace(PRESETS["qwen2-7b"], num_layers=2)
+    t0 = time.perf_counter()
+    params7 = decoder.init_random_params(
+        cfg7, torch.Generator().manual_seed(SEED + 1), lm_head_bits=4, device=dev)
+    print(f"  qwen2-7b widths, 2 layers: built in {time.perf_counter() - t0:.1f} s", flush=True)
+    last = [n + NEW_TOKENS - 1 for n in PREFILL_LENS]
+    cases = [("qwen2-0.5b", cfg05, params05, 8, (last[0],)),
+             ("qwen2-0.5b", cfg05, params05, 8, (last[1],)),
+             ("qwen2-0.5b", cfg05, params05, 8, (last[2],)),
+             ("qwen2-0.5b", cfg05, params05, 4, (last[1],)),
+             ("qwen2-0.5b", cfg05, params05, 16, (last[1],)),
+             ("qwen2-0.5b", cfg05, params05, 8, (last[0], last[1], last[2], 5)),
+             ("qwen2-7b x2 layers", cfg7, params7, 8, (last[1],))]
+    rows = []
+    for name, cfg, params, kv_bits, lengths in cases:
+        b = len(lengths)
+        kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
+                                    cfg.head_dim, kv_bits)
+        tok, x, lens, cos_f, sin_f = step_inputs(params, cfg, lengths, dev, g)
+        args = (x, params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
+        kw = dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
+        check(decode_model.supports_head(cfg, params), f"{name}: head not fusable")
+        got = decode_model.fused_decode_model(*args, **kw)
+        want = decode_model.fused_decode_model_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+              f"decode_model {name}: non-finite output")
+        m = decode_model.parity_metrics(got, want, kv_bits)
+        # x_out is held at three layers by the tests; at full depth the
+        # residual stream's bf16 noise compounds (x rel-L2 ~3e-2) and only
+        # the logits are held. An int4 level is 18 times an int8 level's
+        # size, so that noise, far below one level, still flips some: over
+        # all layers int4 rows stay within one LEVEL of the plain version's,
+        # and their dequantized rel-L2 within 1.5e-1 instead of 3e-2.
+        deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
+        bad = decode_model.parity_failures(m, skip=("x_rel",), **deep4)
+        check(not bad, f"decode_model {name} kv{kv_bits} lengths {lengths}: {bad} in {m}")
+        ms = event_ms(lambda i: decode_model.fused_decode_model(*args, **kw), calls=20)
+        plain_ms = event_ms(lambda i: decode_model.fused_decode_model_plain(*args, **kw),
+                            calls=2)
+        # no single PyTorch call computes this function; beside it, the
+        # per-layer path's device time for the same step (its kernels' sum)
+        cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs, length=lens,
+                                bits=kv_bits)
+        per_layer_ms, per_layer_n = profiled_device_ms(lambda: decoder.forward(
+            params, cfg, tok[:, None], cache, megakernel=False), calls=3)
+        nbytes = decode_model_bytes(cfg, params.layers, params.lm_head, b, kv_bits, lengths)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))}",
+                   max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+                   tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
+                   bytes=nbytes, per_layer_path_device_ms=per_layer_ms,
+                   per_layer_path_launches=per_layer_n)
+        rows.append(row)
+        print(f"  decode_model       {row['shape']:44s} logits rel {m['logits_rel']:.2e} "
+              f"x {m['x_rel']:.1e} rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl "
+              f"tokens {m['tokens_compared']}/{b} | kernel {ms:.4f} ms plain {plain_ms:.2f} "
+              f"bound {bound:.4f} | per-layer path (device) {per_layer_ms:.3f} ms, "
+              f"{per_layer_n:.0f} launches", flush=True)
+        del kc, vc, ks, vs, cache, got, want
+        torch.cuda.empty_cache()
+    results["decode_model"] = rows
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the serving path, and its parity with the CPU
 # --------------------------------------------------------------------------
 
-def serving_rt():
+def serving_rt(kv_bits: int = 8):
     return RuntimeConfig(
         max_seq_len=1024, prefill_chunk=512, decode_block=NEW_TOKENS,
-        sampler="greedy", kv_quant=True, kv_bits=8, quant_bits=4,
+        sampler="greedy", kv_quant=True, kv_bits=kv_bits, quant_bits=4,
         quant_block=128, lm_head_bits=4, prefill_act_bits=8,
         max_new_tokens=NEW_TOKENS)
 
@@ -314,43 +516,102 @@ def prompts(vocab):
     return [rng.integers(0, vocab, size=n).tolist() for n in PREFILL_LENS]
 
 
-def phase_serve(llm):
+PREFILL_KERNELS = ("mnn_dequant_matmul", "mnn_dequant_matmul_a8", "mnn_flash_prefill")
+
+
+def read_launches(label, must, never=()):
+    """The counts since the last reset: every kernel in `must` was launched,
+    none in `never`."""
+    launches = {k.name: k.launches for k in build.KERNELS}
+    for kname in must:
+        check(launches[kname] > 0, f"{label}: kernel {kname} was never launched")
+    for kname in never:
+        check(launches[kname] == 0, f"{label}: kernel {kname} launched "
+              f"{launches[kname]} times on a path that does not run it")
+    print(f"  launches, {label}: {launches}", flush=True)
+    return launches
+
+
+def serve(llm, reqs, label):
+    """Answer `reqs` through `Llm.stream`; (tokens, perf) per request."""
     vocab = llm.config.vocab_size
-    reqs = prompts(vocab)
-    # warm-up request (allocator, cuBLAS handles), not counted
-    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))
-    llm.reset()
-    torch.cuda.synchronize()
-    build.reset_launches()
     outs, perf = [], []
-    t0 = time.perf_counter()
     for ids in reqs:
         llm.reset()
         toks = list(llm.stream(token_ids=ids, max_new_tokens=NEW_TOKENS))
         check(bool(torch.isfinite(llm.last_prefill_logits).all()),
-              "serve: non-finite prefill logits")
-        check(0 < len(toks) <= NEW_TOKENS, f"serve: {len(toks)} tokens")
-        check(all(0 <= t < vocab for t in toks), "serve: token out of range")
+              f"{label}: non-finite prefill logits")
+        check(0 < len(toks) <= NEW_TOKENS, f"{label}: {len(toks)} tokens")
+        check(all(0 <= t < vocab for t in toks), f"{label}: token out of range")
         p = llm.perf
         perf.append(dict(prompt_len=p.prompt_len, gen_len=p.gen_len,
                          prefill_s=p.prefill_s, decode_s=p.decode_s,
                          prefill_tok_s=p.prefill_tok_s,
                          decode_tok_s=p.decode_tok_s))
         outs.append(toks)
-        print(f"  request {len(ids):4d} prompt tokens: prefill {p.prefill_tok_s:10.1f} tok/s "
+        print(f"  {label}: {len(ids):4d} prompt tokens: prefill {p.prefill_tok_s:10.1f} tok/s "
               f"({p.prefill_s * 1e3:.2f} ms) | decode {p.gen_len} tok "
               f"{p.decode_tok_s:8.1f} tok/s", flush=True)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in build.KERNELS}
-    for kname, n in launches.items():
-        check(n > 0, f"serve: kernel {kname} was never launched")
-    print(f"  launches in the serving phase: {launches} ({wall:.2f} s)", flush=True)
-    return reqs, outs, perf, launches
+    return outs, perf
 
 
-def greedy_trace(llm, ids, feed):
+def phase_serve(llm):
+    """Phase 3, sub-phases (a) to (c), each with its own launch counts."""
+    dev = llm.device
+    reqs = prompts(llm.config.vocab_size)
+    info = llm.info()
+    check(info["decode_megakernel"] and info["decode_fused_head"],
+          f"serve: the whole-model kernel does not serve this model: {info}")
+    # warm-up request (allocator, cuBLAS handles), not counted
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    build.reset_launches()                  # (a) int8 cache, whole-model kernel
+    outs, perf = serve(llm, reqs, "megakernel int8 kv")
+    counts = {"megakernel_int8": read_launches(
+        "megakernel int8 kv", PREFILL_KERNELS + ("mnn_decode_model",),
+        never=("mnn_decode_step", "mnn_flash_decode"))}
+    steps = NEW_TOKENS * len(reqs)          # a decode block runs to its end
+    check(counts["megakernel_int8"]["mnn_decode_model"] == steps,
+          f"serve: {counts['megakernel_int8']['mnn_decode_model']} launches of the "
+          f"whole-model kernel for {steps} decode steps")
+
+    llm4 = Llm(llm.config, llm.params, serving_rt(kv_bits=4), device=dev)
+    build.reset_launches()                  # (b) int4 cache, whole-model kernel
+    outs4, perf4 = serve(llm4, reqs[1:2], "megakernel int4 kv")
+    counts["megakernel_int4"] = read_launches(
+        "megakernel int4 kv", PREFILL_KERNELS + ("mnn_decode_model",),
+        never=("mnn_decode_step", "mnn_flash_decode"))
+    check(counts["megakernel_int4"]["mnn_decode_model"] == NEW_TOKENS,
+          "serve: int4 request not decoded by the whole-model kernel")
+
+    ids = reqs[1][:FALLBACK_PROMPT]
+    steps = PARITY_STEPS * llm.config.num_layers
+    build.reset_launches()                  # (c) the per-layer fallback, int8
+    rows8, _, _ = greedy_trace(llm, ids, None, megakernel=False)
+    counts["per_layer_int8"] = read_launches(
+        "per-layer int8 kv", PREFILL_KERNELS + ("mnn_decode_step",),
+        never=("mnn_decode_model", "mnn_flash_decode"))
+    check(counts["per_layer_int8"]["mnn_decode_step"] == steps,
+          "serve: per-layer int8 path did not run the decode-step kernel per layer")
+    build.reset_launches()                  # (c) the per-layer fallback, int4
+    rows4, _, _ = greedy_trace(llm4, ids, None, megakernel=False)
+    counts["per_layer_int4"] = read_launches(
+        "per-layer int4 kv", PREFILL_KERNELS + ("mnn_flash_decode",),
+        never=("mnn_decode_model", "mnn_decode_step"))
+    check(counts["per_layer_int4"]["mnn_flash_decode"] == steps,
+          "serve: per-layer int4 path did not run the flash-decode kernel per layer")
+    for rows in (rows8, rows4):
+        check(all(bool(torch.isfinite(r).all()) for r in rows),
+              "serve: non-finite logits on the per-layer path")
+    perf = dict(megakernel_int8=perf, megakernel_int4=perf4)
+    return reqs, outs, perf, counts
+
+
+def greedy_trace(llm, ids, feed, megakernel=None):
     """Prefill + PARITY_STEPS decode steps on llm's device. `feed`: the
-    tokens to feed (teacher forcing), or None for the own argmax."""
+    tokens to feed (teacher forcing), or None for the own argmax.
+    Returns (logit rows, fed tokens, the cache it leaves)."""
     cache = llm._new_cache()
     tokens = torch.tensor([ids], dtype=torch.int64, device=llm.device)
     logits, cache = generate.run_prefill(llm.params, llm.config, llm.rt, tokens, cache)
@@ -360,19 +621,20 @@ def greedy_trace(llm, ids, feed):
         tok = feed[s] if feed is not None else int(rows[-1].argmax())
         fed.append(tok)
         t = torch.tensor([[tok]], dtype=torch.int64, device=llm.device)
-        logits, cache = decoder.forward(llm.params, llm.config, t, cache)
+        logits, cache = decoder.forward(llm.params, llm.config, t, cache,
+                                        megakernel=megakernel)
         rows.append(logits.float().cpu())
-    return rows, fed
+    return rows, fed, cache
 
 
 def phase_parity(llm, reqs, outs):
-    card, fed = greedy_trace(llm, reqs[0], None)
+    card, fed, cache = greedy_trace(llm, reqs[0], None)
     n = min(len(outs[0]), PARITY_STEPS)
     check(fed[:n] == outs[0][:n], f"parity: the card's Llm tokens {outs[0][:n]} "
           f"differ from its own decode trace {fed[:n]}")
     cpu_llm = Llm.synthetic(llm.config.name, rt=llm.rt, seed=SEED, device="cpu")
     t0 = time.perf_counter()
-    cpu, _ = greedy_trace(cpu_llm, reqs[0], fed)
+    cpu, _, _ = greedy_trace(cpu_llm, reqs[0], fed)
     cpu_s = time.perf_counter() - t0
     rels = [rel_l2(a, b) for a, b in zip(card, cpu)]
     diff = max(max_abs(a, b) for a, b in zip(card, cpu))
@@ -388,7 +650,23 @@ def phase_parity(llm, reqs, outs):
     print(f"  card vs cpu: rel-L2 per step {[f'{r:.2e}' for r in rels]}, "
           f"max |diff| {diff:.3g}, tokens compared at {checked}/{len(rels)} steps, "
           f"cpu run {cpu_s:.1f} s", flush=True)
-    return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked)
+    # the whole-model kernel against the per-layer path, from the same state
+    tok = torch.tensor([[int(card[-1].argmax())]], device=llm.device)
+    clone = lambda: dataclasses.replace(
+        cache, k=cache.k.clone(), v=cache.v.clone(), k_scale=cache.k_scale.clone(),
+        v_scale=cache.v_scale.clone())
+    (mk, mtok), _ = decoder.forward(llm.params, llm.config, tok, clone(),
+                                    megakernel=True, return_token=True)
+    ref, _ = decoder.forward(llm.params, llm.config, tok, clone(), megakernel=False)
+    paths = rel_l2(mk, ref)
+    check(paths <= PARITY_REL, f"parity: whole-model kernel vs per-layer path "
+          f"rel-L2 {paths:.3g} > {PARITY_REL}")
+    check(int(mtok[0]) == int(decode_model.lowest_argmax(mk)[0]),
+          "parity: the kernel's token is not the lowest argmax of its logits")
+    print(f"  whole-model kernel vs per-layer path on the card: rel-L2 {paths:.2e}",
+          flush=True)
+    return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked,
+                megakernel_vs_per_layer_rel_l2=paths)
 
 
 # --------------------------------------------------------------------------
@@ -402,7 +680,13 @@ KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
                       "mnn_tpu/kernels/flash_attention.py:86", "mnn_flash_prefill"),
     "decode_step": ("mnn_tpu_torch/csrc/decode_step.cu",
                     "mnn_tpu/kernels/decode_step.py:57", "mnn_decode_step"),
+    "flash_decode": ("mnn_tpu_torch/csrc/flash_decode.cu",
+                     "mnn_tpu/kernels/flash_attention.py:252", "mnn_flash_decode"),
+    "decode_model": ("mnn_tpu_torch/csrc/decode_model.cuh",
+                     "mnn_tpu/kernels/decode_model.py:581", "mnn_decode_model"),
 }
+# the sub-phase of phase 3 whose run gives a kernel its launch count
+COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_layer_int4"}
 
 
 def main():
@@ -442,16 +726,21 @@ def main():
     phase_gemm(dev, g, results, a8=True)
     phase_flash(dev, g, results)
     phase_decode(dev, g, results)
+    phase_flash_decode(dev, g, results)
     torch.cuda.empty_cache()
-
-    print("phase 3: serving qwen2-0.5b on the card", flush=True)
     t0 = time.perf_counter()
     llm = Llm.synthetic("qwen2-0.5b", rt=serving_rt(), seed=SEED, device=dev)
     cfg = llm.config
     print(f"  model: {cfg.num_layers} layers, hidden {cfg.hidden_size}, vocab "
           f"{cfg.vocab_size}; built in {time.perf_counter() - t0:.1f} s; "
           f"info {json.dumps(llm.info())}", flush=True)
-    reqs, outs, perf, launches = phase_serve(llm)
+    phase_decode_model(dev, g, results, llm.params)
+    torch.cuda.empty_cache()
+
+    print("phase 3: serving qwen2-0.5b on the card", flush=True)
+    reqs, outs, perf, counts = phase_serve(llm)
+    launches = {k: counts[COUNTED_IN.get(k, "megakernel_int8")][k] for k in
+                counts["megakernel_int8"]}
 
     print("phase 4: the first request on the card and on the cpu", flush=True)
     parity = phase_parity(llm, reqs, outs)
@@ -468,10 +757,12 @@ def main():
             plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=sum(r["library_ms"] for r in rows),
+            library_ms=(None if rows[0]["library_ms"] is None
+                        else sum(r["library_ms"] for r in rows)),
             shapes=len(rows)))
     detail = dict(card=card_line, torch=torch.__version__, build_s=build_s,
                   kernels=results, serve=perf, launches=launches,
+                  launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

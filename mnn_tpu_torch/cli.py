@@ -6,7 +6,9 @@ Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. Synthetic random-weight presets only: loading a
 converted checkpoint (`--model`) is not ported yet. The defaults are the
 serving configuration of the port's main path: W4 block-128 weights, an
-int4 lm head, an int8 KV cache and int8 prefill activations.
+int4 lm head, an int8 KV cache (`--kv-bits 4` packs it to int4) and int8
+prefill activations. Decode steps run through the whole-model decode kernel
+whenever the config is eligible.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ def _add_model_args(p):
     p.add_argument("--top-p", type=float, default=0.9)
     p.add_argument("--penalty", type=float, default=1.0)
     p.add_argument("--no-kv-quant", action="store_true")
+    p.add_argument("--kv-bits", type=int, default=8, choices=(4, 8),
+                   help="quantized KV cache: int8 or nibble-packed int4")
     p.add_argument("--lm-head-bits", type=int, default=4,
                    help="quantized output projection (0 = bf16 head)")
     p.add_argument("--prefill-act-bits", type=int, default=8,
@@ -46,6 +50,7 @@ def _build_llm(args):
         prefill_chunk=args.prefill_chunk, sampler=args.sampler,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         penalty=args.penalty, kv_quant=not args.no_kv_quant,
+        kv_bits=args.kv_bits,
         lm_head_bits=args.lm_head_bits,
         prefill_act_bits=args.prefill_act_bits,
         max_new_tokens=args.max_new_tokens, seed=args.seed,

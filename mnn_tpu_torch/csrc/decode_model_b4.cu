@@ -1,0 +1,10 @@
+// The whole-model decode kernel for up to 4 batch rows (decode_model.cuh).
+#include "decode_model.cuh"
+
+namespace mnn {
+
+int launch_b4(DmParams& p, float* ws, long ws_floats, int n_counters, cudaStream_t st) {
+  return launch<4>(p, ws, ws_floats, n_counters, st);
+}
+
+}  // namespace mnn

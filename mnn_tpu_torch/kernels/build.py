@@ -8,7 +8,8 @@ the package imports and its CPU tests run where there is no `nvcc`.
 
 * One `nvcc -c` per source, all started together, then one link.
 * The library lands in `mnn_tpu_torch/_build/<hash of the sources>/`
-  (ignored by git), so an edit to any source rebuilds it.
+  (ignored by git), so an edit to any source rebuilds it; nvcc's output
+  (`-Xptxas -v`) lies beside it as `nvcc_log.txt`.
 * Every C entry returns `cudaGetLastError()` after its launch;
   `CudaKernel.__call__` raises if it is not 0, because a refused launch
   (too many threads, too much shared memory) never runs and a later
@@ -98,6 +99,7 @@ def library() -> ctypes.CDLL:
             tmp_so = tmp / so.name
             log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o",
                               str(tmp_so), *map(str, objs)]])
+            (out_dir / "nvcc_log.txt").write_text(log)
             os.replace(tmp_so, so)      # atomic: concurrent builders agree
             shutil.rmtree(tmp, ignore_errors=True)
             build_log = log

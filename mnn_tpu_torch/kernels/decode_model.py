@@ -1,0 +1,477 @@
+"""Whole-model decode step in one kernel: every layer of one decode position,
+then the final norm, the lm-head GEMV and the greedy argmax.
+
+Replaces the TPU kernel `mnn_tpu/kernels/decode_model.py::_kernel` (launched
+by `fused_decode_model`). CUDA source: `csrc/decode_model.cu`.
+
+Per layer: RMS norm -> qkv GEMV (+ out-bias) -> rope, optional QK-norm,
+quantization of the new K/V row and a softmax seeded with that row's
+dequantized round trip -> attention over the cached positions [0, len_old)
+-> wo GEMV + residual -> RMS norm -> gate/up GEMV -> SwiGLU -> down GEMV +
+residual. Weights are the stacked `QuantizedLinear` tensors as they lie
+(W4 or W8, uniform over the layer); the cache holds bf16, int8 or
+nibble-packed int4 rows. The new rows and scales of every layer come back,
+and the residual stream leaves as f32.
+
+The contract is the TPU kernel's, rounding point for rounding point. The
+quantized product is x rounded to bf16, dotted with the unsigned pattern,
+`part * s + rowsum(x) * b` per quant block with f32 accumulation. Values are
+rounded to bf16 where the per-layer path crosses a kernel boundary: qkv
+after its bias, o, x after each residual, gate/up, silu(gate) and its
+product with up, the down output. q stays f32 after rope; logits are f32 and
+not rounded; the argmax takes the lowest index among equal maxima.
+
+What bounds it on the H100, and what the design does about it: one decode
+token reads every weight byte once and does two operations per weight, far
+below the card's operations-per-byte balance, so the bound is bytes (weights,
+planes, the head and the cached K/V rows over the device memory rate). Launch
+overhead is what the per-layer path pays instead: this kernel is one
+cooperative launch of a persistent grid (as many blocks as are co-resident)
+with a grid-wide barrier between the phases of a layer. Each GEMV is cut
+into (128-column tile, K range) items so that all blocks stream weights at
+once; partial sums of a tile meet in device memory and the last block to
+arrive adds them in a fixed order, so results do not depend on timing. The
+attention phase gives each (batch row, KV head) one block per 64 cached
+positions, merged the same way.
+Activations sit in small scratch buffers that stay in L2. Lengths are read
+from device memory: no launch parameter depends on them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mnn_tpu_torch.kernels.build import F, I, P, kernel
+from mnn_tpu_torch.kernels.common import cdiv, check, use_kernel
+from mnn_tpu_torch.kernels.decode_step import NEG_INF, _rms, _rope_full
+from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul_plain
+from mnn_tpu_torch.models.layers import split_gate_up
+from mnn_tpu_torch.quant.quantize import QuantizedLinear
+from mnn_tpu_torch.runtime import kvcache
+
+MAX_BATCH = 8
+MAX_GROUP = 8     # query heads per KV head held in registers
+COL_TILE = 128    # output columns per GEMV work item
+K_CHUNK = 32      # K values a warp takes per step: one x value per lane
+ATT_SPLIT = 16    # most blocks that share one (batch row, KV head)
+
+# int mnn_decode_model(x, lengths, cos, sin,
+#     wqkv_p, wqkv_s, wqkv_b, qkv_bias, wo_p, wo_s, wo_b, wgu_p, wgu_s, wgu_b,
+#     wdn_p, wdn_s, wdn_b, in_norm, post_norm, q_norm, k_norm,
+#     k_cache, v_cache, k_scale, v_scale, final_norm, head_p, head_s, head_b,
+#     x_out, k_rows, v_rows, k_sc, v_sc, logits, token, ws, counters, clocks,
+#     B, L, H, NH, Hkv, D, I, S, V, bits, bs_h, bs_i, head_bits, bs_head,
+#     kv_bits, window, sink, write_cache, ws_floats, n_counters,
+#     sm_scale, eps, stream)
+KERNEL = kernel("mnn_decode_model", [P] * 39 + [I] * 20 + [F, F])
+
+_counters: dict = {}      # device -> zeroed int32 arrival counters, reused
+
+# Set to a CUDA int64 tensor of `phase_names(...)`'s length to have the next
+# launches note block 0's SM clock at the end of every phase (profiling).
+PHASE_CLOCKS: Optional[torch.Tensor] = None
+
+
+def phase_names(num_layers: int, fused_head: bool) -> list:
+    """What each entry of PHASE_CLOCKS ends: the kernel's phases in order."""
+    names = ["start", "prologue"]
+    for _ in range(num_layers):
+        names += ["qkv", "attention", "wo", "gate_up", "down"]
+    return names + (["head", "argmax"] if fused_head else [])
+
+
+def supports(config, params, cache, batch: int) -> bool:
+    """Can the whole-model kernel serve a decode step of this (config,
+    weights, cache, batch)? False sends `forward` down the per-layer path.
+    Gemma's flags (gelu-tanh, sandwich norms, score softcap, alternating
+    windows, dual rope) and W2/W3 weights are not ported yet."""
+    c = config
+    if c.is_moe or c.kv_rotate or c.mrope_section:
+        return False
+    if (c.mlp_act != "silu" or c.sandwich_norm or c.attn_softcap
+            or c.final_softcap or c.swa_every_other or c.swa_pattern
+            or c.embed_scale):
+        return False
+    if cache.bits not in (4, 8, 16) or not 1 <= batch <= MAX_BATCH:
+        return False
+    if c.head_dim not in (64, 128):
+        return False
+    if c.num_heads % c.num_kv_heads or c.num_heads // c.num_kv_heads > MAX_GROUP:
+        return False
+    lay = params.layers
+    for ql in (lay.wqkv, lay.wo, lay.wgu, lay.wdown):
+        if ql.act_bits != 16 or ql.bits not in (4, 8) or ql.bits != lay.wqkv.bits:
+            return False
+        if ql.out_bias is not None and ql is not lay.wqkv:
+            return False
+        if ql.block_size % K_CHUNK or ql.out_features % 4:
+            return False
+    bs_h, bs_i = lay.wqkv.block_size, lay.wdown.block_size
+    if lay.wo.block_size != bs_h or lay.wgu.block_size != bs_h:
+        return False
+    if c.hidden_size % bs_h or c.q_dim % bs_h or c.intermediate_size % bs_i:
+        return False
+    # the in-kernel gate/up split assumes the 64-block interleave
+    if c.intermediate_size % 64:
+        return False
+    return cache.capacity % min(512, cache.capacity) == 0
+
+
+def supports_head(config, params) -> bool:
+    """Can the final norm, the lm-head GEMV and the greedy argmax run inside
+    the kernel? Needs a quantized (int4/int8) head with bf16 rows and no
+    out-bias over a 128-aligned vocabulary."""
+    head = params.lm_head
+    if not isinstance(head, QuantizedLinear):
+        return False
+    if head.bits not in (4, 8) or head.act_bits != 16 or head.out_bias is not None:
+        return False
+    if head.packed.dim() != 2 or head.block_size % K_CHUNK:
+        return False
+    return config.vocab_size % 128 == 0 and config.hidden_size % head.block_size == 0
+
+
+def _bf16r(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def _qmm(x: torch.Tensor, ql: QuantizedLinear) -> torch.Tensor:
+    """x [B, K] f32 @ one layer's packed weights -> f32 [B, N], unrounded:
+    the kernel's algebra (`dequant_matmul_plain` without bias or rounding)."""
+    no_bias = QuantizedLinear(packed=ql.packed, scale=ql.scale, bias=ql.bias,
+                              out_bias=None, bits=ql.bits,
+                              block_size=ql.block_size, act_bits=16)
+    return dequant_matmul_plain(x, no_bias, torch.float32)
+
+
+def _pack4(q: torch.Tensor) -> torch.Tensor:
+    """Signed int4 levels [..., D] f32 -> packed bytes [..., D/2] held in f32."""
+    d = q.shape[-1]
+    qi = q.to(torch.int32) + 8
+    byte = qi[..., :d // 2] | (qi[..., d // 2:] << 4)
+    return torch.where(byte > 127, byte - 256, byte).float()
+
+
+def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
+                  cos, sin, q_norm, k_norm, eps, sm_scale, window, sink, bits):
+    """One layer's attention phase on grouped rows qkv [B, Hkv, G+2, D] f32:
+    (att [B, H*D] f32, stored K row, V row [B, Hkv, 1, D or D/2] f32,
+    scales [B, Hkv, 1] or None)."""
+    b, hkv, r, d = qkv.shape
+    g = r - 2
+    q, kr, vr = qkv[:, :, :g], qkv[:, :, g:g + 1], qkv[:, :, g + 1:]
+    if q_norm is not None:
+        q = _rms(q, q_norm.float(), eps)
+        kr = _rms(kr, k_norm.float(), eps)
+    c = cos.float()[:, None, None]
+    s_ = sin.float()[:, None, None]
+    q = _rope_full(q, c, s_)
+    kr = _rope_full(kr, c, s_)
+    if bits < 16:
+        qmax = 127.0 if bits == 8 else 7.0
+
+        def quant(x):
+            amax = x.abs().amax(dim=-1, keepdim=True)
+            sc = torch.where(amax == 0, torch.ones_like(amax), amax / qmax)
+            return (x / sc).round().clamp(-qmax - 1, qmax), sc
+        kq, ksc = quant(kr)
+        vq, vsc = quant(vr)
+        k_att, v_att = kq * ksc, vq * vsc
+        k_row, v_row = (_pack4(kq), _pack4(vq)) if bits == 4 else (kq, vq)
+        ksc, vsc = ksc[..., 0], vsc[..., 0]
+    else:
+        k_row = k_att = _bf16r(kr)
+        v_row = v_att = _bf16r(vr)
+        ksc = vsc = None
+    s_new = (q @ k_att.transpose(-1, -2)) * sm_scale              # [B,Hkv,G,1]
+    if bits == 4:
+        kt = kvcache.unpack_kv4(k_cache[layer])
+        vt = kvcache.unpack_kv4(v_cache[layer])
+    else:
+        kt, vt = k_cache[layer].float(), v_cache[layer].float()   # [B,Hkv,S,D]
+    s = q @ kt.transpose(-1, -2)                                  # [B,Hkv,G,S]
+    if bits < 16:
+        s = s * k_scale[layer][:, :, None, :]
+    s = s * sm_scale
+    col = torch.arange(kt.shape[2], device=qkv.device)
+    len_old = lengths.to(torch.int64)[:, None, None, None]
+    mask = col < len_old
+    if window:
+        in_window = col > len_old - window
+        if sink:
+            in_window = in_window | (col < sink)
+        mask = mask & in_window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.maximum(s_new, s.amax(dim=-1, keepdim=True))
+    p_new = torch.exp(s_new - m)
+    p = torch.exp(s - m)
+    pv = p * v_scale[layer][:, :, None, :] if bits < 16 else p
+    l = p_new + p.sum(dim=-1, keepdim=True)
+    att = (p_new * v_att + pv @ vt) / l
+    return att.reshape(b, hkv * g * d), k_row, v_row, ksc, vsc
+
+
+def lowest_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last axis that takes the lowest index among equal
+    maxima, as the kernel does (`torch.argmax` does not promise that)."""
+    m = logits.amax(dim=-1, keepdim=True)
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    big = torch.full_like(idx, logits.shape[-1])
+    return torch.where(logits == m, idx, big).amin(dim=-1).to(torch.int32)
+
+
+def _kv_bits(config, k_cache: torch.Tensor) -> int:
+    if k_cache.dtype == torch.int8:
+        return 4 if k_cache.shape[-1] * 2 == config.head_dim else 8
+    return 16
+
+
+def fused_decode_model_plain(x, layers, k_cache, v_cache, k_scale, v_scale,
+                             lengths, cos, sin, *, config, head=None,
+                             final_norm=None):
+    """Plain PyTorch version of the kernel, on whole rows: the same algebra
+    and rounding points, f32 sums in another order."""
+    c = config
+    b = x.shape[0]
+    hkv, d = c.num_kv_heads, c.head_dim
+    g = c.num_heads // hkv
+    bits = _kv_bits(c, k_cache)
+    sm_scale = c.query_scale if c.query_scale else 1.0 / (d ** 0.5)
+    eps = c.rms_norm_eps
+    xs = x.float()
+    k_rows, v_rows, k_scs, v_scs = [], [], [], []
+    for i in range(c.num_layers):
+        rn = _rms(xs, layers.input_norm[i].float(), eps)
+        qkv = _qmm(rn, layers.wqkv.layer(i))
+        if layers.wqkv.out_bias is not None:
+            qkv = qkv + layers.wqkv.out_bias[i]
+        qkv = _bf16r(qkv).reshape(b, hkv, g + 2, d)
+        att, k_row, v_row, ksc, vsc = _attend_plain(
+            qkv, k_cache, v_cache, k_scale, v_scale, i, lengths, cos, sin,
+            layers.q_norm[i] if c.qk_norm else None,
+            layers.k_norm[i] if c.qk_norm else None,
+            eps, sm_scale, c.sliding_window, c.attention_sink, bits)
+        k_rows.append(k_row)
+        v_rows.append(v_row)
+        k_scs.append(ksc)
+        v_scs.append(vsc)
+        o = _bf16r(_qmm(att, layers.wo.layer(i)))
+        xs = _bf16r(xs + o)
+        rn2 = _rms(xs, layers.post_norm[i].float(), eps)
+        gate, up = split_gate_up(_bf16r(_qmm(rn2, layers.wgu.layer(i))))
+        act = _bf16r(_bf16r(gate * torch.sigmoid(gate)) * up)
+        xs = _bf16r(xs + _bf16r(_qmm(act, layers.wdown.layer(i))))
+    outs = (xs, torch.stack(k_rows), torch.stack(v_rows),
+            torch.stack(k_scs) if bits < 16 else None,
+            torch.stack(v_scs) if bits < 16 else None)
+    if head is None:
+        return outs
+    logits = _qmm(_rms(xs, final_norm.float(), eps), head)
+    return outs + (logits, lowest_argmax(logits))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def fused_decode_model(
+    x: torch.Tensor,                 # [B, hidden] embedding rows
+    layers,                          # LayerParams, stacked [L, ...]
+    k_cache: torch.Tensor,           # [L, B, Hkv, S, D] bf16/int8, [.., D/2] int4
+    v_cache: torch.Tensor,
+    k_scale: Optional[torch.Tensor],  # [L, B, Hkv, S] f32 (quantized cache)
+    v_scale: Optional[torch.Tensor],
+    lengths: torch.Tensor,           # [B] int32 pre-append lengths
+    cos: torch.Tensor,               # [B, D] f32 full-width rope phases
+    sin: torch.Tensor,
+    *,
+    config,
+    head: Optional[QuantizedLinear] = None,   # [hidden, vocab] to fuse
+    final_norm: Optional[torch.Tensor] = None,  # [hidden] (with head)
+    write_cache: bool = False,
+):
+    """Run all decoder layers for one decode position in one kernel.
+
+    Returns (x_out [B, hidden] f32, k_rows [L, B, Hkv, 1, D or D/2] f32,
+    v_rows, k_sc [L, B, Hkv, 1] f32 or None, v_sc): the rows are the stored
+    values of the new token (int4 rows as packed bytes held in f32). With
+    `head` (gate: `supports_head`) two more results follow: logits [B, vocab]
+    f32 and the greedy token [B] int32. With `write_cache` the kernel also
+    writes the rows into the cache at each sequence's clamped length, in
+    place (CUDA tensors only); otherwise `scatter_rows` does it."""
+    c = config
+    if head is not None and final_norm is None:
+        raise ValueError("head fusion requires final_norm")
+    if not use_kernel(x, layers.wqkv.packed, k_cache, lengths, cos):
+        if write_cache:
+            raise ValueError("write_cache is the CUDA kernel's; on the CPU "
+                             "use scatter_rows")
+        return fused_decode_model_plain(
+            x, layers, k_cache, v_cache, k_scale, v_scale, lengths, cos, sin,
+            config=c, head=head, final_norm=final_norm)
+    b, h = x.shape
+    nl, hkv, d, inter = c.num_layers, c.num_kv_heads, c.head_dim, c.intermediate_size
+    g = c.num_heads // hkv
+    nq = (c.num_heads + 2 * hkv) * d
+    kv_bits = _kv_bits(c, k_cache)
+    s, d_store = k_cache.shape[3], k_cache.shape[4]
+    lay = layers
+    bits, bs_h, bs_i = lay.wqkv.bits, lay.wqkv.block_size, lay.wdown.block_size
+    if (d not in (64, 128) or not 1 <= g <= MAX_GROUP or not 1 <= b <= MAX_BATCH
+            or h != c.hidden_size or inter % 64 or bits not in (4, 8)):
+        raise ValueError(f"{c.name}: shapes outside the decode kernel's range")
+    for ql, k_dim, n_dim, bs in ((lay.wqkv, h, nq, bs_h), (lay.wo, c.q_dim, h, bs_h),
+                                 (lay.wgu, h, 2 * inter, bs_h),
+                                 (lay.wdown, inter, h, bs_i)):
+        if ql.bits != bits or ql.act_bits != 16 or ql.block_size != bs \
+                or bs % K_CHUNK or k_dim % bs or n_dim % 4:
+            raise ValueError("the decode kernel needs uniform W4/W8 weights "
+                             "with bf16 rows and 32-aligned quant blocks")
+        check(ql.packed, "packed", torch.int8, 3)
+        check(ql.scale, "scale", torch.bfloat16, 3)
+        check(ql.bias, "bias", torch.bfloat16, 3)
+        if ql.packed.shape != (nl, k_dim * bits // 8, n_dim) \
+                or ql.scale.shape != (nl, k_dim // bs, n_dim) \
+                or ql.bias.shape != ql.scale.shape:
+            raise ValueError("stacked weight shapes disagree with the config")
+        if ql.out_bias is not None and ql is not lay.wqkv:
+            raise ValueError("only the qkv projection may carry an out-bias")
+    if lay.wqkv.out_bias is not None:
+        check(lay.wqkv.out_bias, "qkv out_bias", torch.float32, 2)
+    check(k_cache, "k_cache", torch.bfloat16 if kv_bits == 16 else torch.int8, 5)
+    check(v_cache, "v_cache", k_cache.dtype, 5)
+    if k_cache.shape != (nl, b, hkv, s, d_store) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} disagrees with the config")
+    if kv_bits < 16:
+        check(k_scale, "k_scale", torch.float32, 4)
+        check(v_scale, "v_scale", torch.float32, 4)
+    for t, name in ((lay.input_norm, "input_norm"), (lay.post_norm, "post_norm")):
+        check(t, name, torch.float32, 2)
+    qn = kn = None
+    if c.qk_norm:
+        qn, kn = lay.q_norm.float().contiguous(), lay.k_norm.float().contiguous()
+    vocab = head_bits = bs_head = 0
+    fnorm = None
+    if head is not None:
+        vocab, head_bits, bs_head = head.out_features, head.bits, head.block_size
+        if head_bits not in (4, 8) or head.act_bits != 16 or head.out_bias is not None \
+                or bs_head % K_CHUNK or h % bs_head or vocab % 4:
+            raise ValueError("lm head outside the decode kernel's range "
+                             "(see supports_head)")
+        check(head.packed, "head packed", torch.int8, 2)
+        check(head.scale, "head scale", torch.bfloat16, 2)
+        check(head.bias, "head bias", torch.bfloat16, 2)
+        fnorm = final_norm.float().contiguous()
+    dev = x.device
+    x = x.float().contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_out = torch.empty((b, h), **f32)
+    k_rows = torch.empty((nl, b, hkv, 1, d_store), **f32)
+    v_rows = torch.empty_like(k_rows)
+    k_sc = torch.empty((nl, b, hkv, 1), **f32) if kv_bits < 16 else None
+    v_sc = torch.empty_like(k_sc) if kv_bits < 16 else None
+    logits = torch.empty((b, vocab), **f32) if head is not None else None
+    token = torch.empty((b,), dtype=torch.int32, device=dev) if head is not None else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws_floats = (b * (nq + c.q_dim + inter) + 2 * sms * COL_TILE * b
+                 + MAX_BATCH * cdiv(h, COL_TILE) + 2 * b * cdiv(max(vocab, 1), COL_TILE)
+                 + b * hkv * ATT_SPLIT * MAX_GROUP * (d + 2) + 64)
+    ws = torch.empty((ws_floats,), **f32)
+    n_counters = max(cdiv(max(nq, h, 2 * inter, vocab), COL_TILE), b * hkv)
+    cnt = _counters.get(dev)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = _counters[dev] = torch.zeros((n_counters,), dtype=torch.int32, device=dev)
+    clocks = PHASE_CLOCKS
+    if clocks is not None and (clocks.dtype != torch.int64 or clocks.device != dev
+                               or clocks.numel() < len(phase_names(nl, head is not None))):
+        raise ValueError("PHASE_CLOCKS: an int64 tensor on the kernel's device, "
+                         "one entry per phase")
+    KERNEL(x.data_ptr(), lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+           lay.wqkv.packed.data_ptr(), lay.wqkv.scale.data_ptr(),
+           lay.wqkv.bias.data_ptr(), _ptr(lay.wqkv.out_bias),
+           lay.wo.packed.data_ptr(), lay.wo.scale.data_ptr(), lay.wo.bias.data_ptr(),
+           lay.wgu.packed.data_ptr(), lay.wgu.scale.data_ptr(), lay.wgu.bias.data_ptr(),
+           lay.wdown.packed.data_ptr(), lay.wdown.scale.data_ptr(),
+           lay.wdown.bias.data_ptr(), lay.input_norm.data_ptr(),
+           lay.post_norm.data_ptr(), _ptr(qn), _ptr(kn),
+           k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+           _ptr(fnorm), _ptr(None if head is None else head.packed),
+           _ptr(None if head is None else head.scale),
+           _ptr(None if head is None else head.bias),
+           x_out.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), _ptr(k_sc),
+           _ptr(v_sc), _ptr(logits), _ptr(token), ws.data_ptr(), cnt.data_ptr(),
+           _ptr(clocks),
+           b, nl, h, c.num_heads, hkv, d, inter, s, vocab, bits, bs_h, bs_i,
+           head_bits, bs_head, kv_bits, int(c.sliding_window), int(c.attention_sink),
+           int(write_cache), ws_floats, cnt.numel(),
+           float(c.query_scale if c.query_scale else 1.0 / (d ** 0.5)),
+           float(c.rms_norm_eps))
+    outs = (x_out, k_rows, v_rows, k_sc, v_sc)
+    return outs if head is None else outs + (logits, token)
+
+
+scatter_rows = kvcache.scatter_rows
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-12))
+
+
+def parity_metrics(got, want, kv_bits: int) -> dict:
+    """How far two results of `fused_decode_model` (kernel and plain, or two
+    packages) lie apart, from the same state. The f32 sums run in another
+    order, which can flip a bf16 rounding and with it a quantization level,
+    so rows are compared as levels only in layer 0, whose input is identical,
+    and as dequantized values (level x scale) over all layers.
+
+    x_rel, logits_rel, rows_rel: rel-L2; row0_levels, rows_levels: largest
+    level difference in layer 0 and in all layers (value difference for a
+    bf16 cache); scale0_rel: largest relative scale difference in layer 0;
+    token_ok: tokens equal, or the top-2 margin of `want` is within the
+    largest logit difference."""
+    def levels(rows):
+        if kv_bits == 4:
+            return kvcache.unpack_kv4(rows.to(torch.int8))
+        return rows.float()
+
+    out = dict(x_rel=_rel(got[0], want[0]))
+    row0, rows_lv, scale0, rows_rel = 0.0, 0.0, 0.0, 0.0
+    for j in (1, 2):
+        lg, lw = levels(got[j]), levels(want[j])
+        row0 = max(row0, float((lg[0] - lw[0]).abs().max()))
+        rows_lv = max(rows_lv, float((lg - lw).abs().max()))
+        if kv_bits < 16:
+            sg, sw = got[j + 2], want[j + 2]
+            scale0 = max(scale0, float(((sg[0] - sw[0]).abs() / sw[0].abs()).max()))
+            lg, lw = lg * sg[..., None], lw * sw[..., None]
+        rows_rel = max(rows_rel, _rel(lg, lw))
+    out.update(row0_levels=row0, rows_levels=rows_lv, scale0_rel=scale0,
+               rows_rel=rows_rel)
+    if len(want) == 7:
+        diff = float((got[5] - want[5]).abs().max())
+        top2 = want[5].float().topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > diff
+        out.update(logits_rel=_rel(got[5], want[5]), logits_max_abs=diff,
+                   tokens_compared=int(clear.sum()),
+                   token_ok=bool((got[6] == want[6])[clear].all()))
+    return out
+
+
+# the bounds the tests and the smoke run hold parity_metrics to
+PARITY_BOUNDS = dict(x_rel=2e-2, logits_rel=5e-2, row0_levels=1.0,
+                     scale0_rel=8e-3, rows_rel=3e-2)
+
+
+def parity_failures(metrics: dict, skip=(), **bounds) -> list:
+    """The names of the metrics outside PARITY_BOUNDS (empty: all hold),
+    leaving out those named in `skip`; `bounds` replaces or adds limits."""
+    bad = [k for k, lim in {**PARITY_BOUNDS, **bounds}.items()
+           if k in metrics and k not in skip and not metrics[k] <= lim]
+    if not metrics.get("token_ok", True):
+        bad.append("token_ok")
+    return bad

@@ -1,7 +1,10 @@
-"""Causal GQA flash attention for chunked prefill.
+"""Causal GQA flash attention for chunked prefill, and single-position
+decode attention over the stacked, optionally quantized KV cache.
 
-Replaces the TPU kernel `mnn_tpu/kernels/flash_attention.py::_prefill_kernel`
-(launched by `flash_attention`). CUDA source: `csrc/flash_prefill.cu`.
+`flash_attention` replaces the TPU kernel
+`mnn_tpu/kernels/flash_attention.py::_prefill_kernel` (CUDA source:
+`csrc/flash_prefill.cu`); `decode_attention` replaces `::_decode_kernel`
+(CUDA source: `csrc/flash_decode.cu`).
 
 q [B, H, Tq, D] attends over a fixed-capacity K/V buffer [B, Hkv, S, D]
 whose first `kv_len` positions are valid; query row i sits at global
@@ -16,6 +19,16 @@ block per (batch x head, 32-row query tile), K/V tiles of 64 positions in
 shared memory, and skips tiles at or past `kv_len` or past the causal edge.
 `kv_len` and `q_offset` are read from device memory, so no launch waits on
 the host.
+
+`decode_attention` takes one query position per sequence, q [B, H, D], over
+a bf16, int8 or nibble-packed int4 cache that already holds the new token
+(`kv_len` includes it). The K scale multiplies score columns and the V scale
+probability columns, so the cache is never dequantized; int4 bytes unpack as
+(lo - 8, hi - 8) for dims (j, j + D/2). With `layer_index` it reads one
+layer of the stacked [L, B, Hkv, S, D] cache in place. It is bound by
+latency at batch 1 (a few hundred positions of 32 to 128 bytes per KV
+head): one block per (batch row, KV head), whose 8 warps split the cached
+positions, one per lane, and merge their online-softmax states at the end.
 """
 
 from __future__ import annotations
@@ -28,6 +41,11 @@ from mnn_tpu_torch.kernels.build import F, I, P, kernel
 from mnn_tpu_torch.kernels.common import check, use_kernel
 
 NEG_INF = -1e30
+
+# int mnn_flash_decode(q, k, v, k_scale, v_scale, kv_len, out, B, Hkv, G, D, S,
+#                      layer, kv_bits, window, sink, scale, stream)
+KERNEL_DECODE = kernel("mnn_flash_decode", [P] * 7 + [I] * 9 + [F])
+MAX_GROUP = 8    # query heads per KV head that the decode kernel holds
 
 # int mnn_flash_prefill(q, k, v, o, lens, B, H, Hkv, Tq, S, D, causal,
 #                       window, sink, scale, stream)
@@ -141,4 +159,107 @@ def flash_attention(
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lens.data_ptr(), b, h, hkv, tq, s, d, int(causal), int(window),
            int(sink), float(sm_scale))
+    return out
+
+
+def _kv_bits(q: torch.Tensor, k: torch.Tensor) -> int:
+    if k.dtype == torch.int8:
+        return 4 if k.shape[-1] * 2 == q.shape[-1] else 8
+    return 16
+
+
+def _unpack_nibbles(t: torch.Tensor) -> torch.Tensor:
+    t32 = t.to(torch.int32)
+    return torch.cat([(t32 & 0xF) - 8, ((t32 >> 4) & 0xF) - 8], dim=-1).float()
+
+
+def decode_attention_plain(q, k, v, kv_len, k_scale=None, v_scale=None,
+                           layer_index=None, sm_scale=None, window=0, sink=0):
+    """Plain PyTorch version of the decode kernel: q rounded to bf16, f32
+    scores times the K scale and `sm_scale`, masked with -1e30, exp against
+    the row max, p times the V scale rounded to bf16 for the P.V product,
+    zeros for an empty sequence (the kernel's l == 0 -> 1), bf16 out."""
+    if layer_index is not None:
+        k, v = k[layer_index], v[layer_index]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer_index], v_scale[layer_index]
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = h // hkv
+    bits = _kv_bits(q, k)
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    kf = _unpack_nibbles(k) if bits == 4 else k.float()
+    vf = _unpack_nibbles(v) if bits == 4 else v.float()
+    qg = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    sc = qg @ kf.transpose(-1, -2)                                # [B,Hkv,G,S]
+    if bits < 16:
+        sc = sc * k_scale[:, :, None, :]
+    sc = sc * sm_scale
+    col = torch.arange(s, device=q.device)
+    n = _as_len(kv_len, b, q.device).to(torch.int64)[:, None, None, None]
+    mask = col < n
+    if window:
+        in_window = col > n - 1 - window
+        if sink:
+            in_window = in_window | (col < sink)
+        mask = mask & in_window
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * v_scale[:, :, None, :] if bits < 16 else p
+    o = pv.to(torch.bfloat16).float() @ vf / l
+    o = torch.where(n > 0, o, torch.zeros_like(o))   # no position: l == 0 -> 1
+    return o.to(torch.bfloat16).reshape(b, h, d)
+
+
+def decode_attention(
+    q: torch.Tensor,                 # [B, H, D] one query position per sequence
+    k: torch.Tensor,                 # [B, Hkv, S, D] bf16/int8, [.., D/2] int4;
+    v: torch.Tensor,                 # [L, B, ...] with layer_index
+    kv_len,                          # int, [] or [B] int: valid positions
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # [B, Hkv, S] f32 (quantized KV)
+    v_scale: Optional[torch.Tensor] = None,
+    layer_index: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    sink: int = 0,
+) -> torch.Tensor:
+    """Single-position GQA attention against the KV cache -> [B, H, D] bf16."""
+    b, h, d = q.shape
+    bits = _kv_bits(q, k)
+    if bits < 16 and (k_scale is None or v_scale is None):
+        raise ValueError("quantized KV cache requires k_scale/v_scale")
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    if not use_kernel(q, k, v):
+        return decode_attention_plain(q, k, v, kv_len, k_scale, v_scale,
+                                      layer_index, sm_scale, window, sink)
+    if layer_index is None:
+        k, v = k[None], v[None]
+        if bits < 16:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+        layer_index = 0
+    nl, _, hkv, s, d_store = k.shape
+    g = h // hkv
+    if d not in (64, 128) or h % hkv or not 1 <= g <= MAX_GROUP \
+            or v.shape != k.shape or k.shape[1] != b:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not 0 <= layer_index < nl:
+        raise IndexError(f"layer {layer_index} of {nl}")
+    q = q.to(torch.bfloat16).contiguous()
+    check(k, "k", torch.bfloat16 if bits == 16 else torch.int8, 5)
+    check(v, "v", k.dtype, 5)
+    if bits < 16:
+        check(k_scale, "k_scale", torch.float32, 4)
+        check(v_scale, "v_scale", torch.float32, 4)
+    lens = _as_len(kv_len, b, q.device).contiguous()
+    out = torch.empty_like(q)
+    KERNEL_DECODE(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if k_scale is None else k_scale.data_ptr(),
+                  None if v_scale is None else v_scale.data_ptr(),
+                  lens.data_ptr(), out.data_ptr(), b, hkv, g, d, s,
+                  int(layer_index), bits, int(window), int(sink),
+                  float(sm_scale))
     return out

@@ -1,15 +1,19 @@
 """Decoder-only transformer forward pass (dense Qwen2/2.5, Qwen3, Llama-3).
 
-Counterpart of `mnn_tpu/models/decoder.py`, on the unrolled per-layer path
-(`_forward_unrolled`). Weights and the KV cache are stacked on a leading
-layer axis; every projection runs through the fused dequant-matmul kernel
-reading its layer in place, prefill attention through the flash kernel over
-the dequantized cache window, and decode attention (T = 1) through the
-fused decode kernel. The cache is updated in place.
+Counterpart of `mnn_tpu/models/decoder.py` (`_forward_unrolled`). Weights
+and the KV cache are stacked on a leading layer axis. A decode step (T = 1)
+runs through the whole-model decode kernel (`kernels/decode_model.py`)
+whenever its `supports()` accepts, as in the JAX package; otherwise, and for
+prefill, the layers are unrolled: every projection through the fused
+dequant-matmul kernel reading its layer in place, prefill attention through
+the flash kernel over the dequantized cache window, decode attention through
+the fused decode-step kernel (bf16 / int8 cache) or, for an int4 cache,
+through a cache append and the flash decode kernel. The cache is updated in
+place.
 
-Not ported yet: the whole-model decode megakernel, MoE, the gemma family
-(sandwich norms, softcaps, alternating windows, dual rope), multimodal rope,
-LoRA, tensor parallelism, token-tree verify, PLE and deepstack.
+Not ported yet: MoE, the gemma family (sandwich norms, softcaps, alternating
+windows, dual rope), multimodal rope, LoRA, tensor parallelism, token-tree
+verify, PLE and deepstack.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from mnn_tpu_torch.kernels import decode_model
 from mnn_tpu_torch.kernels.decode_step import fused_decode_attention
 from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
-from mnn_tpu_torch.kernels.flash_attention import flash_attention
+from mnn_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from mnn_tpu_torch.models.config import ModelConfig
 from mnn_tpu_torch.models.layers import (apply_rope, rms_norm, rope_cos_sin,
                                          split_gate_up, swiglu)
@@ -205,6 +210,25 @@ def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
                            window=c.sliding_window, sink=c.attention_sink)
 
 
+def _decode_megakernel(params: Params, c: ModelConfig, x, cache: KVCache,
+                       cos_f, sin_f, kv_len):
+    """One decode position through the whole-model kernel. Returns
+    (x [B, 1, hidden], cache, logits or None, token or None): logits and
+    token when the head is fused into the kernel."""
+    head = params.lm_head if decode_model.supports_head(c, params) else None
+    on_card = x.is_cuda
+    outs = decode_model.fused_decode_model(
+        x[:, 0], params.layers, cache.k, cache.v, cache.k_scale,
+        cache.v_scale, cache.length, cos_f, sin_f, config=c, head=head,
+        final_norm=params.final_norm, write_cache=on_card)
+    xh, k_rows, v_rows, k_sc, v_sc = outs[:5]
+    logits, token = outs[5:] if len(outs) == 7 else (None, None)
+    if not on_card:     # on the card the kernel wrote the rows itself
+        decode_model.scatter_rows(cache, k_rows, v_rows, k_sc, v_sc, cache.length)
+    return (xh[:, None].to(x.dtype), kvcache.with_length(cache, kv_len),
+            logits, token)
+
+
 def forward(
     params: Params,
     config: ModelConfig,
@@ -213,12 +237,23 @@ def forward(
     *,
     all_logits: bool = False,
     last_index: int = -1,
+    megakernel: Optional[bool] = None,   # None = auto; False = per-layer path
+    return_token: bool = False,          # also return the greedy next token
 ):
     """Run the model over `tokens`, appending T positions to the cache.
 
     Returns (logits, cache): logits [B, T, V] with `all_logits`, else the
-    logits [B, V] of position `last_index`. The cache's buffers are
-    updated in place; the returned cache carries the new lengths."""
+    logits [B, V] of position `last_index`; with `return_token`,
+    ((logits, token [B] int32), cache). The cache's buffers are updated in
+    place; the returned cache carries the new lengths.
+
+    `megakernel`: None sends a decode step (T = 1) through the whole-model
+    decode kernel when `decode_model.supports()` accepts, False forces the
+    per-layer path, True raises when the kernel is not eligible (an explicit
+    request never measures the other path). On that path the final norm, the
+    lm-head GEMV and the argmax run inside the kernel when
+    `decode_model.supports_head()` accepts, and the token is the kernel's;
+    otherwise it is the lowest-index argmax of the logits."""
     c = config
     _check_supported(c)
     b, t = tokens.shape
@@ -231,14 +266,31 @@ def forward(
                             scaling=c.rope_scaling)
     kv_len = torch.clamp(cache.length + t, max=cache.capacity).to(torch.int32)
     if t == 1:
-        # full-width rope phases for the fused kernel (neox halves tiled 2x)
+        # full-width rope phases for the fused kernels (neox halves tiled 2x)
         cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)        # [B, D]
         sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
 
+    eligible = (megakernel is not False and t == 1
+                and decode_model.supports(c, params, cache, b))
+    if megakernel is True and not eligible:
+        raise ValueError(
+            "megakernel=True but decode_model.supports() rejects this "
+            f"(config={c.name}, batch={b}, T={t}, kv_bits={cache.bits}); use "
+            "megakernel=None for the automatic fallback")
+    if eligible:
+        x, new_cache, logits, token = _decode_megakernel(
+            params, c, x, cache, cos_f, sin_f, kv_len)
+        if logits is not None:
+            if all_logits:
+                logits = logits[:, None]
+            return ((logits, token), new_cache) if return_token else (logits, new_cache)
+        return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
+
+    fused = t == 1 and cache.bits != 4
     for i in range(c.num_layers):
         h = rms_norm(x, layers.input_norm[i], c.rms_norm_eps)
         qkv = dequant_matmul(h, layers.wqkv, layer_index=i)
-        if t == 1:
+        if fused:
             qkv_g = qkv.reshape(b, c.num_kv_heads, group + 2, c.head_dim)
             att, k_row, v_row, k_sc, v_sc = fused_decode_attention(
                 qkv_g, cache.k, cache.v, cache.k_scale, cache.v_scale,
@@ -261,12 +313,22 @@ def forward(
                 k = rms_norm(k, layers.k_norm[i], c.rms_norm_eps)
             q = apply_rope(q, cos, sin).contiguous()
             k = apply_rope(k, cos, sin)
-            kvcache.append_stacked(cache, i, k, v, start)
-            att = _attention(
-                c, q, cache.k[i], cache.v[i],
-                None if cache.k_scale is None else cache.k_scale[i],
-                None if cache.v_scale is None else cache.v_scale[i],
-                kv_len, start, cache.bits)
+            if t == 1:
+                # int4 cache: quantize and append the row, then attend over
+                # the packed cache in place (the new token included)
+                kvcache.append_decode_stacked(cache, i, k, v, cache.length)
+                att = decode_attention(
+                    q[:, :, 0], cache.k, cache.v, kv_len,
+                    k_scale=cache.k_scale, v_scale=cache.v_scale,
+                    layer_index=i, window=c.sliding_window,
+                    sink=c.attention_sink)[:, :, None]
+            else:
+                kvcache.append_stacked(cache, i, k, v, start)
+                att = _attention(
+                    c, q, cache.k[i], cache.v[i],
+                    None if cache.k_scale is None else cache.k_scale[i],
+                    None if cache.v_scale is None else cache.v_scale[i],
+                    kv_len, start, cache.bits)
             att = att.transpose(1, 2).reshape(b, t, c.q_dim)
         o = dequant_matmul(att, layers.wo, layer_index=i)
         x = x + o.to(x.dtype)
@@ -275,11 +337,21 @@ def forward(
         d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
         x = x + d.to(x.dtype)
 
-    new_cache = kvcache.with_length(cache, kv_len)
+    return _finish(params, c, x, kvcache.with_length(cache, kv_len), all_logits,
+                   last_index, return_token)
+
+
+def _finish(params: Params, c: ModelConfig, x, new_cache, all_logits: bool,
+            last_index: int, return_token: bool):
+    """Final norm and lm head over hidden states x [B, T, hidden]."""
     x = rms_norm(x, params.final_norm, c.rms_norm_eps)
     if not all_logits:
         x = x[:, last_index]
-    return head_logits(params, x), new_cache
+    logits = head_logits(params, x)
+    if return_token:
+        tok_logits = logits[:, -1] if all_logits else logits
+        return (logits, decode_model.lowest_argmax(tok_logits)), new_cache
+    return logits, new_cache
 
 
 def head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:

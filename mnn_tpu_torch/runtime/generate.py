@@ -3,9 +3,12 @@
 Counterpart of `mnn_tpu/runtime/generate.py`. Prefill is chunked and each
 chunk is padded to a power-of-two bucket (`prefill_buckets`); the padded
 tail's cache rows are rolled back. Decode is a Python loop over `forward`
-at T = 1: tokens stay on the device, so the loop never waits on the host.
-The JAX package runs that loop as a `lax.scan` inside one dispatch; the
-port's counterpart, a captured CUDA graph, is later work.
+at T = 1, which takes the whole-model decode kernel when it is eligible:
+tokens stay on the device, so the loop never waits on the host, and the
+greedy fast path feeds back the token the kernel chose, with no pass over
+the logit row outside it. The JAX package runs that loop as a `lax.scan`
+inside one dispatch; the port's counterpart, a captured CUDA graph, is
+later work.
 """
 
 from __future__ import annotations
@@ -106,6 +109,7 @@ def decode_steps(
     min_p: float = 0.05,
     penalty: float = 1.0,
     logit_bias=None,                 # [V] additive bias tensor or None
+    megakernel=None,                 # forward's: None = auto, False = per-layer
 ):
     """Sample + forward `steps` times.
 
@@ -115,13 +119,16 @@ def decode_steps(
     toks = []
     logits = first_logits
     if greedy and logit_bias is None and penalty == 1.0:
-        # greedy fast path: argmax, record for a later penalty, forward
+        # greedy fast path: the decode kernel's fused head already chose
+        # the next token (forward(return_token=True)); it is fed straight
+        # back. Tokens are recorded so a later penalty sees the same state.
         tok = first_logits.float().argmax(dim=-1).to(torch.int32)
         for _ in range(steps):
             toks.append(tok)
             state = sampler_mod.record_token(state, tok)
-            logits, cache = forward(params, config, tok[:, None], cache)
-            tok = logits.argmax(dim=-1).to(torch.int32)
+            (logits, tok), cache = forward(params, config, tok[:, None], cache,
+                                           return_token=True,
+                                           megakernel=megakernel)
     else:
         for _ in range(steps):
             tok, state = sampler_mod.sample(
@@ -129,5 +136,6 @@ def decode_steps(
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 min_p=min_p, penalty=penalty, logit_bias=logit_bias)
             toks.append(tok)
-            logits, cache = forward(params, config, tok[:, None], cache)
+            logits, cache = forward(params, config, tok[:, None], cache,
+                                    megakernel=megakernel)
     return torch.stack(toks, dim=1), logits, cache, state

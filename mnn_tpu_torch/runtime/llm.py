@@ -22,6 +22,7 @@ from typing import Iterator, List, Optional
 
 import torch
 
+from mnn_tpu_torch.kernels import decode_model
 from mnn_tpu_torch.kernels.common import resolve_device
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.decoder import Params, init_random_params
@@ -98,7 +99,8 @@ class Llm:
     # -- introspection ---------------------------------------------------
 
     def info(self) -> dict:
-        """Memory (params, KV, allocator), per-token FLOPs and the device."""
+        """Memory (params, KV, allocator), per-token FLOPs, the device and
+        which decode path serves a step."""
         def nbytes(obj):
             if obj is None:
                 return 0
@@ -122,6 +124,10 @@ class Llm:
             "param_bytes": nbytes(self.params),
             "kv_cache_bytes": self.cache.nbytes(),
             "kv_bits": self.cache.bits,
+            # does the whole-model kernel serve decode steps, and its head?
+            "decode_megakernel": decode_model.supports(
+                c, self.params, self.cache, self.rt.max_batch),
+            "decode_fused_head": decode_model.supports_head(c, self.params),
             "kv_capacity": self.cache.capacity,
             "context_len": self.context_len,
             "flops_per_token": int(flops_tok),

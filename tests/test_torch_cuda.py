@@ -12,14 +12,21 @@ shapes the serving path does not reach: ragged N, a partial last row tile,
 group sizes 1 to 8, windows and sinks. Tolerances as in the CPU tests
 against JAX: rel-L2 1e-2 for the dequant matmuls, 2e-2 for flash prefill,
 3e-2 for decode attention; quantized K/V rows at most one int8 level apart
-(a rounding tie under another summation order).
+(a rounding tie under another summation order). The whole-model decode
+kernel is held to `decode_model.PARITY_BOUNDS` from the same state: logits
+rel-L2 5e-2, x 2e-2, layer-0 rows one level and scales 8e-3, all layers'
+dequantized rows 3e-2.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
-from mnn_tpu_torch.kernels import build, decode_step, dequant_matmul, flash_attention
-from mnn_tpu_torch.models.config import RuntimeConfig
+from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
+                                   flash_attention)
+from mnn_tpu_torch.models import decoder
+from mnn_tpu_torch.models.config import ModelConfig, RuntimeConfig
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import kvcache
 from mnn_tpu_torch.runtime.llm import Llm
@@ -151,11 +158,108 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
         flash_attention.flash_attention(q, q.cpu(), q)
 
 
+def rand_cache(g, dev, nl, b, hkv, s, d, bits):
+    kf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    vf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    if bits == 16:
+        return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    (kc, ks), (vc, vs) = kvcache.quantize_for(bits, kf), kvcache.quantize_for(bits, vf)
+    return kc, vc, ks, vs
+
+
+# (G, D, kv bits, window, sink, kv_len per sequence)
+FLASH_DECODE = [(7, 64, 8, 0, 0, (1, 301)), (7, 64, 4, 0, 0, (49, 512)),
+                (4, 128, 4, 64, 4, (500, 37)), (2, 128, 16, 0, 0, (33, 256)),
+                (8, 64, 16, 16, 0, (100, 5)), (1, 128, 8, 0, 0, (0, 77))]
+
+
+@pytest.mark.parametrize("grp,d,bits,window,sink,lengths", FLASH_DECODE)
+def test_flash_decode_kernel(dev, grp, d, bits, window, sink, lengths):
+    nl, b, hkv, s = 3, 2, 2, 512
+    g = torch.Generator(device=dev).manual_seed(grp * d + bits)
+    kc, vc, ks, vs = rand_cache(g, dev, nl, b, hkv, s, d, bits)
+    q = (torch.randn((b, hkv * grp, d), device=dev, generator=g) * 2).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = flash_attention.KERNEL_DECODE.launches
+    got = flash_attention.decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs,
+                                           layer_index=1, window=window, sink=sink)
+    want = flash_attention.decode_attention_plain(q, kc, vc, lens, ks, vs, 1, None,
+                                                  window, sink)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL_DECODE.launches == before + 1
+    assert got.shape == (b, hkv * grp, d) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 3e-2
+
+
+MK = ModelConfig(name="mk-test", vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_layers=3, num_heads=4, num_kv_heads=2, head_dim=64,
+                 rope_theta=10000.0, attention_bias=True, tie_word_embeddings=True)
+# (config changes, weight bits, kv bits, head bits, lengths)
+DECODE_MODEL = [
+    ({}, 4, 8, 4, (9,)), ({}, 4, 4, 4, (40,)), ({}, 4, 16, 0, (0,)),
+    ({}, 8, 8, 8, (33, 5)), (dict(qk_norm=True, attention_bias=False), 4, 8, 4, (9, 70, 3)),
+    (dict(sliding_window=6, attention_sink=2), 4, 4, 4, (20, 128, 1, 64, 7)),
+    (dict(hidden_size=512, head_dim=128, intermediate_size=1024), 4, 4, 4, (50, 9)),
+    (dict(hidden_size=896, num_heads=14, intermediate_size=4864, vocab_size=1024,
+          num_layers=2), 4, 8, 4, (100,)),
+    (dict(num_heads=16, hidden_size=1024), 8, 16, 4, (17,) * 8),
+]
+
+
+@pytest.mark.parametrize("changes,bits,kv_bits,head_bits,lengths", DECODE_MODEL)
+def test_decode_model_kernel(dev, changes, bits, kv_bits, head_bits, lengths):
+    cfg = dataclasses.replace(MK, **changes)
+    b, s = len(lengths), 128
+    gen = torch.Generator().manual_seed(bits + kv_bits + b)
+    params = decoder.init_random_params(cfg, gen, quant_bits=bits, scale=0.05,
+                                        lm_head_bits=head_bits, device=dev)
+    lay = params.layers
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda t: torch.rand(t.shape, device=dev, generator=g) * 0.6 + 0.7
+    lay = dataclasses.replace(lay, input_norm=rnd(lay.input_norm), post_norm=rnd(lay.post_norm))
+    if cfg.attention_bias:
+        lay = dataclasses.replace(lay, wqkv=dataclasses.replace(
+            lay.wqkv, out_bias=torch.randn(lay.wqkv.out_bias.shape, device=dev, generator=g) * 0.1))
+    if cfg.qk_norm:
+        lay = dataclasses.replace(lay, q_norm=rnd(lay.q_norm), k_norm=rnd(lay.k_norm))
+    kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, s,
+                                cfg.head_dim, kv_bits)
+    x = (torch.randn((b, cfg.hidden_size), device=dev, generator=g) * 0.05).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ang = torch.rand((b, cfg.head_dim // 2), device=dev, generator=g) * 6.28
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    head = params.lm_head if head_bits else None
+    kw = dict(config=cfg, head=head, final_norm=rnd(params.final_norm))
+    want = decode_model.fused_decode_model_plain(x, lay, kc, vc, ks, vs, lens, cos, sin, **kw)
+    before = decode_model.KERNEL.launches
+    got = decode_model.fused_decode_model(x, lay, kc, vc, ks, vs, lens, cos, sin, **kw)
+    again = decode_model.fused_decode_model(x, lay, kc, vc, ks, vs, lens, cos, sin,
+                                            write_cache=True, **kw)
+    torch.cuda.synchronize()
+    assert decode_model.KERNEL.launches == before + 2
+    assert len(got) == (7 if head_bits else 5)
+    assert all(torch.isfinite(t).all() for t in got if t is not None)
+    m = decode_model.parity_metrics(got, want, kv_bits)
+    assert not decode_model.parity_failures(m), m
+    # the same launch again gives the same bits, and wrote the rows in place
+    for a, c in zip(got, again):
+        assert a is None or torch.equal(a, c)
+    pos = lens.long().clamp(0, s - 1)
+    bi = torch.arange(b, device=dev)
+    assert torch.equal(kc[:, bi, :, pos].float(), got[1][:, :, :, 0].transpose(0, 1))
+    assert torch.equal(vc[:, bi, :, pos].float(), got[2][:, :, :, 0].transpose(0, 1))
+    if kv_bits < 16:
+        assert torch.equal(ks[:, bi, :, pos], got[3][:, :, :, 0].transpose(0, 1))
+
+
 def test_tiny_slice_card_matches_cpu(dev):
     """The serving slice at a tiny size, from one seed on the card and
-    through the plain versions on the CPU: every kernel launches on the
-    card and none on the CPU, and the prefill logits and first token agree
-    (the token where the CPU's top-2 margin exceeds the largest difference)."""
+    through the plain versions on the CPU: every kernel of the per-layer
+    path launches on the card (`tiny` has head_dim 32, which the whole-model
+    kernel does not take) and none on the CPU, and the prefill logits and
+    first token agree (the token where the CPU's top-2 margin exceeds the
+    largest difference)."""
     rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4,
                        sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
                        max_new_tokens=6)
@@ -166,11 +270,55 @@ def test_tiny_slice_card_matches_cpu(dev):
         build.reset_launches()
         toks = list(llm.stream(token_ids=ids))
         runs.append((toks, llm.last_prefill_logits.float().cpu(),
-                     [k.launches for k in build.KERNELS]))
+                     {k.name: k.launches for k in build.KERNELS}))
     (card_toks, card, card_n), (cpu_toks, cpu, cpu_n) = runs
-    assert all(n > 0 for n in card_n) and not any(cpu_n)
+    per_layer = ("mnn_dequant_matmul", "mnn_dequant_matmul_a8", "mnn_flash_prefill",
+                 "mnn_decode_step")
+    assert all(card_n[k] > 0 for k in per_layer) and not any(cpu_n.values())
+    assert card_n["mnn_decode_model"] == 0
     assert len(card_toks) == len(cpu_toks) == rt.max_new_tokens
     assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
     top2 = cpu[0].topk(2).values
     if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
         assert card_toks[0] == cpu_toks[0]
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_megakernel_slice_card_matches_cpu(dev, kv_bits):
+    """Greedy decode through the whole-model kernel at a small size (head_dim
+    64), on the card and through the plain versions on the CPU: one
+    `mnn_decode_model` launch per decode step and no `mnn_decode_step`
+    launch, and from the same state the per-layer path's logits agree."""
+    cfg = dataclasses.replace(MK, tie_word_embeddings=False)
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4,
+                       sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
+                       kv_bits=kv_bits, max_new_tokens=6)
+    ids = list(range(3, 48))
+    runs = []
+    for device in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(1)
+        params = decoder.init_random_params(cfg, gen, scale=0.05, lm_head_bits=4,
+                                            device=device)
+        llm = Llm(cfg, params, rt, device=device)
+        assert llm.info()["decode_megakernel"] and llm.info()["decode_fused_head"]
+        build.reset_launches()
+        toks = list(llm.stream(token_ids=ids))
+        runs.append((toks, {k.name: k.launches for k in build.KERNELS}, llm))
+    (card_toks, card_n, llm), (cpu_toks, cpu_n, _) = runs
+    assert card_n["mnn_decode_model"] == rt.max_new_tokens
+    assert card_n["mnn_decode_step"] == 0 and not any(cpu_n.values())
+    assert len(card_toks) == len(cpu_toks) == rt.max_new_tokens
+    tok = torch.tensor([[card_toks[-1]]], device=dev)
+    cache = llm.cache
+    ref, _ = decoder.forward(llm.params, cfg, tok, _clone(cache), megakernel=False)
+    (mk, mtok), _ = decoder.forward(llm.params, cfg, tok, _clone(cache),
+                                    megakernel=True, return_token=True)
+    torch.cuda.synchronize()
+    assert rel(mk, ref) <= 5e-2
+    assert int(mtok[0]) == int(decode_model.lowest_argmax(mk)[0])
+
+
+def _clone(cache):
+    cl = lambda t: None if t is None else t.clone()
+    return dataclasses.replace(cache, k=cl(cache.k), v=cl(cache.v),
+                               k_scale=cl(cache.k_scale), v_scale=cl(cache.v_scale))

@@ -203,6 +203,8 @@ def test_llm_rollback_and_info(port_params):
     info = llm.info()
     assert info["device"] == "cpu" and info["allocator"] is None
     assert info["kv_bits"] == 8 and info["kv_capacity"] == CAP
+    # tiny has head_dim 32: the whole-model decode kernel does not take it
+    assert info["decode_megakernel"] is False and info["decode_fused_head"] is True
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -228,10 +230,28 @@ def test_cli_run_on_cpu(capsys):
     assert "[cpu] prefill 2 tok" in err and "decode 3 tok" in err
 
 
+def test_cli_run_int4_cache_on_cpu(capsys):
+    """`--kv-bits 4` reaches the cache: `tiny` then decodes per layer through
+    the cache append and the flash decode kernel's plain version."""
+    from mnn_tpu_torch import cli
+
+    cli.main(["run", "--synthetic", "tiny", "--device", "cpu", "--kv-bits", "4",
+              "--max-seq-len", "64", "--max-new-tokens", "3", "--sampler", "greedy",
+              "--raw", "hi"])
+    assert "decode 3 tok" in capsys.readouterr().err
+    llm = Llm.synthetic("tiny", rt=dataclasses.replace(RT, kv_bits=4), device="cpu")
+    assert llm.cache.bits == 4 and llm.cache.k.shape[-1] == PRESETS["tiny"].head_dim // 2
+    assert len(list(llm.stream(token_ids=[1, 2, 3], max_new_tokens=4))) == 4
+    assert llm.context_len == 7
+
+
 def test_port_imports_no_jax():
     """The port and its chip script import neither JAX nor the JAX package."""
     files = sorted((ROOT / "mnn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {f.name for f in files}
+    assert {"decode_model.py", "flash_attention.py", "kvcache.py", "profile_decode.py",
+            "chip_smoke.py"} <= names
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmnn_tpu\.|"
                      r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)", re.M)
     for f in files:

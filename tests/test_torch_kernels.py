@@ -7,7 +7,9 @@ for the dequant matmuls (bf16 output rounding over f32 sums taken in
 another order), 2e-2 for flash prefill (`tests/test_attention.py:59`) and
 3e-2 for decode attention over int8 KV (`tests/test_attention.py:126`);
 the quantized K/V rows of the fused decode step are equal and their scales
-agree to 1e-6. The JAX side is computed once per module: XLA:CPU fails
+agree to 1e-6. The flash decode kernel's plain version is held to
+`decode_attention(interpret=True)` over bf16, int8 and nibble-packed int4
+caches, stacked and not, at rel-L2 3e-2. The JAX side is computed once per module: XLA:CPU fails
 after a few hundred compilations in one process.
 """
 
@@ -19,10 +21,12 @@ import torch
 from mnn_tpu.kernels.decode_step import fused_decode_attention as j_decode
 from mnn_tpu.kernels.dequant_matmul import dequant_matmul as j_dqmm
 from mnn_tpu.kernels.flash_attention import attention_xla_ref as j_attn_ref
+from mnn_tpu.kernels.flash_attention import decode_attention as j_decode_attn
 from mnn_tpu.kernels.flash_attention import flash_attention as j_flash
 from mnn_tpu.quant.quantize import QuantizedLinear as JQL
 from mnn_tpu_torch.kernels import decode_step, dequant_matmul, flash_attention
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
+from mnn_tpu_torch.runtime import kvcache
 
 K, N, BS, L = 256, 200, 128, 2
 # (name, bits, act_bits, M, stacked with out_bias, out f32)
@@ -45,6 +49,14 @@ DECODE_CASES = [
     ("int8", 3, True, False, 0, 0),
     ("int8-qknorm-window", 3, True, True, 16, 2),
     ("bf16", 2, False, False, 0, 0),
+]
+# (name, G, kv bits, stacked with layer_index, window, sink, kv_len per sequence)
+FLASH_DECODE_CASES = [
+    ("kv-bf16", 2, 16, False, 0, 0, (20, 137)),
+    ("int8-stacked", 3, 8, True, 0, 0, (256, 1)),
+    ("int4-stacked", 3, 4, True, 0, 0, (20, 137)),
+    ("int4-window-sink", 7, 4, True, 16, 2, (140, 256)),
+    ("int8-window", 1, 8, False, 8, 0, (133, 9)),
 ]
 
 
@@ -112,6 +124,22 @@ def _decode_inputs(rng, g, int8):
         k_norm=rng.uniform(0.5, 1.5, size=d).astype(np.float32))
 
 
+def _flash_decode_inputs(rng, g, bits, stacked):
+    b, hkv, s, d = 2, 2, 256, 64     # two KV tiles of 128 on the JAX side
+    lead = (L,) if stacked else ()
+    kf = torch.from_numpy(rng.standard_normal((*lead, b, hkv, s, d)).astype(np.float32))
+    vf = torch.from_numpy(rng.standard_normal((*lead, b, hkv, s, d)).astype(np.float32))
+    if bits == 16:
+        kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        kc, vc = (np.asarray(jnp.asarray(t.float().numpy(), jnp.bfloat16)) for t in (kc, vc))
+        ks = vs = None
+    else:
+        (kc, ks), (vc, vs) = kvcache.quantize_for(bits, kf), kvcache.quantize_for(bits, vf)
+        kc, vc, ks, vs = (t.numpy() for t in (kc, vc, ks, vs))
+    q = np.asarray(jnp.asarray(rng.standard_normal((b, hkv * g, d)) * 2, jnp.bfloat16))
+    return dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs)
+
+
 @pytest.fixture(scope="module")
 def cases():
     """Inputs, and every JAX result of this module computed once."""
@@ -147,6 +175,15 @@ def cases():
             k_norm=jnp.asarray(d["k_norm"]) if qkn else None,
             block_kv=32, window=window, sink=sink, interpret=True)
         d["want"] = [None if r is None else np.asarray(r) for r in res]
+        out[name] = d
+    for name, g, bits, stacked, window, sink, lens in FLASH_DECODE_CASES:
+        d = _flash_decode_inputs(rng, g, bits, stacked)
+        opt = lambda n: None if d[n] is None else jnp.asarray(d[n])
+        d["want"] = np.asarray(j_decode_attn(
+            jnp.asarray(d["q"]), jnp.asarray(d["kc"]), jnp.asarray(d["vc"]),
+            jnp.asarray(lens, jnp.int32), k_scale=opt("ks"), v_scale=opt("vs"),
+            layer_index=jnp.int32(1) if stacked else None, block_kv=128,
+            window=window, sink=sink, interpret=True))
         out[name] = d
     return out
 
@@ -199,6 +236,31 @@ def test_fused_decode_attention(cases, name, g, int8, qkn, window, sink):
         np.testing.assert_allclose(f32(v_sc), w_vs, rtol=1e-6)
     else:
         assert k_sc is None and w_ks is None
+
+
+@pytest.mark.parametrize("name,g,bits,stacked,window,sink,lens", FLASH_DECODE_CASES)
+def test_decode_attention(cases, name, g, bits, stacked, window, sink, lens):
+    d = cases[name]
+    opt = lambda n: None if d[n] is None else to_torch(d[n])
+    got = flash_attention.decode_attention(
+        to_torch(d["q"]), to_torch(d["kc"]), to_torch(d["vc"]),
+        torch.tensor(lens, dtype=torch.int32), k_scale=opt("ks"), v_scale=opt("vs"),
+        layer_index=1 if stacked else None, window=window, sink=sink)
+    assert got.shape == d["want"].shape and got.dtype == torch.bfloat16
+    assert rel(got, d["want"]) <= 3e-2
+
+
+def test_decode_attention_edges():
+    """An empty sequence gives zeros (the kernel's l == 0 -> 1), and a
+    quantized cache without scales is refused."""
+    q = torch.randn((1, 2, 64), generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    k = torch.randn((1, 2, 16, 64), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    out = flash_attention.decode_attention(q, k, k, torch.tensor([0], dtype=torch.int32))
+    assert out.shape == (1, 2, 64) and not out.any()
+    one = flash_attention.decode_attention(q, k, k, 1)       # only position 0 visible
+    np.testing.assert_array_equal(f32(one), f32(k[:, :, 0]))
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_attention.decode_attention(q, k.to(torch.int8), k.to(torch.int8), 4)
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):

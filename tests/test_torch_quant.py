@@ -1,8 +1,8 @@
 """The port's quant format against the JAX package, bit for bit, on the CPU.
 
 The same numpy inputs go through `mnn_tpu.quant.quantize` and
-`mnn_tpu_torch.quant.quantize` (and the int8 KV quantizer of both
-`runtime/kvcache.py`). Packing, quantization and the bf16 bits of scales
+`mnn_tpu_torch.quant.quantize` (and the int8 and int4 KV quantizers and the
+decode-row cache writes of both `runtime/kvcache.py`). Packing, quantization and the bf16 bits of scales
 and biases must be identical; the dequantize-then-matmul reference agrees
 to f32 summation order. The JAX side is computed once per module.
 """
@@ -23,6 +23,8 @@ jq = importlib.import_module("mnn_tpu.quant.quantize")
 
 BS = 128
 QUANT_CASES = [(4, False), (4, True), (8, False), (8, True)]   # (bits, sym)
+APPEND_BITS = [4, 8, 16]
+APPEND_AT = [5, 11]       # per-sequence write offsets; 11 clamps to the last slot
 
 
 def to_torch(a) -> torch.Tensor:
@@ -82,6 +84,22 @@ def ref(data):
     kq, ks = jkv.quantize_kv(jnp.asarray(data["kv"]))
     out["kv8"] = (np.asarray(kq), np.asarray(ks))
     out["dq8"] = np.asarray(jkv.dequant_kv(kq, ks, 8))
+    k4, s4 = jkv.quantize_kv4(jnp.asarray(data["kv"]))
+    out["kv4"] = (np.asarray(k4), np.asarray(s4))
+    out["unpack4kv"] = np.asarray(jkv.unpack_kv4(k4))
+    out["dq4"] = np.asarray(jkv.dequant_kv(k4, s4, 4))
+    # decode-row writes into a stacked cache [L=2, B=2, Hkv=2, S=8, D=32]
+    new = (jnp.asarray(data["kv"][:, :, :1]).astype(jnp.bfloat16),
+           jnp.asarray(data["kv"][:, :, 1:2]).astype(jnp.bfloat16))
+    for bits in APPEND_BITS:
+        cache = jkv.create(2, 2, 2, 8, 32, quantized=bits < 16, kv_bits=bits)
+        cache = jkv.append_stacked(cache, 1, jnp.asarray(data["kv"][:, :, 2:5]).astype(
+            jnp.bfloat16), jnp.asarray(data["kv"][:, :, 3:6]).astype(jnp.bfloat16),
+            jnp.int32(2))
+        cache = jkv.append_decode_stacked(cache, 1, *new, jnp.asarray(APPEND_AT, jnp.int32))
+        out[("append", bits)] = {k: None if getattr(cache, k) is None
+                                 else np.asarray(getattr(cache, k))
+                                 for k in ("k", "v", "k_scale", "v_scale")}
     return out
 
 
@@ -128,6 +146,46 @@ def test_quantize_kv_bit_exact(data, ref):
     np.testing.assert_array_equal(ks.numpy(), ref["kv8"][1])
     dq = tkv.dequant_kv(kq, ks, 8)
     np.testing.assert_array_equal(bits_of(dq), bits_of(ref["dq8"]))
+
+
+def test_quantize_kv4_bit_exact(data, ref):
+    k4, s4 = tkv.quantize_kv4(torch.from_numpy(data["kv"]))
+    assert k4.dtype == torch.int8 and k4.shape[-1] == data["kv"].shape[-1] // 2
+    np.testing.assert_array_equal(k4.numpy(), ref["kv4"][0])
+    np.testing.assert_array_equal(s4.numpy(), ref["kv4"][1])
+    np.testing.assert_array_equal(tkv.unpack_kv4(k4).numpy(), ref["unpack4kv"])
+    np.testing.assert_array_equal(bits_of(tkv.dequant_kv(k4, s4, 4)), bits_of(ref["dq4"]))
+    levels = tkv.unpack_kv4(k4)
+    assert levels.min() >= -8 and levels.max() <= 7
+
+
+@pytest.mark.parametrize("bits", APPEND_BITS)
+def test_cache_appends_bit_exact(data, ref, bits):
+    """`append_stacked` (prefill rows) and `append_decode_stacked` (one row
+    per sequence at its own clamped offset) leave the same bytes and scales
+    as the JAX package, for int4, int8 and bf16 storage."""
+    kv = torch.from_numpy(data["kv"]).to(torch.bfloat16)
+    cache = tkv.create(2, 2, 2, 8, 32, quantized=bits < 16, kv_bits=bits)
+    assert cache.bits == bits and cache.k.shape[-1] == (16 if bits == 4 else 32)
+    tkv.append_stacked(cache, 1, kv[:, :, 2:5], kv[:, :, 3:6],
+                       torch.tensor(2, dtype=torch.int32))
+    tkv.append_decode_stacked(cache, 1, kv[:, :, :1], kv[:, :, 1:2],
+                              torch.tensor(APPEND_AT, dtype=torch.int32))
+    want = ref[("append", bits)]
+    np.testing.assert_array_equal(bits_of(cache.k), bits_of(want["k"]))
+    np.testing.assert_array_equal(bits_of(cache.v), bits_of(want["v"]))
+    if bits < 16:
+        np.testing.assert_array_equal(cache.k_scale.numpy(), want["k_scale"])
+        np.testing.assert_array_equal(cache.v_scale.numpy(), want["v_scale"])
+    else:
+        assert cache.k_scale is None and want["k_scale"] is None
+
+
+def test_create_refuses_unported_kv_bits():
+    with pytest.raises(ValueError, match="kv_bits=3"):
+        tkv.create(1, 1, 1, 8, 32, kv_bits=3)
+    with pytest.raises(ValueError, match="not ported"):
+        tkv.dequant_kv(torch.zeros((1, 12), dtype=torch.int8), torch.ones(1), 3)
 
 
 @pytest.mark.parametrize("k,req,shards", [(896, 128, 1), (4864, 128, 1),
