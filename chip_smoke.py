@@ -13,7 +13,9 @@ Phases, each of which exits non-zero on failure:
    as a yardstick where one call computes the same function, and the least
    time the card could take (bound). The whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
-   two layers at `qwen2-7b` widths;
+   two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
+   the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
+   `qwen3-moe-30b-a3b`'s widths;
 3. the serving paths themselves on `Llm.synthetic("qwen2-0.5b")` at full
    width and depth (W4 block-128 weights, int4 lm head, int8 prefill
    activations), each with the launch counts set to 0 before and read after:
@@ -22,13 +24,20 @@ Phases, each of which exits non-zero on failure:
    launch per generated token; (b) one request over an int4 KV cache, the
    same way; (c) the per-layer fallback (`forward(megakernel=False)`), a
    prompt and 8 decode steps over an int8 and over an int4 cache, which
-   runs the decode-step and flash-decode kernels. A kernel of a path that
-   was launched no time in that path's run fails the script;
+   runs the decode-step and flash-decode kernels; (d) `Llm.synthetic(
+   "qwen1.5-moe-a2.7b")` at its 24 layers, the same three requests: the
+   grouped expert kernel 24 times per prefill chunk, the fused expert kernel
+   and the decode-step kernel 24 times per token, the whole-model kernel
+   never; (e) the 300-token request again with the dequantize-tile switch on
+   (`dequant_matmul.DEQ_MIN_M = 512`), held against (d)'s logits. A kernel
+   of a path that was launched no time in that path's run fails the script;
 4. the first request again, prefill and 8 decode steps, on the card and
    through the plain versions on the CPU with the same weights: logits
    within rel-L2 5e-2 and equal tokens wherever the CPU's top-2 margin
    exceeds the largest logit difference seen; then the whole-model kernel
-   against the per-layer path on the card from the same state.
+   against the per-layer path on the card from the same state. The same
+   for the mixture-of-experts model at full width and 4 layers (the CPU side
+   of 24 would take minutes).
 
 It then prints one JSON line with every kernel's numbers and, last, the
 device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
@@ -53,7 +62,7 @@ import torch
 
 import mnn_tpu_torch
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
-                                   flash_attention)
+                                   flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import decoder
 from mnn_tpu_torch.models.config import PRESETS, RuntimeConfig
 from mnn_tpu_torch.models.layers import rope_cos_sin
@@ -73,6 +82,9 @@ PARITY_STEPS = 8
 FALLBACK_PROMPT = 300       # phase 3c: the per-layer path's prompt
 PARITY_REL = 5e-2           # JAX megakernel logits bound, tests/test_decode_model.py:97
 SEED = 0                    # weights and inputs
+MOE_PRESET = "qwen1.5-moe-a2.7b"
+MOE_PARITY_LAYERS = 4       # phase 4, mixture of experts: depth of both sides
+MOE_TOL = 2e-2              # both expert kernels, tests/test_moe_decode.py:61
 
 
 def fail(msg: str):
@@ -180,11 +192,21 @@ def copies_for(nbytes: int, cap: int = 512) -> int:
     return max(1, min(cap, math.ceil(L2_ROTATE_BYTES / max(nbytes, 1))))
 
 
+def bound_of(ops: float, nbytes: float, ops_s: float = BF16_OPS_S):
+    """(least ms the card could take, which of the two limits it)."""
+    t_ops, t_bytes = ops / ops_s, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
 PROJ = {  # qwen2-0.5b: (K, N, has out_bias) per projection
     "qkv": (896, 1152, True),
     "wo": (896, 896, False),
     "wgu": (896, 9728, False),
     "wdown": (4864, 896, False),
+}
+MOE_PROJ = {  # qwen1.5-moe-a2.7b's attention projections
+    "moe_qkv": (2048, 6144, True),
+    "moe_wo": (2048, 2048, False),
 }
 
 
@@ -192,13 +214,18 @@ def phase_gemm(dev, g, results, *, a8: bool):
     """K1 (bf16 rows, M = 1: decode GEMVs and the lm head) or K2 (int8
     rows, M = 512: prefill GEMMs)."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
-    shapes = [(p, k, n, b, 512 if a8 else 1) for p, (k, n, b) in PROJ.items()]
+    shapes = [(p, k, n, b, 512 if a8 else 1)
+              for p, (k, n, b) in list(PROJ.items()) + list(MOE_PROJ.items())]
     if not a8:
-        shapes.append(("lm_head", 896, 151936, False, 1))
+        shapes += [("lm_head", 896, 151936, False, 1),
+                   ("moe_lm_head", 2048, 151936, False, 1)]
+        # qwen1.5-moe-a2.7b's shared expert in a prefill chunk: bf16 rows
+        shapes += [("moe_shared_gu", 2048, 11264, False, 512),
+                   ("moe_shared_dn", 5632, 2048, False, 512)]
     tol = 1e-2
     rows = []
     for proj, k, n, with_bias, m in shapes:
-        out_dtype = torch.float32 if proj == "lm_head" else torch.bfloat16
+        out_dtype = torch.float32 if proj.endswith("lm_head") else torch.bfloat16
         wbytes = k * n // 2 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
         nl = copies_for(wbytes)
         ql = rand_quantized(g, dev, k, n, layers=nl,
@@ -225,14 +252,9 @@ def phase_gemm(dev, g, results, *, a8: bool):
             calls=max(nlib, 8))
         del wlib
         out_b = m * n * (4 if out_dtype == torch.float32 else 2)
-        if a8:
-            nbytes = m * k + m * 4 + wbytes + out_b
-            bound = max(2 * m * k * n / INT8_OPS_S, nbytes / HBM_BYTES_S) * 1e3
-            bound_by = "operations" if 2 * m * k * n / INT8_OPS_S > nbytes / HBM_BYTES_S else "bytes"
-        else:
-            nbytes = m * k * 2 + wbytes + out_b
-            bound = nbytes / HBM_BYTES_S * 1e3
-            bound_by = "bytes"
+        nbytes = (m * k + m * 4 if a8 else m * k * 2) + wbytes + out_b
+        bound, bound_by = bound_of(2 * m * k * n, nbytes,
+                                   INT8_OPS_S if a8 else BF16_OPS_S)
         row = dict(shape=f"{proj} M={m} K={k} N={n}", max_abs_err=err, rel_l2=rel,
                    tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
@@ -247,14 +269,17 @@ def phase_gemm(dev, g, results, *, a8: bool):
 
 
 def phase_flash(dev, g, results):
-    """K3 at the prefill chunks of the three requests (cache capacity 1024)."""
-    h, hkv, d, cap = 14, 2, 64, 1024
+    """K3 at the prefill chunks of the three requests (cache capacity 1024),
+    with qwen2-0.5b's heads and, for two of the chunks, qwen1.5-moe-a2.7b's."""
+    cap = 1024
     tol = 2e-2
     rows = []
-    # (bucket, kv_len after append, q_offset): 17 -> 32, 300 -> 512,
-    # 600 -> 512 + 128
-    for t, kv_len, q_off in ((32, 17, 0), (512, 300, 0), (512, 512, 0),
-                             (128, 600, 512)):
+    # (H, Hkv, D, bucket, kv_len after append, q_offset): 17 -> 32,
+    # 300 -> 512, 600 -> 512 + 128
+    for h, hkv, d, t, kv_len, q_off in (
+            (14, 2, 64, 32, 17, 0), (14, 2, 64, 512, 300, 0), (14, 2, 64, 512, 512, 0),
+            (14, 2, 64, 128, 600, 512), (16, 16, 128, 512, 300, 0),
+            (16, 16, 128, 128, 600, 512)):
         q = torch.randn((1, h, t, d), device=dev, generator=g).to(torch.bfloat16)
         k = torch.randn((1, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn((1, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
@@ -282,7 +307,7 @@ def phase_flash(dev, g, results):
         nbytes = 2 * (2 * h * t * d + 2 * hkv * kv_len * d)
         bound = max(flops / BF16_OPS_S, nbytes / HBM_BYTES_S) * 1e3
         bound_by = "operations" if flops / BF16_OPS_S > nbytes / HBM_BYTES_S else "bytes"
-        row = dict(shape=f"H=14 Hkv=2 T={t} kv_len={kv_len} q_offset={q_off} S={cap}",
+        row = dict(shape=f"H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off} S={cap}",
                    max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                    bound_by=bound_by)
@@ -294,16 +319,21 @@ def phase_flash(dev, g, results):
 
 
 def phase_decode(dev, g, results):
-    """K4 at the last decode step of each request: 24-layer int8 cache."""
-    L, hkv, grp, d, cap = 24, 2, 7, 64, 1024
+    """K4 at the last decode step of each request over a 24-layer int8 cache,
+    with qwen2-0.5b's heads and, for one step, qwen1.5-moe-a2.7b's."""
+    L, cap = 24, 1024
     tol = 3e-2
     rows = []
-    kf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
-    vf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
-    kq, ks = kvcache.quantize_kv(kf)
-    vq, vs = kvcache.quantize_kv(vf)
-    del kf, vf
-    for len_old in (17 + NEW_TOKENS - 1, 300 + NEW_TOKENS - 1, 600 + NEW_TOKENS - 1):
+    last = [n + NEW_TOKENS - 1 for n in PREFILL_LENS]
+    kq = None
+    for hkv, grp, d, len_old in ((2, 7, 64, last[0]), (2, 7, 64, last[1]),
+                                 (2, 7, 64, last[2]), (16, 1, 128, last[1])):
+        if kq is None or kq.shape[2:] != (hkv, cap, d):
+            kf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
+            vf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
+            kq, ks = kvcache.quantize_kv(kf)
+            vq, vs = kvcache.quantize_kv(vf)
+            del kf, vf
         qkv = torch.randn((1, hkv, grp + 2, d), device=dev, generator=g).to(torch.bfloat16)
         lengths = torch.tensor([len_old], dtype=torch.int32, device=dev)
         ang = torch.rand((1, d // 2), device=dev, generator=g) * 6.28
@@ -326,7 +356,7 @@ def phase_decode(dev, g, results):
         plain_ms = time_ms(lambda i: decode_step.fused_decode_attention_plain(
             qkv, kq, vq, ks, vs, i % L, lengths, cos, sin, None, None, 1e-6,
             d ** -0.5, 0, 0, 0.0), calls=8, replays=2)
-        # yardstick: SDPA of the 14 query rows over the dequantized rows
+        # yardstick: SDPA of the query rows over the dequantized rows
         q = qkv[:, :, :grp].reshape(1, hkv * grp, 1, d)
         kd = kvcache.dequant_kv(kq[3], ks[3], 8)[:, :, :len_old + 1].repeat_interleave(grp, 1)
         vd = kvcache.dequant_kv(vq[3], vs[3], 8)[:, :, :len_old + 1].repeat_interleave(grp, 1)
@@ -337,7 +367,7 @@ def phase_decode(dev, g, results):
                   + 2 * hkv * len_old * (d + 4)                    # int8 K/V + scales
                   + hkv * grp * d * 2 + 2 * hkv * (d + 1) * 4)     # att, rows, scales
         bound = nbytes / HBM_BYTES_S * 1e3
-        row = dict(shape=f"B=1 Hkv=2 G=7 D=64 len_old={len_old} S={cap} int8",
+        row = dict(shape=f"B=1 Hkv={hkv} G={grp} D={d} len_old={len_old} S={cap} int8",
                    max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                    bound_by="bytes")
@@ -499,6 +529,205 @@ def phase_decode_model(dev, g, results, params05):
     results["decode_model"] = rows
 
 
+def ql_nbytes(ql, count: int = 1) -> int:
+    """Bytes of `count` matrices of a stack whose first axis is the matrices."""
+    per = sum(t[0].numel() * t.element_size() for t in (ql.packed, ql.scale, ql.bias))
+    return per * count
+
+
+def rand_experts(g, dev, lead, k, n, bs=128):
+    ql = rand_quantized(g, dev, k, n, layers=math.prod(lead), bs=bs)
+    rs = lambda t: t.reshape(*lead, *t.shape[1:])
+    return dataclasses.replace(ql, packed=rs(ql.packed), scale=rs(ql.scale), bias=rs(ql.bias))
+
+
+MOE_SHAPES = {   # preset -> (E, k, mi, si); H = 2048 for both
+    "qwen1.5-moe-a2.7b": (60, 4, 1408, 5632),
+    "qwen3-moe-30b-a3b": (128, 8, 768, 0),
+}
+
+
+def phase_moe_decode(dev, g, results):
+    """K8 at n = 1 and n = 4: qwen1.5-moe-a2.7b's widths (shared expert
+    under its gate) and qwen3-moe-30b-a3b's (none). A call reads other
+    experts than the one before: the layer index rotates over a stack
+    larger than L2."""
+    rows = []
+    for preset, (e, k, mi, si) in MOE_SHAPES.items():
+        cfg = PRESETS[preset]
+        h = cfg.hidden_size
+        check((cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_intermediate_size,
+               cfg.shared_expert_intermediate_size) == (e, k, mi, si), f"{preset}: shapes")
+        nl = 4 if si else 8
+        lay = decoder.LayerParams(
+            wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
+            wgu_e=rand_experts(g, dev, (nl, e), h, 2 * mi),
+            wdown_e=rand_experts(g, dev, (nl, e), mi, h),
+            wgu_shared=rand_experts(g, dev, (nl,), h, 2 * si) if si else None,
+            wdown_shared=rand_experts(g, dev, (nl,), si, h) if si else None)
+        for n in (1, 4):
+            check(moe_decode.supports(cfg, lay, n), f"moe_decode {preset}: unsupported")
+            x = torch.randn((n, h), device=dev, generator=g) * 0.5
+            sel = torch.stack([torch.randperm(e, device=dev, generator=g)[:k]
+                               for _ in range(n)]).to(torch.int32)
+            wsel = torch.softmax(torch.randn((n, k), device=dev, generator=g), -1)
+            gate = torch.rand((n,), device=dev, generator=g) if si else None
+            run = lambda i: moe_decode.moe_decode_mlp(x, lay, sel, wsel, i % nl, gate,
+                                                      config=cfg)
+            plain = lambda i: moe_decode.moe_decode_mlp_plain(x, lay, sel, wsel, i % nl,
+                                                              gate, config=cfg)
+            got, again, want = run(1), run(1), plain(1)
+            torch.cuda.synchronize()
+            err, rel = max_abs(got, want), rel_l2(got, want)
+            check(bool(torch.isfinite(got).all()), f"moe_decode {preset}: non-finite")
+            check(rel <= MOE_TOL, f"moe_decode {preset} n={n}: rel-L2 {rel:.3g} > {MOE_TOL}")
+            check(torch.equal(got, again), f"moe_decode {preset} n={n}: two runs differ")
+            ms = time_ms(run, calls=16)
+            plain_ms = time_ms(plain, calls=2, replays=2)
+            # yardstick: the four products as bmm / matmul over the selected
+            # experts' weights, dequantized to bf16 beforehand
+            ids = sel.reshape(-1).long()
+            deq = lambda ql, idx: torch.stack([quantize.dequantize(QuantizedLinear(
+                packed=ql.packed[1][j], scale=ql.scale[1][j], bias=ql.bias[1][j],
+                out_bias=None), dtype=torch.bfloat16) for j in idx])
+            wg, wd = deq(lay.wgu_e, ids.tolist()), deq(lay.wdown_e, ids.tolist())
+            xr = x.to(torch.bfloat16).repeat_interleave(k, 0)[:, None]
+            ar = torch.randn((n * k, 1, mi), device=dev, generator=g).to(torch.bfloat16)
+            if si:
+                sg = quantize.dequantize(lay.wgu_shared.layer(1), dtype=torch.bfloat16)
+                sd = quantize.dequantize(lay.wdown_shared.layer(1), dtype=torch.bfloat16)
+                a_s = torch.randn((n, si), device=dev, generator=g).to(torch.bfloat16)
+
+            def lib(i):
+                torch.bmm(xr, wg)
+                torch.bmm(ar, wd)
+                if si:
+                    torch.matmul(xr[::k, 0], sg)
+                    torch.matmul(a_s, sd)
+            lib_ms = time_ms(lib, calls=8)
+            # bytes this run's routing needs: each distinct expert once
+            distinct = int(sel.unique().numel())
+            nbytes = (distinct * (ql_nbytes(lay.wgu_e.flat_experts())
+                                  + ql_nbytes(lay.wdown_e.flat_experts()))
+                      + (ql_nbytes(lay.wgu_shared) + ql_nbytes(lay.wdown_shared) if si else 0)
+                      + 2 * n * h * 4 + n * k * 8 + n * 4)
+            ops = 2 * 3 * h * (n * k * mi + n * si)
+            bound, bound_by = bound_of(ops, nbytes)
+            row = dict(shape=f"{preset} n={n} E={e} k={k} mi={mi} si={si}",
+                       max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                       distinct_experts=distinct)
+            rows.append(row)
+            print(f"  moe_decode         {row['shape']:48s} rel {rel:.2e} (tol {MOE_TOL}) | "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.3f} lib {lib_ms:.4f} "
+                  f"bound {bound:.4f} ({bound_by})", flush=True)
+            del wg, wd
+        del lay
+        torch.cuda.empty_cache()
+    results["moe_decode"] = rows
+
+
+def phase_moe_prefill(dev, g, results):
+    """K9 at the capacities of qwen1.5-moe-a2.7b's chunks: C = 8, 24 and 72
+    (the 32-, 128- and 512-token buckets of the three requests: partial
+    products) and C = 144 (a 1024-token chunk: dequantized blocks); and of a
+    512-token chunk of qwen3-moe-30b-a3b (C = 64)."""
+    rows = []
+    for preset, cap in (("qwen1.5-moe-a2.7b", 8), ("qwen1.5-moe-a2.7b", 24),
+                        ("qwen1.5-moe-a2.7b", 72), ("qwen1.5-moe-a2.7b", 144),
+                        ("qwen3-moe-30b-a3b", 64)):
+        e, k, mi, _ = MOE_SHAPES[preset]
+        h = PRESETS[preset].hidden_size
+        gu = rand_experts(g, dev, (e,), h, 2 * mi)
+        dn = rand_experts(g, dev, (e,), mi, h)
+        check(moe_prefill.supports(gu, dn, h, cap), f"moe_prefill {preset}: unsupported")
+        xe = (torch.randn((e, cap, h), device=dev, generator=g) * 0.5).to(torch.bfloat16)
+        w_e = torch.rand((e, cap), device=dev, generator=g)
+        xe[:, -cap // 8:] = 0              # empty slots: zero rows, weight 0
+        w_e[:, -cap // 8:] = 0
+        got = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
+        want = moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn)
+        torch.cuda.synchronize()
+        err, rel = max_abs(got, want), rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()), f"moe_prefill {preset}: non-finite")
+        check(rel <= MOE_TOL, f"moe_prefill {preset} C={cap}: rel-L2 {rel:.3g} > {MOE_TOL}")
+        check(bool((got[:, -cap // 8:] == 0).all()), f"moe_prefill {preset}: empty slots not 0")
+        del want
+        ms = time_ms(lambda i: moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn), calls=4)
+        plain_ms = time_ms(lambda i: moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn),
+                           calls=1, replays=2)
+        # yardstick: two bmm over all experts' weights dequantized beforehand
+        deq = lambda ql: torch.stack([quantize.dequantize(ql.layer(j), dtype=torch.bfloat16)
+                                      for j in range(e)])
+        wg, wd = deq(gu), deq(dn)
+        act = torch.randn((e, cap, mi), device=dev, generator=g).to(torch.bfloat16)
+        lib_ms = time_ms(lambda i: (torch.bmm(xe, wg), torch.bmm(act, wd)), calls=4)
+        del wg, wd
+        nbytes = (ql_nbytes(gu, e) + ql_nbytes(dn, e) + e * cap * (h * 2 + 4 + h * 4))
+        bound, bound_by = bound_of(2 * e * cap * 3 * h * mi, nbytes)
+        algebra = "/".join("partial" if cap < q.block_size else "dequant" for q in (gu, dn))
+        row = dict(shape=f"{preset} E={e} C={cap} H={h} mi={mi} ({algebra})",
+                   max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+        rows.append(row)
+        print(f"  moe_prefill        {row['shape']:58s} rel {rel:.2e} (tol {MOE_TOL}) | "
+              f"kernel {ms:.4f} ms plain {plain_ms:.2f} lib {lib_ms:.4f} "
+              f"bound {bound:.4f} ({bound_by})", flush=True)
+        del gu, dn, xe, got
+        torch.cuda.empty_cache()
+    results["moe_prefill"] = rows
+
+
+def phase_gemm_deq(dev, g, results):
+    """K3 behind its switch, at M = 512: qwen1.5-moe-a2.7b's shared expert
+    and its qkv projection."""
+    tol, m = 1e-2, 512
+    rows = []
+    dequant_matmul.DEQ_MIN_M = m
+    try:
+        for proj, k, n, with_bias in (("moe_shared_gu", 2048, 11264, False),
+                                      ("moe_shared_dn", 5632, 2048, False),
+                                      ("moe_qkv", 2048, 6144, True)):
+            wbytes = k * n // 2 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
+            nl = copies_for(wbytes)
+            ql = rand_quantized(g, dev, k, n, layers=nl, with_bias=with_bias, act_bits=8)
+            x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+            before = dequant_matmul.KERNEL_DEQ.launches
+            got = dequant_matmul.dequant_matmul(x, ql, layer_index=0)
+            check(dequant_matmul.KERNEL_DEQ.launches == before + 1,
+                  "dequant_matmul_deq: the switch did not route the call")
+            want = dequant_matmul.dequant_matmul_plain(x, ql.layer(0), deq=True)
+            torch.cuda.synchronize()
+            err, rel = max_abs(got, want), rel_l2(got, want)
+            check(bool(torch.isfinite(got).all()), f"dequant_matmul_deq {proj}: non-finite")
+            check(rel <= tol, f"dequant_matmul_deq {proj}: rel-L2 {rel:.3g} > {tol}")
+            ms = time_ms(lambda i: dequant_matmul.dequant_matmul(x, ql, layer_index=i % nl),
+                         calls=max(nl, 8))
+            plain_ms = time_ms(lambda i: dequant_matmul.dequant_matmul_plain(
+                x, ql.layer(i % nl), deq=True), calls=2, replays=2)
+            nlib = copies_for(k * n * 2, cap=nl)
+            wlib = [quantize.dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
+            ob = ql.out_bias
+            lib_ms = time_ms(lambda i: (
+                torch.matmul(x, wlib[i % nlib]) if ob is None
+                else torch.addmm(ob[i % nlib].to(torch.bfloat16), x, wlib[i % nlib])),
+                calls=max(nlib, 8))
+            del wlib
+            bound, bound_by = bound_of(2 * m * k * n, m * k * 2 + wbytes + m * n * 2)
+            row = dict(shape=f"{proj} M={m} K={k} N={n}", max_abs_err=err, rel_l2=rel,
+                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=bound_by, l2_rotation=nl)
+            rows.append(row)
+            print(f"  dequant_matmul_deq {row['shape']:36s} rel {rel:.2e} | kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.4f} ({bound_by})",
+                  flush=True)
+            del ql, x, got, want
+            torch.cuda.empty_cache()
+    finally:
+        dequant_matmul.DEQ_MIN_M = 1 << 30
+    results["dequant_matmul_deq"] = rows
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the serving path, and its parity with the CPU
 # --------------------------------------------------------------------------
@@ -608,6 +837,107 @@ def phase_serve(llm):
     return reqs, outs, perf, counts
 
 
+MOE_PREFILL_KERNELS = PREFILL_KERNELS + ("mnn_moe_prefill",)
+
+
+def phase_serve_moe(llm):
+    """Phase 3 (d) and (e): the mixture-of-experts model at full width and
+    depth. Per prefill chunk one grouped-expert launch a layer; per decode
+    step one fused-expert and one decode-step launch a layer."""
+    cfg, dev = llm.config, llm.device
+    nl = cfg.num_layers
+    reqs = prompts(cfg.vocab_size)
+    info = llm.info()
+    check(info["decode_moe_fused"] and not info["decode_megakernel"],
+          f"serve moe: unexpected decode path: {info}")
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))    # warm-up
+    torch.cuda.synchronize()
+
+    build.reset_launches()                  # (d) int8 cache, fused expert kernel
+    outs, perf = serve(llm, reqs, "moe int8 kv")
+    counts = {"moe_int8": read_launches(
+        "moe int8 kv", MOE_PREFILL_KERNELS + ("mnn_moe_decode", "mnn_decode_step"),
+        never=("mnn_decode_model", "mnn_flash_decode", "mnn_dequant_matmul_deq"))}
+    chunks = sum(len(generate.prefill_buckets(len(r), llm.rt.prefill_chunk)) for r in reqs)
+    steps = NEW_TOKENS * len(reqs)
+    got = counts["moe_int8"]
+    check(got["mnn_moe_prefill"] == nl * chunks,
+          f"serve moe: {got['mnn_moe_prefill']} grouped-expert launches for {chunks} "
+          f"chunks of {nl} layers")
+    check(got["mnn_moe_decode"] == nl * steps and got["mnn_decode_step"] == nl * steps,
+          f"serve moe: {got['mnn_moe_decode']} fused-expert and {got['mnn_decode_step']} "
+          f"decode-step launches for {steps} steps of {nl} layers")
+
+    # (e) the dequantize-tile switch on: every M = 512 projection of the
+    # chunk (qkv, wo, the shared expert) takes K3; logits against (d)'s path
+    ids = reqs[1]
+    tokens = torch.tensor([ids], dtype=torch.int64, device=dev)
+    base, _ = generate.run_prefill(llm.params, cfg, llm.rt, tokens, llm._new_cache())
+    build.reset_launches()
+    dequant_matmul.DEQ_MIN_M = llm.rt.prefill_chunk
+    try:
+        deq, _ = generate.run_prefill(llm.params, cfg, llm.rt, tokens, llm._new_cache())
+    finally:
+        dequant_matmul.DEQ_MIN_M = 1 << 30
+    torch.cuda.synchronize()
+    counts["moe_deq_switch"] = read_launches(
+        "moe, dequantize-tile switch on", ("mnn_dequant_matmul_deq", "mnn_moe_prefill"),
+        never=("mnn_dequant_matmul_a8",))
+    check(counts["moe_deq_switch"]["mnn_dequant_matmul_deq"] == 4 * nl,
+          "serve moe: the switch did not route qkv, wo and the shared expert")
+    rel = rel_l2(deq, base)
+    check(bool(torch.isfinite(deq).all()) and rel <= PARITY_REL,
+          f"serve moe: dequantize-tile prefill logits rel-L2 {rel:.3g} > {PARITY_REL}")
+    print(f"  dequantize-tile switch on: prefill logits rel-L2 {rel:.2e} against the "
+          f"default path", flush=True)
+    return perf, counts, dict(deq_switch_rel_l2=rel)
+
+
+def phase_parity_moe(dev):
+    """Phase 4 for the mixture-of-experts model: full width, MOE_PARITY_LAYERS
+    layers on both sides, the same weights from the same seed."""
+    cfg = dataclasses.replace(PRESETS[MOE_PRESET], num_layers=MOE_PARITY_LAYERS)
+    rt = serving_rt()
+
+    def make(device):
+        params = decoder.init_random_params(
+            cfg, torch.Generator().manual_seed(SEED), quant_bits=rt.quant_bits,
+            quant_block=rt.quant_block, act_bits=rt.act_bits,
+            lm_head_bits=rt.lm_head_bits, device=device)
+        return Llm(cfg, params, rt, device=device)
+
+    ids = prompts(cfg.vocab_size)[0]
+    build.reset_launches()
+    card, fed, _ = greedy_trace(make(dev), ids, None)
+    read_launches(f"moe parity, {MOE_PARITY_LAYERS} layers",
+                  ("mnn_moe_prefill", "mnn_moe_decode"))
+    t0 = time.perf_counter()
+    cpu, _, _ = greedy_trace(make("cpu"), ids, fed)
+    out = compare_traces(card, cpu, f"moe ({MOE_PARITY_LAYERS} layers, full width) ")
+    print(f"    cpu run {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(out, layers=MOE_PARITY_LAYERS)
+
+
+def compare_traces(card, cpu, label=""):
+    """Logit rows of the card against the CPU's: rel-L2 per step within
+    PARITY_REL, tokens equal where the CPU's top-2 margin exceeds the largest
+    difference seen."""
+    rels = [rel_l2(a, b) for a, b in zip(card, cpu)]
+    diff = max(max_abs(a, b) for a, b in zip(card, cpu))
+    checked = 0
+    for s, (a, b) in enumerate(zip(card, cpu)):
+        check(bool(torch.isfinite(a).all()), f"parity: non-finite card logits at {s}")
+        check(rels[s] <= PARITY_REL, f"parity: {label}step {s} rel-L2 {rels[s]:.3g} > {PARITY_REL}")
+        top2 = b[0].topk(2).values
+        if float(top2[0] - top2[1]) > diff:
+            checked += 1
+            check(int(a.argmax()) == int(b.argmax()),
+                  f"parity: {label}step {s} token {int(a.argmax())} != cpu {int(b.argmax())}")
+    print(f"  {label}card vs cpu: rel-L2 per step {[f'{r:.2e}' for r in rels]}, "
+          f"max |diff| {diff:.3g}, tokens compared at {checked}/{len(rels)} steps", flush=True)
+    return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked)
+
+
 def greedy_trace(llm, ids, feed, megakernel=None):
     """Prefill + PARITY_STEPS decode steps on llm's device. `feed`: the
     tokens to feed (teacher forcing), or None for the own argmax.
@@ -636,20 +966,8 @@ def phase_parity(llm, reqs, outs):
     t0 = time.perf_counter()
     cpu, _, _ = greedy_trace(cpu_llm, reqs[0], fed)
     cpu_s = time.perf_counter() - t0
-    rels = [rel_l2(a, b) for a, b in zip(card, cpu)]
-    diff = max(max_abs(a, b) for a, b in zip(card, cpu))
-    checked = 0
-    for s, (a, b) in enumerate(zip(card, cpu)):
-        check(bool(torch.isfinite(a).all()), f"parity: non-finite card logits at {s}")
-        check(rels[s] <= PARITY_REL, f"parity: step {s} rel-L2 {rels[s]:.3g} > {PARITY_REL}")
-        top2 = b[0].topk(2).values
-        if float(top2[0] - top2[1]) > diff:
-            checked += 1
-            check(int(a.argmax()) == int(b.argmax()),
-                  f"parity: step {s} token {int(a.argmax())} != cpu {int(b.argmax())}")
-    print(f"  card vs cpu: rel-L2 per step {[f'{r:.2e}' for r in rels]}, "
-          f"max |diff| {diff:.3g}, tokens compared at {checked}/{len(rels)} steps, "
-          f"cpu run {cpu_s:.1f} s", flush=True)
+    out = compare_traces(card, cpu)
+    print(f"    cpu run {cpu_s:.1f} s", flush=True)
     # the whole-model kernel against the per-layer path, from the same state
     tok = torch.tensor([[int(card[-1].argmax())]], device=llm.device)
     clone = lambda: dataclasses.replace(
@@ -665,8 +983,7 @@ def phase_parity(llm, reqs, outs):
           "parity: the kernel's token is not the lowest argmax of its logits")
     print(f"  whole-model kernel vs per-layer path on the card: rel-L2 {paths:.2e}",
           flush=True)
-    return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked,
-                megakernel_vs_per_layer_rel_l2=paths)
+    return dict(out, megakernel_vs_per_layer_rel_l2=paths)
 
 
 # --------------------------------------------------------------------------
@@ -684,9 +1001,17 @@ KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
                      "mnn_tpu/kernels/flash_attention.py:252", "mnn_flash_decode"),
     "decode_model": ("mnn_tpu_torch/csrc/decode_model.cuh",
                      "mnn_tpu/kernels/decode_model.py:581", "mnn_decode_model"),
+    "dequant_matmul_deq": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
+                           "mnn_tpu/kernels/dequant_matmul.py:115", "mnn_dequant_matmul_deq"),
+    "moe_decode": ("mnn_tpu_torch/csrc/moe_decode.cu",
+                   "mnn_tpu/kernels/moe_decode.py:115", "mnn_moe_decode"),
+    "moe_prefill": ("mnn_tpu_torch/csrc/moe_prefill.cu",
+                    "mnn_tpu/kernels/moe_prefill.py:80", "mnn_moe_prefill"),
 }
 # the sub-phase of phase 3 whose run gives a kernel its launch count
-COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_layer_int4"}
+COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_layer_int4",
+              "mnn_moe_decode": "moe_int8", "mnn_moe_prefill": "moe_int8",
+              "mnn_dequant_matmul_deq": "moe_deq_switch"}
 
 
 def main():
@@ -727,6 +1052,9 @@ def main():
     phase_flash(dev, g, results)
     phase_decode(dev, g, results)
     phase_flash_decode(dev, g, results)
+    phase_gemm_deq(dev, g, results)
+    phase_moe_decode(dev, g, results)
+    phase_moe_prefill(dev, g, results)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     llm = Llm.synthetic("qwen2-0.5b", rt=serving_rt(), seed=SEED, device=dev)
@@ -739,13 +1067,33 @@ def main():
 
     print("phase 3: serving qwen2-0.5b on the card", flush=True)
     reqs, outs, perf, counts = phase_serve(llm)
-    launches = {k: counts[COUNTED_IN.get(k, "megakernel_int8")][k] for k in
-                counts["megakernel_int8"]}
 
     print("phase 4: the first request on the card and on the cpu", flush=True)
     parity = phase_parity(llm, reqs, outs)
+    del llm
+    torch.cuda.empty_cache()
 
-    gen_tokens = sum(len(o) for o in outs)
+    print(f"phase 3 (d, e): serving {MOE_PRESET} on the card", flush=True)
+    t0 = time.perf_counter()
+    moe = Llm.synthetic(MOE_PRESET, rt=serving_rt(), seed=SEED, device=dev)
+    mcfg = moe.config
+    print(f"  model: {mcfg.num_layers} layers, hidden {mcfg.hidden_size}, "
+          f"{mcfg.num_experts} experts top-{mcfg.num_experts_per_tok} of "
+          f"{mcfg.moe_intermediate_size}, shared {mcfg.shared_expert_intermediate_size}; "
+          f"built in {time.perf_counter() - t0:.1f} s; info {json.dumps(moe.info())}",
+          flush=True)
+    moe_perf, moe_counts, moe_extra = phase_serve_moe(moe)
+    perf["moe_int8"] = moe_perf
+    counts.update(moe_counts)
+    launches = {k: counts[COUNTED_IN.get(k, "megakernel_int8")][k] for k in
+                counts["megakernel_int8"]}
+    del moe
+    torch.cuda.empty_cache()
+    print(f"phase 4, {MOE_PRESET}: the first request on the card and on the cpu",
+          flush=True)
+    parity["moe"] = dict(phase_parity_moe(dev), **moe_extra)
+
+    gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]

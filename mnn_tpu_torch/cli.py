@@ -1,6 +1,7 @@
 """mnn-tpu-torch CLI: the `run` subcommand of `mnn_tpu/cli.py` on the port.
 
     python -m mnn_tpu_torch.cli run --synthetic qwen2-0.5b "prompt"
+    python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. Synthetic random-weight presets only: loading a
@@ -8,7 +9,9 @@ converted checkpoint (`--model`) is not ported yet. The defaults are the
 serving configuration of the port's main path: W4 block-128 weights, an
 int4 lm head, an int8 KV cache (`--kv-bits 4` packs it to int4) and int8
 prefill activations. Decode steps run through the whole-model decode kernel
-whenever the config is eligible.
+whenever the config is eligible; the mixture-of-experts presets
+(`qwen1.5-moe-a2.7b`, `qwen3-moe-30b-a3b`) decode layer by layer through the
+fused expert kernel and prefill through the grouped one.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import sys
 
 def _add_model_args(p):
     p.add_argument("--synthetic", default="qwen2-0.5b",
-                   help="synthetic preset (e.g. qwen2-0.5b)")
+                   help="synthetic preset (e.g. qwen2-0.5b, qwen1.5-moe-a2.7b)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
     p.add_argument("--max-seq-len", type=int, default=4096)

@@ -24,6 +24,11 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// A small unsigned integer as f32 without a conversion instruction.
+__device__ __forceinline__ float u2f(uint32_t v) {   // exact for v < 2^23
+  return __uint_as_float(v | 0x4B000000u) - 8388608.f;
+}
+
 // Store `v` as the output dtype: bf16 (rounded) or f32.
 __device__ __forceinline__ void store_out(void* out, long idx, float v, int out_f32) {
   if (out_f32)

@@ -91,10 +91,6 @@ __device__ __forceinline__ void stamp(const DmParams& p, int& slot) {
   ++slot;
 }
 
-__device__ __forceinline__ float u2f(uint32_t v) {   // exact for v < 2^23
-  return __uint_as_float(v | 0x4B000000u) - 8388608.f;
-}
-
 // y = x @ dequant(W) for B <= BM rows, then the phase's epilogue.
 template <int BITS, int BM>
 __device__ __noinline__ void gemv(const Gemv& g, const DmParams& p) {

@@ -19,7 +19,15 @@
 // outputs each. Per quant block it stages the int8 rows and the unpacked,
 // re-centred weights as packed int8 quads in shared memory and runs __dp4a
 // (exact int32). Tensor-core int8 (mma / wgmma) is later work.
-#include "common.cuh"
+//
+// dqmm_deq_kernel replaces ::_kernel_deq, the dequantize-tile variant for
+// many bf16 rows: per quant block the weights become wd = bf16(q * s + m) and
+// acc += x_b @ wd in f32, on the tensor cores (deq_dot.cuh, shared with the
+// grouped mixture-of-experts prefill kernel). It rounds the weight where the
+// two kernels above never do, so it has a plain version of its own. An
+// 80-row x 128-column tile per block; bound by operations from a few hundred
+// rows on.
+#include "deq_dot.cuh"
 
 namespace mnn {
 
@@ -244,6 +252,53 @@ dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
   }
 }
 
+template <int BITS>
+__global__ void __launch_bounds__(DD_THREADS)
+dqmm_deq_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+                const float* __restrict__ out_bias, void* __restrict__ out, int M, int K, int N,
+                int bs, int out_f32) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DdSmem& sm = *reinterpret_cast<DdSmem*>(smem_raw);
+  const int row0 = blockIdx.y * DD_ROWS, rows = min(DD_ROWS, M - row0);
+  const int n0 = blockIdx.x * DD_TILE_N;
+  float acc[DD_MT][2][4];
+  deq_dot_tile<BITS, false>(x + (long)row0 * K, K, rows, packed, scale, bias, K, N, bs, n0, sm, acc);
+#pragma unroll
+  for (int mt = 0; mt < DD_MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = dd_row(mt, hr);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = n0 + dd_col(nt, j);
+          if (col >= N) continue;
+          float v = as_out(acc[mt][nt][2 * hr + j], out_f32);
+          if (out_bias) v = __fadd_rn(v, out_bias[col]);
+          store_out(out, (long)(row0 + r) * N + col, v, out_f32);
+        }
+    }
+}
+
+template <int BITS>
+static cudaError_t launch_deq(const void* x, const void* packed, const void* scale,
+                              const void* bias, const void* out_bias, void* out, int M, int K,
+                              int N, int bs, int out_f32, cudaStream_t st) {
+  auto kern = dqmm_deq_kernel<BITS>;
+  static size_t granted = 0;
+  cudaError_t e = allow_smem(kern, sizeof(DdSmem), granted);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + DD_TILE_N - 1) / DD_TILE_N, (M + DD_ROWS - 1) / DD_ROWS);
+  kern<<<grid, DD_THREADS, sizeof(DdSmem), st>>>(
+      static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
+      static_cast<const float*>(out_bias), out, M, K, N, bs, out_f32);
+  return cudaGetLastError();
+}
+
 template <int BITS, int MR>
 static cudaError_t launch_rows(const void* x, const void* packed, const void* scale,
                                const void* bias, const void* out_bias, void* out,
@@ -277,6 +332,19 @@ MNN_API int mnn_dequant_matmul(const void* x, const void* packed, const void* sc
   if (bits == 8)
     return M == 1 ? launch_rows<8, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st)
                   : launch_rows<8, 4>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y[M, N] = x[M, K] (bf16) @ bf16(dequant(packed, scale, bias)) (+ out_bias): the
+// dequantize-tile algebra, same operands as mnn_dequant_matmul
+MNN_API int mnn_dequant_matmul_deq(const void* x, const void* packed, const void* scale,
+                                   const void* bias, const void* out_bias, void* out,
+                                   int M, int K, int N, int bits, int bs, int out_f32,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bs > DD_MAXBS || bs % 16 || K % bs || K % 8 || N % 4) return (int)cudaErrorInvalidValue;
+  if (bits == 4) return (int)launch_deq<4>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
+  if (bits == 8) return (int)launch_deq<8>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,12 @@
 """Fused per-block dequantize + matmul: W4/W8 weights, bf16 or int8 rows.
 
 Replaces the TPU kernels `mnn_tpu/kernels/dequant_matmul.py::_kernel`
-(bf16 activations) and `::_kernel_a8` (dynamic int8 activations), both
+(bf16 activations), `::_kernel_a8` (dynamic int8 activations) and
+`::_kernel_deq` (the dequantize-tile variant for many bf16 rows), all
 launched from the `pallas_call` in `_dequant_matmul_pallas`. CUDA sources:
-`csrc/dequant_matmul.cu`.
+`csrc/dequant_matmul.cu`, `csrc/deq_dot.cuh`.
 
-Both follow the Pallas algebra. With per-block affine weights
+The first two follow the Pallas algebra. With per-block affine weights
 w = q * s_b + m_b (q unsigned), a quant block's contribution is
 
     x_b @ w_b = (x_b @ q_b) * s_b  +  rowsum(x_b) * m_b
@@ -34,8 +35,15 @@ What bounds it on the H100, and what the simple design does about it:
   `dqmm_a8_kernel` tiles the output 64 x 64, stages x and the unpacked,
   re-centred pattern in shared memory as packed int8 quads, and runs
   `__dp4a` on CUDA cores. Tensor cores (`mma`/`wgmma` int8) are later work.
-* The bf16 path at M > 1 reuses the row kernel with 4 rows per block; it
-  is off the main path (prefill runs a8) and not tuned.
+* The bf16 path at M > 1 reuses the row kernel with 4 rows per block. A
+  mixture-of-experts model's shared expert runs it at M = 512 in prefill;
+  it is not tuned.
+* The dequantize-tile kernel (`m >= DEQ_MIN_M`, off by default as in the JAX
+  package) turns each quant block into wd = bf16(q * s + m) and dots bf16
+  rows with it on the tensor cores (`mma.sync`, `csrc/deq_dot.cuh`), whatever
+  `act_bits` says. It rounds the weight, which the other two never do, so
+  its plain version is `deq_dot_plain`, shared with the grouped
+  mixture-of-experts prefill kernel, and not the loop above.
 """
 
 from __future__ import annotations
@@ -58,7 +66,14 @@ KERNEL_BF16 = kernel("mnn_dequant_matmul", [P, P, P, P, P, P, I, I, I, I, I, I])
 KERNEL_A8 = kernel("mnn_dequant_matmul_a8",
                    [P, P, P, P, P, P, P, I, I, I, I, I, I])
 
+# int mnn_dequant_matmul_deq(...): the same operands as mnn_dequant_matmul
+KERNEL_DEQ = kernel("mnn_dequant_matmul_deq", [P, P, P, P, P, P, I, I, I, I, I, I])
+
 MAX_BLOCK = 128   # largest quant block the kernels stage in shared memory
+
+# Rows at or above which the dequantize-tile kernel replaces the other two.
+# Off by default, as in the JAX package; a caller or a test sets it lower.
+DEQ_MIN_M = 1 << 30
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -90,17 +105,53 @@ def _unpack_block(packed: torch.Tensor, kb: int, bits: int, bs: int):
     return unpack_bits(packed[kb * rows:(kb + 1) * rows], bits, bs)
 
 
+def deq_dot_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, bits: int, bs: int,
+                  partial: bool) -> torch.Tensor:
+    """Plain PyTorch version of `csrc/deq_dot.cuh`, batched over a leading
+    axis: x [E, M, K] @ dequant(packed [E, K * bits / 8, N]) -> f32 [E, M, N].
+
+    Rows are rounded to bf16. Per quant block either the partial-product
+    algebra, (x_b @ q) * s + rowsum(x_b) * m, or the dequantize-tile one,
+    x_b @ bf16(q * s + m); f32 sums over the blocks in order."""
+    xf = x.to(torch.bfloat16).float()
+    k = xf.shape[-1]
+    rows = bs * bits // 8
+    s, b = scale.float(), bias.float()
+    acc = None
+    for kb in range(k // bs):
+        w32 = packed[:, kb * rows:(kb + 1) * rows].to(torch.int32) & 0xFF
+        q = torch.cat([w32 & 0xF, w32 >> 4], dim=1) if bits == 4 else w32
+        xb = xf[:, :, kb * bs:(kb + 1) * bs]
+        sk, bk = s[:, kb, None, :], b[:, kb, None, :]
+        if partial:
+            term = (torch.bmm(xb, q.float()) * sk
+                    + xb.sum(dim=-1, keepdim=True) * bk)
+        else:
+            wd = (q.float() * sk + bk).to(torch.bfloat16).float()
+            term = torch.bmm(xb, wd)
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def dequant_matmul_plain(x2: torch.Tensor, ql: QuantizedLinear,
-                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of both kernels: x2 [M, K], one layer's ql.
-    Same algebra and rounding points; f32 sums in another order."""
+                         out_dtype=torch.bfloat16,
+                         deq: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the three kernels: x2 [M, K], one layer's ql.
+    Same algebra and rounding points; f32 sums in another order. `deq`: the
+    dequantize-tile algebra (bf16 rows whatever `ql.act_bits` is)."""
     m, k = x2.shape
     bs, bits = ql.block_size, ql.bits
+    if bits not in (4, 8):
+        raise ValueError(f"W{bits} unpacking is not ported")
     s = ql.scale.float()
     b = ql.bias.float()
     acc = torch.zeros((m, ql.out_features), dtype=torch.float32,
                       device=x2.device)
-    if ql.act_bits == 8:
+    if deq:
+        y = deq_dot_plain(x2[None], ql.packed[None], ql.scale[None],
+                          ql.bias[None], bits, bs, partial=False)[0].to(out_dtype)
+    elif ql.act_bits == 8:
         xq, xs = quantize_activations_int8(x2)
         center = 1 << (bits - 1)
         xf = xq.float()
@@ -126,7 +177,8 @@ def dequant_matmul_plain(x2: torch.Tensor, ql: QuantizedLinear,
     return y
 
 
-def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype) -> torch.Tensor:
+def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype,
+            deq: bool) -> torch.Tensor:
     m, k = x2.shape
     n = ql.out_features
     _check_weights(ql, k)
@@ -134,7 +186,15 @@ def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype) -> torch.Tensor:
         raise TypeError(f"out_dtype {out_dtype} unsupported")
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     out_f32 = int(out_dtype == torch.float32)
-    if ql.act_bits == 8:
+    if deq:
+        if k % 8 or ql.block_size % 16:
+            raise ValueError("the dequantize-tile kernel needs K % 8 == 0 "
+                             "and block_size % 16 == 0")
+        x2 = x2.to(torch.bfloat16).contiguous()
+        KERNEL_DEQ(x2.data_ptr(), ql.packed.data_ptr(), ql.scale.data_ptr(),
+                   ql.bias.data_ptr(), _ptr(ql.out_bias), out.data_ptr(),
+                   m, k, n, ql.bits, ql.block_size, out_f32)
+    elif ql.act_bits == 8:
         if k % 4:
             raise ValueError("a8 path needs K % 4 == 0")
         xq, xs = quantize_activations_int8(x2)
@@ -161,13 +221,15 @@ def dequant_matmul(
 
     With `layer_index`, ql's tensors carry a leading layer axis [L, ...]
     and layer `layer_index` is read in place: its views start at the
-    stacked buffers' base plus the layer's offset, with no copy."""
+    stacked buffers' base plus the layer's offset, with no copy. From
+    `DEQ_MIN_M` rows on, the dequantize-tile kernel takes the call."""
     if layer_index is not None:
         ql = ql.layer(layer_index)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    deq = x2.shape[0] >= DEQ_MIN_M
     if use_kernel(x2, ql.packed):
-        y = _launch(x2, ql, out_dtype)
+        y = _launch(x2, ql, out_dtype, deq)
     else:
-        y = dequant_matmul_plain(x2, ql, out_dtype)
+        y = dequant_matmul_plain(x2, ql, out_dtype, deq)
     return y.reshape(*lead, ql.out_features)

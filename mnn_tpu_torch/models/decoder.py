@@ -1,4 +1,5 @@
-"""Decoder-only transformer forward pass (dense Qwen2/2.5, Qwen3, Llama-3).
+"""Decoder-only transformer forward pass (dense Qwen2/2.5, Qwen3, Llama-3,
+and the mixture-of-experts Qwen1.5-MoE / Qwen3-MoE).
 
 Counterpart of `mnn_tpu/models/decoder.py` (`_forward_unrolled`). Weights
 and the KV cache are stacked on a leading layer axis. A decode step (T = 1)
@@ -11,9 +12,16 @@ the fused decode-step kernel (bf16 / int8 cache) or, for an int4 cache,
 through a cache append and the flash decode kernel. The cache is updated in
 place.
 
-Not ported yet: MoE, the gemma family (sandwich norms, softcaps, alternating
-windows, dual rope), multimodal rope, LoRA, tensor parallelism, token-tree
-verify, PLE and deepstack.
+A mixture-of-experts layer routes in plain torch ops (`_route`: router
+product, softmax, top-k) and runs its experts in a kernel: a decode step of
+at most 8 rows through the fused kernel of `kernels/moe_decode.py`
+(`_moe_mlp_fused`), a prefill chunk through capacity-grouped dispatch and the
+kernel of `kernels/moe_prefill.py` (`_moe_mlp`). The whole-model decode
+kernel takes no mixture-of-experts model, in either package.
+
+Not ported yet: the gemma family (sandwich norms, softcaps, alternating
+windows, dual rope), multimodal rope, LoRA, tensor and expert parallelism,
+token-tree verify, PLE and deepstack.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
-from mnn_tpu_torch.kernels import decode_model
+from mnn_tpu_torch.kernels import decode_model, moe_decode, moe_prefill
 from mnn_tpu_torch.kernels.decode_step import fused_decode_attention
 from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from mnn_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
@@ -45,12 +53,21 @@ class LayerParams:
 
     wqkv: QuantizedLinear        # [hidden, Hkv * (G+2) * D]
     wo: QuantizedLinear          # [H*D, hidden]
-    wgu: QuantizedLinear         # [hidden, 2 * intermediate], 64-block gate/up interleave
-    wdown: QuantizedLinear       # [intermediate, hidden]
+    # [hidden, 2 * intermediate], 64-block gate/up interleave; None for a
+    # pure mixture-of-experts layer
+    wgu: Optional[QuantizedLinear]
+    wdown: Optional[QuantizedLinear]        # [intermediate, hidden]
     input_norm: torch.Tensor     # [L, hidden] f32
     post_norm: torch.Tensor      # [L, hidden] f32
     q_norm: Optional[torch.Tensor] = None   # [L, head_dim] (qwen3)
     k_norm: Optional[torch.Tensor] = None
+    # mixture of experts: the expert stacks carry [L, E, ...]
+    router: Optional[torch.Tensor] = None             # [L, hidden, E] f32
+    wgu_e: Optional[QuantizedLinear] = None           # [L, E, hidden, 2 * moe_inter]
+    wdown_e: Optional[QuantizedLinear] = None         # [L, E, moe_inter, hidden]
+    wgu_shared: Optional[QuantizedLinear] = None      # qwen2-moe shared expert
+    wdown_shared: Optional[QuantizedLinear] = None
+    shared_gate: Optional[torch.Tensor] = None        # [L, hidden] f32, sigmoid gate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +83,10 @@ def _check_supported(c: ModelConfig):
     gemma_like = (c.sandwich_norm or c.mlp_act != "silu" or c.attn_softcap
                   or c.final_softcap or c.swa_every_other or c.swa_pattern
                   or c.embed_scale)
-    if c.is_moe or gemma_like or c.mrope_section or c.kv_rotate:
+    if gemma_like or c.mrope_section or c.kv_rotate:
         raise NotImplementedError(
-            f"{c.name}: only dense qwen/llama configs are ported")
+            f"{c.name}: only qwen/llama configs, dense or mixture of "
+            "experts, are ported")
 
 
 def init_random_params(
@@ -87,37 +105,63 @@ def init_random_params(
     The generator must live on the CPU; the same seed then gives the same
     weights whatever `device` is. Unlike the JAX fast path, each layer gets
     its own bytes: a stack of one broadcast layer would serve the per-layer
-    weights from the H100's 50 MB L2 cache and flatter decode timings."""
+    weights from the H100's 50 MB L2 cache and flatter decode timings. So
+    does every expert. Each stack is made one layer at a time and moved to
+    `device` as it is made: the host never holds a second copy of the
+    expert bytes (6.6 GB at qwen1.5-moe-a2.7b's size)."""
     c = config
     _check_supported(c)
     g = generator
 
-    def packed_rand(*shape):
-        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    def packed_rand(lead, rows, n_dim):
+        out = torch.empty((*lead, rows, n_dim), dtype=torch.int8, device=device)
+        for i in range(lead[0] if lead else 1):
+            part = torch.randint(-128, 128, (*lead[1:], rows, n_dim),
+                                 generator=g, dtype=torch.int8)
+            (out[i] if lead else out).copy_(part)
+        return out
 
     def ql(k_dim, n_dim, with_bias, bits=quant_bits, lead=(c.num_layers,),
            a_bits=act_bits):
         bs = choose_block_size(k_dim, quant_block)
         qmax = (1 << bits) - 1
         s = torch.full((*lead, k_dim // bs, n_dim), 2 * scale / qmax,
-                       dtype=torch.bfloat16)
+                       dtype=torch.bfloat16, device=device)
         return QuantizedLinear(
-            packed=packed_rand(*lead, k_dim * bits // 8, n_dim),
+            packed=packed_rand(lead, k_dim * bits // 8, n_dim),
             scale=s, bias=-s * (qmax / 2),
             out_bias=torch.zeros((*lead, n_dim)) if with_bias else None,
             bits=bits, block_size=bs, act_bits=a_bits)
 
     qkv_n = (c.num_heads + 2 * c.num_kv_heads) * c.head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32)
+    wqkv = ql(c.hidden_size, qkv_n, c.attention_bias)
+    wo = ql(c.q_dim, c.hidden_size, False)
+    moe_fields = {}
+    if c.is_moe:
+        # expert weights keep bf16 rows (act_bits 16), as in the JAX package
+        mi, lead_e = c.moe_intermediate_size, (c.num_layers, c.num_experts)
+        moe_fields = dict(
+            router=torch.randn((c.num_layers, c.hidden_size, c.num_experts),
+                               generator=g) * scale,
+            wgu_e=ql(c.hidden_size, 2 * mi, False, lead=lead_e, a_bits=16),
+            wdown_e=ql(mi, c.hidden_size, False, lead=lead_e, a_bits=16))
+        si = c.shared_expert_intermediate_size
+        if si:
+            moe_fields.update(
+                wgu_shared=ql(c.hidden_size, 2 * si, False),
+                wdown_shared=ql(si, c.hidden_size, False),
+                shared_gate=torch.zeros((c.num_layers, c.hidden_size)))
+    dense = not c.is_moe
     layers = LayerParams(
-        wqkv=ql(c.hidden_size, qkv_n, c.attention_bias),
-        wo=ql(c.q_dim, c.hidden_size, False),
-        wgu=ql(c.hidden_size, 2 * c.intermediate_size, False),
-        wdown=ql(c.intermediate_size, c.hidden_size, False),
+        wqkv=wqkv, wo=wo,
+        wgu=ql(c.hidden_size, 2 * c.intermediate_size, False) if dense else None,
+        wdown=ql(c.intermediate_size, c.hidden_size, False) if dense else None,
         input_norm=ones(c.num_layers, c.hidden_size),
         post_norm=ones(c.num_layers, c.hidden_size),
         q_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
         k_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
+        **moe_fields,
     )
     emb = torch.randn((c.vocab_size, c.hidden_size), generator=g).to(
         torch.bfloat16) * scale
@@ -163,7 +207,9 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
 
     Keys are dotted field names: "embedding", "final_norm", "lm_head" (a
     dense head) or "lm_head.packed"/".scale"/".bias" (quantized),
-    "layers.input_norm", "layers.wqkv.packed", "layers.wqkv.out_bias", ...
+    "layers.input_norm", "layers.wqkv.packed", "layers.wqkv.out_bias", ...;
+    for a mixture-of-experts config "layers.router", "layers.wgu_e.packed"
+    ([L, E, ...] as it is), "layers.wgu_shared.packed", "layers.shared_gate".
     A quantized linear's static metadata comes under the same prefix as
     ints: "layers.wqkv.bits", ".block_size", ".act_bits". Bytes are taken
     as they are: the packed layout is the same in both packages."""
@@ -180,11 +226,18 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
             block_size=int(arrays[prefix + ".block_size"]),
             act_bits=int(arrays.get(prefix + ".act_bits", 16)))
 
+    def opt_ql(prefix):     # a projection the config may not have
+        return ql(prefix) if prefix + ".packed" in arrays else None
+
     layers = LayerParams(
-        wqkv=ql("layers.wqkv"), wo=ql("layers.wo"), wgu=ql("layers.wgu"),
-        wdown=ql("layers.wdown"), input_norm=get("layers.input_norm"),
+        wqkv=ql("layers.wqkv"), wo=ql("layers.wo"), wgu=opt_ql("layers.wgu"),
+        wdown=opt_ql("layers.wdown"), input_norm=get("layers.input_norm"),
         post_norm=get("layers.post_norm"), q_norm=get("layers.q_norm"),
-        k_norm=get("layers.k_norm"))
+        k_norm=get("layers.k_norm"), router=get("layers.router"),
+        wgu_e=opt_ql("layers.wgu_e"), wdown_e=opt_ql("layers.wdown_e"),
+        wgu_shared=opt_ql("layers.wgu_shared"),
+        wdown_shared=opt_ql("layers.wdown_shared"),
+        shared_gate=get("layers.shared_gate"))
     if "lm_head.packed" in arrays:
         head = ql("lm_head")
     else:
@@ -198,6 +251,129 @@ def _gated_act(c: ModelConfig, gu: torch.Tensor) -> torch.Tensor:
     """Gated MLP activation: SwiGLU (qwen/llama)."""
     gate, up = split_gate_up(gu)
     return swiglu(gate, up)
+
+
+# Expert capacity of the grouped prefill path: factor * ceil(n * k / E),
+# clamped to n, so that small batches drop nothing.
+MOE_CAPACITY_FACTOR = 2.0
+
+
+def _route(c: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """Top-k routing of rows x [n, hidden] through one layer's router
+    [hidden, E]: (weights [n, k] f32, expert ids [n, k]). Among equal
+    probabilities the lower expert index comes first, as `jax.lax.top_k`
+    orders them (a stable descending sort; `torch.topk` promises no order).
+    Everything stays on the device."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = c.num_experts_per_tok
+    vals, idx = order.values[:, :k], order.indices[:, :k]
+    if c.norm_topk_prob:
+        vals = vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return vals, idx
+
+
+def _shared_expert(x: torch.Tensor, layers: LayerParams, i: int) -> torch.Tensor:
+    """The shared expert's MLP of rows x [n, hidden] under its sigmoid gate,
+    f32 [n, hidden]."""
+    gu = dequant_matmul(x, layers.wgu_shared, layer_index=i)
+    out = dequant_matmul(swiglu(*split_gate_up(gu)), layers.wdown_shared,
+                         layer_index=i, out_dtype=torch.float32)
+    if layers.shared_gate is not None:
+        out = out * torch.sigmoid(x.float() @ layers.shared_gate[i])[:, None]
+    return out
+
+
+def _moe_mlp(c: ModelConfig, h2: torch.Tensor, layers: LayerParams,
+             i: int) -> torch.Tensor:
+    """Top-k routed expert MLP of layer i over h2 [B, T, hidden] -> f32.
+
+    Up to 8 rows (a decode step that the fused kernel refuses): one (token,
+    expert) pair at a time through `dequant_matmul`, reading expert
+    i * E + e in place; the ids come to the host for that. More rows (a
+    prefill chunk): capacity-grouped dispatch. The pairs are sorted by
+    expert (a stable sort: the rank inside an expert decides which tokens a
+    full expert drops), each takes the next slot of its expert's capacity
+    C = min(n, max(8, ceil8(2 * ceil(n * k / E)))), pairs past the capacity
+    are dropped, the rows are gathered into [E, C, hidden], the grouped
+    kernel runs every expert's batch, and each token gathers its k slots.
+    Rows that pad a chunk are routed and take capacity like real ones."""
+    b, t, hidden = h2.shape
+    n = b * t
+    x = h2.reshape(n, hidden)
+    vals, idx = _route(c, x, layers.router[i])
+    e_n, k = c.num_experts, c.num_experts_per_tok
+    dev = x.device
+    if layers.wgu_e.packed.shape[1] != e_n:
+        raise NotImplementedError(
+            "expert-parallel dense dispatch (a shard of the experts) is not "
+            "ported")
+
+    if n <= 8:
+        gu_flat, dn_flat = layers.wgu_e.flat_experts(), layers.wdown_e.flat_experts()
+        y = torch.zeros((n, hidden), dtype=torch.float32, device=dev)
+        for p, ei in enumerate(idx.reshape(-1).tolist()):
+            ti = p // k
+            gu = dequant_matmul(x[ti:ti + 1], gu_flat, layer_index=i * e_n + ei)
+            out = dequant_matmul(swiglu(*split_gate_up(gu)), dn_flat,
+                                 layer_index=i * e_n + ei, out_dtype=torch.float32)
+            y[ti] += out[0] * vals[ti, p % k]
+    else:
+        avg = -(-n * k // e_n)
+        cap = min(n, max(8, -(-int(MOE_CAPACITY_FACTOR * avg) // 8) * 8))
+        flat_e = idx.reshape(-1)
+        flat_t = torch.arange(n, device=dev).repeat_interleave(k)
+        order = torch.argsort(flat_e, stable=True)
+        se, st, sw = flat_e[order], flat_t[order], vals.reshape(-1)[order]
+        rank = torch.arange(n * k, device=dev) - torch.searchsorted(se, se, right=False)
+        # a pair past its expert's capacity goes to a slot past the table's
+        # end, which is cut off again
+        slot = torch.where(rank < cap, se * cap + rank, e_n * cap)
+        tok_tab = torch.full((e_n * cap + 1,), n, dtype=torch.int64, device=dev)
+        tok_tab[slot] = st
+        w_tab = torch.zeros((e_n * cap + 1,), dtype=torch.float32, device=dev)
+        w_tab[slot] = sw
+        tok_tab, w_tab = tok_tab[:-1], w_tab[:-1]
+        x_pad = torch.cat([x, x.new_zeros((1, hidden))])          # row n: empty
+        xe = x_pad[tok_tab].reshape(e_n, cap, hidden)
+        w_e = w_tab.reshape(e_n, cap)
+        gu_l, dn_l = layers.wgu_e.layer(i), layers.wdown_e.layer(i)
+        if moe_prefill.supports(gu_l, dn_l, hidden, cap):
+            ye = moe_prefill.moe_prefill_mlp(xe.to(torch.bfloat16), w_e, gu_l, dn_l)
+            # combine by gather: each token reads its k slots (a dropped
+            # pair reads the zero row)
+            slot_of = slot[torch.argsort(order)]
+            ye_pad = torch.cat([ye.reshape(e_n * cap, hidden),
+                                ye.new_zeros((1, hidden))])
+            y = ye_pad[slot_of].reshape(n, k, hidden).sum(dim=1)
+        else:
+            # what the grouped kernel refuses: one expert's batch at a time
+            y = torch.zeros((n + 1, hidden), dtype=torch.float32, device=dev)
+            t_e = tok_tab.reshape(e_n, cap)
+            for ei in range(e_n):
+                gu = dequant_matmul(xe[ei], gu_l, layer_index=ei)
+                out = dequant_matmul(swiglu(*split_gate_up(gu)), dn_l,
+                                     layer_index=ei, out_dtype=torch.float32)
+                y.index_add_(0, t_e[ei], out * w_e[ei][:, None])
+            y = y[:n]
+    if layers.wgu_shared is not None:
+        y = y + _shared_expert(x, layers, i)
+    return y.reshape(b, t, hidden)
+
+
+def _moe_mlp_fused(c: ModelConfig, h2: torch.Tensor, layers: LayerParams,
+                   i: int) -> torch.Tensor:
+    """A decode step's expert MLP of layer i: routing in torch ops, every
+    expert GEMV and the shared expert in the fused kernel. No expert id
+    crosses to the host."""
+    b, t, hidden = h2.shape
+    x = h2.reshape(b * t, hidden)
+    vals, idx = _route(c, x, layers.router[i])
+    gate = None
+    if layers.shared_gate is not None:
+        gate = torch.sigmoid(x.float() @ layers.shared_gate[i])
+    y = moe_decode.moe_decode_mlp(x, layers, idx, vals, i, gate, config=c)
+    return y.reshape(b, t, hidden)
 
 
 def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
@@ -287,6 +463,8 @@ def forward(
         return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
 
     fused = t == 1 and cache.bits != 4
+    # a decode step of at most 8 rows takes the fused expert kernel
+    moe_fast = c.is_moe and t == 1 and moe_decode.supports(c, layers, b)
     for i in range(c.num_layers):
         h = rms_norm(x, layers.input_norm[i], c.rms_norm_eps)
         qkv = dequant_matmul(h, layers.wqkv, layer_index=i)
@@ -333,8 +511,11 @@ def forward(
         o = dequant_matmul(att, layers.wo, layer_index=i)
         x = x + o.to(x.dtype)
         h2 = rms_norm(x, layers.post_norm[i], c.rms_norm_eps)
-        gu = dequant_matmul(h2, layers.wgu, layer_index=i)
-        d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
+        if c.is_moe:
+            d = (_moe_mlp_fused if moe_fast else _moe_mlp)(c, h2, layers, i)
+        else:
+            gu = dequant_matmul(h2, layers.wgu, layer_index=i)
+            d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
         x = x + d.to(x.dtype)
 
     return _finish(params, c, x, kvcache.with_length(cache, kv_len), all_logits,

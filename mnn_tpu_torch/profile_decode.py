@@ -14,7 +14,9 @@ time in the traced run (the sum of the kernels' device times; one stream, so
 they do not overlap), the idle share of the untraced wall time, the number of
 kernel launches, and the device time of each kernel by name; for the
 whole-model kernel also the share of its time that each kind of phase takes
-(block 0's clock at the end of every phase). The JSON goes to
+(block 0's clock at the end of every phase). A mixture-of-experts preset
+(`--preset qwen1.5-moe-a2.7b`) has the per-layer path only: its expert MLP
+runs in the fused expert kernel, one entry a layer. The JSON goes to
 `chiprun_out/decode_profile.json` as well. Needs a card; it never runs on the
 CPU.
 """
@@ -128,7 +130,8 @@ def main(argv=None):
     res = dict(card=smi, preset=args.preset, prompt=args.prompt,
                steps=args.steps, kv_bits=args.kv_bits,
                decode_megakernel=info["decode_megakernel"],
-               decode_fused_head=info["decode_fused_head"], paths={})
+               decode_fused_head=info["decode_fused_head"],
+               decode_moe_fused=info["decode_moe_fused"], paths={})
     print(f"card: {smi}")
     for name, flag in PATHS.items():
         if flag is None and not info["decode_megakernel"]:

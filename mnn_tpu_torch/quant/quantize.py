@@ -30,7 +30,8 @@ class QuantizedLinear:
     """Weights of one linear layer in the packed per-block format.
 
     The tensors may carry a leading layer axis [L, ...] ("stacked");
-    kernels then read one layer in place through `layer_index`.
+    kernels then read one layer in place through `layer_index`. Expert
+    stacks carry two, [L, E, ...] (`flat_experts`).
     """
 
     packed: torch.Tensor               # int8 [K*bits//8, N]
@@ -57,6 +58,15 @@ class QuantizedLinear:
         return dataclasses.replace(
             self, packed=sl(self.packed), scale=sl(self.scale),
             bias=sl(self.bias), out_bias=sl(self.out_bias))
+
+    def flat_experts(self) -> "QuantizedLinear":
+        """An expert stack [L, E, ...] seen as [L * E, ...], as views (no
+        copy): expert e of layer l is `.layer(l * E + e)`, and a kernel
+        wrapper hands its kernel the base pointers and that flat index."""
+        fl = lambda t: None if t is None else t.reshape(-1, *t.shape[2:])
+        return dataclasses.replace(
+            self, packed=fl(self.packed), scale=fl(self.scale),
+            bias=fl(self.bias), out_bias=fl(self.out_bias))
 
 
 def choose_block_size(k: int, requested: int, shards: int = 1) -> int:

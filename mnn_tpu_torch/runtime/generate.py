@@ -65,12 +65,14 @@ def prefill_chunk(params: Params, config: ModelConfig, tokens: torch.Tensor,
 def prefill_params_view(params: Params, rt: RuntimeConfig) -> Params:
     """Prefill activation precision: with prefill_act_bits=8 the layers'
     projections run with dynamic int8 rows (W4A8) on the same packed
-    weights; the lm head and decode keep bf16 rows."""
+    weights; the lm head, the expert and shared-expert weights of a
+    mixture-of-experts model (both expert kernels need bf16 rows) and
+    decode keep bf16 rows."""
     if rt.prefill_act_bits != 8:
         return params
 
-    def a8(ql):
-        return dataclasses.replace(ql, act_bits=8)
+    def a8(ql):     # a pure mixture-of-experts layer has no wgu / wdown
+        return None if ql is None else dataclasses.replace(ql, act_bits=8)
 
     lay = params.layers
     lay = dataclasses.replace(lay, wqkv=a8(lay.wqkv), wo=a8(lay.wo),

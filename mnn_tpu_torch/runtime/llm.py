@@ -22,7 +22,7 @@ from typing import Iterator, List, Optional
 
 import torch
 
-from mnn_tpu_torch.kernels import decode_model
+from mnn_tpu_torch.kernels import decode_model, moe_decode
 from mnn_tpu_torch.kernels.common import resolve_device
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.decoder import Params, init_random_params
@@ -114,7 +114,13 @@ class Llm:
         c = self.config
         flops_tok = 2 * c.num_layers * (
             c.hidden_size * (c.num_heads + 2 * c.num_kv_heads) * c.head_dim
-            + c.q_dim * c.hidden_size + 3 * c.hidden_size * c.intermediate_size)
+            + c.q_dim * c.hidden_size)
+        if c.is_moe:     # the k routed experts and the shared one
+            inter = (c.num_experts_per_tok * c.moe_intermediate_size
+                     + c.shared_expert_intermediate_size)
+        else:
+            inter = c.intermediate_size
+        flops_tok += 2 * c.num_layers * 3 * c.hidden_size * inter
         flops_tok += 2 * c.hidden_size * c.vocab_size
         cuda = self.device.type == "cuda"
         return {
@@ -128,6 +134,10 @@ class Llm:
             "decode_megakernel": decode_model.supports(
                 c, self.params, self.cache, self.rt.max_batch),
             "decode_fused_head": decode_model.supports_head(c, self.params),
+            # mixture of experts: does the fused expert kernel serve decode
+            # steps (else one pair at a time through the matmul kernel)?
+            "decode_moe_fused": c.is_moe and moe_decode.supports(
+                c, self.params.layers, self.rt.max_batch),
             "kv_capacity": self.cache.capacity,
             "context_len": self.context_len,
             "flops_per_token": int(flops_tok),

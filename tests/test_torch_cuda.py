@@ -15,7 +15,10 @@ against JAX: rel-L2 1e-2 for the dequant matmuls, 2e-2 for flash prefill,
 (a rounding tie under another summation order). The whole-model decode
 kernel is held to `decode_model.PARITY_BOUNDS` from the same state: logits
 rel-L2 5e-2, x 2e-2, layer-0 rows one level and scales 8e-3, all layers'
-dequantized rows 3e-2.
+dequantized rows 3e-2. The two mixture-of-experts kernels are held to rel-L2
+2e-2 (the JAX tests' own bound, `tests/test_moe_decode.py`), the
+dequantize-tile matmul to 1e-2; the fused expert decode kernel must also give
+the same bits twice.
 """
 
 import dataclasses
@@ -24,7 +27,7 @@ import pytest
 import torch
 
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
-                                   flash_attention)
+                                   flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import decoder
 from mnn_tpu_torch.models.config import ModelConfig, RuntimeConfig
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
@@ -322,3 +325,114 @@ def _clone(cache):
     cl = lambda t: None if t is None else t.clone()
     return dataclasses.replace(cache, k=cl(cache.k), v=cl(cache.v),
                                k_scale=cl(cache.k_scale), v_scale=cl(cache.v_scale))
+
+
+# (bits, M, K, N, block, out f32, out_bias): ragged N, partial row slabs
+DEQ = [(4, 512, 256, 384, 128, False, True), (4, 90, 384, 1028, 128, True, False),
+       (8, 33, 256, 132, 64, False, True), (4, 7, 128, 200, 32, False, False)]
+
+
+@pytest.mark.parametrize("bits,m,k,n,bs,f32,with_bias", DEQ)
+def test_dequant_matmul_deq_kernel(dev, bits, m, k, n, bs, f32, with_bias, monkeypatch):
+    g = torch.Generator(device=dev).manual_seed(m * n + bits)
+    ql = rand_ql(g, dev, k, n, bits, 8, 3, with_bias)      # act_bits is ignored
+    nb = k // bs
+    ql = dataclasses.replace(
+        ql, block_size=bs,
+        scale=ql.scale[:, :1].expand(3, nb, n).contiguous(),
+        bias=(torch.randn((3, nb, n), device=dev, generator=g) * 0.01).to(torch.bfloat16))
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    monkeypatch.setattr(dequant_matmul, "DEQ_MIN_M", m)
+    before = dequant_matmul.KERNEL_DEQ.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=1, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(1), out_dtype, deq=True)
+    torch.cuda.synchronize()
+    assert dequant_matmul.KERNEL_DEQ.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 1e-2
+
+
+def rand_experts(g, dev, lead, k, n, bits, bs):
+    """An expert stack [*lead, ...] with its own scale and bias per block."""
+    packed = torch.randint(-128, 128, (*lead, k * bits // 8, n), dtype=torch.int8,
+                           device=dev, generator=g)
+    qmax = (1 << bits) - 1
+    scale = ((torch.rand((*lead, k // bs, n), device=dev, generator=g) + 0.5)
+             * 0.1 / qmax).to(torch.bfloat16)
+    bias = (-(qmax / 2) * scale.float()
+            + torch.randn((*lead, k // bs, n), device=dev, generator=g) * 2e-3
+            ).to(torch.bfloat16)
+    return QuantizedLinear(packed=packed, scale=scale, bias=bias, out_bias=None,
+                           bits=bits, block_size=bs)
+
+
+# (bits, E, C, H, mi, block of gate/up, block of down): both algebras per
+# product, a partial last slab (C > 80), a ragged last tile of H
+PREFILL_MOE = [(4, 3, 72, 256, 128, 128, 128), (4, 2, 144, 256, 192, 128, 64),
+               (8, 2, 24, 128, 64, 64, 64), (4, 2, 100, 192, 64, 64, 32),
+               (4, 2, 8, 256, 128, 128, 128)]
+
+
+@pytest.mark.parametrize("bits,e,cap,h,mi,bs_h,bs_mi", PREFILL_MOE)
+def test_moe_prefill_kernel(dev, bits, e, cap, h, mi, bs_h, bs_mi):
+    g = torch.Generator(device=dev).manual_seed(e * cap + h)
+    gu = rand_experts(g, dev, (e,), h, 2 * mi, bits, bs_h)
+    dn = rand_experts(g, dev, (e,), mi, h, bits, bs_mi)
+    xe = torch.randn((e, cap, h), device=dev, generator=g).to(torch.bfloat16)
+    w_e = torch.rand((e, cap), device=dev, generator=g)
+    xe[:, -3:] = 0                           # empty slots
+    w_e[:, -3:] = 0
+    assert moe_prefill.supports(gu, dn, h, cap)
+    before = moe_prefill.KERNEL.launches
+    got = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
+    want = moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn)
+    torch.cuda.synchronize()
+    assert moe_prefill.KERNEL.launches == before + 1
+    assert got.shape == (e, cap, h) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 2e-2
+    assert (got[:, -3:] == 0).all()
+
+
+def moe_cfg(h, e, k, mi, si):
+    return ModelConfig(name="moe-test", vocab_size=256, hidden_size=h,
+                       intermediate_size=256, num_layers=3, num_heads=2,
+                       num_kv_heads=1, head_dim=64, num_experts=e,
+                       num_experts_per_tok=k, moe_intermediate_size=mi,
+                       shared_expert_intermediate_size=si)
+
+
+# (bits, n, H, E, k, mi, si, with gate)
+DECODE_MOE = [(4, 1, 256, 6, 2, 128, 256, True), (4, 3, 256, 6, 4, 192, 0, False),
+              (8, 8, 128, 4, 2, 64, 128, False), (4, 5, 2048, 8, 4, 1408, 1024, True)]
+
+
+@pytest.mark.parametrize("bits,n,h,e,k,mi,si,with_gate", DECODE_MOE)
+def test_moe_decode_kernel(dev, bits, n, h, e, k, mi, si, with_gate):
+    cfg = moe_cfg(h, e, k, mi, si)
+    nl = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(n * h + e)
+    bs_mi = 128 if mi % 128 == 0 else 64
+    lay = decoder.LayerParams(
+        wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
+        wgu_e=rand_experts(g, dev, (nl, e), h, 2 * mi, bits, 128),
+        wdown_e=rand_experts(g, dev, (nl, e), mi, h, bits, bs_mi),
+        wgu_shared=rand_experts(g, dev, (nl,), h, 2 * si, bits, 128) if si else None,
+        wdown_shared=rand_experts(g, dev, (nl,), si, h, bits, 128) if si else None)
+    x = torch.randn((n, h), device=dev, generator=g) * 0.5
+    sel = torch.stack([torch.randperm(e, device=dev, generator=g)[:k] for _ in range(n)])
+    wsel = torch.rand((n, k), device=dev, generator=g)
+    gate = torch.rand((n,), device=dev, generator=g) if with_gate else None
+    assert moe_decode.supports(cfg, lay, n)
+    before = moe_decode.KERNEL.launches
+    got = moe_decode.moe_decode_mlp(x, lay, sel, wsel, 2, gate, config=cfg)
+    again = moe_decode.moe_decode_mlp(x, lay, sel, wsel, 2, gate, config=cfg)
+    want = moe_decode.moe_decode_mlp_plain(x, lay, sel, wsel, 2, gate, config=cfg)
+    torch.cuda.synchronize()
+    assert moe_decode.KERNEL.launches == before + 2
+    assert got.shape == (n, h) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 2e-2
+    assert torch.equal(got, again)           # the same bits from run to run

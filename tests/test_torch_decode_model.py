@@ -284,12 +284,17 @@ def test_supports_agrees_with_jax(preset, monkeypatch):
 
 @pytest.mark.parametrize("preset", ["gemma2-2b", "gemma3-4b", "qwen1.5-moe-a2.7b"])
 def test_supports_refuses_what_the_port_does_not_run(preset):
-    """Gemma's kernel flags and MoE are not ported: `supports` says no, and
-    `forward` refuses the config on any path."""
+    """Gemma's kernel flags are not ported: `supports` says no, and `forward`
+    refuses the config on any path. A mixture of experts is refused by the
+    whole-model kernel only, in both packages: `forward` serves it layer by
+    layer (`tests/test_torch_moe.py`)."""
     cfg = PRESETS[preset]
     view = type("CacheView", (), dict(capacity=1024, bits=8))()
     params = type("P", (), dict(layers=None))()
     assert not decode_model.supports(cfg, params, view, 1)
+    if cfg.is_moe:
+        decoder._check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError):
         decoder.forward(None, cfg, torch.zeros((1, 1), dtype=torch.int64), None)
 
