@@ -11,7 +11,10 @@ Phases, each of which exits non-zero on failure:
    held against its plain PyTorch version on the same inputs on the card,
    with its time, the plain version's time, one PyTorch library call's time
    as a yardstick where one call computes the same function, and the least
-   time the card could take (bound). The whole-model decode kernel runs
+   time the card could take (bound). The int8-row matmul is also timed
+   alone on rows quantized beforehand and beside `torch._int_mm` on its
+   re-centred int8 pattern, at M = 512 and at the 32- and 128-row
+   buckets. The whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
@@ -210,13 +213,46 @@ MOE_PROJ = {  # qwen1.5-moe-a2.7b's attention projections
 }
 
 
+def a8_kernel_alone(ql, x, out_dtype, nl):
+    """Device ms of `KERNEL_A8` alone, on rows quantized beforehand: the
+    whole call also runs `quantize_activations_int8`'s torch ops."""
+    m, k = x.shape
+    xq, xs = quantize.quantize_activations_int8(x)
+    xs = xs.reshape(m).contiguous()
+    out = torch.empty((m, ql.out_features), dtype=out_dtype, device=x.device)
+
+    def launch(i):
+        q = ql.layer(i % nl)
+        dequant_matmul.KERNEL_A8(
+            xq.data_ptr(), xs.data_ptr(), q.packed.data_ptr(), q.scale.data_ptr(),
+            q.bias.data_ptr(), None if q.out_bias is None else q.out_bias.data_ptr(),
+            out.data_ptr(), m, k, ql.out_features, ql.bits, ql.block_size,
+            int(out_dtype == torch.float32))
+    return time_ms(launch, calls=max(nl, 8)), xq
+
+
+def int_mm_ms(ql, xq, nl):
+    """Yardstick: `torch._int_mm` of the int8 rows with the re-centred int8
+    pattern [K, N] (column-major, as cuBLASLt takes it), with no per-block
+    scales: the rate cuBLAS reaches on the int8 tensor cores."""
+    k, n = xq.shape[1], ql.out_features
+    center = 1 << (ql.bits - 1)
+    nint = copies_for(k * n, cap=nl)
+    wq = [(quantize.unpack_bits(ql.packed[i], ql.bits, ql.block_size) - center)
+          .to(torch.int8).t().contiguous().t() for i in range(nint)]
+    return time_ms(lambda i: torch._int_mm(xq, wq[i % nint]), calls=max(nint, 8))
+
+
 def phase_gemm(dev, g, results, *, a8: bool):
     """K1 (bf16 rows, M = 1: decode GEMVs and the lm head) or K2 (int8
-    rows, M = 512: prefill GEMMs)."""
+    rows, M = 512: prefill GEMMs; and qwen2-0.5b's gate/up at the 32- and
+    128-row buckets)."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
     shapes = [(p, k, n, b, 512 if a8 else 1)
               for p, (k, n, b) in list(PROJ.items()) + list(MOE_PROJ.items())]
-    if not a8:
+    if a8:
+        shapes += [("wgu", *PROJ["wgu"], 32), ("wgu", *PROJ["wgu"], 128)]
+    else:
         shapes += [("lm_head", 896, 151936, False, 1),
                    ("moe_lm_head", 2048, 151936, False, 1)]
         # qwen1.5-moe-a2.7b's shared expert in a prefill chunk: bf16 rows
@@ -259,10 +295,17 @@ def phase_gemm(dev, g, results, *, a8: bool):
                    tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                    l2_rotation=nl)
+        extra = ""
+        if a8:
+            row["kernel_alone_ms"], xq = a8_kernel_alone(ql, x, out_dtype, nl)
+            row["int_mm_ms"] = int_mm_ms(ql, xq, nl)
+            row["tile"] = dequant_matmul.a8_tile(m, n, ql.bits)
+            extra = (f" | alone {row['kernel_alone_ms']:.4f} int_mm {row['int_mm_ms']:.4f} "
+                     f"tile {row['tile'][0]}x{row['tile'][1]} smem {row['tile'][2]}")
         rows.append(row)
         print(f"  {name:18s} {row['shape']:32s} rel {rel:.2e} max_abs {err:.3g} | "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} lib {lib_ms:.4f} "
-              f"bound {bound:.4f} ({bound_by})", flush=True)
+              f"bound {bound:.4f} ({bound_by}){extra}", flush=True)
         del ql, x, got, want
         torch.cuda.empty_cache()
     results[name] = rows

@@ -1,9 +1,9 @@
 // Fused per-block dequantize + matmul for W4/W8 weights (sm_90a).
 //
-// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows) and
-// ::_kernel_a8 (int8 rows). Weights stay packed: int8 [K*bits/8, N] with
-// W4 nibble pairs (i, i + bs/2) inside each quant block, bf16 scale s and
-// bias m [K/bs, N]. A quant block contributes
+// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows),
+// ::_kernel_a8 (int8 rows) and ::_kernel_deq (dequantized tiles). Weights
+// stay packed: int8 [K*bits/8, N] with W4 nibble pairs (i, i + bs/2) inside
+// each quant block, bf16 scale s and bias m [K/bs, N]. A quant block contributes
 //     (x_b . q_b) * s_b + rowsum(x_b) * m_b            (bf16 rows)
 //     (x_b . (q_b - c)) * s_b + rowsum(x_b) * (c s_b + m_b)   (int8 rows, c = 2^(bits-1))
 // accumulated in f32 in the order acc + part*s + rowsum*m, with no FMA
@@ -15,10 +15,33 @@
 // quant blocks and are summed in shared memory. MR rows of x sit in shared
 // memory. At M = 1 the kernel is bound by the packed weight bytes.
 //
-// dqmm_a8_kernel: a 64 x 64 output tile per block, 256 threads with 4 x 4
-// outputs each. Per quant block it stages the int8 rows and the unpacked,
-// re-centred weights as packed int8 quads in shared memory and runs __dp4a
-// (exact int32). Tensor-core int8 (mma / wgmma) is later work.
+// dqmm_a8_kernel replaces ::_kernel_a8 (the W4A8/W8A8 prefill GEMM). At
+// M = 512 its two bounds on this card are close (qwen2-0.5b's qkv 0.53 us of
+// int8 operations against 0.66 us of bytes, gate/up 4.5 against 4.5, the
+// mixture-of-experts qkv 6.5 against 4.2). What holds it back is neither:
+// it is the latency of the serial steps each quant block takes (copy issue,
+// unpack, products, the f32 step; about 1.1 us a block at 4 to 16 warps an
+// SM, measured with clock64 stamps). The design:
+//  * products on the int8 tensor cores, `mma.sync.m16n8k32.s8.u8.s32` on the
+//    unsigned pattern q (exact int32, as __dp4a was); the re-centring is
+//    folded into the row sum: x . (q - c) = x . q - c * rs;
+//  * a ring of A8_STAGES quant blocks in shared memory filled by `cp.async`
+//    (packed rows as they lie in memory, the xq rows, the scale and bias
+//    rows), so the copy of block kb + 2 runs under the math of block kb;
+//    each thread's copy addresses are fixed but for the block's offset;
+//  * the unpack once per tile and block: a thread reads four packed rows of
+//    four columns as words, transposes 4 x 4 bytes (__byte_perm) into words
+//    of four K-values of one column, the B fragment register, and splits the
+//    nibbles; stored 16 bytes a lane, read conflict-free (8-word row
+//    padding), shared by all rows of the tile;
+//  * A fragments by ldmatrix.x4 from xq rows padded to 144 bytes (conflict-
+//    free); row sums by __dp4a on those fragments;
+//  * the f32 step per quant block on the int32 fragment, in the order of the
+//    plain version, so the two give the same bits;
+//  * tiles of 64 x 64, 32 x 64 or 16 x 64 with four warps, the tallest that
+//    still gives every SM a block, so 32-row buckets and N = 896 fill the card.
+// A quant block of fewer than 32 K-values (the mma depth) is padded with
+// zero K-values of xq in shared memory.
 //
 // dqmm_deq_kernel replaces ::_kernel_deq, the dequantize-tile variant for
 // many bf16 rows: per quant block the weights become wd = bf16(q * s + m) and
@@ -27,6 +50,8 @@
 // two kernels above never do, so it has a plain version of its own. An
 // 80-row x 128-column tile per block; bound by operations from a few hundred
 // rows on.
+#include <type_traits>
+
 #include "deq_dot.cuh"
 
 namespace mnn {
@@ -140,116 +165,316 @@ dqmm_rows_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-constexpr int A8_BM = 64, A8_BN = 64, A8_THREADS = 256, A8_MAXQ = 32;  // bs <= 128
+// ---------------------------------------------------------------------------
+// dqmm_a8_kernel: int8 rows x re-centred W4/W8 pattern on the int8 tensor cores
+// ---------------------------------------------------------------------------
 
-template <int BITS>
-__global__ void __launch_bounds__(A8_THREADS)
+constexpr int A8_STAGES = 3;    // quant blocks in flight in the copy ring
+constexpr int A8_XSTR = 144;    // bytes per staged xq row: 128 + 16, so ldmatrix is conflict-free
+constexpr int A8_KW = 32;       // K words (4 K-values each) of the largest quant block
+
+// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
+// one quant block][BN] bytes, [BM][A8_XSTR] bytes of xq and the block's scale
+// and bias rows, then the unpacked pattern as [A8_KW][BW] words, each word
+// four consecutive K-values of one column (a B fragment register).
+template <int BITS, int MT, int NT, int WM, int WN>
+struct A8Tile {
+  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
+  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int X_BYTES = BM * A8_XSTR;
+  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
+  static constexpr int BW = BN + 8;           // 8 words mod 32: B loads are conflict-free
+  static constexpr int SMEM = A8_STAGES * STAGE + A8_KW * BW * 4;
+};
+
+// d += a (int8) . b (uint8), exact in int32
+__device__ __forceinline__ void mma_s8u8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm(   // registers only: the compiler is free to schedule it among the loads
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of m16n8k32 (rows gid and gid + 8, K bytes 4 tig .. 4 tig + 3
+// and 16 more) is what ldmatrix.x4 of 8 x 8 b16 matrices gives each lane.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr));
+}
+
+// Copy W (16, 8 or 4) bytes from device to shared memory without waiting;
+// when `valid` is false nothing is read and the destination is zeroed.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? W : 0;
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(W),
+                 "r"(n)
+                 : "memory");
+}
+
+// f(std::integral_constant<int, w>()) for a copy width w of 16, 8 or 4, so a
+// loop of copies is compiled once per width and chosen once.
+template <class F>
+__device__ __forceinline__ void with_width(int w, F&& f) {
+  if (w == 16)
+    f(std::integral_constant<int, 16>());
+  else if (w == 8)
+    f(std::integral_constant<int, 8>());
+  else
+    f(std::integral_constant<int, 4>());
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Rows r0..r3 of four byte columns -> t[j], the four rows' bytes of column j.
+__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
+                                             uint32_t (&t)[4]) {
+  const uint32_t a = __byte_perm(r0, r1, 0x5140), b = __byte_perm(r0, r1, 0x7362);
+  const uint32_t c = __byte_perm(r2, r3, 0x5140), d = __byte_perm(r2, r3, 0x7362);
+  t[0] = __byte_perm(a, c, 0x5410);
+  t[1] = __byte_perm(a, c, 0x7632);
+  t[2] = __byte_perm(b, d, 0x5410);
+  t[3] = __byte_perm(b, d, 0x7632);
+}
+
+// One BM x BN output tile over the whole of K. vx, vw, vp: the bytes per
+// asynchronous copy of xq, of the packed rows and of the scale/bias rows
+// (16, 8 or 4, as their alignment allows).
+template <int BITS, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
 dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
                const uint8_t* __restrict__ packed, const bf16* __restrict__ scale,
                const bf16* __restrict__ bias, const float* __restrict__ out_bias,
-               void* __restrict__ out, int M, int K, int N, int bs, int out_f32) {
-  __shared__ int xs[A8_BM][A8_MAXQ + 1];     // int8 quads of x, padded rows
-  __shared__ int ws[A8_MAXQ][A8_BN];         // int8 quads of (q - c) along K
-  __shared__ int rsum[A8_BM];
-  __shared__ float s_s[A8_BN], b_s[A8_BN];
+               void* __restrict__ out, int M, int K, int N, int bs, int out_f32,
+               int vx, int vw, int vp) {
+  using T = A8Tile<BITS, MT, NT, WM, WN>;
+  constexpr int BM = T::BM, BN = T::BN, BW = T::BW, THREADS = T::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* bt = reinterpret_cast<uint32_t*>(smem_raw + A8_STAGES * T::STAGE);
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * A8_BM, n0 = blockIdx.x * A8_BN;
-  const int nq = bs >> 2;
-  const int nb = K / bs;
-  const int center = 1 << (BITS - 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nb = K / bs, kp = (bs + 31) & ~31;   // K-values per block, padded to the mma depth
+  const int rows_w = bs * BITS / 8;              // packed rows per quant block
+  const float center = (float)(1 << (BITS - 1));
 
-  float acc[4][4];
+  // xq rows are padded with zeros from bs to kp in every stage; the copies
+  // never write there, and a zero adds nothing to part or to the row sum
+  const int padq = (kp - bs) >> 3;
+  for (int i = tid; i < A8_STAGES * BM * padq; i += THREADS) {
+    const int s = i / (BM * padq), r = (i / padq) % BM, j = i % padq;
+    *reinterpret_cast<uint2*>(smem_raw + s * T::STAGE + T::W_BYTES + r * A8_XSTR + bs + 8 * j) =
+        make_uint2(0u, 0u);
+  }
+
+  // This thread's copies, the same for every quant block but for its offset:
+  // a column piece of every w_step-th packed row, of every x_step-th xq row,
+  // and at most one piece of the scale or bias row.
+  const int wc = BN / vw, w_r0 = tid / wc, w_c = (tid - w_r0 * wc) * vw, w_step = THREADS / wc;
+  const bool w_ok = n0 + w_c < N;
+  const int xcs = 128 / vx, x_r0 = tid / xcs, x_c = (tid - x_r0 * xcs) * vx, x_step = THREADS / xcs;
+  const int pc = 2 * BN / vp, p_plane = tid / pc, p_c = (tid - p_plane * pc) * vp;
+  const bool p_ok = p_plane < 2 && n0 + p_c / 2 < N;
+  const unsigned char* p_src =
+      reinterpret_cast<const unsigned char*>((p_plane ? bias : scale) + n0) + p_c;
+
+  // stage quant block kb: packed rows as they lie in memory, xq, scale, bias
+  auto load = [&](int kb) {
+    if (kb < nb) {
+      unsigned char* st = smem_raw + (kb % A8_STAGES) * T::STAGE;
+      with_width(vw, [&](auto w) {
+        const uint8_t* ws = packed + ((long)kb * rows_w + w_r0) * N + n0 + w_c;
+        for (int r = w_r0; r < rows_w; r += w_step, ws += (long)w_step * N)
+          cp_async<decltype(w)::value>(st + r * BN + w_c, w_ok ? ws : packed, w_ok);
+      });
+      if (x_c < bs)
+        with_width(vx, [&](auto w) {
+          const int8_t* xsrc = xq + (long)(m0 + x_r0) * K + (long)kb * bs + x_c;
+          for (int r = x_r0; r < BM; r += x_step, xsrc += (long)x_step * K)
+            cp_async<decltype(w)::value>(st + T::W_BYTES + r * A8_XSTR + x_c,
+                                         m0 + r < M ? xsrc : xq, m0 + r < M);
+        });
+      if (p_plane < 2)
+        with_width(vp, [&](auto w) {
+          cp_async<decltype(w)::value>(st + T::W_BYTES + T::X_BYTES + p_plane * 2 * BN + p_c,
+                                       p_ok ? p_src + (long)kb * N * 2 : packed, p_ok);
+        });
+    }
+    cp_async_commit();   // an empty group past the last block keeps the count
+  };
+
+  // the row scales and output biases this thread applies at the end
+  float xsc[MT][2], ob[NT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + row_w + mt * 16 + gid + 8 * h;
+      xsc[mt][h] = row < M ? xscale[row] : 0.f;
+    }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = n0 + col_w + nt * 8 + 2 * tig + j;
+      ob[nt][j] = out_bias && col < N ? out_bias[col] : 0.f;
+    }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < A8_STAGES - 1; ++s) load(s);
 
   for (int kb = 0; kb < nb; ++kb) {
-    __syncthreads();
-    for (int idx = tid; idx < A8_BM * nq; idx += A8_THREADS) {
-      int r = idx / nq, kq = idx - r * nq;
-      int row = m0 + r;
-      xs[r][kq] = row < M
-          ? *reinterpret_cast<const int*>(xq + (long)row * K + kb * bs + 4 * kq) : 0;
-    }
-    for (int idx = tid; idx < nq * A8_BN; idx += A8_THREADS) {
-      int kq = idx / A8_BN, c = idx - kq * A8_BN;
-      int col = n0 + c;
-      uint32_t quad = 0;
-      if (col < N) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          int k = 4 * kq + jj, v;
-          if (BITS == 4) {
-            int half = bs >> 1;
-            uint8_t byte = packed[(long)(kb * half + (k < half ? k : k - half)) * N + col];
-            v = (k < half ? (byte & 0xF) : (byte >> 4)) - center;
-          } else {
-            v = (int)packed[(long)(kb * bs + k) * N + col] - center;
-          }
-          quad |= (uint32_t)(v & 0xFF) << (8 * jj);
+    cp_async_wait<A8_STAGES - 2>();
+    __syncthreads();          // block kb has landed; every warp is done with kb - 1
+    load(kb + A8_STAGES - 1);
+    const unsigned char* st = smem_raw + (kb % A8_STAGES) * T::STAGE;
+
+    // unpack once per tile: four packed rows x four columns a thread,
+    // transposed into K-major words and (W4) split into nibbles, rows i and
+    // i + bs/2 of the block; stored 16 bytes at a time
+    {
+      constexpr int CQ = BN / 4;
+      const uint32_t* raw = reinterpret_cast<const uint32_t*>(st);
+      for (int u = tid; u < (rows_w >> 2) * CQ; u += THREADS) {
+        const int iq = u / CQ, cq = u - iq * CQ;
+        const uint32_t* p = raw + 4 * iq * CQ + cq;
+        uint32_t t[4];
+        transpose4x4(p[0], p[CQ], p[2 * CQ], p[3 * CQ], t);
+        if (BITS == 4) {
+          constexpr uint32_t LO = 0x0F0F0F0Fu;
+          *reinterpret_cast<uint4*>(bt + iq * BW + 4 * cq) =
+              make_uint4(t[0] & LO, t[1] & LO, t[2] & LO, t[3] & LO);
+          *reinterpret_cast<uint4*>(bt + (iq + (bs >> 3)) * BW + 4 * cq) = make_uint4(
+              (t[0] >> 4) & LO, (t[1] >> 4) & LO, (t[2] >> 4) & LO, (t[3] >> 4) & LO);
+        } else {
+          *reinterpret_cast<uint4*>(bt + iq * BW + 4 * cq) = make_uint4(t[0], t[1], t[2], t[3]);
         }
       }
-      ws[kq][c] = (int)quad;
     }
-    if (tid < A8_BN) {
-      int col = n0 + tid;
-      float s = col < N ? bf2f(scale[(long)kb * N + col]) : 0.f;
-      float m = col < N ? bf2f(bias[(long)kb * N + col]) : 0.f;
-      s_s[tid] = s;
-      b_s[tid] = __fadd_rn(__fmul_rn((float)center, s), m);   // folded bias plane
+    __syncthreads();          // the unpacked block is complete
+
+    int part[MT][NT][4], rs[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      rs[mt][0] = rs[mt][1] = 0;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0;
     }
-    __syncthreads();
-    if (tid < A8_BM) {
-      int t = 0;
-      for (int kq = 0; kq < nq; ++kq) t = __dp4a(xs[tid][kq], 0x01010101, t);
-      rsum[tid] = t;
-    }
-    int part[4][4];
+    // Rows past M are zeros in shared memory: their tiles add nothing, and
+    // computing them keeps the loop free of branches. ldmatrix.x4 row
+    // addresses: lanes 0-15 rows 0-15 of an m16 tile at K bytes 0-15, lanes
+    // 16-31 the same rows at K bytes 16-31.
+    const unsigned xr = static_cast<unsigned>(__cvta_generic_to_shared(
+        st + T::W_BYTES + (row_w + (lane & 15)) * A8_XSTR + (lane >> 4) * 16));
+    const uint32_t* br = bt + tig * BW + col_w + gid;
+#pragma unroll 4
+    for (int ks = 0; ks < (kp >> 5); ++ks, br += 8 * BW) {
+      uint32_t a[MT][4], b[NT][2];   // every fragment of the step, then the products
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = br[nt * 8];
+        b[nt][1] = br[4 * BW + nt * 8];
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0;
-    for (int kq = 0; kq < nq; ++kq) {
-      int a[4], b[4];
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * A8_XSTR);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[ty * 4 + i][kq];
+      for (int mt = 0; mt < MT; ++mt) {
+        // the row sums ride on the A fragments: rows gid and gid + 8
+        constexpr int ONES = 0x01010101;
+        rs[mt][0] = __dp4a((int)a[mt][2], ONES, __dp4a((int)a[mt][0], ONES, rs[mt][0]));
+        rs[mt][1] = __dp4a((int)a[mt][3], ONES, __dp4a((int)a[mt][1], ONES, rs[mt][1]));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kq][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = __dp4a(a[i], b[j], part[i][j]);
-    }
-    __syncthreads();   // rsum ready
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rs = (float)rsum[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int c = tx + 16 * j;
-        acc[i][j] = __fadd_rn(__fadd_rn(acc[i][j], __fmul_rn((float)part[i][j], s_s[c])),
-                              __fmul_rn(rs, b_s[c]));
+        for (int nt = 0; nt < NT; ++nt) mma_s8u8_16832(part[mt][nt], a[mt], b[nt]);
       }
     }
-  }
+
+    // the block's f32 step: acc = (acc + part * s) + rs * (c * s + m), where
+    // part = x . (q - c) = x . q - c * rs, exact in int32
+    const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
-    float xsc = xscale[row];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int col = n0 + tx + 16 * j;
-      if (col >= N) continue;
-      float v = as_out(acc[i][j], out_f32);
-      v = as_out(__fmul_rn(v, xsc), out_f32);
-      if (out_bias) v = __fadd_rn(v, out_bias[col]);
-      store_out(out, (long)row * N + col, v, out_f32);
+      for (int h = 0; h < 2; ++h) {   // sum over the four lanes that share a row
+        rs[mt][h] += __shfl_xor_sync(0xffffffffu, rs[mt][h], 1);
+        rs[mt][h] += __shfl_xor_sync(0xffffffffu, rs[mt][h], 2);
+      }
+    __nv_bfloat162 sv[NT], mv[NT];   // this thread's two columns of each n-tile
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = col_w + nt * 8 + 2 * tig;
+      sv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + col);
+      mv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + BN + col);
     }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float s = bf2f(j ? sv[nt].y : sv[nt].x);
+        const float fold = __fadd_rn(__fmul_rn(center, s), bf2f(j ? mv[nt].y : mv[nt].x));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& a = acc[mt][nt][2 * h + j];
+            const int pq = part[mt][nt][2 * h + j] - (1 << (BITS - 1)) * rs[mt][h];
+            a = __fadd_rn(__fadd_rn(a, __fmul_rn((float)pq, s)),
+                          __fmul_rn((float)rs[mt][h], fold));
+          }
+      }
   }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + row_w + mt * 16 + gid + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + col_w + nt * 8 + 2 * tig;   // and col + 1: N is even
+        if (col >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[j] = as_out(acc[mt][nt][2 * h + j], out_f32);
+          v[j] = as_out(__fmul_rn(v[j], xsc[mt][h]), out_f32);
+          if (out_bias) v[j] = __fadd_rn(v[j], ob[nt][j]);
+        }
+        const long o = (long)row * N + col;
+        if (out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[0], v[1]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) =
+              __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
 }
 
 template <int BITS>
@@ -316,6 +541,62 @@ static cudaError_t launch_rows(const void* x, const void* packed, const void* sc
   return cudaGetLastError();
 }
 
+// The tile shapes of dqmm_a8_kernel as (MT, NT, WM, WN), tallest first:
+// 64 x 64, 32 x 64 and 16 x 64, four warps each. (128 x 128 with eight
+// warps took 255 registers and one block an SM, and was slower at every
+// main-path shape.)
+#define MNN_A8_TILES(X) X(0, 2, 4, 2, 2) X(1, 1, 4, 2, 2) X(2, 1, 2, 1, 4)
+#define MNN_A8_BM(t, MT, NT, WM, WN) A8Tile<4, MT, NT, WM, WN>::BM,
+#define MNN_A8_BN(t, MT, NT, WM, WN) A8Tile<4, MT, NT, WM, WN>::BN,
+constexpr int A8_TILE_BM[] = {MNN_A8_TILES(MNN_A8_BM)};
+constexpr int A8_TILE_BN[] = {MNN_A8_TILES(MNN_A8_BN)};
+constexpr int A8_NTILES = sizeof(A8_TILE_BM) / sizeof(int);
+#undef MNN_A8_BM
+#undef MNN_A8_BN
+
+// The tallest tile that is no taller than the rows (rounded up to 16) and
+// still gives every SM a block; the shortest where none does.
+static int a8_tile(int M, int N) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int m16 = (M + 15) & ~15;
+  for (int t = 0; t + 1 < A8_NTILES; ++t) {
+    const long blocks = (long)((M + A8_TILE_BM[t] - 1) / A8_TILE_BM[t]) *
+                        ((N + A8_TILE_BN[t] - 1) / A8_TILE_BN[t]);
+    if (A8_TILE_BM[t] <= m16 && blocks >= sms) return t;
+  }
+  return A8_NTILES - 1;
+}
+
+// The widest of 16, 8 and 4 bytes that divides every address and stride in `a`.
+static int copy_width(uintptr_t a) { return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4; }
+
+template <int BITS, int MT, int NT, int WM, int WN>
+static cudaError_t launch_a8(const void* xq, const void* xscale, const void* packed,
+                             const void* scale, const void* bias, const void* out_bias,
+                             void* out, int M, int K, int N, int bs, int out_f32,
+                             cudaStream_t st) {
+  using T = A8Tile<BITS, MT, NT, WM, WN>;
+  auto kern = dqmm_a8_kernel<BITS, MT, NT, WM, WN>;
+  static size_t granted = 0;
+  cudaError_t e = allow_smem(kern, T::SMEM, granted);
+  if (e != cudaSuccess) return e;
+  const int vx = copy_width((uintptr_t)xq | (uintptr_t)K | (uintptr_t)bs);
+  const int vw = copy_width((uintptr_t)packed | (uintptr_t)N);
+  const int vp = copy_width((uintptr_t)scale | (uintptr_t)bias | (uintptr_t)(2 * N));
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  kern<<<grid, T::THREADS, T::SMEM, st>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xscale),
+      static_cast<const uint8_t*>(packed), static_cast<const bf16*>(scale),
+      static_cast<const bf16*>(bias), static_cast<const float*>(out_bias), out, M, K, N, bs,
+      out_f32, vx, vw, vp);
+  return cudaGetLastError();
+}
+
 }  // namespace mnn
 
 using namespace mnn;
@@ -354,19 +635,36 @@ MNN_API int mnn_dequant_matmul_a8(const void* xq, const void* xscale, const void
                                   void* out, int M, int K, int N, int bits, int bs,
                                   int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs > 4 * A8_MAXQ || bs % 8) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + A8_BN - 1) / A8_BN, (M + A8_BM - 1) / A8_BM);
-  const int8_t* xp = static_cast<const int8_t*>(xq);
-  const float* xs = static_cast<const float*>(xscale);
-  const uint8_t* pp = static_cast<const uint8_t*>(packed);
-  const bf16* sp = static_cast<const bf16*>(scale);
-  const bf16* bp = static_cast<const bf16*>(bias);
-  const float* ob = static_cast<const float*>(out_bias);
-  if (bits == 4)
-    dqmm_a8_kernel<4><<<grid, A8_THREADS, 0, st>>>(xp, xs, pp, sp, bp, ob, out, M, K, N, bs, out_f32);
-  else if (bits == 8)
-    dqmm_a8_kernel<8><<<grid, A8_THREADS, 0, st>>>(xp, xs, pp, sp, bp, ob, out, M, K, N, bs, out_f32);
-  else
+  if (bs > 4 * A8_KW || bs % 8 || K % bs || N % 4 || (bits != 4 && bits != 8))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (((uintptr_t)xq | (uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  const int tile = a8_tile(M, N);
+#define MNN_A8_CASE(t, MT, NT, WM, WN)                                                          \
+  if (tile == t)                                                                               \
+    return (int)(bits == 4 ? launch_a8<4, MT, NT, WM, WN>(xq, xscale, packed, scale, bias,     \
+                                                          out_bias, out, M, K, N, bs, out_f32, \
+                                                          st)                                  \
+                           : launch_a8<8, MT, NT, WM, WN>(xq, xscale, packed, scale, bias,     \
+                                                          out_bias, out, M, K, N, bs, out_f32, \
+                                                          st));
+  MNN_A8_TILES(MNN_A8_CASE)
+#undef MNN_A8_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tile mnn_dequant_matmul_a8 takes for M rows and N columns: rows, columns
+// and dynamic shared memory per block, in out[0..2]. Launches nothing.
+MNN_API int mnn_dequant_matmul_a8_tile(int M, int N, int bits, int* out) {
+  const int tile = a8_tile(M, N);
+#define MNN_A8_INFO(t, MT, NT, WM, WN)                                                         \
+  if (tile == t) {                                                                            \
+    out[0] = A8Tile<4, MT, NT, WM, WN>::BM;                                                   \
+    out[1] = A8Tile<4, MT, NT, WM, WN>::BN;                                                   \
+    out[2] = bits == 4 ? A8Tile<4, MT, NT, WM, WN>::SMEM : A8Tile<8, MT, NT, WM, WN>::SMEM;   \
+    return 0;                                                                                 \
+  }
+  MNN_A8_TILES(MNN_A8_INFO)
+#undef MNN_A8_INFO
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,10 +31,20 @@ What bounds it on the H100, and what the simple design does about it:
   take interleaved quant blocks and are summed in shared memory, which
   keeps 8x more loads in flight for the narrow (N = 896) projections.
   Rows of x sit in shared memory.
-* The a8 prefill GEMM (M up to 512) is bound by integer operations.
-  `dqmm_a8_kernel` tiles the output 64 x 64, stages x and the unpacked,
-  re-centred pattern in shared memory as packed int8 quads, and runs
-  `__dp4a` on CUDA cores. Tensor cores (`mma`/`wgmma` int8) are later work.
+* The a8 prefill GEMM (`dqmm_a8_kernel`, M up to 512 and beyond). At
+  M = 512 its operation and byte bounds are close: 0.5 to 6.5 us of int8
+  tensor-core operations against 0.5 to 4.5 us of bytes over the main-path
+  shapes, the bf16 output being the largest of the bytes at N = 896 to 1152.
+  Products run on `mma.sync.m16n8k32` int8 tensor cores, on the unsigned
+  pattern, with the re-centring folded into the row sum; a three-stage
+  ring of `cp.async` copies brings each quant block's packed rows, xq rows
+  and scale/bias rows into shared memory two blocks ahead of the math; the
+  packed tile is unpacked once per output tile into K-major words (the B
+  fragment's layout) and shared by all its rows; A fragments come by
+  `ldmatrix`, and row sums ride on them. The tile, 64 x 64 down to 16 x 64,
+  is the tallest that still gives every SM a block (`a8_tile`). What holds
+  it back is the latency of the serial steps per quant block, not its
+  bounds (`PERF.md`).
 * The bf16 path at M > 1 reuses the row kernel with 4 rows per block. A
   mixture-of-experts model's shared expert runs it at M = 512 in prefill;
   it is not tuned.
@@ -48,11 +58,12 @@ What bounds it on the H100, and what the simple design does about it:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
-from mnn_tpu_torch.kernels.build import I, P, kernel
+from mnn_tpu_torch.kernels.build import I, P, kernel, library
 from mnn_tpu_torch.kernels.common import check, use_kernel
 from mnn_tpu_torch.quant.quantize import (QuantizedLinear,
                                           quantize_activations_int8,
@@ -74,6 +85,17 @@ MAX_BLOCK = 128   # largest quant block the kernels stage in shared memory
 # Rows at or above which the dequantize-tile kernel replaces the other two.
 # Off by default, as in the JAX package; a caller or a test sets it lower.
 DEQ_MIN_M = 1 << 30
+
+
+def a8_tile(m: int, n: int, bits: int) -> tuple[int, int, int]:
+    """(rows, columns, dynamic shared bytes) of the tile that `KERNEL_A8`
+    takes for m rows and n columns on this card. Launches nothing."""
+    fn = library().mnn_dequant_matmul_a8_tile
+    fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    if fn(m, n, bits, out):
+        raise ValueError(f"no a8 tile for M={m} N={n}")
+    return tuple(out)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -50,16 +50,16 @@ def rel(got, want) -> float:
     return float((got - want).norm() / max(float(want.norm()), 1e-12))
 
 
-def rand_ql(g, dev, k, n, bits, act_bits, layers, with_bias):
+def rand_ql(g, dev, k, n, bits, act_bits, layers, with_bias, bs=128):
     packed = torch.randint(-128, 128, (layers, k * bits // 8, n), dtype=torch.int8,
                            device=dev, generator=g)
-    scale = (torch.rand((layers, k // 128, n), device=dev, generator=g) * 2e-3
+    scale = (torch.rand((layers, k // bs, n), device=dev, generator=g) * 2e-3
              + 1e-3).to(torch.bfloat16)
     bias = (-(1 << (bits - 1)) * scale.float()).to(torch.bfloat16)
     ob = (torch.randn((layers, n), device=dev, generator=g) * 0.1
           if with_bias else None)
     return QuantizedLinear(packed=packed, scale=scale, bias=bias, out_bias=ob,
-                           bits=bits, block_size=128, act_bits=act_bits)
+                           bits=bits, block_size=bs, act_bits=act_bits)
 
 
 # (bits, act_bits, M, K, N, out f32, out_bias)
@@ -84,6 +84,41 @@ def test_dequant_matmul_kernel(dev, bits, act_bits, m, k, n, f32, with_bias):
     assert got.dtype == out_dtype and got.shape == (m, n)
     assert torch.isfinite(got).all()
     assert rel(got, want) <= 1e-2
+
+
+# int8 rows at the main path's shapes (qwen2-0.5b's qkv, wo, gate/up and
+# down, qwen1.5-moe-a2.7b's qkv; the 32-, 128- and 512-row buckets) and at
+# the tiles' edges: (bits, M, K, N, block, out f32, out_bias)
+GEMM_A8 = [(4, 512, 896, 1152, 128, False, True), (4, 512, 896, 896, 128, False, False),
+           (4, 512, 896, 9728, 128, False, False), (4, 512, 4864, 896, 128, False, False),
+           (4, 512, 2048, 6144, 128, False, True), (4, 32, 896, 9728, 128, False, False),
+           (4, 128, 896, 9728, 128, False, False), (4, 128, 896, 1152, 64, False, True),
+           (4, 32, 4864, 896, 32, False, False), (4, 130, 896, 1028, 32, True, True),
+           (4, 77, 960, 200, 40, True, True), (4, 300, 384, 1028, 8, False, False),
+           (4, 1, 256, 200, 16, False, True), (8, 512, 896, 1152, 128, False, True),
+           (8, 33, 256, 132, 64, True, True), (8, 200, 2048, 2048, 16, False, False)]
+
+
+@pytest.mark.parametrize("bits,m,k,n,bs,f32,with_bias", GEMM_A8)
+def test_dequant_matmul_a8_kernel(dev, bits, m, k, n, bs, f32, with_bias):
+    """The tensor-core a8 kernel sums each output over the whole of K in
+    block order, with the plain version's f32 steps: the same bits as the
+    plain version, and from run to run."""
+    g = torch.Generator(device=dev).manual_seed(m * n + bits + bs)
+    ql = rand_ql(g, dev, k, n, bits, 8, 3, with_bias, bs)
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    before = dequant_matmul.KERNEL_A8.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
+    again = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(2), out_dtype)
+    torch.cuda.synchronize()
+    assert dequant_matmul.KERNEL_A8.launches == before + 2
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 1e-2
+    assert torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) == 0.0
 
 
 # (H, Hkv, Tq, S, kv_len, q_offset, D, window, sink)

@@ -38,6 +38,16 @@ GEMM_CASES = [
     ("w8a16-gemm", 8, 16, 40, True, False),
     ("w4-head", 4, 16, 1, False, True),
 ]
+# int8 rows at the edges of the a8 kernel's tiles: (name, bits, M, K, N,
+# block size, stacked with out_bias, out f32)
+A8_CASES = [
+    ("w8a8", 8, 40, 256, 200, 128, True, False),
+    ("w4a8-ragged-bs32", 4, 130, 256, 1028, 32, False, False),
+    ("w4a8-bs64-f32-bias", 4, 33, 256, 200, 64, True, True),
+    ("w4a8-bs16", 4, 17, 128, 132, 16, True, False),
+    ("w8a8-bs8-f32", 8, 9, 64, 200, 8, False, True),
+    ("w4a8-deep-k", 4, 20, 576, 200, 64, False, False),
+]
 # (name, H, Hkv, T, S, kv_len, q_offset, window, sink)
 FLASH_CASES = [
     ("group1", 2, 2, 16, 64, 40, 24, 0, 0),
@@ -79,16 +89,16 @@ def rel(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
 
 
-def _gemm_inputs(rng, bits, act_bits, m, stacked):
+def _gemm_inputs(rng, bits, act_bits, m, stacked, k=K, n=N, bs=BS):
     lead = (L,) if stacked else ()
-    packed = rng.integers(-128, 128, size=(*lead, K * bits // 8, N), dtype=np.int8)
-    scale = jnp.asarray(rng.uniform(1e-3, 3e-3, size=(*lead, K // BS, N)),
+    packed = rng.integers(-128, 128, size=(*lead, k * bits // 8, n), dtype=np.int8)
+    scale = jnp.asarray(rng.uniform(1e-3, 3e-3, size=(*lead, k // bs, n)),
                         jnp.bfloat16)
     bias = jnp.asarray(-7.5 * np.asarray(scale, np.float32)
                        + rng.normal(0, 1e-3, size=scale.shape), jnp.bfloat16)
-    ob = (rng.normal(0, 0.1, size=(*lead, N)).astype(np.float32)
+    ob = (rng.normal(0, 0.1, size=(*lead, n)).astype(np.float32)
           if stacked else None)
-    x = jnp.asarray(rng.standard_normal((m, K)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
     return dict(packed=packed, scale=np.asarray(scale), bias=np.asarray(bias),
                 out_bias=ob, x=np.asarray(x), bits=bits, act_bits=act_bits)
 
@@ -145,12 +155,16 @@ def cases():
     """Inputs, and every JAX result of this module computed once."""
     rng = np.random.default_rng(0)
     out = {}
-    for name, bits, act_bits, m, stacked, head in GEMM_CASES:
-        d = _gemm_inputs(rng, bits, act_bits, m, stacked)
+    gemms = [(name, bits, act_bits, m, K, N, BS, stacked, head)
+             for name, bits, act_bits, m, stacked, head in GEMM_CASES]
+    gemms += [(name, bits, 8, m, k, n, bs, stacked, f32_out)
+              for name, bits, m, k, n, bs, stacked, f32_out in A8_CASES]
+    for name, bits, act_bits, m, k, n, bs, stacked, head in gemms:
+        d = _gemm_inputs(rng, bits, act_bits, m, stacked, k, n, bs)
         ql = JQL(packed=jnp.asarray(d["packed"]), scale=jnp.asarray(d["scale"]),
                  bias=jnp.asarray(d["bias"]),
                  out_bias=None if d["out_bias"] is None else jnp.asarray(d["out_bias"]),
-                 bits=bits, block_size=BS, act_bits=act_bits)
+                 bits=bits, block_size=bs, act_bits=act_bits)
         d["want"] = np.asarray(j_dqmm(
             jnp.asarray(d["x"]), ql, layer_index=jnp.int32(1) if stacked else None,
             out_dtype=jnp.float32 if head else jnp.bfloat16, interpret=True))
@@ -201,6 +215,24 @@ def test_dequant_matmul(cases, name, bits, act_bits, m, stacked, head):
         out_dtype=torch.float32 if head else torch.bfloat16)
     assert got.dtype == (torch.float32 if head else torch.bfloat16)
     assert got.shape == d["want"].shape
+    assert rel(got, d["want"]) <= 1e-2
+
+
+@pytest.mark.parametrize("name,bits,m,k,n,bs,stacked,f32_out", A8_CASES)
+def test_dequant_matmul_a8_edges(cases, name, bits, m, k, n, bs, stacked, f32_out):
+    """W8A8, ragged M and N, block sizes 8 to 128, f32 output with out_bias,
+    K of nine quant blocks: the a8 path against `_kernel_a8` in interpret mode."""
+    d = cases[name]
+    ob = d["out_bias"]
+    ql = QuantizedLinear(packed=to_torch(d["packed"]), scale=to_torch(d["scale"]),
+                         bias=to_torch(d["bias"]),
+                         out_bias=None if ob is None else to_torch(ob),
+                         bits=bits, block_size=bs, act_bits=8)
+    out_dtype = torch.float32 if f32_out else torch.bfloat16
+    got = dequant_matmul.dequant_matmul(to_torch(d["x"]), ql,
+                                        layer_index=1 if stacked else None,
+                                        out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n) == d["want"].shape
     assert rel(got, d["want"]) <= 1e-2
 
 
