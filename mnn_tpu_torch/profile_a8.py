@@ -89,7 +89,6 @@ def main():
             "other": _library(args.against, out_dir, "other")}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
     times = {"other": [], "this": []}
     same = True
     for m, k, n in SHAPES:
@@ -108,10 +107,11 @@ def main():
             fn = libs[version].mnn_dequant_matmul_a8
             out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
 
-            def call(i, fn=fn, out=out):
+            def call(i, fn=fn, out=out):   # on the current stream: graph capture has its own
                 err = fn(xq.data_ptr(), xs.data_ptr(), packed[i % nl].data_ptr(),
                          scale[i % nl].data_ptr(), bias[i % nl].data_ptr(), None,
-                         out.data_ptr(), m, k, n, 4, 128, 0, stream)
+                         out.data_ptr(), m, k, n, 4, 128, 0,
+                         torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{version}: CUDA launch error {err}")
             call(0)
