@@ -14,7 +14,10 @@ Phases, each of which exits non-zero on failure:
    time the card could take (bound). The int8-row matmul is also timed
    alone on rows quantized beforehand and beside `torch._int_mm` on its
    re-centred int8 pattern, at M = 512 and at the 32- and 128-row
-   buckets. The whole-model decode kernel runs
+   buckets. The bf16-row matmul runs the row kernel at M = 1 and the
+   tensor-core tile kernel above (the shared expert at the 32-, 128- and
+   512-row buckets, qwen2-0.5b's projections at M = 512), each row with the
+   kernel it launched and its tile. The whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
@@ -27,9 +30,13 @@ Phases, each of which exits non-zero on failure:
    launch per generated token; (b) one request over an int4 KV cache, the
    same way; (c) the per-layer fallback (`forward(megakernel=False)`), a
    prompt and 8 decode steps over an int8 and over an int4 cache, which
-   runs the decode-step and flash-decode kernels; (d) `Llm.synthetic(
+   runs the decode-step and flash-decode kernels; (f) the 300-token request
+   with `prefill_act_bits=16`, the library's default: every prefill
+   projection on bf16 rows through the tensor-core tile kernel, 96 launches
+   a chunk; (d) `Llm.synthetic(
    "qwen1.5-moe-a2.7b")` at its 24 layers, the same three requests: the
-   grouped expert kernel 24 times per prefill chunk, the fused expert kernel
+   grouped expert kernel 24 times per prefill chunk, the shared expert on the
+   tile kernel 48 times per chunk, the fused expert kernel
    and the decode-step kernel 24 times per token, the whole-model kernel
    never; (e) the 300-token request again with the dequantize-tile switch on
    (`dequant_matmul.DEQ_MIN_M = 512`), held against (d)'s logits. A kernel
@@ -38,12 +45,14 @@ Phases, each of which exits non-zero on failure:
    through the plain versions on the CPU with the same weights: logits
    within rel-L2 5e-2 and equal tokens wherever the CPU's top-2 margin
    exceeds the largest logit difference seen; then the whole-model kernel
-   against the per-layer path on the card from the same state. The same
+   against the per-layer path on the card from the same state, and the
+   first request's prefill with `prefill_act_bits=16` on both. The same
    for the mixture-of-experts model at full width and 4 layers (the CPU side
    of 24 would take minutes).
 
-It then prints one JSON line with every kernel's numbers and, last, the
-device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
+It then prints one JSON line with every kernel's numbers (the bf16-row
+matmul also split into `m1`, the row kernel, and `m_gt1`, the tile kernel)
+and, last, the device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
 and nothing of the JAX package.
 """
 
@@ -244,8 +253,11 @@ def int_mm_ms(ql, xq, nl):
 
 
 def phase_gemm(dev, g, results, *, a8: bool):
-    """K1 (bf16 rows, M = 1: decode GEMVs and the lm head) or K2 (int8
-    rows, M = 512: prefill GEMMs; and qwen2-0.5b's gate/up at the 32- and
+    """K1 (bf16 rows: at M = 1 the decode GEMVs and the lm head on the row
+    kernel; at M > 1 the tensor-core tile kernel, for qwen1.5-moe-a2.7b's
+    shared expert at the 32-, 128- and 512-row buckets and qwen2-0.5b's
+    projections at M = 512 under prefill_act_bits=16) or K2 (int8 rows,
+    M = 512: prefill GEMMs; and qwen2-0.5b's gate/up at the 32- and
     128-row buckets)."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
     shapes = [(p, k, n, b, 512 if a8 else 1)
@@ -256,18 +268,29 @@ def phase_gemm(dev, g, results, *, a8: bool):
         shapes += [("lm_head", 896, 151936, False, 1),
                    ("moe_lm_head", 2048, 151936, False, 1)]
         # qwen1.5-moe-a2.7b's shared expert in a prefill chunk: bf16 rows
-        shapes += [("moe_shared_gu", 2048, 11264, False, 512),
-                   ("moe_shared_dn", 5632, 2048, False, 512)]
+        shapes += [(p, k, n, False, m) for m in (32, 128, 512)
+                   for p, k, n in (("moe_shared_gu", 2048, 11264),
+                                   ("moe_shared_dn", 5632, 2048))]
+        shapes += [(p, k, n, b, 512) for p, (k, n, b) in PROJ.items()]
     tol = 1e-2
     rows = []
     for proj, k, n, with_bias, m in shapes:
-        out_dtype = torch.float32 if proj.endswith("lm_head") else torch.bfloat16
+        # the shared expert's down projection gives f32 rows, as in the model
+        out_dtype = (torch.float32 if proj.endswith("lm_head") or proj == "moe_shared_dn"
+                     else torch.bfloat16)
         wbytes = k * n // 2 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
         nl = copies_for(wbytes)
         ql = rand_quantized(g, dev, k, n, layers=nl,
                             with_bias=with_bias, act_bits=8 if a8 else 16)
         x = (torch.randn((m, k), device=dev, generator=g)).to(torch.bfloat16)
+        tile = None if a8 else dequant_matmul.bf16_tile(m, n, ql.bits)
+        kern = (dequant_matmul.KERNEL_A8 if a8 else
+                dequant_matmul.KERNEL_BF16_TILE if tile else dequant_matmul.KERNEL_BF16)
+        before = kern.launches
         got = dequant_matmul.dequant_matmul(x, ql, layer_index=0, out_dtype=out_dtype)
+        check(kern.launches == before + 1, f"{name} {proj} M={m}: {kern.name} not launched")
+        check(a8 or (tile is None) == (m == 1),
+              f"{name} {proj} M={m}: bf16 rows took {kern.name}")
         want = dequant_matmul.dequant_matmul_plain(x, ql.layer(0), out_dtype)
         torch.cuda.synchronize()
         err, rel = max_abs(got, want), rel_l2(got, want)
@@ -291,11 +314,14 @@ def phase_gemm(dev, g, results, *, a8: bool):
         nbytes = (m * k + m * 4 if a8 else m * k * 2) + wbytes + out_b
         bound, bound_by = bound_of(2 * m * k * n, nbytes,
                                    INT8_OPS_S if a8 else BF16_OPS_S)
-        row = dict(shape=f"{proj} M={m} K={k} N={n}", max_abs_err=err, rel_l2=rel,
+        row = dict(shape=f"{proj} M={m} K={k} N={n}", m=m, max_abs_err=err, rel_l2=rel,
                    tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
-                   l2_rotation=nl)
+                   l2_rotation=nl, kernel=kern.name)
         extra = ""
+        if tile:
+            row["tile"] = tile
+            extra = f" | tile {tile[0]}x{tile[1]} smem {tile[2]}"
         if a8:
             row["kernel_alone_ms"], xq = a8_kernel_alone(ql, x, out_dtype, nl)
             row["int_mm_ms"] = int_mm_ms(ql, xq, nl)
@@ -880,6 +906,28 @@ def phase_serve(llm):
     return reqs, outs, perf, counts
 
 
+def phase_serve_act16(llm, reqs):
+    """Phase 3 (f): the 300-token request with `prefill_act_bits=16`, the
+    library's default: every prefill projection takes bf16 rows through the
+    tensor-core tile kernel, four launches a layer a chunk, and none the
+    int8-row kernel."""
+    rt = dataclasses.replace(llm.rt, prefill_act_bits=16)
+    llm16 = Llm(llm.config, llm.params, rt, device=llm.device)
+    list(llm16.stream(token_ids=reqs[0][:8], max_new_tokens=2))    # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    _, perf = serve(llm16, reqs[1:2], "dense act16")
+    got = read_launches("dense act16", ("mnn_dequant_matmul_bf16_tile", "mnn_flash_prefill",
+                                        "mnn_decode_model"), never=("mnn_dequant_matmul_a8",))
+    chunks = len(generate.prefill_buckets(len(reqs[1]), rt.prefill_chunk))
+    tiles = got["mnn_dequant_matmul_bf16_tile"]
+    check(tiles == 4 * llm.config.num_layers * chunks,
+          f"serve act16: {tiles} tile-kernel launches for {chunks} chunks")
+    print(f"  dense act16: {len(reqs[1])}-token prefill {perf[0]['prefill_s'] * 1e3:.2f} ms, "
+          f"bf16 tile kernel launched {tiles} times", flush=True)
+    return perf, got
+
+
 MOE_PREFILL_KERNELS = PREFILL_KERNELS + ("mnn_moe_prefill",)
 
 
@@ -899,7 +947,8 @@ def phase_serve_moe(llm):
     build.reset_launches()                  # (d) int8 cache, fused expert kernel
     outs, perf = serve(llm, reqs, "moe int8 kv")
     counts = {"moe_int8": read_launches(
-        "moe int8 kv", MOE_PREFILL_KERNELS + ("mnn_moe_decode", "mnn_decode_step"),
+        "moe int8 kv", MOE_PREFILL_KERNELS + ("mnn_moe_decode", "mnn_decode_step",
+                                              "mnn_dequant_matmul_bf16_tile"),
         never=("mnn_decode_model", "mnn_flash_decode", "mnn_dequant_matmul_deq"))}
     chunks = sum(len(generate.prefill_buckets(len(r), llm.rt.prefill_chunk)) for r in reqs)
     steps = NEW_TOKENS * len(reqs)
@@ -907,6 +956,9 @@ def phase_serve_moe(llm):
     check(got["mnn_moe_prefill"] == nl * chunks,
           f"serve moe: {got['mnn_moe_prefill']} grouped-expert launches for {chunks} "
           f"chunks of {nl} layers")
+    check(got["mnn_dequant_matmul_bf16_tile"] == 2 * nl * chunks,
+          f"serve moe: {got['mnn_dequant_matmul_bf16_tile']} tile-kernel launches for the "
+          f"shared expert of {chunks} chunks of {nl} layers")
     check(got["mnn_moe_decode"] == nl * steps and got["mnn_decode_step"] == nl * steps,
           f"serve moe: {got['mnn_moe_decode']} fused-expert and {got['mnn_decode_step']} "
           f"decode-step launches for {steps} steps of {nl} layers")
@@ -1026,7 +1078,21 @@ def phase_parity(llm, reqs, outs):
           "parity: the kernel's token is not the lowest argmax of its logits")
     print(f"  whole-model kernel vs per-layer path on the card: rel-L2 {paths:.2e}",
           flush=True)
-    return dict(out, megakernel_vs_per_layer_rel_l2=paths)
+    # the prefill with prefill_act_bits=16 (the 32-row bucket on the tile kernel)
+    rt16 = dataclasses.replace(llm.rt, prefill_act_bits=16)
+    ids = torch.tensor([reqs[0]], dtype=torch.int64)
+    before = dequant_matmul.KERNEL_BF16_TILE.launches
+    card16, _ = generate.run_prefill(llm.params, llm.config, rt16, ids.to(llm.device),
+                                     llm._new_cache())
+    check(dequant_matmul.KERNEL_BF16_TILE.launches > before,
+          "parity: the act16 prefill did not run the tile kernel")
+    cpu16, _ = generate.run_prefill(cpu_llm.params, cpu_llm.config, rt16, ids,
+                                    cpu_llm._new_cache())
+    act16 = rel_l2(card16.float().cpu(), cpu16.float())
+    check(bool(torch.isfinite(card16).all()) and act16 <= PARITY_REL,
+          f"parity: act16 prefill logits rel-L2 {act16:.3g} > {PARITY_REL}")
+    print(f"  prefill_act_bits=16, card vs cpu: prefill logits rel-L2 {act16:.2e}", flush=True)
+    return dict(out, megakernel_vs_per_layer_rel_l2=paths, act16_prefill_rel_l2=act16)
 
 
 # --------------------------------------------------------------------------
@@ -1054,7 +1120,20 @@ KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
 # the sub-phase of phase 3 whose run gives a kernel its launch count
 COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_layer_int4",
               "mnn_moe_decode": "moe_int8", "mnn_moe_prefill": "moe_int8",
-              "mnn_dequant_matmul_deq": "moe_deq_switch"}
+              "mnn_dequant_matmul_deq": "moe_deq_switch",
+              "mnn_dequant_matmul_bf16_tile": "dense_act16"}
+
+
+def row_sums(rows) -> dict:
+    """A kernel's numbers in the kernels line: sums of one call at each shape."""
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=(None if rows[0]["library_ms"] is None
+                            else sum(r["library_ms"] for r in rows)),
+                shapes=len(rows))
 
 
 def main():
@@ -1110,6 +1189,7 @@ def main():
 
     print("phase 3: serving qwen2-0.5b on the card", flush=True)
     reqs, outs, perf, counts = phase_serve(llm)
+    perf["dense_act16"], counts["dense_act16"] = phase_serve_act16(llm, reqs)
 
     print("phase 4: the first request on the card and on the cpu", flush=True)
     parity = phase_parity(llm, reqs, outs)
@@ -1140,17 +1220,17 @@ def main():
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
-        kernels.append(dict(
-            name=kname, route="cuda", source=src, replaces=repl,
-            launches=launches[entry],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=sum(r["ms"] for r in rows),
-            plain_ms=sum(r["plain_ms"] for r in rows),
-            bound_ms=sum(r["bound_ms"] for r in rows),
-            bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=(None if rows[0]["library_ms"] is None
-                        else sum(r["library_ms"] for r in rows)),
-            shapes=len(rows)))
+        k = dict(name=kname, route="cuda", source=src, replaces=repl,
+                 launches=launches[entry], **row_sums(rows))
+        if kname == "dequant_matmul":
+            # one TPU kernel, two CUDA kernels: the row kernel at M = 1 (the
+            # decode GEMVs and the head) and the tensor-core tile kernel above
+            k["launches"] += launches["mnn_dequant_matmul_bf16_tile"]
+            for key, sub, ent in (
+                    ("m1", [r for r in rows if r["m"] == 1], "mnn_dequant_matmul"),
+                    ("m_gt1", [r for r in rows if r["m"] > 1], "mnn_dequant_matmul_bf16_tile")):
+                k[key] = dict(entry=ent, launches=launches[ent], **row_sums(sub))
+        kernels.append(k)
     detail = dict(card=card_line, torch=torch.__version__, build_s=build_s,
                   kernels=results, serve=perf, launches=launches,
                   launches_by_path=counts,

@@ -1,6 +1,7 @@
 // Fused per-block dequantize + matmul for W4/W8 weights (sm_90a).
 //
-// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows),
+// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows: the row
+// kernel at M = 1, the tensor-core tile kernel above),
 // ::_kernel_a8 (int8 rows) and ::_kernel_deq (dequantized tiles). Weights
 // stay packed: int8 [K*bits/8, N] with W4 nibble pairs (i, i + bs/2) inside
 // each quant block, bf16 scale s and bias m [K/bs, N]. A quant block contributes
@@ -43,6 +44,25 @@
 // A quant block of fewer than 32 K-values (the mma depth) is padded with
 // zero K-values of xq in shared memory.
 //
+// dqmm_bf16_tile_kernel replaces ::_kernel at M > 1 (bf16 rows: the
+// mixture-of-experts shared expert in prefill, and every prefill projection
+// under prefill_act_bits = 16). At M = 512 it is bound by bf16 tensor-core
+// operations (the shared expert's gate/up: 23.6 GFLOP, 24 us). It is the
+// a8 kernel's design, sharing its copy ring, with bf16 A fragments:
+//  * `mma.sync.m16n8k16.bf16` on the unsigned pattern q, exact in bf16 (W4
+//    0..15 as bf16(128 + q) - 128 from a mask and one bf16x2 subtraction,
+//    W8 through f32); the row sums are one more product, with a B of ones;
+//  * the packed tile unpacked once per tile and block into bf16 K-rows (a
+//    thread: 16 columns of one packed row; W4's low nibbles to row i, high
+//    ones to row i + bs/2, the packed layout's pairing), so B fragments
+//    come by ldmatrix.x4.trans, two n8 tiles at a time; A by ldmatrix.x4
+//    from x rows padded to 272 bytes;
+//  * the f32 step per quant block on the fragment, in the plain version's
+//    order: acc = (acc + part * s) + rs * m;
+//  * tiles from 64 x 128 to 16 x 8, the largest that still gives every SM
+//    a block (bf16_tile). Quant blocks of fewer than 16 K-values are padded
+//    with zero K-values of x and of the pattern.
+//
 // dqmm_deq_kernel replaces ::_kernel_deq, the dequantize-tile variant for
 // many bf16 rows: per quant block the weights become wd = bf16(q * s + m) and
 // acc += x_b @ wd in f32, on the tensor cores (deq_dot.cuh, shared with the
@@ -50,6 +70,7 @@
 // two kernels above never do, so it has a plain version of its own. An
 // 80-row x 128-column tile per block; bound by operations from a few hundred
 // rows on.
+#include <algorithm>
 #include <type_traits>
 
 #include "deq_dot.cuh"
@@ -166,35 +187,13 @@ dqmm_rows_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
-// dqmm_a8_kernel: int8 rows x re-centred W4/W8 pattern on the int8 tensor cores
+// The copy ring shared by the two tensor-core kernels
 // ---------------------------------------------------------------------------
 
 constexpr int A8_STAGES = 3;    // quant blocks in flight in the copy ring
-constexpr int A8_XSTR = 144;    // bytes per staged xq row: 128 + 16, so ldmatrix is conflict-free
-constexpr int A8_KW = 32;       // K words (4 K-values each) of the largest quant block
 
-// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
-// one quant block][BN] bytes, [BM][A8_XSTR] bytes of xq and the block's scale
-// and bias rows, then the unpacked pattern as [A8_KW][BW] words, each word
-// four consecutive K-values of one column (a B fragment register).
-template <int BITS, int MT, int NT, int WM, int WN>
-struct A8Tile {
-  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
-  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
-  static constexpr int X_BYTES = BM * A8_XSTR;
-  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
-  static constexpr int BW = BN + 8;           // 8 words mod 32: B loads are conflict-free
-  static constexpr int SMEM = A8_STAGES * STAGE + A8_KW * BW * 4;
-};
-
-// d += a (int8) . b (uint8), exact in int32
-__device__ __forceinline__ void mma_s8u8_16832(int (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm(   // registers only: the compiler is free to schedule it among the loads
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // The A fragment of m16n8k32 (rows gid and gid + 8, K bytes 4 tig .. 4 tig + 3
@@ -241,6 +240,120 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
+// B fragments of m16n8k16 for two n8 tiles from K-rows of bf16 in shared
+// memory: lanes 0-15 address K rows 0-15 of the first tile, lanes 16-31 the
+// same rows of the second; .trans hands each lane the K-pair of its column.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(smem_addr));
+}
+
+// The same for one n8 tile: lanes 0-15 address its K rows 0-15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr));
+}
+
+// One thread's share of filling a ring stage with quant block kb, the same
+// for every block but for its offset: a column piece of every w_step-th
+// packed row, of every x_step-th row of x, and at most one piece of the
+// scale or bias row. A stage is [packed rows of the largest block][BN]
+// bytes, then [BM][XSTR] bytes of x (E bytes a K-value, XROW bytes for the
+// largest block), then the block's scale and bias rows of BN bf16 each.
+// vx, vw, vp: the bytes per copy of x, of the packed rows and of the
+// scale/bias rows (16, 8 or 4, as their alignment allows).
+template <int E, int XROW, int XSTR, int BM, int BN, int THREADS, int W_BYTES, int X_BYTES,
+          int STAGE>
+struct Ring {
+  int w_r0, w_c, w_step, x_r0, x_c, x_step, p_plane, p_c, vx, vw, vp;
+  bool w_ok, p_ok;
+  const unsigned char* p_src;
+
+  __device__ __forceinline__ Ring(int tid, int n0, int N, const bf16* scale, const bf16* bias,
+                                  int vx_, int vw_, int vp_)
+      : vx(vx_), vw(vw_), vp(vp_) {
+    const int wc = BN / vw, xcs = XROW / vx, pc = 2 * BN / vp;
+    w_r0 = tid / wc;
+    w_c = (tid - w_r0 * wc) * vw;
+    w_step = THREADS / wc;
+    w_ok = n0 + w_c < N;
+    x_r0 = tid / xcs;
+    x_c = (tid - x_r0 * xcs) * vx;
+    x_step = THREADS / xcs;
+    p_plane = tid / pc;
+    p_c = (tid - p_plane * pc) * vp;
+    p_ok = p_plane < 2 && n0 + p_c / 2 < N;
+    p_src = reinterpret_cast<const unsigned char*>((p_plane ? bias : scale) + n0) + p_c;
+  }
+
+  // x rows are padded with zeros from `from` to `to` bytes in every stage;
+  // the copies never write there, and a zero adds nothing to any product
+  __device__ __forceinline__ static void zero_pad(unsigned char* smem, int from, int to, int tid) {
+    const int pad = (to - from) >> 3;
+    for (int i = tid; i < A8_STAGES * BM * pad; i += THREADS) {
+      const int s = i / (BM * pad), r = (i / pad) % BM, j = i % pad;
+      *reinterpret_cast<uint2*>(smem + s * STAGE + W_BYTES + r * XSTR + from + 8 * j) =
+          make_uint2(0u, 0u);
+    }
+  }
+
+  // stage quant block kb: packed rows as they lie in memory, x, scale, bias
+  __device__ __forceinline__ void load(unsigned char* st, int kb, const uint8_t* packed,
+                                       int rows_w, const unsigned char* x, int m0, int M, int K,
+                                       int bs, int N, int n0) const {
+    with_width(vw, [&](auto w) {
+      const uint8_t* ws = packed + ((long)kb * rows_w + w_r0) * N + n0 + w_c;
+      for (int r = w_r0; r < rows_w; r += w_step, ws += (long)w_step * N)
+        cp_async<decltype(w)::value>(st + r * BN + w_c, w_ok ? ws : packed, w_ok);
+    });
+    if (x_c < bs * E)
+      with_width(vx, [&](auto w) {
+        const unsigned char* xsrc = x + ((long)(m0 + x_r0) * K + (long)kb * bs) * E + x_c;
+        for (int r = x_r0; r < BM; r += x_step, xsrc += (long)x_step * K * E)
+          cp_async<decltype(w)::value>(st + W_BYTES + r * XSTR + x_c, m0 + r < M ? xsrc : x,
+                                       m0 + r < M);
+      });
+    if (p_plane < 2)
+      with_width(vp, [&](auto w) {
+        cp_async<decltype(w)::value>(st + W_BYTES + X_BYTES + p_plane * 2 * BN + p_c,
+                                     p_ok ? p_src + (long)kb * N * 2 : packed, p_ok);
+      });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// dqmm_a8_kernel: int8 rows x re-centred W4/W8 pattern on the int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int A8_XSTR = 144;    // bytes per staged xq row: 128 + 16, so ldmatrix is conflict-free
+constexpr int A8_KW = 32;       // K words (4 K-values each) of the largest quant block
+
+// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
+// one quant block][BN] bytes, [BM][A8_XSTR] bytes of xq and the block's scale
+// and bias rows, then the unpacked pattern as [A8_KW][BW] words, each word
+// four consecutive K-values of one column (a B fragment register).
+template <int BITS, int MT, int NT, int WM, int WN>
+struct A8Tile {
+  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
+  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int X_BYTES = BM * A8_XSTR;
+  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
+  static constexpr int BW = BN + 8;           // 8 words mod 32: B loads are conflict-free
+  static constexpr int SMEM = A8_STAGES * STAGE + A8_KW * BW * 4;
+};
+
+// d += a (int8) . b (uint8), exact in int32
+__device__ __forceinline__ void mma_s8u8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm(   // registers only: the compiler is free to schedule it among the loads
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Rows r0..r3 of four byte columns -> t[j], the four rows' bytes of column j.
 __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
                                              uint32_t (&t)[4]) {
@@ -275,48 +388,13 @@ dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
   const int rows_w = bs * BITS / 8;              // packed rows per quant block
   const float center = (float)(1 << (BITS - 1));
 
-  // xq rows are padded with zeros from bs to kp in every stage; the copies
-  // never write there, and a zero adds nothing to part or to the row sum
-  const int padq = (kp - bs) >> 3;
-  for (int i = tid; i < A8_STAGES * BM * padq; i += THREADS) {
-    const int s = i / (BM * padq), r = (i / padq) % BM, j = i % padq;
-    *reinterpret_cast<uint2*>(smem_raw + s * T::STAGE + T::W_BYTES + r * A8_XSTR + bs + 8 * j) =
-        make_uint2(0u, 0u);
-  }
-
-  // This thread's copies, the same for every quant block but for its offset:
-  // a column piece of every w_step-th packed row, of every x_step-th xq row,
-  // and at most one piece of the scale or bias row.
-  const int wc = BN / vw, w_r0 = tid / wc, w_c = (tid - w_r0 * wc) * vw, w_step = THREADS / wc;
-  const bool w_ok = n0 + w_c < N;
-  const int xcs = 128 / vx, x_r0 = tid / xcs, x_c = (tid - x_r0 * xcs) * vx, x_step = THREADS / xcs;
-  const int pc = 2 * BN / vp, p_plane = tid / pc, p_c = (tid - p_plane * pc) * vp;
-  const bool p_ok = p_plane < 2 && n0 + p_c / 2 < N;
-  const unsigned char* p_src =
-      reinterpret_cast<const unsigned char*>((p_plane ? bias : scale) + n0) + p_c;
-
-  // stage quant block kb: packed rows as they lie in memory, xq, scale, bias
+  using R = Ring<1, 4 * A8_KW, A8_XSTR, BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE>;
+  R::zero_pad(smem_raw, bs, kp, tid);
+  const R ring(tid, n0, N, scale, bias, vx, vw, vp);
   auto load = [&](int kb) {
-    if (kb < nb) {
-      unsigned char* st = smem_raw + (kb % A8_STAGES) * T::STAGE;
-      with_width(vw, [&](auto w) {
-        const uint8_t* ws = packed + ((long)kb * rows_w + w_r0) * N + n0 + w_c;
-        for (int r = w_r0; r < rows_w; r += w_step, ws += (long)w_step * N)
-          cp_async<decltype(w)::value>(st + r * BN + w_c, w_ok ? ws : packed, w_ok);
-      });
-      if (x_c < bs)
-        with_width(vx, [&](auto w) {
-          const int8_t* xsrc = xq + (long)(m0 + x_r0) * K + (long)kb * bs + x_c;
-          for (int r = x_r0; r < BM; r += x_step, xsrc += (long)x_step * K)
-            cp_async<decltype(w)::value>(st + T::W_BYTES + r * A8_XSTR + x_c,
-                                         m0 + r < M ? xsrc : xq, m0 + r < M);
-        });
-      if (p_plane < 2)
-        with_width(vp, [&](auto w) {
-          cp_async<decltype(w)::value>(st + T::W_BYTES + T::X_BYTES + p_plane * 2 * BN + p_c,
-                                       p_ok ? p_src + (long)kb * N * 2 : packed, p_ok);
-        });
-    }
+    if (kb < nb)
+      ring.load(smem_raw + (kb % A8_STAGES) * T::STAGE, kb, packed, rows_w,
+                reinterpret_cast<const unsigned char*>(xq), m0, M, K, bs, N, n0);
     cp_async_commit();   // an empty group past the last block keeps the count
   };
 
@@ -477,6 +555,246 @@ dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
     }
 }
 
+// ---------------------------------------------------------------------------
+// dqmm_bf16_tile_kernel: bf16 rows x the W4/W8 pattern on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BF_KMAX = 128;    // K-values of the largest quant block
+constexpr int BF_XSTR = 272;    // bytes per staged x row: 256 + 16, so ldmatrix is conflict-free
+
+// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
+// one quant block][BN] bytes, [BM][BF_XSTR] bytes of x and the block's scale
+// and bias rows, then the unpacked pattern as [BF_KMAX][BN] bf16, one K-value
+// a row (rows BTS bytes apart, an odd multiple of 16, so ldmatrix.trans is
+// conflict-free).
+template <int BITS, int MT, int NT, int WM, int WN>
+struct Bf16Tile {
+  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
+  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int X_BYTES = BM * BF_XSTR;
+  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
+  static constexpr int BTS = BN == 8 ? 16 : 2 * BN + 16;
+  static constexpr int SMEM = A8_STAGES * STAGE + BF_KMAX * BTS;
+};
+
+// Two 16-bit integers 0..15 in the low nibbles of t's halves, as two bf16,
+// exactly: 0x4300 | q is bf16(128 + q), and 128 is taken off in bf16x2.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
+  const uint32_t v = (t & 0x000F000Fu) | 0x43004300u, c = 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// One BM x BN output tile over the whole of K, the a8 kernel's design with
+// bf16 A fragments: per quant block, part = x_b . q_b on m16n8k16 (q is
+// exact in bf16), the row sums as one more product with a B of ones, then
+// acc = (acc + part * s) + rs * m in f32 in the plain version's order. vx,
+// vw, vp: the bytes per asynchronous copy of x, of the packed rows and of
+// the scale/bias rows.
+template <int BITS, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+dqmm_bf16_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                      const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+                      const float* __restrict__ out_bias, void* __restrict__ out, int M, int K,
+                      int N, int bs, int out_f32, int vx, int vw, int vp) {
+  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
+  constexpr int BM = T::BM, BN = T::BN, BTS = T::BTS, THREADS = T::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* bt = smem_raw + A8_STAGES * T::STAGE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nb = K / bs, kp = (bs + 15) & ~15;   // K-values per block, padded to the mma depth
+  const int rows_w = bs * BITS / 8;              // packed rows per quant block
+
+  using R = Ring<2, 2 * BF_KMAX, BF_XSTR, BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE>;
+  R::zero_pad(smem_raw, 2 * bs, 2 * kp, tid);
+  // the pattern's rows from bs to kp are zeros too: a zero x times stale
+  // shared memory could be NaN
+  for (int i = tid; i < (kp - bs) * BTS / 16; i += THREADS)
+    reinterpret_cast<uint4*>(bt + bs * BTS)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const R ring(tid, n0, N, scale, bias, vx, vw, vp);
+  auto load = [&](int kb) {
+    if (kb < nb)
+      ring.load(smem_raw + (kb % A8_STAGES) * T::STAGE, kb, packed, rows_w,
+                reinterpret_cast<const unsigned char*>(x), m0, M, K, bs, N, n0);
+    cp_async_commit();   // an empty group past the last block keeps the count
+  };
+
+  float ob[NT][2];   // the output biases this thread adds at the end
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = n0 + col_w + nt * 8 + 2 * tig + j;
+      ob[nt][j] = out_bias && col < N ? out_bias[col] : 0.f;
+    }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  // ldmatrix row addresses. A: lanes 0-15 rows 0-15 of an m16 tile at K
+  // values 0-7, lanes 16-31 the same rows at 8-15. B (.trans): lanes 0-15 K
+  // rows 0-15 of the first n8 tile of a pair, lanes 16-31 of the second.
+  const unsigned xr0 = smem_u32(smem_raw + T::W_BYTES + (row_w + (lane & 15)) * BF_XSTR +
+                                (lane >> 4) * 16);
+  const unsigned br0 = smem_u32(bt + (lane & 15) * BTS + (col_w + 8 * (lane >> 4)) * 2);
+  const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};   // bf16 1.0 pairs
+
+#pragma unroll
+  for (int s = 0; s < A8_STAGES - 1; ++s) load(s);
+
+  for (int kb = 0; kb < nb; ++kb) {
+    cp_async_wait<A8_STAGES - 2>();
+    __syncthreads();          // block kb has landed; every warp is done with kb - 1
+    load(kb + A8_STAGES - 1);
+    const int stage = (kb % A8_STAGES) * T::STAGE;
+    const unsigned char* st = smem_raw + stage;
+
+    // unpack once per tile: a thread takes 16 columns of one packed row (16
+    // bytes; 8 in a tile 8 wide) and writes them as bf16 K-rows, 32 bytes
+    // each: W4 the low nibbles to row i and the high ones to row i + bs/2
+    // (the pairing of the packed layout), W8 the bytes to row i
+    {
+      constexpr int IB = BN < 16 ? 8 : 16, CQ = BN / IB, IW = IB / 4;
+      for (int u = tid; u < rows_w * CQ; u += THREADS) {
+        const int i = u / CQ, c = u - i * CQ;
+        uint32_t w[IW];
+        if constexpr (IW == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(st + i * BN + IB * c);
+          w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(st + i * BN + IB * c);
+          w[0] = v.x, w[1] = v.y;
+        }
+        uint32_t lo[2 * IW], hi[2 * IW];
+#pragma unroll
+        for (int j = 0; j < IW; ++j) {
+          // bytes 0, 1 and 2, 3 of the word as 16-bit halves: two columns each
+          const uint32_t t0 = __byte_perm(w[j], 0u, 0x4140), t1 = __byte_perm(w[j], 0u, 0x4342);
+          if (BITS == 4) {
+            lo[2 * j] = nibbles_bf16x2(t0);
+            lo[2 * j + 1] = nibbles_bf16x2(t1);
+            hi[2 * j] = nibbles_bf16x2(t0 >> 4);
+            hi[2 * j + 1] = nibbles_bf16x2(t1 >> 4);
+          } else {
+            lo[2 * j] = pack_bf16(u2f(t0 & 0xFFFFu), u2f(t0 >> 16));
+            lo[2 * j + 1] = pack_bf16(u2f(t1 & 0xFFFFu), u2f(t1 >> 16));
+          }
+        }
+        uint4* d = reinterpret_cast<uint4*>(bt + i * BTS + 2 * IB * c);
+#pragma unroll
+        for (int q = 0; q < IW / 2; ++q)
+          d[q] = make_uint4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
+        if (BITS == 4) {
+          d = reinterpret_cast<uint4*>(bt + (i + (bs >> 1)) * BTS + 2 * IB * c);
+#pragma unroll
+          for (int q = 0; q < IW / 2; ++q)
+            d[q] = make_uint4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2], hi[4 * q + 3]);
+        }
+      }
+    }
+    __syncthreads();          // the unpacked block is complete
+
+    float part[MT][NT][4], rs[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        rs[mt][i] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) part[mt][nt][i] = 0.f;
+      }
+    // Rows past M are zeros in shared memory: their tiles add nothing, and
+    // computing them keeps the loop free of branches.
+    const unsigned xr = xr0 + stage;
+#pragma unroll 4
+    for (int ks = 0; ks < (kp >> 4); ++ks) {
+      uint32_t a[MT][4], b[NT][2];   // every fragment of the step, then the products
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t t[4];
+        ldmatrix_x4_trans(t, br0 + ks * 16 * BTS + np * 32);
+        b[2 * np][0] = t[0];
+        b[2 * np][1] = t[1];
+        b[2 * np + 1][0] = t[2];
+        b[2 * np + 1][1] = t[3];
+      }
+      if constexpr (NT % 2) {   // the last n8 tile alone
+        uint32_t t[2];
+        ldmatrix_x2_trans(t, br0 + ks * 16 * BTS + (NT / 2) * 32);
+        b[NT - 1][0] = t[0];
+        b[NT - 1][1] = t[1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * BF_XSTR);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16_16816(rs[mt], a[mt], ones);   // every column: the row's sum
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt]);
+      }
+    }
+
+    // the block's f32 step: acc = (acc + part * s) + rs * m
+    const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
+    __nv_bfloat162 sv[NT], mv[NT];   // this thread's two columns of each n-tile
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = col_w + nt * 8 + 2 * tig;
+      sv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + col);
+      mv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + BN + col);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float s = bf2f(j ? sv[nt].y : sv[nt].x), m = bf2f(j ? mv[nt].y : mv[nt].x);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {   // rows gid and gid + 8
+            float& a = acc[mt][nt][2 * h + j];
+            a = __fadd_rn(__fadd_rn(a, __fmul_rn(part[mt][nt][2 * h + j], s)),
+                          __fmul_rn(rs[mt][2 * h], m));
+          }
+      }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + row_w + mt * 16 + gid + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + col_w + nt * 8 + 2 * tig;   // and col + 1: N is even
+        if (col >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[j] = as_out(acc[mt][nt][2 * h + j], out_f32);
+          if (out_bias) v[j] = __fadd_rn(v[j], ob[nt][j]);
+        }
+        const long o = (long)row * N + col;
+        if (out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[0], v[1]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) =
+              __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+}
+
 template <int BITS>
 __global__ void __launch_bounds__(DD_THREADS)
 dqmm_deq_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
@@ -554,9 +872,10 @@ constexpr int A8_NTILES = sizeof(A8_TILE_BM) / sizeof(int);
 #undef MNN_A8_BM
 #undef MNN_A8_BN
 
-// The tallest tile that is no taller than the rows (rounded up to 16) and
-// still gives every SM a block; the shortest where none does.
-static int a8_tile(int M, int N) {
+// The tallest of `count` tiles (rows bm[t], columns bn[t], tallest first)
+// that is no taller than the rows (rounded up to 16) and still gives every
+// SM a block; the shortest where none does.
+static int pick_tile(int M, int N, const int* bm, const int* bn, int count) {
   static int sms = 0;
   if (!sms) {
     int dev = 0;
@@ -564,13 +883,41 @@ static int a8_tile(int M, int N) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const int m16 = (M + 15) & ~15;
-  for (int t = 0; t + 1 < A8_NTILES; ++t) {
-    const long blocks = (long)((M + A8_TILE_BM[t] - 1) / A8_TILE_BM[t]) *
-                        ((N + A8_TILE_BN[t] - 1) / A8_TILE_BN[t]);
-    if (A8_TILE_BM[t] <= m16 && blocks >= sms) return t;
+  for (int t = 0; t + 1 < count; ++t) {
+    const long blocks = (long)((M + bm[t] - 1) / bm[t]) * ((N + bn[t] - 1) / bn[t]);
+    if (bm[t] <= m16 && blocks >= sms) return t;
   }
-  return A8_NTILES - 1;
+  return count - 1;
 }
+
+static int a8_tile(int M, int N) { return pick_tile(M, N, A8_TILE_BM, A8_TILE_BN, A8_NTILES); }
+
+// The tile shapes of dqmm_bf16_tile_kernel as (MT, NT, WM, WN), largest
+// first: 64 x 128 (eight warps), 64 x 64, 32 x 64 and 16 x 64 (four), then
+// 16 x 32, 16 x 16 and 16 x 8 (two warps, one, one), so that the 32-row
+// bucket fills the card at N = 2048 (16 x 16: 256 blocks) and N = 896
+// (16 x 8: 224 blocks) too. Each warp holds at most 32 x 32.
+#define MNN_BF_TILES(X)                                                                      \
+  X(0, 2, 4, 2, 4) X(1, 2, 4, 2, 2) X(2, 1, 4, 2, 2) X(3, 1, 2, 1, 4) X(4, 1, 2, 1, 2)        \
+  X(5, 1, 2, 1, 1) X(6, 1, 1, 1, 1)
+#define MNN_BF_BM(t, MT, NT, WM, WN) Bf16Tile<4, MT, NT, WM, WN>::BM,
+#define MNN_BF_BN(t, MT, NT, WM, WN) Bf16Tile<4, MT, NT, WM, WN>::BN,
+constexpr int BF_TILE_BM[] = {MNN_BF_TILES(MNN_BF_BM)};
+constexpr int BF_TILE_BN[] = {MNN_BF_TILES(MNN_BF_BN)};
+constexpr int BF_NTILES = sizeof(BF_TILE_BM) / sizeof(int);
+#undef MNN_BF_BM
+#undef MNN_BF_BN
+
+// Rows from which bf16 rows take dqmm_bf16_tile_kernel; below, the row
+// kernel, which keeps M = 1 (the decode GEMVs and the head). The crossover,
+// measured against dqmm_rows_kernel<4, 4> on an H100 80GB HBM3 at 700 W
+// (profile_a8.py --kernel rows, W4 block 128), lies below M = 2: at M = 2
+// the tile kernel takes 9.5 / 10.4 / 45.2 / 51.3 us against 31.6 / 32.2 /
+// 147.1 / 174.9 at K x N = 896 x 1152, 896 x 9728, 4864 x 896 and
+// 5632 x 2048, and it stays 2.8 to 4.6 times faster at M = 4, 8, 16 and 32.
+constexpr int BF_TILE_MIN_M = 2;
+
+static int bf16_tile(int M, int N) { return pick_tile(M, N, BF_TILE_BM, BF_TILE_BN, BF_NTILES); }
 
 // The widest of 16, 8 and 4 bytes that divides every address and stride in `a`.
 static int copy_width(uintptr_t a) { return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4; }
@@ -597,22 +944,64 @@ static cudaError_t launch_a8(const void* xq, const void* xscale, const void* pac
   return cudaGetLastError();
 }
 
+template <int BITS, int MT, int NT, int WM, int WN>
+static cudaError_t launch_bf16_tile(const void* x, const void* packed, const void* scale,
+                                   const void* bias, const void* out_bias, void* out, int M,
+                                   int K, int N, int bs, int out_f32, cudaStream_t st) {
+  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
+  auto kern = dqmm_bf16_tile_kernel<BITS, MT, NT, WM, WN>;
+  static size_t granted = 0;
+  cudaError_t e = allow_smem(kern, T::SMEM, granted);
+  if (e != cudaSuccess) return e;
+  const int vx = copy_width((uintptr_t)x | (uintptr_t)(2 * K) | (uintptr_t)(2 * bs));
+  const int vw = std::min(copy_width((uintptr_t)packed | (uintptr_t)N), T::BN);
+  const int vp = copy_width((uintptr_t)scale | (uintptr_t)bias | (uintptr_t)(2 * N));
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  kern<<<grid, T::THREADS, T::SMEM, st>>>(
+      static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
+      static_cast<const float*>(out_bias), out, M, K, N, bs, out_f32, vx, vw, vp);
+  return cudaGetLastError();
+}
+
 }  // namespace mnn
 
 using namespace mnn;
 
-// y[M, N] = x[M, K] (bf16) @ dequant(packed, scale, bias) (+ out_bias)
+// y[M, N] = x[M, K] (bf16) @ dequant(packed, scale, bias) (+ out_bias), on
+// the row kernel, one row a block: M = 1, as mnn_dequant_matmul_tile rules
 MNN_API int mnn_dequant_matmul(const void* x, const void* packed, const void* scale,
                                const void* bias, const void* out_bias, void* out,
                                int M, int K, int N, int bits, int bs, int out_f32,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4)
-    return M == 1 ? launch_rows<4, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st)
-                  : launch_rows<4, 4>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
-  if (bits == 8)
-    return M == 1 ? launch_rows<8, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st)
-                  : launch_rows<8, 4>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
+  if (bits == 4) return launch_rows<4, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
+  if (bits == 8) return launch_rows<8, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same function on the bf16 tensor cores (dqmm_bf16_tile_kernel) at any
+// M, in the tile bf16_tile picks; x 16-byte aligned
+MNN_API int mnn_dequant_matmul_bf16_tile(const void* x, const void* packed, const void* scale,
+                                         const void* bias, const void* out_bias, void* out,
+                                         int M, int K, int N, int bits, int bs, int out_f32,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bs > BF_KMAX || bs % 8 || K % bs || N % 4 || (bits != 4 && bits != 8))
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16 || ((uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  const int tile = bf16_tile(M, N);
+#define MNN_BF_CASE(t, MT, NT, WM, WN)                                                          \
+  if (tile == t)                                                                               \
+    return (int)(bits == 4 ? launch_bf16_tile<4, MT, NT, WM, WN>(x, packed, scale, bias,       \
+                                                                 out_bias, out, M, K, N, bs,   \
+                                                                 out_f32, st)                  \
+                           : launch_bf16_tile<8, MT, NT, WM, WN>(x, packed, scale, bias,       \
+                                                                 out_bias, out, M, K, N, bs,   \
+                                                                 out_f32, st));
+  MNN_BF_TILES(MNN_BF_CASE)
+#undef MNN_BF_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -666,5 +1055,24 @@ MNN_API int mnn_dequant_matmul_a8_tile(int M, int N, int bits, int* out) {
   }
   MNN_A8_TILES(MNN_A8_INFO)
 #undef MNN_A8_INFO
+  return (int)cudaErrorInvalidValue;
+}
+
+// Which kernel takes bf16 rows at M rows and N columns: the tile of
+// dqmm_bf16_tile_kernel as rows, columns and dynamic shared memory per block
+// in out[0..2], or zeros where the row kernel takes them. Launches nothing.
+MNN_API int mnn_dequant_matmul_tile(int M, int N, int bits, int* out) {
+  out[0] = out[1] = out[2] = 0;
+  if (M < BF_TILE_MIN_M) return 0;
+  const int tile = bf16_tile(M, N);
+#define MNN_BF_INFO(t, MT, NT, WM, WN)                                                           \
+  if (tile == t) {                                                                            \
+    out[0] = Bf16Tile<4, MT, NT, WM, WN>::BM;                                                 \
+    out[1] = Bf16Tile<4, MT, NT, WM, WN>::BN;                                                 \
+    out[2] = bits == 4 ? Bf16Tile<4, MT, NT, WM, WN>::SMEM : Bf16Tile<8, MT, NT, WM, WN>::SMEM; \
+    return 0;                                                                                 \
+  }
+  MNN_BF_TILES(MNN_BF_INFO)
+#undef MNN_BF_INFO
   return (int)cudaErrorInvalidValue;
 }

@@ -45,9 +45,19 @@ What bounds it on the H100, and what the simple design does about it:
   is the tallest that still gives every SM a block (`a8_tile`). What holds
   it back is the latency of the serial steps per quant block, not its
   bounds (`PERF.md`).
-* The bf16 path at M > 1 reuses the row kernel with 4 rows per block. A
-  mixture-of-experts model's shared expert runs it at M = 512 in prefill;
-  it is not tuned.
+* The bf16 path at M > 1 (`dqmm_bf16_tile_kernel`): a mixture-of-experts
+  model's shared expert at every prefill chunk, and every prefill
+  projection under `prefill_act_bits=16`. At M = 512 it is bound by bf16
+  tensor-core operations (23.6 GFLOP for the shared expert's gate/up). It is
+  the a8 kernel's design with bf16 A fragments: `mma.sync.m16n8k16` on the
+  unsigned pattern q (exact in bf16), the row sums as one more product with
+  a B of ones, the same `cp.async` ring (shared code), the packed tile
+  unpacked once per output tile into bf16 K-rows (W4: low nibbles to row i,
+  high ones to row i + bs/2, as the packed layout pairs them) read by
+  `ldmatrix.trans`, and the per-block f32 step in the plain version's
+  order. Tiles from 64 x 128 down to 16 x 8, chosen from M and N so the
+  32-row bucket fills the card (`bf16_tile`); below `BF_TILE_MIN_M` rows
+  (M = 1 always) the row kernel keeps the call.
 * The dequantize-tile kernel (`m >= DEQ_MIN_M`, off by default as in the JAX
   package) turns each quant block into wd = bf16(q * s + m) and dots bf16
   rows with it on the tensor cores (`mma.sync`, `csrc/deq_dot.cuh`), whatever
@@ -59,6 +69,7 @@ What bounds it on the H100, and what the simple design does about it:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -76,6 +87,10 @@ KERNEL_BF16 = kernel("mnn_dequant_matmul", [P, P, P, P, P, P, I, I, I, I, I, I])
 #                           M, K, N, bits, block_size, out_f32, stream)
 KERNEL_A8 = kernel("mnn_dequant_matmul_a8",
                    [P, P, P, P, P, P, P, I, I, I, I, I, I])
+
+# int mnn_dequant_matmul_bf16_tile(...): the same operands, on the tensor cores
+KERNEL_BF16_TILE = kernel("mnn_dequant_matmul_bf16_tile",
+                          [P, P, P, P, P, P, I, I, I, I, I, I])
 
 # int mnn_dequant_matmul_deq(...): the same operands as mnn_dequant_matmul
 KERNEL_DEQ = kernel("mnn_dequant_matmul_deq", [P, P, P, P, P, P, I, I, I, I, I, I])
@@ -96,6 +111,20 @@ def a8_tile(m: int, n: int, bits: int) -> tuple[int, int, int]:
     if fn(m, n, bits, out):
         raise ValueError(f"no a8 tile for M={m} N={n}")
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_tile(m: int, n: int, bits: int) -> Optional[tuple[int, int, int]]:
+    """(rows, columns, dynamic shared bytes) of the tile in which
+    `KERNEL_BF16_TILE` takes bf16 rows at m rows and n columns on this card,
+    or None where the row kernel (`KERNEL_BF16`) takes them. Launches
+    nothing."""
+    fn = library().mnn_dequant_matmul_tile
+    fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    if fn(m, n, bits, out):
+        raise ValueError(f"no bf16 tile for M={m} N={n}")
+    return tuple(out) if out[0] else None
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -226,9 +255,14 @@ def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype,
                   out.data_ptr(), m, k, n, ql.bits, ql.block_size, out_f32)
     else:
         x2 = x2.to(torch.bfloat16).contiguous()
-        KERNEL_BF16(x2.data_ptr(), ql.packed.data_ptr(), ql.scale.data_ptr(),
-                    ql.bias.data_ptr(), _ptr(ql.out_bias), out.data_ptr(),
-                    m, k, n, ql.bits, ql.block_size, out_f32)
+        kern = KERNEL_BF16
+        if bf16_tile(m, n, ql.bits):
+            kern = KERNEL_BF16_TILE
+            if x2.data_ptr() % 16:       # it copies rows of x 16 bytes at a time
+                x2 = x2.clone()
+        kern(x2.data_ptr(), ql.packed.data_ptr(), ql.scale.data_ptr(),
+             ql.bias.data_ptr(), _ptr(ql.out_bias), out.data_ptr(),
+             m, k, n, ql.bits, ql.block_size, out_f32)
     return out
 
 

@@ -1,19 +1,32 @@
-"""The int8-row matmul kernel against another version of it, on the card.
+"""A dequant matmul kernel against another version of its source, on the card.
 
     python -m mnn_tpu_torch.profile_a8 --against OLD/dequant_matmul.cu
+    python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/dequant_matmul.cu
 
 Builds `csrc/dequant_matmul.cu` and the given other version of that source
 (for example the parent commit's, `git show HEAD~1:mnn_tpu_torch/csrc/
-dequant_matmul.cu`) into two libraries, then times `mnn_dequant_matmul_a8`
-of each on rows quantized beforehand, at the shapes of `chip_smoke.py`
-phase 2: qwen2-0.5b's qkv, wo, gate/up and down and qwen1.5-moe-a2.7b's qkv
-and wo at M = 512, and gate/up at M = 32 and 128 (W4, block 128). Each
-version runs twice, in the order other, this, this, other, in one process on
-one card; a call rotates over weight copies larger than L2, as the serving
-path finds them. It prints both versions' times per shape and whether the
-two give the same bits (both compute the exact int32 algebra), with the
-card's name and power limit; the JSON goes to
-`chiprun_out/a8_against.json` as well. Needs a card and nvcc.
+dequant_matmul.cu`) into two libraries, then times one C entry of each, in
+the order other, this, this, other, in one process on one card; a call
+rotates over weight copies larger than L2, as the serving path finds them.
+W4, block 128.
+
+* `--kernel a8` (the default): `mnn_dequant_matmul_a8` of both, on rows
+  quantized beforehand, at the shapes of `chip_smoke.py` phase 2:
+  qwen2-0.5b's qkv, wo, gate/up and down and qwen1.5-moe-a2.7b's qkv and wo
+  at M = 512, and gate/up at M = 32 and 128. Both compute the exact int32
+  algebra, so it checks that the two give the same bits.
+* `--kernel rows`: bf16 rows. This version's `mnn_dequant_matmul_bf16_tile`
+  (the tensor-core tile kernel) against the other's `mnn_dequant_matmul`
+  (the row kernel, at M > 1 in a source older than the tile kernel), at
+  qwen1.5-moe-a2.7b's shared expert (gate/up, and down with its f32 output)
+  at M = 32, 128 and 512, qwen2-0.5b's qkv, wo, gate/up and down at M = 512,
+  and the crossover rows M = 2, 4, 8, 16 and 32 at four of those shapes.
+  The two sum in other orders, so it checks that each pair is within
+  rel-L2 1e-2 and prints the value.
+
+It prints both versions' times per shape, with the card's name and power
+limit; the JSON goes to `chiprun_out/{a8,rows}_against.json` as well.
+Needs a card and nvcc.
 """
 
 from __future__ import annotations
@@ -34,10 +47,21 @@ from mnn_tpu_torch.quant.quantize import quantize_activations_int8
 SHAPES = [  # (M, K, N)
     (512, 896, 1152), (512, 896, 896), (512, 896, 9728), (512, 4864, 896),
     (512, 2048, 6144), (512, 2048, 2048), (32, 896, 9728), (128, 896, 9728)]
+ROWS_SHAPES = [  # (M, K, N, out f32)
+    (32, 2048, 11264, False), (128, 2048, 11264, False), (512, 2048, 11264, False),
+    (32, 5632, 2048, True), (128, 5632, 2048, True), (512, 5632, 2048, True),
+    (512, 896, 1152, False), (512, 896, 896, False), (512, 896, 9728, False),
+    (512, 4864, 896, False)]
+CROSSOVER_M = (2, 4, 8, 16, 32)
+CROSSOVER_SHAPES = [(896, 1152, False), (896, 9728, False), (4864, 896, False),
+                    (5632, 2048, True)]
+ROWS_SHAPES += [(m, k, n, f32) for k, n, f32 in CROSSOVER_SHAPES for m in CROSSOVER_M]
 L2_ROTATE_BYTES = 128 << 20
+ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, other)
+         "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul")}
 
 
-def _library(src: Path, out_dir: Path, name: str) -> ctypes.CDLL:
+def _library(src: Path, out_dir: Path, name: str, entry: str) -> ctypes.CDLL:
     """One source, with the port's headers beside it, into its own library."""
     work = out_dir / name
     shutil.rmtree(work, ignore_errors=True)
@@ -49,9 +73,10 @@ def _library(src: Path, out_dir: Path, name: str) -> ctypes.CDLL:
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(work),
                     "-o", str(so), str(work / "dequant_matmul.cu")], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.mnn_dequant_matmul_a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    return lib
+    fn = getattr(lib, entry)
+    pointers = 7 if entry.endswith("_a8") else 6
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
 
 
 def _time_us(fn, calls: int) -> float:
@@ -74,24 +99,35 @@ def _time_us(fn, calls: int) -> float:
     return start.elapsed_time(end) / (3 * calls) * 1e3
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-12))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
                     help="another version of csrc/dequant_matmul.cu")
+    ap.add_argument("--kernel", choices=sorted(ENTRY), default="a8",
+                    help="a8: the int8-row kernel; rows: bf16 rows, the tensor-core "
+                         "tile kernel against the other's row kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_a8 needs an NVIDIA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    a8 = args.kernel == "a8"
     out_dir = build.BUILD_ROOT / "profile_a8"
-    libs = {"this": _library(build.CSRC / "dequant_matmul.cu", out_dir, "this"),
-            "other": _library(args.against, out_dir, "other")}
+    fns = {"this": _library(build.CSRC / "dequant_matmul.cu", out_dir, "this",
+                            ENTRY[args.kernel][0]),
+           "other": _library(args.against, out_dir, "other", ENTRY[args.kernel][1])}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(m, k, n, False) for m, k, n in SHAPES] if a8 else ROWS_SHAPES
     times = {"other": [], "this": []}
-    same = True
-    for m, k, n in SHAPES:
+    rels, same = [], True
+    for m, k, n, f32 in shapes:
         nl = max(1, min(256, math.ceil(L2_ROTATE_BYTES / (k * n // 2))))
         packed = torch.randint(-128, 128, (nl, k // 2, n), dtype=torch.int8, device=dev,
                                generator=g)
@@ -99,19 +135,22 @@ def main():
                  + 1e-3).to(torch.bfloat16)
         bias = (-7.5 * scale.float() + torch.randn((nl, k // 128, n), device=dev,
                                                     generator=g) * 1e-3).to(torch.bfloat16)
-        xq, xs = quantize_activations_int8(
-            torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16))
-        xs = xs.reshape(m).contiguous()
+        x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+        if a8:
+            xq, xs = quantize_activations_int8(x)
+            rows = (xq.data_ptr(), xs.reshape(m).contiguous().data_ptr())
+        else:
+            rows = (x.data_ptr(),)
         outs, row = {}, {"other": [], "this": []}
         for version in ("other", "this", "this", "other"):
-            fn = libs[version].mnn_dequant_matmul_a8
-            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            fn = fns[version]
+            out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16,
+                              device=dev)
 
             def call(i, fn=fn, out=out):   # on the current stream: graph capture has its own
-                err = fn(xq.data_ptr(), xs.data_ptr(), packed[i % nl].data_ptr(),
-                         scale[i % nl].data_ptr(), bias[i % nl].data_ptr(), None,
-                         out.data_ptr(), m, k, n, 4, 128, 0,
-                         torch.cuda.current_stream().cuda_stream)
+                err = fn(*rows, packed[i % nl].data_ptr(), scale[i % nl].data_ptr(),
+                         bias[i % nl].data_ptr(), None, out.data_ptr(), m, k, n, 4, 128,
+                         int(f32), torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{version}: CUDA launch error {err}")
             call(0)
@@ -119,17 +158,23 @@ def main():
             outs[version] = out.clone()
             row[version].append(_time_us(call, max(8, nl)))
         same = same and torch.equal(outs["this"], outs["other"])
+        rels.append(_rel(outs["this"], outs["other"]))
         for version in times:
             times[version].append(row[version])
         print(f"M={m} K={k} N={n}: other {row['other'][0]:.2f} / {row['other'][1]:.2f} us, "
-              f"this {row['this'][0]:.2f} / {row['this'][1]:.2f} us", flush=True)
-    print(f"same bits: {same}")
+              f"this {row['this'][0]:.2f} / {row['this'][1]:.2f} us, "
+              f"rel-L2 {rels[-1]:.3e}", flush=True)
+    ok = same if a8 else max(rels) <= 1e-2
+    print(f"same bits: {same}" if a8 else f"every pair within rel-L2 1e-2: {ok} "
+          f"(largest {max(rels):.3e})")
     print(card)
-    result = dict(card=card, shapes=SHAPES, us=times, same_bits=same,
-                  against=str(args.against))
+    result = dict(card=card, kernel=args.kernel, shapes=shapes, us=times, same_bits=same,
+                  rel_l2=rels, agree=ok, against=str(args.against))
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "a8_against.json").write_text(json.dumps(result, indent=1))
+    (out / f"{args.kernel}_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the two versions disagree")
 
 
 if __name__ == "__main__":

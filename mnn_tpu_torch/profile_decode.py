@@ -1,7 +1,8 @@
-"""Where the time of one greedy decode step goes, on the card.
+"""Where the time of one greedy decode step, or of a prefill, goes, on the card.
 
     python -m mnn_tpu_torch.profile_decode [--preset qwen2-0.5b] [--prompt 300]
                                            [--kv-bits 8] [--steps 16]
+    python -m mnn_tpu_torch.profile_decode --prefill [--act-bits 16]
 
 Builds `Llm.synthetic(preset)` in the serving configuration of the port's
 main path (W4 block-128 weights, int4 lm head, int8 or int4 KV cache, int8
@@ -16,9 +17,15 @@ kernel launches, and the device time of each kernel by name; for the
 whole-model kernel also the share of its time that each kind of phase takes
 (block 0's clock at the end of every phase). A mixture-of-experts preset
 (`--preset qwen1.5-moe-a2.7b`) has the per-layer path only: its expert MLP
-runs in the fused expert kernel, one entry a layer. The JSON goes to
-`chiprun_out/decode_profile.json` as well. Needs a card; it never runs on the
-CPU.
+runs in the fused expert kernel, one entry a layer.
+
+`--prefill` times the prefill of the prompt instead (every chunk, from an
+empty cache, with `--act-bits` 8 or 16 for the prefill projections): the
+wall time of five untraced runs, each ending in a synchronize, then
+one traced run's device busy time, idle share against the median wall time,
+launches and kernels by name. The JSON goes to `chiprun_out/decode_profile.json`
+(`prefill_profile.json` with `--prefill`) as well. Needs a card; it never
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from mnn_tpu_torch.runtime import kvcache, sampler
 from mnn_tpu_torch.runtime.llm import Llm
 
 PATHS = {"megakernel": None, "per_layer": False}   # forward's `megakernel`
+PREFILL_REPEATS = 5
 
 
 def profile_path(llm, rt, ids, n_steps: int, megakernel) -> dict:
@@ -58,19 +66,8 @@ def profile_path(llm, rt, ids, n_steps: int, megakernel) -> dict:
     t0 = time.perf_counter()                  # wall time with the tracer off
     logits, cache, state = steps(n_steps, logits, cache, state)
     wall = (time.perf_counter() - t0) / n_steps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        logits, cache, state = steps(n_steps, logits, cache, state)
-        wall_traced = (time.perf_counter() - t0) / n_steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    if not kernels:
-        raise SystemExit("the profiler recorded no device time")
-    by_name = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps,
-                       e.count / n_steps) for e in kernels),
-                     key=lambda r: -r[1])
+    by_name, (logits, cache, state), wall_traced = traced(
+        lambda: steps(n_steps, logits, cache, state), n_steps)
     busy = sum(ms for _, ms, _ in by_name)
     extra = {}
     if megakernel is None:
@@ -83,6 +80,45 @@ def profile_path(llm, rt, ids, n_steps: int, megakernel) -> dict:
                 kernel_launches_per_step=sum(n for _, _, n in by_name),
                 kernels=[dict(name=k, ms_per_step=ms, launches_per_step=n)
                          for k, ms, n in by_name])
+
+
+def traced(fn, n: int):
+    """One traced `fn()`: ([(kernel name, device ms, launches)] per 1/n of
+    it, longest first; what `fn` returned; its wall seconds per 1/n)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        wall = (time.perf_counter() - t0) / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device time")
+    return sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+                   for e in kernels), key=lambda r: -r[1]), result, wall
+
+
+def profile_prefill(llm, rt, ids) -> dict:
+    """Time PREFILL_REPEATS prefills of `ids` from an empty cache, then trace one."""
+    def run():
+        gen.run_prefill(llm.params, llm.config, rt, ids, kvcache.reset(llm.cache))
+        torch.cuda.synchronize()
+
+    run()                                     # warm-up
+    walls = []
+    for _ in range(PREFILL_REPEATS):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    by_name, _, _ = traced(run, 1)
+    busy = sum(ms for _, ms, _ in by_name)
+    median = sorted(walls)[len(walls) // 2]
+    return dict(wall_ms=walls, wall_ms_median=median, device_busy_ms=busy,
+                device_idle_share=1 - busy / median,
+                kernel_launches=sum(n for _, _, n in by_name),
+                chunks=gen.prefill_buckets(ids.shape[1], rt.prefill_chunk),
+                kernels=[dict(name=k, ms=ms, launches=n) for k, ms, n in by_name])
 
 
 def phase_shares(llm, cache, token) -> dict:
@@ -113,12 +149,16 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=300)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--kv-bits", type=int, default=8, choices=(4, 8))
-    ap.add_argument("--out", default="chiprun_out/decode_profile.json")
+    ap.add_argument("--prefill", action="store_true",
+                    help="profile the prefill of the prompt, not decode steps")
+    ap.add_argument("--act-bits", type=int, default=8, choices=(8, 16),
+                    help="prefill activations: int8 rows (the serving path) or bf16")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     rt = RuntimeConfig(max_seq_len=1024, prefill_chunk=512, sampler="greedy",
                        kv_quant=True, kv_bits=args.kv_bits, quant_bits=4,
-                       quant_block=128, lm_head_bits=4, prefill_act_bits=8)
+                       quant_block=128, lm_head_bits=4, prefill_act_bits=args.act_bits)
     llm = Llm.synthetic(args.preset, rt=rt, seed=0, device="cuda")
     g = torch.Generator().manual_seed(0)
     ids = torch.randint(0, llm.config.vocab_size, (1, args.prompt),
@@ -133,6 +173,21 @@ def main(argv=None):
                decode_fused_head=info["decode_fused_head"],
                decode_moe_fused=info["decode_moe_fused"], paths={})
     print(f"card: {smi}")
+    out = Path(args.out or "chiprun_out/" + ("prefill" if args.prefill else "decode")
+               + "_profile.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if args.prefill:
+        r = res["prefill"] = profile_prefill(llm, rt, ids)
+        res["act_bits"] = args.act_bits
+        print(f"prefill of {args.prompt} tokens ({args.preset}, act_bits {args.act_bits}, "
+              f"chunks {r['chunks']}): wall {r['wall_ms_median']:.2f} ms (median of "
+              f"{PREFILL_REPEATS}: {', '.join(f'{w:.2f}' for w in r['wall_ms'])}), device busy "
+              f"{r['device_busy_ms']:.3f} ms, idle share {r['device_idle_share']:.3f}, "
+              f"{r['kernel_launches']:.0f} kernel launches")
+        for k in r["kernels"][:12]:
+            print(f"  {k['ms']:8.4f} ms  x{k['launches']:5.0f}  {k['name'][:100]}")
+        out.write_text(json.dumps(res, indent=1))
+        return
     for name, flag in PATHS.items():
         if flag is None and not info["decode_megakernel"]:
             print(f"{name}: not eligible for {args.preset}")
@@ -148,8 +203,6 @@ def main(argv=None):
         if "phase_shares" in r:
             print("  whole-model kernel, share of its time by phase: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["phase_shares"].items()))
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
 
 

@@ -75,7 +75,9 @@ def test_dequant_matmul_kernel(dev, bits, act_bits, m, k, n, f32, with_bias):
     ql = rand_ql(g, dev, k, n, bits, act_bits, 3, with_bias)
     x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
     out_dtype = torch.float32 if f32 else torch.bfloat16
-    kern = dequant_matmul.KERNEL_A8 if act_bits == 8 else dequant_matmul.KERNEL_BF16
+    kern = dequant_matmul.KERNEL_A8 if act_bits == 8 else (
+        dequant_matmul.KERNEL_BF16_TILE if dequant_matmul.bf16_tile(m, n, bits)
+        else dequant_matmul.KERNEL_BF16)
     before = kern.launches
     got = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
     want = dequant_matmul.dequant_matmul_plain(x, ql.layer(2), out_dtype)
@@ -119,6 +121,58 @@ def test_dequant_matmul_a8_kernel(dev, bits, m, k, n, bs, f32, with_bias):
     assert rel(got, want) <= 1e-2
     assert torch.equal(got, again)
     assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
+# bf16 rows at the main path's shapes (qwen1.5-moe-a2.7b's shared expert at
+# the 32-, 128- and 512-row buckets, its down projection with the f32 output
+# the model asks for; qwen2-0.5b's qkv, wo, gate/up and down at M = 512 under
+# prefill_act_bits=16, and wo and down at the 32-row bucket), at the tile
+# kernel's edges (M = 2 to 130, blocks of 8 to 128 K-values, W8, ragged N,
+# f32 with out_bias, tiles from 64 x 128 to 16 x 8), and at M = 1, which the
+# row kernel keeps: (bits, M, K, N, block, out f32, out_bias)
+GEMM_ROWS = [(4, 32, 2048, 11264, 128, False, False), (4, 128, 2048, 11264, 128, False, False),
+             (4, 512, 2048, 11264, 128, False, False), (4, 32, 5632, 2048, 128, True, False),
+             (4, 128, 5632, 2048, 128, True, False), (4, 512, 5632, 2048, 128, True, False),
+             (4, 512, 896, 1152, 128, False, True), (4, 512, 896, 896, 128, False, False),
+             (4, 512, 896, 9728, 128, False, False), (4, 512, 4864, 896, 128, False, False),
+             (4, 2, 256, 200, 16, False, True), (4, 16, 384, 1028, 8, False, False),
+             (4, 33, 960, 200, 40, True, True), (4, 64, 2048, 2048, 64, False, False),
+             (4, 130, 896, 1028, 32, True, True), (8, 64, 256, 1028, 64, False, True),
+             (8, 130, 512, 200, 128, True, False), (8, 33, 320, 1152, 40, False, False),
+             (8, 512, 896, 1152, 128, False, True), (4, 32, 896, 896, 128, False, False),
+             (4, 32, 4864, 896, 128, False, False), (8, 2, 256, 132, 8, True, True),
+             (4, 1, 2048, 2048, 128, False, False)]
+
+
+@pytest.mark.parametrize("bits,m,k,n,bs,f32,with_bias", GEMM_ROWS)
+def test_dequant_matmul_rows_kernel(dev, bits, m, k, n, bs, f32, with_bias):
+    """bf16 rows from 32 on take the tensor-core tile kernel, M = 1 the row
+    kernel; either way the result meets the plain version at rel-L2 1e-2
+    and gives the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(m * n + bits + bs)
+    ql = rand_ql(g, dev, k, n, bits, 16, 3, with_bias, bs)
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    tile = dequant_matmul.bf16_tile(m, n, bits)
+    if m >= 32:
+        assert tile is not None and tile[0] <= max(16, m)
+    if m == 1:
+        assert tile is None
+    kern, other = dequant_matmul.KERNEL_BF16_TILE, dequant_matmul.KERNEL_BF16
+    if tile is None:
+        kern, other = other, kern
+    before, before_other = kern.launches, other.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
+    again = dequant_matmul.dequant_matmul(x, ql, layer_index=2, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(2), out_dtype)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2 and other.launches == before_other
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    err = rel(got, want)
+    print(f"bf16 rows M={m} K={k} N={n} W{bits} bs={bs} tile={tile}: rel-L2 {err:.3e}")
+    assert err <= 1e-2
+    assert torch.equal(got, again)
 
 
 # (H, Hkv, Tq, S, kv_len, q_offset, D, window, sink)
