@@ -17,7 +17,11 @@ Phases, each of which exits non-zero on failure:
    buckets. The bf16-row matmul runs the row kernel at M = 1 and the
    tensor-core tile kernel above (the shared expert at the 32-, 128- and
    512-row buckets, qwen2-0.5b's projections at M = 512), each row with the
-   kernel it launched and its tile. The whole-model decode kernel runs
+   kernel it launched and its tile. Flash prefill runs the prefill chunks
+   of the three requests (also the short chunk over the long cache at batch
+   2, and the chunk serving sends for the 300-token prompt), each row with
+   the tiling the kernel took and SDPA's time. The
+   whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
@@ -339,19 +343,26 @@ def phase_gemm(dev, g, results, *, a8: bool):
 
 def phase_flash(dev, g, results):
     """K3 at the prefill chunks of the three requests (cache capacity 1024),
-    with qwen2-0.5b's heads and, for two of the chunks, qwen1.5-moe-a2.7b's."""
+    with qwen2-0.5b's heads and, for two of the chunks, qwen1.5-moe-a2.7b's;
+    the short chunk over the long cache also at batch 2, and the chunk the
+    300-token request sends the mixture-of-experts model in serving. Each
+    row with the tiling the kernel took (`flash_attention.prefill_tile`)."""
     cap = 1024
     tol = 2e-2
     rows = []
-    # (H, Hkv, D, bucket, kv_len after append, q_offset): 17 -> 32,
-    # 300 -> 512, 600 -> 512 + 128
-    for h, hkv, d, t, kv_len, q_off in (
-            (14, 2, 64, 32, 17, 0), (14, 2, 64, 512, 300, 0), (14, 2, 64, 512, 512, 0),
-            (14, 2, 64, 128, 600, 512), (16, 16, 128, 512, 300, 0),
-            (16, 16, 128, 128, 600, 512)):
-        q = torch.randn((1, h, t, d), device=dev, generator=g).to(torch.bfloat16)
-        k = torch.randn((1, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
-        v = torch.randn((1, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
+    # (B, H, Hkv, D, bucket, kv_len, q_offset): 17 -> 32, 300 -> 512,
+    # 600 -> 512 + 128, kv_len the prompt's length. Serving appends the
+    # whole padded bucket before attention (and rolls the tail back after),
+    # so it runs kv_len = 32, 512 and 640: the last row is that shape for
+    # the 300-token request on qwen1.5-moe-a2.7b.
+    for b, h, hkv, d, t, kv_len, q_off in (
+            (1, 14, 2, 64, 32, 17, 0), (1, 14, 2, 64, 512, 300, 0), (1, 14, 2, 64, 512, 512, 0),
+            (1, 14, 2, 64, 128, 600, 512), (1, 16, 16, 128, 512, 300, 0),
+            (1, 16, 16, 128, 128, 600, 512), (2, 16, 16, 128, 128, 600, 512),
+            (1, 16, 16, 128, 512, 512, 0)):
+        q = torch.randn((b, h, t, d), device=dev, generator=g).to(torch.bfloat16)
+        k = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
         kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
         got = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
@@ -361,28 +372,32 @@ def phase_flash(dev, g, results):
         # kernel's contract still covers them, so they are compared too
         err, rel = max_abs(got, want), rel_l2(got, want)
         check(bool(torch.isfinite(got).all()), "flash_prefill: non-finite output")
-        check(rel <= tol, f"flash_prefill T={t} kv={kv_len}: rel-L2 {rel:.3g} > {tol}")
+        check(rel <= tol, f"flash_prefill B={b} T={t} kv={kv_len}: rel-L2 {rel:.3g} > {tol}")
         ms = time_ms(lambda i: flash_attention.flash_attention(
             q, k, v, kv_len=kl, q_offset=qo), calls=24)
         plain_ms = time_ms(lambda i: flash_attention.flash_attention_plain(
             q, k, v, kl, qo), calls=4, replays=2)
-        mask = flash_attention._mask(1, t, cap, kl, qo, True, 0, 0, dev)
+        mask = flash_attention._mask(b, t, cap, kl, qo, True, 0, 0, dev)
         kr = k.repeat_interleave(h // hkv, dim=1)
         vr = v.repeat_interleave(h // hkv, dim=1)
         lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
             q, kr, vr, attn_mask=mask), calls=24)
         visible = sum(min(kv_len, q_off + r + 1) for r in range(t))
-        flops = 4 * h * d * visible
-        nbytes = 2 * (2 * h * t * d + 2 * hkv * kv_len * d)
-        bound = max(flops / BF16_OPS_S, nbytes / HBM_BYTES_S) * 1e3
-        bound_by = "operations" if flops / BF16_OPS_S > nbytes / HBM_BYTES_S else "bytes"
-        row = dict(shape=f"H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off} S={cap}",
+        flops = 4 * b * h * d * visible
+        nbytes = 2 * b * (2 * h * t * d + 2 * hkv * kv_len * d)
+        bound, bound_by = bound_of(flops, nbytes)
+        rows_a_block, splits, bkv, smem, blocks = flash_attention.prefill_tile(b, h, t, d)
+        row = dict(shape=f"B={b} H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off} "
+                         f"S={cap}",
                    max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                   bound_by=bound_by)
+                   bound_by=bound_by, tile=dict(rows=rows_a_block, kv_splits=splits,
+                                                kv_tile=bkv, smem=smem, blocks=blocks))
         rows.append(row)
-        print(f"  flash_prefill      {row['shape']:40s} rel {rel:.2e} | kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.5f} ({bound_by})",
+        print(f"  flash_prefill      {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} ({bound_by}) | "
+              f"{rows_a_block} rows x {blocks} blocks, K/V in {splits} splits of "
+              f"{bkv}-position tiles, smem {smem}",
               flush=True)
     results["flash_prefill"] = rows
 

@@ -12,13 +12,19 @@ position `q_offset + i` (chunked prefill), and the KV head of query head h
 is h // (H // Hkv). Masks: causal `col <= q_offset + row`, `col < kv_len`,
 and an optional sliding window with an attention sink.
 
-What bounds it on the H100, and what the simple design does about it: a
-512-token chunk over 640 cached positions is ~0.5 GFLOP per layer, bound by
-arithmetic. The kernel computes on CUDA cores (no tensor cores yet), one
-block per (batch x head, 32-row query tile), K/V tiles of 64 positions in
-shared memory, and skips tiles at or past `kv_len` or past the causal edge.
-`kv_len` and `q_offset` are read from device memory, so no launch waits on
-the host.
+What bounds it on the H100, and what the design does about it: a 512-row
+chunk over 300 to 640 positions is 0.1 to 0.5 GFLOP and a few MB a layer,
+microseconds at the card's limits, so the kernel is held by latency and by
+how the work is spread. Both products run on the bf16 tensor cores
+(`mma.sync.m16n8k16`), one warp per 16 query rows with its Q fragments in
+registers and the online softmax in the accumulator layout; K/V tiles of 64
+positions come in by `cp.async` into a two-stage ring. A block of 4 warps
+takes 16, 32 or 64 query rows: the warps of a shorter tile split the K/V
+positions and merge in a fixed order, and the kernel takes the most split
+shape whose grid the card holds in one wave (`prefill_tile`). It skips
+tiles at or past `kv_len`, past the causal edge, or before the window
+(outside the sink). `kv_len` and `q_offset` are read from device memory, so
+no launch waits on the host.
 
 `decode_attention` takes one query position per sequence, q [B, H, D], over
 a bf16, int8 or nibble-packed int4 cache that already holds the new token
@@ -33,11 +39,12 @@ positions, one per lane, and merge their online-softmax states at the end.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
-from mnn_tpu_torch.kernels.build import F, I, P, kernel
+from mnn_tpu_torch.kernels.build import F, I, P, kernel, library
 from mnn_tpu_torch.kernels.common import check, use_kernel
 
 NEG_INF = -1e30
@@ -50,6 +57,18 @@ MAX_GROUP = 8    # query heads per KV head that the decode kernel holds
 # int mnn_flash_prefill(q, k, v, o, lens, B, H, Hkv, Tq, S, D, causal,
 #                       window, sink, scale, stream)
 KERNEL = kernel("mnn_flash_prefill", [P, P, P, P, P] + [I] * 9 + [F])
+
+
+def prefill_tile(b: int, h: int, tq: int, d: int) -> tuple[int, int, int, int, int]:
+    """(query rows a block, groups of its 4 warps that split the K/V tiles,
+    positions a tile, dynamic shared bytes, blocks) that `KERNEL` takes for
+    [b, h, tq, d] queries on this card. Launches nothing."""
+    fn = library().mnn_flash_prefill_tile
+    fn.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    if fn(b, h, tq, d, out):
+        raise ValueError(f"no flash prefill tile for B={b} H={h} Tq={tq} D={d}")
+    return tuple(out)
 
 
 def _as_len(x, batch: int, device) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""A dequant matmul kernel against another version of its source, on the card.
+"""A kernel against another version of its source, on the card.
 
     python -m mnn_tpu_torch.profile_a8 --against OLD/dequant_matmul.cu
     python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/dequant_matmul.cu
+    python -m mnn_tpu_torch.profile_a8 --kernel flash --against OLD/flash_prefill.cu \
+        [--warps 4x1,2x2,1x4,4x2]
 
 Builds `csrc/dequant_matmul.cu` and the given other version of that source
 (for example the parent commit's, `git show HEAD~1:mnn_tpu_torch/csrc/
@@ -23,9 +25,18 @@ W4, block 128.
   and the crossover rows M = 2, 4, 8, 16 and 32 at four of those shapes.
   The two sum in other orders, so it checks that each pair is within
   rel-L2 1e-2 and prints the value.
+* `--kernel flash`: `mnn_flash_prefill` of `csrc/flash_prefill.cu` and of
+  the other version, at the shapes of `chip_smoke.py` phase 2 (the prefill
+  chunks of 17, 300 and 600-token prompts over a cache of 1024, with
+  qwen2-0.5b's heads and, for three of them, qwen1.5-moe-a2.7b's; the short
+  chunk at batch 2; the chunk serving sends for the 300-token prompt),
+  checked to rel-L2 2e-2 a pair. `--warps 4x1,2x2,1x4,4x2` also builds this
+  source once for each listed block shape (`-DMNN_FP_WQ=q -DMNN_FP_WK=k`: q
+  query warps of 16 rows, k groups of them splitting the positions) and
+  times those between the two, so one call compares the tilings.
 
 It prints both versions' times per shape, with the card's name and power
-limit; the JSON goes to `chiprun_out/{a8,rows}_against.json` as well.
+limit; the JSON goes to `chiprun_out/{a8,rows,flash}_against.json` as well.
 Needs a card and nvcc.
 """
 
@@ -56,27 +67,47 @@ CROSSOVER_M = (2, 4, 8, 16, 32)
 CROSSOVER_SHAPES = [(896, 1152, False), (896, 9728, False), (4864, 896, False),
                     (5632, 2048, True)]
 ROWS_SHAPES += [(m, k, n, f32) for k, n, f32 in CROSSOVER_SHAPES for m in CROSSOVER_M]
+# (B, H, Hkv, D, Tq, kv_len, q_offset), cache capacity FLASH_S: chip_smoke.py phase 2
+FLASH_SHAPES = [(1, 14, 2, 64, 32, 17, 0), (1, 14, 2, 64, 512, 300, 0),
+                (1, 14, 2, 64, 512, 512, 0), (1, 14, 2, 64, 128, 600, 512),
+                (1, 16, 16, 128, 512, 300, 0), (1, 16, 16, 128, 128, 600, 512),
+                (2, 16, 16, 128, 128, 600, 512), (1, 16, 16, 128, 512, 512, 0)]
+FLASH_S = 1024
 L2_ROTATE_BYTES = 128 << 20
 ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, other)
-         "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul")}
+         "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul"),
+         "flash": ("mnn_flash_prefill", "mnn_flash_prefill")}
+SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu"}
 
 
-def _library(src: Path, out_dir: Path, name: str, entry: str) -> ctypes.CDLL:
-    """One source, with the port's headers beside it, into its own library."""
-    work = out_dir / name
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    for h in build.CSRC.glob("*.cuh"):
-        shutil.copy(h, work / h.name)
-    shutil.copy(src, work / "dequant_matmul.cu")
-    so = work / "lib.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(work),
-                    "-o", str(so), str(work / "dequant_matmul.cu")], check=True)
-    lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, entry)
-    pointers = 7 if entry.endswith("_a8") else 6
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return fn
+def _libraries(specs, out_dir: Path, kind: str) -> dict:
+    """{name: C entry} for specs of (name, source, entry, defines): each
+    source, with the port's headers beside it, into its own library; the
+    nvcc runs side by side."""
+    cmds, sos = [], {}
+    for name, src, entry, defines in specs:
+        work = out_dir / name
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        for h in build.CSRC.glob("*.cuh"):
+            shutil.copy(h, work / h.name)
+        cu = work / SOURCE[kind]
+        shutil.copy(src, cu)
+        sos[name] = (work / "lib.so", entry)
+        cmds.append([build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                     "-shared", "-I", str(work), "-o", str(work / "lib.so"), str(cu)])
+    build._run_all(cmds)
+    fns = {}
+    for name, (so, entry) in sos.items():
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        if kind == "flash":
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                           + [ctypes.c_void_p])
+        else:
+            pointers = 7 if entry.endswith("_a8") else 6
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fns[name] = fn
+    return fns
 
 
 def _time_us(fn, calls: int) -> float:
@@ -104,13 +135,62 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / max(float(b.norm()), 1e-12))
 
 
+def _flash(fns: dict, order: list, card: str, args) -> None:
+    """--kernel flash: every version in `order` at the phase-2 shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    rels = []
+    for b, h, hkv, d, t, kv_len, q_off in FLASH_SHAPES:
+        mk = lambda *shape: torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = mk(b, h, t, d), mk(b, hkv, FLASH_S, d), mk(b, hkv, FLASH_S, d)
+        lens = torch.tensor([kv_len, q_off], dtype=torch.int32, device=dev)
+        outs, row = {}, {ver: [] for ver in versions}
+        for ver in order:
+            fn, out = fns[ver], torch.empty_like(q)
+
+            def call(i, fn=fn, out=out, ver=ver):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         lens.data_ptr(), b, h, hkv, t, FLASH_S, d, 1, 0, 0, d ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{ver}: CUDA launch error {err}")
+            call(0)
+            torch.cuda.synchronize()
+            outs[ver] = out.clone()
+            row[ver].append(_time_us(call, 24))
+        rel = max(_rel(outs[ver], outs["other"]) for ver in versions)
+        rels.append(rel)
+        for ver in versions:
+            times[ver].append(row[ver])
+        print(f"B={b} H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off}: " + ", ".join(
+            f"{ver} {' / '.join(f'{x:.2f}' for x in row[ver])} us" for ver in versions)
+            + f", largest rel-L2 to other {rel:.3e}", flush=True)
+    ok = max(rels) <= 2e-2
+    print(f"every version within rel-L2 2e-2 of the other: {ok} (largest {max(rels):.3e})")
+    print(card)
+    result = dict(card=card, kernel="flash", shapes=FLASH_SHAPES, cache=FLASH_S, order=order,
+                  us=times, rel_l2=rels, agree=ok, against=str(args.against))
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "flash_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the versions disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
-                    help="another version of csrc/dequant_matmul.cu")
+                    help="another version of the kernel's source")
     ap.add_argument("--kernel", choices=sorted(ENTRY), default="a8",
                     help="a8: the int8-row kernel; rows: bf16 rows, the tensor-core "
-                         "tile kernel against the other's row kernel")
+                         "tile kernel against the other's row kernel; flash: the "
+                         "causal flash prefill kernel")
+    ap.add_argument("--warps", default="",
+                    help="flash only: comma-separated block shapes, query warps x "
+                         "position groups (4x1, 2x2, 1x4, 4x2), to build and time this "
+                         "source at, besides its own choice")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_a8 needs an NVIDIA card")
@@ -119,9 +199,16 @@ def main():
                           check=True).stdout.strip().splitlines()[0]
     a8 = args.kernel == "a8"
     out_dir = build.BUILD_ROOT / "profile_a8"
-    fns = {"this": _library(build.CSRC / "dequant_matmul.cu", out_dir, "this",
-                            ENTRY[args.kernel][0]),
-           "other": _library(args.against, out_dir, "other", ENTRY[args.kernel][1])}
+    src = build.CSRC / SOURCE[args.kernel]
+    specs = [("this", src, ENTRY[args.kernel][0], ()),
+             ("other", args.against, ENTRY[args.kernel][1], ())]
+    forced = [w for w in args.warps.split(",") if w] if args.kernel == "flash" else []
+    specs += [(w, src, ENTRY["flash"][0], (f"MNN_FP_WQ={w.split('x')[0]}",
+                                           f"MNN_FP_WK={w.split('x')[1]}")) for w in forced]
+    fns = _libraries(specs, out_dir, args.kernel)
+    if args.kernel == "flash":
+        mid = ["this"] + forced
+        return _flash(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     shapes = [(m, k, n, False) for m, k, n in SHAPES] if a8 else ROWS_SHAPES
