@@ -20,8 +20,11 @@ Phases, each of which exits non-zero on failure:
    kernel it launched and its tile. Flash prefill runs the prefill chunks
    of the three requests (also the short chunk over the long cache at batch
    2, and the chunk serving sends for the 300-token prompt), each row with
-   the tiling the kernel took and SDPA's time. The
-   whole-model decode kernel runs
+   the tiling the kernel took and SDPA's time. The decode step runs the
+   last decode step of the three requests on qwen2-0.5b's and
+   qwen1.5-moe-a2.7b's heads and at batch 2, each row with its split
+   (blocks a cluster, positions a tile) and SDPA's time; two calls must
+   give the same bits. The whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
@@ -402,62 +405,86 @@ def phase_flash(dev, g, results):
     results["flash_prefill"] = rows
 
 
+# K4's rows: (batch, Hkv, G, D, len_old per sequence) at the last decode step
+# of the 17-, 300- and 600-token requests (len_old 48, 331, 631): qwen2-0.5b's
+# heads at the three and qwen1.5-moe-a2.7b's at 331 first, then
+# qwen1.5-moe-a2.7b's at 48 and 631, and qwen2-0.5b at batch 2 with ragged
+# lengths.
+DECODE_ROWS = [(1, 2, 7, 64, (48,)), (1, 2, 7, 64, (331,)), (1, 2, 7, 64, (631,)),
+               (1, 16, 1, 128, (331,)), (1, 16, 1, 128, (48,)), (1, 16, 1, 128, (631,)),
+               (2, 2, 7, 64, (331, 631))]
+DECODE_FIRST_ROWS = 4   # the rows the kernels line summed before the last three
+
+
 def phase_decode(dev, g, results):
-    """K4 at the last decode step of each request over a 24-layer int8 cache,
-    with qwen2-0.5b's heads and, for one step, qwen1.5-moe-a2.7b's."""
+    """K4 at the rows of DECODE_ROWS over a 24-layer int8 cache of capacity
+    1024, each with the split the kernel took (`decode_step.split`): blocks a
+    cluster, positions a tile, shared bytes a block, blocks. Two calls must
+    give the same bits."""
     L, cap = 24, 1024
     tol = 3e-2
     rows = []
-    last = [n + NEW_TOKENS - 1 for n in PREFILL_LENS]
     kq = None
-    for hkv, grp, d, len_old in ((2, 7, 64, last[0]), (2, 7, 64, last[1]),
-                                 (2, 7, 64, last[2]), (16, 1, 128, last[1])):
-        if kq is None or kq.shape[2:] != (hkv, cap, d):
-            kf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
-            vf = torch.randn((L, 1, hkv, cap, d), device=dev, generator=g)
+    for bsz, hkv, grp, d, lens in DECODE_ROWS:
+        if kq is None or kq.shape[1:4] != (bsz, hkv, cap):
+            kq = vq = None
+            kf = torch.randn((L, bsz, hkv, cap, d), device=dev, generator=g)
             kq, ks = kvcache.quantize_kv(kf)
-            vq, vs = kvcache.quantize_kv(vf)
-            del kf, vf
-        qkv = torch.randn((1, hkv, grp + 2, d), device=dev, generator=g).to(torch.bfloat16)
-        lengths = torch.tensor([len_old], dtype=torch.int32, device=dev)
-        ang = torch.rand((1, d // 2), device=dev, generator=g) * 6.28
+            kf = torch.randn((L, bsz, hkv, cap, d), device=dev, generator=g)
+            vq, vs = kvcache.quantize_kv(kf)
+            del kf
+        qkv = torch.randn((bsz, hkv, grp + 2, d), device=dev, generator=g).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ang = torch.rand((bsz, d // 2), device=dev, generator=g) * 6.28
         cos = torch.cat([ang.cos(), ang.cos()], -1)
         sin = torch.cat([ang.sin(), ang.sin()], -1)
         got = decode_step.fused_decode_attention(qkv, kq, vq, ks, vs, 3, lengths, cos, sin)
+        again = decode_step.fused_decode_attention(qkv, kq, vq, ks, vs, 3, lengths, cos, sin)
         want = decode_step.fused_decode_attention_plain(qkv, kq, vq, ks, vs, 3, lengths, cos,
                                                sin, None, None, 1e-6, d ** -0.5, 0, 0, 0.0)
         torch.cuda.synchronize()
+        name = f"decode_step B={bsz} len={lens}"
         err, rel = max_abs(got[0], want[0]), rel_l2(got[0], want[0])
-        check(bool(torch.isfinite(got[0]).all()), "decode_step: non-finite output")
-        check(rel <= tol, f"decode_step len={len_old}: att rel-L2 {rel:.3g} > {tol}")
+        check(bool(torch.isfinite(got[0]).all()), f"{name}: non-finite output")
+        check(rel <= tol, f"{name}: att rel-L2 {rel:.3g} > {tol}")
         for j, nm in ((1, "k_row"), (2, "v_row")):
             lv = max_abs(got[j], want[j])
-            check(lv <= 1.0, f"decode_step {nm}: {lv} int8 levels apart")
+            check(lv <= 1.0, f"{name} {nm}: {lv} int8 levels apart")
         for j, nm in ((3, "k_scale"), (4, "v_scale")):
-            check(rel_l2(got[j], want[j]) <= 1e-6, f"decode_step {nm} differs")
+            check(rel_l2(got[j], want[j]) <= 1e-6, f"{name} {nm} differs")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{name}: two calls gave different bits")
         ms = time_ms(lambda i: decode_step.fused_decode_attention(
             qkv, kq, vq, ks, vs, i % L, lengths, cos, sin), calls=48)
         plain_ms = time_ms(lambda i: decode_step.fused_decode_attention_plain(
             qkv, kq, vq, ks, vs, i % L, lengths, cos, sin, None, None, 1e-6,
             d ** -0.5, 0, 0, 0.0), calls=8, replays=2)
-        # yardstick: SDPA of the query rows over the dequantized rows
-        q = qkv[:, :, :grp].reshape(1, hkv * grp, 1, d)
-        kd = kvcache.dequant_kv(kq[3], ks[3], 8)[:, :, :len_old + 1].repeat_interleave(grp, 1)
-        vd = kvcache.dequant_kv(vq[3], vs[3], 8)[:, :, :len_old + 1].repeat_interleave(grp, 1)
-        mask = torch.ones((1, 1, 1, len_old + 1), dtype=torch.bool, device=dev)
+        # yardstick: SDPA of the query rows over the dequantized rows, each
+        # sequence masked to its len_old + 1 positions
+        q = qkv[:, :, :grp].reshape(bsz, hkv * grp, 1, d)
+        n = max(lens) + 1
+        kd = kvcache.dequant_kv(kq[3], ks[3], 8)[:, :, :n].repeat_interleave(grp, 1)
+        vd = kvcache.dequant_kv(vq[3], vs[3], 8)[:, :, :n].repeat_interleave(grp, 1)
+        mask = (torch.arange(n, device=dev)[None, :] <= lengths[:, None])[:, None, None]
         lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
             q, kd, vd, attn_mask=mask), calls=48)
-        nbytes = (hkv * (grp + 2) * d * 2 + 2 * d * 4             # qkv, cos/sin
-                  + 2 * hkv * len_old * (d + 4)                    # int8 K/V + scales
-                  + hkv * grp * d * 2 + 2 * hkv * (d + 1) * 4)     # att, rows, scales
+        nbytes = bsz * (hkv * (grp + 2) * d * 2 + 2 * d * 4        # qkv, cos/sin
+                        + hkv * grp * d * 2 + 2 * hkv * (d + 1) * 4)   # att, rows, scales
+        nbytes += sum(2 * hkv * n_old * (d + 4) for n_old in lens)     # int8 K/V + scales
         bound = nbytes / HBM_BYTES_S * 1e3
-        row = dict(shape=f"B=1 Hkv={hkv} G={grp} D={d} len_old={len_old} S={cap} int8",
+        blocks_a_cluster, tile, smem, blocks = decode_step.split(bsz, hkv, grp, cap, d, True)
+        row = dict(shape=f"B={bsz} Hkv={hkv} G={grp} D={d} len_old={','.join(map(str, lens))} "
+                         f"S={cap} int8",
                    max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                   bound_by="bytes")
+                   bound_by="bytes", split=dict(blocks_a_cluster=blocks_a_cluster, tile=tile,
+                                                smem=smem, blocks=blocks))
         rows.append(row)
-        print(f"  decode_step        {row['shape']:40s} rel {rel:.2e} | kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.5f}", flush=True)
+        print(f"  decode_step        {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} | clusters of "
+              f"{blocks_a_cluster} blocks, {tile}-position tiles, smem {smem}, {blocks} blocks",
+              flush=True)
+    del kq, vq
     results["decode_step"] = rows
 
 
@@ -1237,6 +1264,10 @@ def main():
         rows = results[kname]
         k = dict(name=kname, route="cuda", source=src, replaces=repl,
                  launches=launches[entry], **row_sums(rows))
+        if kname == "decode_step":
+            # the first four rows alone, so a table compares like with like
+            k["four_shapes"] = row_sums(rows[:DECODE_FIRST_ROWS])
+            k["added_rows"] = row_sums(rows[DECODE_FIRST_ROWS:])
         if kname == "dequant_matmul":
             # one TPU kernel, two CUDA kernels: the row kernel at M = 1 (the
             # decode GEMVs and the head) and the tensor-core tile kernel above

@@ -13,21 +13,28 @@ token against its quantize -> dequantize round trip; the cached positions
 score columns and the V scale on probability columns. The quantized rows
 and scales come back for the caller's in-place cache write.
 
-What bounds it on the H100, and what the simple design does about it: at
-batch 1 the work is a few hundred cached positions of 64 bytes per KV head,
-so the kernel is bound by latency, not by bytes. One block per (batch row,
-KV head) splits the positions over its 8 warps, one position per lane, and
-merges the warps' softmax states once at the end. Lengths are read from
-device memory, so the decode loop never waits on the host.
+What bounds it on the H100, and what the design does about it: at batch 1
+the work is a few hundred cached positions of 64 or 128 bytes per KV head,
+so the kernel is bound by latency, not by bytes or operations. A
+thread-block cluster of P blocks per (batch row, KV head) splits the visible
+positions into P ranges (P from B, Hkv and the capacity, never from the
+lengths, which stay on the device: `split`); each block stages its range in
+64-position tiles by `cp.async` into a two-stage ring and takes one softmax
+max and sum per query row a tile. Each block then owns a slice of the
+outputs: the others store their softmax states' slices into its shared
+memory (`st.async`, counted on an mbarrier), and it merges them in rank
+order. One launch a call, the same bits every run, and no host sync, so a
+CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
-from mnn_tpu_torch.kernels.build import F, I, P, kernel
+from mnn_tpu_torch.kernels.build import F, I, P, kernel, library
 from mnn_tpu_torch.kernels.common import check, use_kernel
 
 NEG_INF = -1e30
@@ -38,6 +45,19 @@ MAX_GROUP = 8    # query heads per KV head that the kernel holds in registers
 #                     B, Hkv, G, D, S, layer, quantized, window, sink,
 #                     softcap, scale, eps, stream)
 KERNEL = kernel("mnn_decode_step", [P] * 15 + [I] * 9 + [F, F, F])
+
+
+def split(b: int, hkv: int, g: int, s: int, d: int,
+          quantized: bool) -> tuple[int, int, int, int]:
+    """(blocks a cluster, positions a tile, dynamic shared bytes a block,
+    blocks) that `KERNEL` takes for G query heads a KV head over a
+    [.., b, hkv, s, d] cache on this card. Launches nothing."""
+    fn = library().mnn_decode_step_split
+    fn.argtypes = [I] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    if fn(b, hkv, g, s, d, int(quantized), out):
+        raise ValueError(f"no decode step split for B={b} Hkv={hkv} G={g} S={s} D={d}")
+    return tuple(out)
 
 
 def _rms(x, w, eps):

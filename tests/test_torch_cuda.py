@@ -17,9 +17,9 @@ kernel is held to `decode_model.PARITY_BOUNDS` from the same state: logits
 rel-L2 5e-2, x 2e-2, layer-0 rows one level and scales 8e-3, all layers'
 dequantized rows 3e-2. The two mixture-of-experts kernels are held to rel-L2
 2e-2 (the JAX tests' own bound, `tests/test_moe_decode.py`), the
-dequantize-tile matmul to 1e-2; the fused expert decode kernel and flash
-prefill (whose split K/V ranges merge in a fixed order) must also give the
-same bits twice.
+dequantize-tile matmul to 1e-2; the fused expert decode kernel, flash
+prefill and the decode step (whose split K/V ranges merge in a fixed order)
+must also give the same bits twice.
 """
 
 import dataclasses
@@ -238,22 +238,71 @@ def test_decode_step_kernel(dev, grp, d, int8, qkn, window, sink, lengths):
     cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
     norms = ((torch.rand(d, device=dev, generator=g) + 0.5,
               torch.rand(d, device=dev, generator=g) + 0.5) if qkn else (None, None))
+    check_decode_step(qkv, kc, vc, ks, vs, lens, cos, sin, norms, window, sink, 0.0, int8)
+
+
+def check_decode_step(qkv, kc, vc, ks, vs, lens, cos, sin, norms, window, sink, softcap,
+                      int8):
+    """Two calls: one launch each, the same bits, and the plain version's
+    result within rel-L2 3e-2 (rows one int8 level, scales 1e-6)."""
+    b, hkv, r, d = qkv.shape
+    kw = dict(q_norm=norms[0], k_norm=norms[1], window=window, sink=sink, softcap=softcap)
     before = decode_step.KERNEL.launches
-    got = decode_step.fused_decode_attention(
-        qkv, kc, vc, ks, vs, 1, lens, cos, sin, q_norm=norms[0], k_norm=norms[1],
-        window=window, sink=sink)
+    got = decode_step.fused_decode_attention(qkv, kc, vc, ks, vs, 1, lens, cos, sin, **kw)
+    assert decode_step.KERNEL.launches == before + 1
+    again = decode_step.fused_decode_attention(qkv, kc, vc, ks, vs, 1, lens, cos, sin, **kw)
+    assert decode_step.KERNEL.launches == before + 2
     want = decode_step.fused_decode_attention_plain(
         qkv, kc, vc, ks, vs, 1, lens, cos, sin, norms[0], norms[1], 1e-6,
-        d ** -0.5, window, sink, 0.0)
+        d ** -0.5, window, sink, softcap)
     torch.cuda.synchronize()
-    assert decode_step.KERNEL.launches == before + 1
-    assert got[0].shape == (b, hkv * grp, d) and torch.isfinite(got[0]).all()
-    assert rel(got[0], want[0]) <= 3e-2
+    assert got[0].shape == (b, hkv * (r - 2), d) and torch.isfinite(got[0]).all()
+    err = rel(got[0], want[0])
+    print(f"decode step B={b} Hkv={hkv} G={r - 2} D={d} S={kc.shape[3]} lengths="
+          f"{lens.tolist()} int8={int8} window={window} sink={sink} softcap={softcap} "
+          f"split={decode_step.split(b, hkv, r - 2, kc.shape[3], d, int8)}: rel-L2 {err:.3e}")
+    assert err <= 3e-2
     for j in (1, 2):
         assert float((got[j] - want[j]).abs().max()) <= (1.0 if int8 else 0.0)
     if int8:
         for j in (3, 4):
             assert rel(got[j], want[j]) <= 1e-6
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+# The split's edges at a capacity of 1024: (B, Hkv, G, D, int8 cache, window,
+# sink, softcap, lengths). qwen2-0.5b's heads at batch 1 take clusters of 16
+# blocks, 64 positions each at len_old 1023; lengths below P leave blocks
+# empty; 16 and 17 sit on a split boundary; B = 4 x Hkv 16 takes 2 blocks a
+# cluster and eight tiles a block.
+DECODE_SPLIT = [
+    (1, 2, 7, 64, True, 0, 0, 0.0, (0,)), (1, 2, 7, 64, True, 0, 0, 0.0, (1023,)),
+    (1, 2, 7, 64, True, 0, 0, 0.0, (5,)), (1, 2, 7, 64, True, 0, 0, 0.0, (16,)),
+    (1, 2, 7, 64, True, 0, 0, 0.0, (17,)), (2, 2, 7, 64, True, 0, 0, 0.0, (0, 1023)),
+    (1, 2, 7, 64, True, 0, 0, 30.0, (631,)), (1, 16, 1, 128, True, 0, 0, 0.0, (331,)),
+    (1, 16, 1, 128, True, 0, 0, 0.0, (1023,)), (1, 2, 8, 64, True, 100, 70, 0.0, (700,)),
+    (2, 2, 4, 128, False, 0, 0, 50.0, (1023, 1)),
+    (4, 16, 1, 128, True, 0, 0, 0.0, (1000, 0, 513, 64))]
+
+
+@pytest.mark.parametrize("b,hkv,grp,d,int8,window,sink,softcap,lengths", DECODE_SPLIT)
+def test_decode_step_split_edges(dev, b, hkv, grp, d, int8, window, sink, softcap, lengths):
+    nl, s = 2, 1024
+    g = torch.Generator(device=dev).manual_seed(b * hkv + grp * d + sum(lengths))
+    kf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    vf = torch.randn((nl, b, hkv, s, d), device=dev, generator=g)
+    if int8:
+        (kc, ks), (vc, vs) = kvcache.quantize_kv(kf), kvcache.quantize_kv(vf)
+    else:
+        kc, vc, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    qkv = (torch.randn((b, hkv, grp + 2, d), device=dev, generator=g) * 2
+           ).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ang = torch.rand((b, d // 2), device=dev, generator=g) * 6.28
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    check_decode_step(qkv, kc, vc, ks, vs, lens, cos, sin, (None, None), window, sink,
+                      softcap, int8)
 
 
 def test_cuda_tensors_never_take_the_plain_version(dev):
