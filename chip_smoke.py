@@ -28,7 +28,8 @@ Phases, each of which exits non-zero on failure:
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
-   `qwen3-moe-30b-a3b`'s widths;
+   `qwen3-moe-30b-a3b`'s widths, each row with the tile the kernel took;
+   the grouped expert kernel must give the same bits twice;
 3. the serving paths themselves on `Llm.synthetic("qwen2-0.5b")` at full
    width and depth (W4 block-128 weights, int4 lm head, int8 prefill
    activations), each with the launch counts set to 0 before and read after:
@@ -756,14 +757,17 @@ def phase_moe_prefill(dev, g, results):
         w_e = torch.rand((e, cap), device=dev, generator=g)
         xe[:, -cap // 8:] = 0              # empty slots: zero rows, weight 0
         w_e[:, -cap // 8:] = 0
+        tile = moe_prefill.tile(e, cap, h, mi, gu.bits)
         got = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
+        again = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
         want = moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn)
         torch.cuda.synchronize()
         err, rel = max_abs(got, want), rel_l2(got, want)
         check(bool(torch.isfinite(got).all()), f"moe_prefill {preset}: non-finite")
         check(rel <= MOE_TOL, f"moe_prefill {preset} C={cap}: rel-L2 {rel:.3g} > {MOE_TOL}")
         check(bool((got[:, -cap // 8:] == 0).all()), f"moe_prefill {preset}: empty slots not 0")
-        del want
+        check(torch.equal(got, again), f"moe_prefill {preset} C={cap}: two runs differ")
+        del want, again
         ms = time_ms(lambda i: moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn), calls=4)
         plain_ms = time_ms(lambda i: moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn),
                            calls=1, replays=2)
@@ -779,11 +783,13 @@ def phase_moe_prefill(dev, g, results):
         algebra = "/".join("partial" if cap < q.block_size else "dequant" for q in (gu, dn))
         row = dict(shape=f"{preset} E={e} C={cap} H={h} mi={mi} ({algebra})",
                    max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                   tile=dict(rows=tile[0], cols=tile[1], smem=tile[2]))
         rows.append(row)
         print(f"  moe_prefill        {row['shape']:58s} rel {rel:.2e} (tol {MOE_TOL}) | "
               f"kernel {ms:.4f} ms plain {plain_ms:.2f} lib {lib_ms:.4f} "
-              f"bound {bound:.4f} ({bound_by})", flush=True)
+              f"bound {bound:.4f} ({bound_by}) | tile {tile[0]} x {tile[1]}, "
+              f"{tile[2]} B shared", flush=True)
         del gu, dn, xe, got
         torch.cuda.empty_cache()
     results["moe_prefill"] = rows
@@ -825,13 +831,15 @@ def phase_gemm_deq(dev, g, results):
                 calls=max(nlib, 8))
             del wlib
             bound, bound_by = bound_of(2 * m * k * n, m * k * 2 + wbytes + m * n * 2)
+            tile = dequant_matmul.bf16_tile(m, n, ql.bits)   # the tile kernel's tiles
             row = dict(shape=f"{proj} M={m} K={k} N={n}", max_abs_err=err, rel_l2=rel,
                        tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound, bound_by=bound_by, l2_rotation=nl)
+                       bound_ms=bound, bound_by=bound_by, l2_rotation=nl,
+                       tile=dict(rows=tile[0], cols=tile[1]))
             rows.append(row)
             print(f"  dequant_matmul_deq {row['shape']:36s} rel {rel:.2e} | kernel {ms:.4f} ms "
-                  f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.4f} ({bound_by})",
-                  flush=True)
+                  f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.4f} ({bound_by}) | "
+                  f"tile {tile[0]} x {tile[1]}", flush=True)
             del ql, x, got, want
             torch.cuda.empty_cache()
     finally:

@@ -1,41 +1,200 @@
-// One output tile of x[M, K] (bf16) @ dequant(W)[K, N] on the tensor cores
-// (sm_90a), shared by the dequantize-tile matmul (dequant_matmul.cu) and the
-// grouped mixture-of-experts prefill kernel (moe_prefill.cu).
+// The bf16 tensor-core tile body (sm_90a) shared by three kernels: the
+// bf16-row matmul at M > 1 and the dequantize-tile matmul (dequant_matmul.cu),
+// and both products of the grouped mixture-of-experts prefill kernel
+// (moe_prefill.cu). It computes one BM x BN tile of x[M, K] (bf16) @
+// dequant(W)[K, N] over the whole of K and leaves it in registers for the
+// caller's epilogue.
 //
-// The counterpart of mnn_tpu/kernels/moe_prefill.py::_deq_dot and of the body
-// of mnn_tpu/kernels/dequant_matmul.py::_kernel_deq. Per quant block kb, one
-// of two algebras:
-//   dequant (PARTIAL = false)  wd = bf16(q * s + m);  acc += x_b @ wd
-//   partial (PARTIAL = true)   acc += (x_b @ q) * s + rowsum(x_b) * m
-// with f32 accumulation. Both dots are bf16 x bf16 -> f32 (q < 256 is exact
-// in bf16), so both run on `mma.sync.m16n8k16`.
+// Per quant block kb (bs K-values, packed W4 nibble pairs (i, i + bs/2) or
+// W8 bytes, bf16 scale s and bias m per column), one of three algebras:
+//   ALG_ROWS     part = x_b . q_b;  acc = (acc + part * s) + rs * m
+//   ALG_PARTIAL  part = x_b . q_b;  acc = acc + (part * s + rs * m)
+//   ALG_DEQUANT  wd = bf16(q * s + m);  acc += x_b . wd
+// with rs = rowsum(x_b). ALG_ROWS is the order of dequant_matmul_plain,
+// ALG_PARTIAL and ALG_DEQUANT those of deq_dot_plain (the counterparts of
+// mnn_tpu/kernels/moe_prefill.py::_deq_dot and of the body of
+// mnn_tpu/kernels/dequant_matmul.py::_kernel_deq), all f32 without FMA
+// contraction. Every product is bf16 x bf16 -> f32 on `mma.sync.m16n8k16`:
+// the pattern q < 256 is exact in bf16.
 //
-// A block of 8 warps computes up to 80 rows x 128 columns over the whole of
-// K. Per quant block it stages the x rows in shared memory as they are, and
-// the unpacked (and, for the dequant algebra, scaled and rounded) weights as
-// 32-bit words that hold the two K-neighbours of one column, which is what a
-// B fragment register holds: a lane unpacks four columns of two packed rows
-// and stores 16 bytes, and every B fragment load is one conflict-free 32-bit
-// load (row strides of 8 words mod 32). Warp w owns columns 8w .. 8w+7 and 64+8w .. 64+8w+7 of the tile, so that a
-// thread's two accumulators of a row are a gate column and its up column in
-// the 64-block interleaved layout.
-// No copy is overlapped with the math yet: stage, barrier, mma, barrier.
+// The design, which takes the serial steps off each quant block:
+//  * a ring of A8_STAGES quant blocks in shared memory filled by `cp.async`
+//    (packed rows as they lie in memory, the x rows, the scale and bias
+//    rows), so the copies run ahead of the math; each thread's copy
+//    addresses are fixed but for the block's offset;
+//  * the packed tile unpacked once per tile and block into bf16 K-rows (a
+//    thread: 8 or 16 columns of one packed row; W4's low nibbles to row i,
+//    high ones to row i + bs/2), the raw pattern for the two partial
+//    algebras (W4 as bf16(128 + q) - 128 from a mask and one bf16x2
+//    subtraction), the rounded weight for the dequantize one, with the
+//    block's scale and bias read from the ring stage;
+//  * B fragments by ldmatrix.x4.trans, two n8 tiles at a time, A by
+//    ldmatrix.x4 from x rows padded to 272 bytes (both conflict-free);
+//  * the partial algebras' row sums as one more product with a B of ones,
+//    so no pass and no barrier of their own; the f32 step on the fragment;
+//  * the dequantize algebra accumulates straight into acc;
+//  * two barriers a quant block (the stage has landed, the unpacked tile is
+//    complete), or, for the new algebras where a second unpacked buffer
+//    costs no resident block, one: block kb + 1 is unpacked while block
+//    kb's products run (Bf16Tile::pipe).
+// Quant blocks of fewer than 16 K-values are padded with zero K-values of x
+// and of the pattern. Rows past M are zero in shared memory. What holds it
+// on the H100 (clock64 stamps, PERF.md): the unpack and the ldmatrix
+// traffic of shared memory, each a few thousand cycles a quant block.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace mnn {
 
-constexpr int DD_THREADS = 256, DD_WARPS = 8, DD_TILE_N = 128;
-constexpr int DD_MT = 5, DD_ROWS = 16 * DD_MT;   // m16 tiles and rows per block
-constexpr int DD_MAXBS = 128;                    // largest quant block staged
-constexpr int DD_XS = DD_MAXBS + 8;              // bf16 per staged x row
-constexpr int DD_BW = DD_TILE_N + 8;             // words per staged K-pair row
+constexpr int A8_STAGES = 3;    // quant blocks in flight in the copy ring
 
-struct DdSmem {
-  bf16 xs[DD_ROWS][DD_XS];
-  uint32_t bw[DD_MAXBS / 2][DD_BW];
-  float rs[DD_ROWS];
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The A fragment of m16n8k16 / m16n8k32 (rows gid and gid + 8, two 8-value
+// K halves) is what ldmatrix.x4 of 8 x 8 b16 matrices gives each lane.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr));
+}
+
+// B fragments of m16n8k16 for two n8 tiles from K-rows of bf16 in shared
+// memory: lanes 0-15 address K rows 0-15 of the first tile, lanes 16-31 the
+// same rows of the second; .trans hands each lane the K-pair of its column.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(smem_addr));
+}
+
+// The same for one n8 tile: lanes 0-15 address its K rows 0-15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2], unsigned smem_addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr));
+}
+
+// Copy W (16, 8 or 4) bytes from device to shared memory without waiting;
+// when `valid` is false nothing is read and the destination is zeroed.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned d = smem_u32(dst);
+  const int n = valid ? W : 0;
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(W),
+                 "r"(n)
+                 : "memory");
+}
+
+// f(std::integral_constant<int, w>()) for a copy width w of 16, 8 or 4, so a
+// loop of copies is compiled once per width and chosen once.
+template <class F>
+__device__ __forceinline__ void with_width(int w, F&& f) {
+  if (w == 16)
+    f(std::integral_constant<int, 16>());
+  else if (w == 8)
+    f(std::integral_constant<int, 8>());
+  else
+    f(std::integral_constant<int, 4>());
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The widest of 16, 8 and 4 bytes that divides every address and stride in `a`.
+inline int copy_width(uintptr_t a) { return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4; }
+
+// The card's streaming multiprocessors, read once.
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// One thread's share of filling a ring stage with quant block kb, the same
+// for every block but for its offset: a column piece of every w_step-th
+// packed row, of every x_step-th row of x, and at most one piece of the
+// scale or bias row. A stage is [packed rows of the largest block][BN]
+// bytes, then [BM][XSTR] bytes of x (E bytes a K-value, XROW bytes for the
+// largest block; rows K values apart from row m0 on, M rows in all), then
+// the block's scale and bias rows of BN bf16 each. vx, vw, vp: the bytes
+// per copy of x, of the packed rows and of the scale/bias rows (16, 8 or 4,
+// as their alignment allows).
+template <int E, int XROW, int XSTR, int BM, int BN, int THREADS, int W_BYTES, int X_BYTES,
+          int STAGE>
+struct Ring {
+  int w_r0, w_c, w_step, x_r0, x_c, x_step, p_plane, p_c, vx, vw, vp;
+  bool w_ok, p_ok;
+  const unsigned char* p_src;
+
+  __device__ __forceinline__ Ring(int tid, int n0, int N, const bf16* scale, const bf16* bias,
+                                  int vx_, int vw_, int vp_)
+      : vx(vx_), vw(vw_), vp(vp_) {
+    const int wc = BN / vw, xcs = XROW / vx, pc = 2 * BN / vp;
+    w_r0 = tid / wc;
+    w_c = (tid - w_r0 * wc) * vw;
+    w_step = THREADS / wc;
+    w_ok = n0 + w_c < N;
+    x_r0 = tid / xcs;
+    x_c = (tid - x_r0 * xcs) * vx;
+    x_step = THREADS / xcs;
+    p_plane = tid / pc;
+    p_c = (tid - p_plane * pc) * vp;
+    p_ok = p_plane < 2 && n0 + p_c / 2 < N;
+    p_src = reinterpret_cast<const unsigned char*>((p_plane ? bias : scale) + n0) + p_c;
+  }
+
+  // x rows are padded with zeros from `from` to `to` bytes in every stage;
+  // the copies never write there, and a zero adds nothing to any product
+  __device__ __forceinline__ static void zero_pad(unsigned char* smem, int from, int to, int tid) {
+    const int pad = (to - from) >> 3;
+    for (int i = tid; i < A8_STAGES * BM * pad; i += THREADS) {
+      const int s = i / (BM * pad), r = (i / pad) % BM, j = i % pad;
+      *reinterpret_cast<uint2*>(smem + s * STAGE + W_BYTES + r * XSTR + from + 8 * j) =
+          make_uint2(0u, 0u);
+    }
+  }
+
+  // stage quant block kb: packed rows as they lie in memory, x, scale, bias
+  __device__ __forceinline__ void load(unsigned char* st, int kb, const uint8_t* packed,
+                                       int rows_w, const unsigned char* x, int m0, int M, int K,
+                                       int bs, int N, int n0) const {
+    with_width(vw, [&](auto w) {
+      const uint8_t* ws = packed + ((long)kb * rows_w + w_r0) * N + n0 + w_c;
+      for (int r = w_r0; r < rows_w; r += w_step, ws += (long)w_step * N)
+        cp_async<decltype(w)::value>(st + r * BN + w_c, w_ok ? ws : packed, w_ok);
+    });
+    if (x_c < bs * E)
+      with_width(vx, [&](auto w) {
+        const unsigned char* xsrc = x + ((long)(m0 + x_r0) * K + (long)kb * bs) * E + x_c;
+        for (int r = x_r0; r < BM; r += x_step, xsrc += (long)x_step * K * E)
+          cp_async<decltype(w)::value>(st + W_BYTES + r * XSTR + x_c, m0 + r < M ? xsrc : x,
+                                       m0 + r < M);
+      });
+    if (p_plane < 2)
+      with_width(vp, [&](auto w) {
+        cp_async<decltype(w)::value>(st + W_BYTES + X_BYTES + p_plane * 2 * BN + p_c,
+                                     p_ok ? p_src + (long)kb * N * 2 : packed, p_ok);
+      });
+  }
 };
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -53,179 +212,354 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The column of the tile that accumulator (nt, j) of this thread holds.
-__device__ __forceinline__ int dd_col(int nt, int j) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return nt * 64 + warp * 8 + 2 * (lane & 3) + j;
+// Two 16-bit integers 0..15 in the low nibbles of t's halves, as two bf16,
+// exactly: 0x4300 | q is bf16(128 + q), and 128 is taken off in bf16x2.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
+  const uint32_t v = (t & 0x000F000Fu) | 0x43004300u, c = 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// The row of the block that accumulator (mt, hrow) of this thread holds.
-__device__ __forceinline__ int dd_row(int mt, int hrow) {
-  return mt * 16 + ((threadIdx.x & 31) >> 2) + 8 * hrow;
+// Two integers q < 256 in t's halves and the bf16 pairs of their columns'
+// scale s2 and bias m2 -> bf16(q * s + m) each, rounded as the plain
+// version rounds: f32 product, f32 sum, then bf16.
+__device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t t, uint32_t s2, uint32_t m2) {
+  const float s0 = __uint_as_float(s2 << 16), s1 = __uint_as_float(s2 & 0xFFFF0000u);
+  const float b0 = __uint_as_float(m2 << 16), b1 = __uint_as_float(m2 & 0xFFFF0000u);
+  return pack_bf16(__fadd_rn(__fmul_rn(u2f(t & 0xFFFFu), s0), b0),
+                   __fadd_rn(__fmul_rn(u2f(t >> 16), s1), b1));
 }
 
-// acc[mt][nt][2 * hrow + j] = (x[0 .. rows) @ dequant(W))[dd_row, n0 + dd_col].
-// x: `rows` <= DD_ROWS rows of K bf16, `x_stride` apart (a multiple of 8);
+constexpr int BF_KMAX = 128;    // K-values of the largest quant block
+constexpr int BF_XSTR = 272;    // bytes per staged x row: 256 + 16, so ldmatrix is conflict-free
+
+constexpr int ALG_ROWS = 0, ALG_PARTIAL = 1, ALG_DEQUANT = 2;
+
+// Where a second unpacked buffer costs no resident block (by shared memory
+// and threads), the two new algebras unpack block kb + 1 into it while the
+// tensor cores take block kb, with one barrier a quant block; elsewhere the
+// block it would cost hides more (measured, PERF.md). ALG_ROWS keeps one
+// buffer and two barriers. -DMNN_DD_PIPE=0 never pipelines (profiling).
+#ifndef MNN_DD_PIPE
+#define MNN_DD_PIPE 1
+#endif
+
+// Blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that one SM holds (228 KB of shared memory, 1 KB of it reserved a block;
+// 2048 threads), registers aside.
+__host__ __device__ constexpr int sm_blocks(int smem, int threads) {
+  return 233472 / (smem + 1024) < 2048 / threads ? 233472 / (smem + 1024) : 2048 / threads;
+}
+
+// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
+// one quant block][BN] bytes, [BM][BF_XSTR] bytes of x and the block's scale
+// and bias rows, then the unpacked block (two in turn where pipe(alg)) as
+// [BF_KMAX][BN] bf16, one K-value a row (rows BTS bytes apart, an odd
+// multiple of 16, so ldmatrix.trans is conflict-free). MT x NT m16n8 tiles
+// a warp, WM x WN warps.
+template <int BITS, int MT, int NT, int WM, int WN>
+struct Bf16Tile {
+  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
+  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int X_BYTES = BM * BF_XSTR;
+  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
+  static constexpr int BTS = BN == 8 ? 16 : 2 * BN + 16;
+  static constexpr int BT_BYTES = BF_KMAX * BTS;
+  static constexpr int SMEM = A8_STAGES * STAGE + BT_BYTES;   // one unpacked buffer
+  __host__ __device__ static constexpr bool pipe(int alg) {
+    return alg != ALG_ROWS && MNN_DD_PIPE &&
+           sm_blocks(SMEM + BT_BYTES, THREADS) >= sm_blocks(SMEM, THREADS);
+  }
+  __host__ __device__ static constexpr int smem(int alg) {
+    return SMEM + (pipe(alg) ? BT_BYTES : 0);
+  }
+};
+
+// Built with -DMNN_DD_CLOCKS, thread 0 of block (0, 0, 0) adds up the
+// cycles (clock64) of each step of its quant blocks: slot 0 waiting for the
+// stage and the barrier, 1 the unpack, 2 the second barrier (one-buffer
+// schedule only), 3 the products and the f32 step; slot 4 the blocks, 5 the
+// whole K loop. dd_clocks_read (a C entry of each source) reads them back.
+#ifdef MNN_DD_CLOCKS
+static __device__ long long dd_clocks[8];
+#define MNN_DD_STAMP(slot)                                                    \
+  if (clk) {                                                                  \
+    const long long now = clock64();                                          \
+    dd_clocks[slot] += now - clk_last;                                        \
+    clk_last = now;                                                           \
+  }
+#else
+#define MNN_DD_STAMP(slot)
+#endif
+
+// acc[mt][nt][2 h + j] = (x @ dequant(W))[m0 + row_w + 16 mt + gid + 8 h,
+// n0 + col_w + 8 nt + 2 tig + j] in algebra ALG (the layout of the m16n8
+// accumulator; row_w = (warp / WN) * 16 MT, col_w = (warp % WN) * 8 NT).
+// x: M rows of K bf16 (16-byte copies need a 16-byte aligned x);
 // packed/scale/bias: one weight matrix [K * BITS / 8, N], [K / bs, N];
-// bs <= DD_MAXBS, a multiple of 16, dividing K; N a multiple of 4.
-template <int BITS, bool PARTIAL>
-__device__ __forceinline__ void deq_dot_tile(const bf16* __restrict__ x, long x_stride, int rows,
-                                             const uint8_t* __restrict__ packed,
-                                             const bf16* __restrict__ scale,
-                                             const bf16* __restrict__ bias, int K, int N, int bs,
-                                             int n0, DdSmem& sm, float (&acc)[DD_MT][2][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mtiles = (rows + 15) >> 4;
-  const int nb = K / bs, half = bs >> 1;
-  const int c4 = n0 + lane * 4;
-  const bool col_ok = c4 < N;
-#pragma unroll
-  for (int mt = 0; mt < DD_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
+// bs <= BF_KMAX, a multiple of 8 (16 for ALG_DEQUANT), dividing K; N a
+// multiple of 4. smem: Bf16Tile::smem(ALG) bytes. vx, vw, vp: the bytes
+// per asynchronous copy of x, of the packed rows and of the scale/bias rows.
+// Ends with every warp still possibly reading the last ring stage: a caller
+// that reuses the shared memory synchronizes first.
+template <int BITS, int MT, int NT, int WM, int WN, int ALG>
+__device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __restrict__ x, int m0,
+                                          int M, int K, const uint8_t* __restrict__ packed,
+                                          const bf16* __restrict__ scale,
+                                          const bf16* __restrict__ bias, int N, int bs, int n0,
+                                          int vx, int vw, int vp, float (&acc)[MT][NT][4]) {
+  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
+  constexpr int BN = T::BN, BTS = T::BTS, THREADS = T::THREADS;
+  constexpr bool PIPE = T::pipe(ALG);
+  unsigned char* bt0 = smem + A8_STAGES * T::STAGE;
 
-  for (int kb = 0; kb < nb; ++kb) {
-    __syncthreads();   // the previous block's fragments and row sums are read
-    const int vecs = bs >> 3;   // 16-byte pieces of a staged row
-    for (int idx = tid; idx < mtiles * 16 * vecs; idx += DD_THREADS) {
-      const int r = idx / vecs, v = idx - r * vecs;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows)
-        val = __ldg(reinterpret_cast<const uint4*>(x + (long)r * x_stride + (long)kb * bs + v * 8));
-      *reinterpret_cast<uint4*>(&sm.xs[r][v * 8]) = val;
-    }
-    float s4[4], m4[4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tig = lane & 3;
+  const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
+  const int nb = K / bs, kp = (bs + 15) & ~15;   // K-values per block, padded to the mma depth
+  const int rows_w = bs * BITS / 8;              // packed rows per quant block
+
+  using R = Ring<2, 2 * BF_KMAX, BF_XSTR, T::BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE>;
+  R::zero_pad(smem, 2 * bs, 2 * kp, tid);
+  // the pattern's rows from bs to kp are zeros too: a zero x times stale
+  // shared memory could be NaN
+  for (int b = 0; b < (PIPE ? 2 : 1); ++b)
+    for (int i = tid; i < (kp - bs) * BTS / 16; i += THREADS)
+      reinterpret_cast<uint4*>(bt0 + b * T::BT_BYTES + bs * BTS)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const R ring(tid, n0, N, scale, bias, vx, vw, vp);
+  auto load = [&](int kb) {
+    if (kb < nb)
+      ring.load(smem + (kb % A8_STAGES) * T::STAGE, kb, packed, rows_w,
+                reinterpret_cast<const unsigned char*>(x), m0, M, K, bs, N, n0);
+    cp_async_commit();   // an empty group past the last block keeps the count
+  };
+
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s4[j] = 1.f;
-      m4[j] = 0.f;
-      if (!PARTIAL && col_ok) {
-        s4[j] = bf2f(scale[(long)kb * N + c4 + j]);
-        m4[j] = bf2f(bias[(long)kb * N + c4 + j]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  // ldmatrix row addresses. A: lanes 0-15 rows 0-15 of an m16 tile at K
+  // values 0-7, lanes 16-31 the same rows at 8-15. B (.trans): lanes 0-15 K
+  // rows 0-15 of the first n8 tile of a pair, lanes 16-31 of the second.
+  const unsigned xr0 =
+      smem_u32(smem + T::W_BYTES + (row_w + (lane & 15)) * BF_XSTR + (lane >> 4) * 16);
+  const unsigned br0 = smem_u32(bt0 + (lane & 15) * BTS + (col_w + 8 * (lane >> 4)) * 2);
+
+  // Unpack quant block kb from its ring stage into the buffer at bt, once
+  // per tile: a thread takes IB columns of one packed row and writes them as
+  // bf16 K-rows: W4 the low nibbles to row i and the high ones to row
+  // i + bs/2 (the pairing of the packed layout), W8 the bytes to row i. The
+  // dequantize algebra writes bf16(q * s + m) with the columns' scale and
+  // bias from the stage, the others the pattern q. IB = 8 (the new
+  // algebras, and tiles 8 wide): eight threads store 128 consecutive bytes,
+  // free of bank conflicts; ALG_ROWS keeps its 16.
+  auto unpack = [&](int kb, unsigned char* bt) {
+    const unsigned char* st = smem + (kb % A8_STAGES) * T::STAGE;
+    const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
+    constexpr int IB = BN < 16 || ALG != ALG_ROWS ? 8 : 16, CQ = BN / IB, IW = IB / 4;
+    for (int u = tid; u < rows_w * CQ; u += THREADS) {
+      const int i = u / CQ, c = u - i * CQ;
+      uint32_t w[IW], s2[2 * IW], m2[2 * IW];
+      if constexpr (IW == 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(st + i * BN + IB * c);
+        w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(st + i * BN + IB * c);
+        w[0] = v.x, w[1] = v.y;
+      }
+      if constexpr (ALG == ALG_DEQUANT) {   // the columns' scales and biases as bf16 pairs
+#pragma unroll
+        for (int q = 0; q < IW / 2; ++q) {
+          const uint4 sv = reinterpret_cast<const uint4*>(sp + IB * c)[q];
+          const uint4 mv = reinterpret_cast<const uint4*>(sp + BN + IB * c)[q];
+          s2[4 * q] = sv.x, s2[4 * q + 1] = sv.y, s2[4 * q + 2] = sv.z, s2[4 * q + 3] = sv.w;
+          m2[4 * q] = mv.x, m2[4 * q + 1] = mv.y, m2[4 * q + 2] = mv.z, m2[4 * q + 3] = mv.w;
+        }
+      }
+      uint32_t lo[2 * IW], hi[2 * IW];
+#pragma unroll
+      for (int j = 0; j < IW; ++j) {
+        // bytes 0, 1 and 2, 3 of the word as 16-bit halves: two columns each
+        const uint32_t t0 = __byte_perm(w[j], 0u, 0x4140), t1 = __byte_perm(w[j], 0u, 0x4342);
+        if constexpr (ALG == ALG_DEQUANT) {
+          constexpr uint32_t MASK = BITS == 4 ? 0x000F000Fu : 0x00FF00FFu;
+          lo[2 * j] = dequant_bf16x2(t0 & MASK, s2[2 * j], m2[2 * j]);
+          lo[2 * j + 1] = dequant_bf16x2(t1 & MASK, s2[2 * j + 1], m2[2 * j + 1]);
+          if (BITS == 4) {
+            hi[2 * j] = dequant_bf16x2((t0 >> 4) & MASK, s2[2 * j], m2[2 * j]);
+            hi[2 * j + 1] = dequant_bf16x2((t1 >> 4) & MASK, s2[2 * j + 1], m2[2 * j + 1]);
+          }
+        } else if (BITS == 4) {
+          lo[2 * j] = nibbles_bf16x2(t0);
+          lo[2 * j + 1] = nibbles_bf16x2(t1);
+          hi[2 * j] = nibbles_bf16x2(t0 >> 4);
+          hi[2 * j + 1] = nibbles_bf16x2(t1 >> 4);
+        } else {
+          lo[2 * j] = pack_bf16(u2f(t0 & 0xFFFFu), u2f(t0 >> 16));
+          lo[2 * j + 1] = pack_bf16(u2f(t1 & 0xFFFFu), u2f(t1 >> 16));
+        }
+      }
+      uint4* d = reinterpret_cast<uint4*>(bt + i * BTS + 2 * IB * c);
+#pragma unroll
+      for (int q = 0; q < IW / 2; ++q)
+        d[q] = make_uint4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
+      if (BITS == 4) {
+        d = reinterpret_cast<uint4*>(bt + (i + (bs >> 1)) * BTS + 2 * IB * c);
+#pragma unroll
+        for (int q = 0; q < IW / 2; ++q)
+          d[q] = make_uint4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2], hi[4 * q + 3]);
       }
     }
-    // a weight as the dot sees it: the pattern itself, or bf16(q * s + m)
-    auto wval = [&](uint32_t q, int j) {
-      const float f = u2f(q);
-      return PARTIAL ? f : __fadd_rn(__fmul_rn(f, s4[j]), m4[j]);
-    };
-    if (BITS == 4) {
-      // packed rows 2jp, 2jp + 1 of the block: K offsets (2jp, 2jp + 1) in
-      // the low nibbles and (half + 2jp, half + 2jp + 1) in the high ones
-      const uint8_t* wp = packed + (long)kb * half * N + c4;
-      for (int jp = warp; jp < (half >> 1); jp += DD_WARPS) {
-        uint32_t w0 = 0u, w1 = 0u;
-        if (col_ok) {
-          w0 = __ldg(reinterpret_cast<const uint32_t*>(wp + (long)(2 * jp) * N));
-          w1 = __ldg(reinterpret_cast<const uint32_t*>(wp + (long)(2 * jp + 1) * N));
-        }
-        uint32_t lo[4], hi[4];
+  };
+
+  // The products of quant block kb: x rows from its stage, the pattern or
+  // weights from the unpacked buffer at br (this lane's ldmatrix address),
+  // then, for the partial algebras, the block's f32 step. Rows past M are
+  // zeros in shared memory: their tiles add nothing, and computing them
+  // keeps the loop free of branches.
+  auto products = [&](int kb, unsigned br) {
+    const int stage = (kb % A8_STAGES) * T::STAGE;
+    const unsigned xr = xr0 + stage;
+    // every fragment of a K-step of 16, then the products
+    auto fragments = [&](int ks, uint32_t (&a)[MT][4], uint32_t (&b)[NT][2]) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo[j] = pack_bf16(wval((w0 >> (8 * j)) & 0xFu, j), wval((w1 >> (8 * j)) & 0xFu, j));
-          hi[j] = pack_bf16(wval((w0 >> (8 * j + 4)) & 0xFu, j), wval((w1 >> (8 * j + 4)) & 0xFu, j));
-        }
-        *reinterpret_cast<uint4*>(&sm.bw[jp][lane * 4]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-        *reinterpret_cast<uint4*>(&sm.bw[(half >> 1) + jp][lane * 4]) =
-            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t t[4];
+        ldmatrix_x4_trans(t, br + ks * 16 * BTS + np * 32);
+        b[2 * np][0] = t[0];
+        b[2 * np][1] = t[1];
+        b[2 * np + 1][0] = t[2];
+        b[2 * np + 1][1] = t[3];
+      }
+      if constexpr (NT % 2) {   // the last n8 tile alone
+        uint32_t t[2];
+        ldmatrix_x2_trans(t, br + ks * 16 * BTS + (NT / 2) * 32);
+        b[NT - 1][0] = t[0];
+        b[NT - 1][1] = t[1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * BF_XSTR);
+    };
+
+    if constexpr (ALG == ALG_DEQUANT) {
+#pragma unroll 4
+      for (int ks = 0; ks < (kp >> 4); ++ks) {
+        uint32_t a[MT][4], b[NT][2];
+        fragments(ks, a, b);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
       }
     } else {
-      const uint8_t* wp = packed + (long)kb * bs * N + c4;
-      for (int jp = warp; jp < half; jp += DD_WARPS) {
-        uint32_t w0 = 0u, w1 = 0u;
-        if (col_ok) {
-          w0 = __ldg(reinterpret_cast<const uint32_t*>(wp + (long)(2 * jp) * N));
-          w1 = __ldg(reinterpret_cast<const uint32_t*>(wp + (long)(2 * jp + 1) * N));
+      const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};   // bf16 1.0 pairs
+      float part[MT][NT][4], rs[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          rs[mt][i] = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) part[mt][nt][i] = 0.f;
         }
-        uint32_t q[4];
+#pragma unroll 4
+      for (int ks = 0; ks < (kp >> 4); ++ks) {
+        uint32_t a[MT][4], b[NT][2];
+        fragments(ks, a, b);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          q[j] = pack_bf16(wval((w0 >> (8 * j)) & 0xFFu, j), wval((w1 >> (8 * j)) & 0xFFu, j));
-        *reinterpret_cast<uint4*>(&sm.bw[jp][lane * 4]) = make_uint4(q[0], q[1], q[2], q[3]);
-      }
-    }
-    __syncthreads();
-    if (PARTIAL) {   // row sums of the staged x block, one warp per row
-      for (int r = warp; r < mtiles * 16; r += DD_WARPS) {
-        float s = 0.f;
-        for (int k = lane; k < bs; k += 32) s += bf2f(sm.xs[r][k]);
-        s = warp_sum(s);
-        if (lane == 0) sm.rs[r] = s;
-      }
-    }
-    float part[DD_MT][2][4];
-    __nv_bfloat162 sv[2], mv[2];   // this thread's columns of the block's planes
-    if (PARTIAL) {
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16_16816(rs[mt], a[mt], ones);   // every column: the row's sum
 #pragma unroll
-      for (int mt = 0; mt < DD_MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[mt][nt][j] = 0.f;
-      // on their way while the tensor cores work
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = n0 + dd_col(nt, 0);
-        sv[nt] = mv[nt] = __floats2bfloat162_rn(0.f, 0.f);
-        if (col < N) {
-          sv[nt] = *reinterpret_cast<const __nv_bfloat162*>(&scale[(long)kb * N + col]);
-          mv[nt] = *reinterpret_cast<const __nv_bfloat162*>(&bias[(long)kb * N + col]);
+          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt]);
         }
       }
-    }
-    for (int ks = 0; ks < (bs >> 4); ++ks) {
-      uint32_t b[2][2];
+
+      // the block's f32 step, in the algebra's order
+      const bf16* sp = reinterpret_cast<const bf16*>(smem + stage + T::W_BYTES + T::X_BYTES);
+      __nv_bfloat162 sv[NT], mv[NT];   // this thread's two columns of each n-tile
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = nt * 64 + warp * 8 + gid;
-        b[nt][0] = sm.bw[ks * 8 + tig][col];
-        b[nt][1] = sm.bw[ks * 8 + 4 + tig][col];
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = col_w + nt * 8 + 2 * tig;
+        sv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + col);
+        mv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + BN + col);
       }
 #pragma unroll
-      for (int mt = 0; mt < DD_MT; ++mt) {
-        if (mt < mtiles) {
-          const int r = mt * 16 + gid, k = ks * 16 + 2 * tig;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(&sm.xs[r][k]);
-          a[1] = *reinterpret_cast<const uint32_t*>(&sm.xs[r + 8][k]);
-          a[2] = *reinterpret_cast<const uint32_t*>(&sm.xs[r][k + 8]);
-          a[3] = *reinterpret_cast<const uint32_t*>(&sm.xs[r + 8][k + 8]);
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            if (PARTIAL)
-              mma_bf16_16816(part[mt][nt], a, b[nt]);
-            else
-              mma_bf16_16816(acc[mt][nt], a, b[nt]);
-          }
-        }
-      }
-    }
-    if (PARTIAL) {
-      __syncthreads();   // the row sums are written
+        for (int j = 0; j < 2; ++j) {
+          const float s = bf2f(j ? sv[nt].y : sv[nt].x), m = bf2f(j ? mv[nt].y : mv[nt].x);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const float s2[2] = {bf2f(sv[nt].x), bf2f(sv[nt].y)};
-        const float m2[2] = {bf2f(mv[nt].x), bf2f(mv[nt].y)};
+          for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int mt = 0; mt < DD_MT; ++mt) {
-          if (mt < mtiles) {
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const float rsum = sm.rs[dd_row(mt, hr)];
-#pragma unroll
-              for (int j = 0; j < 2; ++j)
-                acc[mt][nt][2 * hr + j] = __fadd_rn(
-                    __fadd_rn(acc[mt][nt][2 * hr + j], __fmul_rn(part[mt][nt][2 * hr + j], s2[j])),
-                    __fmul_rn(rsum, m2[j]));
+            for (int h = 0; h < 2; ++h) {   // rows gid and gid + 8
+              float& a = acc[mt][nt][2 * h + j];
+              const float ps = __fmul_rn(part[mt][nt][2 * h + j], s);
+              const float rm = __fmul_rn(rs[mt][2 * h], m);
+              a = ALG == ALG_ROWS ? __fadd_rn(__fadd_rn(a, ps), rm) : __fadd_rn(a, __fadd_rn(ps, rm));
             }
-          }
         }
-      }
+    }
+  };
+
+#ifdef MNN_DD_CLOCKS
+  const bool clk = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid == 0;
+  long long clk_last = clk ? clock64() : 0;
+  const long long clk_start = clk_last;
+#endif
+#pragma unroll
+  for (int s = 0; s < A8_STAGES - 1; ++s) load(s);
+
+  if constexpr (PIPE) {
+    // block kb + 1 is unpacked into one buffer while block kb's products
+    // read the other; the copy of block kb + 2 runs under both
+    cp_async_wait<A8_STAGES - 2>();
+    __syncthreads();
+    unpack(0, bt0);
+    for (int kb = 0; kb < nb; ++kb) {
+      cp_async_wait<0>();
+      __syncthreads();   // block kb is unpacked, kb + 1 has landed; every warp is done with kb - 1
+      MNN_DD_STAMP(0)
+      load(kb + A8_STAGES - 1);
+      if (kb + 1 < nb) unpack(kb + 1, bt0 + ((kb + 1) & 1) * T::BT_BYTES);
+      MNN_DD_STAMP(1)
+      products(kb, br0 + (kb & 1) * T::BT_BYTES);
+      MNN_DD_STAMP(3)
+    }
+  } else {
+    for (int kb = 0; kb < nb; ++kb) {
+      cp_async_wait<A8_STAGES - 2>();
+      __syncthreads();   // block kb has landed; every warp is done with kb - 1
+      MNN_DD_STAMP(0)
+      load(kb + A8_STAGES - 1);
+      unpack(kb, bt0);
+      MNN_DD_STAMP(1)
+      __syncthreads();   // the unpacked block is complete
+      MNN_DD_STAMP(2)
+      products(kb, br0);
+      MNN_DD_STAMP(3)
     }
   }
+#ifdef MNN_DD_CLOCKS
+  if (clk) {
+    dd_clocks[4] += nb;
+    dd_clocks[5] += clock64() - clk_start;
+  }
+#endif
 }
+
+#ifdef MNN_DD_CLOCKS
+// dd_clocks into out[0..7], then zeroed
+inline int dd_clocks_read(long long* out) {
+  void* dev = nullptr;
+  cudaError_t e = cudaMemcpyFromSymbol(out, dd_clocks, sizeof(dd_clocks));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&dev, dd_clocks);
+  if (e == cudaSuccess) e = cudaMemset(dev, 0, sizeof(dd_clocks));
+  return (int)e;
+}
+#endif
 
 }  // namespace mnn

@@ -48,7 +48,8 @@
 // mixture-of-experts shared expert in prefill, and every prefill projection
 // under prefill_act_bits = 16). At M = 512 it is bound by bf16 tensor-core
 // operations (the shared expert's gate/up: 23.6 GFLOP, 24 us). It is the
-// a8 kernel's design, sharing its copy ring, with bf16 A fragments:
+// a8 kernel's design, sharing its copy ring, with bf16 A fragments; its
+// body is the tile body of deq_dot.cuh in the ALG_ROWS algebra:
 //  * `mma.sync.m16n8k16.bf16` on the unsigned pattern q, exact in bf16 (W4
 //    0..15 as bf16(128 + q) - 128 from a mask and one bf16x2 subtraction,
 //    W8 through f32); the row sums are one more product, with a B of ones;
@@ -64,12 +65,15 @@
 //    with zero K-values of x and of the pattern.
 //
 // dqmm_deq_kernel replaces ::_kernel_deq, the dequantize-tile variant for
-// many bf16 rows: per quant block the weights become wd = bf16(q * s + m) and
-// acc += x_b @ wd in f32, on the tensor cores (deq_dot.cuh, shared with the
-// grouped mixture-of-experts prefill kernel). It rounds the weight where the
-// two kernels above never do, so it has a plain version of its own. An
-// 80-row x 128-column tile per block; bound by operations from a few hundred
-// rows on.
+// many bf16 rows: per quant block the weights become wd = bf16(q * s + m)
+// and acc += x_b @ wd in f32. It is the same tile body in the ALG_DEQUANT
+// algebra, shared with the grouped mixture-of-experts prefill kernel: the
+// same copy ring and tiles, the scale and bias applied in the unpack (an f32
+// product and sum, then the bf16 rounding, as the plain version rounds), the
+// products accumulated straight into acc with no per-block step and no row
+// sums. It rounds the weight where the two kernels above never do, so it
+// has a plain version of its own (deq_dot_plain). Bound by operations from
+// a few hundred rows on; quant blocks of 16 to 128 K-values.
 #include <algorithm>
 #include <type_traits>
 
@@ -185,143 +189,6 @@ dqmm_rows_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
     store_out(out, (long)row * N + col, v, out_f32);
   }
 }
-
-// ---------------------------------------------------------------------------
-// The copy ring shared by the two tensor-core kernels
-// ---------------------------------------------------------------------------
-
-constexpr int A8_STAGES = 3;    // quant blocks in flight in the copy ring
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The A fragment of m16n8k32 (rows gid and gid + 8, K bytes 4 tig .. 4 tig + 3
-// and 16 more) is what ldmatrix.x4 of 8 x 8 b16 matrices gives each lane.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], unsigned smem_addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr));
-}
-
-// Copy W (16, 8 or 4) bytes from device to shared memory without waiting;
-// when `valid` is false nothing is read and the destination is zeroed.
-template <int W>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? W : 0;
-  if constexpr (W == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(W),
-                 "r"(n)
-                 : "memory");
-}
-
-// f(std::integral_constant<int, w>()) for a copy width w of 16, 8 or 4, so a
-// loop of copies is compiled once per width and chosen once.
-template <class F>
-__device__ __forceinline__ void with_width(int w, F&& f) {
-  if (w == 16)
-    f(std::integral_constant<int, 16>());
-  else if (w == 8)
-    f(std::integral_constant<int, 8>());
-  else
-    f(std::integral_constant<int, 4>());
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// B fragments of m16n8k16 for two n8 tiles from K-rows of bf16 in shared
-// memory: lanes 0-15 address K rows 0-15 of the first tile, lanes 16-31 the
-// same rows of the second; .trans hands each lane the K-pair of its column.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], unsigned smem_addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_addr));
-}
-
-// The same for one n8 tile: lanes 0-15 address its K rows 0-15.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2], unsigned smem_addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr));
-}
-
-// One thread's share of filling a ring stage with quant block kb, the same
-// for every block but for its offset: a column piece of every w_step-th
-// packed row, of every x_step-th row of x, and at most one piece of the
-// scale or bias row. A stage is [packed rows of the largest block][BN]
-// bytes, then [BM][XSTR] bytes of x (E bytes a K-value, XROW bytes for the
-// largest block), then the block's scale and bias rows of BN bf16 each.
-// vx, vw, vp: the bytes per copy of x, of the packed rows and of the
-// scale/bias rows (16, 8 or 4, as their alignment allows).
-template <int E, int XROW, int XSTR, int BM, int BN, int THREADS, int W_BYTES, int X_BYTES,
-          int STAGE>
-struct Ring {
-  int w_r0, w_c, w_step, x_r0, x_c, x_step, p_plane, p_c, vx, vw, vp;
-  bool w_ok, p_ok;
-  const unsigned char* p_src;
-
-  __device__ __forceinline__ Ring(int tid, int n0, int N, const bf16* scale, const bf16* bias,
-                                  int vx_, int vw_, int vp_)
-      : vx(vx_), vw(vw_), vp(vp_) {
-    const int wc = BN / vw, xcs = XROW / vx, pc = 2 * BN / vp;
-    w_r0 = tid / wc;
-    w_c = (tid - w_r0 * wc) * vw;
-    w_step = THREADS / wc;
-    w_ok = n0 + w_c < N;
-    x_r0 = tid / xcs;
-    x_c = (tid - x_r0 * xcs) * vx;
-    x_step = THREADS / xcs;
-    p_plane = tid / pc;
-    p_c = (tid - p_plane * pc) * vp;
-    p_ok = p_plane < 2 && n0 + p_c / 2 < N;
-    p_src = reinterpret_cast<const unsigned char*>((p_plane ? bias : scale) + n0) + p_c;
-  }
-
-  // x rows are padded with zeros from `from` to `to` bytes in every stage;
-  // the copies never write there, and a zero adds nothing to any product
-  __device__ __forceinline__ static void zero_pad(unsigned char* smem, int from, int to, int tid) {
-    const int pad = (to - from) >> 3;
-    for (int i = tid; i < A8_STAGES * BM * pad; i += THREADS) {
-      const int s = i / (BM * pad), r = (i / pad) % BM, j = i % pad;
-      *reinterpret_cast<uint2*>(smem + s * STAGE + W_BYTES + r * XSTR + from + 8 * j) =
-          make_uint2(0u, 0u);
-    }
-  }
-
-  // stage quant block kb: packed rows as they lie in memory, x, scale, bias
-  __device__ __forceinline__ void load(unsigned char* st, int kb, const uint8_t* packed,
-                                       int rows_w, const unsigned char* x, int m0, int M, int K,
-                                       int bs, int N, int n0) const {
-    with_width(vw, [&](auto w) {
-      const uint8_t* ws = packed + ((long)kb * rows_w + w_r0) * N + n0 + w_c;
-      for (int r = w_r0; r < rows_w; r += w_step, ws += (long)w_step * N)
-        cp_async<decltype(w)::value>(st + r * BN + w_c, w_ok ? ws : packed, w_ok);
-    });
-    if (x_c < bs * E)
-      with_width(vx, [&](auto w) {
-        const unsigned char* xsrc = x + ((long)(m0 + x_r0) * K + (long)kb * bs) * E + x_c;
-        for (int r = x_r0; r < BM; r += x_step, xsrc += (long)x_step * K * E)
-          cp_async<decltype(w)::value>(st + W_BYTES + r * XSTR + x_c, m0 + r < M ? xsrc : x,
-                                       m0 + r < M);
-      });
-    if (p_plane < 2)
-      with_width(vp, [&](auto w) {
-        cp_async<decltype(w)::value>(st + W_BYTES + X_BYTES + p_plane * 2 * BN + p_c,
-                                     p_ok ? p_src + (long)kb * N * 2 : packed, p_ok);
-      });
-  }
-};
 
 // ---------------------------------------------------------------------------
 // dqmm_a8_kernel: int8 rows x re-centred W4/W8 pattern on the int8 tensor cores
@@ -556,73 +423,26 @@ dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
 }
 
 // ---------------------------------------------------------------------------
-// dqmm_bf16_tile_kernel: bf16 rows x the W4/W8 pattern on the bf16 tensor cores
+// dqmm_bf16_tile_kernel and dqmm_deq_kernel: bf16 rows on the bf16 tensor
+// cores, through the tile body of deq_dot.cuh
 // ---------------------------------------------------------------------------
 
-constexpr int BF_KMAX = 128;    // K-values of the largest quant block
-constexpr int BF_XSTR = 272;    // bytes per staged x row: 256 + 16, so ldmatrix is conflict-free
-
-// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
-// one quant block][BN] bytes, [BM][BF_XSTR] bytes of x and the block's scale
-// and bias rows, then the unpacked pattern as [BF_KMAX][BN] bf16, one K-value
-// a row (rows BTS bytes apart, an odd multiple of 16, so ldmatrix.trans is
-// conflict-free).
-template <int BITS, int MT, int NT, int WM, int WN>
-struct Bf16Tile {
-  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
-  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
-  static constexpr int X_BYTES = BM * BF_XSTR;
-  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
-  static constexpr int BTS = BN == 8 ? 16 : 2 * BN + 16;
-  static constexpr int SMEM = A8_STAGES * STAGE + BF_KMAX * BTS;
-};
-
-// Two 16-bit integers 0..15 in the low nibbles of t's halves, as two bf16,
-// exactly: 0x4300 | q is bf16(128 + q), and 128 is taken off in bf16x2.
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
-  const uint32_t v = (t & 0x000F000Fu) | 0x43004300u, c = 0x43004300u;
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// One BM x BN output tile over the whole of K, the a8 kernel's design with
-// bf16 A fragments: per quant block, part = x_b . q_b on m16n8k16 (q is
-// exact in bf16), the row sums as one more product with a B of ones, then
-// acc = (acc + part * s) + rs * m in f32 in the plain version's order. vx,
-// vw, vp: the bytes per asynchronous copy of x, of the packed rows and of
-// the scale/bias rows.
-template <int BITS, int MT, int NT, int WM, int WN>
-__global__ void __launch_bounds__(32 * WM * WN)
-dqmm_bf16_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-                      const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-                      const float* __restrict__ out_bias, void* __restrict__ out, int M, int K,
-                      int N, int bs, int out_f32, int vx, int vw, int vp) {
+// One BM x BN output tile over the whole of K in algebra ALG, rounded to
+// the output dtype, plus out_bias.
+template <int BITS, int MT, int NT, int WM, int WN, int ALG>
+__device__ __forceinline__ void bf16_tile_matmul(const bf16* __restrict__ x,
+                                                 const uint8_t* __restrict__ packed,
+                                                 const bf16* __restrict__ scale,
+                                                 const bf16* __restrict__ bias,
+                                                 const float* __restrict__ out_bias,
+                                                 void* __restrict__ out, int M, int K, int N,
+                                                 int bs, int out_f32, int vx, int vw, int vp) {
   using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  constexpr int BM = T::BM, BN = T::BN, BTS = T::BTS, THREADS = T::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* bt = smem_raw + A8_STAGES * T::STAGE;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nb = K / bs, kp = (bs + 15) & ~15;   // K-values per block, padded to the mma depth
-  const int rows_w = bs * BITS / 8;              // packed rows per quant block
-
-  using R = Ring<2, 2 * BF_KMAX, BF_XSTR, BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE>;
-  R::zero_pad(smem_raw, 2 * bs, 2 * kp, tid);
-  // the pattern's rows from bs to kp are zeros too: a zero x times stale
-  // shared memory could be NaN
-  for (int i = tid; i < (kp - bs) * BTS / 16; i += THREADS)
-    reinterpret_cast<uint4*>(bt + bs * BTS)[i] = make_uint4(0u, 0u, 0u, 0u);
-  const R ring(tid, n0, N, scale, bias, vx, vw, vp);
-  auto load = [&](int kb) {
-    if (kb < nb)
-      ring.load(smem_raw + (kb % A8_STAGES) * T::STAGE, kb, packed, rows_w,
-                reinterpret_cast<const unsigned char*>(x), m0, M, K, bs, N, n0);
-    cp_async_commit();   // an empty group past the last block keeps the count
-  };
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
 
   float ob[NT][2];   // the output biases this thread adds at the end
 #pragma unroll
@@ -634,140 +454,8 @@ dqmm_bf16_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pa
     }
 
   float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-  // ldmatrix row addresses. A: lanes 0-15 rows 0-15 of an m16 tile at K
-  // values 0-7, lanes 16-31 the same rows at 8-15. B (.trans): lanes 0-15 K
-  // rows 0-15 of the first n8 tile of a pair, lanes 16-31 of the second.
-  const unsigned xr0 = smem_u32(smem_raw + T::W_BYTES + (row_w + (lane & 15)) * BF_XSTR +
-                                (lane >> 4) * 16);
-  const unsigned br0 = smem_u32(bt + (lane & 15) * BTS + (col_w + 8 * (lane >> 4)) * 2);
-  const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};   // bf16 1.0 pairs
-
-#pragma unroll
-  for (int s = 0; s < A8_STAGES - 1; ++s) load(s);
-
-  for (int kb = 0; kb < nb; ++kb) {
-    cp_async_wait<A8_STAGES - 2>();
-    __syncthreads();          // block kb has landed; every warp is done with kb - 1
-    load(kb + A8_STAGES - 1);
-    const int stage = (kb % A8_STAGES) * T::STAGE;
-    const unsigned char* st = smem_raw + stage;
-
-    // unpack once per tile: a thread takes 16 columns of one packed row (16
-    // bytes; 8 in a tile 8 wide) and writes them as bf16 K-rows, 32 bytes
-    // each: W4 the low nibbles to row i and the high ones to row i + bs/2
-    // (the pairing of the packed layout), W8 the bytes to row i
-    {
-      constexpr int IB = BN < 16 ? 8 : 16, CQ = BN / IB, IW = IB / 4;
-      for (int u = tid; u < rows_w * CQ; u += THREADS) {
-        const int i = u / CQ, c = u - i * CQ;
-        uint32_t w[IW];
-        if constexpr (IW == 4) {
-          const uint4 v = *reinterpret_cast<const uint4*>(st + i * BN + IB * c);
-          w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-        } else {
-          const uint2 v = *reinterpret_cast<const uint2*>(st + i * BN + IB * c);
-          w[0] = v.x, w[1] = v.y;
-        }
-        uint32_t lo[2 * IW], hi[2 * IW];
-#pragma unroll
-        for (int j = 0; j < IW; ++j) {
-          // bytes 0, 1 and 2, 3 of the word as 16-bit halves: two columns each
-          const uint32_t t0 = __byte_perm(w[j], 0u, 0x4140), t1 = __byte_perm(w[j], 0u, 0x4342);
-          if (BITS == 4) {
-            lo[2 * j] = nibbles_bf16x2(t0);
-            lo[2 * j + 1] = nibbles_bf16x2(t1);
-            hi[2 * j] = nibbles_bf16x2(t0 >> 4);
-            hi[2 * j + 1] = nibbles_bf16x2(t1 >> 4);
-          } else {
-            lo[2 * j] = pack_bf16(u2f(t0 & 0xFFFFu), u2f(t0 >> 16));
-            lo[2 * j + 1] = pack_bf16(u2f(t1 & 0xFFFFu), u2f(t1 >> 16));
-          }
-        }
-        uint4* d = reinterpret_cast<uint4*>(bt + i * BTS + 2 * IB * c);
-#pragma unroll
-        for (int q = 0; q < IW / 2; ++q)
-          d[q] = make_uint4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
-        if (BITS == 4) {
-          d = reinterpret_cast<uint4*>(bt + (i + (bs >> 1)) * BTS + 2 * IB * c);
-#pragma unroll
-          for (int q = 0; q < IW / 2; ++q)
-            d[q] = make_uint4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2], hi[4 * q + 3]);
-        }
-      }
-    }
-    __syncthreads();          // the unpacked block is complete
-
-    float part[MT][NT][4], rs[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        rs[mt][i] = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) part[mt][nt][i] = 0.f;
-      }
-    // Rows past M are zeros in shared memory: their tiles add nothing, and
-    // computing them keeps the loop free of branches.
-    const unsigned xr = xr0 + stage;
-#pragma unroll 4
-    for (int ks = 0; ks < (kp >> 4); ++ks) {
-      uint32_t a[MT][4], b[NT][2];   // every fragment of the step, then the products
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t t[4];
-        ldmatrix_x4_trans(t, br0 + ks * 16 * BTS + np * 32);
-        b[2 * np][0] = t[0];
-        b[2 * np][1] = t[1];
-        b[2 * np + 1][0] = t[2];
-        b[2 * np + 1][1] = t[3];
-      }
-      if constexpr (NT % 2) {   // the last n8 tile alone
-        uint32_t t[2];
-        ldmatrix_x2_trans(t, br0 + ks * 16 * BTS + (NT / 2) * 32);
-        b[NT - 1][0] = t[0];
-        b[NT - 1][1] = t[1];
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * BF_XSTR);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16_16816(rs[mt], a[mt], ones);   // every column: the row's sum
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt]);
-      }
-    }
-
-    // the block's f32 step: acc = (acc + part * s) + rs * m
-    const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
-    __nv_bfloat162 sv[NT], mv[NT];   // this thread's two columns of each n-tile
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = col_w + nt * 8 + 2 * tig;
-      sv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + col);
-      mv[nt] = *reinterpret_cast<const __nv_bfloat162*>(sp + BN + col);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float s = bf2f(j ? sv[nt].y : sv[nt].x), m = bf2f(j ? mv[nt].y : mv[nt].x);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {   // rows gid and gid + 8
-            float& a = acc[mt][nt][2 * h + j];
-            a = __fadd_rn(__fadd_rn(a, __fmul_rn(part[mt][nt][2 * h + j], s)),
-                          __fmul_rn(rs[mt][2 * h], m));
-          }
-      }
-  }
+  tile_body<BITS, MT, NT, WM, WN, ALG>(smem_raw, x, m0, M, K, packed, scale, bias, N, bs, n0,
+                                       vx, vw, vp, acc);
 
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -795,53 +483,30 @@ dqmm_bf16_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pa
     }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(DD_THREADS)
+// bf16 rows x the pattern (::_kernel at M > 1): per quant block, part =
+// x_b . q_b, the row sums as one more product with a B of ones, then
+// acc = (acc + part * s) + rs * m in f32 in the plain version's order.
+template <int BITS, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+dqmm_bf16_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+                      const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+                      const float* __restrict__ out_bias, void* __restrict__ out, int M, int K,
+                      int N, int bs, int out_f32, int vx, int vw, int vp) {
+  bf16_tile_matmul<BITS, MT, NT, WM, WN, ALG_ROWS>(x, packed, scale, bias, out_bias, out, M, K,
+                                                   N, bs, out_f32, vx, vw, vp);
+}
+
+// bf16 rows x bf16(q * s + m) (::_kernel_deq): the quant block's weights
+// rounded in the unpack, the products accumulated straight into acc.
+template <int BITS, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
 dqmm_deq_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
                 const bf16* __restrict__ scale, const bf16* __restrict__ bias,
                 const float* __restrict__ out_bias, void* __restrict__ out, int M, int K, int N,
-                int bs, int out_f32) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DdSmem& sm = *reinterpret_cast<DdSmem*>(smem_raw);
-  const int row0 = blockIdx.y * DD_ROWS, rows = min(DD_ROWS, M - row0);
-  const int n0 = blockIdx.x * DD_TILE_N;
-  float acc[DD_MT][2][4];
-  deq_dot_tile<BITS, false>(x + (long)row0 * K, K, rows, packed, scale, bias, K, N, bs, n0, sm, acc);
-#pragma unroll
-  for (int mt = 0; mt < DD_MT; ++mt)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = dd_row(mt, hr);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + dd_col(nt, j);
-          if (col >= N) continue;
-          float v = as_out(acc[mt][nt][2 * hr + j], out_f32);
-          if (out_bias) v = __fadd_rn(v, out_bias[col]);
-          store_out(out, (long)(row0 + r) * N + col, v, out_f32);
-        }
-    }
+                int bs, int out_f32, int vx, int vw, int vp) {
+  bf16_tile_matmul<BITS, MT, NT, WM, WN, ALG_DEQUANT>(x, packed, scale, bias, out_bias, out, M,
+                                                      K, N, bs, out_f32, vx, vw, vp);
 }
-
-template <int BITS>
-static cudaError_t launch_deq(const void* x, const void* packed, const void* scale,
-                              const void* bias, const void* out_bias, void* out, int M, int K,
-                              int N, int bs, int out_f32, cudaStream_t st) {
-  auto kern = dqmm_deq_kernel<BITS>;
-  static size_t granted = 0;
-  cudaError_t e = allow_smem(kern, sizeof(DdSmem), granted);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + DD_TILE_N - 1) / DD_TILE_N, (M + DD_ROWS - 1) / DD_ROWS);
-  kern<<<grid, DD_THREADS, sizeof(DdSmem), st>>>(
-      static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
-      static_cast<const float*>(out_bias), out, M, K, N, bs, out_f32);
-  return cudaGetLastError();
-}
-
 template <int BITS, int MR>
 static cudaError_t launch_rows(const void* x, const void* packed, const void* scale,
                                const void* bias, const void* out_bias, void* out,
@@ -876,16 +541,10 @@ constexpr int A8_NTILES = sizeof(A8_TILE_BM) / sizeof(int);
 // that is no taller than the rows (rounded up to 16) and still gives every
 // SM a block; the shortest where none does.
 static int pick_tile(int M, int N, const int* bm, const int* bn, int count) {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   const int m16 = (M + 15) & ~15;
   for (int t = 0; t + 1 < count; ++t) {
     const long blocks = (long)((M + bm[t] - 1) / bm[t]) * ((N + bn[t] - 1) / bn[t]);
-    if (bm[t] <= m16 && blocks >= sms) return t;
+    if (bm[t] <= m16 && blocks >= sm_count()) return t;
   }
   return count - 1;
 }
@@ -919,9 +578,6 @@ constexpr int BF_TILE_MIN_M = 2;
 
 static int bf16_tile(int M, int N) { return pick_tile(M, N, BF_TILE_BM, BF_TILE_BN, BF_NTILES); }
 
-// The widest of 16, 8 and 4 bytes that divides every address and stride in `a`.
-static int copy_width(uintptr_t a) { return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4; }
-
 template <int BITS, int MT, int NT, int WM, int WN>
 static cudaError_t launch_a8(const void* xq, const void* xscale, const void* packed,
                              const void* scale, const void* bias, const void* out_bias,
@@ -944,24 +600,43 @@ static cudaError_t launch_a8(const void* xq, const void* xscale, const void* pac
   return cudaGetLastError();
 }
 
-template <int BITS, int MT, int NT, int WM, int WN>
+// dqmm_bf16_tile_kernel, or dqmm_deq_kernel when DEQ, in one tile shape
+template <int BITS, int MT, int NT, int WM, int WN, bool DEQ>
 static cudaError_t launch_bf16_tile(const void* x, const void* packed, const void* scale,
                                    const void* bias, const void* out_bias, void* out, int M,
                                    int K, int N, int bs, int out_f32, cudaStream_t st) {
   using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  auto kern = dqmm_bf16_tile_kernel<BITS, MT, NT, WM, WN>;
+  auto kern = DEQ ? dqmm_deq_kernel<BITS, MT, NT, WM, WN> : dqmm_bf16_tile_kernel<BITS, MT, NT, WM, WN>;
+  constexpr int SMEM = T::smem(DEQ ? ALG_DEQUANT : ALG_ROWS);
   static size_t granted = 0;
-  cudaError_t e = allow_smem(kern, T::SMEM, granted);
+  cudaError_t e = allow_smem(kern, SMEM, granted);
   if (e != cudaSuccess) return e;
   const int vx = copy_width((uintptr_t)x | (uintptr_t)(2 * K) | (uintptr_t)(2 * bs));
   const int vw = std::min(copy_width((uintptr_t)packed | (uintptr_t)N), T::BN);
   const int vp = copy_width((uintptr_t)scale | (uintptr_t)bias | (uintptr_t)(2 * N));
   dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  kern<<<grid, T::THREADS, T::SMEM, st>>>(
+  kern<<<grid, T::THREADS, SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
       static_cast<const float*>(out_bias), out, M, K, N, bs, out_f32, vx, vw, vp);
   return cudaGetLastError();
+}
+
+// The tile bf16_tile picks for M rows and N columns, at `bits`.
+template <bool DEQ>
+static int launch_bf16_tile_bits(const void* x, const void* packed, const void* scale,
+                                 const void* bias, const void* out_bias, void* out, int M, int K,
+                                 int N, int bits, int bs, int out_f32, cudaStream_t st) {
+  const int tile = bf16_tile(M, N);
+#define MNN_BF_CASE(t, MT, NT, WM, WN)                                                          \
+  if (tile == t)                                                                               \
+    return (int)(bits == 4 ? launch_bf16_tile<4, MT, NT, WM, WN, DEQ>(                          \
+                                 x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st) \
+                           : launch_bf16_tile<8, MT, NT, WM, WN, DEQ>(                          \
+                                 x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st));
+  MNN_BF_TILES(MNN_BF_CASE)
+#undef MNN_BF_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace mnn
@@ -991,31 +666,24 @@ MNN_API int mnn_dequant_matmul_bf16_tile(const void* x, const void* packed, cons
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)x % 16 || ((uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
     return (int)cudaErrorMisalignedAddress;
-  const int tile = bf16_tile(M, N);
-#define MNN_BF_CASE(t, MT, NT, WM, WN)                                                          \
-  if (tile == t)                                                                               \
-    return (int)(bits == 4 ? launch_bf16_tile<4, MT, NT, WM, WN>(x, packed, scale, bias,       \
-                                                                 out_bias, out, M, K, N, bs,   \
-                                                                 out_f32, st)                  \
-                           : launch_bf16_tile<8, MT, NT, WM, WN>(x, packed, scale, bias,       \
-                                                                 out_bias, out, M, K, N, bs,   \
-                                                                 out_f32, st));
-  MNN_BF_TILES(MNN_BF_CASE)
-#undef MNN_BF_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_bf16_tile_bits<false>(x, packed, scale, bias, out_bias, out, M, K, N, bits, bs,
+                                      out_f32, st);
 }
 
 // y[M, N] = x[M, K] (bf16) @ bf16(dequant(packed, scale, bias)) (+ out_bias): the
-// dequantize-tile algebra, same operands as mnn_dequant_matmul
+// dequantize-tile algebra, same operands as mnn_dequant_matmul, in the tile
+// bf16_tile picks; x 16-byte aligned
 MNN_API int mnn_dequant_matmul_deq(const void* x, const void* packed, const void* scale,
                                    const void* bias, const void* out_bias, void* out,
                                    int M, int K, int N, int bits, int bs, int out_f32,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs > DD_MAXBS || bs % 16 || K % bs || K % 8 || N % 4) return (int)cudaErrorInvalidValue;
-  if (bits == 4) return (int)launch_deq<4>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
-  if (bits == 8) return (int)launch_deq<8>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
-  return (int)cudaErrorInvalidValue;
+  if (bs > BF_KMAX || bs % 16 || K % bs || K % 8 || N % 4 || (bits != 4 && bits != 8))
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16 || ((uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  return launch_bf16_tile_bits<true>(x, packed, scale, bias, out_bias, out, M, K, N, bits, bs,
+                                     out_f32, st);
 }
 
 // y[M, N] = ((int8 xq @ (q - c)) algebra) rounded, times xscale[M], (+ out_bias)
@@ -1076,3 +744,9 @@ MNN_API int mnn_dequant_matmul_tile(int M, int N, int bits, int* out) {
 #undef MNN_BF_INFO
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef MNN_DD_CLOCKS
+// The tile body's step cycles (deq_dot.cuh, MNN_DD_CLOCKS) of the kernels
+// launched since the last read, into out[0..7]; zeroed after.
+MNN_API int mnn_dequant_matmul_clocks(long long* out) { return dd_clocks_read(out); }
+#endif

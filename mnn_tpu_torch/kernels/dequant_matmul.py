@@ -60,10 +60,13 @@ What bounds it on the H100, and what the simple design does about it:
   (M = 1 always) the row kernel keeps the call.
 * The dequantize-tile kernel (`m >= DEQ_MIN_M`, off by default as in the JAX
   package) turns each quant block into wd = bf16(q * s + m) and dots bf16
-  rows with it on the tensor cores (`mma.sync`, `csrc/deq_dot.cuh`), whatever
-  `act_bits` says. It rounds the weight, which the other two never do, so
-  its plain version is `deq_dot_plain`, shared with the grouped
-  mixture-of-experts prefill kernel, and not the loop above.
+  rows with it on the tensor cores, whatever `act_bits` says. It is the
+  bf16 tile kernel's body and tiles (`csrc/deq_dot.cuh`) in another
+  algebra: the scale and bias are applied in the unpack, and the products
+  accumulate straight into the sum, with no per-block step and no row sums.
+  It rounds the weight, which the other two never do, so its plain version
+  is `deq_dot_plain`, shared with the grouped mixture-of-experts prefill
+  kernel, and not the loop above.
 """
 
 from __future__ import annotations
@@ -242,6 +245,8 @@ def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype,
             raise ValueError("the dequantize-tile kernel needs K % 8 == 0 "
                              "and block_size % 16 == 0")
         x2 = x2.to(torch.bfloat16).contiguous()
+        if x2.data_ptr() % 16:           # it copies rows of x 16 bytes at a time
+            x2 = x2.clone()
         KERNEL_DEQ(x2.data_ptr(), ql.packed.data_ptr(), ql.scale.data_ptr(),
                    ql.bias.data_ptr(), _ptr(ql.out_bias), out.data_ptr(),
                    m, k, n, ql.bits, ql.block_size, out_f32)

@@ -23,20 +23,31 @@ GFLOP over 0.33 GB of weights and rows, close to the ridge between bytes and
 tensor-core operations and 15 times beyond what the CUDA cores could do in
 the bytes' time, so both products run on the tensor cores
 (`mma.sync.m16n8k16`, bf16 x bf16 -> f32: the integer pattern is exact in
-bf16). A block takes (128-column tile, 80-row
-slab, expert) over the whole of K; the activations [E, C, mi] go through
-device memory between the two products' launches, because the down product
-needs all of mi and a block holds one tile. Staging is not overlapped with
-the math yet, and `wgmma` and TMA are later work.
+bf16), in the tile body that the bf16-row matmul and the dequantize-tile
+matmul share (`csrc/deq_dot.cuh`): a `cp.async` ring brings each quant
+block's packed rows, x rows and scale and bias rows into shared memory two
+blocks ahead of the math; the packed tile is unpacked once per tile and
+block into bf16 K-rows (the pattern, or bf16(q * s + m) for the dequantize
+algebra), read by `ldmatrix.trans`; the partial algebra's row sums are one
+more `mma` with a B of ones, and its per-block f32 step runs on the
+fragment. A block takes (128-column tile, row slab, expert) over the whole
+of K; the slab height (80, 64, 32 or 16 rows) comes from C and E (`tile`),
+so the served capacities pad few rows and still fill the card. The gate/up
+tile's rounded values meet their partners through shared memory after the
+K loop. The activations [E, C, mi] go through device memory between the
+two products' launches, because the down product needs all of mi and a
+block holds one tile. `wgmma` and TMA are later work.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from mnn_tpu_torch.kernels.build import I, P, kernel
+from mnn_tpu_torch.kernels.build import I, P, kernel, library
 from mnn_tpu_torch.kernels.common import check, use_kernel
 from mnn_tpu_torch.kernels.dequant_matmul import MAX_BLOCK, deq_dot_plain
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
@@ -44,6 +55,19 @@ from mnn_tpu_torch.quant.quantize import QuantizedLinear
 # int mnn_moe_prefill(xe, w_e, gu_p, gu_s, gu_b, dn_p, dn_s, dn_b, act, y,
 #                     E, C, H, mi, bits, bs_h, bs_mi, partial_gu, partial_dn, stream)
 KERNEL = kernel("mnn_moe_prefill", [P] * 10 + [I] * 9)
+
+
+@functools.lru_cache(maxsize=None)
+def tile(e: int, cap: int, h: int, mi: int, bits: int) -> tuple[int, int, int]:
+    """(rows, columns, dynamic shared bytes) of the block tile in which
+    `KERNEL` takes both products for e experts of cap rows, hidden h and
+    intermediate mi, on this card. Launches nothing."""
+    fn = library().mnn_moe_prefill_tile
+    fn.argtypes = [I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    if fn(e, cap, h, mi, bits, out):
+        raise ValueError(f"no grouped-expert tile for E={e} C={cap} H={h} mi={mi}")
+    return tuple(out)
 
 
 def _inter(wdown_e: QuantizedLinear) -> int:

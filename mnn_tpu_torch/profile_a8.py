@@ -6,13 +6,21 @@
         [--warps 4x1,2x2,1x4,4x2]
     python -m mnn_tpu_torch.profile_a8 --kernel step --against OLD/decode_step.cu \
         [--splits 8,4,1]
+    python -m mnn_tpu_torch.profile_a8 --kernel moe --against OLD/csrc [--tiles 0,1,2,3]
+    python -m mnn_tpu_torch.profile_a8 --kernel deq --against OLD/csrc
+    python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/csrc
 
-Builds `csrc/dequant_matmul.cu` and the given other version of that source
-(for example the parent commit's, `git show HEAD~1:mnn_tpu_torch/csrc/
-dequant_matmul.cu`) into two libraries, then times one C entry of each, in
-the order other, this, this, other, in one process on one card; a call
-rotates over weight copies larger than L2, as the serving path finds them.
-W4, block 128.
+Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
+`flash_prefill.cu`, `decode_step.cu` or `moe_prefill.cu`) and another
+version of it into two libraries, then times one C entry of each, in the
+order other, this, this, other, in one process on one card; a call rotates
+over weight copies larger than L2, as the serving path finds them. W4,
+block 128. `--against` is either that one source file, built with this
+tree's headers (`git show HEAD~1:mnn_tpu_torch/csrc/dequant_matmul.cu`),
+or a directory that holds another version of the whole `csrc/`, built with
+its own headers (`git archive HEAD~1 mnn_tpu_torch/csrc | tar -x -C DIR`,
+then `DIR/mnn_tpu_torch/csrc`): a source whose headers changed since needs
+the directory.
 
 * `--kernel a8` (the default): `mnn_dequant_matmul_a8` of both, on rows
   quantized beforehand, at the shapes of `chip_smoke.py` phase 2:
@@ -26,7 +34,28 @@ W4, block 128.
   at M = 32, 128 and 512, qwen2-0.5b's qkv, wo, gate/up and down at M = 512,
   and the crossover rows M = 2, 4, 8, 16 and 32 at four of those shapes.
   The two sum in other orders, so it checks that each pair is within
-  rel-L2 1e-2 and prints the value.
+  rel-L2 1e-2 and prints the value. Where the other version has the tile
+  kernel too (`mnn_dequant_matmul_bf16_tile`), the two are timed against
+  each other and must give the same bits.
+* `--kernel deq`: `mnn_dequant_matmul_deq` of both (the dequantize-tile
+  matmul), at the shapes of `chip_smoke.py` phase 2 (qwen1.5-moe-a2.7b's
+  shared expert, gate/up and down, and qkv, at M = 512; no output bias),
+  checked to rel-L2 1e-2 a pair; whether they give the same bits is printed.
+* `--kernel moe`: `mnn_moe_prefill` of both (the grouped expert MLP, two
+  launches a call), at the shapes of `chip_smoke.py` phase 2:
+  qwen1.5-moe-a2.7b's 60 experts at C = 8, 24, 72 and 144 and
+  qwen3-moe-30b-a3b's 128 at C = 64, empty slots in each, checked to rel-L2
+  2e-2 a pair with the empty slots zero; the tile this version picks is
+  printed. `--tiles 0,1,2,3` also builds this source once for each listed
+  tile of `MNN_MP_TILES` (`-DMNN_MP_TILE=t`: 80, 64, 32 and 16 rows) and
+  times those between the two.
+* For `moe` and `deq`, `--variant NAME:DEFINE[+DEFINE]` builds this source
+  with other macros and times it between the two (`nopipe:MNN_DD_PIPE=0`:
+  one unpacked buffer and two barriers a quant block); `--clocks` builds it
+  once more with `-DMNN_DD_CLOCKS` and prints, a shape, the cycles a quant
+  block of thread 0 of block (0, 0, 0) in each step of `csrc/deq_dot.cuh`'s
+  K loop (waiting for the stage and the barrier, the unpack, the second
+  barrier, the products and the f32 step).
 * `--kernel flash`: `mnn_flash_prefill` of `csrc/flash_prefill.cu` and of
   the other version, at the shapes of `chip_smoke.py` phase 2 (the prefill
   chunks of 17, 300 and 600-token prompts over a cache of 1024, with
@@ -49,7 +78,8 @@ W4, block 128.
   are listed in `csrc/decode_step.cu`), in cycles from the block's start.
 
 It prints both versions' times per shape, with the card's name and power
-limit; the JSON goes to `chiprun_out/{a8,rows,flash,step}_against.json` as well.
+limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,moe,deq}_against.json`
+as well.
 Needs a card and nvcc.
 """
 
@@ -91,13 +121,19 @@ STEP_SHAPES = [(1, 2, 7, 64, (48,)), (1, 2, 7, 64, (331,)), (1, 2, 7, 64, (631,)
                (1, 16, 1, 128, (331,)), (1, 16, 1, 128, (48,)), (1, 16, 1, 128, (631,)),
                (2, 2, 7, 64, (331, 631))]
 STEP_S, STEP_LAYERS = 1024, 24
+# (E, C, H, mi): chip_smoke.py phase 2's grouped expert rows
+MOE_SHAPES = [(60, 8, 2048, 1408), (60, 24, 2048, 1408), (60, 72, 2048, 1408),
+              (60, 144, 2048, 1408), (128, 64, 2048, 768)]
+DEQ_SHAPES = [(512, 2048, 11264, False), (512, 5632, 2048, False), (512, 2048, 6144, False)]
 L2_ROTATE_BYTES = 128 << 20
 ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, other)
          "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul"),
          "flash": ("mnn_flash_prefill", "mnn_flash_prefill"),
-         "step": ("mnn_decode_step", "mnn_decode_step")}
+         "step": ("mnn_decode_step", "mnn_decode_step"),
+         "moe": ("mnn_moe_prefill", "mnn_moe_prefill"),
+         "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq")}
 SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu",
-          "step": "decode_step.cu"}
+          "step": "decode_step.cu", "moe": "moe_prefill.cu", "deq": "dequant_matmul.cu"}
 
 
 LIBS: dict = {}      # name -> the loaded library of `_libraries`
@@ -105,31 +141,40 @@ LIBS: dict = {}      # name -> the loaded library of `_libraries`
 
 def _libraries(specs, out_dir: Path, kind: str) -> dict:
     """{name: C entry} for specs of (name, source, entry, defines): each
-    source, with the port's headers beside it, into its own library; the
-    nvcc runs side by side."""
+    source into its own library, the nvcc runs side by side. A source file
+    is built with this tree's headers beside it, a directory (another
+    version of `csrc/`) with its own headers; `entry` may name several C
+    entries, separated by `|`, of which the first the library has is taken."""
     cmds, sos = [], {}
     for name, src, entry, defines in specs:
         work = out_dir / name
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
-        for h in build.CSRC.glob("*.cuh"):
-            shutil.copy(h, work / h.name)
-        cu = work / SOURCE[kind]
-        shutil.copy(src, cu)
+        if Path(src).is_dir():
+            cu, inc = Path(src) / SOURCE[kind], Path(src)
+        else:
+            for h in build.CSRC.glob("*.cuh"):
+                shutil.copy(h, work / h.name)
+            cu, inc = work / SOURCE[kind], work
+            shutil.copy(src, cu)
         sos[name] = (work / "lib.so", entry)
         cmds.append([build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-                     "-shared", "-I", str(work), "-o", str(work / "lib.so"), str(cu)])
+                     "-shared", "-I", str(inc), "-o", str(work / "lib.so"), str(cu)])
     build._run_all(cmds)
     fns = {}
     for name, (so, entry) in sos.items():
         LIBS[name] = ctypes.CDLL(str(so))
+        entry = next(e for e in entry.split("|") if hasattr(LIBS[name], e))
         fn = getattr(LIBS[name], entry)
+        fn.entry = entry
         if kind == "flash":
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
                            + [ctypes.c_void_p])
         elif kind == "step":
             fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
                            + [ctypes.c_void_p])
+        elif kind == "moe":
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         else:
             pointers = 7 if entry.endswith("_a8") else 6
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -298,24 +343,133 @@ def _step(fns: dict, order: list, card: str, args) -> None:
         raise SystemExit("the versions disagree")
 
 
+CLOCK_SLOTS = ("wait and barrier", "unpack", "second barrier", "products and f32 step")
+
+
+def _dd_clocks(call, reader) -> dict:
+    """The `-DMNN_DD_CLOCKS` build's cycles of each step of block (0, 0, 0)'s
+    quant blocks, per quant block, for one `call()` after two warm ones."""
+    stamps = (ctypes.c_longlong * 8)()
+    call()
+    call()
+    torch.cuda.synchronize()
+    reader(stamps)                  # and zero them
+    call()
+    torch.cuda.synchronize()
+    if reader(stamps):
+        raise RuntimeError("reading the clock stamps failed")
+    blocks = max(stamps[4], 1)
+    res = {name: stamps[i] / blocks for i, name in enumerate(CLOCK_SLOTS)}
+    res.update(quant_blocks=stamps[4], loop_cycles=stamps[5])
+    return res
+
+
+def _clock_line(c: dict) -> str:
+    return ("  clocks of block 0, cycles a quant block: " + ", ".join(
+        f"{name} {c[name]:.0f}" for name in CLOCK_SLOTS)
+        + f" ({c['quant_blocks']} blocks, {c['loop_cycles']} cycles in the K loops)")
+
+
+def _moe_weights(g, lead, k, n):
+    """A W4 block-128 expert stack [*lead, ...] as chip_smoke.py makes them."""
+    packed = torch.randint(-128, 128, (*lead, k // 2, n), dtype=torch.int8, device=g.device,
+                           generator=g)
+    scale = (torch.rand((*lead, k // 128, n), device=g.device, generator=g) * 2e-3
+             + 1e-3).to(torch.bfloat16)
+    bias = (-7.5 * scale.float() + torch.randn((*lead, k // 128, n), device=g.device,
+                                                generator=g) * 1e-3).to(torch.bfloat16)
+    return packed, scale, bias
+
+
+def _moe(fns: dict, order: list, card: str, args) -> None:
+    """--kernel moe: every version in `order` at the phase-2 shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    rels, tiles, same, zeros, clocks = [], [], [], True, []
+    for e, cap, h, mi in MOE_SHAPES:
+        gp, gs, gb = _moe_weights(g, (e,), h, 2 * mi)
+        dp, ds, db = _moe_weights(g, (e,), mi, h)
+        xe = (torch.randn((e, cap, h), device=dev, generator=g) * 0.5).to(torch.bfloat16)
+        w_e = torch.rand((e, cap), device=dev, generator=g)
+        xe[:, -cap // 8:] = 0              # empty slots: zero rows, weight 0
+        w_e[:, -cap // 8:] = 0
+        act = torch.empty((e, cap, mi), dtype=torch.bfloat16, device=dev)
+        out = (ctypes.c_int * 3)()
+        LIBS["this"].mnn_moe_prefill_tile(e, cap, h, mi, 4, out)
+        tiles.append(tuple(out))
+        outs, row = {}, {ver: [] for ver in versions}
+        for ver in order:
+            fn, y = fns[ver], torch.empty((e, cap, h), device=dev)
+
+            def call(i, fn=fn, y=y, ver=ver):
+                err = fn(xe.data_ptr(), w_e.data_ptr(), gp.data_ptr(), gs.data_ptr(),
+                         gb.data_ptr(), dp.data_ptr(), ds.data_ptr(), db.data_ptr(),
+                         act.data_ptr(), y.data_ptr(), e, cap, h, mi, 4, 128, 128,
+                         int(cap < 128), int(cap < 128), torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{ver}: CUDA launch error {err}")
+            call(0)
+            torch.cuda.synchronize()
+            outs[ver] = y.clone()
+            row[ver].append(_time_us(call, 4))
+        if "clk" in fns:
+            clocks.append(_dd_clocks(lambda: call(0, fns["clk"], torch.empty_like(y), "clk"),
+                                     LIBS["clk"].mnn_moe_prefill_clocks))
+            print(_clock_line(clocks[-1]), flush=True)
+        rel = max(_rel(outs[ver], outs["other"]) for ver in versions)
+        rels.append(rel)
+        same.append(all(torch.equal(outs[ver], outs["other"]) for ver in versions))
+        zeros = zeros and all(bool((outs[ver][:, -cap // 8:] == 0).all()) for ver in versions)
+        for ver in versions:
+            times[ver].append(row[ver])
+        print(f"E={e} C={cap} H={h} mi={mi} ({'partial' if cap < 128 else 'dequant'}), this "
+              f"tile {tiles[-1]}: " + ", ".join(
+                  f"{ver} {' / '.join(f'{x:.2f}' for x in row[ver])} us" for ver in versions)
+              + f", largest rel-L2 to other {rel:.3e}, same bits {same[-1]}", flush=True)
+    ok = max(rels) <= 2e-2 and zeros
+    print(f"every version within rel-L2 2e-2 of the other: {max(rels) <= 2e-2} "
+          f"(largest {max(rels):.3e}); empty slots zero: {zeros}")
+    print(card)
+    result = dict(card=card, kernel="moe", shapes=MOE_SHAPES, order=order, us=times,
+                  rel_l2=rels, same_bits=same, empty_zero=zeros, tiles=tiles, agree=ok,
+                  against=str(args.against), clocks=clocks)
+    outp = Path("chiprun_out")
+    outp.mkdir(exist_ok=True)
+    (outp / "moe_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the versions disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
-                    help="another version of the kernel's source")
+                    help="another version of the kernel's source: the file, or a "
+                         "directory holding another version of csrc/")
     ap.add_argument("--kernel", choices=sorted(ENTRY), default="a8",
                     help="a8: the int8-row kernel; rows: bf16 rows, the tensor-core "
-                         "tile kernel against the other's row kernel; flash: the "
-                         "causal flash prefill kernel; step: the fused decode step")
+                         "tile kernel against the other's tile or row kernel; flash: the "
+                         "causal flash prefill kernel; step: the fused decode step; "
+                         "moe: the grouped expert prefill MLP; deq: the "
+                         "dequantize-tile matmul")
     ap.add_argument("--warps", default="",
                     help="flash only: comma-separated block shapes, query warps x "
                          "position groups (4x1, 2x2, 1x4, 4x2), to build and time this "
                          "source at, besides its own choice")
     ap.add_argument("--clocks", action="store_true",
-                    help="step only: also build with -DMNN_DS_CLOCKS and print the "
-                         "kernel's steps on the SM clock a shape")
+                    help="step, moe, deq: also build with -DMNN_DS_CLOCKS (step) or "
+                         "-DMNN_DD_CLOCKS (moe, deq) and print the kernel's steps on the "
+                         "SM clock a shape")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="moe, deq: NAME:DEFINE[+DEFINE...], this source built with those "
+                         "macros and timed beside it, e.g. nopipe:MNN_DD_PIPE=0")
     ap.add_argument("--splits", default="",
                     help="step only: comma-separated caps on the blocks a cluster "
                          "(8, 4, 1) to build and time this source at, besides its own")
+    ap.add_argument("--tiles", default="",
+                    help="moe only: comma-separated indices into MNN_MP_TILES (0 to 3) "
+                         "to build and time this source at, besides its own choice")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_a8 needs an NVIDIA card")
@@ -325,8 +479,11 @@ def main():
     a8 = args.kernel == "a8"
     out_dir = build.BUILD_ROOT / "profile_a8"
     src = build.CSRC / SOURCE[args.kernel]
+    other_entry = ENTRY[args.kernel][1]
+    if args.kernel == "rows":      # the other's tile kernel where it has one
+        other_entry = f"{ENTRY['rows'][0]}|{other_entry}"
     specs = [("this", src, ENTRY[args.kernel][0], ()),
-             ("other", args.against, ENTRY[args.kernel][1], ())]
+             ("other", args.against, other_entry, ())]
     forced = [w for w in args.warps.split(",") if w] if args.kernel == "flash" else []
     specs += [(w, src, ENTRY["flash"][0], (f"MNN_FP_WQ={w.split('x')[0]}",
                                            f"MNN_FP_WK={w.split('x')[1]}")) for w in forced]
@@ -334,16 +491,31 @@ def main():
     specs += [(f"p{p}", src, ENTRY["step"][0], (f"MNN_DS_PMAX={p}",)) for p in caps]
     if args.kernel == "step" and args.clocks:
         specs.append(("clk", src, ENTRY["step"][0], ("MNN_DS_CLOCKS",)))
+    tiles = [t for t in args.tiles.split(",") if t] if args.kernel == "moe" else []
+    specs += [(f"t{t}", src, ENTRY["moe"][0], (f"MNN_MP_TILE={t}",)) for t in tiles]
+    variants = [v.split(":", 1) for v in args.variant] if args.kernel in ("moe", "deq") else []
+    specs += [(name, src, ENTRY[args.kernel][0], tuple(d for d in defs.split("+") if d))
+              for name, defs in variants]
+    if args.kernel in ("moe", "deq") and args.clocks:
+        specs.append(("clk", src, ENTRY[args.kernel][0], ("MNN_DD_CLOCKS",)))
     fns = _libraries(specs, out_dir, args.kernel)
-    if args.kernel in ("flash", "step"):
-        mid = ["this"] + forced + [f"p{p}" for p in caps]
-        run = _flash if args.kernel == "flash" else _step
+    extra = [name for name, _ in variants]
+    if args.kernel in ("flash", "step", "moe"):
+        mid = (["this"] + forced + [f"p{p}" for p in caps] + [f"t{t}" for t in tiles]
+               + extra)
+        run = {"flash": _flash, "step": _step, "moe": _moe}[args.kernel]
         return run(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(m, k, n, False) for m, k, n in SHAPES] if a8 else ROWS_SHAPES
-    times = {"other": [], "this": []}
-    rels, same = [], True
+    shapes = ([(m, k, n, False) for m, k, n in SHAPES] if a8
+              else DEQ_SHAPES if args.kernel == "deq" else ROWS_SHAPES)
+    # the same bits where both compute the same algebra in the same order
+    exact = a8 or fns["other"].entry == ENTRY["rows"][0]
+    mid = ["this"] + extra
+    order = ["other"] + mid + mid[::-1] + ["other"]
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    rels, same, clocks = [], True, []
     for m, k, n, f32 in shapes:
         nl = max(1, min(256, math.ceil(L2_ROTATE_BYTES / (k * n // 2))))
         packed = torch.randint(-128, 128, (nl, k // 2, n), dtype=torch.int8, device=dev,
@@ -358,13 +530,13 @@ def main():
             rows = (xq.data_ptr(), xs.reshape(m).contiguous().data_ptr())
         else:
             rows = (x.data_ptr(),)
-        outs, row = {}, {"other": [], "this": []}
-        for version in ("other", "this", "this", "other"):
+        outs, row = {}, {ver: [] for ver in versions}
+        for version in order:
             fn = fns[version]
             out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16,
                               device=dev)
 
-            def call(i, fn=fn, out=out):   # on the current stream: graph capture has its own
+            def call(i, fn=fn, out=out, version=version):   # on the current stream
                 err = fn(*rows, packed[i % nl].data_ptr(), scale[i % nl].data_ptr(),
                          bias[i % nl].data_ptr(), None, out.data_ptr(), m, k, n, 4, 128,
                          int(f32), torch.cuda.current_stream().cuda_stream)
@@ -374,19 +546,24 @@ def main():
             torch.cuda.synchronize()
             outs[version] = out.clone()
             row[version].append(_time_us(call, max(8, nl)))
-        same = same and torch.equal(outs["this"], outs["other"])
-        rels.append(_rel(outs["this"], outs["other"]))
-        for version in times:
+        if "clk" in fns:
+            clocks.append(_dd_clocks(lambda: call(0, fns["clk"], out, "clk"),
+                                     LIBS["clk"].mnn_dequant_matmul_clocks))
+            print(_clock_line(clocks[-1]), flush=True)
+        same = same and all(torch.equal(outs[ver], outs["other"]) for ver in versions)
+        rels.append(max(_rel(outs[ver], outs["other"]) for ver in versions))
+        for version in versions:
             times[version].append(row[version])
-        print(f"M={m} K={k} N={n}: other {row['other'][0]:.2f} / {row['other'][1]:.2f} us, "
-              f"this {row['this'][0]:.2f} / {row['this'][1]:.2f} us, "
-              f"rel-L2 {rels[-1]:.3e}", flush=True)
-    ok = same if a8 else max(rels) <= 1e-2
-    print(f"same bits: {same}" if a8 else f"every pair within rel-L2 1e-2: {ok} "
-          f"(largest {max(rels):.3e})")
+        print(f"M={m} K={k} N={n}: " + ", ".join(
+            f"{ver} {' / '.join(f'{t:.2f}' for t in row[ver])} us" for ver in versions)
+            + f", rel-L2 {rels[-1]:.3e}", flush=True)
+    ok = same if exact else max(rels) <= 1e-2
+    print(f"same bits: {same}" if exact else f"every pair within rel-L2 1e-2: {ok} "
+          f"(largest {max(rels):.3e}); same bits {same}")
     print(card)
-    result = dict(card=card, kernel=args.kernel, shapes=shapes, us=times, same_bits=same,
-                  rel_l2=rels, agree=ok, against=str(args.against))
+    result = dict(card=card, kernel=args.kernel, shapes=shapes, order=order, us=times,
+                  same_bits=same, rel_l2=rels, agree=ok, against=str(args.against),
+                  other_entry=fns["other"].entry, clocks=clocks)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / f"{args.kernel}_against.json").write_text(json.dumps(result, indent=1))
