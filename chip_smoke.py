@@ -14,8 +14,9 @@ Phases, each of which exits non-zero on failure:
    time the card could take (bound). The int8-row matmul is also timed
    alone on rows quantized beforehand and beside `torch._int_mm` on its
    re-centred int8 pattern, at M = 512 and at the 32- and 128-row
-   buckets. The bf16-row matmul runs the row kernel at M = 1 and the
-   tensor-core tile kernel above (the shared expert at the 32-, 128- and
+   buckets. The bf16-row matmul runs the split GEMV kernel at M = 1 (each
+   row with its tiles and K ranges; two calls must give the same bits) and
+   the tensor-core tile kernel above (the shared expert at the 32-, 128- and
    512-row buckets, qwen2-0.5b's projections at M = 512), each row with the
    kernel it launched and its tile. Flash prefill runs the prefill chunks
    of the three requests (also the short chunk over the long cache at batch
@@ -24,7 +25,12 @@ Phases, each of which exits non-zero on failure:
    last decode step of the three requests on qwen2-0.5b's and
    qwen1.5-moe-a2.7b's heads and at batch 2, each row with its split
    (blocks a cluster, positions a tile) and SDPA's time; two calls must
-   give the same bits. The whole-model decode kernel runs
+   give the same bits. Flash decode runs the last decode step of the three
+   requests at int8 and int4 with qwen2-0.5b's and qwen1.5-moe-a2.7b's
+   heads, at batch 2, and at kv_len 4000 of 4096, each row with its split
+   (blocks a KV head) and SDPA's time; two calls must give the same bits
+   (the first six rows are also summed alone, `six_shapes`). The
+   whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
    two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
@@ -59,7 +65,7 @@ Phases, each of which exits non-zero on failure:
    of 24 would take minutes).
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
-matmul also split into `m1`, the row kernel, and `m_gt1`, the tile kernel)
+matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
 and nothing of the JAX package.
 """
@@ -261,7 +267,7 @@ def int_mm_ms(ql, xq, nl):
 
 
 def phase_gemm(dev, g, results, *, a8: bool):
-    """K1 (bf16 rows: at M = 1 the decode GEMVs and the lm head on the row
+    """K1 (bf16 rows: at M = 1 the decode GEMVs and the lm head on the GEMV
     kernel; at M > 1 the tensor-core tile kernel, for qwen1.5-moe-a2.7b's
     shared expert at the 32-, 128- and 512-row buckets and qwen2-0.5b's
     projections at M = 512 under prefill_act_bits=16) or K2 (int8 rows,
@@ -297,6 +303,9 @@ def phase_gemm(dev, g, results, *, a8: bool):
         before = kern.launches
         got = dequant_matmul.dequant_matmul(x, ql, layer_index=0, out_dtype=out_dtype)
         check(kern.launches == before + 1, f"{name} {proj} M={m}: {kern.name} not launched")
+        if m == 1:   # the GEMV's K ranges meet in a fixed order
+            again = dequant_matmul.dequant_matmul(x, ql, layer_index=0, out_dtype=out_dtype)
+            check(torch.equal(got, again), f"{name} {proj} M=1: two calls gave different bits")
         check(a8 or (tile is None) == (m == 1),
               f"{name} {proj} M={m}: bf16 rows took {kern.name}")
         want = dequant_matmul.dequant_matmul_plain(x, ql.layer(0), out_dtype)
@@ -330,6 +339,10 @@ def phase_gemm(dev, g, results, *, a8: bool):
         if tile:
             row["tile"] = tile
             extra = f" | tile {tile[0]}x{tile[1]} smem {tile[2]}"
+        elif not a8:
+            cols, ranges, blocks, smem = dequant_matmul.gemv_split(k, n, ql.bits, ql.block_size)
+            row["split"] = dict(tile=cols, k_ranges=ranges, blocks=blocks, smem=smem)
+            extra = f" | {cols}-column tiles x {ranges} K ranges, {blocks} blocks, smem {smem}"
         if a8:
             row["kernel_alone_ms"], xq = a8_kernel_alone(ql, x, out_dtype, nl)
             row["int_mm_ms"] = int_mm_ms(ql, xq, nl)
@@ -500,45 +513,76 @@ def rand_cache(g, dev, layers, batch, hkv, cap, d, bits):
     return kq, vq, ks, vs
 
 
+# K5's rows: (B, Hkv, G, D, kv bits, kv_len per sequence, capacity). The last
+# decode step of the 17-, 300- and 600-token requests (kv_len counts the new
+# token) with qwen2-0.5b's heads at int8 and int4 first (the six rows the
+# kernels line summed before the rest), then qwen1.5-moe-a2.7b's at both
+# widths, a ragged batch 2, and kv_len 4000 of a 4096 cache at int4.
+FLASH_DECODE_ROWS = [(1, 2, 7, 64, bits, (n + NEW_TOKENS,), 1024)
+                     for bits in (8, 4) for n in PREFILL_LENS]
+FLASH_DECODE_ROWS += [(1, 16, 1, 128, bits, (n + NEW_TOKENS,), 1024)
+                      for bits in (8, 4) for n in PREFILL_LENS]
+FLASH_DECODE_ROWS += [(2, 2, 7, 64, 8, (332, 632), 1024), (1, 16, 1, 128, 4, (4000,), 4096)]
+FLASH_DECODE_FIRST_ROWS = 6
+
+
 def phase_flash_decode(dev, g, results):
-    """K5 at the last decode step of each request over the 24-layer cache,
-    int8 and int4: `kv_len` counts the new token."""
-    L, hkv, grp, d, cap = 24, 2, 7, 64, 1024
+    """K5 at the rows of FLASH_DECODE_ROWS over a 24-layer cache, each with
+    the split the kernel took (`flash_attention.decode_split`): blocks a KV
+    head, positions a tile, shared bytes a block, blocks. Two calls must give
+    the same bits."""
+    L = 24
     tol = 3e-2                      # tests/test_attention.py:126
     rows = []
-    for bits in (8, 4):
-        kq, vq, ks, vs = rand_cache(g, dev, L, 1, hkv, cap, d, bits)
-        for n_prompt in PREFILL_LENS:
-            kv_len = n_prompt + NEW_TOKENS
-            q = torch.randn((1, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
-            lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
-            got = flash_attention.decode_attention(q, kq, vq, lens, k_scale=ks,
-                                                   v_scale=vs, layer_index=3)
-            want = flash_attention.decode_attention_plain(q, kq, vq, lens, ks, vs, 3)
-            torch.cuda.synchronize()
-            err, rel = max_abs(got, want), rel_l2(got, want)
-            check(bool(torch.isfinite(got).all()), "flash_decode: non-finite output")
-            check(rel <= tol, f"flash_decode int{bits} kv_len={kv_len}: rel-L2 {rel:.3g} > {tol}")
-            ms = time_ms(lambda i: flash_attention.decode_attention(
-                q, kq, vq, lens, k_scale=ks, v_scale=vs, layer_index=i % L), calls=48)
-            plain_ms = time_ms(lambda i: flash_attention.decode_attention_plain(
-                q, kq, vq, lens, ks, vs, i % L), calls=8, replays=2)
-            # yardstick: SDPA of the 14 query rows over the dequantized rows
-            q4 = q.reshape(1, hkv * grp, 1, d)
-            kd = kvcache.dequant_kv(kq[3], ks[3], bits)[:, :, :kv_len].repeat_interleave(grp, 1)
-            vd = kvcache.dequant_kv(vq[3], vs[3], bits)[:, :, :kv_len].repeat_interleave(grp, 1)
-            mask = torch.ones((1, 1, 1, kv_len), dtype=torch.bool, device=dev)
-            lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask), calls=48)
-            nbytes = (2 * hkv * grp * d * 2                        # q in, out
-                      + 2 * hkv * kv_len * (d * bits // 8 + 4))    # K/V rows + scales
-            bound = nbytes / HBM_BYTES_S * 1e3
-            row = dict(shape=f"B=1 Hkv=2 G=7 D=64 kv_len={kv_len} S={cap} int{bits}",
-                       max_abs_err=err, rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
-            rows.append(row)
-            print(f"  flash_decode       {row['shape']:40s} rel {rel:.2e} | kernel {ms:.4f} ms "
-                  f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.5f}", flush=True)
+    key = kq = None
+    for bsz, hkv, grp, d, bits, lens, cap in FLASH_DECODE_ROWS:
+        if kq is None or key != (bsz, hkv, d, bits, cap):
+            kq = vq = ks = vs = None        # the last cache goes first
+            key = (bsz, hkv, d, bits, cap)
+            kq, vq, ks, vs = rand_cache(g, dev, L, bsz, hkv, cap, d, bits)
+        q = torch.randn((bsz, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        name = f"flash_decode B={bsz} Hkv={hkv} int{bits} kv_len={lens}"
+        got = flash_attention.decode_attention(q, kq, vq, lengths, k_scale=ks,
+                                               v_scale=vs, layer_index=3)
+        again = flash_attention.decode_attention(q, kq, vq, lengths, k_scale=ks,
+                                                 v_scale=vs, layer_index=3)
+        want = flash_attention.decode_attention_plain(q, kq, vq, lengths, ks, vs, 3)
+        torch.cuda.synchronize()
+        err, rel = max_abs(got, want), rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(rel <= tol, f"{name}: rel-L2 {rel:.3g} > {tol}")
+        check(torch.equal(got, again), f"{name}: two calls gave different bits")
+        ms = time_ms(lambda i: flash_attention.decode_attention(
+            q, kq, vq, lengths, k_scale=ks, v_scale=vs, layer_index=i % L), calls=48)
+        plain_ms = time_ms(lambda i: flash_attention.decode_attention_plain(
+            q, kq, vq, lengths, ks, vs, i % L), calls=8, replays=2)
+        # yardstick: SDPA of the query rows over the dequantized rows, each
+        # sequence masked to its kv_len
+        n = max(lens)
+        q4 = q.reshape(bsz, hkv * grp, 1, d)
+        kd = kvcache.dequant_kv(kq[3], ks[3], bits)[:, :, :n].repeat_interleave(grp, 1)
+        vd = kvcache.dequant_kv(vq[3], vs[3], bits)[:, :, :n].repeat_interleave(grp, 1)
+        mask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None]
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask), calls=48)
+        nbytes = 2 * bsz * hkv * grp * d * 2                           # q in, out
+        nbytes += sum(2 * hkv * kv_len * (d * bits // 8 + 4) for kv_len in lens)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        blocks_a_head, tile, smem, blocks = flash_attention.decode_split(bsz, hkv, grp, cap,
+                                                                         d, bits)
+        row = dict(shape=f"B={bsz} Hkv={hkv} G={grp} D={d} kv_len={','.join(map(str, lens))} "
+                         f"S={cap} int{bits}",
+                   max_abs_err=err, rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by="bytes",
+                   split=dict(blocks_a_head=blocks_a_head, tile=tile, smem=smem,
+                              blocks=blocks))
+        rows.append(row)
+        print(f"  flash_decode       {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} | {blocks_a_head} "
+              f"blocks a KV head, {tile}-position tiles, smem {smem}, {blocks} blocks",
+              flush=True)
+    del kq, vq, ks, vs
     results["flash_decode"] = rows
 
 
@@ -1276,8 +1320,11 @@ def main():
             # the first four rows alone, so a table compares like with like
             k["four_shapes"] = row_sums(rows[:DECODE_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[DECODE_FIRST_ROWS:])
+        if kname == "flash_decode":
+            k["six_shapes"] = row_sums(rows[:FLASH_DECODE_FIRST_ROWS])
+            k["added_rows"] = row_sums(rows[FLASH_DECODE_FIRST_ROWS:])
         if kname == "dequant_matmul":
-            # one TPU kernel, two CUDA kernels: the row kernel at M = 1 (the
+            # one TPU kernel, two CUDA kernels: the GEMV kernel at M = 1 (the
             # decode GEMVs and the head) and the tensor-core tile kernel above
             k["launches"] += launches["mnn_dequant_matmul_bf16_tile"]
             for key, sub, ent in (

@@ -1,5 +1,5 @@
-// Single-position attention over cached K/V rows, shared by the flash decode
-// kernel and the whole-model decode kernel.
+// Single-position attention over cached K/V rows, for the whole-model decode
+// kernel (decode_model.cuh).
 //
 // A block serves one (batch row, KV head), or a share of its positions: its 8
 // warps take the cached positions 8 columns at a time, and each warp keeps

@@ -54,6 +54,36 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Sum `count` floats `stride` apart, eight loads in flight before the adds.
+__device__ __forceinline__ float sum_ldcg(const float* src, long stride, int count) {
+  float v = 0.f;
+  for (int k0 = 0; k0 < count; k0 += 8) {
+    float t8[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t8[k] = k0 + k < count ? __ldcg(src + (long)(k0 + k) * stride) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v += t8[k];
+  }
+  return v;
+}
+
+// One more block has stored its share: true in the last of `total` to arrive,
+// which also sees what the others stored (read it with __ldcg) and leaves the
+// counter at zero for the next launch.
+__device__ __forceinline__ bool arrive_last(int* counter, int total, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int arrived = atomicAdd(counter, 1);
+    *flag = arrived == total - 1;
+    if (arrived == total - 1) *counter = 0;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory on top of its static
 // arrays (past 48 KB in total this needs the opt-in). `granted` remembers
 // the largest size already set for this kernel, so the call is made once.

@@ -1,6 +1,6 @@
 // Fused per-block dequantize + matmul for W4/W8 weights (sm_90a).
 //
-// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows: the row
+// Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows: the GEMV
 // kernel at M = 1, the tensor-core tile kernel above),
 // ::_kernel_a8 (int8 rows) and ::_kernel_deq (dequantized tiles). Weights
 // stay packed: int8 [K*bits/8, N] with W4 nibble pairs (i, i + bs/2) inside
@@ -10,11 +10,30 @@
 // accumulated in f32 in the order acc + part*s + rowsum*m, with no FMA
 // contraction, so the plain PyTorch version reproduces the same rounding.
 //
-// dqmm_rows_kernel: 256 threads = 32 lanes x 8 K-groups. A lane owns four
-// adjacent output columns and reads them as one 32-bit word per packed row,
-// so a warp streams 128 contiguous bytes; the 8 warps take interleaved
-// quant blocks and are summed in shared memory. MR rows of x sit in shared
-// memory. At M = 1 the kernel is bound by the packed weight bytes.
+// dqmm_gemv_kernel replaces ::_kernel at M = 1 (every decode GEMV and the lm
+// head). It is bound by the packed weight bytes, but a grid of one block a
+// 128-column tile gave qwen2-0.5b's N = 896 seven blocks, each reading its
+// K serially, so latency held it. The design, that of the fused expert
+// decode kernel (moe_decode.cu):
+//  * (128-column tile, K range) items, one a block; the K ranges are whole
+//    quant blocks, as many a tile as fill about two blocks an SM with at
+//    least a unit a warp (gemv_split), and the lm heads' 1,187 tiles take one;
+//  * inside an item the 8 warps take units of 16 packed rows of one quant
+//    block; a lane reads its four columns as one 32-bit word a row, all 16
+//    loads of a unit in flight and the next unit's issued before this one's
+//    math; x, scale and bias of the range come by cp.async at the start;
+//  * each unit's column sums go to shared memory; a thread a column then
+//    takes the quant blocks in order, part = the units' sums, and the f32
+//    step acc = (acc + part * s) + rs * m of the plain version;
+//  * K ranges meet in a workspace in device memory: the last block of a tile
+//    to arrive (one counter a tile, left at zero by that block) adds them in
+//    range order, then applies the output rounding and out_bias. No
+//    floating-point atomics, the same bits every run. The workspace and
+//    counters are this file's own device arrays, allocated once per device
+//    when the module loads and zero at load, so the C entry keeps its
+//    arguments and a captured CUDA graph replays with the counters at zero.
+//    Two calls on one device must not run at once (on two streams): they
+//    would share the workspace.
 //
 // dqmm_a8_kernel replaces ::_kernel_a8 (the W4A8/W8A8 prefill GEMM). At
 // M = 512 its two bounds on this card are close (qwen2-0.5b's qkv 0.53 us of
@@ -81,112 +100,164 @@
 
 namespace mnn {
 
-constexpr int ROWS_THREADS = 256;
-constexpr int ROWS_KSPLIT = 8;     // warps, each a K-group
-constexpr int ROWS_COLS = 128;     // 32 lanes x 4 columns
+constexpr int GV_THREADS = 256, GV_WARPS = 8;
+constexpr int GV_TILE = 128;       // 32 lanes x 4 columns
+constexpr int GV_UNIT = 16;        // packed rows a warp loads at once
+constexpr int GV_UMAX = 64;        // units an item sums in shared memory
+#ifdef MNN_GV_RMAX
+constexpr int GV_RMAX = MNN_GV_RMAX;   // most K ranges a tile (build-time cap, for timing)
+#else
+constexpr int GV_RMAX = 1 << 20;
+#endif
+constexpr long GV_WS_FLOATS = 1 << 20;   // the K ranges' sums, [tile][range][128]
+constexpr int GV_WS_TILES = 1 << 13;
+__device__ float gv_ws[GV_WS_FLOATS];
+__device__ int gv_cnt[GV_WS_TILES];
 
-template <int BITS, int MR>
-__global__ void __launch_bounds__(ROWS_THREADS)
-dqmm_rows_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+// The K split of a GEMV: `ranges` K ranges a tile, each of at most `qb_max`
+// quant blocks of `units` units; `smem` dynamic bytes a block.
+struct GvSplit {
+  int tiles, ranges, qb_max, units, smem;
+};
+
+// Shapes the GEMV serves: W4 or W8, N a multiple of 4 (32-bit loads), K
+// whole quant blocks of a multiple of 8 K-values, and a quant block's packed
+// rows no more than the units an item stages (bs up to 2048 at W4, 1024 at W8).
+static bool gemv_shape_ok(int K, int N, int bits, int bs) {
+  return (bits == 4 || bits == 8) && bs >= 8 && bs % 8 == 0 && K % bs == 0 && N % 4 == 0 &&
+         bs * bits / 8 <= GV_UMAX * GV_UNIT;
+}
+
+static GvSplit gemv_split(int K, int N, int bits, int bs) {
+  GvSplit sp;
+  const int nq = K / bs;
+  const int R = (bs * bits / 8 + GV_UNIT - 1) / GV_UNIT;   // units a quant block
+  sp.tiles = (N + GV_TILE - 1) / GV_TILE;
+  const long units = (long)sp.tiles * nq * R;
+  const long want = std::min<long>(2L * sm_count(), (units + GV_WARPS - 1) / GV_WARPS);
+  int r = (int)std::max<long>(1, (want + sp.tiles - 1) / sp.tiles);
+  r = std::min(r, GV_RMAX);
+  r = std::max(r, (nq + GV_UMAX / R - 1) / (GV_UMAX / R));   // no more units than staged
+  sp.ranges = std::min(r, nq);
+  sp.qb_max = (nq + sp.ranges - 1) / sp.ranges;
+  sp.units = sp.qb_max * R;
+  sp.smem = (sp.units * (GV_TILE + 1) + 3) / 4 * 16         // unit sums, row sums
+            + sp.qb_max * GV_TILE * 2 * 2 + sp.qb_max * bs * 2 + 16;   // s, m, x; flag
+  return sp;
+}
+
+// 16 packed rows of unit u (quant block u / R of the range, rows 16 (u % R)
+// on) at this lane's four columns; rows past the quant block repeat its last.
+__device__ __forceinline__ void gv_load(uint32_t (&w)[GV_UNIT], const uint8_t* wbase, int u,
+                                        int R, int rows, int N, bool col_ok) {
+  const int qb = u / R, g = u - qb * R;
+  const int last = rows - 1 - g * GV_UNIT;
+#pragma unroll
+  for (int i = 0; i < GV_UNIT; ++i)
+    w[i] = col_ok ? __ldg(reinterpret_cast<const uint32_t*>(
+                        wbase + (long)(qb * rows + g * GV_UNIT + min(i, last)) * N))
+                  : 0u;
+}
+
+// y[1, N] = x[1, K] @ dequant(W) (+ out_bias): item blockIdx.x is K range
+// blockIdx.x % ranges of tile blockIdx.x / ranges.
+template <int BITS>
+__global__ void __launch_bounds__(GV_THREADS)
+dqmm_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
                  const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-                 const float* __restrict__ out_bias, void* __restrict__ out,
-                 int M, int K, int N, int bs, int out_f32) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);           // [MR][K]
-  __shared__ float red[ROWS_KSPLIT][MR][ROWS_COLS];
+                 const float* __restrict__ out_bias, void* __restrict__ out, int K, int N,
+                 int bs, int out_f32, int ranges, int qb_max) {
+  constexpr int PACK = 8 / BITS;                     // K-values a packed byte
+  const int rows = bs / PACK, R = (rows + GV_UNIT - 1) / GV_UNIT, umax = qb_max * R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* parts = reinterpret_cast<float*>(smem);     // [umax][TILE] column sums of a unit
+  float* rs_s = parts + umax * GV_TILE;              // [umax] row sums of a unit
+  bf16* s_s = reinterpret_cast<bf16*>(smem + (umax * (GV_TILE + 1) + 3) / 4 * 16);
+  bf16* m_s = s_s + qb_max * GV_TILE;                // [qb_max][TILE] scale, bias rows
+  bf16* x_s = m_s + qb_max * GV_TILE;                // [qb_max * bs] the range's x
+  int* flag = reinterpret_cast<int*>(x_s + qb_max * bs);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.y * MR;
-  const int c0 = blockIdx.x * ROWS_COLS + lane * 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = blockIdx.x / ranges, j = blockIdx.x - t * ranges;
+  const int nq = K / bs;
+  const int kb0 = (int)((long)nq * j / ranges), nqb = (int)((long)nq * (j + 1) / ranges) - kb0;
+  const int units = nqb * R, n0 = t * GV_TILE;
 
-  for (int i = threadIdx.x; i < MR * K; i += ROWS_THREADS) {
-    int r = i / K, k = i - r * K;
-    xs[i] = (row0 + r < M) ? x[(long)(row0 + r) * K + k] : __float2bfloat16_rn(0.f);
+  // the range's x, scale and bias rows, without waiting
+  for (int c = tid; c < nqb * bs / 8; c += GV_THREADS)
+    cp_async<16>(x_s + c * 8, x + (long)kb0 * bs + c * 8, true);
+  for (int c = tid; c < 2 * nqb * (GV_TILE / 4); c += GV_THREADS) {
+    const int sm = c >= nqb * (GV_TILE / 4), cc = c - sm * nqb * (GV_TILE / 4);
+    const int q = cc / (GV_TILE / 4), col = n0 + (cc % (GV_TILE / 4)) * 4;
+    const bool ok = col < N;                         // N % 4 == 0: a piece is all in or out
+    cp_async<8>((sm ? m_s : s_s) + q * GV_TILE + (cc % (GV_TILE / 4)) * 4,
+                (sm ? bias : scale) + (long)(kb0 + q) * N + (ok ? col : 0), ok);
   }
+  cp_async_commit();
+
+  const int c0 = n0 + lane * 4;
+  const bool col_ok = c0 < N;
+  const uint8_t* wbase = packed + (long)kb0 * rows * N + c0;
+  uint32_t w[GV_UNIT], wn[GV_UNIT];
+  if (warp < units) gv_load(w, wbase, warp, R, rows, N, col_ok);
+  cp_async_wait<0>();
   __syncthreads();
 
-  float acc[MR][4];
+  for (int u = warp; u < units; u += GV_WARPS) {
+    if (u + GV_WARPS < units) gv_load(wn, wbase, u + GV_WARPS, R, rows, N, col_ok);
+    const int qb = u / R, g = u - qb * R;
+    const int last = rows - 1 - g * GV_UNIT;
+    const bf16* xq = x_s + qb * bs + g * GV_UNIT;
+    float part[4] = {0.f, 0.f, 0.f, 0.f}, rs = 0.f;
 #pragma unroll
-  for (int r = 0; r < MR; ++r)
+    for (int i = 0; i < GV_UNIT; ++i) {
+      const int ii = min(i, last);
+      if (BITS == 4) {   // row i holds K-values i (low nibbles) and i + bs/2 (high)
+        float xa = bf2f(xq[ii]), xb = bf2f(xq[rows + ii]);
+        if (i > last) xa = xb = 0.f;
+        rs += xa + xb;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  const int nb = K / bs;
-  if (c0 < N) {
-    for (int kb = warp; kb < nb; kb += ROWS_KSPLIT) {
-      float part[MR][4], rs[MR];
-#pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        rs[r] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[r][j] = 0.f;
-      }
-      const int kbase = kb * bs;
-      if (BITS == 4) {
-        const int half = bs >> 1;
-        const uint8_t* p = packed + (long)(kb * half) * N + c0;
-#pragma unroll 4
-        for (int i = 0; i < half; ++i) {
-          uint32_t w = *reinterpret_cast<const uint32_t*>(p + (long)i * N);
-#pragma unroll
-          for (int r = 0; r < MR; ++r) {
-            float xa = bf2f(xs[r * K + kbase + i]);
-            float xb = bf2f(xs[r * K + kbase + half + i]);
-            rs[r] += xa + xb;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float lo = (float)((w >> (8 * j)) & 0xF);
-              float hi = (float)((w >> (8 * j + 4)) & 0xF);
-              part[r][j] += xa * lo + xb * hi;
-            }
-          }
-        }
+        for (int k = 0; k < 4; ++k)
+          part[k] += xa * u2f((w[i] >> (8 * k)) & 0xFu) + xb * u2f((w[i] >> (8 * k + 4)) & 0xFu);
       } else {
-        const uint8_t* p = packed + (long)kbase * N + c0;
-#pragma unroll 4
-        for (int i = 0; i < bs; ++i) {
-          uint32_t w = *reinterpret_cast<const uint32_t*>(p + (long)i * N);
+        float xa = bf2f(xq[ii]);
+        if (i > last) xa = 0.f;
+        rs += xa;
 #pragma unroll
-          for (int r = 0; r < MR; ++r) {
-            float xa = bf2f(xs[r * K + kbase + i]);
-            rs[r] += xa;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) part[r][j] += xa * (float)((w >> (8 * j)) & 0xFF);
-          }
-        }
+        for (int k = 0; k < 4; ++k) part[k] += xa * u2f((w[i] >> (8 * k)) & 0xFFu);
       }
-      float s[4], m[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[j] = bf2f(scale[(long)kb * N + c0 + j]);
-        m[j] = bf2f(bias[(long)kb * N + c0 + j]);
-      }
-#pragma unroll
-      for (int r = 0; r < MR; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[r][j] = __fadd_rn(__fadd_rn(acc[r][j], __fmul_rn(part[r][j], s[j])),
-                                __fmul_rn(rs[r], m[j]));
     }
+    *reinterpret_cast<float4*>(parts + u * GV_TILE + lane * 4) =
+        make_float4(part[0], part[1], part[2], part[3]);
+    if (lane == 0) rs_s[u] = rs;
+#pragma unroll
+    for (int i = 0; i < GV_UNIT; ++i) w[i] = wn[i];
   }
-#pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][r][lane * 4 + j] = acc[r][j];
   __syncthreads();
 
-  // one thread per (row, column) of the tile sums the K-groups in order
-  for (int t = threadIdx.x; t < MR * ROWS_COLS; t += ROWS_THREADS) {
-    int r = t / ROWS_COLS, c = t - r * ROWS_COLS;
-    int row = row0 + r, col = blockIdx.x * ROWS_COLS + c;
-    if (row >= M || col >= N) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < ROWS_KSPLIT; ++w) v += red[w][r][c];
-    v = as_out(v, out_f32);
+  // a thread a column: the quant blocks in order, each one f32 step
+  const int col = n0 + tid;
+  float acc = 0.f;
+  if (tid < GV_TILE) {
+    for (int qb = 0; qb < nqb; ++qb) {
+      float part = 0.f, rsum = 0.f;
+      for (int g = 0; g < R; ++g) {
+        part += parts[(qb * R + g) * GV_TILE + tid];
+        rsum += rs_s[qb * R + g];
+      }
+      acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(part, bf2f(s_s[qb * GV_TILE + tid]))),
+                      __fmul_rn(rsum, bf2f(m_s[qb * GV_TILE + tid])));
+    }
+    if (ranges > 1) __stcg(&gv_ws[((long)t * ranges + j) * GV_TILE + tid], acc);
+  }
+  if (ranges > 1) {
+    if (!arrive_last(&gv_cnt[t], ranges, flag)) return;
+    if (tid < GV_TILE) acc = sum_ldcg(gv_ws + (long)t * ranges * GV_TILE + tid, GV_TILE, ranges);
+  }
+  if (tid < GV_TILE && col < N) {
+    float v = as_out(acc, out_f32);
     if (out_bias) v = __fadd_rn(v, out_bias[col]);
-    store_out(out, (long)row * N + col, v, out_f32);
+    store_out(out, col, v, out_f32);
   }
 }
 
@@ -507,20 +578,22 @@ dqmm_deq_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
   bf16_tile_matmul<BITS, MT, NT, WM, WN, ALG_DEQUANT>(x, packed, scale, bias, out_bias, out, M,
                                                       K, N, bs, out_f32, vx, vw, vp);
 }
-template <int BITS, int MR>
-static cudaError_t launch_rows(const void* x, const void* packed, const void* scale,
-                               const void* bias, const void* out_bias, void* out,
-                               int M, int K, int N, int bs, int out_f32, cudaStream_t st) {
-  size_t smem = (size_t)MR * K * sizeof(bf16);
-  auto kern = dqmm_rows_kernel<BITS, MR>;
-  static size_t granted = 0;
-  cudaError_t e = allow_smem(kern, smem, granted);
+template <int BITS>
+static cudaError_t launch_gemv(const void* x, const void* packed, const void* scale,
+                               const void* bias, const void* out_bias, void* out, int K, int N,
+                               int bs, int out_f32, cudaStream_t st) {
+  const GvSplit sp = gemv_split(K, N, BITS, bs);
+  if (sp.ranges > 1 && ((long)sp.tiles * sp.ranges * GV_TILE > GV_WS_FLOATS ||
+                        sp.tiles > GV_WS_TILES))
+    return cudaErrorInvalidValue;   // past the workspace
+  auto kern = dqmm_gemv_kernel<BITS>;
+  static size_t granted = 48 << 10;
+  cudaError_t e = allow_smem(kern, sp.smem, granted);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + ROWS_COLS - 1) / ROWS_COLS, (M + MR - 1) / MR);
-  kern<<<grid, ROWS_THREADS, smem, st>>>(
+  kern<<<sp.tiles * sp.ranges, GV_THREADS, sp.smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const bf16*>(scale), static_cast<const bf16*>(bias),
-      static_cast<const float*>(out_bias), out, M, K, N, bs, out_f32);
+      static_cast<const float*>(out_bias), out, K, N, bs, out_f32, sp.ranges, sp.qb_max);
   return cudaGetLastError();
 }
 
@@ -567,9 +640,10 @@ constexpr int BF_NTILES = sizeof(BF_TILE_BM) / sizeof(int);
 #undef MNN_BF_BM
 #undef MNN_BF_BN
 
-// Rows from which bf16 rows take dqmm_bf16_tile_kernel; below, the row
+// Rows from which bf16 rows take dqmm_bf16_tile_kernel; below, the GEMV
 // kernel, which keeps M = 1 (the decode GEMVs and the head). The crossover,
-// measured against dqmm_rows_kernel<4, 4> on an H100 80GB HBM3 at 700 W
+// measured against the row kernel that then served M > 1 too
+// (dqmm_rows_kernel<4, 4>, since replaced) on an H100 80GB HBM3 at 700 W
 // (profile_a8.py --kernel rows, W4 block 128), lies below M = 2: at M = 2
 // the tile kernel takes 9.5 / 10.4 / 45.2 / 51.3 us against 31.6 / 32.2 /
 // 147.1 / 174.9 at K x N = 896 x 1152, 896 x 9728, 4864 x 896 and
@@ -643,16 +717,31 @@ static int launch_bf16_tile_bits(const void* x, const void* packed, const void* 
 
 using namespace mnn;
 
-// y[M, N] = x[M, K] (bf16) @ dequant(packed, scale, bias) (+ out_bias), on
-// the row kernel, one row a block: M = 1, as mnn_dequant_matmul_tile rules
+// y[1, N] = x[1, K] (bf16) @ dequant(packed, scale, bias) (+ out_bias), on
+// dqmm_gemv_kernel: M = 1 only (more rows take mnn_dequant_matmul_bf16_tile,
+// as mnn_dequant_matmul_tile rules); x 16-byte aligned
 MNN_API int mnn_dequant_matmul(const void* x, const void* packed, const void* scale,
                                const void* bias, const void* out_bias, void* out,
                                int M, int K, int N, int bits, int bs, int out_f32,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4) return launch_rows<4, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
-  if (bits == 8) return launch_rows<8, 1>(x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);
-  return (int)cudaErrorInvalidValue;
+  if (M != 1 || !gemv_shape_ok(K, N, bits, bs)) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16 || (uintptr_t)packed % 4 || ((uintptr_t)scale | (uintptr_t)bias) % 8)
+    return (int)cudaErrorMisalignedAddress;
+  if (bits == 4) return launch_gemv<4>(x, packed, scale, bias, out_bias, out, K, N, bs, out_f32, st);
+  return launch_gemv<8>(x, packed, scale, bias, out_bias, out, K, N, bs, out_f32, st);
+}
+
+// The split mnn_dequant_matmul takes at M = 1: out = (columns a tile, K
+// ranges a tile, blocks, dynamic shared bytes a block). Launches nothing.
+MNN_API int mnn_dequant_matmul_gemv_split(int K, int N, int bits, int bs, int* out) {
+  if (!gemv_shape_ok(K, N, bits, bs)) return (int)cudaErrorInvalidValue;
+  const GvSplit sp = gemv_split(K, N, bits, bs);
+  out[0] = GV_TILE;
+  out[1] = sp.ranges;
+  out[2] = sp.tiles * sp.ranges;
+  out[3] = sp.smem;
+  return 0;
 }
 
 // The same function on the bf16 tensor cores (dqmm_bf16_tile_kernel) at any
@@ -728,7 +817,8 @@ MNN_API int mnn_dequant_matmul_a8_tile(int M, int N, int bits, int* out) {
 
 // Which kernel takes bf16 rows at M rows and N columns: the tile of
 // dqmm_bf16_tile_kernel as rows, columns and dynamic shared memory per block
-// in out[0..2], or zeros where the row kernel takes them. Launches nothing.
+// in out[0..2], or zeros where the GEMV kernel (M = 1) takes them. Launches
+// nothing.
 MNN_API int mnn_dequant_matmul_tile(int M, int N, int bits, int* out) {
   out[0] = out[1] = out[2] = 0;
   if (M < BF_TILE_MIN_M) return 0;

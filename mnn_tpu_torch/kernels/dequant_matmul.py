@@ -24,13 +24,17 @@ rounded again.
 
 What bounds it on the H100, and what the simple design does about it:
 
-* M = 1 (every decode GEMV and the lm head) is bound by the weight bytes:
-  0.5 byte per int4 weight read once. In `dqmm_rows_kernel` a lane owns
-  four adjacent output columns and reads them as one 32-bit word per
-  packed row, so a warp streams 128 contiguous bytes; the block's 8 warps
-  take interleaved quant blocks and are summed in shared memory, which
-  keeps 8x more loads in flight for the narrow (N = 896) projections.
-  Rows of x sit in shared memory.
+* M = 1 (every decode GEMV and the lm head) is bound by the weight bytes,
+  0.5 byte per int4 weight read once, but at batch 1 a projection is a few
+  hundred KB: one block a 128-column tile left N = 896 on 7 of 132 SMs,
+  each reading its K serially. `dqmm_gemv_kernel` cuts the GEMV into
+  (128-column tile, K range) items, one a block, enough ranges of whole
+  quant blocks to fill about two blocks an SM (`gemv_split`); a lane reads
+  its four columns as one 32-bit word a packed row, 16 rows in flight and
+  the next 16 issued before their math; the per-quant-block f32 step keeps
+  the plain version's order; the K ranges meet in a workspace in device
+  memory and the last block of a tile to arrive adds them in range order,
+  so two calls give the same bits.
 * The a8 prefill GEMM (`dqmm_a8_kernel`, M up to 512 and beyond). At
   M = 512 its operation and byte bounds are close: 0.5 to 6.5 us of int8
   tensor-core operations against 0.5 to 4.5 us of bytes over the main-path
@@ -57,7 +61,7 @@ What bounds it on the H100, and what the simple design does about it:
   `ldmatrix.trans`, and the per-block f32 step in the plain version's
   order. Tiles from 64 x 128 down to 16 x 8, chosen from M and N so the
   32-row bucket fills the card (`bf16_tile`); below `BF_TILE_MIN_M` rows
-  (M = 1 always) the row kernel keeps the call.
+  (M = 1 always) the GEMV kernel keeps the call.
 * The dequantize-tile kernel (`m >= DEQ_MIN_M`, off by default as in the JAX
   package) turns each quant block into wd = bf16(q * s + m) and dots bf16
   rows with it on the tensor cores, whatever `act_bits` says. It is the
@@ -84,7 +88,7 @@ from mnn_tpu_torch.quant.quantize import (QuantizedLinear,
                                           unpack_bits)
 
 # int mnn_dequant_matmul(x, packed, scale, bias, out_bias, out,
-#                        M, K, N, bits, block_size, out_f32, stream)
+#                        M, K, N, bits, block_size, out_f32, stream): M = 1
 KERNEL_BF16 = kernel("mnn_dequant_matmul", [P, P, P, P, P, P, I, I, I, I, I, I])
 # int mnn_dequant_matmul_a8(xq, xs, packed, scale, bias, out_bias, out,
 #                           M, K, N, bits, block_size, out_f32, stream)
@@ -120,14 +124,27 @@ def a8_tile(m: int, n: int, bits: int) -> tuple[int, int, int]:
 def bf16_tile(m: int, n: int, bits: int) -> Optional[tuple[int, int, int]]:
     """(rows, columns, dynamic shared bytes) of the tile in which
     `KERNEL_BF16_TILE` takes bf16 rows at m rows and n columns on this card,
-    or None where the row kernel (`KERNEL_BF16`) takes them. Launches
-    nothing."""
+    or None where the GEMV kernel (`KERNEL_BF16`, M = 1) takes them.
+    Launches nothing."""
     fn = library().mnn_dequant_matmul_tile
     fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
     if fn(m, n, bits, out):
         raise ValueError(f"no bf16 tile for M={m} N={n}")
     return tuple(out) if out[0] else None
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_split(k: int, n: int, bits: int, bs: int) -> tuple[int, int, int, int]:
+    """(columns a tile, K ranges a tile, blocks, dynamic shared bytes a
+    block) of the split in which `KERNEL_BF16` takes one bf16 row of K x N
+    on this card. Launches nothing."""
+    fn = library().mnn_dequant_matmul_gemv_split
+    fn.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    if fn(k, n, bits, bs, out):
+        raise ValueError(f"no GEMV split for K={k} N={n} W{bits} block {bs}")
+    return tuple(out)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -260,11 +277,9 @@ def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype,
                   out.data_ptr(), m, k, n, ql.bits, ql.block_size, out_f32)
     else:
         x2 = x2.to(torch.bfloat16).contiguous()
-        kern = KERNEL_BF16
-        if bf16_tile(m, n, ql.bits):
-            kern = KERNEL_BF16_TILE
-            if x2.data_ptr() % 16:       # it copies rows of x 16 bytes at a time
-                x2 = x2.clone()
+        if x2.data_ptr() % 16:           # both copy rows of x 16 bytes at a time
+            x2 = x2.clone()
+        kern = KERNEL_BF16_TILE if bf16_tile(m, n, ql.bits) else KERNEL_BF16
         kern(x2.data_ptr(), ql.packed.data_ptr(), ql.scale.data_ptr(),
              ql.bias.data_ptr(), _ptr(ql.out_bias), out.data_ptr(),
              m, k, n, ql.bits, ql.block_size, out_f32)

@@ -32,9 +32,14 @@ a bf16, int8 or nibble-packed int4 cache that already holds the new token
 probability columns, so the cache is never dequantized; int4 bytes unpack as
 (lo - 8, hi - 8) for dims (j, j + D/2). With `layer_index` it reads one
 layer of the stacked [L, B, Hkv, S, D] cache in place. It is bound by
-latency at batch 1 (a few hundred positions of 32 to 128 bytes per KV
-head): one block per (batch row, KV head), whose 8 warps split the cached
-positions, one per lane, and merge their online-softmax states at the end.
+latency at batch 1 (a few hundred positions of 32 to 256 bytes per KV
+head), so P blocks a (batch row, KV head) split the visible positions, P
+from B, Hkv and the capacity S and never from the lengths, which stay on
+the device (`decode_split`). A block stages 64-position tiles of K/V rows
+and scales by `cp.async` into a two-stage ring and takes one softmax max
+and sum a tile; the P partial states meet in a workspace in device memory,
+where the last block of a KV head to arrive merges them in block order, so
+two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -68,6 +73,20 @@ def prefill_tile(b: int, h: int, tq: int, d: int) -> tuple[int, int, int, int, i
     out = (ctypes.c_int * 5)()
     if fn(b, h, tq, d, out):
         raise ValueError(f"no flash prefill tile for B={b} H={h} Tq={tq} D={d}")
+    return tuple(out)
+
+
+def decode_split(b: int, hkv: int, g: int, s: int, d: int,
+                 bits: int) -> tuple[int, int, int, int]:
+    """(blocks a KV head, positions a tile, dynamic shared bytes a block,
+    blocks) of the split in which `KERNEL_DECODE` takes batch b, hkv KV heads
+    of g query heads, capacity s, head dim d over a `bits`-bit cache on this
+    card. Launches nothing."""
+    fn = library().mnn_flash_decode_split
+    fn.argtypes = [I] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    if fn(b, hkv, g, s, d, bits, out):
+        raise ValueError(f"no flash decode split for B={b} Hkv={hkv} G={g} D={d} int{bits}")
     return tuple(out)
 
 

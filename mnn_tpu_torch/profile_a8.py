@@ -1,17 +1,19 @@
 """A kernel against another version of its source, on the card.
 
     python -m mnn_tpu_torch.profile_a8 --against OLD/dequant_matmul.cu
-    python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/dequant_matmul.cu
+    python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/dequant_matmul.cu \
+        [--splits 1,4]
     python -m mnn_tpu_torch.profile_a8 --kernel flash --against OLD/flash_prefill.cu \
         [--warps 4x1,2x2,1x4,4x2]
     python -m mnn_tpu_torch.profile_a8 --kernel step --against OLD/decode_step.cu \
         [--splits 8,4,1]
+    python -m mnn_tpu_torch.profile_a8 --kernel fdec --against OLD/csrc [--splits 4,1]
     python -m mnn_tpu_torch.profile_a8 --kernel moe --against OLD/csrc [--tiles 0,1,2,3]
     python -m mnn_tpu_torch.profile_a8 --kernel deq --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/csrc
 
 Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
-`flash_prefill.cu`, `decode_step.cu` or `moe_prefill.cu`) and another
+`flash_prefill.cu`, `decode_step.cu`, `flash_decode.cu` or `moe_prefill.cu`) and another
 version of it into two libraries, then times one C entry of each, in the
 order other, this, this, other, in one process on one card; a call rotates
 over weight copies larger than L2, as the serving path finds them. W4,
@@ -36,7 +38,12 @@ the directory.
   The two sum in other orders, so it checks that each pair is within
   rel-L2 1e-2 and prints the value. Where the other version has the tile
   kernel too (`mnn_dequant_matmul_bf16_tile`), the two are timed against
-  each other and must give the same bits.
+  each other and must give the same bits. At M = 1 (the six decode
+  projections of qwen2-0.5b and qwen1.5-moe-a2.7b and the two lm heads,
+  f32 out) both versions' `mnn_dequant_matmul` are timed, each pair within
+  rel-L2 1e-2, with the split this version takes printed; `--splits 1,4`
+  also builds this source once for each listed cap on the K ranges a tile
+  (`-DMNN_GV_RMAX=r`) and times those between the two at M = 1.
 * `--kernel deq`: `mnn_dequant_matmul_deq` of both (the dequantize-tile
   matmul), at the shapes of `chip_smoke.py` phase 2 (qwen1.5-moe-a2.7b's
   shared expert, gate/up and down, and qkv, at M = 512; no output bias),
@@ -76,9 +83,19 @@ the directory.
   `--clocks` builds it once more with `-DMNN_DS_CLOCKS` and prints, a shape,
   the kernel's steps on the SM clock (thread 0 of blocks 0 and 1; the slots
   are listed in `csrc/decode_step.cu`), in cycles from the block's start.
+* `--kernel fdec`: `mnn_flash_decode` of `csrc/flash_decode.cu` and of the
+  other version (a directory: an older source includes `attn_common.cuh`),
+  at the shapes of `chip_smoke.py` phase 2 (the last decode step of the
+  17-, 300- and 600-token requests over a 24-layer cache of 1024 at int8 and
+  int4, with qwen2-0.5b's and qwen1.5-moe-a2.7b's heads; batch 2 ragged;
+  kv_len 4000 of 4096 at int4), a call rotating over the layers, each pair
+  within rel-L2 3e-2 and this version the same bits on two calls; the split
+  it takes is printed. `--splits 4,1` also builds this source once for each
+  listed cap on the blocks a KV head (`-DMNN_FD_PMAX=p`) and times those
+  between the two.
 
 It prints both versions' times per shape, with the card's name and power
-limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,moe,deq}_against.json`
+limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,fdec,moe,deq}_against.json`
 as well.
 Needs a card and nvcc.
 """
@@ -110,6 +127,10 @@ CROSSOVER_M = (2, 4, 8, 16, 32)
 CROSSOVER_SHAPES = [(896, 1152, False), (896, 9728, False), (4864, 896, False),
                     (5632, 2048, True)]
 ROWS_SHAPES += [(m, k, n, f32) for k, n, f32 in CROSSOVER_SHAPES for m in CROSSOVER_M]
+# M = 1: the decode projections of qwen2-0.5b and qwen1.5-moe-a2.7b, then the two lm heads
+ROWS_SHAPES += [(1, 896, 1152, False), (1, 896, 896, False), (1, 896, 9728, False),
+                (1, 4864, 896, False), (1, 2048, 6144, False), (1, 2048, 2048, False),
+                (1, 896, 151936, True), (1, 2048, 151936, True)]
 # (B, H, Hkv, D, Tq, kv_len, q_offset), cache capacity FLASH_S: chip_smoke.py phase 2
 FLASH_SHAPES = [(1, 14, 2, 64, 32, 17, 0), (1, 14, 2, 64, 512, 300, 0),
                 (1, 14, 2, 64, 512, 512, 0), (1, 14, 2, 64, 128, 600, 512),
@@ -121,6 +142,10 @@ STEP_SHAPES = [(1, 2, 7, 64, (48,)), (1, 2, 7, 64, (331,)), (1, 2, 7, 64, (631,)
                (1, 16, 1, 128, (331,)), (1, 16, 1, 128, (48,)), (1, 16, 1, 128, (631,)),
                (2, 2, 7, 64, (331, 631))]
 STEP_S, STEP_LAYERS = 1024, 24
+# (B, Hkv, G, D, kv bits, kv_len per sequence, capacity), 24 layers: chip_smoke.py phase 2
+FDEC_SHAPES = [(1, 2, 7, 64, b, (n,), 1024) for b in (8, 4) for n in (49, 332, 632)]
+FDEC_SHAPES += [(1, 16, 1, 128, b, (n,), 1024) for b in (8, 4) for n in (49, 332, 632)]
+FDEC_SHAPES += [(2, 2, 7, 64, 8, (332, 632), 1024), (1, 16, 1, 128, 4, (4000,), 4096)]
 # (E, C, H, mi): chip_smoke.py phase 2's grouped expert rows
 MOE_SHAPES = [(60, 8, 2048, 1408), (60, 24, 2048, 1408), (60, 72, 2048, 1408),
               (60, 144, 2048, 1408), (128, 64, 2048, 768)]
@@ -130,10 +155,12 @@ ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, ot
          "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul"),
          "flash": ("mnn_flash_prefill", "mnn_flash_prefill"),
          "step": ("mnn_decode_step", "mnn_decode_step"),
+         "fdec": ("mnn_flash_decode", "mnn_flash_decode"),
          "moe": ("mnn_moe_prefill", "mnn_moe_prefill"),
          "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq")}
 SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu",
-          "step": "decode_step.cu", "moe": "moe_prefill.cu", "deq": "dequant_matmul.cu"}
+          "step": "decode_step.cu", "fdec": "flash_decode.cu", "moe": "moe_prefill.cu",
+          "deq": "dequant_matmul.cu"}
 
 
 LIBS: dict = {}      # name -> the loaded library of `_libraries`
@@ -173,11 +200,17 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
         elif kind == "step":
             fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
                            + [ctypes.c_void_p])
+        elif kind == "fdec":
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                           + [ctypes.c_void_p])
         elif kind == "moe":
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         else:
             pointers = 7 if entry.endswith("_a8") else 6
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            if kind == "rows":      # M = 1: the GEMV (or row) kernel
+                fn.m1 = LIBS[name].mnn_dequant_matmul
+                fn.m1.argtypes = fn.argtypes
         fns[name] = fn
     return fns
 
@@ -343,6 +376,64 @@ def _step(fns: dict, order: list, card: str, args) -> None:
         raise SystemExit("the versions disagree")
 
 
+def _fdec(fns: dict, order: list, card: str, args) -> None:
+    """--kernel fdec: every version in `order` at the phase-2 shapes."""
+    from mnn_tpu_torch.runtime.kvcache import quantize_for
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    rels, splits, same = [], [], True
+    for b, hkv, grp, d, bits, lens, cap in FDEC_SHAPES:
+        shape = (STEP_LAYERS, b, hkv, cap, d)
+        kq, ks = quantize_for(bits, torch.randn(shape, device=dev, generator=g))
+        vq, vs = quantize_for(bits, torch.randn(shape, device=dev, generator=g))
+        q = torch.randn((b, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out4 = (ctypes.c_int * 4)()
+        LIBS["this"].mnn_flash_decode_split(b, hkv, grp, cap, d, bits, out4)
+        splits.append(tuple(out4))
+        outs, row = {}, {ver: [] for ver in versions}
+        for ver in order:
+            fn, out = fns[ver], torch.empty_like(q)
+
+            def call(i, fn=fn, out=out, ver=ver):
+                err = fn(q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+                         vs.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hkv, grp, d,
+                         cap, i % STEP_LAYERS, bits, 0, 0, d ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{ver}: CUDA launch error {err}")
+            call(3)
+            torch.cuda.synchronize()
+            outs[ver] = out.clone()
+            if ver == "this":
+                call(3)
+                torch.cuda.synchronize()
+                same = same and torch.equal(out, outs[ver])
+            row[ver].append(_time_us(call, 48))
+        rel = max(_rel(outs[ver], outs["other"]) for ver in versions)
+        rels.append(rel)
+        for ver in versions:
+            times[ver].append(row[ver])
+        print(f"B={b} Hkv={hkv} G={grp} D={d} int{bits} kv_len={lens} S={cap}, this split "
+              f"{splits[-1]}: " + ", ".join(
+                  f"{ver} {' / '.join(f'{x:.2f}' for x in row[ver])} us" for ver in versions)
+              + f", largest rel-L2 to other {rel:.3e}", flush=True)
+    ok = max(rels) <= 3e-2 and same
+    print(f"every version within rel-L2 3e-2 of the other: {max(rels) <= 3e-2} "
+          f"(largest {max(rels):.3e}); this version the same bits twice: {same}")
+    print(card)
+    result = dict(card=card, kernel="fdec", shapes=FDEC_SHAPES, layers=STEP_LAYERS,
+                  order=order, us=times, rel_l2=rels, same_twice=same, splits=splits,
+                  agree=ok, against=str(args.against))
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "fdec_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the versions disagree")
+
+
 CLOCK_SLOTS = ("wait and barrier", "unpack", "second barrier", "products and f32 step")
 
 
@@ -449,10 +540,10 @@ def main():
                          "directory holding another version of csrc/")
     ap.add_argument("--kernel", choices=sorted(ENTRY), default="a8",
                     help="a8: the int8-row kernel; rows: bf16 rows, the tensor-core "
-                         "tile kernel against the other's tile or row kernel; flash: the "
-                         "causal flash prefill kernel; step: the fused decode step; "
-                         "moe: the grouped expert prefill MLP; deq: the "
-                         "dequantize-tile matmul")
+                         "tile kernel against the other's tile or row kernel, and the "
+                         "M = 1 GEMV; flash: the causal flash prefill kernel; step: the "
+                         "fused decode step; fdec: flash decode; moe: the grouped expert "
+                         "prefill MLP; deq: the dequantize-tile matmul")
     ap.add_argument("--warps", default="",
                     help="flash only: comma-separated block shapes, query warps x "
                          "position groups (4x1, 2x2, 1x4, 4x2), to build and time this "
@@ -465,8 +556,9 @@ def main():
                     help="moe, deq: NAME:DEFINE[+DEFINE...], this source built with those "
                          "macros and timed beside it, e.g. nopipe:MNN_DD_PIPE=0")
     ap.add_argument("--splits", default="",
-                    help="step only: comma-separated caps on the blocks a cluster "
-                         "(8, 4, 1) to build and time this source at, besides its own")
+                    help="step, fdec: comma-separated caps on the blocks a KV head "
+                         "(8, 4, 1); rows: on the K ranges a tile at M = 1; each built "
+                         "and timed beside this source's own choice")
     ap.add_argument("--tiles", default="",
                     help="moe only: comma-separated indices into MNN_MP_TILES (0 to 3) "
                          "to build and time this source at, besides its own choice")
@@ -487,8 +579,10 @@ def main():
     forced = [w for w in args.warps.split(",") if w] if args.kernel == "flash" else []
     specs += [(w, src, ENTRY["flash"][0], (f"MNN_FP_WQ={w.split('x')[0]}",
                                            f"MNN_FP_WK={w.split('x')[1]}")) for w in forced]
-    caps = [p for p in args.splits.split(",") if p] if args.kernel == "step" else []
-    specs += [(f"p{p}", src, ENTRY["step"][0], (f"MNN_DS_PMAX={p}",)) for p in caps]
+    cap_macro = {"step": "MNN_DS_PMAX", "fdec": "MNN_FD_PMAX", "rows": "MNN_GV_RMAX"}
+    caps = [p for p in args.splits.split(",") if p] if args.kernel in cap_macro else []
+    specs += [(f"p{p}", src, ENTRY[args.kernel][0], (f"{cap_macro[args.kernel]}={p}",))
+              for p in caps]
     if args.kernel == "step" and args.clocks:
         specs.append(("clk", src, ENTRY["step"][0], ("MNN_DS_CLOCKS",)))
     tiles = [t for t in args.tiles.split(",") if t] if args.kernel == "moe" else []
@@ -500,10 +594,10 @@ def main():
         specs.append(("clk", src, ENTRY[args.kernel][0], ("MNN_DD_CLOCKS",)))
     fns = _libraries(specs, out_dir, args.kernel)
     extra = [name for name, _ in variants]
-    if args.kernel in ("flash", "step", "moe"):
+    if args.kernel in ("flash", "step", "fdec", "moe"):
         mid = (["this"] + forced + [f"p{p}" for p in caps] + [f"t{t}" for t in tiles]
                + extra)
-        run = {"flash": _flash, "step": _step, "moe": _moe}[args.kernel]
+        run = {"flash": _flash, "step": _step, "fdec": _fdec, "moe": _moe}[args.kernel]
         return run(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -512,11 +606,13 @@ def main():
     # the same bits where both compute the same algebra in the same order
     exact = a8 or fns["other"].entry == ENTRY["rows"][0]
     mid = ["this"] + extra
-    order = ["other"] + mid + mid[::-1] + ["other"]
-    versions = list(dict.fromkeys(order))
+    mid1 = mid + [f"p{p}" for p in caps]            # the split caps at M = 1
+    versions = list(dict.fromkeys(["other"] + mid1))
     times = {ver: [] for ver in versions}
-    rels, same, clocks = [], True, []
+    rels, same, m1_rels, m1_same, clocks, gemv_splits = [], True, [], True, [], []
     for m, k, n, f32 in shapes:
+        inner = mid1 if m == 1 else mid
+        order = ["other"] + inner + inner[::-1] + ["other"]
         nl = max(1, min(256, math.ceil(L2_ROTATE_BYTES / (k * n // 2))))
         packed = torch.randint(-128, 128, (nl, k // 2, n), dtype=torch.int8, device=dev,
                                generator=g)
@@ -531,8 +627,14 @@ def main():
         else:
             rows = (x.data_ptr(),)
         outs, row = {}, {ver: [] for ver in versions}
+        if m == 1 and args.kernel == "rows":
+            split4 = (ctypes.c_int * 4)()
+            LIBS["this"].mnn_dequant_matmul_gemv_split(k, n, 4, 128, split4)
+            gemv_splits.append(tuple(split4))
         for version in order:
             fn = fns[version]
+            if m == 1 and args.kernel == "rows":
+                fn = fn.m1
             out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16,
                               device=dev)
 
@@ -550,19 +652,33 @@ def main():
             clocks.append(_dd_clocks(lambda: call(0, fns["clk"], out, "clk"),
                                      LIBS["clk"].mnn_dequant_matmul_clocks))
             print(_clock_line(clocks[-1]), flush=True)
-        same = same and all(torch.equal(outs[ver], outs["other"]) for ver in versions)
-        rels.append(max(_rel(outs[ver], outs["other"]) for ver in versions))
-        for version in versions:
+        here = list(dict.fromkeys(order))
+        rel = max(_rel(outs[ver], outs["other"]) for ver in here)
+        if m == 1 and args.kernel == "rows":
+            # the GEMV sums in another order than the other version's row kernel
+            m1_rels.append(rel)
+            m1_same = m1_same and all(torch.equal(outs[ver], outs["other"]) for ver in here)
+        else:
+            same = same and all(torch.equal(outs[ver], outs["other"]) for ver in here)
+            rels.append(rel)
+        for version in here:
             times[version].append(row[version])
         print(f"M={m} K={k} N={n}: " + ", ".join(
-            f"{ver} {' / '.join(f'{t:.2f}' for t in row[ver])} us" for ver in versions)
-            + f", rel-L2 {rels[-1]:.3e}", flush=True)
+            f"{ver} {' / '.join(f'{t:.2f}' for t in row[ver])} us" for ver in here)
+            + f", rel-L2 {rel:.3e}"
+            + (f", this split {gemv_splits[-1]}" if m == 1 and args.kernel == "rows" else ""),
+            flush=True)
     ok = same if exact else max(rels) <= 1e-2
     print(f"same bits: {same}" if exact else f"every pair within rel-L2 1e-2: {ok} "
           f"(largest {max(rels):.3e}); same bits {same}")
+    if m1_rels:
+        ok = ok and max(m1_rels) <= 1e-2
+        print(f"M = 1: every pair within rel-L2 1e-2: {max(m1_rels) <= 1e-2} "
+              f"(largest {max(m1_rels):.3e}); same bits {m1_same}")
     print(card)
-    result = dict(card=card, kernel=args.kernel, shapes=shapes, order=order, us=times,
-                  same_bits=same, rel_l2=rels, agree=ok, against=str(args.against),
+    result = dict(card=card, kernel=args.kernel, shapes=shapes, us=times,
+                  same_bits=same, rel_l2=rels, m1_rel_l2=m1_rels, m1_same_bits=m1_same,
+                  gemv_splits=gemv_splits, agree=ok, against=str(args.against),
                   other_entry=fns["other"].entry, clocks=clocks)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)

@@ -19,10 +19,15 @@ dequantized rows 3e-2. The two mixture-of-experts kernels are held to rel-L2
 2e-2 (the JAX tests' own bound, `tests/test_moe_decode.py`), the
 dequantize-tile matmul to 1e-2; the fused expert decode kernel, flash
 prefill and the decode step (whose split K/V ranges merge in a fixed order)
-must also give the same bits twice.
+must also give the same bits twice. So must the two kernels that split a
+batch-1 call over blocks and merge through a workspace of their own (the
+M = 1 GEMV and flash decode): at the edges of their splits, and in a
+captured CUDA graph replayed three times with two shapes of each
+interleaved, which shows that every launch leaves the counters at zero.
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -86,6 +91,43 @@ def test_dequant_matmul_kernel(dev, bits, act_bits, m, k, n, f32, with_bias):
     assert kern.launches == before + 1
     assert got.dtype == out_dtype and got.shape == (m, n)
     assert torch.isfinite(got).all()
+    assert rel(got, want) <= 1e-2
+
+
+# The split GEMV (M = 1) at the edges of its items: (bits, K, N, block, out
+# f32, out_bias). K = 4864 takes 38 quant blocks in ranges of unequal length;
+# N = 200, 132 and 1028 end in a partial tile; blocks of 40 and 8 K-values end
+# in a partial unit of 16 packed rows; K = 12288 takes more ranges than
+# filling the card asks for, so that a range's units fit shared memory; the
+# lm head takes one range a tile.
+GEMV = [(4, 4864, 896, 128, False, False), (4, 896, 1152, 128, False, True),
+        (4, 4864, 200, 128, True, True), (4, 2048, 2048, 128, False, False),
+        (8, 2048, 132, 128, True, False), (4, 320, 1028, 40, False, True),
+        (8, 160, 200, 40, False, False), (4, 128, 132, 8, True, False),
+        (8, 256, 1028, 16, False, True), (4, 12288, 896, 128, False, False),
+        (4, 896, 151936, 128, True, False)]
+
+
+@pytest.mark.parametrize("bits,k,n,bs,f32,with_bias", GEMV)
+def test_dequant_matmul_gemv_split_edges(dev, bits, k, n, bs, f32, with_bias):
+    g = torch.Generator(device=dev).manual_seed(k + n + bits + bs)
+    ql = rand_ql(g, dev, k, n, bits, 16, 2, with_bias, bs=bs)
+    x = torch.randn((1, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    cols, ranges, blocks, smem = dequant_matmul.gemv_split(k, n, bits, bs)
+    print(f"K={k} N={n} W{bits} block {bs}: {cols}-column tiles, {ranges} K ranges, "
+          f"{blocks} blocks, smem {smem}")
+    assert 1 <= ranges <= k // bs and blocks == math.ceil(n / cols) * ranges
+    kern = dequant_matmul.KERNEL_BF16
+    before = kern.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=1, out_dtype=out_dtype)
+    again = dequant_matmul.dequant_matmul(x, ql, layer_index=1, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(1), out_dtype)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert got.dtype == out_dtype and got.shape == (1, n)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
     assert rel(got, want) <= 1e-2
 
 
@@ -347,6 +389,92 @@ def test_flash_decode_kernel(dev, grp, d, bits, window, sink, lengths):
     assert got.shape == (b, hkv * grp, d) and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert rel(got, want) <= 3e-2
+
+
+# Flash decode at the edges of its split: (B, Hkv, G, D, kv bits, capacity,
+# window, sink, kv_len per sequence). qwen2-0.5b's heads over a capacity of
+# 1024 take 16 blocks a KV head, each at most one 64-position tile: lengths
+# 0, 1, 5 (most blocks empty), 63, 64, 65, 1023 and the capacity. B = 4 x
+# Hkv 16 takes 4 blocks a KV head: 255, 256, 257 put a range of 64 +- 1
+# positions in a block, 260 two tiles in each, 1024 four. kv_len 4000 of
+# 4096 gives 16 blocks four tiles each; then a ragged batch 2, windows with
+# sinks, and bf16 caches.
+FDEC_SPLIT = [
+    (1, 2, 7, 64, 8, 1024, 0, 0, (0,)), (1, 2, 7, 64, 8, 1024, 0, 0, (1,)),
+    (1, 2, 7, 64, 4, 1024, 0, 0, (5,)), (1, 2, 7, 64, 4, 1024, 0, 0, (63,)),
+    (1, 2, 7, 64, 8, 1024, 0, 0, (64,)), (1, 2, 7, 64, 4, 1024, 0, 0, (65,)),
+    (1, 2, 7, 64, 8, 1024, 0, 0, (1023,)), (1, 2, 7, 64, 4, 1024, 0, 0, (1024,)),
+    (1, 16, 1, 128, 4, 1024, 0, 0, (332,)), (1, 16, 1, 128, 8, 1024, 0, 0, (49,)),
+    (4, 16, 1, 128, 8, 1024, 0, 0, (255, 256, 257, 260)),
+    (4, 16, 1, 128, 4, 1024, 0, 0, (1024, 0, 513, 1)),
+    (1, 16, 1, 128, 4, 4096, 0, 0, (4000,)), (2, 2, 7, 64, 8, 1024, 0, 0, (332, 632)),
+    (1, 2, 7, 64, 4, 1024, 100, 4, (700,)), (1, 2, 8, 64, 16, 1024, 64, 70, (700,)),
+    (2, 2, 4, 128, 16, 512, 64, 4, (500, 37)), (1, 4, 2, 128, 16, 1024, 0, 0, (900,))]
+
+
+@pytest.mark.parametrize("b,hkv,grp,d,bits,s,window,sink,lengths", FDEC_SPLIT)
+def test_flash_decode_split_edges(dev, b, hkv, grp, d, bits, s, window, sink, lengths):
+    g = torch.Generator(device=dev).manual_seed(b * hkv + grp * d + bits + sum(lengths))
+    kc, vc, ks, vs = rand_cache(g, dev, 2, b, hkv, s, d, bits)
+    q = (torch.randn((b, hkv * grp, d), device=dev, generator=g) * 2).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    p, tile, smem, blocks = flash_attention.decode_split(b, hkv, grp, s, d, bits)
+    print(f"B={b} Hkv={hkv} G={grp} D={d} int{bits} S={s}: {p} blocks a KV head, "
+          f"{tile}-position tiles, smem {smem}, {blocks} blocks")
+    assert p in (1, 2, 4, 8, 16) and blocks == b * hkv * p and (p == 1 or p * tile <= s)
+    before = flash_attention.KERNEL_DECODE.launches
+    call = lambda: flash_attention.decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs,
+                                                    layer_index=1, window=window, sink=sink)
+    got, again = call(), call()
+    want = flash_attention.decode_attention_plain(q, kc, vc, lens, ks, vs, 1, None,
+                                                  window, sink)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL_DECODE.launches == before + 2
+    assert got.shape == (b, hkv * grp, d) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert rel(got, want) <= 3e-2
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not got[i].any()
+
+
+def test_split_kernels_replay_in_a_graph(dev):
+    """The GEMV and flash decode at two shapes each, interleaved, eager and
+    in a captured CUDA graph replayed three times: every replay gives the
+    eager bits, so the shapes share the workspaces and every launch leaves
+    the counters at zero."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    gemvs = []
+    for k, n, with_bias in ((4864, 896, False), (896, 1152, True)):
+        ql = rand_ql(g, dev, k, n, 4, 16, 1, with_bias)
+        x = torch.randn((1, k), device=dev, generator=g).to(torch.bfloat16)
+        gemvs.append(lambda x=x, ql=ql: dequant_matmul.dequant_matmul(x, ql, layer_index=0))
+    decodes = []
+    for bsz, hkv, grp, d, bits, s, lengths in ((1, 2, 7, 64, 4, 1024, (632,)),
+                                               (1, 16, 1, 128, 8, 4096, (4000,))):
+        kc, vc, ks, vs = rand_cache(g, dev, 1, bsz, hkv, s, d, bits)
+        q = torch.randn((bsz, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        decodes.append(lambda q=q, kc=kc, vc=vc, ks=ks, vs=vs, lens=lens:
+                       flash_attention.decode_attention(q, kc, vc, lens, k_scale=ks,
+                                                        v_scale=vs, layer_index=0))
+    calls = [gemvs[0], decodes[0], gemvs[1], decodes[1], gemvs[0], decodes[1], gemvs[1],
+             decodes[0]]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = [c() for c in calls]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))
 
 
 MK = ModelConfig(name="mk-test", vocab_size=512, hidden_size=256, intermediate_size=512,
