@@ -31,8 +31,9 @@ Phases, each of which exits non-zero on failure:
    (blocks a KV head) and SDPA's time; two calls must give the same bits
    (the first six rows are also summed alone, `six_shapes`). The
    whole-model decode kernel runs
-   full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4) and
-   two layers at `qwen2-7b` widths; the two mixture-of-experts kernels and
+   full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4), two
+   layers at `qwen2-7b` widths and all 28 of qwen2-7b (each row with the
+   schedule the kernel walked; two calls must give the same bits); the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
    `qwen3-moe-30b-a3b`'s widths, each row with the tile the kernel took;
    the grouped expert kernel must give the same bits twice;
@@ -613,11 +614,16 @@ def step_inputs(params, cfg, lengths, dev, g):
     return tok, params.embedding[tok], lens, cos_f, sin_f
 
 
+DECODE_MODEL_FIRST_ROWS = 7   # the rows the kernels line summed before the 28-layer one
+
+
 def phase_decode_model(dev, g, results, params05):
     """K7: the whole-model decode kernel against its plain version from the
     same state. Full-size qwen2-0.5b (the serving weights) over an int8 cache
     at the three requests' last steps, an int4 and a bf16 cache, and batch 4
-    with unequal lengths; then two layers at qwen2-7b widths."""
+    with unequal lengths; then two layers at qwen2-7b widths, and qwen2-7b at
+    its full 28 layers. Each row prints the schedule the kernel walked, and
+    two calls must give the same bits."""
     cap = 1024
     cfg05 = PRESETS["qwen2-0.5b"]
     cfg7 = dataclasses.replace(PRESETS["qwen2-7b"], num_layers=2)
@@ -632,9 +638,17 @@ def phase_decode_model(dev, g, results, params05):
              ("qwen2-0.5b", cfg05, params05, 4, (last[1],)),
              ("qwen2-0.5b", cfg05, params05, 16, (last[1],)),
              ("qwen2-0.5b", cfg05, params05, 8, (last[0], last[1], last[2], 5)),
-             ("qwen2-7b x2 layers", cfg7, params7, 8, (last[1],))]
+             ("qwen2-7b x2 layers", cfg7, params7, 8, (last[1],)),
+             # the whole of qwen2-7b's depth (built below): the shape held by bytes
+             ("qwen2-7b", PRESETS["qwen2-7b"], None, 8, (last[1],))]
     rows = []
     for name, cfg, params, kv_bits, lengths in cases:
+        if params is None:
+            t0 = time.perf_counter()
+            params = decoder.init_random_params(
+                cfg, torch.Generator().manual_seed(SEED + 1), lm_head_bits=4, device=dev)
+            print(f"  qwen2-7b, {cfg.num_layers} layers: built in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         b = len(lengths)
         kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
                                     cfg.head_dim, kv_bits)
@@ -668,19 +682,31 @@ def phase_decode_model(dev, g, results, params05):
             params, cfg, tok[:, None], cache, megakernel=False), calls=3)
         nbytes = decode_model_bytes(cfg, params.layers, params.lm_head, b, kv_bits, lengths)
         bound = nbytes / HBM_BYTES_S * 1e3
+        again = decode_model.fused_decode_model(*args, **kw)
+        same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+        check(same, f"decode_model {name}: two calls gave different bits")
+        sched = decode_model.schedule_info(cfg, params.layers, params.lm_head, b, cap, dev)
         row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))}",
                    max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
                    tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
                    bytes=nbytes, per_layer_path_device_ms=per_layer_ms,
-                   per_layer_path_launches=per_layer_n)
+                   per_layer_path_launches=per_layer_n, same_twice=same,
+                   schedule={k: v for k, v in sched.items() if k != "units"})
         rows.append(row)
         print(f"  decode_model       {row['shape']:44s} logits rel {m['logits_rel']:.2e} "
               f"x {m['x_rel']:.1e} rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl "
               f"tokens {m['tokens_compared']}/{b} | kernel {ms:.4f} ms plain {plain_ms:.2f} "
               f"bound {bound:.4f} | per-layer path (device) {per_layer_ms:.3f} ms, "
               f"{per_layer_n:.0f} launches", flush=True)
-        del kc, vc, ks, vs, cache, got, want
+        print(f"    schedule: {sched['grid']} blocks, items a phase (layer 0) "
+              f"{sched['items_a_layer']}, K ranges a cut tile {sched['k_ranges']} "
+              f"(tiles cut {sched['cut_tiles']}), "
+              f"{sched['grid_waits_a_layer']} grid-wide waits a layer, ring {sched['slots']} "
+              f"slots ({sched['ring_bytes']} B a block, {sched['bytes_in_flight']} B in "
+              f"flight), weight bytes a block {sched['max_block_bytes']} most / "
+              f"{sched['mean_block_bytes']:.0f} mean", flush=True)
+        del kc, vc, ks, vs, cache, got, want, again, params
         torch.cuda.empty_cache()
     results["decode_model"] = rows
 
@@ -1323,6 +1349,9 @@ def main():
         if kname == "flash_decode":
             k["six_shapes"] = row_sums(rows[:FLASH_DECODE_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[FLASH_DECODE_FIRST_ROWS:])
+        if kname == "decode_model":
+            k["seven_shapes"] = row_sums(rows[:DECODE_MODEL_FIRST_ROWS])
+            k["added_rows"] = row_sums(rows[DECODE_MODEL_FIRST_ROWS:])
         if kname == "dequant_matmul":
             # one TPU kernel, two CUDA kernels: the GEMV kernel at M = 1 (the
             # decode GEMVs and the head) and the tensor-core tile kernel above

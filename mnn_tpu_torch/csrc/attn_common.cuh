@@ -189,30 +189,43 @@ __device__ __forceinline__ void attend_cached(
     for (int c = 0; c < AT_CW; ++c)
       vseg[c].load(vc + (long)min(c0 + c, limit - 1) * ROWB, lane);
 
+    // Each step below runs over all AT_GMAX query rows at once, so that the
+    // rows' shuffles and exponentials overlap; rows past G carry zeros.
     float s[AT_GMAX];
 #pragma unroll
     for (int g = 0; g < AT_GMAX; ++g) s[g] = 0.f;
     kseg.dot(q, G, r, s);
 #pragma unroll
+    for (int g = 0; g < AT_GMAX; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
+#pragma unroll
+    for (int g = 0; g < AT_GMAX; ++g) {   // the column's four quarters
+      s[g] += __shfl_xor_sync(0xffffffffu, s[g], 2);
+      if (QUANT) s[g] = __fmul_rn(s[g], ks);
+      s[g] = ok ? __fmul_rn(s[g], scale) : NEG_INF;
+    }
+    float mx[AT_GMAX], psum[AT_GMAX];   // over the step's 8 columns
+#pragma unroll
+    for (int g = 0; g < AT_GMAX; ++g) mx[g] = s[g];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < AT_GMAX; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+#pragma unroll
     for (int g = 0; g < AT_GMAX; ++g) {
-      if (g >= G) break;
-      float sg = s[g];
-      sg += __shfl_xor_sync(0xffffffffu, sg, 1);   // the column's four quarters
-      sg += __shfl_xor_sync(0xffffffffu, sg, 2);
-      if (QUANT) sg = __fmul_rn(sg, ks);
-      sg = ok ? __fmul_rn(sg, scale) : NEG_INF;
-      float mx = sg;                                // over the step's 8 columns
+      mx[g] = fmaxf(m[g], mx[g]);   // the new running max
+      s[g] = expf(s[g] - mx[g]);    // p
+      psum[g] = s[g];
+    }
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[g], mx);
-      const float p = expf(sg - m_new);
-      float psum = p;
+    for (int o = 4; o < 32; o <<= 1)
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      const float alpha = expf(m[g] - m_new);
-      l[g] = l[g] * alpha + psum;
-      m[g] = m_new;
-      float w = in_buf ? (QUANT ? __fmul_rn(p, vs) : p) : 0.f;
+      for (int g = 0; g < AT_GMAX; ++g) psum[g] += __shfl_xor_sync(0xffffffffu, psum[g], o);
+#pragma unroll
+    for (int g = 0; g < AT_GMAX; ++g) {
+      const float alpha = expf(m[g] - mx[g]);
+      l[g] = l[g] * alpha + psum[g];
+      m[g] = mx[g];
+      float w = in_buf && g < G ? (QUANT ? __fmul_rn(s[g], vs) : s[g]) : 0.f;
       if (ROUND_P) w = round_bf16(w);
       if (r == 0) pv[g][cl] = w;
 #pragma unroll
@@ -225,7 +238,6 @@ __device__ __forceinline__ void attend_cached(
       vseg[c].values(vv);
 #pragma unroll
       for (int g = 0; g < AT_GMAX; ++g) {
-        if (g >= G) break;
         const float w = pv[g][c];
 #pragma unroll
         for (int j = 0; j < DP; ++j) acc[g][j] += w * vv[j];

@@ -1,6 +1,8 @@
 // C entry of the whole-model decode kernel (sm_90a). The kernel and its
 // design are in decode_model.cuh; its instantiations for 1, 2, 4 and 8 batch
-// rows are compiled in decode_model_b<BM>.cu.
+// rows are compiled in decode_model_b<BM>.cu. `sched` is the schedule table
+// on the device (kernels/decode_model.py's `schedule()`), `sched_hdr` a host
+// copy of its DM_HDR-int header, which must name this call's shapes.
 #include "decode_model.cuh"
 
 using namespace mnn;
@@ -19,13 +21,19 @@ MNN_API int mnn_decode_model(
     int B, int L, int H, int NH, int Hkv, int D, int I, int S, int V, int bits, int bs_h,
     int bs_i, int head_bits, int bs_head, int kv_bits, int window, int sink,
     int write_cache, int ws_floats, int n_counters, float sm_scale, float eps,
-    void* stream) {
+    const void* sched, const void* sched_hdr, void* stream) {
   if (B < 1 || B > DM_MAXB || (D != 64 && D != 128) || Hkv < 1 || NH % Hkv ||
       NH / Hkv > AT_GMAX || (bits != 4 && bits != 8) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || bs_h % 32 || bs_i % 32 ||
       H % bs_h || (NH * D) % bs_h || I % bs_i || I % 64 || H % 4)
     return (int)cudaErrorInvalidValue;
   if (head_p && ((head_bits != 4 && head_bits != 8) || bs_head % 32 || H % bs_head || V % 4))
+    return (int)cudaErrorInvalidValue;
+  const int* hdr = static_cast<const int*>(sched_hdr);
+  if (!sched || !hdr || hdr[H_MAGIC] != DM_MAGIC || hdr[H_B] != B || hdr[H_L] != L ||
+      hdr[H_H] != H || hdr[H_NQ] != (NH + 2 * Hkv) * D || hdr[H_I] != I ||
+      hdr[H_V] != (head_p ? V : 0) || hdr[H_BITS] != bits ||
+      hdr[H_HEAD_BITS] != (head_p ? head_bits : 0) || hdr[H_D] != D || H > 128 * DM_TILE)
     return (int)cudaErrorInvalidValue;
   DmParams p{};
   p.x = static_cast<const float*>(x);
@@ -64,7 +72,8 @@ MNN_API int mnn_decode_model(
   p.v_sc = static_cast<float*>(v_sc);
   p.logits = static_cast<float*>(logits);
   p.token = static_cast<int*>(token);
-  p.counters = static_cast<int*>(counters);
+  p.counters = static_cast<unsigned*>(counters);
+  p.sched = static_cast<const int*>(sched);
   p.clocks = static_cast<long long*>(clocks);
   p.B = B; p.L = L; p.H = H; p.NH = NH; p.Hkv = Hkv; p.D = D; p.I = I; p.S = S; p.V = V;
   p.NQ = (NH + 2 * Hkv) * D;
@@ -76,9 +85,24 @@ MNN_API int mnn_decode_model(
   float* wsf = static_cast<float*>(ws);
   const int bm = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
   switch (bm) {
-    case 1: return launch_b1(p, wsf, ws_floats, n_counters, st);
-    case 2: return launch_b2(p, wsf, ws_floats, n_counters, st);
-    case 4: return launch_b4(p, wsf, ws_floats, n_counters, st);
-    default: return launch_b8(p, wsf, ws_floats, n_counters, st);
+    case 1: return launch_b1(p, wsf, ws_floats, n_counters, hdr, st);
+    case 2: return launch_b2(p, wsf, ws_floats, n_counters, hdr, st);
+    case 4: return launch_b4(p, wsf, ws_floats, n_counters, hdr, st);
+    default: return launch_b8(p, wsf, ws_floats, n_counters, hdr, st);
+  }
+}
+
+// What the kernel for B batch rows at head dim D gets on this card:
+// out = {blocks an SM, shared bytes a block, ring slots, SMs, registers a
+// thread, most threads a block, static shared bytes, local bytes a thread}.
+// The schedule is built for the first four (grid = blocks an SM x SMs).
+MNN_API int mnn_decode_model_limits(int B, int D, int* out) {
+  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  const int bm = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
+  switch (bm) {
+    case 1: return limits_b1(D, out);
+    case 2: return limits_b2(D, out);
+    case 4: return limits_b4(D, out);
+    default: return limits_b8(D, out);
   }
 }

@@ -3,8 +3,11 @@
 
 namespace mnn {
 
-int launch_b4(DmParams& p, float* ws, long ws_floats, int n_counters, cudaStream_t st) {
-  return launch<4>(p, ws, ws_floats, n_counters, st);
+int launch_b4(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hdr,
+              cudaStream_t st) {
+  return launch<4>(p, ws, ws_floats, n_counters, hdr, st);
 }
+
+int limits_b4(int D, int* out) { return limits<4>(D, out); }
 
 }  // namespace mnn

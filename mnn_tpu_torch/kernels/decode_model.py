@@ -2,7 +2,8 @@
 then the final norm, the lm-head GEMV and the greedy argmax.
 
 Replaces the TPU kernel `mnn_tpu/kernels/decode_model.py::_kernel` (launched
-by `fused_decode_model`). CUDA source: `csrc/decode_model.cu`.
+by `fused_decode_model`). CUDA source: `csrc/decode_model.cuh`, entry in
+`csrc/decode_model.cu`.
 
 Per layer: RMS norm -> qkv GEMV (+ out-bias) -> rope, optional QK-norm,
 quantization of the new K/V row and a softmax seeded with that row's
@@ -23,27 +24,33 @@ not rounded; the argmax takes the lowest index among equal maxima.
 
 What bounds it on the H100, and what the design does about it: one decode
 token reads every weight byte once and does two operations per weight, far
-below the card's operations-per-byte balance, so the bound is bytes (weights,
-planes, the head and the cached K/V rows over the device memory rate). Launch
-overhead is what the per-layer path pays instead: this kernel is one
-cooperative launch of a persistent grid (as many blocks as are co-resident)
-with a grid-wide barrier between the phases of a layer. Each GEMV is cut
-into (128-column tile, K range) items so that all blocks stream weights at
-once; partial sums of a tile meet in device memory and the last block to
-arrive adds them in a fixed order, so results do not depend on timing. The
-attention phase gives each (batch row, KV head) one block per 64 cached
-positions, merged the same way.
-Activations sit in small scratch buffers that stay in L2. Lengths are read
-from device memory: no launch parameter depends on them.
+below the card's operations-per-byte balance, so the floor is bytes; at
+qwen2-0.5b's size a layer's bytes take 2.4 us, and what a layer costs is the
+chain of dependent steps between its phases. The kernel is one cooperative
+launch of a persistent grid. `schedule()` gives every block its ordered list
+of work items for the whole step (GEMV tiles and K ranges, attention splits,
+grid-wide waits) from the shapes and the grid only, as an int32 table the
+kernel reads; a producer warp per block streams the weights of the block's
+items into a ring of shared-memory slots ahead of any dependency, across
+phase and layer boundaries; qkv -> attention, attention -> wo and gate/up ->
+down are arrival counters, so only the two RMS norms and the argmax merge
+wait on the whole grid. A phase of at most one item an SM stands on blocks
+of distinct SMs. Where a tile's K ranges are split, their partial sums meet
+in device memory and the last block to arrive adds them in a fixed order,
+so results do not depend on timing. Activations sit in small scratch
+buffers that stay in L2. Lengths are read from device memory: no launch
+parameter and no table entry depends on them.
 """
 
 from __future__ import annotations
 
+import heapq
 from typing import Optional
 
+import numpy as np
 import torch
 
-from mnn_tpu_torch.kernels.build import F, I, P, kernel
+from mnn_tpu_torch.kernels.build import F, I, P, kernel, library
 from mnn_tpu_torch.kernels.common import cdiv, check, use_kernel
 from mnn_tpu_torch.kernels.decode_step import NEG_INF, _rms, _rope_full
 from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul_plain
@@ -54,8 +61,35 @@ from mnn_tpu_torch.runtime import kvcache
 MAX_BATCH = 8
 MAX_GROUP = 8     # query heads per KV head held in registers
 COL_TILE = 128    # output columns per GEMV work item
-K_CHUNK = 32      # K values a warp takes per step: one x value per lane
+K_CHUNK = 32      # quant blocks are whole multiples of this
 ATT_SPLIT = 16    # most blocks that share one (batch row, KV head)
+ATT_POSITIONS = 64  # cached positions a block of a (batch row, KV head) takes
+
+# The schedule and the kernel's shared memory; the same numbers as
+# csrc/decode_model.cuh (DM_*), which checks the table's header.
+UNIT_ROWS = 64                               # packed rows of a tile a unit (ring slot)
+SCALE_ROWS = 4                               # quant blocks a unit can touch
+SLOT_BYTES = UNIT_ROWS * COL_TILE + 2 * SCALE_ROWS * COL_TILE * 2
+RING_MAX = 12
+XS_K = {1: 4096, 2: 2048, 4: 1024, 8: 1024}  # K values an item's x stage holds, by BM
+REC, HDR = 16, 16                            # int32 a record, the header
+TAIL = 16 + 2 * REC * 4                      # stamps' count, place, two records (shared)
+MAGIC = 0x444D3131
+BLOCK_SMEM = {1: 232448, 2: 115712}          # a block's shared bytes at 1 or 2 blocks an SM
+# How `schedule` cuts a tile's K (`_cuts`): what an item costs beside its
+# units (its x stage, merge and epilogue), in units.
+ITEM_UNITS = 1
+CONSUMERS = 256
+# counters: [0] the grid-wide wait's word, then the blocks' claims of their
+# places (2 + one an SM id), then the table's arrival counters
+FIRST_COUNTER = 1 + 2 + 256
+KINDS = ("prologue", "qkv", "attention", "wo", "gate_up", "down", "head", "argmax",
+         "barrier")
+PRO, QKV, ATT, WO, GU, DN, HEAD, ARGMAX, BAR = range(9)
+(R_KIND, R_LAYER, R_TILE, R_U0, R_U1, R_PIECE, R_NPIECES, R_WAIT, R_NWAIT, R_TARGET,
+ R_RELEASE, R_MERGE, R_MERGE_LAST, R_PART) = range(14)
+(H_MAGIC, H_GRID, H_SLOTS, H_COUNTERS, H_PART, H_ITEMS, H_NS, H_B, H_L, H_H, H_NQ, H_I,
+ H_V, H_BITS, H_HEAD_BITS, H_D) = range(16)
 
 # int mnn_decode_model(x, lengths, cos, sin,
 #     wqkv_p, wqkv_s, wqkv_b, qkv_bias, wo_p, wo_s, wo_b, wgu_p, wgu_s, wgu_b,
@@ -64,22 +98,328 @@ ATT_SPLIT = 16    # most blocks that share one (batch row, KV head)
 #     x_out, k_rows, v_rows, k_sc, v_sc, logits, token, ws, counters, clocks,
 #     B, L, H, NH, Hkv, D, I, S, V, bits, bs_h, bs_i, head_bits, bs_head,
 #     kv_bits, window, sink, write_cache, ws_floats, n_counters,
-#     sm_scale, eps, stream)
-KERNEL = kernel("mnn_decode_model", [P] * 39 + [I] * 20 + [F, F])
+#     sm_scale, eps, sched, sched_hdr, stream)
+KERNEL = kernel("mnn_decode_model", [P] * 39 + [I] * 20 + [F, F] + [P, P])
 
-_counters: dict = {}      # device -> zeroed int32 arrival counters, reused
+_counters: dict = {}      # device -> int32 arrival counters, reused
+_schedules: dict = {}     # (shape, grid, slots, device) -> (table, header, info)
 
-# Set to a CUDA int64 tensor of `phase_names(...)`'s length to have the next
-# launches note block 0's SM clock at the end of every phase (profiling).
-PHASE_CLOCKS: Optional[torch.Tensor] = None
+# Set to a CUDA int64 tensor [blocks, 2048] to have a kernel built with
+# -DMNN_DM_CLOCKS log its steps there (`profile_a8 --kernel model --clocks`).
+EVENT_LOG: Optional[torch.Tensor] = None
 
 
-def phase_names(num_layers: int, fused_head: bool) -> list:
-    """What each entry of PHASE_CLOCKS ends: the kernel's phases in order."""
-    names = ["start", "prologue"]
-    for _ in range(num_layers):
-        names += ["qkv", "attention", "wo", "gate_up", "down"]
-    return names + (["head", "argmax"] if fused_head else [])
+def bucket(batch: int) -> int:
+    """The batch rows the kernel instance holds in registers (BM)."""
+    return 1 if batch == 1 else 2 if batch == 2 else 4 if batch <= 4 else 8
+
+
+def work_bytes(bm: int, head_dim: int) -> int:
+    """A block's work area: the largest of a GEMV item's reduction and x
+    stage, an attention item's state (attn_common.cuh's AttnSmem), the argmax
+    merge; a multiple of 128 bytes."""
+    gemv = 4 * (8 * bm * COL_TILE + bm * COL_TILE + bm * XS_K[bm] + MAX_BATCH + 4)
+    g, d = MAX_GROUP, head_dim
+    attn = 4 * ((g + 2) * d + 4 * d + g + 3 + 8 * g * 32 + 2 * 8 * g + 8 * g * d)
+    return -(-max(gemv, attn, 2 * CONSUMERS * 4) // 128) * 128
+
+
+def blocks_per_sm(bm: int) -> int:
+    return 1 if bm == 8 else 2
+
+
+def ring_slots(bm: int, head_dim: int) -> int:
+    """Weight slots a block's ring holds beside its work area."""
+    free = BLOCK_SMEM[blocks_per_sm(bm)] - work_bytes(bm, head_dim) - 16 * RING_MAX - TAIL
+    return min(RING_MAX, free // SLOT_BYTES)
+
+
+def smem_bytes(bm: int, head_dim: int, slots: int) -> int:
+    """A block's dynamic shared memory: ring, work area, the slots'
+    mbarriers, the tail (the stamps' count in MNN_DM_CLOCKS builds, the
+    block's place, the current and next schedule records)."""
+    return slots * SLOT_BYTES + work_bytes(bm, head_dim) + 16 * slots + TAIL
+
+
+def records_at(grid: int) -> int:
+    """Where a table's records start, in int32: after the header and the
+    blocks' starts (grid + 1), rounded up to a record (64-byte aligned)."""
+    return HDR + -(-(grid + 1) // REC) * REC
+
+
+def _library_limits(batch: int, head_dim: int) -> tuple:
+    """(blocks an SM, shared bytes a block, ring slots, SMs, registers a
+    thread, most threads a block, static shared bytes, local bytes a thread)
+    that the built kernel gets on the current card
+    (`mnn_decode_model_limits`)."""
+    fn = library().mnn_decode_model_limits
+    fn.argtypes, fn.restype = [I, I, P], I
+    out = (I * 8)()
+    err = fn(batch, head_dim, out)
+    if err:
+        raise RuntimeError(f"mnn_decode_model_limits: CUDA error {err}")
+    return tuple(out)
+
+
+# The kernel's limits on the card (`profile_a8` swaps it with KERNEL).
+LIMITS = _library_limits
+_limits: dict = {}
+
+
+def _k_range(r0: int, r1: int, bs: int, bits: int) -> tuple:
+    """[first K value, one past the last) of packed rows [r0, r1): a W4 row
+    holds K values k and k + bs/2 of its quant block."""
+    if bits == 8:
+        return r0, r1
+    half = bs // 2
+    lo = lambda r: (r // half) * bs + r % half
+    return lo(r0), lo(r1 - 1) + half + 1
+
+
+def _pieces(k: int, bs: int, bits: int, tiles: int, grid: int, xs_k: int) -> list:
+    """The K ranges of each tile of a phase with fewer tiles than blocks, as
+    unit ranges [u0, u1), each inside the x stage of `xs_k` values: n even
+    ranges, chosen for the least ceil(tiles * n / grid) * (ceil(units / n) +
+    ITEM_UNITS), the items the busiest block takes times what each costs;
+    more ranges on a tie (finer items even out the phases that share a
+    grid-wide wait)."""
+    kp = k * bits // 8
+    units = -(-kp // UNIT_ROWS)
+
+    def fits(u0, u1):
+        lo, hi = _k_range(u0 * UNIT_ROWS, min(u1 * UNIT_ROWS, kp), bs, bits)
+        return hi - lo <= xs_k
+
+    best = None
+    for n in range(1, units + 1):
+        pieces = [(units * j // n, units * (j + 1) // n) for j in range(n)]
+        if not all(fits(a, b) for a, b in pieces):
+            continue
+        cost = -(-tiles * n // grid) * (-(-units // n) + ITEM_UNITS)
+        if best is None or cost <= best[0]:
+            best = (cost, pieces)
+    return best[1]
+
+
+def _cuts(k: int, bs: int, bits: int, tiles: int, grid: int, xs_k: int) -> list:
+    """Each tile's K ranges, a list of unit ranges [u0, u1) a tile. A phase
+    with at least a tile for every block, whose tiles fit the x stage whole:
+    whole tiles, `grid` of them a round, and the tiles left over (fewer than
+    the grid) each cut into grid // left even ranges, one a block, so that
+    every block ends the phase with about as many units and one merge at
+    most. Otherwise every tile as `_pieces` cuts it."""
+    units = -(-(k * bits // 8) // UNIT_ROWS)
+    if tiles >= grid and _k_range(0, k * bits // 8, bs, bits)[1] <= xs_k:
+        left = tiles % grid
+        n = max(1, min(grid // max(left, 1), units))
+        cut = [(units * j // n, units * (j + 1) // n) for j in range(n)]
+        return [[(0, units)]] * (tiles - left) + [cut] * left
+    return [_pieces(k, bs, bits, tiles, grid, xs_k)] * tiles
+
+
+def schedule(batch: int, layers: int, hidden: int, heads: int, kv_heads: int,
+             head_dim: int, inter: int, capacity: int, vocab: int, bits: int,
+             bs_h: int, bs_i: int, head_bits: int, bs_head: int, grid: int,
+             slots: int, sms: Optional[int] = None):
+    """The kernel's work for one step, block by block: (table int32 numpy,
+    info dict). `vocab` 0: no fused head.
+
+    Items, in the order every block walks them: a grid-wide wait (the
+    prologue's residual and sums of squares), then per layer the qkv tiles,
+    the attention splits (b, KV head, split), the wo tiles, a grid-wide wait
+    (the RMS norm needs the whole row), the gate/up tiles, the down tiles and
+    another wait (before the next norm); then the head tiles, a wait and the
+    argmax merge of each batch row. A GEMV tile is one item over all of K,
+    or several K ranges (`_cuts`) merged by the last to arrive. Items of a
+    phase go to distinct places (blocks) as far as the grid goes, each to the
+    place with the fewest weight bytes since the last grid-wide wait, then
+    over the step; a phase of at most `sms`
+    items takes places below `sms` first, which the kernel gives to blocks
+    on distinct SMs (the first block to start on each SM).
+
+    Waits: an attention item on the qkv tiles of its KV head's columns, a wo
+    range on the attention of the KV heads it reads (every batch row), a down
+    range on the gate/up tiles whose outputs it reads; each counter counts
+    one release a layer (the tile's last range, the KV head's last split), so
+    the target is layer + 1. Merge counters count a tile's ranges (a KV
+    head's active splits) a layer. The table holds a header (HDR ints:
+    `H_*`), the first record of each block and one past the last (grid + 1
+    ints, zero-padded to `records_at(grid)`), then REC ints a record
+    (`R_*`). Nothing depends on the lengths."""
+    b, d, h = batch, head_dim, hidden
+    nq, dq, grp = (heads + 2 * kv_heads) * d, heads * d, heads // kv_heads
+    ns = max(1, min(grid // (b * kv_heads), -(-capacity // ATT_POSITIONS), ATT_SPLIT))
+    counters = [FIRST_COUNTER]
+
+    def alloc(n):
+        c = counters[0]
+        counters[0] += n
+        return c
+
+    gemvs = {QKV: (h, nq, bs_h, bits), WO: (dq, h, bs_h, bits),
+             GU: (h, 2 * inter, bs_h, bits), DN: (inter, h, bs_i, bits)}
+    if vocab:
+        gemvs[HEAD] = (h, vocab, bs_head, head_bits)
+    plan, part = {}, 0
+    for kind, (k, n, bs, wb) in gemvs.items():
+        tiles = -(-n // COL_TILE)
+        cuts = _cuts(k, bs, wb, tiles, grid, XS_K[bucket(b)])
+        most = max(len(c) for c in cuts)
+        merge = alloc(tiles) if most > 1 else -1
+        plan[kind] = dict(k=k, n=n, bs=bs, bits=wb, kp=k * wb // 8, tiles=tiles,
+                          cuts=cuts, merge=merge, part=part)
+        if most > 1:
+            part += most * b * n
+    qkv_done = alloc(plan[QKV]["tiles"])
+    gu_done = alloc(plan[GU]["tiles"])
+    att_done = alloc(kv_heads * b)                  # [KV head][batch row]
+    att_merge = alloc(b * kv_heads)                 # [batch row][KV head]
+
+    lists = [[] for _ in range(grid)]
+    load = [0] * grid                               # weight bytes so far, a block
+    seg = [0] * grid                                # the same since the last grid-wide wait
+
+    def rec(kind, layer, tile, u0=0, u1=0, piece=0, npieces=1, wait=0, nwait=0,
+            target=0, release=-1, merge=-1, merge_last=-1, part_off=0):
+        r = [kind, layer, tile, u0, u1, piece, npieces, wait, nwait, target, release,
+             merge, merge_last, part_off]
+        return r + [0] * (REC - len(r))
+
+    sm_count = sms or grid
+
+    def place(items):
+        """items: [(bytes, record)], one phase: to distinct places while they
+        last, each to the one with the fewest bytes since the last grid-wide
+        wait (the blocks that wait there together), then over the step; a
+        phase that fits the SMs on places below `sms` (one block an SM)
+        first."""
+        low = len(items) <= sm_count
+        heap = [(0, low and i >= sm_count, seg[i], load[i], i) for i in range(grid)]
+        heapq.heapify(heap)
+        for nbytes, r in sorted(items, key=lambda it: -it[0]):
+            cnt, high, _, _, i = heapq.heappop(heap)
+            lists[i].append(r)
+            load[i] += nbytes
+            seg[i] += nbytes
+            heapq.heappush(heap, (cnt + 1, high, seg[i], load[i], i))
+
+    def barrier(layer, closes):
+        for i, lst in enumerate(lists):
+            lst.append(rec(BAR, layer, closes))
+            seg[i] = 0
+
+    def gemv_items(kind, layer):
+        pl = plan[kind]
+        unit_bytes = UNIT_ROWS * COL_TILE + 2 * COL_TILE * 2   # a unit's rows and planes
+        items = []
+        for t in range(pl["tiles"]):
+            n_p = len(pl["cuts"][t])
+            for j, (u0, u1) in enumerate(pl["cuts"][t]):
+                lo, hi = _k_range(u0 * UNIT_ROWS, min(u1 * UNIT_ROWS, pl["kp"]), pl["bs"],
+                                  pl["bits"])
+                wait = nwait = 0
+                if kind == WO:          # the KV heads whose outputs it reads, every row
+                    h0, h1 = lo // d // grp, (hi - 1) // d // grp
+                    wait, nwait = att_done + h0 * b, (h1 - h0 + 1) * b
+                elif kind == DN:        # the gate/up tiles whose outputs it reads
+                    t0, t1 = lo // (COL_TILE // 2), (hi - 1) // (COL_TILE // 2)
+                    wait, nwait = gu_done + t0, t1 - t0 + 1
+                release = {QKV: qkv_done + t, GU: gu_done + t}.get(kind, -1)
+                rnd = 0 if kind == HEAD else layer
+                items.append(((u1 - u0) * unit_bytes, rec(
+                    kind, layer, t, u0, u1, j, n_p, wait, nwait, layer + 1, release,
+                    pl["merge"] + t if n_p > 1 else -1, (rnd + 1) * n_p - 1, pl["part"])))
+        place(items)
+
+    row = d * 2                      # a cached position's K or V row, about
+    barrier(0, PRO)
+    for layer in range(layers):
+        gemv_items(QKV, layer)
+        att = []
+        for bb in range(b):
+            for hi in range(kv_heads):
+                t0, t1 = hi * (grp + 2) * d // COL_TILE, ((hi + 1) * (grp + 2) * d - 1) // COL_TILE
+                for split in range(ns):
+                    att.append((2 * row * (capacity // ns), rec(
+                        ATT, layer, bb * kv_heads + hi, split, ns, 0, 1, qkv_done + t0,
+                        t1 - t0 + 1, layer + 1, att_done + hi * b + bb,
+                        att_merge + bb * kv_heads + hi)))
+        place(att)
+        gemv_items(WO, layer)
+        barrier(layer, WO)
+        gemv_items(GU, layer)
+        gemv_items(DN, layer)
+        if layer + 1 < layers or vocab:
+            barrier(layer, DN)
+    if vocab:
+        gemv_items(HEAD, layers)
+        barrier(layers, HEAD)
+        place([(0, rec(ARGMAX, layers, bb)) for bb in range(b)])
+
+    starts = np.zeros(records_at(grid) - HDR, dtype=np.int64)
+    starts[1:grid + 1] = np.cumsum([len(lst) for lst in lists])
+    hdr = [0] * HDR
+    hdr[H_MAGIC], hdr[H_GRID], hdr[H_SLOTS], hdr[H_COUNTERS] = MAGIC, grid, slots, counters[0]
+    hdr[H_PART], hdr[H_ITEMS], hdr[H_NS] = part, int(starts[grid]), ns
+    hdr[H_B], hdr[H_L] = b, layers
+    hdr[H_H], hdr[H_NQ], hdr[H_I], hdr[H_V] = h, nq, inter, vocab
+    hdr[H_BITS], hdr[H_HEAD_BITS], hdr[H_D] = bits, head_bits if vocab else 0, d
+    records = [r for lst in lists for r in lst]
+    table = np.concatenate([np.asarray(hdr, dtype=np.int64), starts,
+                            np.asarray(records, dtype=np.int64).reshape(-1)]).astype(np.int32)
+    per_kind = {}
+    for r in records:
+        if r[R_KIND] != BAR and (r[R_KIND] == HEAD or r[R_LAYER] == 0):
+            per_kind[KINDS[r[R_KIND]]] = per_kind.get(KINDS[r[R_KIND]], 0) + 1
+    info = dict(grid=grid, slots=slots, ring_bytes=slots * SLOT_BYTES,
+                bytes_in_flight=grid * slots * SLOT_BYTES,
+                items_a_layer=per_kind, grid_waits_a_layer=2,
+                att_split=ns,
+                k_ranges={KINDS[k]: len(v["cuts"][-1]) for k, v in plan.items()},
+                cut_tiles={KINDS[k]: sum(len(c) > 1 for c in v["cuts"])
+                           for k, v in plan.items()},
+                units={KINDS[k]: [u1 - u0 for u0, u1 in v["cuts"][-1]] for k, v in plan.items()},
+                counters=counters[0], part_floats=part, items=int(starts[grid]),
+                max_block_bytes=max(load), mean_block_bytes=sum(load) / grid)
+    return table, info
+
+
+def _schedule_for(config, batch: int, capacity: int, lay, head, dev):
+    """`schedule` for a call on `dev`, cached per shape and device: (the
+    table on the device, its header on the host, info). The grid is every
+    block co-resident: 2 an SM (1 at 8 batch rows), or 1 where the card
+    holds no more; below one block an SM the kernel cannot run, and this
+    raises."""
+    c = config
+    bm = bucket(batch)
+    lk = (LIMITS, bm, c.head_dim, str(dev))
+    if lk not in _limits:
+        with torch.cuda.device(dev):
+            _limits[lk] = LIMITS(bm, c.head_dim)
+    per_sm, _, slots, sms = _limits[lk][:4]
+    if per_sm < 1 or slots != ring_slots(bm, c.head_dim):
+        raise RuntimeError(f"the decode kernel does not fit the card: {per_sm} blocks an "
+                           f"SM, {slots} ring slots (planned {ring_slots(bm, c.head_dim)})")
+    grid = sms * min(per_sm, blocks_per_sm(bm))
+    args = (batch, c.num_layers, c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim,
+            c.intermediate_size, capacity, head.out_features if head is not None else 0,
+            lay.wqkv.bits, lay.wqkv.block_size, lay.wdown.block_size,
+            head.bits if head is not None else 0, head.block_size if head is not None else 0,
+            grid, slots, sms)
+    key = args + (str(dev),)
+    hit = _schedules.get(key)
+    if hit is None:
+        table, info = schedule(*args)
+        hit = _schedules[key] = (torch.from_numpy(table).to(dev), table[:HDR].copy(), info)
+    return hit
+
+
+def schedule_info(config, layers, head, batch: int, capacity: int, dev) -> dict:
+    """What `schedule` gives a call of these shapes on `dev`: grid, ring
+    slots and bytes, items a phase in a layer, grid-wide waits a layer, the
+    K ranges of a phase's last tile (the cut ones stand last) and its units,
+    the tiles cut, counters and the bytes a block streams."""
+    return _schedule_for(config, batch, capacity, layers, head, dev)[2]
 
 
 def supports(config, params, cache, batch: int) -> bool:
@@ -376,20 +716,20 @@ def fused_decode_model(
     v_sc = torch.empty_like(k_sc) if kv_bits < 16 else None
     logits = torch.empty((b, vocab), **f32) if head is not None else None
     token = torch.empty((b,), dtype=torch.int32, device=dev) if head is not None else None
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ws_floats = (b * (nq + c.q_dim + inter) + 2 * sms * COL_TILE * b
-                 + MAX_BATCH * cdiv(h, COL_TILE) + 2 * b * cdiv(max(vocab, 1), COL_TILE)
-                 + b * hkv * ATT_SPLIT * MAX_GROUP * (d + 2) + 64)
+    table, hdr, _ = _schedule_for(c, b, s, lay, head, dev)
+    ws_floats = (b * (nq + c.q_dim + inter) + MAX_BATCH * cdiv(h, COL_TILE)
+                 + 2 * b * cdiv(max(vocab, 1), COL_TILE)
+                 + b * hkv * int(hdr[H_NS]) * MAX_GROUP * (d + 2) + int(hdr[H_PART]) + 64)
     ws = torch.empty((ws_floats,), **f32)
-    n_counters = max(cdiv(max(nq, h, 2 * inter, vocab), COL_TILE), b * hkv)
+    n_counters = int(hdr[H_COUNTERS])
     cnt = _counters.get(dev)
     if cnt is None or cnt.numel() < n_counters:
         cnt = _counters[dev] = torch.zeros((n_counters,), dtype=torch.int32, device=dev)
-    clocks = PHASE_CLOCKS
+    clocks = EVENT_LOG
     if clocks is not None and (clocks.dtype != torch.int64 or clocks.device != dev
-                               or clocks.numel() < len(phase_names(nl, head is not None))):
-        raise ValueError("PHASE_CLOCKS: an int64 tensor on the kernel's device, "
-                         "one entry per phase")
+                               or clocks.numel() < int(hdr[H_GRID]) * 2048):
+        raise ValueError("EVENT_LOG: an int64 tensor on the kernel's device, "
+                         "2048 entries a block")
     KERNEL(x.data_ptr(), lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(),
            lay.wqkv.packed.data_ptr(), lay.wqkv.scale.data_ptr(),
            lay.wqkv.bias.data_ptr(), _ptr(lay.wqkv.out_bias),
@@ -409,7 +749,7 @@ def fused_decode_model(
            head_bits, bs_head, kv_bits, int(c.sliding_window), int(c.attention_sink),
            int(write_cache), ws_floats, cnt.numel(),
            float(c.query_scale if c.query_scale else 1.0 / (d ** 0.5)),
-           float(c.rms_norm_eps))
+           float(c.rms_norm_eps), table.data_ptr(), hdr.ctypes.data)
     outs = (x_out, k_rows, v_rows, k_sc, v_sc)
     return outs if head is None else outs + (logits, token)
 

@@ -11,6 +11,7 @@
     python -m mnn_tpu_torch.profile_a8 --kernel moe --against OLD/csrc [--tiles 0,1,2,3]
     python -m mnn_tpu_torch.profile_a8 --kernel deq --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/csrc
+    python -m mnn_tpu_torch.profile_a8 --kernel model --against OLD/csrc [--clocks] [--deep]
 
 Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
 `flash_prefill.cu`, `decode_step.cu`, `flash_decode.cu` or `moe_prefill.cu`) and another
@@ -94,8 +95,27 @@ the directory.
   listed cap on the blocks a KV head (`-DMNN_FD_PMAX=p`) and times those
   between the two.
 
+* `--kernel model`: the whole-model decode kernel (`mnn_decode_model`, the
+  five sources `decode_model.cu` and `decode_model_b{1,2,4,8}.cu` with
+  their headers; `--against` a directory) of both, through
+  `decode_model.fused_decode_model`, at the shapes of `chip_smoke.py`
+  phase 2: full-size qwen2-0.5b at batch 1 over an int8 cache at len_old
+  48, 331 and 631, over an int4 and a bf16 cache at 331, batch 4 (48, 331,
+  631, 5), and two layers at qwen2-7b widths (`--deep` adds the 28-layer
+  qwen2-7b row). A call is timed with CUDA events around a loop of 20
+  launches. Each version is held against the other within
+  `decode_model.PARITY_BOUNDS` (logits, rows, scales; int4 rows within one
+  level, as `chip_smoke.py` holds them), and must give the same bits on two
+  calls. An older source without the schedule takes the older C signature
+  (its first 61 arguments). `--clocks` builds both once more with
+  `-DMNN_DM_CLOCKS` and prints, at the 331-position int8 row, the stamps of
+  one call by phase kind (`clock_summary`: the mean cycles between the
+  steps of an item, over the layers after the first) and the barriers'
+  waits (the least wait is what the last block to arrive pays, the spread
+  the most less the least).
+
 It prints both versions' times per shape, with the card's name and power
-limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,fdec,moe,deq}_against.json`
+limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,fdec,moe,deq,model}_against.json`
 as well.
 Needs a card and nvcc.
 """
@@ -157,10 +177,13 @@ ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, ot
          "step": ("mnn_decode_step", "mnn_decode_step"),
          "fdec": ("mnn_flash_decode", "mnn_flash_decode"),
          "moe": ("mnn_moe_prefill", "mnn_moe_prefill"),
-         "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq")}
+         "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq"),
+         "model": ("mnn_decode_model", "mnn_decode_model")}
 SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu",
           "step": "decode_step.cu", "fdec": "flash_decode.cu", "moe": "moe_prefill.cu",
-          "deq": "dequant_matmul.cu"}
+          "deq": "dequant_matmul.cu",
+          "model": ("decode_model.cu", "decode_model_b1.cu", "decode_model_b2.cu",
+                    "decode_model_b4.cu", "decode_model_b8.cu")}
 
 
 LIBS: dict = {}      # name -> the loaded library of `_libraries`
@@ -172,11 +195,19 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
     is built with this tree's headers beside it, a directory (another
     version of `csrc/`) with its own headers; `entry` may name several C
     entries, separated by `|`, of which the first the library has is taken."""
-    cmds, sos = [], {}
+    cmds, links, sos = [], [], {}
     for name, src, entry, defines in specs:
         work = out_dir / name
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
+        flags = [build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+        sos[name] = (work / "lib.so", entry)
+        if isinstance(SOURCE[kind], tuple):     # several sources: objects, then a link
+            objs = [work / (Path(cu).stem + ".o") for cu in SOURCE[kind]]
+            cmds += [[*flags, "-Xptxas", "-v", "-I", str(src), "-c", "-o", str(o),
+                      str(Path(src) / cu)] for cu, o in zip(SOURCE[kind], objs)]
+            links.append([*flags, "-shared", "-o", str(work / "lib.so"), *map(str, objs)])
+            continue
         if Path(src).is_dir():
             cu, inc = Path(src) / SOURCE[kind], Path(src)
         else:
@@ -184,10 +215,19 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
                 shutil.copy(h, work / h.name)
             cu, inc = work / SOURCE[kind], work
             shutil.copy(src, cu)
-        sos[name] = (work / "lib.so", entry)
-        cmds.append([build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-                     "-shared", "-I", str(inc), "-o", str(work / "lib.so"), str(cu)])
-    build._run_all(cmds)
+        cmds.append([*flags, "-shared", "-I", str(inc), "-o", str(work / "lib.so"), str(cu)])
+    if links:       # each object's nvcc output under its path: registers, stack, spills
+        procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)) for c in cmds]
+        log = "".join(f"$ {c[-1]}\n{p.communicate()[0]}" for c, p in procs)
+        out = Path("chiprun_out")
+        out.mkdir(exist_ok=True)
+        (out / f"{kind}_nvcc_log.txt").write_text(log)
+        if any(p.returncode for _, p in procs):
+            raise RuntimeError("CUDA kernel build failed:\n" + log)
+        build._run_all(links)
+    else:
+        build._run_all(cmds)
     fns = {}
     for name, (so, entry) in sos.items():
         LIBS[name] = ctypes.CDLL(str(so))
@@ -205,6 +245,8 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
                            + [ctypes.c_void_p])
         elif kind == "moe":
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        elif kind == "model":
+            fn = _ModelEntry(LIBS[name], name)
         else:
             pointers = 7 if entry.endswith("_a8") else 6
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -213,6 +255,148 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
                 fn.m1.argtypes = fn.argtypes
         fns[name] = fn
     return fns
+
+
+class _ModelEntry:
+    """`mnn_decode_model` of one library, called as the wrapper calls its
+    KERNEL. A source older than the schedule (no `mnn_decode_model_limits`)
+    takes the older signature, the first 61 arguments, and gets scratch and
+    counters of its own: it carves more scratch than the wrapper sizes, and
+    expects its counters at zero."""
+
+    OLD_TYPES = [ctypes.c_void_p] * 39 + [ctypes.c_int] * 20 + [ctypes.c_float] * 2
+    WS, COUNTERS, B, WS_FLOATS, N_COUNTERS = 36, 37, 39, 57, 58   # argument positions
+
+    def __init__(self, lib, name: str):
+        from mnn_tpu_torch.kernels import decode_model
+        self.name, self.entry, self.launches = name, "mnn_decode_model", 0
+        self.scheduled = hasattr(lib, "mnn_decode_model_limits")
+        types = decode_model.KERNEL.argtypes[:-1] if self.scheduled else self.OLD_TYPES
+        self.n = len(types)
+        self.fn = lib.mnn_decode_model
+        self.fn.argtypes = list(types) + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.ws = self.counters = None
+        self.lib = lib
+
+    def limits(self, batch: int, head_dim: int) -> tuple:
+        """This library's `mnn_decode_model_limits` (decode_model.LIMITS)."""
+        out = (ctypes.c_int * 8)()
+        self.lib.mnn_decode_model_limits.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p]
+        err = self.lib.mnn_decode_model_limits(batch, head_dim, out)
+        if err:
+            raise RuntimeError(f"{self.name}: mnn_decode_model_limits: CUDA error {err}")
+        return tuple(out)
+
+    def __call__(self, *args):
+        args = list(args[:self.n])
+        if not self.scheduled:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            ws_floats = args[self.WS_FLOATS] + 2 * sms * 128 * args[self.B]
+            n_counters = args[self.N_COUNTERS] + 4096
+            if self.ws is None or self.ws.numel() < ws_floats:
+                self.ws = torch.empty((ws_floats,), dtype=torch.float32, device="cuda")
+            if self.counters is None or self.counters.numel() < n_counters:
+                self.counters = torch.zeros((n_counters,), dtype=torch.int32, device="cuda")
+            args[self.WS], args[self.COUNTERS] = self.ws.data_ptr(), self.counters.data_ptr()
+            args[self.WS_FLOATS], args[self.N_COUNTERS] = ws_floats, n_counters
+        err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.name}: mnn_decode_model: CUDA launch error {err}")
+        self.launches += 1
+
+
+EV_TAGS = ("start", "barrier_in", "barrier_out", "item", "weights", "x", "published",
+           "merged", "done", "rows", "prep", "cached", "waited")
+EV_KINDS = ("prologue", "qkv", "attention", "wo", "gate_up", "down", "head", "argmax")
+EV_MAX = 2048           # int64 a block in the -DMNN_DM_CLOCKS log (DM_EV_MAX)
+EV_CLOCK_BITS = 40
+
+
+def decode_events(row) -> list:
+    """One block's row of the -DMNN_DM_CLOCKS log -> [(tag, kind, layer,
+    clock)]: entry 0 is the count, each event tag << 56 | kind << 52 |
+    layer << 40 | the clock's low 40 bits."""
+    n = int(row[0])
+    if not 0 <= n < len(row):      # not a log (a source that wrote something else)
+        return []
+    out = []
+    for v in row[1:1 + n]:
+        v = int(v)
+        out.append(((v >> 56) & 0xFF, (v >> 52) & 0xF, (v >> 40) & 0xFFF,
+                    v & ((1 << EV_CLOCK_BITS) - 1)))
+    return out
+
+
+def _cycles(a: int, b: int) -> int:
+    return (b - a) % (1 << EV_CLOCK_BITS)
+
+
+def clock_summary(log, first_layer: int = 1) -> dict:
+    """The -DMNN_DM_CLOCKS log of one call (rows of `EV_MAX` int64 a block)
+    read by phase kind. A block's clock is its SM's, so only differences
+    within a block are taken.
+
+    `steps`: for each phase kind, the mean cycles from each step of an item
+    to the next (item -> waited -> weights -> ...; the tags each kernel
+    logs), over the items of layers >= `first_layer` in every block, and
+    the item count. `block0`: block 0's first item of each kind at
+    `first_layer`, as [step, cycles from the item's start]. `sm_of_block`:
+    the SM each block ran on, where its first event (start) names it. `barriers`: for
+    each grid-wide wait, by the kind of phase it closes, the mean over its
+    instances of the least wait of a block (what the last block to arrive
+    pays: the barrier's own cost), of the most (the spread of the arrivals
+    adds to it), and of the median."""
+    steps: dict = {}
+    block0: dict = {}
+    waits: dict = {}
+    for blk, row in enumerate(log):
+        evs = decode_events(row)
+        item = None          # [kind, layer, start clock, last clock, last step, steps]
+        bars = 0
+        for i, (tag, kind, layer, clk) in enumerate(evs):
+            name = EV_TAGS[tag] if tag < len(EV_TAGS) else str(tag)
+            if name == "barrier_in":
+                if i + 1 < len(evs) and evs[i + 1][0] == EV_TAGS.index("barrier_out"):
+                    waits.setdefault((bars, EV_KINDS[kind], layer), []).append(
+                        _cycles(clk, evs[i + 1][3]))
+                bars += 1
+                continue
+            if name == "item":
+                item = [kind, layer, clk, clk, "item", []]
+                continue
+            if item is None or kind != item[0] or name == "barrier_out":
+                continue
+            item[5].append((name, _cycles(item[2], clk)))
+            if item[1] >= first_layer:
+                d = steps.setdefault(EV_KINDS[kind], {"items": 0})
+                d.setdefault(f"{item[4]}->{name}", []).append(_cycles(item[3], clk))
+                d["items"] += name == "done"
+            item[3], item[4] = clk, name
+            if name == "done":
+                if blk == 0 and item[1] == first_layer and EV_KINDS[kind] not in block0:
+                    block0[EV_KINDS[kind]] = item[5]
+                item = None
+    sms = [ev[2] for row in log for ev in decode_events(row)[:1] if ev[0] == 0]
+    out_steps = {}
+    for kind, d in steps.items():
+        out_steps[kind] = {k: (v if k == "items" else sum(v) / len(v)) for k, v in d.items()}
+    by_kind: dict = {}
+    for (_, kind, layer), w in sorted(waits.items()):
+        if layer < first_layer and kind not in ("head", "argmax"):
+            continue
+        w = sorted(w)
+        e = by_kind.setdefault(kind, {"instances": 0, "least": 0.0, "most": 0.0,
+                                      "median": 0.0, "blocks": len(w)})
+        e["instances"] += 1
+        e["least"] += w[0]
+        e["most"] += w[-1]
+        e["median"] += w[len(w) // 2]
+    for e in by_kind.values():
+        for k in ("least", "most", "median"):
+            e[k] /= e["instances"]
+    return dict(steps=out_steps, block0=block0, barriers=by_kind, sm_of_block=sms)
 
 
 def _time_us(fn, calls: int) -> float:
@@ -533,6 +717,157 @@ def _moe(fns: dict, order: list, card: str, args) -> None:
         raise SystemExit("the versions disagree")
 
 
+# (preset, layers or None for all, kv bits, len_old per sequence): chip_smoke.py phase 2
+MODEL_ROWS = [("qwen2-0.5b", None, 8, (48,)), ("qwen2-0.5b", None, 8, (331,)),
+              ("qwen2-0.5b", None, 8, (631,)), ("qwen2-0.5b", None, 4, (331,)),
+              ("qwen2-0.5b", None, 16, (331,)), ("qwen2-0.5b", None, 8, (48, 331, 631, 5)),
+              ("qwen2-7b", 2, 8, (331,))]
+MODEL_DEEP_ROW = ("qwen2-7b", None, 8, (331,))
+MODEL_CLOCK_ROW = 1          # the row whose stamps --clocks prints
+MODEL_S = 1024
+
+
+def _model_case(dev, g, params, cfg, kv_bits, lengths):
+    """(positional args, keyword args) of one decode step as `forward` gives
+    them: a random cache of MODEL_S positions, embedding rows, rope phases."""
+    from mnn_tpu_torch.models.layers import rope_cos_sin
+    from mnn_tpu_torch.runtime import kvcache
+    b = len(lengths)
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, MODEL_S, cfg.head_dim)
+    kf = torch.randn(shape, device=dev, generator=g)
+    vf = torch.randn(shape, device=dev, generator=g)
+    if kv_bits == 16:
+        kc, vc, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    else:
+        (kc, ks), (vc, vs) = kvcache.quantize_for(kv_bits, kf), kvcache.quantize_for(kv_bits, vf)
+    del kf, vf
+    tok = torch.randint(0, cfg.vocab_size, (b,), device=dev, generator=g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    cos, sin = rope_cos_sin(lens[:, None].long(), cfg.head_dim, cfg.rope_theta,
+                            scaling=cfg.rope_scaling)
+    cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)
+    sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
+    args = (params.embedding[tok], params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
+    return args, dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
+
+
+def _event_ms(fn, calls: int = 20) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _model_clocks(call, dev) -> dict:
+    """One call's -DMNN_DM_CLOCKS log (after two warm calls), read by
+    `clock_summary`; the log goes in through the wrapper's EVENT_LOG."""
+    from mnn_tpu_torch.kernels import decode_model
+    log = torch.zeros((1024, EV_MAX), dtype=torch.int64, device=dev)
+    decode_model.EVENT_LOG = log
+    try:
+        call()
+        call()
+        log.zero_()
+        call()
+        torch.cuda.synchronize()
+    finally:
+        decode_model.EVENT_LOG = None
+    return clock_summary(log.cpu().numpy())
+
+
+def _model(fns: dict, order: list, card: str, args) -> None:
+    """--kernel model: every version in `order` at the phase-2 shapes."""
+    from mnn_tpu_torch.kernels import decode_model
+    from mnn_tpu_torch.models import decoder
+    from mnn_tpu_torch.models.config import PRESETS
+    import dataclasses
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    rows_out, params, clocks = [], {}, {}
+    own, own_limits = decode_model.KERNEL, decode_model.LIMITS
+    for name, fn in fns.items():
+        if fn.scheduled:
+            print(f"{name}: (blocks an SM, shared bytes, ring slots, SMs, registers, most "
+                  f"threads, static shared, local bytes) at B = 1 "
+                  f"{fn.limits(1, 64)} (D 64), {fn.limits(1, 128)} (D 128); B = 8 "
+                  f"{fn.limits(8, 128)}", flush=True)
+    model_rows = MODEL_ROWS + ([MODEL_DEEP_ROW] if args.deep else [])
+    try:
+        for idx, (preset, layers, kv_bits, lengths) in enumerate(model_rows):
+            cfg = PRESETS[preset]
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            if (preset, layers) not in params:
+                params.clear()
+                torch.cuda.empty_cache()
+                params[(preset, layers)] = decoder.init_random_params(
+                    cfg, torch.Generator().manual_seed(0), lm_head_bits=4, device=dev)
+            prm = params[(preset, layers)]
+            pos, kw = _model_case(dev, g, prm, cfg, kv_bits, lengths)
+            outs, row = {}, {ver: [] for ver in versions}
+            same = True
+            for ver in order:
+                decode_model.KERNEL = fns.get(ver, fns["this"])
+                decode_model.LIMITS = (decode_model.KERNEL.limits if decode_model.KERNEL.scheduled
+                                       else fns["this"].limits)
+                call = lambda: decode_model.fused_decode_model(*pos, **kw)
+                if ver not in outs:
+                    outs[ver] = call()
+                    again = call()
+                    torch.cuda.synchronize()
+                    same = same and all(a is None or torch.equal(a, c)
+                                        for a, c in zip(outs[ver], again))
+                row[ver].append(_event_ms(call))
+            deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
+            bad = []
+            for ver in versions[1:]:      # each against the other version
+                mv = decode_model.parity_metrics(outs[ver], outs["other"], kv_bits)
+                bad += [f"{ver}:{k}" for k in
+                        decode_model.parity_failures(mv, skip=("x_rel",), **deep4)]
+                if ver == "this":
+                    m = mv
+            shape = (f"{preset}{f' x{layers} layers' if layers else ''} B={len(lengths)} "
+                     f"kv{kv_bits} len_old={','.join(map(str, lengths))}")
+            if idx == MODEL_CLOCK_ROW and args.clocks:
+                for ver, clk in (("this", "clk"), ("other", "oclk")):
+                    decode_model.KERNEL = fns[clk]
+                    decode_model.LIMITS = (fns[clk].limits if fns[clk].scheduled
+                                           else fns["this"].limits)
+                    clocks[ver] = _model_clocks(
+                        lambda: decode_model.fused_decode_model(*pos, **kw), dev)
+                    print(f"  clocks, {ver}: {json.dumps(clocks[ver])}", flush=True)
+            rows_out.append(dict(shape=shape, parity=m, failures=bad, same_twice=same))
+            for ver in versions:
+                times[ver].append(row[ver])
+            print(f"{shape}: " + ", ".join(
+                f"{ver} {' / '.join(f'{x:.4f}' for x in row[ver])} ms" for ver in versions)
+                + f"; this against other: logits rel {m['logits_rel']:.2e}, rows "
+                  f"{m['rows_rel']:.2e}, failures {bad}; same bits twice {same}",
+                flush=True)
+            del pos, kw, outs
+            torch.cuda.empty_cache()
+    finally:
+        decode_model.KERNEL, decode_model.LIMITS = own, own_limits
+    ok = all(not r["failures"] and r["same_twice"] for r in rows_out)
+    print(f"every row within PARITY_BOUNDS of the other and the same bits twice: {ok}")
+    print(card)
+    result = dict(card=card, kernel="model", rows=rows_out, order=order, ms=times,
+                  clocks=clocks, agree=ok, against=str(args.against))
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "model_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the versions disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
@@ -543,18 +878,21 @@ def main():
                          "tile kernel against the other's tile or row kernel, and the "
                          "M = 1 GEMV; flash: the causal flash prefill kernel; step: the "
                          "fused decode step; fdec: flash decode; moe: the grouped expert "
-                         "prefill MLP; deq: the dequantize-tile matmul")
+                         "prefill MLP; deq: the dequantize-tile matmul; model: the "
+                         "whole-model decode kernel")
     ap.add_argument("--warps", default="",
                     help="flash only: comma-separated block shapes, query warps x "
                          "position groups (4x1, 2x2, 1x4, 4x2), to build and time this "
                          "source at, besides its own choice")
     ap.add_argument("--clocks", action="store_true",
-                    help="step, moe, deq: also build with -DMNN_DS_CLOCKS (step) or "
-                         "-DMNN_DD_CLOCKS (moe, deq) and print the kernel's steps on the "
-                         "SM clock a shape")
+                    help="step, moe, deq, model: also build with -DMNN_DS_CLOCKS (step), "
+                         "-DMNN_DD_CLOCKS (moe, deq) or -DMNN_DM_CLOCKS (model, both "
+                         "versions) and print the kernel's steps on the SM clock")
+    ap.add_argument("--deep", action="store_true",
+                    help="model only: add the 28-layer qwen2-7b row")
     ap.add_argument("--variant", action="append", default=[],
-                    help="moe, deq: NAME:DEFINE[+DEFINE...], this source built with those "
-                         "macros and timed beside it, e.g. nopipe:MNN_DD_PIPE=0")
+                    help="moe, deq, model: NAME:DEFINE[+DEFINE...], this source built with "
+                         "those macros and timed beside it, e.g. nopipe:MNN_DD_PIPE=0")
     ap.add_argument("--splits", default="",
                     help="step, fdec: comma-separated caps on the blocks a KV head "
                          "(8, 4, 1); rows: on the K ranges a tile at M = 1; each built "
@@ -570,6 +908,20 @@ def main():
                           check=True).stdout.strip().splitlines()[0]
     a8 = args.kernel == "a8"
     out_dir = build.BUILD_ROOT / "profile_a8"
+    if args.kernel == "model":
+        if not args.against.is_dir():
+            raise SystemExit("--kernel model needs --against DIR (another csrc/)")
+        specs = [("this", build.CSRC, "mnn_decode_model", ()),
+                 ("other", args.against, "mnn_decode_model", ())]
+        if args.clocks:
+            specs += [("clk", build.CSRC, "mnn_decode_model", ("MNN_DM_CLOCKS",)),
+                      ("oclk", args.against, "mnn_decode_model", ("MNN_DM_CLOCKS",))]
+        variants = [v.split(":", 1) for v in args.variant]
+        specs += [(name, build.CSRC, "mnn_decode_model", tuple(d for d in defs.split("+") if d))
+                  for name, defs in variants]
+        fns = _libraries(specs, out_dir, "model")
+        mid = ["this"] + [name for name, _ in variants]
+        return _model(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
     src = build.CSRC / SOURCE[args.kernel]
     other_entry = ENTRY[args.kernel][1]
     if args.kernel == "rows":      # the other's tile kernel where it has one

@@ -13,9 +13,9 @@ greedy decode steps with `torch.profiler`. It prints, per decode step and
 path: the wall time (of an untraced run of as many steps), the device's busy
 time in the traced run (the sum of the kernels' device times; one stream, so
 they do not overlap), the idle share of the untraced wall time, the number of
-kernel launches, and the device time of each kernel by name; for the
-whole-model kernel also the share of its time that each kind of phase takes
-(block 0's clock at the end of every phase). A mixture-of-experts preset
+kernel launches, and the device time of each kernel by name (where the
+whole-model kernel's time goes inside it: `profile_a8 --kernel model
+--clocks`, a build with stamps). A mixture-of-experts preset
 (`--preset qwen1.5-moe-a2.7b`) has the per-layer path only: its expert MLP
 runs in the fused expert kernel, one entry a layer.
 
@@ -38,9 +38,7 @@ from pathlib import Path
 
 import torch
 
-from mnn_tpu_torch.kernels import decode_model
 from mnn_tpu_torch.models.config import RuntimeConfig
-from mnn_tpu_torch.models.decoder import forward
 from mnn_tpu_torch.runtime import generate as gen
 from mnn_tpu_torch.runtime import kvcache, sampler
 from mnn_tpu_torch.runtime.llm import Llm
@@ -69,11 +67,7 @@ def profile_path(llm, rt, ids, n_steps: int, megakernel) -> dict:
     by_name, (logits, cache, state), wall_traced = traced(
         lambda: steps(n_steps, logits, cache, state), n_steps)
     busy = sum(ms for _, ms, _ in by_name)
-    extra = {}
-    if megakernel is None:
-        extra["phase_shares"] = phase_shares(
-            llm, cache, torch.zeros((1, 1), dtype=torch.int64, device=llm.device))
-    return dict(**extra, wall_ms_per_step=wall * 1e3,
+    return dict(wall_ms_per_step=wall * 1e3,
                 wall_ms_per_step_traced=wall_traced * 1e3,
                 device_busy_ms_per_step=busy,
                 device_idle_share=1 - busy / (wall * 1e3),
@@ -119,28 +113,6 @@ def profile_prefill(llm, rt, ids) -> dict:
                 kernel_launches=sum(n for _, _, n in by_name),
                 chunks=gen.prefill_buckets(ids.shape[1], rt.prefill_chunk),
                 kernels=[dict(name=k, ms=ms, launches=n) for k, ms, n in by_name])
-
-
-def phase_shares(llm, cache, token) -> dict:
-    """One more step of the whole-model kernel with its phase clocks on:
-    {phase kind: share of the kernel's time}, summed over the layers. A
-    phase's time includes the grid barrier that ends it."""
-    c = llm.config
-    names = decode_model.phase_names(
-        c.num_layers, decode_model.supports_head(c, llm.params))
-    clocks = torch.zeros((len(names),), dtype=torch.int64, device=llm.device)
-    decode_model.PHASE_CLOCKS = clocks
-    try:
-        forward(llm.params, c, token, cache, megakernel=True)
-        torch.cuda.synchronize()
-    finally:
-        decode_model.PHASE_CLOCKS = None
-    t = clocks.tolist()
-    total = t[-1] - t[0]
-    shares: dict = {}
-    for name, a, b in zip(names[1:], t[:-1], t[1:]):
-        shares[name] = shares.get(name, 0.0) + (b - a) / total
-    return shares
 
 
 def main(argv=None):
@@ -200,9 +172,6 @@ def main(argv=None):
         for k in r["kernels"][:12]:
             print(f"  {k['ms_per_step']:8.4f} ms  x{k['launches_per_step']:5.1f}  "
                   f"{k['name'][:100]}")
-        if "phase_shares" in r:
-            print("  whole-model kernel, share of its time by phase: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in r["phase_shares"].items()))
     out.write_text(json.dumps(res, indent=1))
 
 

@@ -490,10 +490,40 @@ DECODE_MODEL = [
           num_layers=2), 4, 8, 4, (100,)),
     (dict(num_heads=16, hidden_size=1024), 8, 16, 4, (17,) * 8),
 ]
+# the lengths at a 64-position split's edges and the last slot; batch 1, 3
+# and 8; D 64 and 128; KV 4, 8 and 16 bits; QK-norm with and without the
+# QKV bias; window + sink
+DECODE_MODEL_EDGES = [
+    ({}, 4, 8, 4, (1, 63, 64, 65, 127, 0, 9, 100)),
+    (dict(hidden_size=512, head_dim=128, intermediate_size=1024), 4, 8, 4, (63, 64, 65)),
+    (dict(hidden_size=512, head_dim=128, intermediate_size=1024), 4, 16, 4, (127,)),
+    (dict(qk_norm=True), 4, 4, 4, (0, 65, 127)),
+    (dict(qk_norm=True, hidden_size=512, head_dim=128, intermediate_size=1024,
+          sliding_window=40, attention_sink=4), 8, 8, 8, (127, 1, 64)),
+]
 
 
 @pytest.mark.parametrize("changes,bits,kv_bits,head_bits,lengths", DECODE_MODEL)
 def test_decode_model_kernel(dev, changes, bits, kv_bits, head_bits, lengths):
+    check_decode_model(dev, changes, bits, kv_bits, head_bits, lengths)
+
+
+@pytest.mark.parametrize("changes,bits,kv_bits,head_bits,lengths", DECODE_MODEL_EDGES)
+def test_decode_model_kernel_edges(dev, changes, bits, kv_bits, head_bits, lengths):
+    """The same checks at the edges of the kernel's schedule. An int4 level
+    is 18 times an int8 one, so another summation order that flips a bf16
+    rounding in layer 1 or 2 moves a stored row by a whole level: past layer
+    0 (held to the same levels and scales), int4 rows are held as
+    `chip_smoke.py` holds them, within one level and a dequantized rel-L2 of
+    1.5e-1."""
+    deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
+    check_decode_model(dev, changes, bits, kv_bits, head_bits, lengths, **deep4)
+
+
+def check_decode_model(dev, changes, bits, kv_bits, head_bits, lengths, **bounds):
+    """The kernel against its plain version from the same state, within
+    `decode_model.PARITY_BOUNDS` (`bounds` replaces some); the same bits
+    again with the cache written in place, and the rows where they belong."""
     cfg = dataclasses.replace(MK, **changes)
     b, s = len(lengths), 128
     gen = torch.Generator().manual_seed(bits + kv_bits + b)
@@ -526,7 +556,7 @@ def test_decode_model_kernel(dev, changes, bits, kv_bits, head_bits, lengths):
     assert len(got) == (7 if head_bits else 5)
     assert all(torch.isfinite(t).all() for t in got if t is not None)
     m = decode_model.parity_metrics(got, want, kv_bits)
-    assert not decode_model.parity_failures(m), m
+    assert not decode_model.parity_failures(m, **bounds), m
     # the same launch again gives the same bits, and wrote the rows in place
     for a, c in zip(got, again):
         assert a is None or torch.equal(a, c)
@@ -536,6 +566,48 @@ def test_decode_model_kernel(dev, changes, bits, kv_bits, head_bits, lengths):
     assert torch.equal(vc[:, bi, :, pos].float(), got[2][:, :, :, 0].transpose(0, 1))
     if kv_bits < 16:
         assert torch.equal(ks[:, bi, :, pos], got[3][:, :, :, 0].transpose(0, 1))
+
+
+def _decode_model_case(dev, cfg, b, s, lengths, kv_bits=8, seed=5):
+    params = decoder.init_random_params(cfg, torch.Generator().manual_seed(seed), scale=0.05,
+                                        lm_head_bits=4, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, s, cfg.head_dim,
+                                kv_bits)
+    x = (torch.randn((b, cfg.hidden_size), device=dev, generator=g) * 0.05).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ang = torch.rand((b, cfg.head_dim // 2), device=dev, generator=g) * 6.28
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    args = (x, params.layers, kc, vc, ks, vs, lens, cos, sin)
+    return args, dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
+
+
+def test_decode_model_kernel_replays_without_reset(dev):
+    """Three launches back to back, then a captured CUDA graph of one launch
+    replayed three times, with no host-side reset of the arrival counters in
+    between: every call gives the first call's bits, so each launch zeroes
+    its counters itself and leaves the grid-wide wait's word as it found it.
+    A second shape in between shares the counters."""
+    args, kw = _decode_model_case(dev, MK, 1, 128, (70,))
+    other = _decode_model_case(dev, dataclasses.replace(MK, num_layers=2), 3, 128, (5, 64, 9))
+    first = decode_model.fused_decode_model(*args, **kw)
+    for _ in range(2):
+        decode_model.fused_decode_model(*other[0], **other[1])
+        again = decode_model.fused_decode_model(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(a is None or torch.equal(a, c) for a, c in zip(first, again))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_model.fused_decode_model(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = decode_model.fused_decode_model(*args, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(a is None or torch.equal(a, c) for a, c in zip(first, static))
 
 
 def test_tiny_slice_card_matches_cpu(dev):
@@ -601,6 +673,45 @@ def test_megakernel_slice_card_matches_cpu(dev, kv_bits):
     torch.cuda.synchronize()
     assert rel(mk, ref) <= 5e-2
     assert int(mtok[0]) == int(decode_model.lowest_argmax(mk)[0])
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_megakernel_stream_matches_per_layer(dev, kv_bits):
+    """A 32-token greedy `Llm.stream` on the card through the whole-model
+    kernel (one launch a token, fed back from its own argmax), against the
+    per-layer path teacher-forced on the card from the same prompt: the
+    tokens agree at every step whose top-2 margin is above the largest logit
+    difference seen, and at least 8 of the 32 steps are compared."""
+    cfg = dataclasses.replace(MK, tie_word_embeddings=False)
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=8, sampler="greedy",
+                       lm_head_bits=4, kv_bits=kv_bits, max_new_tokens=32)
+    params = decoder.init_random_params(cfg, torch.Generator().manual_seed(3), scale=0.05,
+                                        lm_head_bits=4, device=dev)
+    llm = Llm(cfg, params, rt, device=dev)
+    assert llm.info()["decode_megakernel"]
+    ids = list(range(5, 45))
+    build.reset_launches()
+    out = list(llm.stream(token_ids=ids))
+    assert len(out) == 32 and decode_model.KERNEL.launches == rt.max_new_tokens
+    from mnn_tpu_torch.runtime import generate
+    logits, cache = generate.run_prefill(params, cfg, rt, torch.tensor([ids], device=dev),
+                                         llm._new_cache())
+    rows, diff = [logits], 0.0
+    for tok in out[:-1]:
+        t = torch.tensor([[tok]], device=dev)
+        mk, _ = decoder.forward(params, cfg, t, _clone(cache), megakernel=True)
+        logits, cache = decoder.forward(params, cfg, t, cache, megakernel=False)
+        diff = max(diff, float((mk - logits).abs().max()))
+        rows.append(logits)
+    compared = 0
+    for step, row in enumerate(rows):
+        top2 = row[0].float().topk(2).values
+        if float(top2[0] - top2[1]) <= diff:
+            continue
+        assert int(row.argmax()) == out[step], f"step {step}"
+        compared += 1
+    print(f"kv{kv_bits}: {compared} of 32 steps compared (largest difference {diff:.3e})")
+    assert compared >= 8, f"{compared} of 32 steps compared (largest difference {diff:.3e})"
 
 
 def _clone(cache):
