@@ -35,8 +35,9 @@ Phases, each of which exits non-zero on failure:
    layers at `qwen2-7b` widths and all 28 of qwen2-7b (each row with the
    schedule the kernel walked; two calls must give the same bits); the two mixture-of-experts kernels and
    the dequantize-tile matmul at `qwen1.5-moe-a2.7b`'s and
-   `qwen3-moe-30b-a3b`'s widths, each row with the tile the kernel took;
-   the grouped expert kernel must give the same bits twice;
+   `qwen3-moe-30b-a3b`'s widths, each row with the tile the kernel took
+   (the fused expert kernel's with the share of its bound it reaches);
+   both expert kernels must give the same bits twice;
 3. the serving paths themselves on `Llm.synthetic("qwen2-0.5b")` at full
    width and depth (W4 block-128 weights, int4 lm head, int8 prefill
    activations), each with the launch counts set to 0 before and read after:
@@ -798,11 +799,11 @@ def phase_moe_decode(dev, g, results):
             row = dict(shape=f"{preset} n={n} E={e} k={k} mi={mi} si={si}",
                        max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-                       distinct_experts=distinct)
+                       bound_share=bound / ms, distinct_experts=distinct)
             rows.append(row)
             print(f"  moe_decode         {row['shape']:48s} rel {rel:.2e} (tol {MOE_TOL}) | "
                   f"kernel {ms:.4f} ms plain {plain_ms:.3f} lib {lib_ms:.4f} "
-                  f"bound {bound:.4f} ({bound_by})", flush=True)
+                  f"bound {bound:.4f} ({bound_by}, {100 * bound / ms:.1f} % of it)", flush=True)
             del wg, wd
         del lay
         torch.cuda.empty_cache()

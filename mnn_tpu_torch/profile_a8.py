@@ -12,6 +12,7 @@
     python -m mnn_tpu_torch.profile_a8 --kernel deq --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel model --against OLD/csrc [--clocks] [--deep]
+    python -m mnn_tpu_torch.profile_a8 --kernel mdec --against OLD/csrc [--clocks]
 
 Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
 `flash_prefill.cu`, `decode_step.cu`, `flash_decode.cu` or `moe_prefill.cu`) and another
@@ -114,8 +115,25 @@ the directory.
   waits (the least wait is what the last block to arrive pays, the spread
   the most less the least).
 
+* `--kernel mdec`: the fused expert decode kernel (`mnn_moe_decode` of
+  `moe_decode.cu`; `--against` a directory whose source has the one-launch
+  entry, `mnn_moe_decode_limits` and `md_clocks.cuh`) of both, through
+  `moe_decode.moe_decode_mlp`, at the rows of `chip_smoke.py` phase 2:
+  qwen1.5-moe-a2.7b (4 layers, shared expert under its gate) and
+  qwen3-moe-30b-a3b (8 layers) at n = 1 and 4, W4
+  block 128; a call rotates over the layers, 147 and 302 MB, more than
+  L2. Each row prints both versions' device time a call (a CUDA graph of
+  16 calls), the host's time a call (the wrapper and its launch, 100 calls
+  queued without a synchronize), each kernel's device time by name
+  (torch.profiler, 8 calls), rel-L2 to the plain version and between the
+  versions, and whether each gives the same bits twice. `--clocks` builds
+  both once more with `-DMNN_MD_CLOCKS` and prints, a row, the mean cycles between the steps
+  of an item by kind (`epi_*`: the epilogue warp's), the cycles an item's
+  compute warps waited for full ring slots and its producer for free ones,
+  and the blocks' spans (`md_clock_summary`).
+
 It prints both versions' times per shape, with the card's name and power
-limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,fdec,moe,deq,model}_against.json`
+limit; the JSON goes to `chiprun_out/{a8,rows,flash,step,fdec,moe,deq,model,mdec}_against.json`
 as well.
 Needs a card and nvcc.
 """
@@ -128,6 +146,7 @@ import json
 import math
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -178,10 +197,11 @@ ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, ot
          "fdec": ("mnn_flash_decode", "mnn_flash_decode"),
          "moe": ("mnn_moe_prefill", "mnn_moe_prefill"),
          "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq"),
-         "model": ("mnn_decode_model", "mnn_decode_model")}
+         "model": ("mnn_decode_model", "mnn_decode_model"),
+         "mdec": ("mnn_moe_decode", "mnn_moe_decode")}
 SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu",
           "step": "decode_step.cu", "fdec": "flash_decode.cu", "moe": "moe_prefill.cu",
-          "deq": "dequant_matmul.cu",
+          "deq": "dequant_matmul.cu", "mdec": "moe_decode.cu",
           "model": ("decode_model.cu", "decode_model_b1.cu", "decode_model_b2.cu",
                     "decode_model_b4.cu", "decode_model_b8.cu")}
 
@@ -247,6 +267,8 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         elif kind == "model":
             fn = _ModelEntry(LIBS[name], name)
+        elif kind == "mdec":
+            fn = _MdecEntry(LIBS[name], name)
         else:
             pointers = 7 if entry.endswith("_a8") else 6
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -868,6 +890,230 @@ def _model(fns: dict, order: list, card: str, args) -> None:
         raise SystemExit("the versions disagree")
 
 
+# (preset, E, k, mi, si, layers, n): chip_smoke.py phase 2's fused expert decode rows
+MDEC_ROWS = [("qwen1.5-moe-a2.7b", 60, 4, 1408, 5632, 4, 1),
+             ("qwen1.5-moe-a2.7b", 60, 4, 1408, 5632, 4, 4),
+             ("qwen3-moe-30b-a3b", 128, 8, 768, 0, 8, 1),
+             ("qwen3-moe-30b-a3b", 128, 8, 768, 0, 8, 4)]
+MDEC_H = 2048
+MD_EV_MAX, MD_CLK_ROWS = 256, 4096      # csrc/md_clocks.cuh
+MD_TAGS = ("start", "item", "weights", "waited", "x", "products", "published", "merged",
+           "done", "exit", "full_wait", "empty_wait")
+MD_KINDS = ("gu_routed", "gu_shared", "dn_routed", "dn_shared", "epi_gu_routed",
+            "epi_gu_shared", "epi_dn_routed", "epi_dn_shared")
+def md_clock_summary(log) -> dict:
+    """The -DMNN_MD_CLOCKS log of one call read by item kind: for each kind
+    the items and the mean cycles from each step of an item to the next
+    (the steps a source logs: item -> weights -> waited -> x -> products ->
+    published -> merged -> done), the mean cycles an item's consumers waited
+    for full ring slots and its producer for free ones (`full_wait`,
+    `empty_wait`, where the source logs them), and over the blocks that
+    logged steps, the mean and largest cycles from a block's start to its
+    last event and the mean and largest item count a block. A stamp inside
+    an item takes the kind of the item's own stamp."""
+    steps: dict = {}
+    spans, counts = [], []
+    for row in log:
+        evs = decode_events(row)     # (tag, kind, aux, clock)
+        timed = [ev for ev in evs if MD_TAGS[ev[0]] not in ("full_wait", "empty_wait")
+                 if ev[0] < len(MD_TAGS)]
+        item, items = None, 0
+        for tag, kind, _, clk in evs:
+            name = MD_TAGS[tag] if tag < len(MD_TAGS) else str(tag)
+            kname = MD_KINDS[kind] if kind < len(MD_KINDS) else str(kind)
+            if name in ("full_wait", "empty_wait"):
+                steps.setdefault(kname, {"items": 0}).setdefault(name, []).append(clk)
+                continue
+            if name == "item":
+                item = [kname, clk, "item"]
+                items += 1
+                steps.setdefault(item[0], {"items": 0})["items"] += 1
+                continue
+            if item is None or name in ("start", "exit"):
+                continue
+            d = steps[item[0]]
+            d.setdefault(f"{item[2]}->{name}", []).append(_cycles(item[1], clk))
+            item[1], item[2] = clk, name
+        if timed:
+            spans.append(_cycles(timed[0][3], timed[-1][3]))
+            counts.append(items)
+    out = {kind: {k: (v if k == "items" else sum(v) / len(v)) for k, v in d.items()}
+           for kind, d in steps.items()}
+    if spans:
+        out["blocks"] = dict(count=len(spans), span_mean=sum(spans) / len(spans),
+                             span_max=max(spans), items_mean=sum(counts) / len(counts),
+                             items_max=max(counts))
+    return out
+
+
+class _MdecEntry:
+    """`mnn_moe_decode` of one library, called by `moe_decode.moe_decode_mlp`
+    with this entry in place of its KERNEL and LIMITS."""
+
+    def __init__(self, lib, name: str):
+        from mnn_tpu_torch.kernels import moe_decode
+        self.name, self.entry, self.launches, self.lib = name, "mnn_moe_decode", 0, lib
+        if not hasattr(lib, "mnn_moe_decode_limits"):
+            raise SystemExit(f"{name}: no mnn_moe_decode_limits: --kernel mdec times "
+                             "sources with the one-launch entry only")
+        self.fn = lib.mnn_moe_decode
+        self.fn.argtypes = list(moe_decode.KERNEL.argtypes[:-1]) + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.argtypes = self.fn.argtypes
+        self.lib.mnn_moe_decode_limits.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        self.clocks = hasattr(lib, "mnn_moe_decode_clocks")
+        if self.clocks:
+            lib.mnn_moe_decode_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+    def limits(self, n: int, bits: int) -> tuple:
+        out = (ctypes.c_int * 10)()
+        err = self.lib.mnn_moe_decode_limits(n, bits, out)
+        if err:
+            raise RuntimeError(f"{self.name}: mnn_moe_decode_limits: CUDA error {err}")
+        return tuple(out)
+
+    def __call__(self, *args):
+        err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.name}: mnn_moe_decode: CUDA launch error {err}")
+        self.launches += 1
+
+
+def _mdec_case(dev, g, preset, e, k, mi, si, nl, n):
+    """(config, LayerParams, x, sel, wsel, gate) of one phase-2 row, W4
+    block 128, as chip_smoke.py makes them."""
+    from mnn_tpu_torch.models import decoder
+    from mnn_tpu_torch.models.config import PRESETS
+    from mnn_tpu_torch.quant.quantize import QuantizedLinear
+    cfg = PRESETS[preset]
+    h = cfg.hidden_size
+
+    def stack(lead, kd, nd):
+        p, s, b = _moe_weights(g, lead, kd, nd)
+        return QuantizedLinear(packed=p, scale=s, bias=b, out_bias=None, bits=4,
+                               block_size=128, act_bits=16)
+    lay = decoder.LayerParams(
+        wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
+        wgu_e=stack((nl, e), h, 2 * mi), wdown_e=stack((nl, e), mi, h),
+        wgu_shared=stack((nl,), h, 2 * si) if si else None,
+        wdown_shared=stack((nl,), si, h) if si else None)
+    x = torch.randn((n, h), device=dev, generator=g) * 0.5
+    sel = torch.stack([torch.randperm(e, device=dev, generator=g)[:k]
+                       for _ in range(n)]).to(torch.int32)
+    wsel = torch.softmax(torch.randn((n, k), device=dev, generator=g), -1)
+    gate = torch.rand((n,), device=dev, generator=g) if si else None
+    return cfg, lay, x, sel, wsel, gate
+
+
+def _mdec_read_clocks(entry) -> "numpy.ndarray":
+    import numpy as np
+    log = np.zeros((MD_CLK_ROWS, MD_EV_MAX), dtype=np.int64)
+    err = entry.lib.mnn_moe_decode_clocks(log.ctypes.data, MD_CLK_ROWS)
+    if err:
+        raise RuntimeError(f"{entry.name}: mnn_moe_decode_clocks: CUDA error {err}")
+    return log
+
+
+def _host_us(call, calls: int = 100) -> float:
+    """The host's µs a call of `call(i)`: `calls` calls queued without a
+    synchronize (few enough that the launch queue never blocks)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        call(i)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _mdec(fns: dict, order: list, card: str, args) -> None:
+    """--kernel mdec: every version in `order` at phase 2's rows."""
+    from mnn_tpu_torch.kernels import moe_decode
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    times = {ver: [] for ver in versions}
+    own = (moe_decode.KERNEL, getattr(moe_decode, "LIMITS", None))
+    rows_out, ok = [], True
+
+    def caller(fn, cfg, lay, x, sel, wsel, gate, nl):
+        def call(i):
+            moe_decode.KERNEL, moe_decode.LIMITS = fn, fn.limits
+            return moe_decode.moe_decode_mlp(x, lay, sel, wsel, i % nl, gate, config=cfg)
+        return call
+
+    try:
+        for preset, e, k, mi, si, nl, n in MDEC_ROWS:
+            cfg, lay, x, sel, wsel, gate = _mdec_case(dev, g, preset, e, k, mi, si, nl, n)
+            want = moe_decode.moe_decode_mlp_plain(x, lay, sel, wsel, 1, gate, config=cfg)
+            outs, same, by_name, clocks = {}, {}, {}, {}
+            row, host = {ver: [] for ver in versions}, {ver: [] for ver in versions}
+            for ver in order:
+                call = caller(fns[ver], cfg, lay, x, sel, wsel, gate, nl)
+                if ver not in outs:
+                    outs[ver] = call(1)
+                    again = call(1)
+                    torch.cuda.synchronize()
+                    same[ver] = bool(torch.equal(outs[ver], again))
+                    acts = [torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]
+                    with torch.profiler.profile(activities=acts) as prof:
+                        for i in range(8):
+                            call(i)
+                        torch.cuda.synchronize()
+                    by_name[ver] = {ev.key: ev.self_device_time_total / 8
+                                    for ev in prof.key_averages()
+                                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                                    and ev.self_device_time_total > 0}
+                row[ver].append(_time_us(call, 16))
+                host[ver].append(_host_us(call))
+            if args.clocks:
+                for ver, clk in (("this", "clk"), ("other", "oclk")):
+                    call = caller(fns[clk], cfg, lay, x, sel, wsel, gate, nl)
+                    call(0)
+                    call(1)
+                    _mdec_read_clocks(fns[clk])          # and zero the log
+                    call(2)
+                    clocks[ver] = md_clock_summary(_mdec_read_clocks(fns[clk]))
+                    print(f"  clocks, {ver}: {json.dumps(clocks[ver])}", flush=True)
+            rel_plain = {ver: _rel(outs[ver], want) for ver in versions}
+            rel_other = {ver: _rel(outs[ver], outs["other"]) for ver in versions}
+            bits_other = {ver: bool(torch.equal(outs[ver], outs["other"])) for ver in versions}
+            good = all(r <= 2e-2 for r in rel_plain.values()) and all(same.values())
+            ok = ok and good
+            shape = f"{preset} n={n} E={e} k={k} mi={mi} si={si}"
+            rows_out.append(dict(shape=shape, us=row, host_us=host, rel_plain=rel_plain,
+                                 rel_other=rel_other,
+                                 same_bits_as_other=bits_other, same_twice=same,
+                                 kernels_us=by_name, clocks=clocks))
+            for ver in versions:
+                times[ver].append(row[ver])
+            print(f"{shape}: " + ", ".join(
+                f"{ver} {' / '.join(f'{t:.2f}' for t in row[ver])} us" for ver in versions)
+                + f"; rel-L2 to plain {json.dumps({v: f'{r:.2e}' for v, r in rel_plain.items()})}"
+                  f", this to other {rel_other.get('this', 0.0):.2e} (same bits "
+                  f"{bits_other.get('this')}); same bits twice {same}", flush=True)
+            print("  host us a call: " + ", ".join(
+                f"{ver} {' / '.join(f'{t:.2f}' for t in host[ver])}" for ver in versions),
+                flush=True)
+            for ver in versions:
+                print(f"  kernels of {ver}, us a call: " + ", ".join(
+                    f"{name} {t:.2f}" for name, t in sorted(by_name[ver].items())), flush=True)
+            del lay, outs
+            torch.cuda.empty_cache()
+    finally:
+        moe_decode.KERNEL, moe_decode.LIMITS = own
+    print(f"every version within rel-L2 2e-2 of the plain version and the same bits twice: {ok}")
+    print(card)
+    result = dict(card=card, kernel="mdec", rows=rows_out, order=order, us=times, agree=ok,
+                  against=str(args.against))
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "mdec_against.json").write_text(json.dumps(result, indent=1))
+    if not ok:
+        raise SystemExit("the versions disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
@@ -879,15 +1125,16 @@ def main():
                          "M = 1 GEMV; flash: the causal flash prefill kernel; step: the "
                          "fused decode step; fdec: flash decode; moe: the grouped expert "
                          "prefill MLP; deq: the dequantize-tile matmul; model: the "
-                         "whole-model decode kernel")
+                         "whole-model decode kernel; mdec: the fused expert decode kernel")
     ap.add_argument("--warps", default="",
                     help="flash only: comma-separated block shapes, query warps x "
                          "position groups (4x1, 2x2, 1x4, 4x2), to build and time this "
                          "source at, besides its own choice")
     ap.add_argument("--clocks", action="store_true",
-                    help="step, moe, deq, model: also build with -DMNN_DS_CLOCKS (step), "
-                         "-DMNN_DD_CLOCKS (moe, deq) or -DMNN_DM_CLOCKS (model, both "
-                         "versions) and print the kernel's steps on the SM clock")
+                    help="step, moe, deq, model, mdec: also build with -DMNN_DS_CLOCKS "
+                         "(step), -DMNN_DD_CLOCKS (moe, deq), -DMNN_DM_CLOCKS (model, both "
+                         "versions) or -DMNN_MD_CLOCKS (mdec, both versions) and print the "
+                         "kernel's steps on the SM clock")
     ap.add_argument("--deep", action="store_true",
                     help="model only: add the 28-layer qwen2-7b row")
     ap.add_argument("--variant", action="append", default=[],
@@ -922,6 +1169,16 @@ def main():
         fns = _libraries(specs, out_dir, "model")
         mid = ["this"] + [name for name, _ in variants]
         return _model(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
+    if args.kernel == "mdec":
+        if not args.against.is_dir():
+            raise SystemExit("--kernel mdec needs --against DIR (another csrc/)")
+        specs = [("this", build.CSRC, "mnn_moe_decode", ()),
+                 ("other", args.against, "mnn_moe_decode", ())]
+        if args.clocks:
+            specs += [("clk", build.CSRC, "mnn_moe_decode", ("MNN_MD_CLOCKS",)),
+                      ("oclk", args.against, "mnn_moe_decode", ("MNN_MD_CLOCKS",))]
+        fns = _libraries(specs, out_dir, "mdec")
+        return _mdec(fns, ["other", "this", "this", "other"], card, args)
     src = build.CSRC / SOURCE[args.kernel]
     other_entry = ENTRY[args.kernel][1]
     if args.kernel == "rows":      # the other's tile kernel where it has one

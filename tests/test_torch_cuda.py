@@ -19,7 +19,9 @@ dequantized rows 3e-2. The two mixture-of-experts kernels are held to rel-L2
 2e-2 (the JAX tests' own bound, `tests/test_moe_decode.py`), the
 dequantize-tile matmul to 1e-2; the fused expert decode kernel, flash
 prefill and the decode step (whose split K/V ranges merge in a fixed order)
-must also give the same bits twice. So must the two kernels that split a
+must also give the same bits twice; the fused expert kernel is one launch a
+call and gives the same bits over three calls and a replayed CUDA graph
+with no host reset of its ticket and counters. So must the two kernels that split a
 batch-1 call over blocks and merge through a workspace of their own (the
 M = 1 GEMV and flash decode): at the edges of their splits, and in a
 captured CUDA graph replayed three times with two shapes of each
@@ -839,9 +841,17 @@ def moe_cfg(h, e, k, mi, si):
                        shared_expert_intermediate_size=si)
 
 
-# (bits, n, H, E, k, mi, si, with gate)
+# (bits, n, H, E, k, mi, si, with gate); down quant blocks of 64 where mi is
+# not a multiple of 128. After the first four, the edges of the item table at
+# full width: n = 2, 4, 8 with a shared expert (gate/up tiles cut into K
+# ranges at n = 1 and 4, whole at 2 and 8), k = 8 with mi = 768 and none,
+# W8, and down blocks of 64 (mi = 1344)
 DECODE_MOE = [(4, 1, 256, 6, 2, 128, 256, True), (4, 3, 256, 6, 4, 192, 0, False),
-              (8, 8, 128, 4, 2, 64, 128, False), (4, 5, 2048, 8, 4, 1408, 1024, True)]
+              (8, 8, 128, 4, 2, 64, 128, False), (4, 5, 2048, 8, 4, 1408, 1024, True),
+              (4, 2, 2048, 8, 4, 1408, 5632, True), (4, 4, 2048, 8, 4, 1408, 5632, True),
+              (4, 8, 2048, 16, 4, 1408, 5632, True), (4, 1, 2048, 16, 8, 768, 0, False),
+              (4, 4, 2048, 16, 8, 768, 0, False), (8, 1, 2048, 8, 4, 1408, 5632, True),
+              (8, 4, 2048, 16, 8, 768, 0, False), (4, 4, 2048, 8, 4, 1344, 5632, True)]
 
 
 @pytest.mark.parametrize("bits,n,h,e,k,mi,si,with_gate", DECODE_MOE)
@@ -869,5 +879,67 @@ def test_moe_decode_kernel(dev, bits, n, h, e, k, mi, si, with_gate):
     assert moe_decode.KERNEL.launches == before + 2
     assert got.shape == (n, h) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
-    assert rel(got, want) <= 2e-2
+    err = rel(got, want)
+    sch = moe_decode.schedule(n, k, h, mi, si, bits, 128, bs_mi, 128 if si else 0,
+                              128 if si else 0, *moe_decode.launch_shape(dev, n, bits))
+    print(f"fused experts n={n} H={h} E={e} k={k} mi={mi} si={si} W{bits}: rel-L2 {err:.3e}, "
+          f"{sch.n_items} items ({sch.gu_items} gate/up), rd {sch.rd}, sd {sch.sd}")
+    assert err <= 2e-2
     assert torch.equal(got, again)           # the same bits from run to run
+
+
+def test_moe_decode_one_launch_replays_without_reset(dev):
+    """The fused expert kernel at qwen1.5-moe-a2.7b's widths (n = 4, gate/up
+    tiles cut into K ranges): one device launch a call (torch.profiler sees
+    one kernel), three calls in a row and a captured CUDA graph of two
+    calls, replayed three times, give the first call's bits with no host
+    reset of the ticket or the counters; a call at another shape in between
+    keeps its own counters."""
+    cfg, other = moe_cfg(2048, 8, 4, 1408, 5632), moe_cfg(2048, 16, 8, 768, 0)
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def case(c, n):
+        nl, e, k, mi, si = c.num_layers, c.num_experts, c.num_experts_per_tok, \
+            c.moe_intermediate_size, c.shared_expert_intermediate_size
+        lay = decoder.LayerParams(
+            wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
+            wgu_e=rand_experts(g, dev, (nl, e), 2048, 2 * mi, 4, 128),
+            wdown_e=rand_experts(g, dev, (nl, e), mi, 2048, 4, 128),
+            wgu_shared=rand_experts(g, dev, (nl,), 2048, 2 * si, 4, 128) if si else None,
+            wdown_shared=rand_experts(g, dev, (nl,), si, 2048, 4, 128) if si else None)
+        x = torch.randn((n, 2048), device=dev, generator=g) * 0.5
+        sel = torch.stack([torch.randperm(e, device=dev, generator=g)[:k]
+                           for _ in range(n)]).to(torch.int32)
+        wsel = torch.rand((n, k), device=dev, generator=g)
+        gate = torch.rand((n,), device=dev, generator=g) if si else None
+        return lambda li: moe_decode.moe_decode_mlp(x, lay, sel, wsel, li, gate, config=c)
+
+    run, run2 = case(cfg, 4), case(other, 1)
+    first, first2 = run(1), run2(2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = moe_decode.KERNEL.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        run(1)
+        torch.cuda.synchronize()
+    assert moe_decode.KERNEL.launches == before + 1
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count > 0
+               and ev.self_device_time_total > 0]
+    assert [ev.count for ev in kernels] == [1], [(ev.key, ev.count) for ev in kernels]
+    assert "moe_decode_kernel" in kernels[0].key
+    for _ in range(3):
+        assert torch.equal(run(1), first)
+        assert torch.equal(run2(2), first2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static, static2 = run(1), run2(2)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, first) and torch.equal(static2, first2)
