@@ -64,12 +64,37 @@ Phases, each of which exits non-zero on failure:
    against the per-layer path on the card from the same state, and the
    first request's prefill with `prefill_act_bits=16` on both. The same
    for the mixture-of-experts model at full width and 4 layers (the CPU side
-   of 24 would take minutes).
+   of 24 would take minutes);
+5. serving batched requests through the continuous-batching engine
+   (`runtime/batch_engine.py`) at 4 slots, each sub-phase with the launch
+   counts set to 0 before and read after: (g) full-size qwen2-0.5b (phase
+   3's configuration), 8 requests of 17, 300, 600, 17, 300, 600, 64 and 900
+   prompt tokens and 32 new tokens each, submitted at once, so that
+   admissions come between decode blocks: one launch of the whole-model
+   kernel's batch-4 build a decode step (its name checked in a traced
+   block), and per prefill chunk 96 int8-row matmuls, 24 flash prefills and
+   one M = 1 GEMV (the head); (h) the qwen1.5-moe-a2.7b model of (d), 4
+   requests of 17, 300, 600 and 64 tokens and 16 new tokens: per decode
+   step the fused expert and decode-step kernels 24 times at 4 tokens and
+   the tile kernel 49 times (qkv and wo at M = 4, the head), per chunk the
+   grouped expert kernel 24 times. Each request's first 8 tokens are held
+   to the same prompt alone at batch 1 on the card by phase 4's rule (the
+   batched logit rows, teacher-forced with the batch-1 tokens, within
+   rel-L2 5e-2; the served tokens equal up to the first step whose batch-1
+   top-2 margin is not above the largest difference). Per request the time
+   to the first token and in all; the engine's generated tok/s beside the
+   same requests one after another through `Llm`; a decode block's wall
+   and device-busy time, idle share and launches a step; the allocator's
+   peak. (i) The server's handler (`serve/server.py`) over (g)'s engine on
+   127.0.0.1: two streamed chat requests and a /v1/completions request
+   with logprobs 2 at once, each answered with the engine's own answer to
+   the same ids (the logprobs within 1e-4).
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
-and, last, the device line. Details go to `chiprun_out/chip_smoke.json`. It imports no JAX
-and nothing of the JAX package.
+and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
+(phase 5's under `serve_batched`). It imports no JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -79,7 +104,11 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -89,6 +118,7 @@ import numpy as np
 import torch
 
 import mnn_tpu_torch
+from mnn_tpu_torch import profile_decode
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
                                    flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import decoder
@@ -96,8 +126,9 @@ from mnn_tpu_torch.models.config import PRESETS, RuntimeConfig
 from mnn_tpu_torch.models.layers import rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
-from mnn_tpu_torch.runtime import generate, kvcache
+from mnn_tpu_torch.runtime import batch_engine, generate, kvcache
 from mnn_tpu_torch.runtime.llm import Llm
+from mnn_tpu_torch.serve.server import make_handler
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_OPS_S = 989e12         # dense bf16 tensor-core peak
@@ -113,6 +144,17 @@ SEED = 0                    # weights and inputs
 MOE_PRESET = "qwen1.5-moe-a2.7b"
 MOE_PARITY_LAYERS = 4       # phase 4, mixture of experts: depth of both sides
 MOE_TOL = 2e-2              # both expert kernels, tests/test_moe_decode.py:61
+SERVE_SLOTS = 4             # phase 5: the engines' width
+SERVE_DENSE_LENS = (17, 300, 600, 17, 300, 600, 64, 900)   # (g), NEW_TOKENS each
+SERVE_MOE_LENS = (17, 300, 600, 64)                         # (h)
+SERVE_MOE_NEW = 16          # (h): new tokens a request, one decode block
+SERVE_HTTP_TOKENS = 16      # (i): new tokens a request
+# (g), (h): the fewest steps whose tokens the batch-1 runs must check, summed
+# over the requests (logit rows' tokens, served tokens): about half of what
+# an H100 run compared (58 of 72 and 28 of 64 at (g), 22 of 36 and 12 of 32
+# at (h), when served tokens stopped at the first unclear margin)
+SERVE_DENSE_FLOORS = (32, 16)
+SERVE_MOE_FLOORS = (12, 8)
 
 
 def fail(msg: str):
@@ -1134,10 +1176,10 @@ def phase_parity_moe(dev):
     return dict(out, layers=MOE_PARITY_LAYERS)
 
 
-def compare_traces(card, cpu, label=""):
-    """Logit rows of the card against the CPU's: rel-L2 per step within
-    PARITY_REL, tokens equal where the CPU's top-2 margin exceeds the largest
-    difference seen."""
+def compare_traces(card, cpu, label="", sides="card vs cpu"):
+    """Logit rows of the card against the CPU's (or any rows against
+    reference rows): rel-L2 per step within PARITY_REL, tokens equal where
+    the reference's top-2 margin exceeds the largest difference seen."""
     rels = [rel_l2(a, b) for a, b in zip(card, cpu)]
     diff = max(max_abs(a, b) for a, b in zip(card, cpu))
     checked = 0
@@ -1149,7 +1191,7 @@ def compare_traces(card, cpu, label=""):
             checked += 1
             check(int(a.argmax()) == int(b.argmax()),
                   f"parity: {label}step {s} token {int(a.argmax())} != cpu {int(b.argmax())}")
-    print(f"  {label}card vs cpu: rel-L2 per step {[f'{r:.2e}' for r in rels]}, "
+    print(f"  {label}{sides}: rel-L2 per step {[f'{r:.2e}' for r in rels]}, "
           f"max |diff| {diff:.3g}, tokens compared at {checked}/{len(rels)} steps", flush=True)
     return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked)
 
@@ -1214,6 +1256,348 @@ def phase_parity(llm, reqs, outs):
           f"parity: act16 prefill logits rel-L2 {act16:.3g} > {PARITY_REL}")
     print(f"  prefill_act_bits=16, card vs cpu: prefill logits rel-L2 {act16:.2e}", flush=True)
     return dict(out, megakernel_vs_per_layer_rel_l2=paths, act16_prefill_rel_l2=act16)
+
+
+# --------------------------------------------------------------------------
+# phase 5: serving batched requests on the card
+# --------------------------------------------------------------------------
+
+def batched_trace(llm, rt, group, feeds):
+    """The prompts of `group` prefilled into slots 0.. of a len(group)-slot
+    cache (the engine's slot prefill), then PARITY_STEPS decode steps of
+    the whole batch, row i fed feeds[i] (teacher forcing). Returns each
+    row's logit rows, as `greedy_trace` gives them."""
+    c, dev = llm.config, llm.device
+    cache = kvcache.create(c.num_layers, len(group), c.num_kv_heads, rt.max_seq_len,
+                           c.head_dim, quantized=rt.kv_quant, kv_bits=rt.kv_bits,
+                           device=dev)
+    rows = [[batch_engine.prefill_slot(llm.params, c, rt, cache, ids, slot).float().cpu()]
+            for slot, ids in enumerate(group)]
+    for s in range(PARITY_STEPS):
+        tok = torch.tensor([[f[s]] for f in feeds], dtype=torch.int64, device=dev)
+        logits, cache = decoder.forward(llm.params, c, tok, cache)
+        for i, r in enumerate(rows):
+            r.append(logits[i:i + 1].float().cpu())
+    return rows
+
+
+def hold_to_single_stream(llm, rt, reqs, served, label, floors):
+    """Each served request's first PARITY_STEPS tokens against the same
+    prompt alone at batch 1 on the card (`greedy_trace`), by phase 4's rule:
+    the batched logit rows, teacher-forced with the batch-1 tokens in
+    groups of the engine's width, within PARITY_REL of the batch-1 rows and
+    the same tokens where the batch-1 top-2 margin exceeds the largest
+    difference seen; then the engine's own tokens equal the batch-1 tokens
+    at every step whose margin is above it, up to the first step where a
+    token under a margin not above it differs (the contexts part there).
+    Fails unless the steps compared reach `floors` (logit rows' tokens,
+    served tokens), summed over the requests."""
+    singles = [greedy_trace(llm, ids, None) for ids in reqs]
+    out, b = [], rt.max_batch
+    for g0 in range(0, len(reqs), b):
+        group = list(range(g0, min(g0 + b, len(reqs))))
+        rows = batched_trace(llm, rt, [reqs[i] for i in group],
+                             [singles[i][1] for i in group])
+        for i, batched in zip(group, rows):
+            single, fed, _ = singles[i]
+            res = compare_traces(batched, single, f"{label} request {i} ({len(reqs[i])} "
+                                 f"tokens), ", sides=f"batch {b} vs 1 on the card")
+            toks, agreed = served[i], 0
+            for s in range(min(PARITY_STEPS, len(toks))):
+                top2 = single[s][0].topk(2).values
+                if float(top2[0] - top2[1]) <= res["max_abs_diff"]:
+                    if toks[s] != fed[s]:
+                        break
+                    continue
+                check(toks[s] == fed[s], f"{label}: request {i} step {s}: served token "
+                      f"{toks[s]} != batch-1 token {fed[s]}")
+                agreed += 1
+            out.append(dict(res, served_tokens_checked=agreed))
+    rows = sum(p["tokens_checked"] for p in out)
+    toks = sum(p["served_tokens_checked"] for p in out)
+    print(f"  {label}: tokens compared at {rows} of {len(reqs) * (PARITY_STEPS + 1)} "
+          f"logit rows (floor {floors[0]}), served tokens at {toks} of "
+          f"{len(reqs) * PARITY_STEPS} steps (floor {floors[1]})", flush=True)
+    check(rows >= floors[0] and toks >= floors[1], f"{label}: {rows} logit rows and "
+          f"{toks} served tokens compared, under the floors {floors}")
+    return out
+
+
+def engine_block_profile(eng, reqs, label, card_line):
+    """One decode block of `eng` with every slot busy, after a block that
+    admitted them: the wall time of an untraced block (it ends in the
+    block's token read, a sync), then a traced one's device busy time and
+    launches. Cancels the requests after."""
+    steps = eng.steps_per_block
+    live = [eng.submit(ids, 3 * steps + 1) for ids in reqs[:eng.rt.max_batch]]
+    eng.step()                                   # admissions + a block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name, _, _ = profile_decode.traced(eng.step, 1)
+    torch.cuda.synchronize()
+    for r in live:
+        eng.cancel(r.rid)
+    eng.run_until_idle()
+    busy = sum(ms for _, ms, _ in by_name)
+    out = dict(steps=steps, wall_ms=wall, wall_ms_per_step=wall / steps,
+               device_busy_ms=busy, device_busy_ms_per_step=busy / steps,
+               device_idle_share=1 - busy / wall,
+               launches_per_step=sum(n for _, _, n in by_name) / steps,
+               kernels=[dict(name=k, ms=ms, launches=n) for k, ms, n in by_name])
+    print(f"  {label}: decode block of {steps} steps at {eng.rt.max_batch} slots: wall "
+          f"{wall:.2f} ms ({out['wall_ms_per_step']:.3f} a step), device busy "
+          f"{busy:.2f} ms, idle share {out['device_idle_share']:.3f}, "
+          f"{out['launches_per_step']:.1f} launches a step [{card_line}]", flush=True)
+    return out
+
+
+def serve_engine(eng, reqs, new_tokens, label, card_line):
+    """All of `reqs` submitted at once and served to the end, with the
+    launch counts and the allocator's peak set to 0 just before (the
+    caller reads them just after). Returns (requests, wall seconds)."""
+    eng.generate(reqs[0][:8], 2)                 # warm-up: allocator, schedules
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    served = [eng.submit(ids, new_tokens) for ids in reqs]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(served):
+        check(r.status == batch_engine.Status.DONE and len(r.generated) == new_tokens,
+              f"{label}: request {i} ended {r.status} with {len(r.generated)} tokens")
+        check(all(0 <= t < eng.config.vocab_size for t in r.generated),
+              f"{label}: request {i}: token out of range")
+        print(f"  {label}: request {i}, {len(reqs[i]):4d} prompt tokens: time to first "
+              f"token {(r.first_token_at - r.submitted_at) * 1e3:8.2f} ms, total "
+              f"{(r.finished_at - r.submitted_at) * 1e3:8.2f} ms [{card_line}]", flush=True)
+    return served, wall
+
+
+def per_request(served) -> list:
+    return [dict(prompt_len=len(r.token_ids), tokens=len(r.generated),
+                 ttft_ms=(r.first_token_at - r.submitted_at) * 1e3,
+                 total_ms=(r.finished_at - r.submitted_at) * 1e3) for r in served]
+
+
+def chunks_of(reqs, rt) -> int:
+    return sum(len(generate.prefill_buckets(len(ids), rt.prefill_chunk)) for ids in reqs)
+
+
+def phase_serve_batched(llm, card_line):
+    """Phase 5 (g): qwen2-0.5b through a 4-slot engine, 8 requests at once,
+    so that admissions come between decode blocks; its decode steps run the
+    whole-model kernel's batch-4 build over ragged lengths."""
+    cfg, label = llm.config, "serve batched (g)"
+    rt = dataclasses.replace(llm.rt, max_batch=SERVE_SLOTS)
+    rng = np.random.default_rng(4321)
+    reqs = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_DENSE_LENS]
+    eng = batch_engine.BatchEngine(cfg, llm.params, rt)
+    served, wall = serve_engine(eng, reqs, NEW_TOKENS, label, card_line)
+    counts = read_launches(label, PREFILL_KERNELS + ("mnn_decode_model",),
+                           never=("mnn_decode_step", "mnn_flash_decode",
+                                  "mnn_dequant_matmul_bf16_tile", "mnn_moe_decode"))
+    peak = torch.cuda.max_memory_allocated()
+    waves = -(-len(reqs) // SERVE_SLOTS)
+    steps = waves * -(-(NEW_TOKENS - 1) // rt.decode_block) * rt.decode_block
+    chunks = chunks_of(reqs, rt)
+    want = {"mnn_decode_model": steps, "mnn_dequant_matmul_a8": 4 * cfg.num_layers * chunks,
+            "mnn_flash_prefill": cfg.num_layers * chunks, "mnn_dequant_matmul": chunks}
+    for k, n in want.items():
+        check(counts[k] == n, f"{label}: {counts[k]} launches of {k}, {n} expected "
+              f"({steps} decode steps at batch {SERVE_SLOTS}, {chunks} prefill chunks)")
+    gen = sum(len(r.generated) for r in served)
+    # the same requests one after another through Llm at batch 1
+    one = Llm(cfg, llm.params, llm.rt, device=llm.device)
+    list(one.stream(token_ids=reqs[0][:8], max_new_tokens=2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids in reqs:
+        one.reset()
+        list(one.stream(token_ids=ids, max_new_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    print(f"  {label}: {gen} tokens in {wall * 1e3:.1f} ms at {SERVE_SLOTS} slots: "
+          f"{gen / wall:.1f} tok/s; one after another through Llm: "
+          f"{seq_wall * 1e3:.1f} ms, {gen / seq_wall:.1f} tok/s; peak allocator "
+          f"{peak} bytes [{card_line}]", flush=True)
+    parity = hold_to_single_stream(llm, rt, reqs, [r.generated for r in served], label,
+                                   SERVE_DENSE_FLOORS)
+    block = engine_block_profile(eng, reqs[4:], label, card_line)
+    b4 = [k["name"] for k in block["kernels"] if "decode_model_kernel<4" in k["name"]]
+    check(bool(b4), f"{label}: no batch-4 whole-model kernel in the traced block: "
+          f"{[k['name'] for k in block['kernels']][:8]}")
+    return eng, dict(prompt_lens=list(SERVE_DENSE_LENS), new_tokens=NEW_TOKENS,
+                     slots=SERVE_SLOTS, requests=per_request(served), wall_s=wall,
+                     tok_s=gen / wall, llm_one_after_another_s=seq_wall,
+                     llm_one_after_another_tok_s=gen / seq_wall, peak_allocator_bytes=peak,
+                     launches=counts, decode_steps=steps, prefill_chunks=chunks,
+                     whole_model_kernel=b4, parity=parity, decode_block=block)
+
+
+def phase_serve_batched_moe(llm, card_line):
+    """Phase 5 (h): qwen1.5-moe-a2.7b through a 4-slot engine, 4 requests:
+    per decode step the fused expert and decode-step kernels once a layer
+    at 4 tokens, the tile kernel for qkv, wo (M = 4) and the head; per
+    prefill chunk the grouped expert kernel once a layer."""
+    cfg, label = llm.config, "serve batched moe (h)"
+    nl = cfg.num_layers
+    rt = dataclasses.replace(llm.rt, max_batch=SERVE_SLOTS, decode_block=SERVE_MOE_NEW)
+    rng = np.random.default_rng(8765)
+    reqs = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_MOE_LENS]
+    eng = batch_engine.BatchEngine(cfg, llm.params, rt)
+    served, wall = serve_engine(eng, reqs, SERVE_MOE_NEW, label, card_line)
+    counts = read_launches(label, MOE_PREFILL_KERNELS + (
+        "mnn_moe_decode", "mnn_decode_step", "mnn_dequant_matmul_bf16_tile"),
+        never=("mnn_decode_model", "mnn_flash_decode", "mnn_dequant_matmul_deq"))
+    peak = torch.cuda.max_memory_allocated()
+    steps = rt.decode_block                  # one block: every request ends in it
+    chunks = chunks_of(reqs, rt)
+    want = {"mnn_moe_decode": nl * steps, "mnn_decode_step": nl * steps,
+            "mnn_moe_prefill": nl * chunks,
+            "mnn_dequant_matmul_bf16_tile": (2 * nl + 1) * steps + 2 * nl * chunks}
+    for k, n in want.items():
+        check(counts[k] == n, f"{label}: {counts[k]} launches of {k}, {n} expected "
+              f"({steps} decode steps of {nl} layers at batch {SERVE_SLOTS}, {chunks} "
+              f"prefill chunks)")
+    gen = sum(len(r.generated) for r in served)
+    print(f"  {label}: {gen} tokens in {wall * 1e3:.1f} ms at {SERVE_SLOTS} slots: "
+          f"{gen / wall:.1f} tok/s; peak allocator {peak} bytes [{card_line}]", flush=True)
+    parity = hold_to_single_stream(llm, rt, reqs, [r.generated for r in served], label,
+                                   SERVE_MOE_FLOORS)
+    block = engine_block_profile(eng, reqs, label, card_line)
+    return dict(prompt_lens=list(SERVE_MOE_LENS), new_tokens=SERVE_MOE_NEW,
+                slots=SERVE_SLOTS, requests=per_request(served), wall_s=wall,
+                tok_s=gen / wall, peak_allocator_bytes=peak, launches=counts,
+                decode_steps=steps, prefill_chunks=chunks, parity=parity,
+                decode_block=block)
+
+
+def http_post(url, obj):
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        raw = r.read().decode()
+    return raw, time.perf_counter() - t0
+
+
+def drained(eng, ids, n, logprobs=-1) -> list:
+    """`eng`'s answer to `ids` alone: the items its queue gives (ints, or
+    (token, logprob, tops) with logprobs on)."""
+    r = eng.submit(ids, n, logprobs=logprobs)
+    eng.run_until_idle()
+    items = []
+    while not r.out.empty():
+        item = r.out.get()
+        if item is not None:
+            items.append(item)
+    check(len(items) == n, f"server: the engine gave {len(items)} of {n} items")
+    return items
+
+
+def streamed_pieces(tok, ids) -> list:
+    """The text of each chunk the server streams for tokens `ids`: tokens are
+    held back while their text ends in U+FFFD, as the handler holds them."""
+    pieces, buf = [], []
+    for t in ids:
+        buf.append(t)
+        text = tok.decode(buf)
+        if not text.endswith("\ufffd"):
+            pieces.append((text, len(buf)))
+            buf = []
+    return pieces
+
+
+def phase_server(llm, eng, card_line):
+    """Phase 5 (i): the OpenAI server's handler over (g)'s engine, on
+    127.0.0.1 at a free port, the engine on its scheduler thread: two
+    streamed chat requests at once (the second with logprobs) and a
+    /v1/completions request with logprobs 2. Each stream is, chunk for
+    chunk, what the engine's own answer to the same ids gives; logprobs are
+    the engine's within 1e-4."""
+    tok = llm.tokenizer
+    chats = [[{"role": "user", "content": c}] for c in
+             ("Tell me about the H100.", "A second, longer question about serving "
+              "many requests side by side on one card.")]
+    prompt = "The completions route with logprobs"
+    n = SERVE_HTTP_TOKENS
+    want = [drained(eng, tok.encode(tok.apply_chat_template(m)), n, lp)
+            for m, lp in zip(chats, (-1, 0))]
+    want_lp = drained(eng, tok.encode(prompt), n, 2)
+
+    stop = threading.Event()
+    worker = threading.Thread(target=eng.run_forever, args=(stop,), daemon=True)
+    worker.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(llm, threading.Lock(), eng))
+    front = threading.Thread(target=httpd.serve_forever, daemon=True)
+    front.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with ThreadPoolExecutor(3) as ex:
+            futs = [ex.submit(http_post, url + "/v1/chat/completions",
+                              dict(messages=m, max_tokens=n, stream=True, logprobs=lp))
+                    for m, lp in zip(chats, (False, True))]
+            futs.append(ex.submit(http_post, url + "/v1/completions",
+                                  dict(prompt=prompt, max_tokens=n, logprobs=2)))
+            answers = [f.result(timeout=180) for f in futs]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        front.join(timeout=60)
+        stop.set()
+        worker.join(timeout=60)
+    check(not front.is_alive() and not worker.is_alive(), "server: threads did not stop")
+    out = []
+    for i, (raw, secs) in enumerate(answers[:2]):
+        lines = [ln[6:] for ln in raw.splitlines() if ln.startswith("data: ")]
+        check(len(lines) >= 2 and lines[-1] == "[DONE]"
+              and json.loads(lines[-2])["choices"][0]["finish_reason"] == "stop",
+              f"server: chat stream {i} did not end")
+        chunks = [json.loads(ln)["choices"][0] for ln in lines[:-2]]
+        got = [c["delta"].get("content") for c in chunks]
+        ids = [t[0] for t in want[i]] if i else want[i]
+        pieces = streamed_pieces(tok, ids)
+        check(got == [p for p, _ in pieces], f"server: streamed chat {i} chunks {got!r} "
+              f"differ from the engine's {[p for p, _ in pieces]!r}")
+        diff = 0.0
+        if i:
+            # each chunk's logprobs: the tokens it carries, the engine's values
+            lps = [e for c in chunks for e in c["logprobs"]["content"]]
+            sent = sum(k for _, k in pieces)
+            check(len(lps) == sent and [e["token"] for e in lps]
+                  == [tok.decode([t]) for t in ids[:sent]],
+                  f"server: streamed chat {i} logprob tokens differ from the engine's")
+            diff = max((abs(e["logprob"] - w[1]) for e, w in zip(lps, want[i])),
+                       default=0.0)
+            check(diff <= 1e-4, f"server: streamed chat {i} logprobs differ from the "
+                  f"engine's by {diff:.3g}")
+        out.append(dict(route="chat stream" + (" logprobs" if i else ""),
+                        events=len(lines), content_chunks=len(chunks),
+                        max_logprob_diff=diff, seconds=secs))
+    body = json.loads(answers[2][0])
+    choice = body["choices"][0]
+    lp = choice["logprobs"]
+    check(choice["text"] == tok.decode([t for t, _, _ in want_lp])
+          and lp["tokens"] == [tok.decode([t]) for t, _, _ in want_lp]
+          and body["usage"]["completion_tokens"] == n,
+          f"server: completion {choice['text']!r} differs from the engine's")
+    diff = max(abs(a - b[1]) for a, b in zip(lp["token_logprobs"], want_lp))
+    check(len(lp["token_logprobs"]) == n and diff <= 1e-4,
+          f"server: completion logprobs differ from the engine's by {diff:.3g}")
+    out.append(dict(route="completions logprobs 2", seconds=answers[2][1],
+                    max_logprob_diff=diff))
+    ms = ", ".join(f"{o['seconds'] * 1e3:.1f}" for o in out)
+    diff = max(o["max_logprob_diff"] for o in out)
+    print(f"  server (i): two streamed chats (content chunks "
+          f"{[o['content_chunks'] for o in out[:2]]}, as the engine's tokens give "
+          f"them) and a completion with logprobs answered in {ms} ms; logprobs within "
+          f"{diff:.2e} of the engine's [{card_line}]",
+          flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1314,6 +1698,13 @@ def main():
 
     print("phase 4: the first request on the card and on the cpu", flush=True)
     parity = phase_parity(llm, reqs, outs)
+
+    print("phase 5 (g, i): serving batched requests of qwen2-0.5b on the card", flush=True)
+    t5 = time.perf_counter()
+    eng, serve_batched = phase_serve_batched(llm, card_line)
+    serve_batched["server"] = phase_server(llm, eng, card_line)
+    del eng
+    phase5_s = time.perf_counter() - t5
     del llm
     torch.cuda.empty_cache()
 
@@ -1327,6 +1718,11 @@ def main():
           f"built in {time.perf_counter() - t0:.1f} s; info {json.dumps(moe.info())}",
           flush=True)
     moe_perf, moe_counts, moe_extra = phase_serve_moe(moe)
+    print(f"phase 5 (h): serving batched requests of {MOE_PRESET} on the card", flush=True)
+    t5 = time.perf_counter()
+    serve_batched["moe"] = phase_serve_batched_moe(moe, card_line)
+    serve_batched["seconds"] = phase5_s + time.perf_counter() - t5
+    print(f"  phase 5: {serve_batched['seconds']:.1f} s", flush=True)
     perf["moe_int8"] = moe_perf
     counts.update(moe_counts)
     launches = {k: counts[COUNTED_IN.get(k, "megakernel_int8")][k] for k in
@@ -1363,7 +1759,8 @@ def main():
                 k[key] = dict(entry=ent, launches=launches[ent], **row_sums(sub))
         kernels.append(k)
     detail = dict(card=card_line, torch=torch.__version__, build_s=build_s,
-                  kernels=results, serve=perf, launches=launches,
+                  kernels=results, serve=perf, serve_batched=serve_batched,
+                  launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "

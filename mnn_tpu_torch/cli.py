@@ -1,7 +1,9 @@
-"""mnn-tpu-torch CLI: the `run` subcommand of `mnn_tpu/cli.py` on the port.
+"""mnn-tpu-torch CLI: the `run` and `serve` subcommands of `mnn_tpu/cli.py`
+on the port.
 
     python -m mnn_tpu_torch.cli run --synthetic qwen2-0.5b "prompt"
     python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
+    python -m mnn_tpu_torch.cli serve --synthetic qwen2-0.5b --batch 4
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. Synthetic random-weight presets only: loading a
@@ -11,7 +13,10 @@ int4 lm head, an int8 KV cache (`--kv-bits 4` packs it to int4) and int8
 prefill activations. Decode steps run through the whole-model decode kernel
 whenever the config is eligible; the mixture-of-experts presets
 (`qwen1.5-moe-a2.7b`, `qwen3-moe-30b-a3b`) decode layer by layer through the
-fused expert kernel and prefill through the grouped one.
+fused expert kernel and prefill through the grouped one. `serve` answers
+OpenAI chat and completions requests (`serve/server.py`), one at a time
+through `Llm.stream`, or with `--batch` > 1 side by side through the
+continuous-batching engine; `--dp` > 1 is not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +79,14 @@ def cmd_run(args):
           f"{p.decode_tok_s:.1f} tok/s", file=sys.stderr)
 
 
+def cmd_serve(args):
+    from mnn_tpu_torch.serve.server import serve
+
+    llm = _build_llm(args)
+    serve(llm, host=args.host, port=args.port, batch=args.batch,
+          snapshot_path=args.snapshot, dp=args.dp)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mnn-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -82,6 +95,20 @@ def main(argv=None):
     p.add_argument("prompt")
     p.add_argument("--raw", action="store_true", help="no chat template")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("serve", help="OpenAI-compatible server")
+    _add_model_args(p)
+    p.add_argument("--snapshot", default="",
+                   help="engine state file: resume from it on start, "
+                        "write it on shutdown (restartable serving)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=9090)
+    p.add_argument("--batch", type=int, default=1,
+                   help=">1 enables continuous batching (a mixture-of-experts "
+                   "model: keep it <= 8, the fused expert kernel's rows)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree (not ported: only 1)")
+    p.set_defaults(fn=cmd_serve)
     args = ap.parse_args(argv)
     args.fn(args)
 

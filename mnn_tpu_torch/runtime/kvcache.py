@@ -246,6 +246,34 @@ def cache_from_numpy(arrays, bits: int, device=None) -> KVCache:
                    bits=int(bits))
 
 
+def slot_view(cache: KVCache, slot: int) -> KVCache:
+    """A batch-1 cache over slot `slot` of `cache`'s buffers, for prefill
+    into one serving slot: the counterpart of the JAX engine's
+    `dynamic_slice` of the slot's row. The buffers are views, so prefill
+    writes the shared cache in place; the length is a tensor of its own,
+    which `write_back` copies into the slot. Each layer's view
+    `view.k[i]` is contiguous, but the stacked view `view.k` is not, so it
+    must never reach a kernel that takes the whole stacked cache (the decode
+    paths): prefill reaches only the per-layer views."""
+    sl = lambda t: None if t is None else t[:, slot:slot + 1]
+    return KVCache(k=sl(cache.k), v=sl(cache.v), k_scale=sl(cache.k_scale),
+                   v_scale=sl(cache.v_scale),
+                   length=cache.length[slot:slot + 1].clone(), bits=cache.bits)
+
+
+def write_back(cache: KVCache, slot: int, view: KVCache) -> KVCache:
+    """Copy a slot view's length into `cache.length[slot]`, on the device
+    and in place (the buffers were written in place already)."""
+    cache.length[slot:slot + 1].copy_(view.length)
+    return cache
+
+
+def reset_slot(cache: KVCache, slot: int) -> KVCache:
+    """Clear slot `slot`'s history, in place (its length to zero)."""
+    cache.length[slot] = 0
+    return cache
+
+
 def with_length(cache: KVCache, length: torch.Tensor) -> KVCache:
     return dataclasses.replace(cache, length=length)
 

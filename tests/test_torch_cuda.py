@@ -943,3 +943,195 @@ def test_moe_decode_one_launch_replays_without_reset(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(static, first) and torch.equal(static2, first2)
+
+
+# --------------------------------------------------------------------------
+# the continuous-batching engine and the server on the card
+# --------------------------------------------------------------------------
+
+ENGINE_MOE = ModelConfig(name="moe-engine-test", vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+                         head_dim=64, attention_bias=True, tie_word_embeddings=False,
+                         num_experts=6, num_experts_per_tok=2, moe_intermediate_size=128,
+                         shared_expert_intermediate_size=256)
+ENGINE_STEPS = 8      # the steps each request is held to its batch-1 run
+
+
+def _engine_llm(dev, cfg, cap=256, **kw):
+    rt = RuntimeConfig(max_seq_len=cap, prefill_chunk=64, decode_block=8,
+                       sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
+                       max_new_tokens=16, **kw)
+    params = decoder.init_random_params(cfg, torch.Generator().manual_seed(4), scale=0.05,
+                                        lm_head_bits=4, device=dev)
+    return Llm(cfg, params, rt, device=dev)
+
+
+def _single_rows(llm, ids):
+    """Batch-1 greedy run on the card: ENGINE_STEPS + 1 logit rows, the
+    tokens it fed."""
+    from mnn_tpu_torch.runtime import generate
+
+    dev = llm.device
+    logits, cache = generate.run_prefill(llm.params, llm.config, llm.rt,
+                                         torch.tensor([ids], device=dev), llm._new_cache())
+    rows, toks = [logits.float()], []
+    for _ in range(ENGINE_STEPS):
+        toks.append(int(rows[-1].argmax()))
+        logits, cache = decoder.forward(llm.params, llm.config,
+                                        torch.tensor([[toks[-1]]], device=dev), cache)
+        rows.append(logits.float())
+    return rows, toks
+
+
+def _hold_to_single_stream(llm, rt, prompts, served):
+    """`chip_smoke.py`'s rule for batched serving: the prompts prefilled
+    into the slots of a cache as wide as the engine (a short group padded
+    with its own prompts), decoded teacher-forced with the batch-1 tokens;
+    the batched rows within rel-L2 5e-2 of the batch-1 rows, and each served
+    request's tokens equal to the batch-1 ones at every step whose batch-1
+    top-2 margin is above the largest difference seen, up to the first step
+    under a smaller margin whose token differs. Returns the steps
+    compared."""
+    from mnn_tpu_torch.runtime import batch_engine
+
+    c, dev, b = llm.config, llm.device, rt.max_batch
+    singles = [_single_rows(llm, ids) for ids in prompts]
+    compared = 0
+    for g0 in range(0, len(prompts), b):
+        idx = list(range(g0, min(g0 + b, len(prompts))))
+        group = (idx * b)[:b]
+        cache = kvcache.create(c.num_layers, b, c.num_kv_heads, rt.max_seq_len, c.head_dim,
+                               kv_bits=rt.kv_bits, device=dev)
+        rows = [[batch_engine.prefill_slot(llm.params, c, rt, cache, prompts[i], slot).float()]
+                for slot, i in enumerate(group)]
+        for s in range(ENGINE_STEPS):
+            tok = torch.tensor([[singles[i][1][s]] for i in group], device=dev)
+            logits, cache = decoder.forward(llm.params, c, tok, cache)
+            for slot, r in enumerate(rows):
+                r.append(logits[slot:slot + 1].float())
+        for slot, i in enumerate(idx):
+            want, fed = singles[i]
+            diff = max(float((a - w).abs().max()) for a, w in zip(rows[slot], want))
+            for s, (a, w) in enumerate(zip(rows[slot], want)):
+                assert torch.isfinite(a).all() and rel(a, w) <= 5e-2, (i, s)
+            for s in range(ENGINE_STEPS):
+                top2 = want[s][0].topk(2).values
+                if float(top2[0] - top2[1]) <= diff:
+                    if served[i][s] != fed[s]:
+                        break       # the contexts part here
+                    continue
+                assert served[i][s] == fed[s], f"request {i} step {s}"
+                compared += 1
+    return compared
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe"])
+def test_engine_four_slots_matches_single_stream(dev, kind):
+    """Six requests of ragged lengths on a 4-slot engine (so two are
+    admitted between decode blocks, beside idle slots decoding filler):
+    3-layer dense through the whole-model kernel's batch-4 build, 2-layer
+    mixture of experts through the fused expert and decode-step kernels at
+    4 tokens. Each request is held to its batch-1 run on the card."""
+    from mnn_tpu_torch.runtime.batch_engine import BatchEngine, Status
+
+    cfg = dataclasses.replace(MK, tie_word_embeddings=False) if kind == "dense" else ENGINE_MOE
+    llm = _engine_llm(dev, cfg)
+    rt = dataclasses.replace(llm.rt, max_batch=4)
+    prompts = [list(range(3 + i, 3 + i + n)) for i, n in enumerate((17, 90, 5, 130, 40, 64))]
+    eng = BatchEngine(cfg, llm.params, rt)
+    build.reset_launches()
+    reqs = [eng.submit(p, 16) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in build.KERNELS}
+    assert all(r.status == Status.DONE and len(r.generated) == 16 for r in reqs)
+    if kind == "dense":
+        assert n["mnn_decode_model"] > 0 and n["mnn_decode_model"] % rt.decode_block == 0
+        assert n["mnn_decode_step"] == 0 and n["mnn_dequant_matmul_a8"] > 0
+    else:
+        assert n["mnn_decode_model"] == 0 and n["mnn_moe_prefill"] > 0
+        assert n["mnn_moe_decode"] == n["mnn_decode_step"] > 0
+        assert n["mnn_moe_decode"] % (cfg.num_layers * rt.decode_block) == 0
+    compared = _hold_to_single_stream(llm, rt, prompts, [r.generated for r in reqs])
+    print(f"{kind}: {compared} of {len(prompts) * ENGINE_STEPS} steps compared; launches {n}")
+    assert compared >= 2 * len(prompts)
+
+
+def test_engine_slot_to_capacity_with_idle_rows(dev):
+    """Three long requests one after another in slot 0 of a 4-slot engine at
+    capacity 64 (prompts truncated to 43 tokens, 20 new, decode blocks of
+    8): the slot runs past the capacity in its last block and three idle
+    rows decode filler until their lengths reach it too; the whole-model
+    kernel writes and attends clamped at the last position throughout."""
+    from mnn_tpu_torch.runtime.batch_engine import BatchEngine
+
+    cfg = dataclasses.replace(MK, tie_word_embeddings=False)
+    llm = _engine_llm(dev, cfg, cap=64)
+    rt = dataclasses.replace(llm.rt, max_batch=4)
+    eng = BatchEngine(cfg, llm.params, rt)
+    prompts = [list(range(10 + 7 * i, 60 + 7 * i)) for i in range(3)]
+    compared = 0
+    for i, p in enumerate(prompts):
+        req = eng.submit(p, 20)
+        eng.run_until_idle()
+        assert len(req.generated) == 20
+        assert eng.cache.length.tolist() == [64] + [min(24 * (i + 1), 64)] * 3
+        compared += _hold_to_single_stream(llm, dataclasses.replace(rt, max_batch=4),
+                                           [p[-43:]], [req.generated])
+    assert compared >= 3
+    logits, _ = decoder.forward(llm.params, cfg, eng.last_tokens[:, None], eng.cache)
+    assert torch.isfinite(logits).all()
+
+
+def test_server_answers_two_concurrent_engine_requests(dev):
+    """The server's handler over a 4-slot engine on the card, the engine on
+    its own thread: two completions with logprobs at once, each the text
+    and the logprobs that the engine gives the same ids alone."""
+    import json
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    from mnn_tpu_torch.runtime.batch_engine import BatchEngine
+    from mnn_tpu_torch.serve.server import make_handler
+
+    cfg = dataclasses.replace(MK, tie_word_embeddings=False)
+    llm = _engine_llm(dev, cfg)
+    eng = BatchEngine(cfg, llm.params, dataclasses.replace(llm.rt, max_batch=4))
+    prompts = ["first request on the card", "and a second, longer one beside it"]
+    want = []
+    for p in prompts:
+        r = eng.submit(llm.tokenizer.encode(p), 12, logprobs=1)
+        eng.run_until_idle()
+        want.append([r.out.get() for _ in range(12)])
+    stop = threading.Event()
+    worker = threading.Thread(target=eng.run_forever, args=(stop,), daemon=True)
+    worker.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(llm, threading.Lock(), eng))
+    front = threading.Thread(target=httpd.serve_forever, daemon=True)
+    front.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/completions"
+
+    def ask(p):
+        req = urllib.request.Request(
+            url, data=json.dumps(dict(prompt=p, max_tokens=12, logprobs=1)).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            bodies = [f.result(timeout=180) for f in [ex.submit(ask, p) for p in prompts]]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        stop.set()
+        worker.join(timeout=60)
+        front.join(timeout=60)
+    assert not worker.is_alive() and not front.is_alive()
+    for body, items in zip(bodies, want):
+        choice = body["choices"][0]
+        assert choice["text"] == llm.tokenizer.decode([t for t, _, _ in items])
+        assert choice["logprobs"]["token_logprobs"] == pytest.approx(
+            [lp for _, lp, _ in items], abs=1e-4)

@@ -251,7 +251,7 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     names = {f.name for f in files}
     assert {"decode_model.py", "flash_attention.py", "kvcache.py", "profile_decode.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "batch_engine.py", "server.py"} <= names
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmnn_tpu\.|"
                      r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)", re.M)
     for f in files:
