@@ -90,11 +90,32 @@ Phases, each of which exits non-zero on failure:
    with logprobs 2 at once, each answered with the engine's own answer to
    the same ids (the logprobs within 1e-4).
 
+6. models from files, each in a temporary directory outside the checkout,
+   deleted after: (j) full-size qwen2-0.5b written in the HF layout (HF
+   tensor names, tied embedding, qkv bias) from seeded random bf16 weights
+   with the port's own safetensors writer, converted by `convert_hf` on the
+   card and on the CPU (W4, block 128, int4 head: every tensor byte-equal),
+   loaded by `Llm.from_pretrained` (byte-equal to the converter's params),
+   with the seconds and GB/s of each; (k) phase 3 (a)'s three requests
+   through the loaded model: (a)'s launch counts, and the tokens of the same
+   params in memory; (l) the directory converted at W8 with the tied bf16
+   embedding as the head (the whole-model kernel runs without its head),
+   the 17-token prompt's logits at every position, by one prefill and by
+   prefill + decode steps, within rel-L2 6e-2 of a plain f32 forward of the
+   HF tensors written here; (m) `evaluate.sequence_nll` over 256 seeded
+   tokens in chunks of 128 on the card within 1e-2 of the CPU's plain
+   versions, the head of that path (row 1b at M = 128 and 512, N =
+   151,936) timed beside `torch.matmul` on bf16 weights; then a
+   Qwen2-MoE-layout directory at qwen1.5-moe-a2.7b's width and 2 layers,
+   converted and loaded on the card, one 300-token request of 16 new tokens
+   (the grouped expert kernel twice a chunk, the fused expert kernel twice
+   a token) with the in-memory model's tokens.
+
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
-(phase 5's under `serve_batched`). It imports no JAX and nothing of the
-JAX package.
+(phase 5's under `serve_batched`, phase 6's under `checkpoints`). It
+imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -102,8 +123,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -119,14 +143,16 @@ import torch
 
 import mnn_tpu_torch
 from mnn_tpu_torch import profile_decode
+from mnn_tpu_torch.convert import checkpoint, stfile
+from mnn_tpu_torch.convert.hf import convert_hf
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
                                    flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import decoder
-from mnn_tpu_torch.models.config import PRESETS, RuntimeConfig
+from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.layers import rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
-from mnn_tpu_torch.runtime import batch_engine, generate, kvcache
+from mnn_tpu_torch.runtime import batch_engine, evaluate, generate, kvcache
 from mnn_tpu_torch.runtime.llm import Llm
 from mnn_tpu_torch.serve.server import make_handler
 
@@ -1601,6 +1627,374 @@ def phase_server(llm, eng, card_line):
 
 
 # --------------------------------------------------------------------------
+# phase 6: a model from files, on the card
+# --------------------------------------------------------------------------
+
+CKPT_STD = 0.02             # HF's init of a linear layer's weights
+CKPT_SEED = 6
+CONVERT_REL = 6e-2          # W8 logits against the plain forward, tests/test_convert.py:58
+NLL_TOKENS, NLL_CHUNK, NLL_REL = 256, 128, 1e-2
+HEAD_ROWS = (128, 512)      # `evaluate`'s head: M = chunk rows, N = vocab (row 1b)
+DECODE_FROM = 9             # (l): prefill 9 positions, then decode the rest
+MOE_CKPT_LAYERS = 2         # (m): qwen1.5-moe-a2.7b at full width, 3.4 GB of bf16
+MOE_CKPT_NEW = 16
+
+
+def hf_config_of(cfg) -> dict:
+    """The HF config.json of a qwen2 or qwen2-moe configuration."""
+    d = dict(architectures=["Qwen2MoeForCausalLM" if cfg.is_moe else "Qwen2ForCausalLM"],
+             vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+             intermediate_size=cfg.intermediate_size, num_hidden_layers=cfg.num_layers,
+             num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads,
+             max_position_embeddings=cfg.max_position_embeddings,
+             rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_norm_eps,
+             tie_word_embeddings=cfg.tie_word_embeddings, hidden_act="silu",
+             use_sliding_window=False, torch_dtype="bfloat16")
+    if cfg.is_moe:
+        d.update(num_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok,
+                 moe_intermediate_size=cfg.moe_intermediate_size,
+                 shared_expert_intermediate_size=cfg.shared_expert_intermediate_size,
+                 norm_topk_prob=cfg.norm_topk_prob, decoder_sparse_step=1,
+                 mlp_only_layers=[])
+    return d
+
+
+def write_hf_dir(cfg, path: str, dev, seed: int) -> int:
+    """An HF-layout directory of `cfg` (HF tensor names, bf16, weights
+    normal with std 0.02 made on the card from `seed`; norms about 1 and
+    biases about 0 with the same spread), written with the port's own
+    writer. Returns the bytes of the tensors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = cfg.hidden_size
+
+    def rnd(*shape, mean=0.0):
+        return (torch.randn(shape, device=dev, generator=g) * CKPT_STD + mean).to(
+            torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": rnd(cfg.vocab_size, h),
+         "model.norm.weight": rnd(h, mean=1.0)}
+    if not cfg.tie_word_embeddings:
+        t["lm_head.weight"] = rnd(cfg.vocab_size, h)
+
+    def mlp(prefix, inter):
+        t[prefix + "gate_proj.weight"] = rnd(inter, h)
+        t[prefix + "up_proj.weight"] = rnd(inter, h)
+        t[prefix + "down_proj.weight"] = rnd(h, inter)
+
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        for name, n in (("q", cfg.q_dim), ("k", cfg.kv_dim), ("v", cfg.kv_dim)):
+            t[p + f"self_attn.{name}_proj.weight"] = rnd(n, h)
+            t[p + f"self_attn.{name}_proj.bias"] = rnd(n)
+        t[p + "self_attn.o_proj.weight"] = rnd(h, cfg.q_dim)
+        t[p + "input_layernorm.weight"] = rnd(h, mean=1.0)
+        t[p + "post_attention_layernorm.weight"] = rnd(h, mean=1.0)
+        if cfg.is_moe:
+            t[p + "mlp.gate.weight"] = rnd(cfg.num_experts, h)
+            for e in range(cfg.num_experts):
+                mlp(p + f"mlp.experts.{e}.", cfg.moe_intermediate_size)
+            mlp(p + "mlp.shared_expert.", cfg.shared_expert_intermediate_size)
+            t[p + "mlp.shared_expert_gate.weight"] = rnd(1, h)
+        else:
+            mlp(p + "mlp.", cfg.intermediate_size)
+    os.makedirs(path, exist_ok=True)
+    stfile.save_file(t, os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_of(cfg), f, indent=1)
+    return sum(v.numel() * v.element_size() for v in t.values())
+
+
+def plain_hf_forward(hf_dir: str, cfg, ids, dev) -> torch.Tensor:
+    """Logits [T, V] of `ids` from the HF tensors in f32 on the card, written
+    from the HF layout alone: separate q/k/v and gate/up, rope on two
+    halves, GQA by repeating K/V heads, an explicit causal softmax."""
+    t_n, d, hq, hkv = len(ids), cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    with stfile.StDir(hf_dir) as src:
+        w = lambda name: src[name].to(dev).float()
+        x = w("model.embed_tokens.weight")[torch.tensor(ids, device=dev)]      # [T, H]
+        inv = 1.0 / cfg.rope_theta ** (torch.arange(0, d, 2, device=dev).float() / d)
+        ang = torch.arange(t_n, device=dev).float()[:, None] * inv[None]
+        cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+        mask = torch.full((t_n, t_n), float("-inf"), device=dev).triu(1)
+
+        def norm(v, weight):
+            return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps) * weight
+
+        def rope(v):                                  # [heads, T, D]
+            return v * cos + torch.cat([-v[..., d // 2:], v[..., :d // 2]], -1) * sin
+
+        def proj(v, name, heads):                     # -> [heads, T, D]
+            y = v @ w(name + ".weight").T + w(name + ".bias")
+            return y.reshape(t_n, heads, d).transpose(0, 1)
+
+        for i in range(cfg.num_layers):
+            p = f"model.layers.{i}."
+            h = norm(x, w(p + "input_layernorm.weight"))
+            q = rope(proj(h, p + "self_attn.q_proj", hq))
+            k = rope(proj(h, p + "self_attn.k_proj", hkv)).repeat_interleave(hq // hkv, 0)
+            v = proj(h, p + "self_attn.v_proj", hkv).repeat_interleave(hq // hkv, 0)
+            s = q @ k.transpose(1, 2) / math.sqrt(d) + mask
+            e = (s - s.amax(-1, keepdim=True)).exp()
+            att = (e / e.sum(-1, keepdim=True)) @ v                             # [Hq, T, D]
+            x = x + att.transpose(0, 1).reshape(t_n, hq * d) @ w(
+                p + "self_attn.o_proj.weight").T
+            h = norm(x, w(p + "post_attention_layernorm.weight"))
+            gate = h @ w(p + "mlp.gate_proj.weight").T
+            up = h @ w(p + "mlp.up_proj.weight").T
+            x = x + (torch.nn.functional.silu(gate) * up) @ w(p + "mlp.down_proj.weight").T
+        x = norm(x, w("model.norm.weight"))
+        head = w("model.embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight")
+        return x @ head.T
+
+
+def check_same_params(got, want, label):
+    """Every tensor of two Params byte-equal, on whichever devices they lie."""
+    (ta, qa), (tb, qb) = checkpoint.flatten(got), checkpoint.flatten(want)
+    check(qa == qb and sorted(ta) == sorted(tb), f"{label}: different fields or quant")
+    for k, a in ta.items():
+        b = tb[k].to(a.device)
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)),
+            f"{label}: {k} differs")
+    return len(ta)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_head_rows(params, cfg):
+    """(m) row 1b at the head of `evaluate`: M = chunk rows, N = vocab, f32
+    logits, against its plain version and beside `torch.matmul` on the
+    head's weights dequantized to bf16 beforehand."""
+    head, dev = params.lm_head, params.embedding.device
+    k, n = cfg.hidden_size, cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    wlib = quantize.dequantize(head, dtype=torch.bfloat16)
+    wbytes = sum(t.numel() * t.element_size() for t in (head.packed, head.scale, head.bias))
+    rows = []
+    for m in HEAD_ROWS:
+        x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+        tile = dequant_matmul.bf16_tile(m, n, head.bits)
+        before = dequant_matmul.KERNEL_BF16_TILE.launches
+        got = dequant_matmul.dequant_matmul(x, head, out_dtype=torch.float32)
+        check(dequant_matmul.KERNEL_BF16_TILE.launches == before + 1,
+              f"head M={m}: the tile kernel did not take it")
+        want = dequant_matmul.dequant_matmul_plain(x, head, torch.float32)
+        rel = rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()) and rel <= 1e-2,
+              f"head M={m} N={n}: rel-L2 {rel:.3g} > 1e-2")
+        ms = time_ms(lambda i: dequant_matmul.dequant_matmul(x, head, out_dtype=torch.float32),
+                     calls=4)
+        lib_ms = time_ms(lambda i: torch.matmul(x, wlib), calls=4)
+        bound, bound_by = bound_of(2 * m * k * n, m * k * 2 + wbytes + m * n * 4)
+        rows.append(dict(shape=f"lm_head M={m} K={k} N={n}", m=m, rel_l2=rel,
+                         max_abs_err=max_abs(got, want), ms=ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=bound_by, tile=tile,
+                         column_tiles=-(-n // tile[1]), row_tiles=-(-m // tile[0])))
+        print(f"  (m) row 1b head M={m} N={n}: rel {rel:.2e} | kernel {ms:.4f} ms, "
+              f"matmul (bf16 weights) {lib_ms:.4f} ms, bound {bound:.4f} ({bound_by}) | "
+              f"tile {tile[0]}x{tile[1]}: {rows[-1]['column_tiles']} x "
+              f"{rows[-1]['row_tiles']} blocks", flush=True)
+        del x, got, want
+    del wlib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_checkpoint_dense(dev, root):
+    """(j) to (m), dense: write, convert, load, serve, hold to the plain HF
+    forward, evaluate."""
+    out = {}
+    preset = PRESETS["qwen2-0.5b"]
+    hf_dir = os.path.join(root, "qwen2-0.5b-hf")
+    nbytes, s = timed(lambda: write_hf_dir(preset, hf_dir, dev, CKPT_SEED))
+    cfg_hf = ModelConfig.from_hf_config(hf_config_of(preset))
+    check(dataclasses.replace(cfg_hf, name=preset.name) == preset,
+          "from_hf_config does not give the preset back")
+    print(f"  (j) wrote {nbytes / 1e9:.3f} GB of bf16 HF tensors in {s:.1f} s", flush=True)
+    out["hf_bytes"], out["write_s"] = nbytes, s
+
+    # (j) convert on the card and on the cpu: the same bytes
+    w4 = os.path.join(root, "w4")
+    (cfg, params), s = timed(lambda: convert_hf(hf_dir, w4, bits=4, block_size=128,
+                                                lm_head_bits=4, device=dev))
+    out["convert_card_s"], out["convert_card_gb_s"] = s, nbytes / s / 1e9
+    print(f"  (j) convert_hf on the card (W4, block 128, int4 head): {s:.2f} s, "
+          f"{nbytes / s / 1e9:.2f} GB/s of source", flush=True)
+    (_, params_cpu), s = timed(lambda: convert_hf(hf_dir, os.path.join(root, "w4cpu"),
+                                                  bits=4, block_size=128, lm_head_bits=4,
+                                                  device="cpu"))
+    shutil.rmtree(os.path.join(root, "w4cpu"))
+    n = check_same_params(params, params_cpu, "(j) card vs cpu conversion")
+    out["convert_cpu_s"], out["tensors_compared"] = s, n
+    print(f"  (j) convert_hf on the cpu: {s:.2f} s; all {n} tensors byte-equal to the "
+          f"card's", flush=True)
+    del params_cpu
+
+    # (j) load onto the card: byte-equal to the converter's params
+    ckpt_bytes = os.path.getsize(os.path.join(w4, "model.safetensors"))
+    llm, s = timed(lambda: Llm.from_pretrained(w4, rt=serving_rt(), device=dev))
+    check_same_params(llm.params, params, "(j) loaded vs converted")
+    out["load_s"], out["load_gb_s"], out["ckpt_bytes"] = s, ckpt_bytes / s / 1e9, ckpt_bytes
+    print(f"  (j) Llm.from_pretrained: {ckpt_bytes / 1e9:.3f} GB in {s:.2f} s, "
+          f"{ckpt_bytes / s / 1e9:.2f} GB/s; byte-equal to the converter's", flush=True)
+
+    # (k) serve the loaded model: phase 3 (a)'s launches, the in-memory tokens
+    reqs = prompts(cfg.vocab_size)
+    info = llm.info()
+    check(info["decode_megakernel"] and info["decode_fused_head"],
+          f"(k) the whole-model kernel does not serve the loaded model: {info}")
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))        # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    toks, perf = serve(llm, reqs, "(k) loaded")
+    got = read_launches("(k) loaded qwen2-0.5b", PREFILL_KERNELS + ("mnn_decode_model",),
+                        never=("mnn_decode_step", "mnn_flash_decode"))
+    chunks = chunks_of(reqs, llm.rt)
+    check(got["mnn_decode_model"] == NEW_TOKENS * len(reqs)
+          and got["mnn_dequant_matmul_a8"] == 4 * cfg.num_layers * chunks
+          and got["mnn_flash_prefill"] == cfg.num_layers * chunks,
+          f"(k) launches {got} for {chunks} chunks and {NEW_TOKENS * len(reqs)} tokens")
+    mem = Llm(cfg, params, serving_rt(), device=dev)
+    toks_mem, _ = serve(mem, reqs, "(k) in-memory")
+    check(toks == toks_mem, "(k) the loaded model's tokens differ from the in-memory model's")
+    out["serve"], out["launches_k"] = perf, got
+    del mem
+
+    # (l) W8, tied bf16 head (outside the whole-model kernel) vs the plain forward
+    (cfg8, params8), s = timed(lambda: convert_hf(hf_dir, os.path.join(root, "w8"), bits=8,
+                                                  block_size=128, lm_head_bits=0, device=dev))
+    rt = serving_rt()
+    llm8 = Llm(cfg8, params8, rt, device=dev)
+    info8 = llm8.info()
+    check(params8.lm_head is None and info8["decode_megakernel"]
+          and not info8["decode_fused_head"], f"(l) unexpected decode path: {info8}")
+    ids = reqs[0]
+    want = plain_hf_forward(hf_dir, preset, ids, dev)
+    tokens = torch.tensor([ids], device=dev)
+    got_p, _ = decoder.forward(params8, cfg8, tokens, llm8._new_cache(), all_logits=True)
+    rel_p = rel_l2(got_p[0], want)
+    build.reset_launches()
+    logits, cache = generate.run_prefill(params8, cfg8, rt, tokens[:, :DECODE_FROM],
+                                         llm8._new_cache())
+    rows = [logits[0]]
+    for tok in ids[DECODE_FROM:]:
+        logits, cache = decoder.forward(params8, cfg8, torch.tensor([[tok]], device=dev),
+                                        cache)
+        rows.append(logits[0])
+    got_d = read_launches("(l) W8 decode, unfused head", ("mnn_decode_model",))
+    rel_d = rel_l2(torch.stack(rows), want[DECODE_FROM - 1:])
+    check(got_d["mnn_decode_model"] == len(ids) - DECODE_FROM,
+          f"(l) {got_d['mnn_decode_model']} whole-model launches")
+    agree = float((got_p[0].argmax(-1) == want.argmax(-1)).float().mean())
+    check(rel_p <= CONVERT_REL and rel_d <= CONVERT_REL,
+          f"(l) rel-L2 against the plain HF forward: prefill {rel_p:.3g}, decode "
+          f"{rel_d:.3g} > {CONVERT_REL}")
+    print(f"  (l) W8 + tied bf16 head vs the plain HF forward ({len(ids)} positions): "
+          f"prefill rel-L2 {rel_p:.2e}, decode (whole-model kernel, head outside) "
+          f"{rel_d:.2e}, argmax agreement {agree:.2f}", flush=True)
+    out["w8"] = dict(convert_s=s, prefill_rel_l2=rel_p, decode_rel_l2=rel_d, agree=agree)
+    del llm8, params8, cache, want, got_p, rows
+    torch.cuda.empty_cache()
+
+    # (m) perplexity on the card against the cpu plain versions
+    ids = np.random.default_rng(SEED + 6).integers(0, cfg.vocab_size, NLL_TOKENS).tolist()
+    build.reset_launches()
+    (nll, count), s = timed(lambda: evaluate.sequence_nll(llm.params, cfg, ids,
+                                                          chunk=NLL_CHUNK))
+    got = read_launches("(m) sequence_nll", ("mnn_dequant_matmul_bf16_tile",
+                                             "mnn_flash_prefill"))
+    chunks = -(-NLL_TOKENS // NLL_CHUNK)
+    check(got["mnn_dequant_matmul_bf16_tile"] == (4 * cfg.num_layers + 1) * chunks,
+          f"(m) {got['mnn_dequant_matmul_bf16_tile']} tile-kernel launches")
+    t0 = time.perf_counter()
+    _, params_cpu, _ = checkpoint.load_checkpoint(w4, device="cpu")
+    nll_cpu, count_cpu = evaluate.sequence_nll(params_cpu, cfg, ids, chunk=NLL_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    gap = abs(nll - nll_cpu) / abs(nll_cpu)
+    check(count == count_cpu == NLL_TOKENS - 1 and gap <= NLL_REL,
+          f"(m) NLL card {nll:.6g} vs cpu {nll_cpu:.6g} ({gap:.3g} > {NLL_REL})")
+    print(f"  (m) sequence_nll over {count} tokens in chunks of {NLL_CHUNK}: card "
+          f"{nll:.6g} ({s:.2f} s), cpu {nll_cpu:.6g} ({cpu_s:.1f} s), gap {gap:.2e}; "
+          f"perplexity {math.exp(nll / count):.2f}", flush=True)
+    out["nll"] = dict(card=nll, cpu=nll_cpu, count=count, gap=gap, card_s=s, cpu_s=cpu_s,
+                      launches=got)
+    del params_cpu
+    out["head_rows"] = phase_head_rows(llm.params, cfg)
+    return out
+
+
+def phase_checkpoint_moe(dev, root):
+    """(m) a Qwen2-MoE-layout directory at qwen1.5-moe-a2.7b's width and
+    MOE_CKPT_LAYERS layers: convert and load on the card, one 300-token
+    request, the two expert kernels' launches, the in-memory tokens."""
+    mcfg = dataclasses.replace(PRESETS[MOE_PRESET], num_layers=MOE_CKPT_LAYERS)
+    hf_dir = os.path.join(root, "moe-hf")
+    nbytes, s = timed(lambda: write_hf_dir(mcfg, hf_dir, dev, CKPT_SEED + 1))
+    check(dataclasses.replace(ModelConfig.from_hf_config(hf_config_of(mcfg)),
+                              name=mcfg.name) == mcfg,
+          "(m) from_hf_config does not give the MoE configuration back")
+    out_dir = os.path.join(root, "moe-w4")
+    (cfg, params), conv_s = timed(lambda: convert_hf(hf_dir, out_dir, bits=4,
+                                                     block_size=128, lm_head_bits=4,
+                                                     device=dev))
+    shutil.rmtree(hf_dir)
+    ckpt_bytes = os.path.getsize(os.path.join(out_dir, "model.safetensors"))
+    llm, load_s = timed(lambda: Llm.from_pretrained(out_dir, rt=serving_rt(), device=dev))
+    check_same_params(llm.params, params, "(m) MoE loaded vs converted")
+    print(f"  (m) {MOE_PRESET} at {MOE_CKPT_LAYERS} layers: wrote {nbytes / 1e9:.3f} GB in "
+          f"{s:.1f} s; convert on the card {conv_s:.2f} s ({nbytes / conv_s / 1e9:.2f} GB/s); "
+          f"load {ckpt_bytes / 1e9:.3f} GB in {load_s:.2f} s "
+          f"({ckpt_bytes / load_s / 1e9:.2f} GB/s), byte-equal", flush=True)
+    info = llm.info()
+    check(info["decode_moe_fused"] and not info["decode_megakernel"],
+          f"(m) unexpected MoE decode path: {info}")
+    ids = prompts(cfg.vocab_size)[1]
+    list(llm.stream(token_ids=ids[:8], max_new_tokens=2))            # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    llm.reset()
+    toks = list(llm.stream(token_ids=ids, max_new_tokens=MOE_CKPT_NEW))
+    got = read_launches("(m) loaded MoE", MOE_PREFILL_KERNELS + ("mnn_moe_decode",),
+                        never=("mnn_decode_model",))
+    chunks = len(generate.prefill_buckets(len(ids), llm.rt.prefill_chunk))
+    check(len(toks) == MOE_CKPT_NEW and got["mnn_moe_prefill"] == MOE_CKPT_LAYERS * chunks
+          and got["mnn_moe_decode"] == MOE_CKPT_LAYERS * MOE_CKPT_NEW,
+          f"(m) MoE launches {got} for {len(toks)} tokens")
+    mem = Llm(cfg, params, serving_rt(), device=dev)
+    toks_mem = list(mem.stream(token_ids=ids, max_new_tokens=MOE_CKPT_NEW))
+    check(toks == toks_mem, "(m) the loaded MoE model's tokens differ from the in-memory one's")
+    print(f"  (m) MoE request of {len(ids)} tokens: {len(toks)} tokens equal to the "
+          f"in-memory model's; grouped experts {got['mnn_moe_prefill']}, fused experts "
+          f"{got['mnn_moe_decode']} launches", flush=True)
+    return dict(hf_bytes=nbytes, write_s=s, convert_card_s=conv_s,
+                convert_card_gb_s=nbytes / conv_s / 1e9, ckpt_bytes=ckpt_bytes,
+                load_s=load_s, load_gb_s=ckpt_bytes / load_s / 1e9, launches=got,
+                tokens=len(toks))
+
+
+def phase_checkpoints(dev):
+    """Phase 6: (j) to (m), each model in a temporary directory outside the
+    checkout, deleted as soon as the model is done."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, fn in (("dense", phase_checkpoint_dense), ("moe", phase_checkpoint_moe)):
+        root = tempfile.mkdtemp(prefix="mnn_tpu_torch_ckpt_")
+        try:
+            out[key] = fn(dev, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
@@ -1733,6 +2127,10 @@ def main():
           flush=True)
     parity["moe"] = dict(phase_parity_moe(dev), **moe_extra)
 
+    print("phase 6: models from files on the card (convert, load, serve, evaluate)",
+          flush=True)
+    checkpoints = phase_checkpoints(dev)
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
@@ -1762,7 +2160,7 @@ def main():
                   kernels=results, serve=perf, serve_batched=serve_batched,
                   launches=launches,
                   launches_by_path=counts,
-                  generated_tokens=gen_tokens, parity=parity,
+                  generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

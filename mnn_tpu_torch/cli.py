@@ -1,33 +1,44 @@
-"""mnn-tpu-torch CLI: the `run` and `serve` subcommands of `mnn_tpu/cli.py`
-on the port.
+"""mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert` and `eval`
+subcommands of `mnn_tpu/cli.py` on the port.
 
-    python -m mnn_tpu_torch.cli run --synthetic qwen2-0.5b "prompt"
+    python -m mnn_tpu_torch.cli convert --hf HF_DIR --out OUT --lm-head-bits 4
+    python -m mnn_tpu_torch.cli run --model OUT "prompt"
+    python -m mnn_tpu_torch.cli chat --model OUT
+    python -m mnn_tpu_torch.cli serve --model OUT --batch 4
+    python -m mnn_tpu_torch.cli eval --model OUT --file text.txt
     python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
-    python -m mnn_tpu_torch.cli serve --synthetic qwen2-0.5b --batch 4
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
-PyTorch versions instead. Synthetic random-weight presets only: loading a
-converted checkpoint (`--model`) is not ported yet. The defaults are the
-serving configuration of the port's main path: W4 block-128 weights, an
-int4 lm head, an int8 KV cache (`--kv-bits 4` packs it to int4) and int8
-prefill activations. Decode steps run through the whole-model decode kernel
-whenever the config is eligible; the mixture-of-experts presets
-(`qwen1.5-moe-a2.7b`, `qwen3-moe-30b-a3b`) decode layer by layer through the
-fused expert kernel and prefill through the grouped one. `serve` answers
-OpenAI chat and completions requests (`serve/server.py`), one at a time
-through `Llm.stream`, or with `--batch` > 1 side by side through the
-continuous-batching engine; `--dp` > 1 is not ported.
+PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
+`convert`, or from the JAX package's converter) and wins over
+`--synthetic`, a random-weight preset. `convert` reads a HuggingFace
+directory (`--hf`) or a llama.cpp GGUF file (`--gguf`) and quantizes on the
+device; `--awq` (the activation-aware scale search) is not ported. The
+model defaults are the serving configuration of the port's main path: W4
+block-128 weights, an int4 lm head (a loaded checkpoint keeps the head it
+was converted with), an int8 KV cache (`--kv-bits 4` packs it to int4) and
+int8 prefill activations. Decode steps run through the whole-model decode
+kernel whenever the config is eligible; the mixture-of-experts models
+decode layer by layer through the fused expert kernel and prefill through
+the grouped one. `serve` answers OpenAI chat and completions requests
+(`serve/server.py`), one at a time through `Llm.stream`, or with `--batch`
+> 1 side by side through the continuous-batching engine; `--dp` > 1 is not
+ported. `eval` prints {"tokens": n, "perplexity": p} of a text.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import time
 
 
 def _add_model_args(p):
+    p.add_argument("--model", help="converted checkpoint directory")
     p.add_argument("--synthetic", default="qwen2-0.5b",
-                   help="synthetic preset (e.g. qwen2-0.5b, qwen1.5-moe-a2.7b)")
+                   help="synthetic preset when no --model is given "
+                        "(e.g. qwen2-0.5b, qwen1.5-moe-a2.7b)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
     p.add_argument("--max-seq-len", type=int, default=4096)
@@ -63,10 +74,40 @@ def _build_llm(args):
         prefill_act_bits=args.prefill_act_bits,
         max_new_tokens=args.max_new_tokens, seed=args.seed,
     )
-    print(f"[mnn-tpu-torch] synthetic random-weight '{args.synthetic}'",
-          file=sys.stderr)
+    if args.model:
+        return Llm.from_pretrained(args.model, rt=rt, device=args.device)
+    print(f"[mnn-tpu-torch] no --model given; synthetic random-weight "
+          f"'{args.synthetic}'", file=sys.stderr)
     return Llm.synthetic(args.synthetic, rt=rt, seed=args.seed,
                          device=args.device)
+
+
+def cmd_chat(args):
+    llm = _build_llm(args)
+    print("mnn-tpu-torch chat: /reset clears the context, /exit quits",
+          file=sys.stderr)
+    while True:
+        try:
+            prompt = input("> ")
+        except (EOFError, KeyboardInterrupt):
+            break
+        if prompt.strip() == "/exit":
+            break
+        if prompt.strip() == "/reset":
+            llm.reset()
+            print("[context cleared]", file=sys.stderr)
+            continue
+        buf = []
+        for tok in llm.stream(prompt, use_template=True):
+            buf.append(tok)
+            text = llm.tokenizer.decode(buf)
+            if not text.endswith("\ufffd"):     # hold an incomplete UTF-8 tail
+                sys.stdout.write(text)
+                sys.stdout.flush()
+                buf.clear()
+        p = llm.perf
+        print(f"\n[prefill {p.prefill_tok_s:.1f} tok/s | decode "
+              f"{p.decode_tok_s:.1f} tok/s]", file=sys.stderr)
 
 
 def cmd_run(args):
@@ -87,9 +128,48 @@ def cmd_serve(args):
           snapshot_path=args.snapshot, dp=args.dp)
 
 
+def cmd_convert(args):
+    if not (args.hf or args.gguf):
+        raise SystemExit("convert: provide --hf DIR or --gguf FILE")
+    t0 = time.time()
+    kw = dict(bits=args.bits, block_size=args.block, sym=args.sym,
+              tp_shards=args.tp, act_bits=args.act_bits,
+              lm_head_bits=args.lm_head_bits, awq=args.awq, device=args.device)
+    if args.gguf:
+        from mnn_tpu_torch.convert.gguf import convert_gguf
+
+        convert_gguf(args.gguf, args.out, **kw)
+        src = args.gguf
+    else:
+        from mnn_tpu_torch.convert.hf import convert_hf
+
+        convert_hf(args.hf, args.out, **kw)
+        src = args.hf
+    print(f"converted {src} -> {args.out} "
+          f"(int{args.bits}, block {args.block}, {time.time() - t0:.1f}s)")
+
+
+def cmd_eval(args):
+    from mnn_tpu_torch.runtime.evaluate import perplexity
+
+    llm = _build_llm(args)
+    if args.file:
+        with open(args.file) as f:
+            text = f.read()
+    else:
+        text = args.text or ""
+    ids = llm.tokenizer.encode(text)[:args.max_tokens_eval]
+    ppl = perplexity(llm.params, llm.config, ids, chunk=args.prefill_chunk)
+    print(json.dumps({"tokens": len(ids), "perplexity": round(ppl, 4)}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mnn-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("chat", help="interactive chat")
+    _add_model_args(p)
+    p.set_defaults(fn=cmd_chat)
+
     p = sub.add_parser("run", help="single prompt")
     _add_model_args(p)
     p.add_argument("prompt")
@@ -109,6 +189,33 @@ def main(argv=None):
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel degree (not ported: only 1)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("convert", help="convert a HF or GGUF checkpoint")
+    p.add_argument("--hf", help="HF model directory")
+    p.add_argument("--gguf", help="llama.cpp GGUF file (dequantized and "
+                                  "requantized on this package's grid)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--bits", type=int, default=4)
+    p.add_argument("--block", type=int, default=128)
+    p.add_argument("--sym", action="store_true")
+    p.add_argument("--act-bits", type=int, default=16, choices=(8, 16),
+                   help="8 = dynamic int8 activations (W4A8)")
+    p.add_argument("--lm-head-bits", type=int, default=0, choices=(0, 4, 8),
+                   help="quantize the output projection (0 = keep bf16)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="target tensor-parallel shards (affects block sizes)")
+    p.add_argument("--awq", action="store_true",
+                   help="activation-aware scale search (not ported: refused)")
+    p.add_argument("--device", default=None,
+                   help="where to quantize: cuda (default) or cpu")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("eval", help="perplexity over a text file")
+    _add_model_args(p)
+    p.add_argument("--file")
+    p.add_argument("--text")
+    p.add_argument("--max-tokens-eval", type=int, default=4096)
+    p.set_defaults(fn=cmd_eval)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -203,20 +203,30 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
                       device=None) -> Params:
-    """Build Params from the JAX package's Params fields as numpy arrays.
+    """Build Params from the JAX package's Params fields as numpy arrays or
+    torch tensors (a checkpoint's tensors, `convert/checkpoint.py`).
 
-    Keys are dotted field names: "embedding", "final_norm", "lm_head" (a
-    dense head) or "lm_head.packed"/".scale"/".bias" (quantized),
-    "layers.input_norm", "layers.wqkv.packed", "layers.wqkv.out_bias", ...;
-    for a mixture-of-experts config "layers.router", "layers.wgu_e.packed"
-    ([L, E, ...] as it is), "layers.wgu_shared.packed", "layers.shared_gate".
-    A quantized linear's static metadata comes under the same prefix as
-    ints: "layers.wqkv.bits", ".block_size", ".act_bits". Bytes are taken
-    as they are: the packed layout is the same in both packages."""
+    Keys are dotted field names, the checkpoint's tensor names: "embedding",
+    "final_norm", "lm_head" (a dense head) or "lm_head.packed"/".scale"/
+    ".bias" (quantized), "layers.input_norm", "layers.wqkv.packed",
+    "layers.wqkv.out_bias", ...; for a mixture-of-experts config
+    "layers.router", "layers.wgu_e.packed" ([L, E, ...] as it is),
+    "layers.wgu_shared.packed", "layers.shared_gate". A quantized linear's
+    static metadata comes under the same prefix as ints:
+    "layers.wqkv.bits", ".block_size", ".act_bits". Bytes are taken as they
+    are: the packed layout is the same in both packages. Each value is
+    copied to `device` (None: the CPU for an array, a tensor's own device)
+    as it is read, so a mapping of file views never has a second host copy
+    of the whole model made from it."""
     _check_supported(config)
 
     def get(key):
-        return None if arrays.get(key) is None else _tensor(np.asarray(arrays[key]))
+        a = arrays.get(key)
+        if a is None:
+            return None
+        if not isinstance(a, torch.Tensor):
+            return _tensor(np.asarray(a)).to(device or "cpu")
+        return a.to(device or a.device, copy=True)
 
     def ql(prefix):
         return QuantizedLinear(
@@ -242,9 +252,8 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
         head = ql("lm_head")
     else:
         head = get("lm_head")
-    return params_to(Params(embedding=get("embedding"),
-                            final_norm=get("final_norm"), lm_head=head,
-                            layers=layers), device)
+    return Params(embedding=get("embedding"), final_norm=get("final_norm"),
+                  lm_head=head, layers=layers)
 
 
 def _gated_act(c: ModelConfig, gu: torch.Tensor) -> torch.Tensor:

@@ -90,9 +90,10 @@ def split_gate_up(gu: torch.Tensor):
 
 
 def interleave_gate_up(wg, wu):
-    """numpy [K, I] x2 -> [K, 2I] in the 64-block-interleaved layout."""
+    """[K, I] x2 (numpy arrays or torch tensors) -> [K, 2I] in the
+    64-block-interleaved layout."""
     k, i = wg.shape
     blk = gu_block_for(i)
-    stacked = np.stack(
-        [wg.reshape(k, i // blk, blk), wu.reshape(k, i // blk, blk)], axis=2)
+    stack = torch.stack if isinstance(wg, torch.Tensor) else np.stack
+    stacked = stack([wg.reshape(k, i // blk, blk), wu.reshape(k, i // blk, blk)], 2)
     return stacked.reshape(k, 2 * i)

@@ -162,8 +162,12 @@ def quantize(
     out_bias: Optional[torch.Tensor] = None,
     act_bits: int = 16,
 ) -> QuantizedLinear:
-    """Quantize a float [K, N] weight matrix to the per-block packed format."""
-    w = torch.as_tensor(w).to(torch.float32)
+    """Quantize a float [K, N] weight matrix to the per-block packed format,
+    on w's device; the outputs are contiguous whatever w's strides. Every
+    divisor is a tensor: on the card PyTorch multiplies by the reciprocal of
+    a Python scalar divisor, at times one ulp off the CPU's quotient, which
+    would move a scale away from the CPU's (and the JAX package's) bytes."""
+    w = torch.as_tensor(w).to(torch.float32).contiguous()
     k, n = w.shape
     _check_args(k, bits, block_size)
     qmax = (1 << bits) - 1
@@ -174,7 +178,7 @@ def quantize(
     # covers [wmin, wmax]; q is chosen against the rounded values
     if sym:
         absmax = blocks.abs().amax(dim=1)
-        scale = absmax / (center - 1)
+        scale = absmax / torch.full_like(absmax, center - 1)
         scale = torch.where(scale == 0, torch.ones_like(scale), scale)
         scale = _bf16_round_up(scale)
         q = torch.round(blocks / scale[:, None, :]) + center
@@ -183,7 +187,7 @@ def quantize(
     else:
         wmin = _bf16_round_down(blocks.amin(dim=1))
         wmax = blocks.amax(dim=1)
-        scale = (wmax - wmin) / qmax
+        scale = (wmax - wmin) / torch.full_like(wmax, qmax)
         scale = torch.where(scale == 0, torch.ones_like(scale), scale)
         scale = _bf16_round_up(scale)
         q = torch.round((blocks - wmin[:, None, :]) / scale[:, None, :])

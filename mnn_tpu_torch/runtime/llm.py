@@ -10,8 +10,10 @@ a card that raises instead of running on the CPU. `device="cpu"` runs
 every kernel's plain PyTorch version (tests, and the reference run that
 the card's output is held against).
 
-Not ported yet: `from_pretrained`, speculative decoding, KV offload,
-embedding and rerank.
+`from_pretrained` loads a converted checkpoint directory
+(`convert/checkpoint.py`), written by either package, straight onto the
+device. Not ported yet: speculative decoding, KV offload, embedding and
+rerank.
 """
 
 from __future__ import annotations
@@ -84,6 +86,20 @@ class Llm:
             quant_block=rt.quant_block, act_bits=rt.act_bits,
             lm_head_bits=rt.lm_head_bits, device=device)
         return cls(PRESETS[preset], params, rt, device=device)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, rt: Optional[RuntimeConfig] = None,
+                        device=None) -> "Llm":
+        """Load a converted checkpoint directory onto `device` (None: the
+        card). A given `rt` replaces the saved runtime.json whole; the
+        tokenizer comes from the directory's files (`transformers` is
+        needed when it has them), else the byte tokenizer."""
+        from mnn_tpu_torch.convert.checkpoint import load_checkpoint
+
+        device = resolve_device(device)
+        config, params, saved_rt = load_checkpoint(model_dir, device=device)
+        return cls(config, params, rt or saved_rt,
+                   tokenizer=load_tokenizer(model_dir), device=device)
 
     def _new_cache(self):
         c = self.config

@@ -29,6 +29,7 @@ interleaved, which shows that every launch leaves the counters at zero.
 """
 
 import dataclasses
+import json
 import math
 
 import pytest
@@ -1135,3 +1136,98 @@ def test_server_answers_two_concurrent_engine_requests(dev):
         assert choice["text"] == llm.tokenizer.decode([t for t, _, _ in items])
         assert choice["logprobs"]["token_logprobs"] == pytest.approx(
             [lp for _, lp, _ in items], abs=1e-4)
+
+
+# --------------------------------------------------------------------------
+# checkpoints on the card: load, convert, and serve a loaded model
+# --------------------------------------------------------------------------
+
+def write_hf_dir(path, cfg, seed=0):
+    """An HF-layout qwen2 directory of `cfg` (HF names, bf16, std 0.05),
+    written with the port's own writer: no transformers on the card's
+    machine."""
+    from mnn_tpu_torch.convert import stfile
+
+    g = torch.Generator().manual_seed(seed)
+    h = cfg.hidden_size
+    rnd = lambda *s, mean=0.0: (torch.randn(s, generator=g) * 0.05 + mean).to(torch.bfloat16)
+    t = {"model.embed_tokens.weight": rnd(cfg.vocab_size, h), "model.norm.weight": rnd(h, mean=1)}
+    if not cfg.tie_word_embeddings:
+        t["lm_head.weight"] = rnd(cfg.vocab_size, h)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        for name, n in (("q", cfg.q_dim), ("k", cfg.kv_dim), ("v", cfg.kv_dim)):
+            t[p + f"self_attn.{name}_proj.weight"] = rnd(n, h)
+            t[p + f"self_attn.{name}_proj.bias"] = rnd(n)
+        t[p + "self_attn.o_proj.weight"] = rnd(h, cfg.q_dim)
+        t[p + "mlp.gate_proj.weight"] = rnd(cfg.intermediate_size, h)
+        t[p + "mlp.up_proj.weight"] = rnd(cfg.intermediate_size, h)
+        t[p + "mlp.down_proj.weight"] = rnd(h, cfg.intermediate_size)
+        t[p + "input_layernorm.weight"] = rnd(h, mean=1)
+        t[p + "post_attention_layernorm.weight"] = rnd(h, mean=1)
+    path.mkdir()
+    stfile.save_file(t, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(dict(
+        architectures=["Qwen2ForCausalLM"], vocab_size=cfg.vocab_size, hidden_size=h,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=cfg.num_layers,
+        num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads,
+        rope_theta=cfg.rope_theta, tie_word_embeddings=cfg.tie_word_embeddings)))
+    return str(path)
+
+
+def same_params(a, b):
+    from mnn_tpu_torch.convert.checkpoint import flatten
+
+    (ta, qa), (tb, qb) = flatten(a), flatten(b)
+    assert qa == qb and sorted(ta) == sorted(tb)
+    for k, x in ta.items():
+        y = tb[k].to(x.device)
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        assert torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)), k
+
+
+# (bits, lm_head_bits, sym, tied)
+CONVERT = [(4, 4, False, True), (8, 0, False, True), (4, 8, True, False), (8, 0, True, False)]
+
+
+@pytest.mark.parametrize("bits,head_bits,sym,tied", CONVERT)
+def test_convert_hf_card_equals_cpu(dev, tmp_path, bits, head_bits, sym, tied):
+    """`convert_hf` quantizes on the card to the CPU's bytes, and
+    `load_checkpoint(device="cuda")` reads back the CPU load's bytes."""
+    from mnn_tpu_torch.convert.checkpoint import load_checkpoint
+    from mnn_tpu_torch.convert.hf import convert_hf
+
+    cfg = dataclasses.replace(MK, tie_word_embeddings=tied)
+    src = write_hf_dir(tmp_path / "hf", cfg)
+    kw = dict(bits=bits, block_size=128, sym=sym, lm_head_bits=head_bits)
+    _, card = convert_hf(src, str(tmp_path / "card"), device=dev, **kw)
+    _, cpu = convert_hf(src, str(tmp_path / "cpu"), device="cpu", **kw)
+    assert card.embedding.is_cuda and not cpu.embedding.is_cuda
+    same_params(card, cpu)
+    _, loaded_card, _ = load_checkpoint(str(tmp_path / "cpu"), device="cuda")
+    _, loaded_cpu, _ = load_checkpoint(str(tmp_path / "card"), device="cpu")
+    assert loaded_card.embedding.is_cuda
+    same_params(loaded_card, loaded_cpu)
+    same_params(loaded_card, card)
+
+
+@pytest.mark.parametrize("head_bits", [4, 0])
+def test_loaded_model_serves_as_in_memory(dev, tmp_path, head_bits):
+    """A model loaded onto the card gives the greedy tokens of the same
+    params in memory, through the whole-model kernel (its head fused at int4,
+    outside it when the tied bf16 embedding is the head)."""
+    from mnn_tpu_torch.convert.hf import convert_hf
+
+    src = write_hf_dir(tmp_path / "hf", MK, seed=3)
+    cfg, params = convert_hf(src, str(tmp_path / "ckpt"), lm_head_bits=head_bits, device=dev)
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4, sampler="greedy",
+                       prefill_act_bits=8, max_new_tokens=6)
+    loaded = Llm.from_pretrained(str(tmp_path / "ckpt"), rt=rt, device=dev)
+    assert loaded.device.type == "cuda"
+    assert loaded.info()["decode_fused_head"] == bool(head_bits)
+    ids = list(range(3, 48))
+    runs = []
+    for llm in (loaded, Llm(cfg, params, rt, device=dev)):
+        build.reset_launches()
+        runs.append((list(llm.stream(token_ids=ids)), decode_model.KERNEL.launches))
+    assert runs[0] == runs[1] and runs[0][1] == rt.max_new_tokens
