@@ -25,7 +25,11 @@ Phases, each of which exits non-zero on failure:
    last decode step of the three requests on qwen2-0.5b's and
    qwen1.5-moe-a2.7b's heads and at batch 2, each row with its split
    (blocks a cluster, positions a tile) and SDPA's time; two calls must
-   give the same bits. Flash decode runs the last decode step of the three
+   give the same bits; then gemma's head_dim 256 (`GEMMA_DECODE_ROWS`):
+   gemma2-2b's heads with softcap 50 on a sliding (4,096) and a global
+   layer at 331 of 1,024 and 4,500 of 8,192, batch 4, a bf16 cache, and
+   gemma3-4b's with QK-norm at 1,300 of 2,048 (SDPA's time beside these,
+   none for the softcapped rows). Flash decode runs the last decode step of the three
    requests at int8 and int4 with qwen2-0.5b's and qwen1.5-moe-a2.7b's
    heads, at batch 2, and at kv_len 4000 of 4096, each row with its split
    (blocks a KV head) and SDPA's time; two calls must give the same bits
@@ -63,7 +67,7 @@ Phases, each of which exits non-zero on failure:
    exceeds the largest logit difference seen; then the whole-model kernel
    against the per-layer path on the card from the same state, and the
    first request's prefill with `prefill_act_bits=16` on both. The same
-   for the mixture-of-experts model at full width and 4 layers (the CPU side
+   for the mixture-of-experts model at full width and 2 layers (the CPU side
    of 24 would take minutes);
 5. serving batched requests through the continuous-batching engine
    (`runtime/batch_engine.py`) at 4 slots, each sub-phase with the launch
@@ -110,11 +114,36 @@ Phases, each of which exits non-zero on failure:
    converted and loaded on the card, one 300-token request of 16 new tokens
    (the grouped expert kernel twice a chunk, the fused expert kernel twice
    a token) with the in-memory model's tokens.
+7. the gemma family (`Llm.synthetic("gemma2-2b")` at its 26 layers, cache
+   1,024, and `"gemma3-4b"` at 34, cache 2,048; phase 3's weights and
+   runtime), each sub-phase with the launch counts set to 0 before and read
+   after. First phase 2's gemma rows of the whole-model kernel: gemma2-2b
+   at batch 1 and 4 (331 of 1,024, its head fused), gemma3-4b (1,300 of
+   2,048, its head on the GEMV kernel) and gemma2-2b's first 2 layers at
+   4,500 of 8,192, each with its schedule, blocks an SM and ring slots.
+   (n) gemma2-2b: three greedy requests of 17, 300 and 600 prompt tokens,
+   32 new each: one whole-model launch a token, 104 int8-row launches a
+   prefill chunk, no flash prefill or flash decode launch (gemma's prefill
+   is the eager attention, as in the JAX package); (o) gemma3-4b: 17 and
+   1,300 tokens (the second crosses the 1,024 window of its 29 sliding
+   layers): one whole-model and one head GEMV launch a token; (p)
+   `forward(megakernel=False)` for both over an int8 cache (the decode-step
+   kernel once a layer a token) and over an int4 cache (the eager path, no
+   decode kernel); each of (n) to (p) with the wall, device busy time, idle
+   share and launches of a traced decode; (q) both at full width and cut
+   depth (gemma2-2b 4 layers, 300 prompt tokens; gemma3-4b 6, so layer 5
+   is global, 1,100 tokens) against the CPU's plain versions, 8 decode
+   steps, on the whole-model and the per-layer path: phase 4's bounds and
+   token rule; (r) (n)'s model through a 4-slot engine, 4 requests of 17,
+   300, 600 and 64 tokens, 16 new each, held to batch-1 runs by phase 5's
+   rule.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
-(phase 5's under `serve_batched`, phase 6's under `checkpoints`). It
+(phase 5's under `serve_batched`, phase 6's under `checkpoints`, phase
+7's under `gemma`; the gemma rows of rows 6 and 7 under `gemma` of their
+kernel in the kernels line, beside the sums of the earlier rows). It
 imports no JAX and nothing of the JAX package.
 """
 
@@ -149,7 +178,7 @@ from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_mat
                                    flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import decoder
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
-from mnn_tpu_torch.models.layers import rope_cos_sin
+from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import batch_engine, evaluate, generate, kvcache
@@ -168,7 +197,9 @@ FALLBACK_PROMPT = 300       # phase 3c: the per-layer path's prompt
 PARITY_REL = 5e-2           # JAX megakernel logits bound, tests/test_decode_model.py:97
 SEED = 0                    # weights and inputs
 MOE_PRESET = "qwen1.5-moe-a2.7b"
-MOE_PARITY_LAYERS = 4       # phase 4, mixture of experts: depth of both sides
+# phase 4, mixture of experts: depth of both sides (at 2 layers the CPU side
+# takes about 20 s)
+MOE_PARITY_LAYERS = 2
 MOE_TOL = 2e-2              # both expert kernels, tests/test_moe_decode.py:61
 SERVE_SLOTS = 4             # phase 5: the engines' width
 SERVE_DENSE_LENS = (17, 300, 600, 17, 300, 600, 64, 900)   # (g), NEW_TOKENS each
@@ -658,17 +689,21 @@ def phase_flash_decode(dev, g, results):
 
 def decode_model_bytes(cfg, lay, head, batch, kv_bits, lengths) -> int:
     """Bytes one step must move: every weight, plane, bias and norm byte and
-    the head once, the cached K/V rows and scales of this run's lengths, x in,
+    the head once (when it is fused), the cached K/V rows and scales that this
+    run's lengths make visible (`lengths`: positions read a sequence), x in,
     and x, the new rows and the logits out."""
     def ql_bytes(ql):
         return sum(t.numel() * t.element_size()
                    for t in (ql.packed, ql.scale, ql.bias, ql.out_bias) if t is not None)
-    n = sum(ql_bytes(q) for q in (lay.wqkv, lay.wo, lay.wgu, lay.wdown, head))
-    n += (lay.input_norm.numel() + lay.post_norm.numel() + cfg.hidden_size) * 4
+    mats = (lay.wqkv, lay.wo, lay.wgu, lay.wdown) + ((head,) if head is not None else ())
+    n = sum(ql_bytes(q) for q in mats)
+    norms = [v for v in (lay.input_norm, lay.post_norm, lay.pre_ffn_norm, lay.post_ffn_norm)
+             if v is not None]
+    n += (sum(v.numel() for v in norms) + cfg.hidden_size) * 4
     row = cfg.head_dim * kv_bits // 8 + (4 if kv_bits < 16 else 0)
     n += 2 * cfg.num_layers * cfg.num_kv_heads * row * (sum(lengths) + batch)
-    n += batch * (2 * cfg.hidden_size + cfg.vocab_size) * 4
-    return n
+    n += batch * (2 * cfg.hidden_size + (cfg.vocab_size if head is not None else 0)) * 4
+    return int(n)
 
 
 def step_inputs(params, cfg, lengths, dev, g):
@@ -1995,6 +2030,422 @@ def phase_checkpoints(dev):
 
 
 # --------------------------------------------------------------------------
+# the gemma family: phase 2's gemma rows of K6 and K7, and phase 7
+# --------------------------------------------------------------------------
+
+GEMMA2, GEMMA3 = "gemma2-2b", "gemma3-4b"
+GEMMA2_CAP, GEMMA3_CAP = 1024, 2048
+GEMMA_LONG, GEMMA_LONG_CAP = 4500, 8192   # past gemma2's 4,096 window
+GEMMA2_LENS = (17, 300, 600)              # (n), NEW_TOKENS new each
+GEMMA3_LENS = (17, 1300)                  # (o): the second crosses the 1,024 window
+GEMMA_PARITY = {GEMMA2: (4, 300), GEMMA3: (6, 1100)}   # (q): layers, prompt tokens
+GEMMA_SERVE_LENS = (17, 300, 600, 64)     # (r), GEMMA_SERVE_NEW new each
+GEMMA_SERVE_NEW = 16
+# (r): the fewest steps whose tokens the batch-1 runs must check, summed over
+# the requests (logit rows' tokens, served tokens)
+GEMMA_SERVE_FLOORS = (12, 11)   # about half of an H100 run's 25 of 36 and 22 of 32
+
+# K6's gemma rows: (label, B, Hkv, G, D, len_old per sequence, capacity, int8
+# cache, QK-norm, window, softcap, layers of the cache). gemma2-2b's heads
+# (softcap 50) on a sliding (4,096) and a global layer at the 331-position
+# request, batch 4, a bf16 cache, and 4,500 of 8,192 past the window;
+# gemma3-4b's (QK-norm, no softcap) at 1,300 of 2,048 on a sliding (1,024)
+# and a global layer, and batch 4 over a bf16 cache.
+GEMMA_DECODE_ROWS = [
+    ("gemma2-2b sliding", 1, 4, 2, 256, (331,), 1024, True, False, 4096, 50.0, 26),
+    ("gemma2-2b global", 1, 4, 2, 256, (331,), 1024, True, False, 0, 50.0, 26),
+    ("gemma2-2b global", 4, 4, 2, 256, (331, 17, 600, 64), 1024, True, False, 0, 50.0, 26),
+    ("gemma2-2b sliding bf16", 1, 4, 2, 256, (331,), 1024, False, False, 4096, 50.0, 26),
+    ("gemma2-2b sliding", 1, 4, 2, 256, (4500,), 8192, True, False, 4096, 50.0, 8),
+    ("gemma2-2b global", 1, 4, 2, 256, (4500,), 8192, True, False, 0, 50.0, 8),
+    ("gemma3-4b sliding", 1, 4, 2, 256, (1300,), 2048, True, True, 1024, 0.0, 34),
+    ("gemma3-4b global", 1, 4, 2, 256, (1300,), 2048, True, True, 0, 0.0, 34),
+    ("gemma3-4b sliding bf16", 4, 4, 2, 256, (1300, 1300, 700, 17), 2048, False, True, 1024,
+     0.0, 34),
+]
+
+
+def visible(lens, window) -> list:
+    """The cached positions a decode step reads per sequence: all of them, or
+    the window's last window - 1 (col > len_old - window)."""
+    return [min(n, window - 1) if window else n for n in lens]
+
+
+def phase_decode_gemma(dev, g, results):
+    """K6 at head_dim 256 (GEMMA_DECODE_ROWS), each with its split, against
+    the plain version; two calls must give the same bits. SDPA's time where
+    one call computes the same function (the rows without a softcap)."""
+    tol = 3e-2
+    rows = []
+    for label, bsz, hkv, grp, d, lens, cap, int8, qkn, window, softcap, L in GEMMA_DECODE_ROWS:
+        kc, vc, ks, vs = rand_cache(g, dev, L, bsz, hkv, cap, d, 8 if int8 else 16)
+        qkv = (torch.randn((bsz, hkv, grp + 2, d), device=dev, generator=g) * 2
+               ).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ang = torch.rand((bsz, d // 2), device=dev, generator=g) * 6.28
+        cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+        qn = kn = None
+        if qkn:
+            qn = torch.rand(d, device=dev, generator=g) + 0.5
+            kn = torch.rand(d, device=dev, generator=g) + 0.5
+        kw = dict(q_norm=qn, k_norm=kn, sm_scale=d ** -0.5, window=window, softcap=softcap)
+        call = lambda i: decode_step.fused_decode_attention(
+            qkv, kc, vc, ks, vs, i % L, lengths, cos, sin, **kw)
+        plain = lambda i: decode_step.fused_decode_attention_plain(
+            qkv, kc, vc, ks, vs, i % L, lengths, cos, sin, qn, kn, 1e-6, d ** -0.5, window, 0,
+            softcap)
+        got, again, want = call(3), call(3), plain(3)
+        torch.cuda.synchronize()
+        name = f"decode_step {label} B={bsz} len={lens}"
+        err, rel = max_abs(got[0], want[0]), rel_l2(got[0], want[0])
+        check(bool(torch.isfinite(got[0]).all()), f"{name}: non-finite output")
+        check(rel <= tol, f"{name}: att rel-L2 {rel:.3g} > {tol}")
+        for j, nm in ((1, "k_row"), (2, "v_row")):
+            lv = max_abs(got[j], want[j])
+            check(lv <= (1.0 if int8 else 0.0), f"{name} {nm}: rows {lv} apart")
+        if int8:
+            for j, nm in ((3, "k_scale"), (4, "v_scale")):
+                check(rel_l2(got[j], want[j]) <= 1e-6, f"{name} {nm} differs")
+        check(all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)),
+              f"{name}: two calls gave different bits")
+        ms = time_ms(call, calls=48)
+        plain_ms = time_ms(plain, calls=8, replays=2)
+        seen = visible(lens, window)
+        lib_ms = None
+        if not softcap:
+            # SDPA of the query rows (after the kernel's norm and rope, which
+            # SDPA does not do) over the dequantized rows, each sequence masked
+            # to its visible positions
+            q = qkv[:, :, :grp].reshape(bsz, hkv * grp, 1, d)
+            n = max(lens) + 1
+            deq = lambda c, s: (kvcache.dequant_kv(c[3], s[3], 8) if int8 else c[3])[:, :, :n]
+            kd = deq(kc, ks).repeat_interleave(grp, 1)
+            vd = deq(vc, vs).repeat_interleave(grp, 1)
+            pos = torch.arange(n, device=dev)[None, :]
+            mask = pos <= lengths[:, None]
+            if window:
+                mask &= (pos > lengths[:, None] - window) | (pos == lengths[:, None])
+            lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask[:, None, None]), calls=48)
+        row_b = d * (1 if int8 else 2) + (4 if int8 else 0)
+        nbytes = bsz * (hkv * (grp + 2) * d * 2 + 2 * d * 4 + hkv * grp * d * 2
+                        + 2 * hkv * (d + 1) * 4) + (2 * d * 4 if qkn else 0)
+        nbytes += sum(2 * hkv * n * row_b for n in seen)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        blocks_a_cluster, tile, smem, blocks = decode_step.split(bsz, hkv, grp, cap, d, int8)
+        row = dict(shape=f"{label} B={bsz} Hkv={hkv} G={grp} D={d} "
+                         f"len_old={','.join(map(str, lens))} S={cap} "
+                         f"{'int8' if int8 else 'bf16'} window={window} softcap={softcap}",
+                   max_abs_err=err, rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by="bytes", positions_read=seen,
+                   split=dict(blocks_a_cluster=blocks_a_cluster, tile=tile, smem=smem,
+                              blocks=blocks))
+        rows.append(row)
+        sdpa = "none (softcap)" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"  decode_step gemma  {row['shape']:72s} rel {rel:.2e} | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} sdpa {sdpa} bound {bound:.5f} | clusters of "
+              f"{blocks_a_cluster} blocks, {tile}-position tiles, smem {smem}, {blocks} blocks",
+              flush=True)
+        del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    results["decode_step_gemma"] = rows
+
+
+def first_layers(params, n: int):
+    """`params` cut to its first n layers (views of the same tensors)."""
+    def cut(v):
+        if v is None:
+            return None
+        if isinstance(v, QuantizedLinear):
+            return dataclasses.replace(
+                v, packed=v.packed[:n], scale=v.scale[:n], bias=v.bias[:n],
+                out_bias=None if v.out_bias is None else v.out_bias[:n])
+        return v[:n]
+    lay = params.layers
+    lay = dataclasses.replace(lay, **{f.name: cut(getattr(lay, f.name))
+                                      for f in dataclasses.fields(lay)})
+    return dataclasses.replace(params, layers=lay)
+
+
+def gemma_step_inputs(params, cfg, lengths, dev, g):
+    """x (scaled as `forward` scales it), lengths and both rope phase pairs
+    of one decode step."""
+    tok, x, lens, cos_f, sin_f = step_inputs(params, cfg, lengths, dev, g)
+    x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=dev)
+    local = {}
+    if cfg.swa_pattern:
+        cl, sl = rope_cos_sin(lens[:, None].long(), cfg.head_dim, cfg.rope_local_theta)
+        local = dict(cos_l=torch.cat([cl[:, 0]] * 2, -1), sin_l=torch.cat([sl[:, 0]] * 2, -1))
+    return tok, x, lens, cos_f, sin_f, local
+
+
+def with_logits(outs, params, cfg):
+    """A step's results with logits and token appended when the head ran
+    outside the kernel (gemma3's vocabulary is not 128-aligned): the final
+    norm and the head GEMV on x_out, as `forward` runs them."""
+    if len(outs) == 7:
+        return outs
+    xn = rms_norm(outs[0].to(torch.bfloat16), params.final_norm, cfg.rms_norm_eps)
+    logits = decoder.head_logits(params, xn)
+    return tuple(outs) + (logits, decode_model.lowest_argmax(logits))
+
+
+def phase_decode_model_gemma(dev, g, results, p2, p3):
+    """K7 with gemma's flags at full width: gemma2-2b's 26 layers at batch 1
+    and 4 over an int8 cache at 331 of 1,024 (its head fused), gemma3-4b's 34
+    at 1,300 of 2,048 (its head on the GEMV kernel after the kernel), and
+    gemma2-2b's first 2 layers at 4,500 of 8,192 (past the 4,096 window);
+    each against its plain version from the same state, the same bits twice,
+    the schedule it walked with blocks an SM and ring slots."""
+    c2, c3 = PRESETS[GEMMA2], PRESETS[GEMMA3]
+    cases = [(GEMMA2, c2, p2, 8, (331,), GEMMA2_CAP),
+             (GEMMA2, c2, p2, 8, (331, 17, 600, 64), GEMMA2_CAP),
+             (GEMMA3, c3, p3, 8, (1300,), GEMMA3_CAP),
+             (f"{GEMMA2} x2 layers", dataclasses.replace(c2, num_layers=2), first_layers(p2, 2),
+              8, (GEMMA_LONG,), GEMMA_LONG_CAP)]
+    rows = []
+    for name, cfg, params, kv_bits, lengths, cap in cases:
+        b = len(lengths)
+        kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
+                                    cfg.head_dim, kv_bits)
+        tok, x, lens, cos_f, sin_f, local = gemma_step_inputs(params, cfg, lengths, dev, g)
+        args = (x, params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
+        head = params.lm_head if decode_model.supports_head(cfg, params) else None
+        check((head is not None) == (cfg.vocab_size % 128 == 0), f"{name}: head fusion")
+        kw = dict(config=cfg, head=head, final_norm=params.final_norm, **local)
+        got = with_logits(decode_model.fused_decode_model(*args, **kw), params, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = with_logits(decode_model.fused_decode_model_plain(*args, **kw), params, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+              f"decode_model {name}: non-finite output")
+        m = decode_model.parity_metrics(got, want, kv_bits)
+        bad = decode_model.parity_failures(m, skip=("x_rel",))
+        check(not bad, f"decode_model {name} lengths {lengths}: {bad} in {m}")
+        ms = event_ms(lambda i: decode_model.fused_decode_model(*args, **kw), calls=20)
+        cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs, length=lens,
+                                bits=kv_bits)
+        per_layer_ms, per_layer_n = profiled_device_ms(lambda: decoder.forward(
+            params, cfg, tok[:, None], cache, megakernel=False), calls=1)
+        nbytes = decode_model_bytes(cfg, params.layers, head, b, kv_bits,
+                                    visible_model(cfg, lengths))
+        bound = nbytes / HBM_BYTES_S * 1e3
+        again = decode_model.fused_decode_model(*args, **kw)
+        same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+        check(same, f"decode_model {name}: two calls gave different bits")
+        sched = decode_model.schedule_info(cfg, params.layers, head, b, cap, dev)
+        limits = decode_model.LIMITS(decode_model.bucket(b), cfg.head_dim)
+        row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))} "
+                         f"S={cap}", max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+                   tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
+                   bytes=nbytes, head_fused=head is not None,
+                   per_layer_path_device_ms=per_layer_ms, per_layer_path_launches=per_layer_n,
+                   same_twice=same, blocks_an_sm=limits[0], registers=limits[4],
+                   local_bytes=limits[7],
+                   schedule={k: v for k, v in sched.items() if k != "units"})
+        rows.append(row)
+        print(f"  decode_model gemma {row['shape']:48s} logits rel {m['logits_rel']:.2e} "
+              f"x {m['x_rel']:.1e} rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl "
+              f"tokens {m['tokens_compared']}/{b} | kernel {ms:.4f} ms plain {plain_ms:.1f} "
+              f"bound {bound:.4f} | per-layer path (device) {per_layer_ms:.3f} ms, "
+              f"{per_layer_n:.0f} launches", flush=True)
+        print(f"    schedule: {sched['grid']} blocks ({limits[0]} an SM, {limits[4]} registers "
+              f"a thread, {limits[7]} local bytes), ring {sched['slots']} slots "
+              f"({sched['ring_bytes']} B a block), items a phase (layer 0) "
+              f"{sched['items_a_layer']}, {sched['grid_waits_a_layer']} grid-wide waits a "
+              f"layer, weight bytes a block {sched['max_block_bytes']} most / "
+              f"{sched['mean_block_bytes']:.0f} mean", flush=True)
+        del kc, vc, ks, vs, cache, got, want, again
+        torch.cuda.empty_cache()
+    results["decode_model_gemma"] = rows
+
+
+def visible_model(cfg, lengths) -> list:
+    """Cached positions a whole-model step reads a sequence, averaged over
+    the layers (sliding layers read their window only)."""
+    per_layer = [visible(lengths, decoder.layer_window(cfg, i)) for i in range(cfg.num_layers)]
+    return [sum(col) / cfg.num_layers for col in zip(*per_layer)]
+
+
+def gemma_rt(cap: int, kv_bits: int = 8):
+    return dataclasses.replace(serving_rt(kv_bits), max_seq_len=cap)
+
+
+def decode_profile(llm, ids, steps, label, card_line, megakernel=None):
+    """Prefill `ids`, then `steps` greedy decode steps from copies of that
+    state, the tokens fed back on the device: the wall of an untraced run
+    (ended by a synchronize), a traced run's device busy time and launches
+    by kernel. Returns (profile dict, the launch counts of the traced run)."""
+    cache0 = llm._new_cache()
+    tokens = torch.tensor([ids], dtype=torch.int64, device=llm.device)
+    logits, cache0 = generate.run_prefill(llm.params, llm.config, llm.rt, tokens, cache0)
+    tok0 = decode_model.lowest_argmax(logits)[:, None].long()
+
+    def clone():
+        cl = lambda t: None if t is None else t.clone()
+        return dataclasses.replace(cache0, k=cl(cache0.k), v=cl(cache0.v),
+                                   k_scale=cl(cache0.k_scale), v_scale=cl(cache0.v_scale))
+
+    def run(cache):
+        tok = tok0
+        for _ in range(steps):
+            (_, t), cache = decoder.forward(llm.params, llm.config, tok, cache,
+                                            megakernel=megakernel, return_token=True)
+            tok = t[:, None].long()
+        torch.cuda.synchronize()
+
+    run(clone())                                  # warm-up
+    c = clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(c)
+    wall = (time.perf_counter() - t0) * 1e3
+    c = clone()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    by_name, _, _ = profile_decode.traced(lambda: run(c), 1)
+    counts = {k.name: k.launches for k in build.KERNELS}
+    busy = sum(ms for _, ms, _ in by_name)
+    out = dict(steps=steps, wall_ms_per_token=wall / steps, device_busy_ms_per_token=busy / steps,
+               device_idle_share=1 - busy / wall,
+               launches_per_token=sum(n for _, _, n in by_name) / steps,
+               kernels=[dict(name=k, ms=ms / steps, launches=n / steps)
+                        for k, ms, n in by_name[:8]])
+    print(f"  {label}: {steps} decode steps after {len(ids)} prompt tokens: wall "
+          f"{out['wall_ms_per_token']:.3f} ms a token, device busy "
+          f"{out['device_busy_ms_per_token']:.3f} ms, idle share "
+          f"{out['device_idle_share']:.3f}, {out['launches_per_token']:.1f} launches a token "
+          f"[{card_line}]", flush=True)
+    return out, counts
+
+
+GEMMA_NEVER = ("mnn_flash_prefill", "mnn_flash_decode", "mnn_moe_decode", "mnn_moe_prefill",
+               "mnn_dequant_matmul_bf16_tile")
+
+
+def phase_serve_gemma(llm, lens, label, card_line):
+    """Phase 7 (n) / (o): greedy requests of `lens` prompt tokens through
+    `Llm.stream`, NEW_TOKENS new each: one whole-model launch a token, 4 x
+    layers int8-row matmuls a prefill chunk, the head on the GEMV kernel a
+    chunk (and a token where the head is not fused), no flash kernel."""
+    cfg = llm.config
+    info = llm.info()
+    check(info["decode_megakernel"], f"{label}: the whole-model kernel does not serve it")
+    rng = np.random.default_rng(2468)
+    reqs = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))   # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs, perf = serve(llm, reqs, label)
+    counts = read_launches(label, ("mnn_dequant_matmul", "mnn_dequant_matmul_a8",
+                                   "mnn_decode_model"),
+                           never=GEMMA_NEVER + ("mnn_decode_step",))
+    steps = NEW_TOKENS * len(reqs)
+    chunks = chunks_of(reqs, llm.rt)
+    head = 0 if info["decode_fused_head"] else steps
+    want = {"mnn_decode_model": steps, "mnn_dequant_matmul_a8": 4 * cfg.num_layers * chunks,
+            "mnn_dequant_matmul": chunks + head}
+    for k, n in want.items():
+        check(counts[k] == n, f"{label}: {counts[k]} launches of {k}, {n} expected "
+              f"({steps} decode steps, {chunks} prefill chunks)")
+    prof, _ = decode_profile(llm, reqs[-1], 16, label, card_line)
+    return reqs, outs, dict(requests=perf, launches=counts, decode_steps=steps,
+                            prefill_chunks=chunks, head_fused=info["decode_fused_head"],
+                            decode=prof)
+
+
+def phase_per_layer_gemma(llm, ids, label, card_line):
+    """Phase 7 (p): `forward(megakernel=False)` over an int8 cache (the
+    decode-step kernel once a layer a token) and over an int4 cache (the
+    eager path: no decode kernel), PARITY_STEPS steps each."""
+    cfg, out = llm.config, {}
+    for kv_bits in (8, 4):
+        one = Llm(cfg, llm.params, dataclasses.replace(llm.rt, kv_bits=kv_bits),
+                  device=llm.device)
+        build.reset_launches()
+        rows, _, _ = greedy_trace(one, ids, None, megakernel=False)
+        lab = f"{label} per-layer int{kv_bits} kv"
+        step_kernel = ("mnn_decode_step",) if kv_bits == 8 else ()
+        counts = read_launches(lab, ("mnn_dequant_matmul_a8", "mnn_dequant_matmul") + step_kernel,
+                               never=GEMMA_NEVER + ("mnn_decode_model",)
+                               + (() if kv_bits == 8 else ("mnn_decode_step",)))
+        n = PARITY_STEPS * cfg.num_layers if kv_bits == 8 else 0
+        check(counts["mnn_decode_step"] == n, f"{lab}: {counts['mnn_decode_step']} "
+              f"decode-step launches, {n} expected")
+        check(all(bool(torch.isfinite(r).all()) for r in rows), f"{lab}: non-finite logits")
+        # 4 steps: a traced step of this path is some thousands of launches
+        prof, _ = decode_profile(one, ids, 4, lab, card_line, megakernel=False)
+        out[f"int{kv_bits}"] = dict(launches=counts, decode=prof)
+        del one
+    return out
+
+
+def phase_parity_gemma(llm, card_line):
+    """Phase 7 (q): full width, depth cut (GEMMA_PARITY), a prompt and
+    PARITY_STEPS decode steps on the card through the whole-model kernel and
+    through the per-layer path, each against the CPU's plain versions with
+    the same weights and the CPU's tokens."""
+    name = llm.config.name
+    layers, n = GEMMA_PARITY[name]
+    cfg = dataclasses.replace(llm.config, num_layers=layers)
+    card_llm = Llm(cfg, first_layers(llm.params, layers), llm.rt, device=llm.device)
+    ids = np.random.default_rng(1357).integers(0, cfg.vocab_size, size=n).tolist()
+    t0 = time.perf_counter()
+    cpu_llm = Llm(cfg, decoder.params_to(card_llm.params, "cpu"), llm.rt, device="cpu")
+    cpu, fed, _ = greedy_trace(cpu_llm, ids, None)
+    cpu_s = time.perf_counter() - t0
+    out = dict(layers=layers, prompt=n, cpu_s=cpu_s)
+    for path, mk in (("whole-model", None), ("per-layer", False)):
+        card, _, _ = greedy_trace(card_llm, ids, fed, megakernel=mk)
+        out[path] = compare_traces(card, cpu, f"{name} ({layers} layers, {n} prompt tokens, "
+                                   f"{path}) ")
+    print(f"    cpu run {cpu_s:.1f} s", flush=True)
+    del cpu_llm
+    return out
+
+
+def phase_serve_batched_gemma(llm, card_line):
+    """Phase 7 (r): (n)'s model through a 4-slot engine, 4 requests at once,
+    held to batch-1 runs by phase 5's rule."""
+    cfg, label = llm.config, "serve batched gemma (r)"
+    rt = dataclasses.replace(llm.rt, max_batch=SERVE_SLOTS)
+    rng = np.random.default_rng(8642)
+    reqs = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in GEMMA_SERVE_LENS]
+    eng = batch_engine.BatchEngine(cfg, llm.params, rt)
+    served, wall = serve_engine(eng, reqs, GEMMA_SERVE_NEW, label, card_line)
+    counts = read_launches(label, ("mnn_dequant_matmul_a8", "mnn_decode_model"),
+                           never=GEMMA_NEVER + ("mnn_decode_step",))
+    gen = sum(len(r.generated) for r in served)
+    print(f"  {label}: {gen} tokens in {wall * 1e3:.1f} ms at {SERVE_SLOTS} slots: "
+          f"{gen / wall:.1f} tok/s [{card_line}]", flush=True)
+    parity = hold_to_single_stream(llm, rt, reqs, [r.generated for r in served], label,
+                                   GEMMA_SERVE_FLOORS)
+    del eng
+    return dict(prompt_lens=list(GEMMA_SERVE_LENS), new_tokens=GEMMA_SERVE_NEW,
+                requests=per_request(served), wall_s=wall, tok_s=gen / wall,
+                launches=counts, parity=parity)
+
+
+def phase_gemma(dev, card_line, g2: "Llm", g3: "Llm"):
+    """Phase 7: the gemma family served on the card, (n) to (r)."""
+    t0 = time.perf_counter()
+    out = {}
+    _, _, out["n"] = phase_serve_gemma(g2, GEMMA2_LENS, "gemma2-2b (n)", card_line)
+    _, _, out["o"] = phase_serve_gemma(g3, GEMMA3_LENS, "gemma3-4b (o)", card_line)
+    out["p"] = {m.config.name: phase_per_layer_gemma(
+        m, np.random.default_rng(97).integers(0, m.config.vocab_size, 300).tolist(),
+        f"{m.config.name} (p)", card_line) for m in (g2, g3)}
+    out["q"] = {m.config.name: phase_parity_gemma(m, card_line) for m in (g2, g3)}
+    out["r"] = phase_serve_batched_gemma(g2, card_line)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 7: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
@@ -2072,6 +2523,7 @@ def main():
     phase_gemm(dev, g, results, a8=True)
     phase_flash(dev, g, results)
     phase_decode(dev, g, results)
+    phase_decode_gemma(dev, g, results)
     phase_flash_decode(dev, g, results)
     phase_gemm_deq(dev, g, results)
     phase_moe_decode(dev, g, results)
@@ -2131,6 +2583,18 @@ def main():
           flush=True)
     checkpoints = phase_checkpoints(dev)
 
+    print("phase 7: the gemma family on the card", flush=True)
+    t0 = time.perf_counter()
+    g2 = Llm.synthetic(GEMMA2, rt=gemma_rt(GEMMA2_CAP), seed=SEED, device=dev)
+    g3 = Llm.synthetic(GEMMA3, rt=gemma_rt(GEMMA3_CAP), seed=SEED, device=dev)
+    print(f"  models: {GEMMA2} and {GEMMA3} built in {time.perf_counter() - t0:.1f} s; "
+          f"info {json.dumps(g2.info())} {json.dumps(g3.info())}", flush=True)
+    print("phase 2, gemma rows of the whole-model kernel", flush=True)
+    phase_decode_model_gemma(dev, g, results, g2.params, g3.params)
+    gemma = phase_gemma(dev, card_line, g2, g3)
+    del g2, g3
+    torch.cuda.empty_cache()
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
@@ -2147,6 +2611,15 @@ def main():
         if kname == "decode_model":
             k["seven_shapes"] = row_sums(rows[:DECODE_MODEL_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[DECODE_MODEL_FIRST_ROWS:])
+            # phase 7: (n) and (o), one launch a token
+            k["gemma"] = dict(row_sums(results["decode_model_gemma"]),
+                              launches=sum(gemma[p]["launches"][entry] for p in "no"))
+        if kname == "decode_step":
+            # phase 7 (p): one launch a layer a token over the int8 caches
+            k["gemma"] = dict(row_sums(results["decode_step_gemma"]), launches=sum(
+                v["int8"]["launches"][entry] for v in gemma["p"].values()))
+        if kname in ("dequant_matmul", "dequant_matmul_a8"):
+            k["gemma_launches"] = sum(gemma[p]["launches"][entry] for p in "no")
         if kname == "dequant_matmul":
             # one TPU kernel, two CUDA kernels: the GEMV kernel at M = 1 (the
             # decode GEMVs and the head) and the tensor-core tile kernel above
@@ -2161,6 +2634,7 @@ def main():
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
+                  gemma=gemma,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -7,11 +7,12 @@ subcommands of `mnn_tpu/cli.py` on the port.
     python -m mnn_tpu_torch.cli serve --model OUT --batch 4
     python -m mnn_tpu_torch.cli eval --model OUT --file text.txt
     python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
+    python -m mnn_tpu_torch.cli serve --preset gemma2-2b --batch 4
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
 `convert`, or from the JAX package's converter) and wins over
-`--synthetic`, a random-weight preset. `convert` reads a HuggingFace
+`--synthetic` (also `--preset`), a random-weight preset. `convert` reads a HuggingFace
 directory (`--hf`) or a llama.cpp GGUF file (`--gguf`) and quantizes on the
 device; `--awq` (the activation-aware scale search) is not ported. The
 model defaults are the serving configuration of the port's main path: W4
@@ -36,9 +37,9 @@ import time
 
 def _add_model_args(p):
     p.add_argument("--model", help="converted checkpoint directory")
-    p.add_argument("--synthetic", default="qwen2-0.5b",
+    p.add_argument("--synthetic", "--preset", default="qwen2-0.5b",
                    help="synthetic preset when no --model is given "
-                        "(e.g. qwen2-0.5b, qwen1.5-moe-a2.7b)")
+                        "(e.g. qwen2-0.5b, qwen1.5-moe-a2.7b, gemma2-2b, gemma3-4b)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
     p.add_argument("--max-seq-len", type=int, default=4096)

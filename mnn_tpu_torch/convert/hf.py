@@ -13,6 +13,10 @@ Layout re-packing (as `models/decoder.py` `LayerParams` reads it):
   * phi-3's fused qkv_proj / gate_up_proj split back into their parts;
   * AWQ / GPTQ packed tensors taken as the float weights of their grid;
   * Qwen2-MoE routers, experts, shared expert and its sigmoid gate;
+  * Gemma2 / Gemma3: the sandwich norms (`post_attention_layernorm` on the
+    attention output, `pre_feedforward_layernorm`,
+    `post_feedforward_layernorm`), gemma3's q_norm / k_norm, and gemma's
+    `1 + w` RMSNorm offset baked into every norm weight;
   * every weight transposed to [in, out] (HF stores [out, in]).
 
 Unlike the JAX converter, which holds every layer's f32 matrices at once,
@@ -81,7 +85,8 @@ def convert_hf(
     device=None,
 ):
     """Convert and quantize an HF decoder checkpoint (qwen2 / qwen3 /
-    llama / mistral / phi3, dense or Qwen2-MoE) on `device` (None: the card)
+    llama / mistral / phi3 / gemma2 / gemma3, dense or Qwen2-MoE) on
+    `device` (None: the card)
     and write it to `out_dir`. `hf_config` / `tensors` stand in for the
     files on disk (the GGUF importer feeds its decoded tensors so).
     Returns (config, params): what was written, as it lies on `device`."""
@@ -153,8 +158,8 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
     def maybe(name):
         return f32(name) if name in t else None
 
-    # gemma RMSNorm computes x * (1 + w): the JAX converter bakes the offset
-    # into the weights. `_check_supported` refuses gemma until it is ported.
+    # gemma RMSNorm computes x * (1 + w): the offset is baked into the
+    # stored weights, as the JAX converter does
     norm_off = 1.0 if "gemma" in (hf_cfg.get("architectures") or [""])[0].lower() \
         else 0.0
 
@@ -176,7 +181,7 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
 
     acc = {k: [] for k in (
         "wqkv", "qkv_bias", "wo", "wgu", "wdown", "input_norm", "post_norm",
-        "q_norm", "k_norm", "router", "wgu_e", "wdown_e", "wgu_shared",
+        "pre_ffn_norm", "post_ffn_norm", "q_norm", "k_norm", "router", "wgu_e", "wdown_e", "wgu_shared",
         "wdown_shared", "shared_gate")}
     for i in range(c.num_layers):
         p = f"model.layers.{i}."
@@ -220,6 +225,9 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
 
         acc["input_norm"].append(get_norm(p + "input_layernorm.weight"))
         acc["post_norm"].append(get_norm(p + "post_attention_layernorm.weight"))
+        if c.sandwich_norm:
+            acc["pre_ffn_norm"].append(get_norm(p + "pre_feedforward_layernorm.weight"))
+            acc["post_ffn_norm"].append(get_norm(p + "post_feedforward_layernorm.weight"))
         if c.qk_norm:
             acc["q_norm"].append(get_norm(p + "self_attn.q_norm.weight"))
             acc["k_norm"].append(get_norm(p + "self_attn.k_norm.weight"))
@@ -239,6 +247,7 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
         wqkv=stack_q("wqkv", acc["qkv_bias"] or None), wo=stack_q("wo"),
         wgu=stack_q("wgu"), wdown=stack_q("wdown"),
         input_norm=stack("input_norm"), post_norm=stack("post_norm"),
+        pre_ffn_norm=stack("pre_ffn_norm"), post_ffn_norm=stack("post_ffn_norm"),
         q_norm=stack("q_norm"), k_norm=stack("k_norm"), router=stack("router"),
         wgu_e=per_expert(stack_q("wgu_e")) if c.is_moe else None,
         wdown_e=per_expert(stack_q("wdown_e")) if c.is_moe else None,

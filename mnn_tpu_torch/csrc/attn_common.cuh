@@ -9,7 +9,11 @@
 // warp: four lanes per column for the scores, D / 32 dims per lane for P.V. Cache rows are bf16, int8
 // or nibble-packed int4 (byte j = dims (j, j + D/2), low nibble first,
 // stored as q + 8); a quantized row's K scale multiplies its score column
-// and its V scale its probability column, so nothing is dequantized.
+// and its V scale its probability column, so nothing is dequantized. An
+// optional softcap (gemma2) takes each score to tanh(s / cap) * cap before
+// the running max. Head dims 64, 128 and 256; at 256 the state holds up to 4
+// query rows a KV head (`at_gmax`), so that it takes the shared memory that
+// 8 rows take at 128 and leaves the whole-model kernel its weight ring.
 #pragma once
 
 #include "common.cuh"
@@ -18,17 +22,22 @@ namespace mnn {
 
 constexpr int AT_WARPS = 8, AT_GMAX = 8;
 
+// query rows a KV head that the state holds at head dim D
+template <int D>
+__host__ __device__ constexpr int at_gmax() { return D > 128 ? 4 : AT_GMAX; }
+
 template <int D>
 struct AttnSmem {
-  float rows[AT_GMAX + 2][D];       // query rows (then the new K, V rows)
+  static constexpr int GM = at_gmax<D>();
+  float rows[GM + 2][D];            // query rows (then the new K, V rows)
   float katt[D], vatt[D];           // new K/V as attention sees them
   float krow[D], vrow[D];           // new K/V as the cache stores them
-  float seed[AT_GMAX];
+  float seed[GM];
   float new_sc[2];                  // the new K and V rows' scales
   int flag;
-  float pv[AT_WARPS][AT_GMAX][32];
-  float m[AT_WARPS][AT_GMAX], l[AT_WARPS][AT_GMAX];
-  float acc[AT_WARPS][AT_GMAX][D];
+  float pv[AT_WARPS][GM][32];
+  float m[AT_WARPS][GM], l[AT_WARPS][GM];
+  float acc[AT_WARPS][GM][D];
 };
 
 // The head dim that `lane` accumulates in slot j of its D / 32 slots. int4
@@ -57,7 +66,7 @@ template <int D>
 __device__ __forceinline__ void dot4(const float (*q)[D], int G, int d0, const float* k,
                                      float* s) {
 #pragma unroll
-  for (int g = 0; g < AT_GMAX; ++g) {
+  for (int g = 0; g < at_gmax<D>(); ++g) {
     if (g < G) {
       const float4 q4 = *reinterpret_cast<const float4*>(&q[g][d0]);
       s[g] += q4.x * k[0] + q4.y * k[1] + q4.z * k[2] + q4.w * k[3];
@@ -154,21 +163,21 @@ struct VSeg {
 // dotting a quarter of its K row with the G query rows, and for P.V every lane
 // owns D / 32 dims over the step's 8 columns; the K and V loads of a step go
 // out together. Columns are visible when col < limit and, with a window,
-// col > wlo or col < sink. ROUND_P rounds the probability (times the V scale)
-// to bf16 before the P.V product. m, l, acc come back as this warp's
-// online-softmax state over its columns.
+// col > wlo or col < sink. `softcap` > 0 caps the scaled scores. ROUND_P
+// rounds the probability (times the V scale) to bf16 before the P.V product.
+// m, l, acc come back as this warp's online-softmax state over its columns.
 template <int D, int KVB, bool ROUND_P>
 __device__ __forceinline__ void attend_cached(
     const float (*q)[D], int G, const uint8_t* __restrict__ kc,
     const uint8_t* __restrict__ vc, const float* __restrict__ ksc,
     const float* __restrict__ vsc, int first, int stride, int limit, int wlo,
-    bool windowed, int sink, float scale, float (*pv)[32], int lane, float* m,
-    float* l, float (*acc)[D / 32]) {
+    bool windowed, int sink, float scale, float softcap, float (*pv)[32], int lane,
+    float* m, float* l, float (*acc)[D / 32]) {
   constexpr bool QUANT = KVB < 16;
-  constexpr int DP = D / 32, ROWB = D * KVB / 8;
+  constexpr int DP = D / 32, ROWB = D * KVB / 8, GM = at_gmax<D>();
   const int cl = lane >> 2, r = lane & 3;
 #pragma unroll
-  for (int g = 0; g < AT_GMAX; ++g) {
+  for (int g = 0; g < GM; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -189,29 +198,31 @@ __device__ __forceinline__ void attend_cached(
     for (int c = 0; c < AT_CW; ++c)
       vseg[c].load(vc + (long)min(c0 + c, limit - 1) * ROWB, lane);
 
-    // Each step below runs over all AT_GMAX query rows at once, so that the
+    // Each step below runs over all GM query rows at once, so that the
     // rows' shuffles and exponentials overlap; rows past G carry zeros.
-    float s[AT_GMAX];
+    float s[GM];
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) s[g] = 0.f;
+    for (int g = 0; g < GM; ++g) s[g] = 0.f;
     kseg.dot(q, G, r, s);
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
+    for (int g = 0; g < GM; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) {   // the column's four quarters
+    for (int g = 0; g < GM; ++g) {   // the column's four quarters
       s[g] += __shfl_xor_sync(0xffffffffu, s[g], 2);
       if (QUANT) s[g] = __fmul_rn(s[g], ks);
-      s[g] = ok ? __fmul_rn(s[g], scale) : NEG_INF;
+      float v = __fmul_rn(s[g], scale);
+      if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
+      s[g] = ok ? v : NEG_INF;
     }
-    float mx[AT_GMAX], psum[AT_GMAX];   // over the step's 8 columns
+    float mx[GM], psum[GM];   // over the step's 8 columns
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) mx[g] = s[g];
+    for (int g = 0; g < GM; ++g) mx[g] = s[g];
 #pragma unroll
     for (int o = 4; o < 32; o <<= 1)
 #pragma unroll
-      for (int g = 0; g < AT_GMAX; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+      for (int g = 0; g < GM; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       mx[g] = fmaxf(m[g], mx[g]);   // the new running max
       s[g] = expf(s[g] - mx[g]);    // p
       psum[g] = s[g];
@@ -219,9 +230,9 @@ __device__ __forceinline__ void attend_cached(
 #pragma unroll
     for (int o = 4; o < 32; o <<= 1)
 #pragma unroll
-      for (int g = 0; g < AT_GMAX; ++g) psum[g] += __shfl_xor_sync(0xffffffffu, psum[g], o);
+      for (int g = 0; g < GM; ++g) psum[g] += __shfl_xor_sync(0xffffffffu, psum[g], o);
 #pragma unroll
-    for (int g = 0; g < AT_GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       const float alpha = expf(m[g] - mx[g]);
       l[g] = l[g] * alpha + psum[g];
       m[g] = mx[g];
@@ -237,7 +248,7 @@ __device__ __forceinline__ void attend_cached(
       float vv[DP];
       vseg[c].values(vv);
 #pragma unroll
-      for (int g = 0; g < AT_GMAX; ++g) {
+      for (int g = 0; g < GM; ++g) {
         const float w = pv[g][c];
 #pragma unroll
         for (int j = 0; j < DP; ++j) acc[g][j] += w * vv[j];
@@ -253,7 +264,7 @@ __device__ __forceinline__ void park_state(AttnSmem<D>& sm, int G, int warp, int
                                            const float* m, const float* l,
                                            const float (*acc)[D / 32]) {
 #pragma unroll
-  for (int g = 0; g < AT_GMAX; ++g) {
+  for (int g = 0; g < at_gmax<D>(); ++g) {
     if (g >= G) break;
     if (lane == 0) {
       sm.m[warp][g] = m[g];

@@ -18,22 +18,29 @@ MNN_API int mnn_decode_model(
     const void* final_norm, const void* head_p, const void* head_s, const void* head_b,
     void* x_out, void* k_rows, void* v_rows, void* k_sc, void* v_sc, void* logits,
     void* token, void* ws, void* counters, void* clocks,
+    const void* pre_ffn, const void* post_ffn, const void* cos_l, const void* sin_l,
     int B, int L, int H, int NH, int Hkv, int D, int I, int S, int V, int bits, int bs_h,
     int bs_i, int head_bits, int bs_head, int kv_bits, int window, int sink,
-    int write_cache, int ws_floats, int n_counters, float sm_scale, float eps,
-    const void* sched, const void* sched_hdr, void* stream) {
-  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128) || Hkv < 1 || NH % Hkv ||
-      NH / Hkv > AT_GMAX || (bits != 4 && bits != 8) ||
+    int write_cache, int ws_floats, int n_counters, int flags, int swa_p, float sm_scale,
+    float eps, float softcap, const void* sched, const void* sched_hdr, void* stream) {
+  const int gmax = D == 256 ? at_gmax<256>() : AT_GMAX;
+  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128 && D != 256) || Hkv < 1 || NH % Hkv ||
+      NH / Hkv > gmax || (bits != 4 && bits != 8) || (D == 256 && kv_bits == 4) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || bs_h % 32 || bs_i % 32 ||
       H % bs_h || (NH * D) % bs_h || I % bs_i || I % 64 || H % 4)
     return (int)cudaErrorInvalidValue;
   if (head_p && ((head_bits != 4 && head_bits != 8) || bs_head % 32 || H % bs_head || V % 4))
     return (int)cudaErrorInvalidValue;
+  if (((flags & DM_SANDWICH) && (!pre_ffn || !post_ffn)) ||
+      ((flags & DM_SWA_P) && (swa_p < 1 || !cos_l || !sin_l)) || (!(flags & DM_SWA_P) && swa_p) ||
+      ((flags & DM_SOFTCAP) != 0) != (softcap > 0.f))
+    return (int)cudaErrorInvalidValue;
   const int* hdr = static_cast<const int*>(sched_hdr);
   if (!sched || !hdr || hdr[H_MAGIC] != DM_MAGIC || hdr[H_B] != B || hdr[H_L] != L ||
       hdr[H_H] != H || hdr[H_NQ] != (NH + 2 * Hkv) * D || hdr[H_I] != I ||
       hdr[H_V] != (head_p ? V : 0) || hdr[H_BITS] != bits ||
-      hdr[H_HEAD_BITS] != (head_p ? head_bits : 0) || hdr[H_D] != D || H > 128 * DM_TILE)
+      hdr[H_HEAD_BITS] != (head_p ? head_bits : 0) || hdr[H_D] != D || H > 128 * DM_TILE ||
+      hdr[H_FLAGS] != flags || hdr[H_SWA_P] != swa_p)
     return (int)cudaErrorInvalidValue;
   DmParams p{};
   p.x = static_cast<const float*>(x);
@@ -57,6 +64,10 @@ MNN_API int mnn_decode_model(
   p.post_norm = static_cast<const float*>(post_norm);
   p.q_norm = static_cast<const float*>(q_norm);
   p.k_norm = static_cast<const float*>(k_norm);
+  p.pre_ffn = static_cast<const float*>(pre_ffn);
+  p.post_ffn = static_cast<const float*>(post_ffn);
+  p.cos_l = static_cast<const float*>(cos_l);
+  p.sin_l = static_cast<const float*>(sin_l);
   p.k_cache = static_cast<uint8_t*>(k_cache);
   p.v_cache = static_cast<uint8_t*>(v_cache);
   p.k_scale = static_cast<float*>(k_scale);
@@ -80,7 +91,8 @@ MNN_API int mnn_decode_model(
   p.DQ = NH * D;
   p.bits = bits; p.bs_h = bs_h; p.bs_i = bs_i; p.head_bits = head_bits; p.bs_head = bs_head;
   p.kv_bits = kv_bits; p.window = window; p.sink = sink; p.write_cache = write_cache;
-  p.sm_scale = sm_scale; p.eps = eps;
+  p.sm_scale = sm_scale; p.eps = eps; p.softcap = softcap;
+  p.flags = flags; p.swa_p = swa_p;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   const int bm = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
@@ -97,7 +109,7 @@ MNN_API int mnn_decode_model(
 // thread, most threads a block, static shared bytes, local bytes a thread}.
 // The schedule is built for the first four (grid = blocks an SM x SMs).
 MNN_API int mnn_decode_model_limits(int B, int D, int* out) {
-  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128 && D != 256)) return (int)cudaErrorInvalidValue;
   const int bm = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
   switch (bm) {
     case 1: return limits_b1(D, out);

@@ -80,6 +80,20 @@
 // buffers that stay in L2 and are read with __ldcg (L1 is not coherent
 // across SMs).
 //
+// Gemma's flags (DM_SANDWICH ...): the score softcap and each layer's window
+// and rope phases (gemma2 slides on even layers; gemma3 on all but every
+// swa_p-th, with its local phases cos_l / sin_l) are the attention item's;
+// GeGLU-tanh is the gate/up epilogue's. Sandwich norms need a whole row
+// normed before it is added, so the residual is not updated in place: the
+// wo and down items store their bf16 outputs (o, d) and each tile's sums of
+// squares, and where a whole row is needed next (the x stage of gate/up, of
+// the next layer's qkv, of the head) the block folds it in itself: x1 =
+// bf16(x + bf16(rms(o) post_norm)), its sums of squares over the whole row,
+// then rms(x1) pre_ffn_norm over the item's K range. The epilogues of wo and
+// down write the folded residual of their own columns (x of the layer into
+// x_out, x1 into xmid), and after the last layer fold items write the x
+// that leaves. No grid-wide wait is added inside a layer.
+//
 // The kernel is a template on BM, the batch rows it holds in registers
 // (1, 2, 4 or 8). Each instantiation is compiled in a source of its own,
 // decode_model_b<BM>.cu, so that the build compiles them side by side;
@@ -101,7 +115,7 @@ constexpr int DM_RING_MAX = 12;
 // item needs (1 and 2 batch rows), else 1024
 template <int BM>
 __host__ __device__ constexpr int dm_xs_k() { return BM == 1 ? 4096 : BM == 2 ? 2048 : 1024; }
-constexpr int DM_REC = 16, DM_HDR = 16;             // int32 a schedule record, the header
+constexpr int DM_REC = 16, DM_HDR = 32;             // int32 a schedule record, the header
 // ints of the table before its records: the header and the blocks' starts
 // (grid + 1), rounded up to a record, so that records are 64-byte aligned
 __host__ __device__ constexpr int dm_recs_at(int grid) {
@@ -114,15 +128,18 @@ constexpr int DM_SPIN_MAX = 1 << 25;                // a wait that long means a 
 constexpr int DM_SUSPEND_NS = 100000;               // an mbarrier wait's suspend hint
 constexpr int DM_SM_IDS = 256;                      // SM ids the place claims count
 constexpr int DM_FIRST_COUNTER = 1 + 2 + DM_SM_IDS;  // after the wait's word and the claims
-enum { EPI_QKV = 0, EPI_RES = 1, EPI_ACT = 2, EPI_HEAD = 3 };
+// EPI_SAND: a sandwich-normed sublayer's output, stored apart with its sums of squares
+enum { EPI_QKV = 0, EPI_RES = 1, EPI_ACT = 2, EPI_HEAD = 3, EPI_SAND = 4 };
 // phase kinds (schedule records and the MNN_DM_CLOCKS log)
-enum { KD_PRO, KD_QKV, KD_ATT, KD_WO, KD_GU, KD_DN, KD_HEAD, KD_ARGMAX, KD_BAR };
+enum { KD_PRO, KD_QKV, KD_ATT, KD_WO, KD_GU, KD_DN, KD_HEAD, KD_ARGMAX, KD_BAR, KD_FOLD };
+// the config's flags (kernels/decode_model.py's model_flags)
+enum { DM_SANDWICH = 1, DM_GELU = 2, DM_SOFTCAP = 4, DM_SWA_ALT = 8, DM_SWA_P = 16 };
 // fields of a schedule record
 enum { R_KIND, R_LAYER, R_TILE, R_U0, R_U1, R_PIECE, R_NPIECES, R_WAIT, R_NWAIT, R_TARGET,
        R_RELEASE, R_MERGE, R_MERGE_LAST, R_PART };
 // fields of the header
 enum { H_MAGIC, H_GRID, H_SLOTS, H_COUNTERS, H_PART, H_ITEMS, H_NS, H_B, H_L, H_H, H_NQ, H_I,
-       H_V, H_BITS, H_HEAD_BITS, H_D };
+       H_V, H_BITS, H_HEAD_BITS, H_D, H_FLAGS, H_SWA_P };
 
 struct DmParams {
   const float* x;
@@ -131,6 +148,8 @@ struct DmParams {
   const uint8_t *wqkv_p, *wo_p, *wgu_p, *wdn_p, *head_p;
   const bf16 *wqkv_s, *wqkv_b, *wo_s, *wo_b, *wgu_s, *wgu_b, *wdn_s, *wdn_b, *head_s, *head_b;
   const float *qkv_bias, *in_norm, *post_norm, *q_norm, *k_norm, *final_norm;
+  const float *pre_ffn, *post_ffn;   // sandwich norms, or null
+  const float *cos_l, *sin_l;        // gemma3's local rope phases, or null
   uint8_t *k_cache, *v_cache;
   float *k_scale, *v_scale;
   float *x_out, *k_rows, *v_rows, *k_sc, *v_sc, *logits;
@@ -138,14 +157,15 @@ struct DmParams {
   const int* sched;          // the schedule table
   // scratch
   float *qkv, *att, *act, *part, *ssq, *best_val, *att_part;
+  float *obuf, *dbuf, *xmid, *ssq_o, *ssq_d;   // the sandwich rows and their sums of squares
   int* best_idx;
   unsigned* counters;        // [0] the grid-wide wait's word, the blocks' place
                              // claims, then the arrival counters
   long long* clocks;         // the MNN_DM_CLOCKS log, or null
   int B, L, H, NH, Hkv, D, I, S, V, NQ, DQ;
   int bits, bs_h, bs_i, head_bits, bs_head, kv_bits, window, sink, write_cache;
-  int att_split, slots, work_bytes, n_counters;
-  float sm_scale, eps;
+  int att_split, slots, work_bytes, n_counters, flags, swa_p;
+  float sm_scale, eps, softcap;
 };
 
 // ---------------------------------------------------------------------------
@@ -201,7 +221,9 @@ __host__ __device__ constexpr int dm_round128(int n) { return (n + 127) / 128 * 
 template <int BM>
 __host__ __device__ inline int dm_work_bytes(int D) {
   int w = (int)sizeof(GemvSmem<BM>);
-  const int a = D == 64 ? (int)sizeof(AttnSmem<64>) : (int)sizeof(AttnSmem<128>);
+  const int a = D == 64    ? (int)sizeof(AttnSmem<64>)
+                : D == 128 ? (int)sizeof(AttnSmem<128>)
+                           : (int)sizeof(AttnSmem<256>);
   if (a > w) w = a;
   if (2 * DM_CONSUMERS * 4 > w) w = 2 * DM_CONSUMERS * 4;   // the argmax merge
   return dm_round128(w);
@@ -434,7 +456,12 @@ struct Gemv {               // one quantized projection of the step
   int K, N, bs, bits, epi;
   const float* out_bias;    // EPI_QKV, or null
   float* out;               // QKV: [B, N]; RES: the residual stream [B, N],
-                            // updated in place; ACT: [B, N / 2]; HEAD: logits
+                            // updated in place; ACT: [B, N / 2]; HEAD: logits;
+                            // SAND: the output rows [B, N]
+  int fold;                 // the x stage's input: -1 `in` as it is, else a fold (fold_src)
+  int res_fold;             // SAND: the fold its epilogue writes for its columns, or -1
+  float* res_dst;           //   into this residual stream [B, N]
+  float* ssq_out;           // SAND: the tiles' sums of squares of `out`
   __device__ __forceinline__ int kp() const { return K * bits / 8; }   // packed rows
   __device__ __forceinline__ int rows_per_block() const { return bs * bits / 8; }
   // the K value of packed row r (W4: its low nibble's; the high one's is
@@ -449,30 +476,72 @@ struct Gemv {               // one quantized projection of the step
   }
 };
 
+// The folds of a sandwich-normed residual: fold 2l is x1 of layer l, x +
+// bf16(rms(o) post_norm); fold 2l + 1 is the x that enters layer l + 1, x1
+// + bf16(rms(d) post_ffn_norm). Each reads (base, y, w, per-tile sums of
+// squares of y).
+struct FoldSrc {
+  const float *base, *y, *w, *ssq;
+};
+
+__device__ __forceinline__ FoldSrc fold_src(const DmParams& p, int fold) {
+  const long l = fold >> 1, H = p.H;
+  if ((fold & 1) == 0) return FoldSrc{p.x_out, p.obuf, p.post_norm + l * H, p.ssq_o};
+  return FoldSrc{p.xmid, p.dbuf, p.post_ffn + l * H, p.ssq_d};
+}
+
+// Row i (column col) of a fold, given its rows' 1 / rms(y): bf16(base +
+// bf16(y * rinv * w)), the JAX kernel's rounding points.
+__device__ __forceinline__ float fold_at(const FoldSrc& f, long i, int col, float rinv) {
+  const float n = round_bf16(__fmul_rn(__fmul_rn(__ldcg(&f.y[i]), rinv), __ldg(&f.w[col])));
+  return round_bf16(__fadd_rn(__ldcg(&f.base[i]), n));
+}
+
+// 1 / rms of batch rows [0, B) from their per-tile sums of squares over K
+// values (tile t, row b at ssq[t * DM_MAXB + b]): warp b, into dst[b].
+__device__ __forceinline__ void rows_rinv(const DmParams& p, const float* ssq, int K,
+                                          float* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < p.B) {
+    float s = 0.f;
+    for (int t = lane; t < (K + DM_TILE - 1) / DM_TILE; t += 32)
+      s += __ldcg(&ssq[t * DM_MAXB + warp]);
+    s = warp_sum(s);
+    if (lane == 0) dst[warp] = rsqrtf(s / (float)K + p.eps);
+  }
+}
+
 __device__ __forceinline__ Gemv gemv_of(const DmParams& p, int kind, int l) {
   const long H = p.H, NQ = p.NQ, I2 = 2L * p.I;
   const long kh = H * p.bits / 8, nbh = H / p.bs_h;
+  const bool sw = p.flags & DM_SANDWICH;
   switch (kind) {
     case KD_QKV:
       return Gemv{p.x_out, p.in_norm + l * H, p.wqkv_p + l * kh * NQ, p.wqkv_s + l * nbh * NQ,
                   p.wqkv_b + l * nbh * NQ, p.H, p.NQ, p.bs_h, p.bits, EPI_QKV,
-                  p.qkv_bias ? p.qkv_bias + l * NQ : nullptr, p.qkv};
+                  p.qkv_bias ? p.qkv_bias + l * NQ : nullptr, p.qkv,
+                  sw && l > 0 ? 2 * (l - 1) + 1 : -1, -1, nullptr, nullptr};
     case KD_WO: {
       const long kq = (long)p.DQ * p.bits / 8, nbq = p.DQ / p.bs_h;
       return Gemv{p.att, nullptr, p.wo_p + l * kq * H, p.wo_s + l * nbq * H, p.wo_b + l * nbq * H,
-                  p.DQ, p.H, p.bs_h, p.bits, EPI_RES, nullptr, p.x_out};
+                  p.DQ, p.H, p.bs_h, p.bits, sw ? EPI_SAND : EPI_RES, nullptr,
+                  sw ? p.obuf : p.x_out, -1, sw && l > 0 ? 2 * (l - 1) + 1 : -1, p.x_out,
+                  p.ssq_o};
     }
     case KD_GU:
-      return Gemv{p.x_out, p.post_norm + l * H, p.wgu_p + l * kh * I2, p.wgu_s + l * nbh * I2,
-                  p.wgu_b + l * nbh * I2, p.H, (int)I2, p.bs_h, p.bits, EPI_ACT, nullptr, p.act};
+      return Gemv{p.x_out, (sw ? p.pre_ffn : p.post_norm) + l * H, p.wgu_p + l * kh * I2,
+                  p.wgu_s + l * nbh * I2, p.wgu_b + l * nbh * I2, p.H, (int)I2, p.bs_h, p.bits,
+                  EPI_ACT, nullptr, p.act, sw ? 2 * l : -1, -1, nullptr, nullptr};
     case KD_DN: {
       const long ki = (long)p.I * p.bits / 8, nbi = p.I / p.bs_i;
       return Gemv{p.act, nullptr, p.wdn_p + l * ki * H, p.wdn_s + l * nbi * H,
-                  p.wdn_b + l * nbi * H, p.I, p.H, p.bs_i, p.bits, EPI_RES, nullptr, p.x_out};
+                  p.wdn_b + l * nbi * H, p.I, p.H, p.bs_i, p.bits, sw ? EPI_SAND : EPI_RES,
+                  nullptr, sw ? p.dbuf : p.x_out, -1, sw ? 2 * l : -1, p.xmid, p.ssq_d};
     }
     default:   // KD_HEAD
       return Gemv{p.x_out, p.final_norm, p.head_p, p.head_s, p.head_b, p.H, p.V, p.bs_head,
-                  p.head_bits, EPI_HEAD, nullptr, p.logits};
+                  p.head_bits, EPI_HEAD, nullptr, p.logits, sw ? 2 * (p.L - 1) + 1 : -1, -1,
+                  nullptr, nullptr};
   }
 }
 
@@ -569,6 +638,49 @@ __device__ __forceinline__ void stage_x(const DmParams& p, const Gemv& g, GemvSm
   }
   wait_counters(p.counters + r[R_WAIT], r[R_NWAIT], r[R_TARGET]);
   DM_EV(EV_WAITED, r[R_KIND], r[R_LAYER]);
+  if (g.fold >= 0) {
+    // A sandwich-normed residual, folded here over the whole row: the rms
+    // of its y, then the folded row's sums of squares (a block-wide sum;
+    // the reduction area is free until the products), then the stage. The
+    // input is always normed (in_norm, pre_ffn_norm or the final norm).
+    const FoldSrc f = fold_src(p, g.fold);
+    float* tmp = &sm.red[0][0][0];   // [DM_MAXB] 1 / rms(y), then [warp][DM_MAXB] sums
+    rows_rinv(p, f.ssq, K, tmp);
+    csync();
+    float sq[BM];
+#pragma unroll
+    for (int b = 0; b < BM; ++b) sq[b] = 0.f;
+    for (int k = tid; k < K; k += DM_CONSUMERS)
+#pragma unroll
+      for (int b = 0; b < BM; ++b)
+        if (b < B) {
+          const float v = fold_at(f, (long)b * K + k, k, tmp[b]);
+          sq[b] += v * v;
+        }
+#pragma unroll
+    for (int b = 0; b < BM; ++b) {
+      const float s = warp_sum(sq[b]);
+      if (lane == 0) tmp[DM_MAXB + warp * DM_MAXB + b] = s;
+    }
+    csync();
+    if (warp < B && lane == 0) {
+      float s = 0.f;
+      for (int w = 0; w < DM_WARPS; ++w) s += tmp[DM_MAXB + w * DM_MAXB + warp];
+      sm.rinv[warp] = rsqrtf(s / (float)K + p.eps);
+    }
+    csync();
+#pragma unroll
+    for (int j = 0; j < KR; ++j) {
+      const int k = tid + j * DM_CONSUMERS;
+      if (k < nk)
+#pragma unroll
+        for (int b = 0; b < BM; ++b) {
+          const float v = b < B ? fold_at(f, (long)b * K + k0 + k, k0 + k, tmp[b]) : 0.f;
+          sm.xs[b][k] = round_bf16(__fmul_rn(__fmul_rn(v, sm.rinv[b]), nw[j]));
+        }
+    }
+    return;
+  }
   float sq[4] = {0.f, 0.f, 0.f, 0.f};
   const int ht = (K + DM_TILE - 1) / DM_TILE;
   if (g.norm_w && warp < B)
@@ -879,14 +991,56 @@ __device__ __noinline__ void gemv_item(const DmParams& p, const int* r, RingPos 
       s = warp_sum(s);
       if (lane == 0) __stcg(&p.ssq[t * DM_MAXB + b], s);
     }
+  } else if (g.epi == EPI_SAND) {
+    // out <- bf16(y), the tile's sums of squares of it; then the folded
+    // residual of these columns (res_fold), which nothing reads before the
+    // next grid-wide wait
+#pragma unroll
+    for (int i = 0; i < XR; ++i) {
+      const int idx = tid + i * DM_CONSUMERS, b = idx / DM_TILE, c = idx % DM_TILE;
+      const int col = t * DM_TILE + c;
+      if (idx >= BM * DM_TILE) continue;
+      float v = 0.f;
+      if (b < B && col < N) {
+        v = round_bf16(sm.fin[b][c]);
+        __stcg(&g.out[(long)b * N + col], v);
+      }
+      sm.fin[b][c] = v;
+    }
+    csync();
+    for (int b = warp; b < B; b += DM_WARPS) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = sm.fin[b][lane * 4 + j];
+        s += v * v;
+      }
+      s = warp_sum(s);
+      if (lane == 0) __stcg(&g.ssq_out[t * DM_MAXB + b], s);
+    }
+    if (g.res_fold >= 0) {
+      const FoldSrc f = fold_src(p, g.res_fold);
+      rows_rinv(p, f.ssq, N, sm.rinv);
+      csync();
+      for (int idx = tid; idx < B * DM_TILE; idx += DM_CONSUMERS) {
+        const int b = idx / DM_TILE, col = t * DM_TILE + idx % DM_TILE;
+        if (col < N) __stcg(&g.res_dst[(long)b * N + col], fold_at(f, (long)b * N + col, col,
+                                                                   sm.rinv[b]));
+      }
+    }
   } else if (g.epi == EPI_ACT) {
-    // the tile holds 64 gate columns, then their 64 up columns
+    // the tile holds 64 gate columns, then their 64 up columns; silu, or
+    // (DM_GELU) gelu's tanh form as jax.nn.gelu(approximate=True) writes it
+    const bool gelu = p.flags & DM_GELU;
     for (int idx = tid; idx < BM * (DM_TILE / 2); idx += DM_CONSUMERS) {
       const int b = idx / (DM_TILE / 2), c = idx - b * (DM_TILE / 2);
       if (b >= B) continue;
       const float gate = round_bf16(sm.fin[b][c]);
       const float up = round_bf16(sm.fin[b][c + DM_TILE / 2]);
-      const float si = round_bf16(__fmul_rn(gate, 1.f / (1.f + expf(-gate))));
+      const float si =
+          gelu ? round_bf16(gate * (0.5f * (1.f + tanhf(0.7978845608028654f *
+                                                         (gate + 0.044715f * (gate * gate * gate))))))
+               : round_bf16(__fmul_rn(gate, 1.f / (1.f + expf(-gate))));
       __stcg(&g.out[(long)b * (N / 2) + t * (DM_TILE / 2) + c], round_bf16(__fmul_rn(si, up)));
     }
   } else {   // EPI_HEAD: f32 logits, and the tile's (max, lowest index)
@@ -954,6 +1108,14 @@ __device__ __noinline__ void attn_item(const DmParams& p, const int* r) {
   const float* k_norm = p.k_norm ? p.k_norm + (long)layer * D : nullptr;
   const int len_old = p.lengths[b];
   const int limit = min(max(len_old, 0), S);
+  // the layer's window and rope phases: gemma2 slides on even layers, gemma3
+  // on all but every swa_p-th, with its local phases
+  const bool local = p.swa_p > 0 && (layer + 1) % p.swa_p != 0;
+  int win = p.window;
+  if (p.flags & DM_SWA_ALT) win = layer % 2 == 0 ? p.window : 0;
+  else if (p.swa_p > 0) win = local ? p.window : 0;
+  const float* cosp = local ? p.cos_l : p.cos;
+  const float* sinp = local ? p.sin_l : p.sin;
   const int ns = max(1, min(NS, (limit + AT_WARPS * AT_CW - 1) / (AT_WARPS * AT_CW)));
   if (split >= ns) return;   // the same for the whole block
   DM_EV(EV_ITEM, KD_ATT, layer);
@@ -975,8 +1137,8 @@ __device__ __noinline__ void attn_item(const DmParams& p, const int* r) {
   float cs[DP], sn[DP];   // this lane's rope phases, on their way before the wait
 #pragma unroll
   for (int j = 0; j < DP; ++j) {
-    cs[j] = __ldg(&p.cos[b * D + lane * DP + j]);
-    sn[j] = __ldg(&p.sin[b * D + lane * DP + j]);
+    cs[j] = __ldg(&cosp[b * D + lane * DP + j]);
+    sn[j] = __ldg(&sinp[b * D + lane * DP + j]);
   }
   wait_counters(p.counters + r[R_WAIT], r[R_NWAIT], r[R_TARGET]);
   DM_EV(EV_WAITED, KD_ATT, layer);
@@ -1058,17 +1220,19 @@ __device__ __noinline__ void attn_item(const DmParams& p, const int* r) {
     float dot = 0.f;
 #pragma unroll
     for (int j = 0; j < DP; ++j) dot += sm.rows[gq][lane * DP + j] * sm.katt[lane * DP + j];
-    const float s = warp_sum(dot) * p.sm_scale;
+    float s = warp_sum(dot) * p.sm_scale;
+    if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
     if (lane == 0) sm.seed[gq] = s;
   }
   DM_EV(EV_PREP, KD_ATT, layer);
 
-  float m[AT_GMAX], l[AT_GMAX], acc[AT_GMAX][DP];
+  constexpr int GM = at_gmax<D>();
+  float m[GM], l[GM], acc[GM][DP];
   attend_cached<D, KVB, false>(
       sm.rows, G, p.k_cache + base * ROWB, p.v_cache + base * ROWB,
       QUANT ? p.k_scale + base : nullptr, QUANT ? p.v_scale + base : nullptr,
-      (split * AT_WARPS + warp) * AT_CW, ns * AT_WARPS * AT_CW, limit, len_old - p.window,
-      p.window > 0, p.sink, p.sm_scale, sm.pv[warp], lane, m, l, acc);
+      (split * AT_WARPS + warp) * AT_CW, ns * AT_WARPS * AT_CW, limit, len_old - win, win > 0,
+      p.sink, p.sm_scale, p.softcap, sm.pv[warp], lane, m, l, acc);
   park_state<D, KVB>(sm, G, warp, lane, m, l, acc);
   csync();
   DM_EV(EV_CACHED, KD_ATT, layer);
@@ -1183,7 +1347,23 @@ __device__ __forceinline__ void run_attn(const DmParams& p, const int* r) {
   MNN_DM_ATT(128, 16)
   MNN_DM_ATT(128, 8)
   MNN_DM_ATT(128, 4)
+  MNN_DM_ATT(256, 16)   // gemma: an int8 or bf16 cache (int4 takes the eager path)
+  MNN_DM_ATT(256, 8)
 #undef MNN_DM_ATT
+}
+
+// After the last layer of a sandwich-normed config: tile t of the residual
+// stream that leaves, x1 + bf16(rms(d) post_ffn_norm), into x_out.
+static __device__ __noinline__ void fold_item(const DmParams& p, int t) {
+  float* rinv = reinterpret_cast<float*>(dm_shared(p).work);   // [DM_MAXB]
+  const FoldSrc f = fold_src(p, 2 * (p.L - 1) + 1);
+  rows_rinv(p, f.ssq, p.H, rinv);
+  csync();
+  for (int idx = threadIdx.x; idx < p.B * DM_TILE; idx += DM_CONSUMERS) {
+    const int b = idx / DM_TILE, col = t * DM_TILE + idx % DM_TILE;
+    if (col < p.H) p.x_out[(long)b * p.H + col] = fold_at(f, (long)b * p.H + col, col, rinv[b]);
+  }
+  csync();   // the work area is reused by the next item
 }
 
 // merge the head tiles' (max, lowest index) of batch row b into its token
@@ -1318,6 +1498,9 @@ decode_model_kernel(const __grid_constant__ DmParams p) {
     } else if (kind == KD_ARGMAX) {
       argmax_item(p, r[R_TILE]);
       DM_EV(EV_DONE, KD_ARGMAX, p.L);
+    } else if (kind == KD_FOLD) {
+      fold_item(p, r[R_TILE]);
+      DM_EV(EV_DONE, KD_FOLD, p.L);
     } else {
       run_gemv<BM>(p, r, pos);
       pos.advance(p.slots, r[R_U1] - r[R_U0]);
@@ -1394,6 +1577,11 @@ int launch(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hd
   p.best_idx = reinterpret_cast<int*>(take(B * vt));
   p.att_part = take(B * p.Hkv * p.att_split * AT_GMAX * (p.D + 2));
   p.part = take(hdr[H_PART]);
+  p.obuf = take(B * p.H);
+  p.dbuf = take(B * p.H);
+  p.xmid = take(B * p.H);
+  p.ssq_o = take(ht * DM_MAXB);
+  p.ssq_d = take(ht * DM_MAXB);
   if (off > ws_floats) return (int)cudaErrorInvalidValue;
 
   void* args[] = {&p};

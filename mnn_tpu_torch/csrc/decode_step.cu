@@ -11,8 +11,9 @@
 // rows and the quantized K/V rows and scales; the caller writes those into
 // the cache at len_old.
 //
-// What bounds it: a few hundred cached positions of 64 or 128 bytes per KV
-// head is microseconds of neither bytes nor operations, so the kernel is held
+// Head dims 32, 64, 128 and 256 (gemma). What bounds it: a few hundred cached
+// positions of 64 to 512 bytes per KV head is microseconds of neither bytes
+// nor operations, so the kernel is held
 // by latency: how long the longest chain of dependent steps is, and how few
 // SMs take part. The design:
 //  * a thread-block cluster of P blocks per (batch row, KV head) splits the
@@ -519,7 +520,10 @@ decode_step_kernel(const bf16* __restrict__ qkv, const T* __restrict__ k_cache,
   }
 
   // Fold the position groups: lanes NC apart within a warp, then the warps
-  // through shared memory, in a fixed order.
+  // through shared memory, in a fixed order. At D = 256 (NC = 64) a position
+  // group is two warps, each with half of the dims: the group is the slot.
+  constexpr int NSLOT = DS_THREADS / (NC > 32 ? NC : 32);   // slots of red_s
+  const int slot = NC > 32 ? pg : warp;
 #pragma unroll
   for (int o = NC; o < 32; o <<= 1)
 #pragma unroll
@@ -529,7 +533,7 @@ decode_step_kernel(const bf16* __restrict__ qkv, const T* __restrict__ k_cache,
   if (lane < NC)
 #pragma unroll
     for (int g = 0; g < GP; ++g)
-      *reinterpret_cast<float4*>(red_s + (warp * GP + g) * D + 4 * c4) =
+      *reinterpret_cast<float4*>(red_s + (slot * GP + g) * D + 4 * c4) =
           make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   if (warp < GP && lane == 0) {
     m_s[warp] = m;
@@ -561,7 +565,7 @@ decode_step_kernel(const bf16* __restrict__ qkv, const T* __restrict__ k_cache,
     const int i = 4 * k, g = i / D, d = i - g * D;
     float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int w = 0; w < DS_WARPS; ++w) {
+    for (int w = 0; w < NSLOT; ++w) {
       const float4 x = *reinterpret_cast<const float4*>(red_s + (w * GP + g) * D + d);
       a[0] += x.x, a[1] += x.y, a[2] += x.z, a[3] += x.w;
     }
@@ -738,6 +742,7 @@ static int with_kernel(int D, int quantized, int G, F&& f) {
     case 32: return quantized ? with_group<32, int8_t>(G, f) : with_group<32, bf16>(G, f);
     case 64: return quantized ? with_group<64, int8_t>(G, f) : with_group<64, bf16>(G, f);
     case 128: return quantized ? with_group<128, int8_t>(G, f) : with_group<128, bf16>(G, f);
+    case 256: return quantized ? with_group<256, int8_t>(G, f) : with_group<256, bf16>(G, f);
     default: return -1;
   }
 }

@@ -9,7 +9,12 @@ Per layer: RMS norm -> qkv GEMV (+ out-bias) -> rope, optional QK-norm,
 quantization of the new K/V row and a softmax seeded with that row's
 dequantized round trip -> attention over the cached positions [0, len_old)
 -> wo GEMV + residual -> RMS norm -> gate/up GEMV -> SwiGLU -> down GEMV +
-residual. Weights are the stacked `QuantizedLinear` tensors as they lie
+residual. Gemma's flags (`model_flags`): sandwich norms (the wo and down
+outputs RMS-normed before their residual adds, the MLP input by
+`pre_ffn_norm`), GeGLU-tanh, the score softcap, gemma2's alternating and
+gemma3's N:1 sliding windows, and gemma3's local rope phases (`cos_l`,
+`sin_l`) on its sliding layers; head_dim 256 holds up to 4 query heads a
+KV head. Weights are the stacked `QuantizedLinear` tensors as they lie
 (W4 or W8, uniform over the layer); the cache holds bf16, int8 or
 nibble-packed int4 rows. The new rows and scales of every layer come back,
 and the residual stream leaves as f32.
@@ -19,8 +24,10 @@ quantized product is x rounded to bf16, dotted with the unsigned pattern,
 `part * s + rowsum(x) * b` per quant block with f32 accumulation. Values are
 rounded to bf16 where the per-layer path crosses a kernel boundary: qkv
 after its bias, o, x after each residual, gate/up, silu(gate) and its
-product with up, the down output. q stays f32 after rope; logits are f32 and
-not rounded; the argmax takes the lowest index among equal maxima.
+product with up, the down output, and (sandwich) the normed o and d. q
+stays f32 after rope; logits are f32 and not rounded (gemma2's logit
+softcap is the caller's); the argmax takes the lowest index among equal
+maxima.
 
 What bounds it on the H100, and what the design does about it: one decode
 token reads every weight byte once and does two operations per weight, far
@@ -59,7 +66,7 @@ from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import kvcache
 
 MAX_BATCH = 8
-MAX_GROUP = 8     # query heads per KV head held in registers
+MAX_GROUP = 8     # query heads per KV head held in registers (4 at head_dim 256)
 COL_TILE = 128    # output columns per GEMV work item
 K_CHUNK = 32      # quant blocks are whole multiples of this
 ATT_SPLIT = 16    # most blocks that share one (batch row, KV head)
@@ -72,7 +79,7 @@ SCALE_ROWS = 4                               # quant blocks a unit can touch
 SLOT_BYTES = UNIT_ROWS * COL_TILE + 2 * SCALE_ROWS * COL_TILE * 2
 RING_MAX = 12
 XS_K = {1: 4096, 2: 2048, 4: 1024, 8: 1024}  # K values an item's x stage holds, by BM
-REC, HDR = 16, 16                            # int32 a record, the header
+REC, HDR = 16, 32                            # int32 a record, the header
 TAIL = 16 + 2 * REC * 4                      # stamps' count, place, two records (shared)
 MAGIC = 0x444D3131
 BLOCK_SMEM = {1: 232448, 2: 115712}          # a block's shared bytes at 1 or 2 blocks an SM
@@ -84,22 +91,25 @@ CONSUMERS = 256
 # places (2 + one an SM id), then the table's arrival counters
 FIRST_COUNTER = 1 + 2 + 256
 KINDS = ("prologue", "qkv", "attention", "wo", "gate_up", "down", "head", "argmax",
-         "barrier")
-PRO, QKV, ATT, WO, GU, DN, HEAD, ARGMAX, BAR = range(9)
+         "barrier", "fold")
+PRO, QKV, ATT, WO, GU, DN, HEAD, ARGMAX, BAR, FOLD = range(10)
 (R_KIND, R_LAYER, R_TILE, R_U0, R_U1, R_PIECE, R_NPIECES, R_WAIT, R_NWAIT, R_TARGET,
  R_RELEASE, R_MERGE, R_MERGE_LAST, R_PART) = range(14)
 (H_MAGIC, H_GRID, H_SLOTS, H_COUNTERS, H_PART, H_ITEMS, H_NS, H_B, H_L, H_H, H_NQ, H_I,
- H_V, H_BITS, H_HEAD_BITS, H_D) = range(16)
+ H_V, H_BITS, H_HEAD_BITS, H_D, H_FLAGS, H_SWA_P) = range(18)
+# the config's flags, as the header and the kernel take them
+F_SANDWICH, F_GELU, F_SOFTCAP, F_SWA_ALT, F_SWA_P = 1, 2, 4, 8, 16
 
 # int mnn_decode_model(x, lengths, cos, sin,
 #     wqkv_p, wqkv_s, wqkv_b, qkv_bias, wo_p, wo_s, wo_b, wgu_p, wgu_s, wgu_b,
 #     wdn_p, wdn_s, wdn_b, in_norm, post_norm, q_norm, k_norm,
 #     k_cache, v_cache, k_scale, v_scale, final_norm, head_p, head_s, head_b,
 #     x_out, k_rows, v_rows, k_sc, v_sc, logits, token, ws, counters, clocks,
+#     pre_ffn_norm, post_ffn_norm, cos_l, sin_l,
 #     B, L, H, NH, Hkv, D, I, S, V, bits, bs_h, bs_i, head_bits, bs_head,
-#     kv_bits, window, sink, write_cache, ws_floats, n_counters,
-#     sm_scale, eps, sched, sched_hdr, stream)
-KERNEL = kernel("mnn_decode_model", [P] * 39 + [I] * 20 + [F, F] + [P, P])
+#     kv_bits, window, sink, write_cache, ws_floats, n_counters, flags, swa_p,
+#     sm_scale, eps, softcap, sched, sched_hdr, stream)
+KERNEL = kernel("mnn_decode_model", [P] * 43 + [I] * 22 + [F] * 3 + [P, P])
 
 _counters: dict = {}      # device -> int32 arrival counters, reused
 _schedules: dict = {}     # (shape, grid, slots, device) -> (table, header, info)
@@ -114,12 +124,29 @@ def bucket(batch: int) -> int:
     return 1 if batch == 1 else 2 if batch == 2 else 4 if batch <= 4 else 8
 
 
+def max_group(head_dim: int) -> int:
+    """Query heads a KV head that the attention state holds at this head dim
+    (attn_common.cuh's at_gmax): 8, or 4 at head_dim 256, whose state would
+    otherwise leave the ring two slots."""
+    return 4 if head_dim > 128 else MAX_GROUP
+
+
+def model_flags(config) -> int:
+    """The config's flags for the kernel and its schedule's header."""
+    c = config
+    return ((F_SANDWICH if c.sandwich_norm else 0)
+            | (F_GELU if c.mlp_act == "gelu_tanh" else 0)
+            | (F_SOFTCAP if c.attn_softcap else 0)
+            | (F_SWA_ALT if c.swa_every_other else 0)
+            | (F_SWA_P if c.swa_pattern else 0))
+
+
 def work_bytes(bm: int, head_dim: int) -> int:
     """A block's work area: the largest of a GEMV item's reduction and x
     stage, an attention item's state (attn_common.cuh's AttnSmem), the argmax
     merge; a multiple of 128 bytes."""
     gemv = 4 * (8 * bm * COL_TILE + bm * COL_TILE + bm * XS_K[bm] + MAX_BATCH + 4)
-    g, d = MAX_GROUP, head_dim
+    g, d = max_group(head_dim), head_dim
     attn = 4 * ((g + 2) * d + 4 * d + g + 3 + 8 * g * 32 + 2 * 8 * g + 8 * g * d)
     return -(-max(gemv, attn, 2 * CONSUMERS * 4) // 128) * 128
 
@@ -220,9 +247,12 @@ def _cuts(k: int, bs: int, bits: int, tiles: int, grid: int, xs_k: int) -> list:
 def schedule(batch: int, layers: int, hidden: int, heads: int, kv_heads: int,
              head_dim: int, inter: int, capacity: int, vocab: int, bits: int,
              bs_h: int, bs_i: int, head_bits: int, bs_head: int, grid: int,
-             slots: int, sms: Optional[int] = None):
+             slots: int, sms: Optional[int] = None, flags: int = 0, swa_p: int = 0):
     """The kernel's work for one step, block by block: (table int32 numpy,
-    info dict). `vocab` 0: no fused head.
+    info dict). `vocab` 0: no fused head. `flags` (`model_flags`) and
+    `swa_p` go into the header; with F_SANDWICH the last layer is closed by
+    a grid-wide wait too, and fold items (one a 128-column tile of the
+    residual) add its normed MLP output to the residual stream that leaves.
 
     Items, in the order every block walks them: a grid-wide wait (the
     prologue's residual and sums of squares), then per layer the qkv tiles,
@@ -349,8 +379,10 @@ def schedule(batch: int, layers: int, hidden: int, heads: int, kv_heads: int,
         barrier(layer, WO)
         gemv_items(GU, layer)
         gemv_items(DN, layer)
-        if layer + 1 < layers or vocab:
+        if layer + 1 < layers or vocab or flags & F_SANDWICH:
             barrier(layer, DN)
+    if flags & F_SANDWICH:
+        place([(0, rec(FOLD, layers, t)) for t in range(-(-h // COL_TILE))])
     if vocab:
         gemv_items(HEAD, layers)
         barrier(layers, HEAD)
@@ -364,6 +396,7 @@ def schedule(batch: int, layers: int, hidden: int, heads: int, kv_heads: int,
     hdr[H_B], hdr[H_L] = b, layers
     hdr[H_H], hdr[H_NQ], hdr[H_I], hdr[H_V] = h, nq, inter, vocab
     hdr[H_BITS], hdr[H_HEAD_BITS], hdr[H_D] = bits, head_bits if vocab else 0, d
+    hdr[H_FLAGS], hdr[H_SWA_P] = flags, swa_p
     records = [r for lst in lists for r in lst]
     table = np.concatenate([np.asarray(hdr, dtype=np.int64), starts,
                             np.asarray(records, dtype=np.int64).reshape(-1)]).astype(np.int32)
@@ -405,7 +438,7 @@ def _schedule_for(config, batch: int, capacity: int, lay, head, dev):
             c.intermediate_size, capacity, head.out_features if head is not None else 0,
             lay.wqkv.bits, lay.wqkv.block_size, lay.wdown.block_size,
             head.bits if head is not None else 0, head.block_size if head is not None else 0,
-            grid, slots, sms)
+            grid, slots, sms, model_flags(c), c.swa_pattern)
     key = args + (str(dev),)
     hit = _schedules.get(key)
     if hit is None:
@@ -425,22 +458,24 @@ def schedule_info(config, layers, head, batch: int, capacity: int, dev) -> dict:
 def supports(config, params, cache, batch: int) -> bool:
     """Can the whole-model kernel serve a decode step of this (config,
     weights, cache, batch)? False sends `forward` down the per-layer path.
-    Gemma's flags (gelu-tanh, sandwich norms, score softcap, alternating
-    windows, dual rope) and W2/W3 weights are not ported yet."""
+    Gemma's flags (gelu-tanh, sandwich norms, score softcap, alternating and
+    N:1 windows, dual rope) are kernel flags; head_dim 256 takes an int8 or
+    bf16 cache and up to 4 query heads a KV head. W2/W3 weights are not
+    ported."""
     c = config
     if c.is_moe or c.kv_rotate or c.mrope_section:
         return False
-    if (c.mlp_act != "silu" or c.sandwich_norm or c.attn_softcap
-            or c.final_softcap or c.swa_every_other or c.swa_pattern
-            or c.embed_scale):
+    if c.mlp_act not in ("silu", "gelu_tanh"):
         return False
     if cache.bits not in (4, 8, 16) or not 1 <= batch <= MAX_BATCH:
         return False
-    if c.head_dim not in (64, 128):
+    if c.head_dim not in (64, 128, 256) or (c.head_dim == 256 and cache.bits == 4):
         return False
-    if c.num_heads % c.num_kv_heads or c.num_heads // c.num_kv_heads > MAX_GROUP:
+    if c.num_heads % c.num_kv_heads or c.num_heads // c.num_kv_heads > max_group(c.head_dim):
         return False
     lay = params.layers
+    if c.sandwich_norm and (lay.pre_ffn_norm is None or lay.post_ffn_norm is None):
+        return False
     for ql in (lay.wqkv, lay.wo, lay.wgu, lay.wdown):
         if ql.act_bits != 16 or ql.bits not in (4, 8) or ql.bits != lay.wqkv.bits:
             return False
@@ -462,7 +497,9 @@ def supports(config, params, cache, batch: int) -> bool:
 def supports_head(config, params) -> bool:
     """Can the final norm, the lm-head GEMV and the greedy argmax run inside
     the kernel? Needs a quantized (int4/int8) head with bf16 rows and no
-    out-bias over a 128-aligned vocabulary."""
+    out-bias over a 128-aligned vocabulary (gemma2's 256,000: yes; gemma3's
+    262,208: no, its head runs on the GEMV kernel). A logit softcap is the
+    caller's, after the kernel: it moves no argmax."""
     head = params.lm_head
     if not isinstance(head, QuantizedLinear):
         return False
@@ -495,7 +532,8 @@ def _pack4(q: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
-                  cos, sin, q_norm, k_norm, eps, sm_scale, window, sink, bits):
+                  cos, sin, q_norm, k_norm, eps, sm_scale, window, sink, bits,
+                  softcap=0.0):
     """One layer's attention phase on grouped rows qkv [B, Hkv, G+2, D] f32:
     (att [B, H*D] f32, stored K row, V row [B, Hkv, 1, D or D/2] f32,
     scales [B, Hkv, 1] or None)."""
@@ -525,7 +563,10 @@ def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
         k_row = k_att = _bf16r(kr)
         v_row = v_att = _bf16r(vr)
         ksc = vsc = None
-    s_new = (q @ k_att.transpose(-1, -2)) * sm_scale              # [B,Hkv,G,1]
+    def cap(v):
+        return torch.tanh(v / softcap) * softcap if softcap else v
+
+    s_new = cap((q @ k_att.transpose(-1, -2)) * sm_scale)         # [B,Hkv,G,1]
     if bits == 4:
         kt = kvcache.unpack_kv4(k_cache[layer])
         vt = kvcache.unpack_kv4(v_cache[layer])
@@ -534,7 +575,7 @@ def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
     s = q @ kt.transpose(-1, -2)                                  # [B,Hkv,G,S]
     if bits < 16:
         s = s * k_scale[layer][:, :, None, :]
-    s = s * sm_scale
+    s = cap(s * sm_scale)
     col = torch.arange(kt.shape[2], device=qkv.device)
     len_old = lengths.to(torch.int64)[:, None, None, None]
     mask = col < len_old
@@ -570,9 +611,11 @@ def _kv_bits(config, k_cache: torch.Tensor) -> int:
 
 def fused_decode_model_plain(x, layers, k_cache, v_cache, k_scale, v_scale,
                              lengths, cos, sin, *, config, head=None,
-                             final_norm=None):
+                             final_norm=None, cos_l=None, sin_l=None):
     """Plain PyTorch version of the kernel, on whole rows: the same algebra
     and rounding points, f32 sums in another order."""
+    from mnn_tpu_torch.models.decoder import layer_window, local_rope
+
     c = config
     b = x.shape[0]
     hkv, d = c.num_kv_heads, c.head_dim
@@ -588,21 +631,33 @@ def fused_decode_model_plain(x, layers, k_cache, v_cache, k_scale, v_scale,
         if layers.wqkv.out_bias is not None:
             qkv = qkv + layers.wqkv.out_bias[i]
         qkv = _bf16r(qkv).reshape(b, hkv, g + 2, d)
+        local = local_rope(c, i)
         att, k_row, v_row, ksc, vsc = _attend_plain(
-            qkv, k_cache, v_cache, k_scale, v_scale, i, lengths, cos, sin,
+            qkv, k_cache, v_cache, k_scale, v_scale, i, lengths,
+            cos_l if local else cos, sin_l if local else sin,
             layers.q_norm[i] if c.qk_norm else None,
             layers.k_norm[i] if c.qk_norm else None,
-            eps, sm_scale, c.sliding_window, c.attention_sink, bits)
+            eps, sm_scale, layer_window(c, i), c.attention_sink, bits,
+            c.attn_softcap)
         k_rows.append(k_row)
         v_rows.append(v_row)
         k_scs.append(ksc)
         v_scs.append(vsc)
         o = _bf16r(_qmm(att, layers.wo.layer(i)))
+        if c.sandwich_norm:     # the attention output normed before its add
+            o = _bf16r(_rms(o, layers.post_norm[i].float(), eps))
         xs = _bf16r(xs + o)
-        rn2 = _rms(xs, layers.post_norm[i].float(), eps)
+        rn2 = _rms(xs, (layers.pre_ffn_norm if c.sandwich_norm
+                        else layers.post_norm)[i].float(), eps)
         gate, up = split_gate_up(_bf16r(_qmm(rn2, layers.wgu.layer(i))))
-        act = _bf16r(_bf16r(gate * torch.sigmoid(gate)) * up)
-        xs = _bf16r(xs + _bf16r(_qmm(act, layers.wdown.layer(i))))
+        if c.mlp_act == "gelu_tanh":
+            act = _bf16r(_bf16r(torch.nn.functional.gelu(gate, approximate="tanh")) * up)
+        else:
+            act = _bf16r(_bf16r(gate * torch.sigmoid(gate)) * up)
+        dn = _bf16r(_qmm(act, layers.wdown.layer(i)))
+        if c.sandwich_norm:
+            dn = _bf16r(_rms(dn, layers.post_ffn_norm[i].float(), eps))
+        xs = _bf16r(xs + dn)
     outs = (xs, torch.stack(k_rows), torch.stack(v_rows),
             torch.stack(k_scs) if bits < 16 else None,
             torch.stack(v_scs) if bits < 16 else None)
@@ -631,6 +686,8 @@ def fused_decode_model(
     head: Optional[QuantizedLinear] = None,   # [hidden, vocab] to fuse
     final_norm: Optional[torch.Tensor] = None,  # [hidden] (with head)
     write_cache: bool = False,
+    cos_l: Optional[torch.Tensor] = None,   # [B, D] gemma3's local rope phases
+    sin_l: Optional[torch.Tensor] = None,
 ):
     """Run all decoder layers for one decode position in one kernel.
 
@@ -640,17 +697,21 @@ def fused_decode_model(
     `head` (gate: `supports_head`) two more results follow: logits [B, vocab]
     f32 and the greedy token [B] int32. With `write_cache` the kernel also
     writes the rows into the cache at each sequence's clamped length, in
-    place (CUDA tensors only); otherwise `scatter_rows` does it."""
+    place (CUDA tensors only); otherwise `scatter_rows` does it. A config
+    with `swa_pattern` (gemma3) needs `cos_l`/`sin_l`, the phases of its
+    sliding layers."""
     c = config
     if head is not None and final_norm is None:
         raise ValueError("head fusion requires final_norm")
+    if c.swa_pattern and (cos_l is None or sin_l is None):
+        raise ValueError("a swa_pattern config needs the local rope phases cos_l/sin_l")
     if not use_kernel(x, layers.wqkv.packed, k_cache, lengths, cos):
         if write_cache:
             raise ValueError("write_cache is the CUDA kernel's; on the CPU "
                              "use scatter_rows")
         return fused_decode_model_plain(
             x, layers, k_cache, v_cache, k_scale, v_scale, lengths, cos, sin,
-            config=c, head=head, final_norm=final_norm)
+            config=c, head=head, final_norm=final_norm, cos_l=cos_l, sin_l=sin_l)
     b, h = x.shape
     nl, hkv, d, inter = c.num_layers, c.num_kv_heads, c.head_dim, c.intermediate_size
     g = c.num_heads // hkv
@@ -659,8 +720,9 @@ def fused_decode_model(
     s, d_store = k_cache.shape[3], k_cache.shape[4]
     lay = layers
     bits, bs_h, bs_i = lay.wqkv.bits, lay.wqkv.block_size, lay.wdown.block_size
-    if (d not in (64, 128) or not 1 <= g <= MAX_GROUP or not 1 <= b <= MAX_BATCH
-            or h != c.hidden_size or inter % 64 or bits not in (4, 8)):
+    if (d not in (64, 128, 256) or not 1 <= g <= max_group(d) or not 1 <= b <= MAX_BATCH
+            or h != c.hidden_size or inter % 64 or bits not in (4, 8)
+            or (d == 256 and kv_bits == 4)):
         raise ValueError(f"{c.name}: shapes outside the decode kernel's range")
     for ql, k_dim, n_dim, bs in ((lay.wqkv, h, nq, bs_h), (lay.wo, c.q_dim, h, bs_h),
                                  (lay.wgu, h, 2 * inter, bs_h),
@@ -687,7 +749,10 @@ def fused_decode_model(
     if kv_bits < 16:
         check(k_scale, "k_scale", torch.float32, 4)
         check(v_scale, "v_scale", torch.float32, 4)
-    for t, name in ((lay.input_norm, "input_norm"), (lay.post_norm, "post_norm")):
+    norms = [(lay.input_norm, "input_norm"), (lay.post_norm, "post_norm")]
+    if c.sandwich_norm:
+        norms += [(lay.pre_ffn_norm, "pre_ffn_norm"), (lay.post_ffn_norm, "post_ffn_norm")]
+    for t, name in norms:
         check(t, name, torch.float32, 2)
     qn = kn = None
     if c.qk_norm:
@@ -708,6 +773,10 @@ def fused_decode_model(
     x = x.float().contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    if c.swa_pattern:
+        cos_l, sin_l = cos_l.float().contiguous(), sin_l.float().contiguous()
+    else:
+        cos_l = sin_l = None
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((b, h), **f32)
     k_rows = torch.empty((nl, b, hkv, 1, d_store), **f32)
@@ -717,7 +786,10 @@ def fused_decode_model(
     logits = torch.empty((b, vocab), **f32) if head is not None else None
     token = torch.empty((b,), dtype=torch.int32, device=dev) if head is not None else None
     table, hdr, _ = _schedule_for(c, b, s, lay, head, dev)
-    ws_floats = (b * (nq + c.q_dim + inter) + MAX_BATCH * cdiv(h, COL_TILE)
+    # scratch: qkv, att, act, the sandwich rows (o, d, the mid-layer
+    # residual), the per-tile sums of squares (x, o, d), the head's maxima,
+    # the attention splits' states, the K ranges' partial sums
+    ws_floats = (b * (nq + c.q_dim + inter + 3 * h) + 3 * MAX_BATCH * cdiv(h, COL_TILE)
                  + 2 * b * cdiv(max(vocab, 1), COL_TILE)
                  + b * hkv * int(hdr[H_NS]) * MAX_GROUP * (d + 2) + int(hdr[H_PART]) + 64)
     ws = torch.empty((ws_floats,), **f32)
@@ -744,12 +816,13 @@ def fused_decode_model(
            _ptr(None if head is None else head.bias),
            x_out.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), _ptr(k_sc),
            _ptr(v_sc), _ptr(logits), _ptr(token), ws.data_ptr(), cnt.data_ptr(),
-           _ptr(clocks),
+           _ptr(clocks), _ptr(lay.pre_ffn_norm if c.sandwich_norm else None),
+           _ptr(lay.post_ffn_norm if c.sandwich_norm else None), _ptr(cos_l), _ptr(sin_l),
            b, nl, h, c.num_heads, hkv, d, inter, s, vocab, bits, bs_h, bs_i,
            head_bits, bs_head, kv_bits, int(c.sliding_window), int(c.attention_sink),
-           int(write_cache), ws_floats, cnt.numel(),
+           int(write_cache), ws_floats, cnt.numel(), model_flags(c), int(c.swa_pattern),
            float(c.query_scale if c.query_scale else 1.0 / (d ** 0.5)),
-           float(c.rms_norm_eps), table.data_ptr(), hdr.ctypes.data)
+           float(c.rms_norm_eps), float(c.attn_softcap), table.data_ptr(), hdr.ctypes.data)
     outs = (x_out, k_rows, v_rows, k_sc, v_sc)
     return outs if head is None else outs + (logits, token)
 

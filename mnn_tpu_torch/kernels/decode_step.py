@@ -166,7 +166,7 @@ def fused_decode_attention(
             cos, sin, q_norm, k_norm, eps, sm_scale, window, sink, softcap)
     quantized = k_cache.dtype == torch.int8
     nl, _, _, s, _ = k_cache.shape
-    if d not in (32, 64, 128) or not 1 <= g <= MAX_GROUP:
+    if d not in (32, 64, 128, 256) or not 1 <= g <= MAX_GROUP:
         raise ValueError(f"unsupported head_dim {d} or group {g}")
     if not 0 <= layer_index < nl:
         raise IndexError(f"layer {layer_index} of {nl}")

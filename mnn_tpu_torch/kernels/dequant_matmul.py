@@ -171,9 +171,9 @@ def _check_weights(ql: QuantizedLinear, k: int):
         check(ql.out_bias, "out_bias", torch.float32, 1)
 
 
-def _unpack_block(packed: torch.Tensor, kb: int, bits: int, bs: int):
+def _unpack_block(packed: torch.Tensor, kb: int, bits: int, bs: int, dtype=torch.int32):
     rows = bs * bits // 8
-    return unpack_bits(packed[kb * rows:(kb + 1) * rows], bits, bs)
+    return unpack_bits(packed[kb * rows:(kb + 1) * rows], bits, bs, dtype)
 
 
 def deq_dot_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -239,7 +239,7 @@ def dequant_matmul_plain(x2: torch.Tensor, ql: QuantizedLinear,
         xf = x2.to(torch.bfloat16).float()
         for kb in range(k // bs):
             xb = xf[:, kb * bs:(kb + 1) * bs]
-            part = xb @ _unpack_block(ql.packed, kb, bits, bs).float()
+            part = xb @ _unpack_block(ql.packed, kb, bits, bs, torch.float32)
             rs = xb.sum(dim=1, keepdim=True)
             acc = acc + part * s[kb] + rs * b[kb]
         y = acc.to(out_dtype)

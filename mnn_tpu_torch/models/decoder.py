@@ -1,5 +1,5 @@
 """Decoder-only transformer forward pass (dense Qwen2/2.5, Qwen3, Llama-3,
-and the mixture-of-experts Qwen1.5-MoE / Qwen3-MoE).
+Gemma2 and Gemma3, and the mixture-of-experts Qwen1.5-MoE / Qwen3-MoE).
 
 Counterpart of `mnn_tpu/models/decoder.py` (`_forward_unrolled`). Weights
 and the KV cache are stacked on a leading layer axis. A decode step (T = 1)
@@ -19,9 +19,17 @@ at most 8 rows through the fused kernel of `kernels/moe_decode.py`
 kernel of `kernels/moe_prefill.py` (`_moe_mlp`). The whole-model decode
 kernel takes no mixture-of-experts model, in either package.
 
-Not ported yet: the gemma family (sandwich norms, softcaps, alternating
-windows, dual rope), multimodal rope, LoRA, tensor and expert parallelism,
-token-tree verify, PLE and deepstack.
+The gemma family (sandwich norms, GeGLU-tanh, score and logit softcaps,
+alternating or N:1 sliding windows, gemma3's dual rope, the embedding scale)
+takes the JAX package's paths: a decode step over an int8 or bf16 cache
+goes through the whole-model kernel with gemma's flags, or the per-layer
+decode-step kernel with a Python-static window, rope phases, softcap and
+query scale per layer; prefill, and decode over an int4 cache, go through
+`_attention_eager`, the counterpart of the JAX package's `_attention_xla`
+(its layer scan), never through the flash kernels.
+
+Not ported yet: multimodal rope, the Hadamard KV rotation, LoRA, tensor and
+expert parallelism, token-tree verify, PLE and deepstack.
 """
 
 from __future__ import annotations
@@ -37,8 +45,9 @@ from mnn_tpu_torch.kernels.decode_step import fused_decode_attention
 from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from mnn_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from mnn_tpu_torch.models.config import ModelConfig
-from mnn_tpu_torch.models.layers import (apply_rope, rms_norm, rope_cos_sin,
-                                         split_gate_up, swiglu)
+from mnn_tpu_torch.models.layers import (apply_rope, geglu_tanh, rms_norm,
+                                         rope_cos_sin, softcap, split_gate_up,
+                                         swiglu)
 from mnn_tpu_torch.quant.quantize import QuantizedLinear, choose_block_size
 from mnn_tpu_torch.runtime import kvcache
 from mnn_tpu_torch.runtime.kvcache import KVCache
@@ -59,8 +68,12 @@ class LayerParams:
     wdown: Optional[QuantizedLinear]        # [intermediate, hidden]
     input_norm: torch.Tensor     # [L, hidden] f32
     post_norm: torch.Tensor      # [L, hidden] f32
-    q_norm: Optional[torch.Tensor] = None   # [L, head_dim] (qwen3)
+    q_norm: Optional[torch.Tensor] = None   # [L, head_dim] (qwen3, gemma3)
     k_norm: Optional[torch.Tensor] = None
+    # gemma's sandwich norms: post_norm then normalizes the attention
+    # output, pre_ffn_norm the MLP input, post_ffn_norm the MLP output
+    pre_ffn_norm: Optional[torch.Tensor] = None   # [L, hidden] f32
+    post_ffn_norm: Optional[torch.Tensor] = None
     # mixture of experts: the expert stacks carry [L, E, ...]
     router: Optional[torch.Tensor] = None             # [L, hidden, E] f32
     wgu_e: Optional[QuantizedLinear] = None           # [L, E, hidden, 2 * moe_inter]
@@ -80,13 +93,36 @@ class Params:
 
 
 def _check_supported(c: ModelConfig):
-    gemma_like = (c.sandwich_norm or c.mlp_act != "silu" or c.attn_softcap
-                  or c.final_softcap or c.swa_every_other or c.swa_pattern
-                  or c.embed_scale)
-    if gemma_like or c.mrope_section or c.kv_rotate:
+    if c.mrope_section or c.kv_rotate:
         raise NotImplementedError(
-            f"{c.name}: only qwen/llama configs, dense or mixture of "
-            "experts, are ported")
+            f"{c.name}: multimodal rope and the Hadamard KV rotation are not "
+            "ported (qwen/llama/gemma2/gemma3 configs, dense or mixture of "
+            "experts, are)")
+    if c.mlp_act not in ("silu", "gelu_tanh"):
+        raise NotImplementedError(f"{c.name}: mlp_act {c.mlp_act!r}")
+
+
+def gemma_like(c: ModelConfig) -> bool:
+    """The configs that the JAX package's `forward` sends down its layer
+    scan for prefill and for decode over an int4 cache (sandwich norms,
+    GeGLU, a score softcap, per-layer windows)."""
+    return bool(c.sandwich_norm or c.mlp_act != "silu" or c.attn_softcap > 0
+                or c.swa_every_other or c.swa_pattern > 0)
+
+
+def layer_window(c: ModelConfig, i: int) -> int:
+    """Layer i's sliding window (0: global): gemma2 slides on even layers,
+    gemma3 everywhere but every swa_pattern-th layer."""
+    if c.swa_every_other:
+        return c.sliding_window if i % 2 == 0 else 0
+    if c.swa_pattern:
+        return 0 if (i + 1) % c.swa_pattern == 0 else c.sliding_window
+    return c.sliding_window
+
+
+def local_rope(c: ModelConfig, i: int) -> bool:
+    """Does layer i rotate with gemma3's local rope phases?"""
+    return bool(c.swa_pattern) and (i + 1) % c.swa_pattern != 0
 
 
 def init_random_params(
@@ -161,6 +197,8 @@ def init_random_params(
         post_norm=ones(c.num_layers, c.hidden_size),
         q_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
         k_norm=ones(c.num_layers, c.head_dim) if c.qk_norm else None,
+        pre_ffn_norm=ones(c.num_layers, c.hidden_size) if c.sandwich_norm else None,
+        post_ffn_norm=ones(c.num_layers, c.hidden_size) if c.sandwich_norm else None,
         **moe_fields,
     )
     emb = torch.randn((c.vocab_size, c.hidden_size), generator=g).to(
@@ -243,7 +281,8 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
         wqkv=ql("layers.wqkv"), wo=ql("layers.wo"), wgu=opt_ql("layers.wgu"),
         wdown=opt_ql("layers.wdown"), input_norm=get("layers.input_norm"),
         post_norm=get("layers.post_norm"), q_norm=get("layers.q_norm"),
-        k_norm=get("layers.k_norm"), router=get("layers.router"),
+        k_norm=get("layers.k_norm"), pre_ffn_norm=get("layers.pre_ffn_norm"),
+        post_ffn_norm=get("layers.post_ffn_norm"), router=get("layers.router"),
         wgu_e=opt_ql("layers.wgu_e"), wdown_e=opt_ql("layers.wdown_e"),
         wgu_shared=opt_ql("layers.wgu_shared"),
         wdown_shared=opt_ql("layers.wdown_shared"),
@@ -257,9 +296,9 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
 
 
 def _gated_act(c: ModelConfig, gu: torch.Tensor) -> torch.Tensor:
-    """Gated MLP activation: SwiGLU (qwen/llama)."""
+    """Gated MLP activation: SwiGLU (qwen/llama) or GeGLU-tanh (gemma)."""
     gate, up = split_gate_up(gu)
-    return swiglu(gate, up)
+    return (geglu_tanh if c.mlp_act == "gelu_tanh" else swiglu)(gate, up)
 
 
 # Expert capacity of the grouped prefill path: factor * ceil(n * k / E),
@@ -395,8 +434,44 @@ def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
                            window=c.sliding_window, sink=c.attention_sink)
 
 
+def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
+                     kv_len, lengths, window: int, bits: int):
+    """Dense masked attention in plain torch ops, the counterpart of the JAX
+    package's `_attention_xla`: the path of gemma's prefill and of its
+    decode over an int4 cache (score softcap, a per-layer window). q [B, H,
+    T, D] bf16 attends over one layer's whole cache [B, Hkv, S, D or D/2],
+    which already holds the new rows; each batch row masks by its own
+    pre-append length `lengths`. f32 scores times `query_scale` or D^-0.5,
+    the softcap, the causal, window and sink masks with the JAX package's
+    inequalities, an f32 softmax, the output rounded to q's dtype."""
+    b, h, t, d = q.shape
+    if bits < 16:
+        kf = kvcache.dequant_kv(k_cache, k_scale, bits)
+        vf = kvcache.dequant_kv(v_cache, v_scale, bits)
+    else:
+        kf, vf = k_cache, v_cache
+    hkv, cap = kf.shape[1], kf.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, t, d).float()
+    scale = c.query_scale if c.query_scale else d ** -0.5
+    s = softcap(torch.einsum("bkgtd,bksd->bkgts", qg, kf.float()) * scale,
+                c.attn_softcap)
+    pos_k = torch.arange(cap, device=q.device)[None, None]          # [1, 1, S]
+    pos_q = (lengths.long()[:, None]
+             + torch.arange(t, device=q.device)[None])[..., None]   # [B, T, 1]
+    ok = (pos_k <= pos_q) & (pos_k < kv_len.long()[:, None, None])
+    if window > 0:
+        win_ok = pos_k > pos_q - window
+        if c.attention_sink:
+            # the sink widens the window only, never the causal mask
+            win_ok = win_ok | (pos_k < c.attention_sink)
+        ok = ok & win_ok
+    s = s.masked_fill(~ok[:, None, None], float("-inf"))
+    o = torch.einsum("bkgts,bksd->bkgtd", torch.softmax(s, dim=-1), vf.float())
+    return o.reshape(b, h, t, d).to(q.dtype)
+
+
 def _decode_megakernel(params: Params, c: ModelConfig, x, cache: KVCache,
-                       cos_f, sin_f, kv_len):
+                       cos_f, sin_f, kv_len, cos_lf=None, sin_lf=None):
     """One decode position through the whole-model kernel. Returns
     (x [B, 1, hidden], cache, logits or None, token or None): logits and
     token when the head is fused into the kernel."""
@@ -405,7 +480,8 @@ def _decode_megakernel(params: Params, c: ModelConfig, x, cache: KVCache,
     outs = decode_model.fused_decode_model(
         x[:, 0], params.layers, cache.k, cache.v, cache.k_scale,
         cache.v_scale, cache.length, cos_f, sin_f, config=c, head=head,
-        final_norm=params.final_norm, write_cache=on_card)
+        final_norm=params.final_norm, write_cache=on_card, cos_l=cos_lf,
+        sin_l=sin_lf)
     xh, k_rows, v_rows, k_sc, v_sc = outs[:5]
     logits, token = outs[5:] if len(outs) == 7 else (None, None)
     if not on_card:     # on the card the kernel wrote the rows itself
@@ -438,24 +514,42 @@ def forward(
     request never measures the other path). On that path the final norm, the
     lm-head GEMV and the argmax run inside the kernel when
     `decode_model.supports_head()` accepts, and the token is the kernel's;
-    otherwise it is the lowest-index argmax of the logits."""
+    otherwise it is the lowest-index argmax of the logits (after gemma2's
+    logit softcap, which leaves the kernel's token as it is: tanh is
+    monotone).
+
+    Gemma configs (`gemma_like`) take the JAX package's paths: prefill and
+    decode over an int4 cache run `_attention_eager`, a decode step over an
+    int8 or bf16 cache the whole-model kernel or the decode-step kernel,
+    with each layer's window, rope phases, softcap and query scale."""
     c = config
     _check_supported(c)
     b, t = tokens.shape
     layers = params.layers
     group = c.num_heads // c.num_kv_heads
     x = params.embedding[tokens]                                # [B, T, hidden]
+    if c.embed_scale:   # gemma: the normalizer is cast to the activations' dtype first
+        x = x * torch.tensor(c.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
     start = cache.length[0]
     positions = cache.length[:, None].long() + torch.arange(t, device=x.device)[None]
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
                             scaling=c.rope_scaling)
+    cos_l = sin_l = cos_lf = sin_lf = None
+    if c.swa_pattern:
+        # gemma3's sliding layers rotate with the local theta, unscaled
+        cos_l, sin_l = rope_cos_sin(positions, c.head_dim, c.rope_local_theta)
     kv_len = torch.clamp(cache.length + t, max=cache.capacity).to(torch.int32)
     if t == 1:
         # full-width rope phases for the fused kernels (neox halves tiled 2x)
         cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)        # [B, D]
         sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
+        if cos_l is not None:
+            cos_lf = torch.cat([cos_l[:, 0], cos_l[:, 0]], dim=-1)
+            sin_lf = torch.cat([sin_l[:, 0], sin_l[:, 0]], dim=-1)
 
-    eligible = (megakernel is not False and t == 1
+    # gemma's prefill and its decode over an int4 cache: plain attention
+    eager = gemma_like(c) and (t > 1 or cache.bits == 4)
+    eligible = (megakernel is not False and t == 1 and not eager
                 and decode_model.supports(c, params, cache, b))
     if megakernel is True and not eligible:
         raise ValueError(
@@ -464,28 +558,33 @@ def forward(
             "megakernel=None for the automatic fallback")
     if eligible:
         x, new_cache, logits, token = _decode_megakernel(
-            params, c, x, cache, cos_f, sin_f, kv_len)
+            params, c, x, cache, cos_f, sin_f, kv_len, cos_lf, sin_lf)
         if logits is not None:
+            logits = softcap(logits, c.final_softcap)
             if all_logits:
                 logits = logits[:, None]
             return ((logits, token), new_cache) if return_token else (logits, new_cache)
         return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
 
-    fused = t == 1 and cache.bits != 4
+    fused = t == 1 and cache.bits != 4 and not eager
     # a decode step of at most 8 rows takes the fused expert kernel
     moe_fast = c.is_moe and t == 1 and moe_decode.supports(c, layers, b)
     for i in range(c.num_layers):
+        # the window and the rope phases are Python-static per layer
+        window_i, local = layer_window(c, i), local_rope(c, i)
         h = rms_norm(x, layers.input_norm[i], c.rms_norm_eps)
         qkv = dequant_matmul(h, layers.wqkv, layer_index=i)
         if fused:
             qkv_g = qkv.reshape(b, c.num_kv_heads, group + 2, c.head_dim)
             att, k_row, v_row, k_sc, v_sc = fused_decode_attention(
                 qkv_g, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                i, cache.length, cos_f, sin_f,
+                i, cache.length, cos_lf if local else cos_f,
+                sin_lf if local else sin_f,
                 q_norm=layers.q_norm[i] if c.qk_norm else None,
                 k_norm=layers.k_norm[i] if c.qk_norm else None,
-                eps=c.rms_norm_eps, window=c.sliding_window,
-                sink=c.attention_sink)
+                eps=c.rms_norm_eps, window=window_i,
+                sink=c.attention_sink, softcap=c.attn_softcap,
+                sm_scale=c.query_scale if c.query_scale else None)
             kvcache.scatter_decode_row(cache, i, k_row, v_row, k_sc, v_sc,
                                        cache.length)
             att = att.reshape(b, t, c.q_dim)
@@ -498,16 +597,27 @@ def forward(
             if c.qk_norm:
                 q = rms_norm(q, layers.q_norm[i], c.rms_norm_eps)
                 k = rms_norm(k, layers.k_norm[i], c.rms_norm_eps)
-            q = apply_rope(q, cos, sin).contiguous()
-            k = apply_rope(k, cos, sin)
-            if t == 1:
+            cos_i, sin_i = (cos_l, sin_l) if local else (cos, sin)
+            q = apply_rope(q, cos_i, sin_i).contiguous()
+            k = apply_rope(k, cos_i, sin_i)
+            if eager:
+                if t == 1:
+                    kvcache.append_decode_stacked(cache, i, k, v, cache.length)
+                else:
+                    kvcache.append_stacked(cache, i, k, v, start)
+                att = _attention_eager(
+                    c, q, cache.k[i], cache.v[i],
+                    None if cache.k_scale is None else cache.k_scale[i],
+                    None if cache.v_scale is None else cache.v_scale[i],
+                    kv_len, cache.length, window_i, cache.bits)
+            elif t == 1:
                 # int4 cache: quantize and append the row, then attend over
                 # the packed cache in place (the new token included)
                 kvcache.append_decode_stacked(cache, i, k, v, cache.length)
                 att = decode_attention(
                     q[:, :, 0], cache.k, cache.v, kv_len,
                     k_scale=cache.k_scale, v_scale=cache.v_scale,
-                    layer_index=i, window=c.sliding_window,
+                    layer_index=i, window=window_i,
                     sink=c.attention_sink)[:, :, None]
             else:
                 kvcache.append_stacked(cache, i, k, v, start)
@@ -518,13 +628,18 @@ def forward(
                     kv_len, start, cache.bits)
             att = att.transpose(1, 2).reshape(b, t, c.q_dim)
         o = dequant_matmul(att, layers.wo, layer_index=i)
+        if c.sandwich_norm:     # gemma: the attention output is normed
+            o = rms_norm(o, layers.post_norm[i], c.rms_norm_eps)
         x = x + o.to(x.dtype)
-        h2 = rms_norm(x, layers.post_norm[i], c.rms_norm_eps)
+        h2 = rms_norm(x, layers.pre_ffn_norm[i] if c.sandwich_norm
+                      else layers.post_norm[i], c.rms_norm_eps)
         if c.is_moe:
             d = (_moe_mlp_fused if moe_fast else _moe_mlp)(c, h2, layers, i)
         else:
             gu = dequant_matmul(h2, layers.wgu, layer_index=i)
             d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
+        if c.sandwich_norm:
+            d = rms_norm(d, layers.post_ffn_norm[i], c.rms_norm_eps)
         x = x + d.to(x.dtype)
 
     return _finish(params, c, x, kvcache.with_length(cache, kv_len), all_logits,
@@ -537,7 +652,7 @@ def _finish(params: Params, c: ModelConfig, x, new_cache, all_logits: bool,
     x = rms_norm(x, params.final_norm, c.rms_norm_eps)
     if not all_logits:
         x = x[:, last_index]
-    logits = head_logits(params, x)
+    logits = softcap(head_logits(params, x), c.final_softcap)
     if return_token:
         tok_logits = logits[:, -1] if all_logits else logits
         return (logits, decode_model.lowest_argmax(tok_logits)), new_cache

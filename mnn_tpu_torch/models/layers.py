@@ -1,4 +1,5 @@
-"""Layer primitives: RMSNorm, RoPE, SwiGLU, the gate/up column layout.
+"""Layer primitives: RMSNorm, RoPE, SwiGLU, GeGLU-tanh, the tanh softcap,
+the gate/up column layout.
 
 Counterpart of `mnn_tpu/models/layers.py`, as plain PyTorch ops with the
 same rounding points (f32 math, result cast back to the input's dtype).
@@ -63,6 +64,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def geglu_tanh(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Gemma's gated activation: the tanh approximation of gelu on the f32
+    gate, cast back to the gate's dtype, times up."""
+    return F.gelu(gate.float(), approximate="tanh").to(up.dtype) * up
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh(x / cap) * cap (gemma's score and logit caps); cap 0: x."""
+    return torch.tanh(x / cap) * cap if cap else x
 
 
 # Columns of the fused gate/up projection alternate GU_BLOCK-wide blocks

@@ -12,6 +12,7 @@
     python -m mnn_tpu_torch.profile_a8 --kernel deq --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel rows --against OLD/csrc
     python -m mnn_tpu_torch.profile_a8 --kernel model --against OLD/csrc [--clocks] [--deep]
+    python -m mnn_tpu_torch.profile_a8 --kernel step|model --gemma --against OLD/...
     python -m mnn_tpu_torch.profile_a8 --kernel mdec --against OLD/csrc [--clocks]
 
 Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
@@ -181,6 +182,11 @@ STEP_SHAPES = [(1, 2, 7, 64, (48,)), (1, 2, 7, 64, (331,)), (1, 2, 7, 64, (631,)
                (1, 16, 1, 128, (331,)), (1, 16, 1, 128, (48,)), (1, 16, 1, 128, (631,)),
                (2, 2, 7, 64, (331, 631))]
 STEP_S, STEP_LAYERS = 1024, 24
+# --gemma: gemma2-2b's heads (softcap 50) at 331 of 2,048, batch 4, and
+# gemma3-4b's at 1,300 (B, Hkv, G, D, len_old per sequence, softcap)
+GEMMA_STEP_SHAPES = [(1, 4, 2, 256, (331,), 50.0), (4, 4, 2, 256, (331, 17, 600, 64), 50.0),
+                     (1, 4, 2, 256, (1300,), 0.0)]
+GEMMA_STEP_S = 2048
 # (B, Hkv, G, D, kv bits, kv_len per sequence, capacity), 24 layers: chip_smoke.py phase 2
 FDEC_SHAPES = [(1, 2, 7, 64, b, (n,), 1024) for b in (8, 4) for n in (49, 332, 632)]
 FDEC_SHAPES += [(1, 16, 1, 128, b, (n,), 1024) for b in (8, 4) for n in (49, 332, 632)]
@@ -524,10 +530,12 @@ def _step(fns: dict, order: list, card: str, args) -> None:
     times = {ver: [] for ver in versions}
     rels, same, clocks = [], True, []
     kq = None
-    for b, hkv, grp, d, lens in STEP_SHAPES:
-        if kq is None or kq.shape[1:4] != (b, hkv, STEP_S):
+    shapes = GEMMA_STEP_SHAPES if args.gemma else [r + (0.0,) for r in STEP_SHAPES]
+    cap = GEMMA_STEP_S if args.gemma else STEP_S
+    for b, hkv, grp, d, lens, softcap in shapes:
+        if kq is None or kq.shape[1:5] != (b, hkv, cap, d):
             kq = vq = None
-            shape = (STEP_LAYERS, b, hkv, STEP_S, d)
+            shape = (STEP_LAYERS, b, hkv, cap, d)
             kq, ks = quantize_kv(torch.randn(shape, device=dev, generator=g))
             vq, vs = quantize_kv(torch.randn(shape, device=dev, generator=g))
         qkv = torch.randn((b, hkv, grp + 2, d), device=dev, generator=g).to(torch.bfloat16)
@@ -546,7 +554,7 @@ def _step(fns: dict, order: list, card: str, args) -> None:
                 err = fn(qkv.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
                          vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), None, None,
                          lengths.data_ptr(), *(t.data_ptr() for t in out), b, hkv, grp, d,
-                         STEP_S, i % STEP_LAYERS, 1, 0, 0, 0.0, d ** -0.5, 1e-6,
+                         cap, i % STEP_LAYERS, 1, 0, 0, softcap, d ** -0.5, 1e-6,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{ver}: CUDA launch error {err}")
@@ -572,7 +580,7 @@ def _step(fns: dict, order: list, card: str, args) -> None:
     print(f"every version within att rel-L2 3e-2 of the other: {max(rels) <= 3e-2} "
           f"(largest {max(rels):.3e}); rows and scales the same bits: {same}")
     print(card)
-    result = dict(card=card, kernel="step", shapes=STEP_SHAPES, cache=STEP_S,
+    result = dict(card=card, kernel="step", shapes=shapes, cache=cap,
                   layers=STEP_LAYERS, order=order, us=times, rel_l2=rels, same_rows=same,
                   agree=ok, against=str(args.against), clocks=clocks)
     out = Path("chiprun_out")
@@ -745,17 +753,23 @@ MODEL_ROWS = [("qwen2-0.5b", None, 8, (48,)), ("qwen2-0.5b", None, 8, (331,)),
               ("qwen2-0.5b", None, 16, (331,)), ("qwen2-0.5b", None, 8, (48, 331, 631, 5)),
               ("qwen2-7b", 2, 8, (331,))]
 MODEL_DEEP_ROW = ("qwen2-7b", None, 8, (331,))
+# --gemma: gemma2-2b (its head fused) at batch 1 and 4, gemma3-4b (its head
+# outside the kernel), over a cache of GEMMA_STEP_S positions
+GEMMA_MODEL_ROWS = [("gemma2-2b", None, 8, (331,)), ("gemma2-2b", None, 8, (331, 17, 600, 64)),
+                    ("gemma3-4b", None, 8, (1300,))]
 MODEL_CLOCK_ROW = 1          # the row whose stamps --clocks prints
 MODEL_S = 1024
 
 
-def _model_case(dev, g, params, cfg, kv_bits, lengths):
+def _model_case(dev, g, params, cfg, kv_bits, lengths, cap=MODEL_S):
     """(positional args, keyword args) of one decode step as `forward` gives
-    them: a random cache of MODEL_S positions, embedding rows, rope phases."""
+    them: a random cache of `cap` positions, embedding rows, rope phases
+    (gemma3's local ones too), the head where the kernel takes it."""
+    from mnn_tpu_torch.kernels import decode_model
     from mnn_tpu_torch.models.layers import rope_cos_sin
     from mnn_tpu_torch.runtime import kvcache
     b = len(lengths)
-    shape = (cfg.num_layers, b, cfg.num_kv_heads, MODEL_S, cfg.head_dim)
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, cap, cfg.head_dim)
     kf = torch.randn(shape, device=dev, generator=g)
     vf = torch.randn(shape, device=dev, generator=g)
     if kv_bits == 16:
@@ -769,8 +783,13 @@ def _model_case(dev, g, params, cfg, kv_bits, lengths):
                             scaling=cfg.rope_scaling)
     cos_f = torch.cat([cos[:, 0], cos[:, 0]], dim=-1)
     sin_f = torch.cat([sin[:, 0], sin[:, 0]], dim=-1)
+    kw = dict(config=cfg, final_norm=params.final_norm,
+              head=params.lm_head if decode_model.supports_head(cfg, params) else None)
+    if cfg.swa_pattern:
+        cl, sl = rope_cos_sin(lens[:, None].long(), cfg.head_dim, cfg.rope_local_theta)
+        kw.update(cos_l=torch.cat([cl[:, 0]] * 2, -1), sin_l=torch.cat([sl[:, 0]] * 2, -1))
     args = (params.embedding[tok], params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
-    return args, dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
+    return args, kw
 
 
 def _event_ms(fn, calls: int = 20) -> float:
@@ -821,7 +840,8 @@ def _model(fns: dict, order: list, card: str, args) -> None:
                   f"threads, static shared, local bytes) at B = 1 "
                   f"{fn.limits(1, 64)} (D 64), {fn.limits(1, 128)} (D 128); B = 8 "
                   f"{fn.limits(8, 128)}", flush=True)
-    model_rows = MODEL_ROWS + ([MODEL_DEEP_ROW] if args.deep else [])
+    model_rows = (GEMMA_MODEL_ROWS if args.gemma
+                  else MODEL_ROWS + ([MODEL_DEEP_ROW] if args.deep else []))
     try:
         for idx, (preset, layers, kv_bits, lengths) in enumerate(model_rows):
             cfg = PRESETS[preset]
@@ -833,7 +853,8 @@ def _model(fns: dict, order: list, card: str, args) -> None:
                 params[(preset, layers)] = decoder.init_random_params(
                     cfg, torch.Generator().manual_seed(0), lm_head_bits=4, device=dev)
             prm = params[(preset, layers)]
-            pos, kw = _model_case(dev, g, prm, cfg, kv_bits, lengths)
+            pos, kw = _model_case(dev, g, prm, cfg, kv_bits, lengths,
+                                  GEMMA_STEP_S if args.gemma else MODEL_S)
             outs, row = {}, {ver: [] for ver in versions}
             same = True
             for ver in order:
@@ -1137,6 +1158,10 @@ def main():
                          "kernel's steps on the SM clock")
     ap.add_argument("--deep", action="store_true",
                     help="model only: add the 28-layer qwen2-7b row")
+    ap.add_argument("--gemma", action="store_true",
+                    help="step, model: gemma's shapes (head_dim 256; gemma2-2b's softcap, "
+                         "gemma3-4b's local rope and unfused head) in place of phase 2's; "
+                         "the other source must take head_dim 256 and gemma's flags")
     ap.add_argument("--variant", action="append", default=[],
                     help="moe, deq, model: NAME:DEFINE[+DEFINE...], this source built with "
                          "those macros and timed beside it, e.g. nopipe:MNN_DD_PIPE=0")

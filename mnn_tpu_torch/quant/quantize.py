@@ -105,23 +105,24 @@ def pack_int4(q: torch.Tensor, block_size: int) -> torch.Tensor:
     return packed.to(torch.uint8).view(torch.int8).reshape(k // 2, n)
 
 
-def unpack_int4(packed: torch.Tensor, block_size: int) -> torch.Tensor:
-    """Inverse of pack_int4: int8 [K//2, N] -> int32 q in [0, 15], [K, N]."""
+def unpack_int4(packed: torch.Tensor, block_size: int,
+                dtype=torch.int32) -> torch.Tensor:
+    """Inverse of pack_int4: int8 [K//2, N] -> q in [0, 15], [K, N], as
+    `dtype`. The nibbles are split on the bytes themselves (uint8), so an
+    f32 result costs one widening pass."""
     kh, n = packed.shape
     half = block_size // 2
-    w32 = packed.to(torch.int32) & 0xFF
-    w32 = w32.reshape(kh // half, half, n)
-    lo = w32 & 0xF
-    hi = (w32 >> 4) & 0xF
-    return torch.cat([lo, hi], dim=1).reshape(kh * 2, n)
+    u8 = packed.view(torch.uint8).reshape(kh // half, half, n)
+    return torch.cat([u8 & 0xF, u8 >> 4], dim=1).reshape(kh * 2, n).to(dtype)
 
 
-def unpack_bits(packed: torch.Tensor, bits: int, block_size: int) -> torch.Tensor:
-    """int8 packed -> int32 q in [0, 2^bits), [K, N]."""
+def unpack_bits(packed: torch.Tensor, bits: int, block_size: int,
+                dtype=torch.int32) -> torch.Tensor:
+    """int8 packed -> q in [0, 2^bits), [K, N], as `dtype`."""
     if bits == 4:
-        return unpack_int4(packed, block_size)
+        return unpack_int4(packed, block_size, dtype)
     if bits == 8:
-        return packed.to(torch.int32) & 0xFF
+        return packed.view(torch.uint8).to(dtype)
     raise ValueError(f"W{bits} unpacking is not ported")
 
 
@@ -237,6 +238,9 @@ def quantize_activations_int8(x: torch.Tensor):
     """Per-row symmetric int8: returns (q [M,K] int8, scale [M,1] f32)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    # divided by a tensor: on the card PyTorch multiplies by the reciprocal
+    # of a Python scalar divisor, which can land an ulp off the CPU's quotient
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 127.0))
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale

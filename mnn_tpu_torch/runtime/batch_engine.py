@@ -13,6 +13,10 @@ Counterpart of `mnn_tpu/runtime/batch_engine.py`, with its design:
 * a request goes WAITING -> PREFILL -> DECODE -> DONE, or ends CANCELLED
   or TIMEOUT.
 
+Nothing here is per model family: a gemma slot's sliding layers mask their
+window over that slot's own length inside `forward` (the whole-model
+kernel, the decode step and the eager path all take per-row lengths).
+
 In PyTorch's idiom: every tensor lives on the device of the weights, draws
 come from one `torch.Generator` on that device, and prefill writes the
 shared cache in place through a slot view (`kvcache.slot_view`), with no

@@ -2,7 +2,9 @@
 
 Counterpart of `mnn_tpu/runtime/generate.py`. Prefill is chunked and each
 chunk is padded to a power-of-two bucket (`prefill_buckets`); the padded
-tail's cache rows are rolled back. Decode is a Python loop over `forward`
+tail's cache rows are rolled back (gemma's chunks too: its eager prefill
+attention masks by each row's length, so the padded tail is never read).
+Decode is a Python loop over `forward`
 at T = 1, which takes the whole-model decode kernel when it is eligible:
 tokens stay on the device, so the loop never waits on the host, and the
 greedy fast path feeds back the token the kernel chose, with no pass over

@@ -85,7 +85,10 @@ def quantize_kv(x: torch.Tensor):
     """Per-(token, head) symmetric int8: x [..., D] -> (q, scale [...])."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    # divided by a tensor: on the card PyTorch multiplies by the reciprocal
+    # of a Python scalar divisor, which can land an ulp off the CPU's quotient
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 127.0))
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -98,7 +101,8 @@ def quantize_kv4(x: torch.Tensor):
     d = x.shape[-1]
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 7.0))   # by a tensor, as above
     q = (torch.round(xf / scale[..., None]).clamp(-8, 7) + 8).to(torch.int32)
     packed = q[..., :d // 2] | (q[..., d // 2:] << 4)
     packed = torch.where(packed > 127, packed - 256, packed).to(torch.int8)

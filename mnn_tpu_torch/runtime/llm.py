@@ -75,9 +75,11 @@ class Llm:
     def synthetic(cls, preset: str = "qwen2-0.5b",
                   rt: Optional[RuntimeConfig] = None, seed: int = 0,
                   device=None) -> "Llm":
-        """Random-weight model (benchmarks and smoke runs; no files). The
-        weights come from a CPU generator seeded with `seed`, so every
-        device gets the same weights."""
+        """Random-weight model (benchmarks and smoke runs; no files), any
+        preset of `models/config.py` but the multimodal ones (qwen, llama,
+        the MoE presets, gemma2-2b, gemma3-4b). The weights come from a CPU
+        generator seeded with `seed`, so every device gets the same
+        weights."""
         device = resolve_device(device)
         rt = rt or RuntimeConfig()
         g = torch.Generator().manual_seed(seed)

@@ -13,8 +13,10 @@ package, on the CPU.
 * `Llm.from_pretrained(device="cpu")` gives the JAX `Llm.from_pretrained`'s
   greedy tokens, and prefill logits within rel-L2 5e-2
   (`tests/test_decode_model.py:97`).
-* A gemma checkpoint raises; every new module imports with `safetensors`,
-  `transformers`, `tokenizers`, `ml_dtypes` and JAX blocked.
+* A gemma checkpoint (sandwich norms, QK-norm) written by the JAX
+  `save_checkpoint` loads, byte-equal to `params_from_numpy`; every new
+  module imports with `safetensors`, `transformers`, `tokenizers`,
+  `ml_dtypes` and JAX blocked.
 
 The JAX side is computed once, in one module-scoped fixture.
 """
@@ -264,13 +266,26 @@ def test_from_pretrained_needs_a_device_or_the_card(jax_ref):
 
 
 def test_gemma_checkpoint_raises(tmp_path):
-    cfg = J_PRESETS["gemma2-2b"]
+    """Named when the port refused gemma: a tiny gemma3 checkpoint (sandwich
+    norms, QK-norm, the N:1 pattern) written by the JAX `save_checkpoint`
+    now loads, byte-equal to `params_from_numpy` of the same JAX params,
+    with its config; a multimodal-rope config still raises."""
+    cfg = dataclasses.replace(J_PRESETS["gemma3-4b"], name="tiny-gemma3", vocab_size=256,
+                              hidden_size=128, intermediate_size=256, num_layers=2,
+                              head_dim=64)
+    p = jdec.init_random_params(cfg, jax.random.PRNGKey(3), lm_head_bits=4, scale=0.05)
     out = tmp_path / "gemma"
-    out.mkdir()
-    (out / "config.json").write_text(json.dumps(
-        {"mnn_tpu": True, **dataclasses.asdict(cfg)}))
-    with pytest.raises(NotImplementedError, match="only qwen/llama"):
-        checkpoint.load_checkpoint(str(out), device="cpu")
+    jckpt.save_checkpoint(str(out), cfg, p, JRuntimeConfig(quant_bits=4))
+    got_cfg, got, _ = checkpoint.load_checkpoint(str(out), device="cpu")
+    assert got_cfg == ModelConfig(**dataclasses.asdict(cfg))
+    assert got.layers.pre_ffn_norm.shape == (2, 128) and got.layers.q_norm.shape == (2, 64)
+    assert_params_equal(got, decoder.params_from_numpy(numpy_fields(p), got_cfg, "cpu"))
+    bad = tmp_path / "mrope"
+    bad.mkdir()
+    (bad / "config.json").write_text(json.dumps(
+        {"mnn_tpu": True, **dataclasses.asdict(cfg), "mrope_section": [16, 24, 24]}))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        checkpoint.load_checkpoint(str(bad), device="cpu")
 
 
 # --------------------------------------------------------------------------

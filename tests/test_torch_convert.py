@@ -213,14 +213,25 @@ def test_awq_search_refused(hf, tmp_path):
 
 
 def test_gemma_conversion_refused(tmp_path):
-    d = tmp_path / "gemma"
-    d.mkdir()
-    (d / "config.json").write_text(json.dumps(dict(
-        architectures=["Gemma2ForCausalLM"], vocab_size=96, hidden_size=64,
-        intermediate_size=128, num_hidden_layers=1, num_attention_heads=4,
-        num_key_value_heads=2, head_dim=16)))
-    with pytest.raises(NotImplementedError, match="only qwen/llama"):
-        convert_hf(str(d), str(tmp_path / "out"), device="cpu")
+    """Named when the port refused gemma: a tiny Gemma2 HF directory now
+    converts, its norms carrying gemma's `1 + w` offset and its sandwich
+    norms in place (`tests/test_torch_gemma_convert.py` holds the bytes to
+    the JAX converter's)."""
+    cfg = transformers.Gemma2Config(
+        vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=1,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, sliding_window=4,
+        query_pre_attn_scalar=16, pad_token_id=0, bos_token_id=1, eos_token_id=2)
+    torch.manual_seed(0)
+    model = transformers.Gemma2ForCausalLM(cfg).eval()
+    with torch.no_grad():
+        model.model.layers[0].pre_feedforward_layernorm.weight.uniform_(-0.5, 0.5)
+    d = str(tmp_path / "gemma")
+    model.save_pretrained(d, safe_serialization=True)
+    config, params = convert_hf(d, str(tmp_path / "out"), device="cpu")
+    assert config.sandwich_norm and config.swa_every_other and config.embed_scale
+    want = model.model.layers[0].pre_feedforward_layernorm.weight.float() + 1.0
+    assert torch.equal(params.layers.pre_ffn_norm[0], want)
+    assert params.layers.post_ffn_norm.shape == (1, 64)
 
 
 # --------------------------------------------------------------------------

@@ -1231,3 +1231,150 @@ def test_loaded_model_serves_as_in_memory(dev, tmp_path, head_bits):
         build.reset_launches()
         runs.append((list(llm.stream(token_ids=ids)), decode_model.KERNEL.launches))
     assert runs[0] == runs[1] and runs[0][1] == rt.max_new_tokens
+
+
+# --------------------------------------------------------------------------
+# the gemma family: the decode step at head_dim 256, the whole-model kernel
+# with gemma's flags, the quantizers' bytes, the slice against the CPU
+# --------------------------------------------------------------------------
+
+# (B, Hkv, G, int8 cache, qk-norm, window, softcap, lengths) at head_dim 256
+DECODE_D256 = [(1, 4, 2, True, False, 4096, 50.0, (331,)),
+               (4, 4, 2, True, False, 0, 50.0, (331, 0, 1023, 64)),
+               (1, 4, 2, False, False, 0, 50.0, (1000,)),
+               (1, 4, 2, True, True, 1024, 0.0, (900,)),
+               (2, 1, 4, False, True, 0, 0.0, (17, 1023)),
+               (1, 2, 8, True, False, 0, 0.0, (500,)),
+               (1, 8, 1, True, False, 0, 30.0, (64,))]
+
+
+@pytest.mark.parametrize("b,hkv,grp,int8,qkn,window,softcap,lengths", DECODE_D256)
+def test_decode_step_d256_kernel(dev, b, hkv, grp, int8, qkn, window, softcap, lengths):
+    """Row 6 at gemma's head_dim 256: one launch a call, the same bits twice,
+    the plain version's result (`check_decode_step`)."""
+    nl, s, d = 2, 1024, 256
+    g = torch.Generator(device=dev).manual_seed(b * hkv + grp + sum(lengths))
+    kc, vc, ks, vs = rand_cache(g, dev, nl, b, hkv, s, d, 8 if int8 else 16)
+    qkv = (torch.randn((b, hkv, grp + 2, d), device=dev, generator=g) * 2).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ang = torch.rand((b, d // 2), device=dev, generator=g) * 6.28
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    norms = ((torch.rand(d, device=dev, generator=g) + 0.5,
+              torch.rand(d, device=dev, generator=g) + 0.5) if qkn else (None, None))
+    check_decode_step(qkv, kc, vc, ks, vs, lens, cos, sin, norms, window, 0, softcap, int8)
+
+
+G2_MK = dataclasses.replace(MK, attention_bias=False, mlp_act="gelu_tanh", embed_scale=True,
+                            sandwich_norm=True, attn_softcap=50.0, final_softcap=30.0,
+                            query_scale=64.0 ** -0.5, swa_every_other=True, sliding_window=6)
+G3_MK = dataclasses.replace(MK, attention_bias=False, mlp_act="gelu_tanh", embed_scale=True,
+                            sandwich_norm=True, qk_norm=True, swa_pattern=3,
+                            rope_local_theta=1000.0, sliding_window=6)
+# (config, kv bits, head bits, lengths)
+DECODE_MODEL_GEMMA = [
+    (G2_MK, 8, 4, (9,)), (G2_MK, 16, 4, (100, 3, 64, 127)), (G2_MK, 8, 0, (5, 40)),
+    (G3_MK, 8, 4, (70,)), (G3_MK, 16, 4, (1, 65)),
+    (dataclasses.replace(G2_MK, head_dim=256, num_layers=2, query_scale=256.0 ** -0.5),
+     8, 4, (90, 0, 127)),
+    (dataclasses.replace(G3_MK, head_dim=256, hidden_size=512, num_heads=8, num_kv_heads=4,
+                         intermediate_size=1024), 16, 4, (120,)),
+    (dataclasses.replace(MK, mlp_act="gelu_tanh"), 8, 4, (33,)),
+    (dataclasses.replace(MK, attn_softcap=5.0), 4, 4, (50, 7)),
+]
+
+
+@pytest.mark.parametrize("cfg,kv_bits,head_bits,lengths", DECODE_MODEL_GEMMA)
+def test_decode_model_gemma_kernel(dev, cfg, kv_bits, head_bits, lengths):
+    """Row 7 with gemma's flags (sandwich norms, GeGLU, softcap, alternating
+    and N:1 windows, local rope phases) and at head_dim 256, against its
+    plain version from the same state with every norm random; the same bits
+    twice, the rows written in place."""
+    b, s = len(lengths), 128
+    params = decoder.init_random_params(cfg, torch.Generator().manual_seed(b + kv_bits),
+                                        scale=0.05, lm_head_bits=head_bits, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda t: None if t is None else torch.rand(t.shape, device=dev, generator=g) * 0.8 + 0.6
+    lay = params.layers
+    lay = dataclasses.replace(lay, **{f: rnd(getattr(lay, f)) for f in (
+        "input_norm", "post_norm", "pre_ffn_norm", "post_ffn_norm", "q_norm", "k_norm")})
+    kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, s, cfg.head_dim,
+                                kv_bits)
+    x = (torch.randn((b, cfg.hidden_size), device=dev, generator=g) * 0.5).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    phases = []
+    for _ in range(2):
+        ang = torch.rand((b, cfg.head_dim // 2), device=dev, generator=g) * 6.28
+        phases += [torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)]
+    cos, sin, cos_l, sin_l = phases
+    head = params.lm_head if head_bits else None
+    kw = dict(config=cfg, head=head, final_norm=rnd(params.final_norm))
+    if cfg.swa_pattern:
+        kw.update(cos_l=cos_l, sin_l=sin_l)
+    want = decode_model.fused_decode_model_plain(x, lay, kc, vc, ks, vs, lens, cos, sin, **kw)
+    before = decode_model.KERNEL.launches
+    got = decode_model.fused_decode_model(x, lay, kc, vc, ks, vs, lens, cos, sin, **kw)
+    again = decode_model.fused_decode_model(x, lay, kc, vc, ks, vs, lens, cos, sin,
+                                            write_cache=True, **kw)
+    torch.cuda.synchronize()
+    assert decode_model.KERNEL.launches == before + 2
+    assert all(torch.isfinite(t).all() for t in got if t is not None)
+    m = decode_model.parity_metrics(got, want, kv_bits)
+    info = decode_model.schedule_info(cfg, lay, head, b, s, dev)
+    print(f"{cfg.name} D={cfg.head_dim} flags={decode_model.model_flags(cfg)} kv{kv_bits} "
+          f"lengths={lengths}: {m}; grid {info['grid']}, ring {info['slots']} slots")
+    assert not decode_model.parity_failures(m), m
+    for a, c in zip(got, again):
+        assert a is None or torch.equal(a, c)
+    pos = lens.long().clamp(0, s - 1)
+    bi = torch.arange(b, device=dev)
+    assert torch.equal(kc[:, bi, :, pos].float(), got[1][:, :, :, 0].transpose(0, 1))
+
+
+def test_quantizers_card_equals_cpu(dev):
+    """The KV and activation quantizers give the CPU's bytes on the card
+    (every divisor a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal). Rows of bf16 values put many quotients on
+    a rounding tie, where an ulp decides the level."""
+    from mnn_tpu_torch.quant.quantize import quantize_activations_int8
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((64, 8, 256), generator=g) * 3).to(torch.bfloat16)
+    x[0, 0, :4] = torch.tensor([7.0, 3.5, -0.5, 1.5])     # ties at absmax 7
+    for fn in (kvcache.quantize_kv, kvcache.quantize_kv4,
+               lambda t: quantize_activations_int8(t.reshape(-1, t.shape[-1]))):
+        cpu = fn(x)
+        card = fn(x.to(dev))
+        for a, c in zip(cpu, card):
+            assert torch.equal(a, c.cpu()), fn
+
+
+@pytest.mark.parametrize("cfg", [G2_MK, G3_MK])
+def test_gemma_slice_card_matches_cpu(dev, cfg):
+    """A tiny gemma through `Llm` on the card and through the plain versions
+    on the CPU: one whole-model launch a decode step, no flash prefill or
+    flash decode launch (gemma's prefill is the eager path), the tokens
+    where the CPU's margins are clear; then 3 steps over an int4 cache (the
+    eager path, no decode kernel at all)."""
+    for kv_bits in (8, 4):
+        rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4,
+                           sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
+                           kv_bits=kv_bits, max_new_tokens=6)
+        ids = list(range(3, 48))
+        runs = []
+        for device in (dev, "cpu"):
+            params = decoder.init_random_params(cfg, torch.Generator().manual_seed(1),
+                                                scale=0.05, lm_head_bits=4, device=device)
+            llm = Llm(cfg, params, rt, device=device)
+            build.reset_launches()
+            toks = list(llm.stream(token_ids=ids))
+            runs.append((toks, llm.last_prefill_logits.float().cpu(),
+                         {k.name: k.launches for k in build.KERNELS}))
+        (card_toks, card, card_n), (cpu_toks, cpu, cpu_n) = runs
+        assert card_n["mnn_flash_prefill"] == 0 and card_n["mnn_flash_decode"] == 0
+        assert card_n["mnn_decode_model"] == (rt.max_new_tokens if kv_bits == 8 else 0)
+        assert card_n["mnn_decode_step"] == 0 and card_n["mnn_dequant_matmul_a8"] > 0
+        assert not any(cpu_n.values())
+        assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
+        top2 = cpu[0].topk(2).values
+        if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
+            assert card_toks[0] == cpu_toks[0]
