@@ -67,7 +67,7 @@ Phases, each of which exits non-zero on failure:
    exceeds the largest logit difference seen; then the whole-model kernel
    against the per-layer path on the card from the same state, and the
    first request's prefill with `prefill_act_bits=16` on both. The same
-   for the mixture-of-experts model at full width and 2 layers (the CPU side
+   for the mixture-of-experts model at full width and 4 layers (the CPU side
    of 24 would take minutes);
 5. serving batched requests through the continuous-batching engine
    (`runtime/batch_engine.py`) at 4 slots, each sub-phase with the launch
@@ -137,14 +137,31 @@ Phases, each of which exits non-zero on failure:
    token rule; (r) (n)'s model through a 4-slot engine, 4 requests of 17,
    300, 600 and 64 tokens, 16 new each, held to batch-1 runs by phase 5's
    rule.
+8. W3 and W2 weights (bench.py's --w-bits 3 and 2 rows: qwen2-0.5b at
+   full width and depth, block 128, a head of the same bits, int8 KV,
+   `prefill_act_bits=8`, greedy, batch 1), each sub-phase with the launch
+   counts set to 0 before and read after. Phase 2's rows at each width:
+   the GEMV (row 1a) on the four decode projections and the head, the tile
+   kernel (1b), the a8 kernel (2) and the dequantize-tile kernel (3) at
+   M = 512 on the four projections, and the whole-model kernel (7) on the
+   served weights at batch 1 and 4, the head after it; then (s) the three
+   requests of 17, 300 and 600 tokens, 32 new each: one whole-model launch
+   and one head GEMV a token, 96 a8 launches a chunk; (t) the 300-token
+   request with `megakernel=False`: every projection on the GEMV; (u) the
+   same at `prefill_act_bits=16`: 96 tile-kernel launches; (w) its prefill
+   with the dequantize-tile switch on: 96 launches of row 3, within 5e-2
+   of the default path; (v) card against CPU at full width and 4 layers,
+   prefill and 8 steps, phase 4's bounds and token rule.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
 (phase 5's under `serve_batched`, phase 6's under `checkpoints`, phase
-7's under `gemma`; the gemma rows of rows 6 and 7 under `gemma` of their
-kernel in the kernels line, beside the sums of the earlier rows). It
-imports no JAX and nothing of the JAX package.
+7's under `gemma`, phase 8's under `sub4`; the gemma rows of rows 6 and 7
+under `gemma` of their kernel in the kernels line, beside the sums of the
+earlier rows; under `weight_bits` the weight bits of the rows that ran each
+kernel in this run, and phase 8's rows and launches under `w3` and `w2`).
+It imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -197,9 +214,9 @@ FALLBACK_PROMPT = 300       # phase 3c: the per-layer path's prompt
 PARITY_REL = 5e-2           # JAX megakernel logits bound, tests/test_decode_model.py:97
 SEED = 0                    # weights and inputs
 MOE_PRESET = "qwen1.5-moe-a2.7b"
-# phase 4, mixture of experts: depth of both sides (at 2 layers the CPU side
-# takes about 20 s)
-MOE_PARITY_LAYERS = 2
+# phase 4, mixture of experts: depth of both sides (at 4 layers the CPU side
+# takes about 35 s)
+MOE_PARITY_LAYERS = 4
 MOE_TOL = 2e-2              # both expert kernels, tests/test_moe_decode.py:61
 SERVE_SLOTS = 4             # phase 5: the engines' width
 SERVE_DENSE_LENS = (17, 300, 600, 17, 300, 600, 64, 900)   # (g), NEW_TOKENS each
@@ -306,7 +323,7 @@ def rand_quantized(g, dev, k, n, *, layers, bits=4,
                            dtype=torch.int8, device=dev, generator=g)
     scale = (torch.rand((layers, k // bs, n), device=dev, generator=g)
              * 2e-3 + 1e-3).to(torch.bfloat16)
-    bias = (-7.5 * scale.float()
+    bias = (-((1 << bits) - 1) / 2 * scale.float()
             + torch.randn((layers, k // bs, n), device=dev, generator=g)
             * 1e-3).to(torch.bfloat16)
     ob = (torch.randn((layers, n), device=dev, generator=g) * 0.1
@@ -432,8 +449,8 @@ def phase_gemm(dev, g, results, *, a8: bool):
         nbytes = (m * k + m * 4 if a8 else m * k * 2) + wbytes + out_b
         bound, bound_by = bound_of(2 * m * k * n, nbytes,
                                    INT8_OPS_S if a8 else BF16_OPS_S)
-        row = dict(shape=f"{proj} M={m} K={k} N={n}", m=m, max_abs_err=err, rel_l2=rel,
-                   tol=tol, ms=ms, plain_ms=plain_ms,
+        row = dict(shape=f"{proj} M={m} K={k} N={n}", m=m, bits=ql.bits, max_abs_err=err,
+                   rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                    l2_rotation=nl, kernel=kern.name)
         extra = ""
@@ -791,7 +808,7 @@ def phase_decode_model(dev, g, results, params05):
         check(same, f"decode_model {name}: two calls gave different bits")
         sched = decode_model.schedule_info(cfg, params.layers, params.lm_head, b, cap, dev)
         row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))}",
-                   max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+                   bits=params.layers.wqkv.bits, max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
                    tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
                    bytes=nbytes, per_layer_path_device_ms=per_layer_ms,
@@ -900,8 +917,9 @@ def phase_moe_decode(dev, g, results):
             ops = 2 * 3 * h * (n * k * mi + n * si)
             bound, bound_by = bound_of(ops, nbytes)
             row = dict(shape=f"{preset} n={n} E={e} k={k} mi={mi} si={si}",
-                       max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                       bits=lay.wgu_e.bits, max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                       bound_by=bound_by, bytes=nbytes,
                        bound_share=bound / ms, distinct_experts=distinct)
             rows.append(row)
             print(f"  moe_decode         {row['shape']:48s} rel {rel:.2e} (tol {MOE_TOL}) | "
@@ -956,7 +974,7 @@ def phase_moe_prefill(dev, g, results):
         bound, bound_by = bound_of(2 * e * cap * 3 * h * mi, nbytes)
         algebra = "/".join("partial" if cap < q.block_size else "dequant" for q in (gu, dn))
         row = dict(shape=f"{preset} E={e} C={cap} H={h} mi={mi} ({algebra})",
-                   max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
+                   bits=gu.bits, max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                    tile=dict(rows=tile[0], cols=tile[1], smem=tile[2]))
         rows.append(row)
@@ -1006,8 +1024,8 @@ def phase_gemm_deq(dev, g, results):
             del wlib
             bound, bound_by = bound_of(2 * m * k * n, m * k * 2 + wbytes + m * n * 2)
             tile = dequant_matmul.bf16_tile(m, n, ql.bits)   # the tile kernel's tiles
-            row = dict(shape=f"{proj} M={m} K={k} N={n}", max_abs_err=err, rel_l2=rel,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            row = dict(shape=f"{proj} M={m} K={k} N={n}", bits=ql.bits, max_abs_err=err,
+                       rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by, l2_rotation=nl,
                        tile=dict(rows=tile[0], cols=tile[1]))
             rows.append(row)
@@ -2238,7 +2256,8 @@ def phase_decode_model_gemma(dev, g, results, p2, p3):
         sched = decode_model.schedule_info(cfg, params.layers, head, b, cap, dev)
         limits = decode_model.LIMITS(decode_model.bucket(b), cfg.head_dim)
         row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))} "
-                         f"S={cap}", max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+                         f"S={cap}", bits=params.layers.wqkv.bits,
+                   max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
                    tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
                    bytes=nbytes, head_fused=head is not None,
@@ -2447,6 +2466,258 @@ def phase_gemma(dev, card_line, g2: "Llm", g3: "Llm"):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 8: W3 and W2 weights (bench.py's --w-bits 3 and 2 rows)
+# --------------------------------------------------------------------------
+
+SUB4_BITS = (3, 2)
+SUB4_PARITY_LAYERS = 4      # (v): full width, cut depth on both sides
+SUB4_ROUTES = ("gemv", "tile", "a8", "deq")   # rows 1a, 1b, 2 and 3
+SUB4_KERNEL = {"gemv": "dequant_matmul", "tile": "dequant_matmul",
+               "a8": "dequant_matmul_a8", "deq": "dequant_matmul_deq"}
+
+
+def sub4_rt(bits: int) -> RuntimeConfig:
+    """bench.py's --w-bits rows: block 128, head bits min(bits, 4), int8 KV,
+    int8 prefill activations, greedy, batch 1."""
+    return dataclasses.replace(serving_rt(), quant_bits=bits, lm_head_bits=min(bits, 4))
+
+
+def sub4_row(dev, g, bits, proj, k, n, with_bias, route):
+    """One W2/W3 matmul on its kernel at qwen2-0.5b's shapes: M = 1 on the
+    GEMV (row 1a), M = 512 bf16 rows on the tile kernel (1b), int8 rows on
+    the a8 kernel (2) and the dequantize-tile kernel (3); against its plain
+    version, the same bits twice, timed beside the plain version and a bf16
+    `torch.matmul` on weights dequantized beforehand."""
+    m = 1 if route == "gemv" else 512
+    out_dtype = torch.float32 if proj == "lm_head" else torch.bfloat16
+    wbytes = k * n * bits // 8 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
+    nl = copies_for(wbytes)
+    ql = rand_quantized(g, dev, k, n, layers=nl, bits=bits, with_bias=with_bias,
+                        act_bits=8 if route == "a8" else 16)
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    kern = {"gemv": dequant_matmul.KERNEL_BF16, "tile": dequant_matmul.KERNEL_BF16_TILE,
+            "a8": dequant_matmul.KERNEL_A8, "deq": dequant_matmul.KERNEL_DEQ}[route]
+    dequant_matmul.DEQ_MIN_M = m if route == "deq" else 1 << 30
+    try:
+        call = lambda i: dequant_matmul.dequant_matmul(x, ql, layer_index=i % nl,
+                                                       out_dtype=out_dtype)
+        before = kern.launches
+        got, again = call(0), call(0)
+        check(kern.launches == before + 2, f"W{bits} {route} {proj}: {kern.name} not launched")
+        want = dequant_matmul.dequant_matmul_plain(x, ql.layer(0), out_dtype,
+                                                   deq=route == "deq")
+        torch.cuda.synchronize()
+        err, rel = max_abs(got, want), rel_l2(got, want)
+        tol = 1e-2
+        check(bool(torch.isfinite(got).all()), f"W{bits} {route} {proj}: non-finite output")
+        check(rel <= tol, f"W{bits} {route} {proj} M={m}: rel-L2 {rel:.3g} > {tol}")
+        check(torch.equal(got, again), f"W{bits} {route} {proj}: two calls gave different bits")
+        ms = time_ms(call, calls=max(nl, 8))
+        plain_ms = time_ms(lambda i: dequant_matmul.dequant_matmul_plain(
+            x, ql.layer(i % nl), out_dtype, deq=route == "deq"), calls=2, replays=2)
+    finally:
+        dequant_matmul.DEQ_MIN_M = 1 << 30
+    nlib = copies_for(k * n * 2, cap=nl)
+    wlib = [quantize.dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
+    ob = ql.out_bias
+    lib_ms = time_ms(lambda i: (
+        torch.matmul(x, wlib[i % nlib]) if ob is None
+        else torch.addmm(ob[i % nlib].to(torch.bfloat16), x, wlib[i % nlib])),
+        calls=max(nlib, 8))
+    del wlib
+    out_b = m * n * (4 if out_dtype == torch.float32 else 2)
+    nbytes = (m * k + m * 4 if route == "a8" else m * k * 2) + wbytes + out_b
+    bound, bound_by = bound_of(2 * m * k * n, nbytes,
+                               INT8_OPS_S if route == "a8" else BF16_OPS_S)
+    row = dict(shape=f"W{bits} {route} {proj} M={m} K={k} N={n}", m=m, bits=bits,
+               route=route, kernel=kern.name, max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+               bytes=nbytes, l2_rotation=nl)
+    if route == "gemv":
+        cols, ranges, blocks, smem = dequant_matmul.gemv_split(k, n, bits, 128)
+        row["split"] = dict(tile=cols, k_ranges=ranges, blocks=blocks, smem=smem)
+    elif route == "a8":
+        row["tile"] = dequant_matmul.a8_tile(m, n, bits)
+    else:
+        row["tile"] = dequant_matmul.bf16_tile(m, n, bits)
+    print(f"  {kern.name:30s} {row['shape']:36s} rel {rel:.2e} max_abs {err:.3g} | "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.4f} "
+          f"({bound_by}) | {row.get('split') or row.get('tile')}", flush=True)
+    del ql, x, got, again, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gemm_sub4(dev, g, results, bits):
+    """Rows 1a, 1b, 2 and 3 at W`bits` on qwen2-0.5b's four projections, and
+    row 1a on the W`bits` head (896 x 151,936), which stays on the GEMV."""
+    rows = {}
+    for route in SUB4_ROUTES:
+        shapes = list(PROJ.items()) + ([("lm_head", (896, 151936, False))]
+                                       if route == "gemv" else [])
+        rows[route] = [sub4_row(dev, g, bits, proj, k, n, b, route)
+                       for proj, (k, n, b) in shapes]
+    results[f"w{bits}"] = rows
+
+
+def phase_decode_model_sub4(dev, g, results, params, bits):
+    """Row 7 at W`bits` on full-size qwen2-0.5b (the served weights) over an
+    int8 cache: batch 1 at the 300-token request's last step and batch 4;
+    the head runs after the kernel on the GEMV, as serving runs it (the JAX
+    package keeps sub-4-bit heads out of its kernel too)."""
+    cap, cfg = 1024, PRESETS["qwen2-0.5b"]
+    last = [n + NEW_TOKENS - 1 for n in PREFILL_LENS]
+    rows = []
+    check(not decode_model.supports_head(cfg, params), f"W{bits}: a sub-4-bit head was fused")
+    for lengths in ((last[1],), (last[0], last[1], last[2], 5)):
+        b = len(lengths)
+        kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
+                                    cfg.head_dim, 8)
+        tok, x, lens, cos_f, sin_f = step_inputs(params, cfg, lengths, dev, g)
+        args = (x, params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
+        before = decode_model.KERNEL.launches
+        got = with_logits(decode_model.fused_decode_model(*args, config=cfg), params, cfg)
+        again = decode_model.fused_decode_model(*args, config=cfg)
+        check(decode_model.KERNEL.launches == before + 2, f"W{bits}: decode_model not launched")
+        want = with_logits(decode_model.fused_decode_model_plain(*args, config=cfg), params, cfg)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+              f"decode_model W{bits}: non-finite output")
+        check(all(a is None or torch.equal(a, c) for a, c in zip(got[:5], again)),
+              f"decode_model W{bits}: two calls gave different bits")
+        m = decode_model.parity_metrics(got, want, 8)
+        bad = decode_model.parity_failures(m, skip=("x_rel",))
+        check(not bad, f"decode_model W{bits} lengths {lengths}: {bad} in {m}")
+        ms = event_ms(lambda i: decode_model.fused_decode_model(*args, config=cfg), calls=20)
+        plain_ms = event_ms(lambda i: decode_model.fused_decode_model_plain(*args, config=cfg),
+                            calls=2)
+        nbytes = decode_model_bytes(cfg, params.layers, None, b, 8, lengths)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        sched = decode_model.schedule_info(cfg, params.layers, None, b, cap, dev)
+        limits = decode_model.LIMITS(decode_model.bucket(b), cfg.head_dim, bits)
+        row = dict(shape=f"W{bits} qwen2-0.5b B={b} kv8 len_old={','.join(map(str, lengths))}",
+                   bits=bits, max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+                   tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
+                   bytes=nbytes, head_fused=False, blocks_an_sm=limits[0],
+                   registers=limits[4], local_bytes=limits[7],
+                   schedule={k: v for k, v in sched.items() if k != "units"})
+        rows.append(row)
+        print(f"  decode_model W{bits} {row['shape']:40s} logits rel {m['logits_rel']:.2e} "
+              f"rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.2f} bound {bound:.4f} | ring {sched['slots']} slots of "
+              f"{sched['ring_bytes'] // sched['slots']} B, {limits[0]} blocks an SM, "
+              f"{limits[4]} registers", flush=True)
+        del kc, vc, ks, vs, got, want, again
+        torch.cuda.empty_cache()
+    results[f"w{bits}"]["model"] = rows
+
+
+def phase_sub4_parity(dev, bits):
+    """(v): full width, SUB4_PARITY_LAYERS layers, the first request's
+    prefill and PARITY_STEPS decode steps on the card and through the plain
+    versions on the CPU, the same weights from the same seed."""
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=SUB4_PARITY_LAYERS)
+    rt = sub4_rt(bits)
+
+    def make(device):
+        params = decoder.init_random_params(
+            cfg, torch.Generator().manual_seed(SEED), quant_bits=bits,
+            quant_block=rt.quant_block, lm_head_bits=rt.lm_head_bits, device=device)
+        return Llm(cfg, params, rt, device=device)
+
+    ids = prompts(cfg.vocab_size)[0]
+    build.reset_launches()
+    card, fed, _ = greedy_trace(make(dev), ids, None)
+    read_launches(f"W{bits} parity, {SUB4_PARITY_LAYERS} layers",
+                  ("mnn_dequant_matmul_a8", "mnn_dequant_matmul", "mnn_decode_model"))
+    t0 = time.perf_counter()
+    cpu, _, _ = greedy_trace(make("cpu"), ids, fed)
+    out = compare_traces(card, cpu, f"W{bits} ({SUB4_PARITY_LAYERS} layers, full width) ")
+    print(f"    cpu run {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(out, layers=SUB4_PARITY_LAYERS)
+
+
+def phase_sub4(dev, g, results, bits):
+    """Phase 8 at W`bits`: qwen2-0.5b at full width and depth as bench.py's
+    --w-bits row configures it. Row 7's rows on the served weights, then
+    (s) the three requests: one whole-model launch and one head GEMV a
+    token, 96 a8 launches a chunk; (t) the 300-token request with
+    `megakernel=False` for PARITY_STEPS steps: every projection on the GEMV;
+    (u) the same request at prefill_act_bits=16: 96 tile-kernel launches;
+    (w) its prefill with the dequantize-tile switch on: 96 launches of row 3;
+    (v) card against CPU at SUB4_PARITY_LAYERS layers."""
+    t0 = time.perf_counter()
+    llm = Llm.synthetic("qwen2-0.5b", rt=sub4_rt(bits), seed=SEED, device=dev)
+    cfg, rt, nl = llm.config, llm.rt, llm.config.num_layers
+    info = llm.info()
+    check(info["decode_megakernel"] and not info["decode_fused_head"],
+          f"W{bits}: unexpected decode path {info}")
+    check(llm.params.lm_head.bits == bits, f"W{bits}: head of {llm.params.lm_head.bits} bits")
+    print(f"  W{bits} qwen2-0.5b built in {time.perf_counter() - t0:.1f} s; "
+          f"info {json.dumps(info)}", flush=True)
+    phase_decode_model_sub4(dev, g, results, llm.params, bits)
+    reqs = prompts(cfg.vocab_size)
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))   # warm-up
+    torch.cuda.synchronize()
+    out = dict(counts={})
+
+    build.reset_launches()                  # (s)
+    outs, out["perf"] = serve(llm, reqs, f"W{bits}")
+    got = out["counts"]["serve"] = read_launches(
+        f"W{bits} serve", PREFILL_KERNELS + ("mnn_decode_model",),
+        never=("mnn_decode_step", "mnn_flash_decode", "mnn_dequant_matmul_bf16_tile",
+               "mnn_dequant_matmul_deq"))
+    steps = NEW_TOKENS * len(reqs)
+    chunks = sum(len(generate.prefill_buckets(len(r), rt.prefill_chunk)) for r in reqs)
+    check(got["mnn_decode_model"] == steps,
+          f"W{bits}: {got['mnn_decode_model']} whole-model launches for {steps} steps")
+    check(got["mnn_dequant_matmul_a8"] == 4 * nl * chunks,
+          f"W{bits}: {got['mnn_dequant_matmul_a8']} a8 launches for {chunks} chunks")
+    # the head at M = 1: once a token, and once a prefill chunk on its last row
+    check(got["mnn_dequant_matmul"] == steps + chunks,
+          f"W{bits}: {got['mnn_dequant_matmul']} GEMV launches for {steps} steps "
+          f"and {chunks} prefill chunks")
+
+    ids = reqs[1][:FALLBACK_PROMPT]
+    build.reset_launches()                  # (t)
+    rows, _, _ = greedy_trace(llm, ids, None, megakernel=False)
+    got = out["counts"]["per_layer"] = read_launches(
+        f"W{bits} per-layer", PREFILL_KERNELS + ("mnn_decode_step",),
+        never=("mnn_decode_model",))
+    check(got["mnn_dequant_matmul"] == PARITY_STEPS * (4 * nl + 1) + 1,
+          f"W{bits}: {got['mnn_dequant_matmul']} GEMV launches on the per-layer path")
+    check(all(bool(torch.isfinite(r).all()) for r in rows),
+          f"W{bits}: non-finite logits on the per-layer path")
+
+    out["perf_act16"], out["counts"]["act16"] = phase_serve_act16(llm, reqs)   # (u)
+
+    tokens = torch.tensor([reqs[1]], dtype=torch.int64, device=dev)
+    base, _ = generate.run_prefill(llm.params, cfg, rt, tokens, llm._new_cache())
+    build.reset_launches()                  # (w)
+    dequant_matmul.DEQ_MIN_M = rt.prefill_chunk
+    try:
+        deq, _ = generate.run_prefill(llm.params, cfg, rt, tokens, llm._new_cache())
+    finally:
+        dequant_matmul.DEQ_MIN_M = 1 << 30
+    torch.cuda.synchronize()
+    got = out["counts"]["deq_switch"] = read_launches(
+        f"W{bits}, dequantize-tile switch on", ("mnn_dequant_matmul_deq",),
+        never=("mnn_dequant_matmul_a8",))
+    check(got["mnn_dequant_matmul_deq"] == 4 * nl,
+          f"W{bits}: {got['mnn_dequant_matmul_deq']} dequantize-tile launches")
+    rel = rel_l2(deq, base)
+    check(bool(torch.isfinite(deq).all()) and rel <= PARITY_REL,
+          f"W{bits}: dequantize-tile prefill logits rel-L2 {rel:.3g} > {PARITY_REL}")
+    out["deq_switch_rel_l2"] = rel
+    del llm
+    torch.cuda.empty_cache()
+    out["parity"] = phase_sub4_parity(dev, bits)
+    return out
+
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -2467,6 +2738,15 @@ KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "moe_prefill": ("mnn_tpu_torch/csrc/moe_prefill.cu",
                     "mnn_tpu/kernels/moe_prefill.py:80", "mnn_moe_prefill"),
 }
+# phase 8: a kernel's W3/W2 rows by route, and the sub-phase and C entry
+# whose count is the route's launches
+SUB4_ROWS_OF = {"dequant_matmul": ("gemv", "tile"), "dequant_matmul_a8": ("a8",),
+                "dequant_matmul_deq": ("deq",), "decode_model": ("model",)}
+SUB4_COUNTED = {"gemv": ("serve", "mnn_dequant_matmul"),
+                "tile": ("act16", "mnn_dequant_matmul_bf16_tile"),
+                "a8": ("serve", "mnn_dequant_matmul_a8"),
+                "deq": ("deq_switch", "mnn_dequant_matmul_deq"),
+                "model": ("serve", "mnn_decode_model")}
 # the sub-phase of phase 3 whose run gives a kernel its launch count
 COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_layer_int4",
               "mnn_moe_decode": "moe_int8", "mnn_moe_prefill": "moe_int8",
@@ -2487,6 +2767,7 @@ def row_sums(rows) -> dict:
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -2595,12 +2876,34 @@ def main():
     del g2, g3
     torch.cuda.empty_cache()
 
+    print("phase 8: W3 and W2 weights on qwen2-0.5b (bench.py's --w-bits rows)", flush=True)
+    t8 = time.perf_counter()
+    sub4 = {}
+    for bits in SUB4_BITS:
+        print(f"phase 2, W{bits} rows of rows 1a, 1b, 2 and 3", flush=True)
+        phase_gemm_sub4(dev, g, results, bits)
+        sub4[f"w{bits}"] = phase_sub4(dev, g, results, bits)
+    sub4["seconds"] = time.perf_counter() - t8
+    print(f"  phase 8: {sub4['seconds']:.1f} s", flush=True)
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
         k = dict(name=kname, route="cuda", source=src, replaces=repl,
                  launches=launches[entry], **row_sums(rows))
+        # the weight bits of the rows that ran this kernel in this run (the
+        # attention kernels read no weights, and their rows carry none)
+        ran = rows + results.get(f"{kname}_gemma", []) + [
+            r for bits in SUB4_BITS for route in SUB4_ROWS_OF.get(kname, ())
+            for r in results[f"w{bits}"][route]]
+        k["weight_bits"] = sorted({r["bits"] for r in ran if "bits" in r})
+        for bits in SUB4_BITS:    # phase 8's rows and launches at W3 and W2
+            for route in SUB4_ROWS_OF.get(kname, ()):
+                sub, ent = SUB4_COUNTED[route]
+                k.setdefault(f"w{bits}", {})[route] = dict(
+                    row_sums(results[f"w{bits}"][route]), entry=ent,
+                    launches=sub4[f"w{bits}"]["counts"][sub][ent])
         if kname == "decode_step":
             # the first four rows alone, so a table compares like with like
             k["four_shapes"] = row_sums(rows[:DECODE_FIRST_ROWS])
@@ -2634,10 +2937,11 @@ def main():
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
-                  gemma=gemma,
+                  gemma=gemma, sub4=sub4, seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    print(f"chip_smoke: {detail['seconds']:.1f} s in all", flush=True)
     print(card_line, flush=True)             # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,7 @@ def _add_model_args(p):
     p.add_argument("--no-kv-quant", action="store_true")
     p.add_argument("--kv-bits", type=int, default=8, choices=(4, 8),
                    help="quantized KV cache: int8 or nibble-packed int4")
-    p.add_argument("--lm-head-bits", type=int, default=4,
+    p.add_argument("--lm-head-bits", type=int, default=4, choices=(0, 4, 8),
                    help="quantized output projection (0 = bf16 head)")
     p.add_argument("--prefill-act-bits", type=int, default=8,
                    help="8 = dynamic int8 prefill activations (W4A8)")
@@ -196,7 +196,7 @@ def main(argv=None):
     p.add_argument("--gguf", help="llama.cpp GGUF file (dequantized and "
                                   "requantized on this package's grid)")
     p.add_argument("--out", required=True)
-    p.add_argument("--bits", type=int, default=4)
+    p.add_argument("--bits", type=int, default=4, choices=(2, 3, 4, 8))
     p.add_argument("--block", type=int, default=128)
     p.add_argument("--sym", action="store_true")
     p.add_argument("--act-bits", type=int, default=16, choices=(8, 16),

@@ -25,7 +25,7 @@ MNN_API int mnn_decode_model(
     float eps, float softcap, const void* sched, const void* sched_hdr, void* stream) {
   const int gmax = D == 256 ? at_gmax<256>() : AT_GMAX;
   if (B < 1 || B > DM_MAXB || (D != 64 && D != 128 && D != 256) || Hkv < 1 || NH % Hkv ||
-      NH / Hkv > gmax || (bits != 4 && bits != 8) || (D == 256 && kv_bits == 4) ||
+      NH / Hkv > gmax || (bits != 2 && bits != 3 && bits != 4 && bits != 8) || (D == 256 && kv_bits == 4) ||
       (kv_bits != 4 && kv_bits != 8 && kv_bits != 16) || bs_h % 32 || bs_i % 32 ||
       H % bs_h || (NH * D) % bs_h || I % bs_i || I % 64 || H % 4)
     return (int)cudaErrorInvalidValue;
@@ -104,17 +104,20 @@ MNN_API int mnn_decode_model(
   }
 }
 
-// What the kernel for B batch rows at head dim D gets on this card:
-// out = {blocks an SM, shared bytes a block, ring slots, SMs, registers a
-// thread, most threads a block, static shared bytes, local bytes a thread}.
-// The schedule is built for the first four (grid = blocks an SM x SMs).
-MNN_API int mnn_decode_model_limits(int B, int D, int* out) {
-  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128 && D != 256)) return (int)cudaErrorInvalidValue;
+// What the kernel for B batch rows at head dim D and the layers' weight bits
+// gets on this card: out = {blocks an SM, shared bytes a block, ring slots,
+// SMs, registers a thread, most threads a block, static shared bytes, local
+// bytes a thread}. The schedule is built for the first four (grid = blocks
+// an SM x SMs).
+MNN_API int mnn_decode_model_limits(int B, int D, int bits, int* out) {
+  if (B < 1 || B > DM_MAXB || (D != 64 && D != 128 && D != 256) ||
+      (bits != 2 && bits != 3 && bits != 4 && bits != 8))
+    return (int)cudaErrorInvalidValue;
   const int bm = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
   switch (bm) {
-    case 1: return limits_b1(D, out);
-    case 2: return limits_b2(D, out);
-    case 4: return limits_b4(D, out);
-    default: return limits_b8(D, out);
+    case 1: return limits_b1(D, bits, out);
+    case 2: return limits_b2(D, bits, out);
+    case 4: return limits_b4(D, bits, out);
+    default: return limits_b8(D, bits, out);
   }
 }

@@ -107,9 +107,17 @@ namespace mnn {
 constexpr int DM_CONSUMERS = 256, DM_WARPS = 8, DM_THREADS = DM_CONSUMERS + 32;
 constexpr int DM_TILE = 128, DM_MAXB = 8, DM_ATT_SPLIT = 16;
 constexpr int DM_UNIT_ROWS = 64;                    // packed rows a unit
-constexpr int DM_SCALE_ROWS = 4;                    // quant blocks a unit can touch
 constexpr int DM_PACKED_BYTES = DM_UNIT_ROWS * DM_TILE;
-constexpr int DM_SLOT = DM_PACKED_BYTES + 2 * DM_SCALE_ROWS * DM_TILE * 2;   // 10240
+// A ring slot: a unit's packed rows, then the scale and bias rows of the
+// quant blocks it touches, in pairs (block sr's scale row at DM_PACKED_BYTES +
+// 2 sr * 256, its bias row 256 bytes on). A W4/W8 unit touches at most 4
+// blocks (10240 bytes a slot); a W2 unit at blocks of 32 (8 packed rows)
+// touches 8 and a W3 one (12 rows) 6, so W2/W3 launches take 8 (12288).
+__host__ __device__ constexpr int dm_scale_rows(int bits) { return bits < 4 ? 8 : 4; }
+__host__ __device__ constexpr int dm_slot_bytes(int bits) {
+  return DM_PACKED_BYTES + 2 * dm_scale_rows(bits) * DM_TILE * 2;
+}
+constexpr int DM_PAIR = 2 * DM_TILE * 2;            // a quant block's scale and bias rows
 constexpr int DM_RING_MAX = 12;
 // K values an item's x stage holds: as many as fit beside what an attention
 // item needs (1 and 2 batch rows), else 1024
@@ -164,7 +172,7 @@ struct DmParams {
   long long* clocks;         // the MNN_DM_CLOCKS log, or null
   int B, L, H, NH, Hkv, D, I, S, V, NQ, DQ;
   int bits, bs_h, bs_i, head_bits, bs_head, kv_bits, window, sink, write_cache;
-  int att_split, slots, work_bytes, n_counters, flags, swa_p;
+  int att_split, slots, slot_bytes, work_bytes, n_counters, flags, swa_p;
   float sm_scale, eps, softcap;
 };
 
@@ -182,7 +190,7 @@ constexpr int DM_EV_MAX = 2048;
 // every build reserves, so that the stamps change no occupancy
 __device__ __forceinline__ int& dm_ev_count(const DmParams& p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  return *reinterpret_cast<int*>(smem + p.slots * (DM_SLOT + 16) + p.work_bytes);
+  return *reinterpret_cast<int*>(smem + p.slots * (p.slot_bytes + 16) + p.work_bytes);
 }
 __device__ __forceinline__ void dm_ev(const DmParams& p, int tag, int kind, int layer) {
   if (threadIdx.x == 0 && p.clocks) {
@@ -229,19 +237,21 @@ __host__ __device__ inline int dm_work_bytes(int D) {
   return dm_round128(w);
 }
 
-// ring slots: as many as fit beside the work area (1 block an SM at BM = 8, else 2)
+// ring slots: as many as fit beside the work area (1 block an SM at BM = 8,
+// else 2), for the layers' weight bits
 template <int BM>
-__host__ __device__ inline int dm_ring_slots(int D) {
+__host__ __device__ inline int dm_ring_slots(int D, int bits) {
   const int budget = BM == 8 ? DM_BLOCK_SMEM_1 : DM_BLOCK_SMEM_2;
-  const int s = (budget - dm_work_bytes<BM>(D) - 16 * DM_RING_MAX - DM_TAIL) / DM_SLOT;
+  const int s =
+      (budget - dm_work_bytes<BM>(D) - 16 * DM_RING_MAX - DM_TAIL) / dm_slot_bytes(bits);
   return s < DM_RING_MAX ? s : DM_RING_MAX;
 }
 
 // the ring, the work area, the slots' mbarriers and the tail (the
 // MNN_DM_CLOCKS log's count, the block's place, two schedule records)
 template <int BM>
-__host__ __device__ inline int dm_smem_bytes(int D, int slots) {
-  return slots * DM_SLOT + dm_work_bytes<BM>(D) + 16 * slots + DM_TAIL;
+__host__ __device__ inline int dm_smem_bytes(int D, int slots, int bits) {
+  return slots * dm_slot_bytes(bits) + dm_work_bytes<BM>(D) + 16 * slots + DM_TAIL;
 }
 
 // The block's shared memory by part. Each function takes it from the
@@ -258,7 +268,7 @@ __device__ __forceinline__ DmShared dm_shared(const DmParams& p) {
   extern __shared__ __align__(128) unsigned char smem[];
   DmShared s;
   s.ring = smem;
-  s.work = smem + p.slots * DM_SLOT;
+  s.work = smem + p.slots * p.slot_bytes;
   s.full = reinterpret_cast<uint64_t*>(s.work + p.work_bytes);
   s.empty = s.full + p.slots;
   s.tail = reinterpret_cast<int*>(s.empty + p.slots);
@@ -420,10 +430,9 @@ __device__ __forceinline__ uint32_t dm_nibbles_bf16(uint32_t v) {
 // block's rowsum(x) times its biases, into acc.
 __device__ __forceinline__ void dm_flush(float (&acc)[8], const float (&d)[4][4], float rsb,
                                          const unsigned char* sl, int srow, int col8) {
-  const uint4 sv = *reinterpret_cast<const uint4*>(sl + DM_PACKED_BYTES +
-                                                   srow * DM_TILE * 2 + col8 * 2);
-  const uint4 mv = *reinterpret_cast<const uint4*>(
-      sl + DM_PACKED_BYTES + (DM_SCALE_ROWS + srow) * DM_TILE * 2 + col8 * 2);
+  const unsigned char* pair = sl + DM_PACKED_BYTES + srow * DM_PAIR + col8 * 2;
+  const uint4 sv = *reinterpret_cast<const uint4*>(pair);
+  const uint4 mv = *reinterpret_cast<const uint4*>(pair + DM_TILE * 2);
   const bf16* s8 = reinterpret_cast<const bf16*>(&sv);
   const bf16* m8 = reinterpret_cast<const bf16*>(&mv);
 #pragma unroll
@@ -465,13 +474,16 @@ struct Gemv {               // one quantized projection of the step
   __device__ __forceinline__ int kp() const { return K * bits / 8; }   // packed rows
   __device__ __forceinline__ int rows_per_block() const { return bs * bits / 8; }
   // the K value of packed row r (W4: its low nibble's; the high one's is
-  // bs / 2 further), and one past the last K value of packed rows [.., r1)
+  // bs / 2 further; W2/W3: the first of its quant block, whose K values its
+  // rows spread over), and one past the last K value of packed rows [.., r1)
   __device__ __forceinline__ int k_lo(int r) const {
     if (bits == 8) return r;
+    if (bits < 4) return r / rows_per_block() * bs;
     const int half = bs / 2, kb = r / half;
     return kb * bs + r - kb * half;
   }
   __device__ __forceinline__ int k_end(int r1) const {
+    if (bits < 4) return ((r1 - 1) / rows_per_block() + 1) * bs;
     return bits == 8 ? r1 : k_lo(r1 - 1) + bs / 2 + 1;
   }
 };
@@ -576,7 +588,7 @@ static __device__ __noinline__ void produce(const DmParams& p, const int* rec, i
         reinterpret_cast<const unsigned char*>((which ? g.bias : g.scale) + c0) + sc;
     for (int u = __ldg(r + R_U0); u < u1; ++u) {
       mbar_wait(empty + pos.slot, pos.parity ^ 1u);
-      unsigned char* dst = ring + (long)pos.slot * DM_SLOT;
+      unsigned char* dst = ring + (long)pos.slot * p.slot_bytes;
       const int r0 = u * DM_UNIT_ROWS, rows = min(DM_UNIT_ROWS, kp - r0);
       const uint8_t* src = g.packed + (long)r0 * g.N + c0;
       const int kb0 = r0 / rpb, nsr = (r0 + rows - 1) / rpb - kb0 + 1;
@@ -585,8 +597,8 @@ static __device__ __noinline__ void produce(const DmParams& p, const int* rec, i
         unsigned char* d = dst + fr * DM_TILE + fc;
         for (int row = fr; row < rows; row += 4, s += 4L * g.N, d += 4 * DM_TILE) dm_cp16(d, s);
         const unsigned char* from = planes + (long)kb0 * 2 * g.N;
-        unsigned char* to = dst + DM_PACKED_BYTES + which * DM_SCALE_ROWS * DM_TILE * 2 + sc;
-        for (int sr = 0; sr < nsr; ++sr) dm_cp16(to + sr * DM_TILE * 2, from + (long)sr * 2 * g.N);
+        unsigned char* to = dst + DM_PACKED_BYTES + which * DM_TILE * 2 + sc;
+        for (int sr = 0; sr < nsr; ++sr) dm_cp16(to + sr * DM_PAIR, from + (long)sr * 2 * g.N);
         mbar_arrive_copies(full + pos.slot);
         pos.advance(p.slots, 1);
         continue;
@@ -611,7 +623,7 @@ static __device__ __noinline__ void produce(const DmParams& p, const int* rec, i
         const int sr = rem / per, c = rem - sr * per;
         const unsigned char* from = reinterpret_cast<const unsigned char*>(
             (which ? g.bias : g.scale) + (long)(kb0 + sr) * g.N + c0);
-        unsigned char* to = dst + DM_PACKED_BYTES + (which * DM_SCALE_ROWS + sr) * DM_TILE * 2;
+        unsigned char* to = dst + DM_PACKED_BYTES + sr * DM_PAIR + which * DM_TILE * 2;
         if (s16)
           dm_cp16(to + c * 16, from + c * 16);
         else
@@ -776,7 +788,7 @@ __device__ __noinline__ void gemv_item(const DmParams& p, const int* r, RingPos 
       if (lane == 0) mbar_wait(full + pos.slot, pos.parity);   // one waiter a warp
       __syncwarp();
       if (u == u0) DM_EV(EV_WEIGHTS, kind, layer);
-      const unsigned char* sl = ring + (long)pos.slot * DM_SLOT;
+      const unsigned char* sl = ring + (long)pos.slot * p.slot_bytes;
       const int kb_u = rpb_sh >= 0 ? (u * DM_UNIT_ROWS) >> rpb_sh : u * DM_UNIT_ROWS / rpb;
       float d[4][4], rsb = 0.f;
       int srow = -1;
@@ -827,6 +839,107 @@ __device__ __noinline__ void gemv_item(const DmParams& p, const int* r, RingPos 
     if (gq < BM)
 #pragma unroll
       for (int e = 0; e < 8; ++e) sm.red[kh][gq][col8 + e] = acc[e];
+  } else if constexpr (BITS < 4) {
+    // W2/W3 on the FMA units: warp w takes packed rows [8w, 8w + 8) of each
+    // unit as two groups of 4, each inside one quant block and one plane (a
+    // W2 block is bs/4 rows; a W3 block bs/4 rows of its 2-bit plane, then
+    // bs/8 of its 1-bit plane; bs % 32 == 0 makes all of them multiples of
+    // 4). A 2-bit row j holds K values j + m bs/4 (bit pair 2m) and counts
+    // them into the row sum; a 1-bit row j holds K values j + m bs/8 (bit m),
+    // weighted 4, and adds nothing to the row sum: the 2-bit plane covers
+    // every K value of the block once, and q = lo + 4 hi is linear in the
+    // partial product, so the planes are summed apart.
+    const int c0 = t * DM_TILE + lane * 4;
+    const int q4 = g.bs >> 2, e8 = g.bs >> 3;
+    float acc[BM][4];
+#pragma unroll
+    for (int b = 0; b < BM; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[b][j] = 0.f;
+    for (int u = u0; u < u1; ++u) {
+      if (lane == 0) mbar_wait(full + pos.slot, pos.parity);   // one waiter a warp
+      __syncwarp();
+      if (u == u0) DM_EV(EV_WEIGHTS, kind, layer);
+      const unsigned char* sl = ring + (long)pos.slot * p.slot_bytes;
+      const int kb_u = u * DM_UNIT_ROWS / rpb;
+#pragma unroll
+      for (int hg = 0; hg < 2; ++hg) {
+        const int lr = warp * 8 + 4 * hg, pr = u * DM_UNIT_ROWS + lr;
+        if (pr >= kp) break;                         // the same for the whole warp
+        const int kb = pr / rpb, ri = pr - kb * rpb, srow = kb - kb_u;
+        const bool hi = BITS == 3 && ri >= q4;       // a row of the 1-bit plane
+        const int kx = kb * g.bs - k0;               // the block's first K value in the stage
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = *reinterpret_cast<const uint32_t*>(sl + (lr + i) * DM_TILE + lane * 4);
+        const unsigned char* pair = sl + DM_PACKED_BYTES + srow * DM_PAIR + lane * 8;
+        const uint2 sv = *reinterpret_cast<const uint2*>(pair);
+        const uint2 bv = *reinterpret_cast<const uint2*>(pair + DM_TILE * 2);
+        float part[BM][4], rs[BM];
+#pragma unroll
+        for (int b = 0; b < BM; ++b) {
+          rs[b] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[b][j] = 0.f;
+        }
+        if (!hi) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const uint32_t v = (w[i] >> (2 * m)) & 0x03030303u;
+              float q[4];   // the bytes as f32: 0x4B0000qq is 2^23 + qq
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                q[j] = __uint_as_float(__byte_perm(v, 0x4B00u, 0x5440 + j)) - 8388608.f;
+#pragma unroll
+              for (int b = 0; b < BM; ++b) {
+                const float xa = sm.xs[b][kx + ri + i + m * q4];
+                rs[b] += xa;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) part[b][j] = fmaf(xa, q[j], part[b][j]);
+              }
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int m = 0; m < 8; ++m) {
+              const uint32_t v = (w[i] >> m) & 0x01010101u;
+              float q[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                q[j] = __uint_as_float(__byte_perm(v, 0x4B00u, 0x5440 + j)) - 8388608.f;
+#pragma unroll
+              for (int b = 0; b < BM; ++b) {
+                const float xa = 4.f * sm.xs[b][kx + ri - q4 + i + m * e8];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) part[b][j] = fmaf(xa, q[j], part[b][j]);
+              }
+            }
+        }
+        if (c0 < N) {
+          const bf16* s2 = reinterpret_cast<const bf16*>(&sv);
+          const bf16* m2 = reinterpret_cast<const bf16*>(&bv);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float s = bf2f(s2[j]), m = bf2f(m2[j]);
+#pragma unroll
+            for (int b = 0; b < BM; ++b)
+              acc[b][j] = __fadd_rn(__fadd_rn(acc[b][j], __fmul_rn(part[b][j], s)),
+                                    __fmul_rn(rs[b], m));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + pos.slot);
+      pos.advance(p.slots, 1);
+    }
+#pragma unroll
+    for (int b = 0; b < BM; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sm.red[warp][b][lane * 4 + j] = acc[b][j];
   } else {
     // On the FMA units: warp w takes packed rows [8w, 8w + 8) of each unit
     // (W4: 16 K values, the rows' low nibbles and their high ones; W8: 8), a
@@ -842,7 +955,7 @@ __device__ __noinline__ void gemv_item(const DmParams& p, const int* r, RingPos 
       if (lane == 0) mbar_wait(full + pos.slot, pos.parity);   // one waiter a warp
       __syncwarp();
       if (u == u0) DM_EV(EV_WEIGHTS, kind, layer);
-      const unsigned char* sl = ring + (long)pos.slot * DM_SLOT;
+      const unsigned char* sl = ring + (long)pos.slot * p.slot_bytes;
       const int pr = u * DM_UNIT_ROWS + warp * 8;    // this warp's first packed row
       if (pr < kp) {                                 // the same for the whole warp
         // the quant block of these rows and its row in the slot
@@ -855,10 +968,9 @@ __device__ __noinline__ void gemv_item(const DmParams& p, const int* r, RingPos 
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           w[i] = *reinterpret_cast<const uint32_t*>(sl + (warp * 8 + i) * DM_TILE + lane * 4);
-        const uint2 sv =
-            *reinterpret_cast<const uint2*>(sl + DM_PACKED_BYTES + srow * DM_TILE * 2 + lane * 8);
-        const uint2 bv = *reinterpret_cast<const uint2*>(
-            sl + DM_PACKED_BYTES + (DM_SCALE_ROWS + srow) * DM_TILE * 2 + lane * 8);
+        const unsigned char* pair = sl + DM_PACKED_BYTES + srow * DM_PAIR + lane * 8;
+        const uint2 sv = *reinterpret_cast<const uint2*>(pair);
+        const uint2 bv = *reinterpret_cast<const uint2*>(pair + DM_TILE * 2);
         float part[BM][4], rs[BM];
 #pragma unroll
         for (int b = 0; b < BM; ++b) {
@@ -1401,11 +1513,15 @@ static __device__ __noinline__ void argmax_item(const DmParams& p, int b) {
 
 template <int BM>
 __device__ __forceinline__ void run_gemv(const DmParams& p, const int* r, RingPos pos) {
-  const int kind = r[R_KIND];
-  if ((kind == KD_HEAD ? p.head_bits : p.bits) == 4)
+  const int kind = r[R_KIND], bits = kind == KD_HEAD ? p.head_bits : p.bits;
+  if (bits == 4)
     gemv_item<4, BM>(p, r, pos);
-  else
+  else if (bits == 8)
     gemv_item<8, BM>(p, r, pos);
+  else if (bits == 3)
+    gemv_item<3, BM>(p, r, pos);
+  else
+    gemv_item<2, BM>(p, r, pos);
 }
 
 template <int BM>
@@ -1518,10 +1634,10 @@ namespace {
 // block, ring slots, SMs, registers a thread, most threads a block, static
 // shared bytes, local bytes a thread}.
 template <int BM>
-int limits(int D, int* out) {
+int limits(int D, int bits, int* out) {
   static int sms = 0;
   static size_t granted = 0;
-  const int slots = dm_ring_slots<BM>(D), smem = dm_smem_bytes<BM>(D, slots);
+  const int slots = dm_ring_slots<BM>(D, bits), smem = dm_smem_bytes<BM>(D, slots, bits);
   auto kern = decode_model_kernel<BM>;
   int dev = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1548,7 +1664,7 @@ template <int BM>
 int launch(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hdr,
            cudaStream_t st) {
   int lim[8];
-  const int e0 = limits<BM>(p.D, lim);
+  const int e0 = limits<BM>(p.D, p.bits, lim);
   if (e0) return e0;
   const int grid = hdr[H_GRID];
   // the table must be built for this ring, and every block co-resident
@@ -1556,6 +1672,7 @@ int launch(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hd
       hdr[H_COUNTERS] > n_counters)
     return (int)cudaErrorInvalidValue;
   p.slots = lim[2];
+  p.slot_bytes = dm_slot_bytes(p.bits);
   p.work_bytes = dm_work_bytes<BM>(p.D);
   p.n_counters = hdr[H_COUNTERS];
   p.att_split = hdr[H_NS];
@@ -1597,7 +1714,7 @@ int launch(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hd
 #define MNN_DM_DECLARE(BM)                                                                 \
   int launch_b##BM(DmParams& p, float* ws, long ws_floats, int n_counters, const int* hdr, \
                    cudaStream_t st);                                                       \
-  int limits_b##BM(int D, int* out);
+  int limits_b##BM(int D, int bits, int* out);
 MNN_DM_DECLARE(1)
 MNN_DM_DECLARE(2)
 MNN_DM_DECLARE(4)

@@ -8,6 +8,6 @@ int launch_b4(DmParams& p, float* ws, long ws_floats, int n_counters, const int*
   return launch<4>(p, ws, ws_floats, n_counters, hdr, st);
 }
 
-int limits_b4(int D, int* out) { return limits<4>(D, out); }
+int limits_b4(int D, int bits, int* out) { return limits<4>(D, bits, out); }
 
 }  // namespace mnn

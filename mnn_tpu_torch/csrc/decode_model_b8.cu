@@ -8,6 +8,6 @@ int launch_b8(DmParams& p, float* ws, long ws_floats, int n_counters, const int*
   return launch<8>(p, ws, ws_floats, n_counters, hdr, st);
 }
 
-int limits_b8(int D, int* out) { return limits<8>(D, out); }
+int limits_b8(int D, int bits, int* out) { return limits<8>(D, bits, out); }
 
 }  // namespace mnn

@@ -5,8 +5,10 @@
 // dequant(W)[K, N] over the whole of K and leaves it in registers for the
 // caller's epilogue.
 //
-// Per quant block kb (bs K-values, packed W4 nibble pairs (i, i + bs/2) or
-// W8 bytes, bf16 scale s and bias m per column), one of three algebras:
+// Per quant block kb (bs K-values, packed W4 nibble pairs (i, i + bs/2), W8
+// bytes, W2 four 2-bit groups (i + m bs/4) or W3 a 2-bit plane of bs/4 rows
+// and a 1-bit plane of bs/8 rows; bf16 scale s and bias m per column), one
+// of three algebras:
 //   ALG_ROWS     part = x_b . q_b;  acc = (acc + part * s) + rs * m
 //   ALG_PARTIAL  part = x_b . q_b;  acc = acc + (part * s + rs * m)
 //   ALG_DEQUANT  wd = bf16(q * s + m);  acc += x_b . wd
@@ -24,7 +26,10 @@
 //    addresses are fixed but for the block's offset;
 //  * the packed tile unpacked once per tile and block into bf16 K-rows (a
 //    thread: 8 or 16 columns of one packed row; W4's low nibbles to row i,
-//    high ones to row i + bs/2), the raw pattern for the two partial
+//    high ones to row i + bs/2; a W2 or W3 2-bit row i to rows i + m bs/4,
+//    W3's bits of the 1-bit plane joined in first, q = lo + 4 hi, so that
+//    the dequantize algebra rounds q * s + m on the whole code, as the
+//    JAX kernel does), the raw pattern for the two partial
 //    algebras (W4 as bf16(128 + q) - 128 from a mask and one bf16x2
 //    subtraction), the rounded weight for the dequantize one, with the
 //    block's scale and bias read from the ring stage;
@@ -261,7 +266,7 @@ __host__ __device__ constexpr int sm_blocks(int smem, int threads) {
 template <int BITS, int MT, int NT, int WM, int WN>
 struct Bf16Tile {
   static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
-  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int W_BYTES = BF_KMAX * BITS / 8 * BN;
   static constexpr int X_BYTES = BM * BF_XSTR;
   static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
   static constexpr int BTS = BN == 8 ? 16 : 2 * BN + 16;
@@ -292,6 +297,70 @@ static __device__ long long dd_clocks[8];
 #else
 #define MNN_DD_STAMP(slot)
 #endif
+
+// The W2/W3 unpack of tile_body: quant block kb's packed rows in its ring
+// stage `st` (BN bytes a row; scale and bias rows at sp) into bf16 K-rows at
+// bt (BTS bytes apart). A thread takes IB columns of one 2-bit row i and
+// writes K rows i + m bs/4, m = 0..3, from bit pair 2m; at W3 it first joins
+// the 1-bit plane's bit, row bs/4 + i % (bs/8), bit i / (bs/8) + 2m, into
+// q = lo + 4 hi < 8. The dequantize algebra writes bf16(q * s + m), the
+// others q.
+template <int BITS, int ALG, int IB, int BN, int BTS, int THREADS>
+__device__ __forceinline__ void unpack_sub4(const unsigned char* st, const bf16* sp,
+                                            unsigned char* bt, int bs, int tid) {
+  constexpr int CQ = BN / IB, IW = IB / 4;
+  const int q4 = bs >> 2, e8 = bs >> 3;
+  for (int u = tid; u < q4 * CQ; u += THREADS) {
+    const int i = u / CQ, c = u - i * CQ;
+    uint32_t w[IW], hw[IW], s2[2 * IW], m2[2 * IW];
+    auto words = [&](int row, uint32_t (&to)[IW]) {
+      if constexpr (IW == 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(st + row * BN + IB * c);
+        to[0] = v.x, to[1] = v.y, to[2] = v.z, to[3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(st + row * BN + IB * c);
+        to[0] = v.x, to[1] = v.y;
+      }
+    };
+    words(i, w);
+    int sh = 0;
+    if constexpr (BITS == 3) {
+      words(q4 + i % e8, hw);
+      sh = i / e8;
+    }
+    if constexpr (ALG == ALG_DEQUANT) {   // the columns' scales and biases as bf16 pairs
+#pragma unroll
+      for (int q = 0; q < IW / 2; ++q) {
+        const uint4 sv = reinterpret_cast<const uint4*>(sp + IB * c)[q];
+        const uint4 mv = reinterpret_cast<const uint4*>(sp + BN + IB * c)[q];
+        s2[4 * q] = sv.x, s2[4 * q + 1] = sv.y, s2[4 * q + 2] = sv.z, s2[4 * q + 3] = sv.w;
+        m2[4 * q] = mv.x, m2[4 * q + 1] = mv.y, m2[4 * q + 2] = mv.z, m2[4 * q + 3] = mv.w;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      uint32_t out[2 * IW];
+#pragma unroll
+      for (int j = 0; j < IW; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          // bytes 2 hf and 2 hf + 1 of the word as 16-bit halves: two columns
+          const uint32_t sel = hf ? 0x4342u : 0x4140u;
+          uint32_t q = (__byte_perm(w[j], 0u, sel) >> (2 * m)) & 0x00030003u;
+          if constexpr (BITS == 3)
+            q |= ((__byte_perm(hw[j], 0u, sel) >> (2 * m + sh)) & 0x00010001u) << 2;
+          if constexpr (ALG == ALG_DEQUANT)
+            out[2 * j + hf] = dequant_bf16x2(q, s2[2 * j + hf], m2[2 * j + hf]);
+          else
+            out[2 * j + hf] = nibbles_bf16x2(q);
+        }
+      uint4* d = reinterpret_cast<uint4*>(bt + (i + m * q4) * BTS + 2 * IB * c);
+#pragma unroll
+      for (int q = 0; q < IW / 2; ++q)
+        d[q] = make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
+    }
+  }
+}
 
 // acc[mt][nt][2 h + j] = (x @ dequant(W))[m0 + row_w + 16 mt + gid + 8 h,
 // n0 + col_w + 8 nt + 2 tig + j] in algebra ALG (the layout of the m16n8
@@ -361,6 +430,10 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
     const unsigned char* st = smem + (kb % A8_STAGES) * T::STAGE;
     const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
     constexpr int IB = BN < 16 || ALG != ALG_ROWS ? 8 : 16, CQ = BN / IB, IW = IB / 4;
+    if constexpr (BITS < 4) {
+      unpack_sub4<BITS, ALG, IB, BN, BTS, THREADS>(st, sp, bt, bs, tid);
+      return;
+    }
     for (int u = tid; u < rows_w * CQ; u += THREADS) {
       const int i = u / CQ, c = u - i * CQ;
       uint32_t w[IW], s2[2 * IW], m2[2 * IW];

@@ -1,10 +1,13 @@
-// Fused per-block dequantize + matmul for W4/W8 weights (sm_90a).
+// Fused per-block dequantize + matmul for W2/W3/W4/W8 weights (sm_90a).
 //
 // Replaces mnn_tpu/kernels/dequant_matmul.py::_kernel (bf16 rows: the GEMV
 // kernel at M = 1, the tensor-core tile kernel above),
 // ::_kernel_a8 (int8 rows) and ::_kernel_deq (dequantized tiles). Weights
 // stay packed: int8 [K*bits/8, N] with W4 nibble pairs (i, i + bs/2) inside
-// each quant block, bf16 scale s and bias m [K/bs, N]. A quant block contributes
+// each quant block, W2 four 2-bit groups (i + m bs/4, bit pair 2m), W3 a
+// 2-bit plane of bs/4 rows (W2's grouping of q & 3) then a 1-bit plane of
+// bs/8 rows (bit m of row j: q >> 2 of offset j + m bs/8), q = lo + 4 hi;
+// bf16 scale s and bias m [K/bs, N]. A quant block contributes
 //     (x_b . q_b) * s_b + rowsum(x_b) * m_b            (bf16 rows)
 //     (x_b . (q_b - c)) * s_b + rowsum(x_b) * (c s_b + m_b)   (int8 rows, c = 2^(bits-1))
 // accumulated in f32 in the order acc + part*s + rowsum*m, with no FMA
@@ -120,12 +123,13 @@ struct GvSplit {
   int tiles, ranges, qb_max, units, smem;
 };
 
-// Shapes the GEMV serves: W4 or W8, N a multiple of 4 (32-bit loads), K
-// whole quant blocks of a multiple of 8 K-values, and a quant block's packed
-// rows no more than the units an item stages (bs up to 2048 at W4, 1024 at W8).
+// Shapes the GEMV serves: W2, W3, W4 or W8, N a multiple of 4 (32-bit
+// loads), K whole quant blocks of a multiple of 8 K-values, and a quant
+// block's packed rows no more than the units an item stages (bs up to 4096
+// at W2, 2048 at W4, 1024 at W8).
 static bool gemv_shape_ok(int K, int N, int bits, int bs) {
-  return (bits == 4 || bits == 8) && bs >= 8 && bs % 8 == 0 && K % bs == 0 && N % 4 == 0 &&
-         bs * bits / 8 <= GV_UMAX * GV_UNIT;
+  return (bits == 2 || bits == 3 || bits == 4 || bits == 8) && bs >= 8 && bs % 8 == 0 &&
+         K % bs == 0 && N % 4 == 0 && bs * bits / 8 <= GV_UMAX * GV_UNIT;
 }
 
 static GvSplit gemv_split(int K, int N, int bits, int bs) {
@@ -160,15 +164,18 @@ __device__ __forceinline__ void gv_load(uint32_t (&w)[GV_UNIT], const uint8_t* w
 }
 
 // y[1, N] = x[1, K] @ dequant(W) (+ out_bias): item blockIdx.x is K range
-// blockIdx.x % ranges of tile blockIdx.x / ranges.
+// blockIdx.x % ranges of tile blockIdx.x / ranges. At W2 and W3 a packed row
+// holds K values spread over its quant block: a 2-bit row j those at
+// j + m bs/4, counted into the row sum; a W3 1-bit row j those at j + m bs/8,
+// with x times 4 (q = lo + 4 hi is linear in the partial product) and no
+// row sum, since the 2-bit plane covers every K value of the block once.
 template <int BITS>
 __global__ void __launch_bounds__(GV_THREADS)
 dqmm_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
                  const bf16* __restrict__ scale, const bf16* __restrict__ bias,
                  const float* __restrict__ out_bias, void* __restrict__ out, int K, int N,
                  int bs, int out_f32, int ranges, int qb_max) {
-  constexpr int PACK = 8 / BITS;                     // K-values a packed byte
-  const int rows = bs / PACK, R = (rows + GV_UNIT - 1) / GV_UNIT, umax = qb_max * R;
+  const int rows = bs * BITS / 8, R = (rows + GV_UNIT - 1) / GV_UNIT, umax = qb_max * R;
   extern __shared__ __align__(16) unsigned char smem[];
   float* parts = reinterpret_cast<float*>(smem);     // [umax][TILE] column sums of a unit
   float* rs_s = parts + umax * GV_TILE;              // [umax] row sums of a unit
@@ -219,12 +226,32 @@ dqmm_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           part[k] += xa * u2f((w[i] >> (8 * k)) & 0xFu) + xb * u2f((w[i] >> (8 * k + 4)) & 0xFu);
-      } else {
+      } else if (BITS == 8) {
         float xa = bf2f(xq[ii]);
         if (i > last) xa = 0.f;
         rs += xa;
 #pragma unroll
         for (int k = 0; k < 4; ++k) part[k] += xa * u2f((w[i] >> (8 * k)) & 0xFFu);
+      } else {
+        const int ri = g * GV_UNIT + ii, q4 = bs >> 2;   // the row in its quant block
+        const bf16* xb = x_s + qb * bs;
+        if (BITS == 3 && ri >= q4) {   // 1-bit plane: K values j + m bs/8, bit m
+          const int j = ri - q4, e8 = bs >> 3;
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            const float xa = i > last ? 0.f : 4.f * bf2f(xb[j + m * e8]);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) part[k] += xa * u2f((w[i] >> (8 * k + m)) & 1u);
+          }
+        } else {                       // 2-bit row: K values ri + m bs/4, bit pair 2m
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const float xa = i > last ? 0.f : bf2f(xb[ri + m * q4]);
+            rs += xa;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) part[k] += xa * u2f((w[i] >> (8 * k + 2 * m)) & 3u);
+          }
+        }
       }
     }
     *reinterpret_cast<float4*>(parts + u * GV_TILE + lane * 4) =
@@ -275,7 +302,7 @@ constexpr int A8_KW = 32;       // K words (4 K-values each) of the largest quan
 template <int BITS, int MT, int NT, int WM, int WN>
 struct A8Tile {
   static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
-  static constexpr int W_BYTES = (BITS == 4 ? 64 : 128) * BN;
+  static constexpr int W_BYTES = 4 * A8_KW * BITS / 8 * BN;
   static constexpr int X_BYTES = BM * A8_XSTR;
   static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
   static constexpr int BW = BN + 8;           // 8 words mod 32: B loads are conflict-free
@@ -301,6 +328,67 @@ __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t 
   t[1] = __byte_perm(a, c, 0x7632);
   t[2] = __byte_perm(b, d, 0x5410);
   t[3] = __byte_perm(b, d, 0x7632);
+}
+
+// The W2/W3 unpack of dqmm_a8_kernel: quant block `st` (bs K-values, packed
+// rows of BN bytes) into the K-major words of bt (word kw of a column: K
+// values 4 kw .. 4 kw + 3), the pattern q = lo + 4 hi joined before it is
+// multiplied, so the int32 products stay exact. A 2-bit row j holds K values
+// j + m bs/4 (bit pair 2m); for K value k, W3's 1-bit plane holds q >> 2 in
+// row bs/4 + k % (bs/8), bit k / (bs/8): for a 2-bit row j, row bs/4 +
+// j % (bs/8), bit j / (bs/8) + 2m. Where the four K values of a word lie in
+// four consecutive 2-bit rows (W2: bs % 16 == 0; W3: bs % 32 == 0, so that
+// their 1-bit rows are consecutive too), a thread transposes four rows x
+// four columns as the W4 unpack does and stores 16 bytes a K word; other
+// blocks (W2 of 8, W3 of 8 to 24 K values a block past a multiple of 32)
+// take a 2-bit row x four columns a thread and store bytes.
+template <int BITS, int BN, int BW, int THREADS>
+__device__ __forceinline__ void a8_unpack_sub4(const unsigned char* st, uint32_t* bt, int bs,
+                                               int tid) {
+  constexpr int CQ = BN / 4;
+  const uint32_t* raw = reinterpret_cast<const uint32_t*>(st);
+  const int q4 = bs >> 2, e8 = bs >> 3;
+  if (bs % (BITS == 2 ? 16 : 32) == 0) {
+    for (int u = tid; u < (q4 >> 2) * CQ; u += THREADS) {
+      const int iq = u / CQ, cq = u - iq * CQ;
+      const uint32_t* p = raw + 4 * iq * CQ + cq;
+      uint32_t t[4], h[4] = {0u, 0u, 0u, 0u};
+      transpose4x4(p[0], p[CQ], p[2 * CQ], p[3 * CQ], t);
+      int sh = 0;
+      if (BITS == 3) {
+        const uint32_t* ph = raw + (q4 + (4 * iq) % e8) * CQ + cq;
+        transpose4x4(ph[0], ph[CQ], ph[2 * CQ], ph[3 * CQ], h);
+        sh = 4 * iq / e8;
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = ((t[j] >> (2 * m)) & 0x03030303u) |
+                 (BITS == 3 ? ((h[j] >> (2 * m + sh)) & 0x01010101u) << 2 : 0u);
+        *reinterpret_cast<uint4*>(bt + (iq + m * (bs >> 4)) * BW + 4 * cq) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  } else {
+    unsigned char* b8 = reinterpret_cast<unsigned char*>(bt);
+    for (int u = tid; u < q4 * CQ; u += THREADS) {
+      const int j = u / CQ, cq = u - j * CQ;
+      const uint32_t lo = raw[j * CQ + cq];
+      const uint32_t hi = BITS == 3 ? raw[(q4 + j % e8) * CQ + cq] : 0u;
+      const int sh = BITS == 3 ? j / e8 : 0;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t v = ((lo >> (2 * m)) & 0x03030303u) |
+                           (BITS == 3 ? ((hi >> (2 * m + sh)) & 0x01010101u) << 2 : 0u);
+        const int k = j + m * q4;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          b8[((k >> 2) * BW + 4 * cq + c) * 4 + (k & 3)] = (unsigned char)(v >> (8 * c));
+      }
+    }
+  }
 }
 
 // One BM x BN output tile over the whole of K. vx, vw, vp: the bytes per
@@ -373,7 +461,9 @@ dqmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xscale,
     // unpack once per tile: four packed rows x four columns a thread,
     // transposed into K-major words and (W4) split into nibbles, rows i and
     // i + bs/2 of the block; stored 16 bytes at a time
-    {
+    if constexpr (BITS < 4) {
+      a8_unpack_sub4<BITS, BN, BW, THREADS>(st, bt, bs, tid);
+    } else {
       constexpr int CQ = BN / 4;
       const uint32_t* raw = reinterpret_cast<const uint32_t*>(st);
       for (int u = tid; u < (rows_w >> 2) * CQ; u += THREADS) {
@@ -696,18 +786,32 @@ static cudaError_t launch_bf16_tile(const void* x, const void* packed, const voi
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, bits>()) for weight bits of 2, 3, 4 or 8
+template <class F>
+static int with_bits(int bits, F&& f) {
+  switch (bits) {
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static bool bits_ok(int bits) { return bits == 2 || bits == 3 || bits == 4 || bits == 8; }
+
 // The tile bf16_tile picks for M rows and N columns, at `bits`.
 template <bool DEQ>
 static int launch_bf16_tile_bits(const void* x, const void* packed, const void* scale,
                                  const void* bias, const void* out_bias, void* out, int M, int K,
                                  int N, int bits, int bs, int out_f32, cudaStream_t st) {
   const int tile = bf16_tile(M, N);
-#define MNN_BF_CASE(t, MT, NT, WM, WN)                                                          \
-  if (tile == t)                                                                               \
-    return (int)(bits == 4 ? launch_bf16_tile<4, MT, NT, WM, WN, DEQ>(                          \
-                                 x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st) \
-                           : launch_bf16_tile<8, MT, NT, WM, WN, DEQ>(                          \
-                                 x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st));
+#define MNN_BF_CASE(t, MT, NT, WM, WN)                                                     \
+  if (tile == t)                                                                          \
+    return with_bits(bits, [&](auto b) {                                                  \
+      return (int)launch_bf16_tile<decltype(b)::value, MT, NT, WM, WN, DEQ>(              \
+          x, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);               \
+    });
   MNN_BF_TILES(MNN_BF_CASE)
 #undef MNN_BF_CASE
   return (int)cudaErrorInvalidValue;
@@ -728,8 +832,10 @@ MNN_API int mnn_dequant_matmul(const void* x, const void* packed, const void* sc
   if (M != 1 || !gemv_shape_ok(K, N, bits, bs)) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)x % 16 || (uintptr_t)packed % 4 || ((uintptr_t)scale | (uintptr_t)bias) % 8)
     return (int)cudaErrorMisalignedAddress;
-  if (bits == 4) return launch_gemv<4>(x, packed, scale, bias, out_bias, out, K, N, bs, out_f32, st);
-  return launch_gemv<8>(x, packed, scale, bias, out_bias, out, K, N, bs, out_f32, st);
+  return with_bits(bits, [&](auto b) {
+    return (int)launch_gemv<decltype(b)::value>(x, packed, scale, bias, out_bias, out, K, N, bs,
+                                                out_f32, st);
+  });
 }
 
 // The split mnn_dequant_matmul takes at M = 1: out = (columns a tile, K
@@ -751,7 +857,7 @@ MNN_API int mnn_dequant_matmul_bf16_tile(const void* x, const void* packed, cons
                                          int M, int K, int N, int bits, int bs, int out_f32,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs > BF_KMAX || bs % 8 || K % bs || N % 4 || (bits != 4 && bits != 8))
+  if (bs > BF_KMAX || bs % 8 || K % bs || N % 4 || !bits_ok(bits))
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)x % 16 || ((uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
     return (int)cudaErrorMisalignedAddress;
@@ -767,7 +873,7 @@ MNN_API int mnn_dequant_matmul_deq(const void* x, const void* packed, const void
                                    int M, int K, int N, int bits, int bs, int out_f32,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs > BF_KMAX || bs % 16 || K % bs || K % 8 || N % 4 || (bits != 4 && bits != 8))
+  if (bs > BF_KMAX || bs % 16 || K % bs || K % 8 || N % 4 || !bits_ok(bits))
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)x % 16 || ((uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
     return (int)cudaErrorMisalignedAddress;
@@ -781,19 +887,17 @@ MNN_API int mnn_dequant_matmul_a8(const void* xq, const void* xscale, const void
                                   void* out, int M, int K, int N, int bits, int bs,
                                   int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs > 4 * A8_KW || bs % 8 || K % bs || N % 4 || (bits != 4 && bits != 8))
+  if (bs > 4 * A8_KW || bs % 8 || K % bs || N % 4 || !bits_ok(bits))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)xq | (uintptr_t)packed | (uintptr_t)scale | (uintptr_t)bias) % 4)
     return (int)cudaErrorMisalignedAddress;
   const int tile = a8_tile(M, N);
-#define MNN_A8_CASE(t, MT, NT, WM, WN)                                                          \
-  if (tile == t)                                                                               \
-    return (int)(bits == 4 ? launch_a8<4, MT, NT, WM, WN>(xq, xscale, packed, scale, bias,     \
-                                                          out_bias, out, M, K, N, bs, out_f32, \
-                                                          st)                                  \
-                           : launch_a8<8, MT, NT, WM, WN>(xq, xscale, packed, scale, bias,     \
-                                                          out_bias, out, M, K, N, bs, out_f32, \
-                                                          st));
+#define MNN_A8_CASE(t, MT, NT, WM, WN)                                                     \
+  if (tile == t)                                                                          \
+    return with_bits(bits, [&](auto b) {                                                  \
+      return (int)launch_a8<decltype(b)::value, MT, NT, WM, WN>(                          \
+          xq, xscale, packed, scale, bias, out_bias, out, M, K, N, bs, out_f32, st);      \
+    });
   MNN_A8_TILES(MNN_A8_CASE)
 #undef MNN_A8_CASE
   return (int)cudaErrorInvalidValue;
@@ -802,12 +906,13 @@ MNN_API int mnn_dequant_matmul_a8(const void* xq, const void* xscale, const void
 // The tile mnn_dequant_matmul_a8 takes for M rows and N columns: rows, columns
 // and dynamic shared memory per block, in out[0..2]. Launches nothing.
 MNN_API int mnn_dequant_matmul_a8_tile(int M, int N, int bits, int* out) {
+  if (!bits_ok(bits)) return (int)cudaErrorInvalidValue;
   const int tile = a8_tile(M, N);
 #define MNN_A8_INFO(t, MT, NT, WM, WN)                                                         \
   if (tile == t) {                                                                            \
     out[0] = A8Tile<4, MT, NT, WM, WN>::BM;                                                   \
     out[1] = A8Tile<4, MT, NT, WM, WN>::BN;                                                   \
-    out[2] = bits == 4 ? A8Tile<4, MT, NT, WM, WN>::SMEM : A8Tile<8, MT, NT, WM, WN>::SMEM;   \
+    out[2] = with_bits(bits, [](auto b) { return A8Tile<decltype(b)::value, MT, NT, WM, WN>::SMEM; }); \
     return 0;                                                                                 \
   }
   MNN_A8_TILES(MNN_A8_INFO)
@@ -821,13 +926,14 @@ MNN_API int mnn_dequant_matmul_a8_tile(int M, int N, int bits, int* out) {
 // nothing.
 MNN_API int mnn_dequant_matmul_tile(int M, int N, int bits, int* out) {
   out[0] = out[1] = out[2] = 0;
+  if (!bits_ok(bits)) return (int)cudaErrorInvalidValue;
   if (M < BF_TILE_MIN_M) return 0;
   const int tile = bf16_tile(M, N);
 #define MNN_BF_INFO(t, MT, NT, WM, WN)                                                           \
   if (tile == t) {                                                                            \
     out[0] = Bf16Tile<4, MT, NT, WM, WN>::BM;                                                 \
     out[1] = Bf16Tile<4, MT, NT, WM, WN>::BN;                                                 \
-    out[2] = bits == 4 ? Bf16Tile<4, MT, NT, WM, WN>::SMEM : Bf16Tile<8, MT, NT, WM, WN>::SMEM; \
+    out[2] = with_bits(bits, [](auto b) { return Bf16Tile<decltype(b)::value, MT, NT, WM, WN>::SMEM; }); \
     return 0;                                                                                 \
   }
   MNN_BF_TILES(MNN_BF_INFO)

@@ -75,8 +75,8 @@ ATT_POSITIONS = 64  # cached positions a block of a (batch row, KV head) takes
 # The schedule and the kernel's shared memory; the same numbers as
 # csrc/decode_model.cuh (DM_*), which checks the table's header.
 UNIT_ROWS = 64                               # packed rows of a tile a unit (ring slot)
-SCALE_ROWS = 4                               # quant blocks a unit can touch
-SLOT_BYTES = UNIT_ROWS * COL_TILE + 2 * SCALE_ROWS * COL_TILE * 2
+SCALE_ROWS = 4                               # quant blocks a W4/W8 unit can touch
+SCALE_ROWS_SUB4 = 8                          # the same at W2/W3 (8 at W2 with blocks of 32)
 RING_MAX = 12
 XS_K = {1: 4096, 2: 2048, 4: 1024, 8: 1024}  # K values an item's x stage holds, by BM
 REC, HDR = 16, 32                            # int32 a record, the header
@@ -155,17 +155,30 @@ def blocks_per_sm(bm: int) -> int:
     return 1 if bm == 8 else 2
 
 
-def ring_slots(bm: int, head_dim: int) -> int:
+def scale_rows(bits: int) -> int:
+    """Quant blocks a unit can touch, so scale and bias rows a ring slot
+    holds, for the layers' weight bits: a 64-row unit of W2 at blocks of 32
+    (8 packed rows each) touches 8, of W3 at blocks of 32 (12 rows) 6."""
+    return SCALE_ROWS_SUB4 if bits < 4 else SCALE_ROWS
+
+
+def slot_bytes(bits: int = 4) -> int:
+    """A ring slot: a unit's packed rows, then its scale and bias rows in
+    pairs (the scale row of a quant block, then its bias row)."""
+    return UNIT_ROWS * COL_TILE + 2 * scale_rows(bits) * COL_TILE * 2
+
+
+def ring_slots(bm: int, head_dim: int, bits: int = 4) -> int:
     """Weight slots a block's ring holds beside its work area."""
     free = BLOCK_SMEM[blocks_per_sm(bm)] - work_bytes(bm, head_dim) - 16 * RING_MAX - TAIL
-    return min(RING_MAX, free // SLOT_BYTES)
+    return min(RING_MAX, free // slot_bytes(bits))
 
 
-def smem_bytes(bm: int, head_dim: int, slots: int) -> int:
+def smem_bytes(bm: int, head_dim: int, slots: int, bits: int = 4) -> int:
     """A block's dynamic shared memory: ring, work area, the slots'
     mbarriers, the tail (the stamps' count in MNN_DM_CLOCKS builds, the
     block's place, the current and next schedule records)."""
-    return slots * SLOT_BYTES + work_bytes(bm, head_dim) + 16 * slots + TAIL
+    return slots * slot_bytes(bits) + work_bytes(bm, head_dim) + 16 * slots + TAIL
 
 
 def records_at(grid: int) -> int:
@@ -174,15 +187,15 @@ def records_at(grid: int) -> int:
     return HDR + -(-(grid + 1) // REC) * REC
 
 
-def _library_limits(batch: int, head_dim: int) -> tuple:
+def _library_limits(batch: int, head_dim: int, bits: int = 4) -> tuple:
     """(blocks an SM, shared bytes a block, ring slots, SMs, registers a
     thread, most threads a block, static shared bytes, local bytes a thread)
-    that the built kernel gets on the current card
-    (`mnn_decode_model_limits`)."""
+    that the built kernel gets on the current card for the layers' weight
+    bits (`mnn_decode_model_limits`)."""
     fn = library().mnn_decode_model_limits
-    fn.argtypes, fn.restype = [I, I, P], I
+    fn.argtypes, fn.restype = [I, I, I, P], I
     out = (I * 8)()
-    err = fn(batch, head_dim, out)
+    err = fn(batch, head_dim, bits, out)
     if err:
         raise RuntimeError(f"mnn_decode_model_limits: CUDA error {err}")
     return tuple(out)
@@ -195,9 +208,13 @@ _limits: dict = {}
 
 def _k_range(r0: int, r1: int, bs: int, bits: int) -> tuple:
     """[first K value, one past the last) of packed rows [r0, r1): a W4 row
-    holds K values k and k + bs/2 of its quant block."""
+    holds K values k and k + bs/2 of its quant block; a W2 or W3 row holds
+    K values spread over its whole block, so the range is whole blocks."""
     if bits == 8:
         return r0, r1
+    if bits < 4:
+        rpb = bs * bits // 8
+        return (r0 // rpb) * bs, ((r1 - 1) // rpb + 1) * bs
     half = bs // 2
     lo = lambda r: (r // half) * bs + r % half
     return lo(r0), lo(r1 - 1) + half + 1
@@ -404,8 +421,8 @@ def schedule(batch: int, layers: int, hidden: int, heads: int, kv_heads: int,
     for r in records:
         if r[R_KIND] != BAR and (r[R_KIND] == HEAD or r[R_LAYER] == 0):
             per_kind[KINDS[r[R_KIND]]] = per_kind.get(KINDS[r[R_KIND]], 0) + 1
-    info = dict(grid=grid, slots=slots, ring_bytes=slots * SLOT_BYTES,
-                bytes_in_flight=grid * slots * SLOT_BYTES,
+    info = dict(grid=grid, slots=slots, ring_bytes=slots * slot_bytes(bits),
+                bytes_in_flight=grid * slots * slot_bytes(bits),
                 items_a_layer=per_kind, grid_waits_a_layer=2,
                 att_split=ns,
                 k_ranges={KINDS[k]: len(v["cuts"][-1]) for k, v in plan.items()},
@@ -425,14 +442,16 @@ def _schedule_for(config, batch: int, capacity: int, lay, head, dev):
     raises."""
     c = config
     bm = bucket(batch)
-    lk = (LIMITS, bm, c.head_dim, str(dev))
+    bits = lay.wqkv.bits
+    lk = (LIMITS, bm, c.head_dim, bits, str(dev))
     if lk not in _limits:
         with torch.cuda.device(dev):
-            _limits[lk] = LIMITS(bm, c.head_dim)
+            _limits[lk] = LIMITS(bm, c.head_dim, bits)
     per_sm, _, slots, sms = _limits[lk][:4]
-    if per_sm < 1 or slots != ring_slots(bm, c.head_dim):
+    planned = ring_slots(bm, c.head_dim, bits)
+    if per_sm < 1 or slots != planned:
         raise RuntimeError(f"the decode kernel does not fit the card: {per_sm} blocks an "
-                           f"SM, {slots} ring slots (planned {ring_slots(bm, c.head_dim)})")
+                           f"SM, {slots} ring slots (planned {planned})")
     grid = sms * min(per_sm, blocks_per_sm(bm))
     args = (batch, c.num_layers, c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim,
             c.intermediate_size, capacity, head.out_features if head is not None else 0,
@@ -460,8 +479,8 @@ def supports(config, params, cache, batch: int) -> bool:
     weights, cache, batch)? False sends `forward` down the per-layer path.
     Gemma's flags (gelu-tanh, sandwich norms, score softcap, alternating and
     N:1 windows, dual rope) are kernel flags; head_dim 256 takes an int8 or
-    bf16 cache and up to 4 query heads a KV head. W2/W3 weights are not
-    ported."""
+    bf16 cache and up to 4 query heads a KV head. Weights: W2, W3, W4 or
+    W8, the same for all four projections."""
     c = config
     if c.is_moe or c.kv_rotate or c.mrope_section:
         return False
@@ -477,7 +496,7 @@ def supports(config, params, cache, batch: int) -> bool:
     if c.sandwich_norm and (lay.pre_ffn_norm is None or lay.post_ffn_norm is None):
         return False
     for ql in (lay.wqkv, lay.wo, lay.wgu, lay.wdown):
-        if ql.act_bits != 16 or ql.bits not in (4, 8) or ql.bits != lay.wqkv.bits:
+        if ql.act_bits != 16 or ql.bits not in (2, 3, 4, 8) or ql.bits != lay.wqkv.bits:
             return False
         if ql.out_bias is not None and ql is not lay.wqkv:
             return False
@@ -499,7 +518,9 @@ def supports_head(config, params) -> bool:
     the kernel? Needs a quantized (int4/int8) head with bf16 rows and no
     out-bias over a 128-aligned vocabulary (gemma2's 256,000: yes; gemma3's
     262,208: no, its head runs on the GEMV kernel). A logit softcap is the
-    caller's, after the kernel: it moves no argmax."""
+    caller's, after the kernel: it moves no argmax. A W2 or W3 head stays on
+    the GEMV kernel, as the JAX package keeps sub-4-bit heads out of its
+    kernel's head fusion."""
     head = params.lm_head
     if not isinstance(head, QuantizedLinear):
         return False
@@ -531,6 +552,14 @@ def _pack4(q: torch.Tensor) -> torch.Tensor:
     return torch.where(byte > 127, byte - 256, byte).float()
 
 
+def _quant_kv(x: torch.Tensor, qmax: float):
+    """A new K or V row [..., D] f32 -> (levels, scale [..., 1]) on the row's
+    absolute maximum, as the kernel stores it."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    sc = torch.where(amax == 0, torch.ones_like(amax), amax / qmax)
+    return (x / sc).round().clamp(-qmax - 1, qmax), sc
+
+
 def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
                   cos, sin, q_norm, k_norm, eps, sm_scale, window, sink, bits,
                   softcap=0.0):
@@ -549,13 +578,8 @@ def _attend_plain(qkv, k_cache, v_cache, k_scale, v_scale, layer, lengths,
     kr = _rope_full(kr, c, s_)
     if bits < 16:
         qmax = 127.0 if bits == 8 else 7.0
-
-        def quant(x):
-            amax = x.abs().amax(dim=-1, keepdim=True)
-            sc = torch.where(amax == 0, torch.ones_like(amax), amax / qmax)
-            return (x / sc).round().clamp(-qmax - 1, qmax), sc
-        kq, ksc = quant(kr)
-        vq, vsc = quant(vr)
+        kq, ksc = _quant_kv(kr, qmax)
+        vq, vsc = _quant_kv(vr, qmax)
         k_att, v_att = kq * ksc, vq * vsc
         k_row, v_row = (_pack4(kq), _pack4(vq)) if bits == 4 else (kq, vq)
         ksc, vsc = ksc[..., 0], vsc[..., 0]
@@ -721,7 +745,7 @@ def fused_decode_model(
     lay = layers
     bits, bs_h, bs_i = lay.wqkv.bits, lay.wqkv.block_size, lay.wdown.block_size
     if (d not in (64, 128, 256) or not 1 <= g <= max_group(d) or not 1 <= b <= MAX_BATCH
-            or h != c.hidden_size or inter % 64 or bits not in (4, 8)
+            or h != c.hidden_size or inter % 64 or bits not in (2, 3, 4, 8)
             or (d == 256 and kv_bits == 4)):
         raise ValueError(f"{c.name}: shapes outside the decode kernel's range")
     for ql, k_dim, n_dim, bs in ((lay.wqkv, h, nq, bs_h), (lay.wo, c.q_dim, h, bs_h),
@@ -729,7 +753,7 @@ def fused_decode_model(
                                  (lay.wdown, inter, h, bs_i)):
         if ql.bits != bits or ql.act_bits != 16 or ql.block_size != bs \
                 or bs % K_CHUNK or k_dim % bs or n_dim % 4:
-            raise ValueError("the decode kernel needs uniform W4/W8 weights "
+            raise ValueError("the decode kernel needs uniform W2/W3/W4/W8 weights "
                              "with bf16 rows and 32-aligned quant blocks")
         check(ql.packed, "packed", torch.int8, 3)
         check(ql.scale, "scale", torch.bfloat16, 3)

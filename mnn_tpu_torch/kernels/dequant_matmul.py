@@ -152,8 +152,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check_weights(ql: QuantizedLinear, k: int):
-    if ql.bits not in (4, 8):
-        raise ValueError(f"W{ql.bits} has no CUDA kernel yet")
+    if ql.bits not in (2, 3, 4, 8):
+        raise ValueError(f"W{ql.bits} has no CUDA kernel")
     bs = ql.block_size
     if bs > MAX_BLOCK or bs % 8 or k % bs:
         raise ValueError(f"block_size {bs} unsupported (multiple of 8, "
@@ -184,22 +184,24 @@ def deq_dot_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
     Rows are rounded to bf16. Per quant block either the partial-product
     algebra, (x_b @ q) * s + rowsum(x_b) * m, or the dequantize-tile one,
-    x_b @ bf16(q * s + m); f32 sums over the blocks in order."""
+    x_b @ bf16(q * s + m), where W3's q is its two planes joined, lo + 4 hi,
+    as the JAX `_kernel_deq` joins them; f32 sums over the blocks in order."""
     xf = x.to(torch.bfloat16).float()
-    k = xf.shape[-1]
+    e, k, n = xf.shape[0], xf.shape[-1], packed.shape[-1]
     rows = bs * bits // 8
     s, b = scale.float(), bias.float()
     acc = None
     for kb in range(k // bs):
-        w32 = packed[:, kb * rows:(kb + 1) * rows].to(torch.int32) & 0xFF
-        q = torch.cat([w32 & 0xF, w32 >> 4], dim=1) if bits == 4 else w32
+        # block kb of every matrix: one quant block each, in turn
+        q = unpack_bits(packed[:, kb * rows:(kb + 1) * rows].reshape(-1, n), bits, bs,
+                        torch.float32).reshape(e, bs, n)
         xb = xf[:, :, kb * bs:(kb + 1) * bs]
         sk, bk = s[:, kb, None, :], b[:, kb, None, :]
         if partial:
-            term = (torch.bmm(xb, q.float()) * sk
+            term = (torch.bmm(xb, q) * sk
                     + xb.sum(dim=-1, keepdim=True) * bk)
         else:
-            wd = (q.float() * sk + bk).to(torch.bfloat16).float()
+            wd = (q * sk + bk).to(torch.bfloat16).float()
             term = torch.bmm(xb, wd)
         acc = term if acc is None else acc + term
     return acc
@@ -213,8 +215,6 @@ def dequant_matmul_plain(x2: torch.Tensor, ql: QuantizedLinear,
     dequantize-tile algebra (bf16 rows whatever `ql.act_bits` is)."""
     m, k = x2.shape
     bs, bits = ql.block_size, ql.bits
-    if bits not in (4, 8):
-        raise ValueError(f"W{bits} unpacking is not ported")
     s = ql.scale.float()
     b = ql.bias.float()
     acc = torch.zeros((m, ql.out_features), dtype=torch.float32,

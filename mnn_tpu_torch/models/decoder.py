@@ -203,7 +203,7 @@ def init_random_params(
     )
     emb = torch.randn((c.vocab_size, c.hidden_size), generator=g).to(
         torch.bfloat16) * scale
-    if lm_head_bits in (4, 8):
+    if lm_head_bits in (2, 3, 4, 8):
         head = ql(c.hidden_size, c.vocab_size, False, bits=lm_head_bits,
                   lead=(), a_bits=16)
     elif c.tie_word_embeddings:

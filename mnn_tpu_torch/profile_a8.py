@@ -307,12 +307,12 @@ class _ModelEntry:
         self.ws = self.counters = None
         self.lib = lib
 
-    def limits(self, batch: int, head_dim: int) -> tuple:
+    def limits(self, batch: int, head_dim: int, bits: int = 4) -> tuple:
         """This library's `mnn_decode_model_limits` (decode_model.LIMITS)."""
         out = (ctypes.c_int * 8)()
         self.lib.mnn_decode_model_limits.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                     ctypes.c_void_p]
-        err = self.lib.mnn_decode_model_limits(batch, head_dim, out)
+                                                     ctypes.c_int, ctypes.c_void_p]
+        err = self.lib.mnn_decode_model_limits(batch, head_dim, bits, out)
         if err:
             raise RuntimeError(f"{self.name}: mnn_decode_model_limits: CUDA error {err}")
         return tuple(out)

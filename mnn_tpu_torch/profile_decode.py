@@ -1,12 +1,13 @@
 """Where the time of one greedy decode step, or of a prefill, goes, on the card.
 
     python -m mnn_tpu_torch.profile_decode [--preset qwen2-0.5b] [--prompt 300]
-                                           [--kv-bits 8] [--steps 16]
-    python -m mnn_tpu_torch.profile_decode --prefill [--act-bits 16]
+                                           [--kv-bits 8] [--steps 16] [--w-bits 4]
+    python -m mnn_tpu_torch.profile_decode --prefill [--act-bits 16] [--w-bits 3]
 
 Builds `Llm.synthetic(preset)` in the serving configuration of the port's
 main path (W4 block-128 weights, int4 lm head, int8 or int4 KV cache, int8
-prefill activations), prefills a random prompt, and then, for each decode
+prefill activations; `--w-bits 2|3|8` weights of that many bits and a head
+of min(bits, 4), as bench.py's --w-bits rows), prefills a random prompt, and then, for each decode
 path in turn (the whole-model decode kernel, and the per-layer fallback
 `forward(megakernel=False)`), warms the decode loop and traces `--steps`
 greedy decode steps with `torch.profiler`. It prints, per decode step and
@@ -125,12 +126,15 @@ def main(argv=None):
                     help="profile the prefill of the prompt, not decode steps")
     ap.add_argument("--act-bits", type=int, default=8, choices=(8, 16),
                     help="prefill activations: int8 rows (the serving path) or bf16")
+    ap.add_argument("--w-bits", type=int, default=4, choices=(2, 3, 4, 8),
+                    help="weight bits of the projections (head: min(bits, 4))")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     rt = RuntimeConfig(max_seq_len=1024, prefill_chunk=512, sampler="greedy",
-                       kv_quant=True, kv_bits=args.kv_bits, quant_bits=4,
-                       quant_block=128, lm_head_bits=4, prefill_act_bits=args.act_bits)
+                       kv_quant=True, kv_bits=args.kv_bits, quant_bits=args.w_bits,
+                       quant_block=128, lm_head_bits=min(args.w_bits, 4),
+                       prefill_act_bits=args.act_bits)
     llm = Llm.synthetic(args.preset, rt=rt, seed=0, device="cuda")
     g = torch.Generator().manual_seed(0)
     ids = torch.randint(0, llm.config.vocab_size, (1, args.prompt),
@@ -140,7 +144,7 @@ def main(argv=None):
                          text=True, check=True).stdout.strip().splitlines()[0]
     info = llm.info()
     res = dict(card=smi, preset=args.preset, prompt=args.prompt,
-               steps=args.steps, kv_bits=args.kv_bits,
+               steps=args.steps, kv_bits=args.kv_bits, w_bits=args.w_bits,
                decode_megakernel=info["decode_megakernel"],
                decode_fused_head=info["decode_fused_head"],
                decode_moe_fused=info["decode_moe_fused"], paths={})
@@ -151,7 +155,8 @@ def main(argv=None):
     if args.prefill:
         r = res["prefill"] = profile_prefill(llm, rt, ids)
         res["act_bits"] = args.act_bits
-        print(f"prefill of {args.prompt} tokens ({args.preset}, act_bits {args.act_bits}, "
+        print(f"prefill of {args.prompt} tokens ({args.preset}, W{args.w_bits}, "
+              f"act_bits {args.act_bits}, "
               f"chunks {r['chunks']}): wall {r['wall_ms_median']:.2f} ms (median of "
               f"{PREFILL_REPEATS}: {', '.join(f'{w:.2f}' for w in r['wall_ms'])}), device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['device_idle_share']:.3f}, "
@@ -165,7 +170,7 @@ def main(argv=None):
             print(f"{name}: not eligible for {args.preset}")
             continue
         r = res["paths"][name] = profile_path(llm, rt, ids, args.steps, flag)
-        print(f"{name} decode step: wall {r['wall_ms_per_step']:.3f} ms, device "
+        print(f"{name} decode step (W{args.w_bits}): wall {r['wall_ms_per_step']:.3f} ms, device "
               f"busy {r['device_busy_ms_per_step']:.3f} ms, idle share "
               f"{r['device_idle_share']:.3f}, "
               f"{r['kernel_launches_per_step']:.0f} kernel launches")

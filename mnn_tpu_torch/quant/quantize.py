@@ -1,4 +1,4 @@
-"""Per-block weight quantization (INT4/INT8, asymmetric or symmetric).
+"""Per-block weight quantization (INT2/INT3/INT4/INT8, asym or sym).
 
 Counterpart of `mnn_tpu/quant/quantize.py`, with the same checkpoint
 layout, byte for byte:
@@ -10,10 +10,14 @@ layout, byte for byte:
 * weights are [K, N] (y = x @ W), blocks of `block_size` rows along K;
 * INT4 values are nibble-packed two per byte inside a quant block: offset
   i pairs with offset i + block_size//2 (low/high nibble);
+* INT2 values are packed four per byte inside a quant block: offsets
+  i + m * block_size//4 (m = 0..3) share a byte, group m in bit pair 2m;
+* INT3 values are two bit planes per quant block: a 2-bit plane of
+  block_size//4 rows (the INT2 grouping of q & 3), then a 1-bit plane of
+  block_size//8 rows (bit m of row j is q >> 2 of offset
+  j + m * block_size//8); q = lo + 4 * hi, 0.375 byte a weight;
 * packed storage is int8 (read back as unsigned bytes);
 * scales and biases are bfloat16 [K//block_size, N].
-
-W2 and W3 packing are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ class QuantizedLinear:
     stacks carry two, [L, E, ...] (`flat_experts`).
     """
 
-    packed: torch.Tensor               # int8 [K*bits//8, N]
+    packed: torch.Tensor               # int8 [K*bits//8, N] (W3: two planes a block)
     scale: torch.Tensor                # bf16 [K//block_size, N]
     bias: torch.Tensor                 # bf16 [K//block_size, N]
     out_bias: Optional[torch.Tensor]   # f32 [N] or None
@@ -85,10 +89,14 @@ def choose_block_size(k: int, requested: int, shards: int = 1) -> int:
     return bs
 
 
+# a quant block's K values must fill whole packed rows (W3: both planes)
+ALIGN = {2: 4, 3: 8, 4: 2, 8: 1}
+
+
 def _check_args(k: int, bits: int, block_size: int):
-    if bits not in (4, 8):
-        raise ValueError(f"bits must be 4 or 8 in this package, got {bits}")
-    align = {4: 2, 8: 1}[bits]
+    if bits not in ALIGN:
+        raise ValueError(f"bits must be 2, 3, 4 or 8, got {bits}")
+    align = ALIGN[bits]
     if block_size % align or k % block_size:
         raise ValueError(
             f"block_size {block_size} must be a multiple of {align} "
@@ -116,14 +124,71 @@ def unpack_int4(packed: torch.Tensor, block_size: int,
     return torch.cat([u8 & 0xF, u8 >> 4], dim=1).reshape(kh * 2, n).to(dtype)
 
 
+def pack_int2(q: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Pack unsigned 2-bit values [K, N] -> int8 [K//4, N]: offsets
+    (i, i + bs/4, i + bs/2, i + 3bs/4) of each quant block share a byte,
+    group m in bit pair 2m."""
+    k, n = q.shape
+    g = q.reshape(k // block_size, 4, block_size // 4, n).to(torch.int32)
+    byte = g[:, 0] + g[:, 1] * 4 + g[:, 2] * 16 + g[:, 3] * 64
+    return byte.to(torch.uint8).view(torch.int8).reshape(k // 4, n)
+
+
+def _unpack_int2_u8(packed: torch.Tensor, block_size: int) -> torch.Tensor:
+    """pack_int2's rows -> q in [0, 3] as uint8 [K, N]."""
+    kq, n = packed.shape
+    quarter = block_size // 4
+    u8 = packed.view(torch.uint8).reshape(kq // quarter, quarter, n)
+    return torch.cat([(u8 >> (2 * m)) & 3 for m in range(4)], dim=1).reshape(kq * 4, n)
+
+
+def unpack_int2(packed: torch.Tensor, block_size: int,
+                dtype=torch.int32) -> torch.Tensor:
+    """Inverse of pack_int2: int8 [K//4, N] -> q in [0, 3], [K, N], as
+    `dtype`, split on the bytes themselves (uint8), as unpack_int4 is."""
+    return _unpack_int2_u8(packed, block_size).to(dtype)
+
+
+def pack_int3(q: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Pack unsigned 3-bit values [K, N] -> int8 [K*3//8, N] as two planes
+    a quant block: bs/4 rows of pack_int2(q & 3), then bs/8 rows in which
+    offsets (j + m*bs/8) share a byte, bit m holding q >> 2."""
+    k, n = q.shape
+    q = q.to(torch.int32)
+    nb, eighth = k // block_size, block_size // 8
+    lo = pack_int2(q & 3, block_size).reshape(nb, block_size // 4, n)
+    hi_g = (q >> 2).reshape(nb, 8, eighth, n)
+    hi = sum(hi_g[:, m] * (1 << m) for m in range(8))
+    hi = hi.to(torch.uint8).view(torch.int8)
+    return torch.cat([lo, hi], dim=1).reshape(k * 3 // 8, n)
+
+
+def unpack_int3(packed: torch.Tensor, block_size: int,
+                dtype=torch.int32) -> torch.Tensor:
+    """Inverse of pack_int3: int8 [K*3//8, N] -> q in [0, 7], [K, N], as
+    `dtype`; the planes are joined on uint8, then widened once."""
+    kr, n = packed.shape
+    rpb, quarter = block_size * 3 // 8, block_size // 4
+    nb = kr // rpb
+    b = packed.view(torch.uint8).reshape(nb, rpb, n)
+    lo = _unpack_int2_u8(b[:, :quarter].reshape(nb * quarter, n).view(torch.int8),
+                         block_size)
+    hi = torch.cat([(b[:, quarter:] >> m) & 1 for m in range(8)], dim=1)
+    return (lo.reshape(nb, block_size, n) + (hi << 2)).reshape(nb * block_size, n).to(dtype)
+
+
 def unpack_bits(packed: torch.Tensor, bits: int, block_size: int,
                 dtype=torch.int32) -> torch.Tensor:
     """int8 packed -> q in [0, 2^bits), [K, N], as `dtype`."""
+    if bits == 2:
+        return unpack_int2(packed, block_size, dtype)
+    if bits == 3:
+        return unpack_int3(packed, block_size, dtype)
     if bits == 4:
         return unpack_int4(packed, block_size, dtype)
     if bits == 8:
         return packed.view(torch.uint8).to(dtype)
-    raise ValueError(f"W{bits} unpacking is not ported")
+    raise ValueError(f"W{bits} has no packed layout")
 
 
 def _bf16_bits(b: torch.Tensor) -> torch.Tensor:
@@ -196,8 +261,8 @@ def quantize(
         bias = wmin
 
     q = q.to(torch.int32).reshape(k, n)
-    if bits == 4:
-        packed = pack_int4(q, block_size)
+    if bits in (2, 3, 4):
+        packed = {2: pack_int2, 3: pack_int3, 4: pack_int4}[bits](q, block_size)
     else:
         packed = q.to(torch.uint8).view(torch.int8)
     return QuantizedLinear(

@@ -265,11 +265,11 @@ def test_from_pretrained_needs_a_device_or_the_card(jax_ref):
         Llm.from_pretrained(jax_ref[CASES[0]]["dir"])
 
 
-def test_gemma_checkpoint_raises(tmp_path):
-    """Named when the port refused gemma: a tiny gemma3 checkpoint (sandwich
-    norms, QK-norm, the N:1 pattern) written by the JAX `save_checkpoint`
-    now loads, byte-equal to `params_from_numpy` of the same JAX params,
-    with its config; a multimodal-rope config still raises."""
+def test_gemma_checkpoint_loads_and_mrope_raises(tmp_path):
+    """A tiny gemma3 checkpoint (sandwich norms, QK-norm, the N:1 pattern)
+    written by the JAX `save_checkpoint` loads, byte-equal to
+    `params_from_numpy` of the same JAX params, with its config; a
+    multimodal-rope config raises."""
     cfg = dataclasses.replace(J_PRESETS["gemma3-4b"], name="tiny-gemma3", vocab_size=256,
                               hidden_size=128, intermediate_size=256, num_layers=2,
                               head_dim=64)

@@ -212,11 +212,10 @@ def test_awq_search_refused(hf, tmp_path):
                   str(tmp_path / "y"), "--awq", "--device", "cpu"])
 
 
-def test_gemma_conversion_refused(tmp_path):
-    """Named when the port refused gemma: a tiny Gemma2 HF directory now
-    converts, its norms carrying gemma's `1 + w` offset and its sandwich
-    norms in place (`tests/test_torch_gemma_convert.py` holds the bytes to
-    the JAX converter's)."""
+def test_gemma2_conversion_offsets_norms(tmp_path):
+    """A tiny Gemma2 HF directory converts, its norms carrying gemma's `1 + w`
+    offset and its sandwich norms in place (`tests/test_torch_gemma_convert.py`
+    holds the bytes to the JAX converter's)."""
     cfg = transformers.Gemma2Config(
         vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=1,
         num_attention_heads=4, num_key_value_heads=2, head_dim=16, sliding_window=4,
