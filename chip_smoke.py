@@ -33,7 +33,10 @@ Phases, each of which exits non-zero on failure:
    requests at int8 and int4 with qwen2-0.5b's and qwen1.5-moe-a2.7b's
    heads, at batch 2, and at kv_len 4000 of 4096, each row with its split
    (blocks a KV head) and SDPA's time; two calls must give the same bits
-   (the first six rows are also summed alone, `six_shapes`). The
+   (the first six rows are also summed alone, `six_shapes`); then as phase
+   9 calls it (`FLASH_DECODE_KV_ROWS`): qwen2-0.5b's heads at 331 and 631
+   of 1,024 over one bf16 layer without `layer_index` (a TQ3 / TQ4 step
+   unpacks its layer first) and over the stacked int8 cache. The
    whole-model decode kernel runs
    full-size `qwen2-0.5b` (int8, int4 and bf16 caches, batch 1 and 4), two
    layers at `qwen2-7b` widths and all 28 of qwen2-7b (each row with the
@@ -152,12 +155,30 @@ Phases, each of which exits non-zero on failure:
    with the dequantize-tile switch on: 96 launches of row 3, within 5e-2
    of the default path; (v) card against CPU at full width and 4 layers,
    prefill and 8 steps, phase 4's bounds and token rule.
+9. KV variants and cache tiers on full-size qwen2-0.5b (phase 3's weights
+   and runtime), each sub-phase with the launch counts set to 0 before and
+   read after: (x) a TQ3 cache (`kv_bits=3`) and (y) a TQ4 cache
+   (`kv_bits=4, kv_codebook=True`), the three requests of 17, 300 and 600
+   tokens, 32 new each: no whole-model or decode-step launch (both refuse
+   these caches, as in the JAX package), flash decode 24 times a token over
+   each unpacked layer, flash prefill 24 times a chunk; (z) `kv_rotate=True`
+   over an int8 and an int4 cache, the 300-token request, the same counts;
+   (x) and (y) each with a traced decode step (wall, busy, idle, launches a
+   token); (bb) on (x)'s model the 600-token context shelved into a
+   `KVOffloadPool` while the 17-token request is served, then restored; the
+   same through a pool of `max_bytes=1` (the entry spills to disk and
+   reloads); and through `save_prefix` / `load_prefix` into a fresh `Llm`:
+   each continued request's tokens equal those of a run that never left
+   the card, with the seconds and bytes of each move; (aa) card against CPU
+   at full width and 4 layers under (x), (y) and (z) over int4, prefill and
+   8 steps, phase 4's bounds and token rule.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
-matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel)
+matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
+flash decode's phase 9 rows and launches under `kv_variants`)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
 (phase 5's under `serve_batched`, phase 6's under `checkpoints`, phase
-7's under `gemma`, phase 8's under `sub4`; the gemma rows of rows 6 and 7
+7's under `gemma`, phase 8's under `sub4`, phase 9's under `kv`; the gemma rows of rows 6 and 7
 under `gemma` of their kernel in the kernels line, beside the sums of the
 earlier rows; under `weight_bits` the weight bits of the rows that ran each
 kernel in this run, and phase 8's rows and launches under `w3` and `w2`).
@@ -199,7 +220,9 @@ from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import batch_engine, evaluate, generate, kvcache
+from mnn_tpu_torch.runtime.kv_offload import KVOffloadPool
 from mnn_tpu_torch.runtime.llm import Llm
+from mnn_tpu_torch.runtime.prefix_cache import load_prefix, save_prefix
 from mnn_tpu_torch.serve.server import make_handler
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (data sheet)
@@ -702,6 +725,71 @@ def phase_flash_decode(dev, g, results):
               flush=True)
     del kq, vq, ks, vs
     results["flash_decode"] = rows
+
+
+# K5 as phase 9 calls it: (one unpacked layer?, kv bits, kv_len) with
+# qwen2-0.5b's heads over a capacity of 1,024: the last decode step of the
+# 300- and 600-token requests over one bf16 layer without `layer_index` (a
+# TQ3 / TQ4 step unpacks its layer first) and over the stacked 24-layer int8
+# cache (a rotated int8 step)
+FLASH_DECODE_KV_ROWS = [(True, 16, 331), (True, 16, 631), (False, 8, 331), (False, 8, 631)]
+
+
+def phase_flash_decode_kv(dev, g, results):
+    """K5 at FLASH_DECODE_KV_ROWS, each held to its plain version (rel-L2
+    3e-2, the same bits twice), timed over 24 layers' rows (one layer a
+    call), beside SDPA over the same rows and the byte bound."""
+    L, bsz, hkv, grp, d, cap = 24, 1, 2, 7, 64, 1024
+    tol = 3e-2
+    rows = []
+    caches = {bits: rand_cache(g, dev, L, bsz, hkv, cap, d, bits) for bits in (16, 8)}
+    for one, bits, n in FLASH_DECODE_KV_ROWS:
+        kq, vq, ks, vs = caches[bits]
+        q = torch.randn((bsz, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+        lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+        if one:     # one layer [B, Hkv, S, D], as `forward` unpacks a TQ layer
+            args = lambda i: (kq[i % L], vq[i % L], None, None, None)
+        else:
+            args = lambda i: (kq, vq, ks, vs, i % L)
+        call = lambda i: flash_attention.decode_attention(
+            q, *args(i)[:2], lengths, k_scale=args(i)[2], v_scale=args(i)[3],
+            layer_index=args(i)[4])
+        name = f"flash_decode {'one bf16 layer' if one else f'stacked int{bits}'} kv_len={n}"
+        before = flash_attention.KERNEL_DECODE.launches
+        got, again = call(3), call(3)
+        check(flash_attention.KERNEL_DECODE.launches == before + 2,
+              f"{name}: not one launch a call")
+        want = flash_attention.decode_attention_plain(q, *args(3)[:2], lengths, *args(3)[2:])
+        torch.cuda.synchronize()
+        err, rel = max_abs(got, want), rel_l2(got, want)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(rel <= tol, f"{name}: rel-L2 {rel:.3g} > {tol}")
+        check(torch.equal(got, again), f"{name}: two calls gave different bits")
+        ms = time_ms(call, calls=48)
+        plain_ms = time_ms(lambda i: flash_attention.decode_attention_plain(
+            q, *args(i)[:2], lengths, *args(i)[2:]), calls=8, replays=2)
+        q4 = q.reshape(bsz, hkv * grp, 1, d)
+        kd = kvcache.dequant_kv(kq[3], None if ks is None else ks[3], bits)[:, :, :n]
+        vd = kvcache.dequant_kv(vq[3], None if vs is None else vs[3], bits)[:, :, :n]
+        kd, vd = kd.repeat_interleave(grp, 1), vd.repeat_interleave(grp, 1)
+        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd), calls=48)
+        nbytes = 2 * bsz * hkv * grp * d * 2                           # q in, out
+        nbytes += 2 * hkv * n * (d * bits // 8 + (4 if bits < 16 else 0))
+        bound = nbytes / HBM_BYTES_S * 1e3
+        blocks_a_head, tile, smem, blocks = flash_attention.decode_split(bsz, hkv, grp, cap,
+                                                                         d, bits)
+        row = dict(shape=f"B=1 Hkv={hkv} G={grp} D={d} kv_len={n} S={cap} "
+                         f"{'one bf16 layer' if one else f'stacked int{bits}'}",
+                   max_abs_err=err, rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by="bytes",
+                   split=dict(blocks_a_head=blocks_a_head, tile=tile, smem=smem,
+                              blocks=blocks))
+        rows.append(row)
+        print(f"  flash_decode       {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} | {blocks_a_head} "
+              f"blocks a KV head, {tile}-position tiles, {blocks} blocks", flush=True)
+    results["flash_decode_kv"] = rows
 
 
 def decode_model_bytes(cfg, lay, head, batch, kv_bits, lengths) -> int:
@@ -2718,6 +2806,215 @@ def phase_sub4(dev, g, results, bits):
 
 
 
+# --------------------------------------------------------------------------
+# phase 9: KV variants and cache tiers
+# --------------------------------------------------------------------------
+
+KV_CODEBOOKS = {"tq3": dict(kv_bits=3), "tq4": dict(kv_bits=4, kv_codebook=True)}
+KV_ROTATED = {"rot_int8": dict(kv_rotate=True, kv_bits=8),
+              "rot_int4": dict(kv_rotate=True, kv_bits=4)}
+KV_PARITY_LAYERS = 4        # (aa): full width, cut depth on both sides
+OFFLOAD_NEW = 8             # (bb): new tokens of the continued request
+# (x), (y): traced decode steps. A traced step of these per-layer paths is
+# some thousands of launches and costs the script about 4 s; (z) is not traced
+KV_PROFILE_STEPS = 1
+# (aa): the variants held against the CPU (the rotation over int4 only, to
+# fit the script's time)
+KV_PARITY = ("tq3", "tq4", "rot_int4")
+KV_NEVER = ("mnn_decode_model", "mnn_decode_step")
+
+
+def kv_rt(**flags) -> RuntimeConfig:
+    return dataclasses.replace(serving_rt(), **flags)
+
+
+def phase_kv_serve(llm, reqs, label, card_line, profile=True):
+    """(x), (y), (z): `reqs` through `Llm.stream`, NEW_TOKENS new each: no
+    whole-model or decode-step launch (both refuse these caches), flash
+    decode once a layer a step, flash prefill once a layer a chunk; then,
+    with `profile`, a traced decode."""
+    cfg = llm.config
+    info = llm.info()
+    check(not info["decode_megakernel"], f"{label}: the whole-model kernel accepted it")
+    list(llm.stream(token_ids=reqs[0][:8], max_new_tokens=2))     # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs, perf = serve(llm, reqs, label)
+    counts = read_launches(label, PREFILL_KERNELS + ("mnn_flash_decode",), never=KV_NEVER)
+    steps, chunks = NEW_TOKENS * len(reqs), chunks_of(reqs, llm.rt)
+    want = {"mnn_flash_decode": steps * cfg.num_layers,
+            "mnn_flash_prefill": chunks * cfg.num_layers,
+            "mnn_dequant_matmul_a8": 4 * cfg.num_layers * chunks}
+    for k, n in want.items():
+        check(counts[k] == n, f"{label}: {counts[k]} launches of {k}, {n} expected "
+              f"({steps} decode steps, {chunks} prefill chunks)")
+    prof = (decode_profile(llm, reqs[-1], KV_PROFILE_STEPS, label, card_line)[0]
+            if profile else None)
+    return outs, dict(requests=perf, launches=counts, decode_steps=steps,
+                      prefill_chunks=chunks, decode=prof,
+                      kv_cache_bytes=info["kv_cache_bytes"])
+
+
+def to_device(obj, dev):
+    """Params (or any dataclass of tensors) copied onto `dev`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def phase_kv_parity(dev, params):
+    """(aa): full width, the first KV_PARITY_LAYERS layers of `params`, the
+    first request's prefill and PARITY_STEPS steps under each variant on the
+    card and through the plain versions on the CPU (a copy of the same
+    weights), phase 4's bounds and token rule."""
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=KV_PARITY_LAYERS)
+    cut = first_layers(params, KV_PARITY_LAYERS)
+    params = {dev: cut, "cpu": to_device(cut, "cpu")}
+    ids = prompts(cfg.vocab_size)[0]
+    out = {}
+    for name in KV_PARITY:
+        flags = {**KV_CODEBOOKS, **KV_ROTATED}[name]
+        make = lambda d: Llm(cfg, params[d], kv_rt(**flags), device=d)
+        build.reset_launches()
+        card, fed, _ = greedy_trace(make(dev), ids, None)
+        read_launches(f"{name} parity, {KV_PARITY_LAYERS} layers",
+                      PREFILL_KERNELS + ("mnn_flash_decode",), never=KV_NEVER)
+        t0 = time.perf_counter()
+        cpu, _, _ = greedy_trace(make("cpu"), ids, fed)
+        out[name] = dict(compare_traces(card, cpu, f"{name} ({KV_PARITY_LAYERS} layers, "
+                                                   f"full width) "),
+                         layers=KV_PARITY_LAYERS)
+        print(f"    cpu run {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def synced(fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def phase_offload(llm, reqs, head, card_line):
+    """(bb): the context that (x)'s 600-token request left in its TQ3 cache
+    (`head`: its new tokens), moved out and back three ways, each followed
+    by the same request (the first prompt's first 9 tokens, OFFLOAD_NEW
+    new): shelved into a host pool while the 17-token request is served (8
+    new), restored; restored from that pool, shelved into a pool of
+    `max_bytes=1` with another context shelved after it (so it spills to
+    disk), restored from disk; saved with `save_prefix` and loaded into a
+    fresh `Llm`. After each restore the rows and scales equal the context's
+    own, and each continuation's tokens equal those of the same request
+    from a device copy of the context that never left the card. Seconds and
+    bytes of each move (set-up)."""
+    ids_now = reqs[2] + head
+    ctx = len(ids_now)
+    check(llm.context_len == ctx, f"offload: (x) left {llm.context_len} tokens, not {ctx}")
+    cont_ids = reqs[0][:9]
+    names = ("k", "v", "k_scale", "v_scale")
+    snap = {f: getattr(llm.cache, f).clone() for f in names}
+    # dim 3 is the position in the rows [L, B, Hkv, S, D] and the scales [L, B, Hkv, S]
+    same_rows = lambda cache: all(torch.equal(getattr(cache, f)[:, :, :, :ctx],
+                                              snap[f][:, :, :, :ctx]) for f in names)
+    cont = lambda m: list(m.stream(token_ids=cont_ids, max_new_tokens=OFFLOAD_NEW))
+    out = dict(context_tokens=ctx)
+    tmp = tempfile.mkdtemp(prefix="mnn_offload_")
+    got = {}
+    try:
+        build.reset_launches()
+        pool = KVOffloadPool()                                      # host pool
+        n, shelve_s = synced(lambda: llm.shelve_context("A", pool, ids_now))
+        check(n == ctx and llm.context_len == 0, "offload (pool): shelve")
+        list(llm.stream(token_ids=reqs[0], max_new_tokens=8))
+        ok, restore_s = synced(lambda: llm.restore_context("A", pool))
+        check(ok and llm.context_len == ctx and same_rows(llm.cache),
+              "offload (pool): the restored rows differ")
+        out["pool"] = dict(shelve_s=shelve_s, restore_s=restore_s, host_bytes=pool.bytes)
+        path = os.path.join(tmp, "prefix.npz")
+        _, save_s = synced(lambda: save_prefix(path, llm.cache, ids_now))
+        got["pool"] = cont(llm)
+
+        check(llm.restore_context("A", pool), "offload (spill): restore")
+        spill = KVOffloadPool(max_bytes=1, spill_dir=tmp)           # disk tier
+        _, shelve_s = synced(lambda: llm.shelve_context("A", spill, ids_now))
+        list(llm.stream(token_ids=reqs[0], max_new_tokens=1))
+        _, spill_s = synced(lambda: llm.shelve_context("B", spill))
+        check(spill.stats()["spilled"] == 1 and "A" in spill, "offload (spill): no spill")
+        ok, reload_s = synced(lambda: llm.restore_context("A", spill))
+        check(ok and llm.context_len == ctx and same_rows(llm.cache),
+              "offload (spill): the reloaded rows differ")
+        out["spill"] = dict(shelve_s=shelve_s, spill_s=spill_s, reload_restore_s=reload_s,
+                            stats=spill.stats())
+        got["spill"] = cont(llm)
+
+        fresh = Llm(llm.config, llm.params, llm.rt, device=llm.device)   # file
+        (fresh.cache, saved), load_s = synced(lambda: load_prefix(path, fresh.cache))
+        check(saved == ids_now and same_rows(fresh.cache),
+              "offload (prefix): the loaded rows differ")
+        out["prefix"] = dict(save_s=save_s, load_s=load_s, file_bytes=os.path.getsize(path))
+        got["prefix"] = cont(fresh)
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the reference: a device copy of the context, never moved off the card
+    llm.cache = kvcache.with_length(
+        dataclasses.replace(llm.cache, **{f: snap[f] for f in names}),
+        torch.full_like(llm.cache.length, ctx))
+    want = cont(llm)
+    out["continued"] = want
+    for how, toks in got.items():
+        check(toks == want, f"offload ({how}): continued tokens {toks} differ from "
+              f"the never-moved context's {want}")
+    out["launches"] = read_launches("offload", ("mnn_flash_decode",), never=KV_NEVER)
+    for how in got:
+        print(f"  offload ({how}): {ctx} tokens, " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in out[how].items() if k != "stats")
+            + f"; {OFFLOAD_NEW} continued tokens equal [{card_line}]", flush=True)
+    return out
+
+
+def phase_kv(dev, params, card_line):
+    """Phase 9 on full-size qwen2-0.5b with phase 3's weights and runtime."""
+    t0 = time.perf_counter()
+    cfg = PRESETS["qwen2-0.5b"]
+    reqs = prompts(cfg.vocab_size)
+    out = {}
+    for name, flags in KV_CODEBOOKS.items():          # (x), (y)
+        t1 = time.perf_counter()
+        llm = Llm(cfg, params, kv_rt(**flags), device=dev)
+        check(llm.cache.bits == flags["kv_bits"]
+              and llm.cache.codebook == bool(flags.get("kv_codebook")),
+              f"{name}: the cache is not {flags}")
+        outs, out[name] = phase_kv_serve(llm, reqs, f"{name} kv", card_line)
+        out[name]["seconds"] = time.perf_counter() - t1
+        if name == "tq3":
+            tq3, tq3_head = llm, outs[2]
+    for name, flags in KV_ROTATED.items():            # (z)
+        t1 = time.perf_counter()
+        llm = Llm(cfg, params, kv_rt(**flags), device=dev)
+        check(llm.config.kv_rotate and llm.info()["kv_rotate"], f"{name}: not rotated")
+        _, out[name] = phase_kv_serve(llm, reqs[1:2], f"{name} kv", card_line,
+                                      profile=False)
+        out[name]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["offload"] = phase_offload(tq3, reqs, tq3_head, card_line)   # (bb)
+    out["offload"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["parity"] = phase_kv_parity(dev, params)           # (aa)
+    out["parity"]["seconds"] = time.perf_counter() - t1
+    print("  phase 9 by sub-phase, s: " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in out.items()), flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 9: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -2806,6 +3103,7 @@ def main():
     phase_decode(dev, g, results)
     phase_decode_gemma(dev, g, results)
     phase_flash_decode(dev, g, results)
+    phase_flash_decode_kv(dev, g, results)
     phase_gemm_deq(dev, g, results)
     phase_moe_decode(dev, g, results)
     phase_moe_prefill(dev, g, results)
@@ -2832,6 +3130,7 @@ def main():
     serve_batched["server"] = phase_server(llm, eng, card_line)
     del eng
     phase5_s = time.perf_counter() - t5
+    params05 = llm.params           # phase 9's weights
     del llm
     torch.cuda.empty_cache()
 
@@ -2885,6 +3184,11 @@ def main():
         sub4[f"w{bits}"] = phase_sub4(dev, g, results, bits)
     sub4["seconds"] = time.perf_counter() - t8
     print(f"  phase 8: {sub4['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    print("phase 9: KV variants and cache tiers on qwen2-0.5b", flush=True)
+    kv = phase_kv(dev, params05, card_line)
+    del params05
 
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     kernels = []
@@ -2911,6 +3215,10 @@ def main():
         if kname == "flash_decode":
             k["six_shapes"] = row_sums(rows[:FLASH_DECODE_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[FLASH_DECODE_FIRST_ROWS:])
+            # phase 9: one bf16 layer and the stacked int8 cache; the
+            # launches of (x), (y) and (z), 24 a token
+            k["kv_variants"] = dict(row_sums(results["flash_decode_kv"]), launches=sum(
+                kv[v]["launches"][entry] for v in (*KV_CODEBOOKS, *KV_ROTATED)))
         if kname == "decode_model":
             k["seven_shapes"] = row_sums(rows[:DECODE_MODEL_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[DECODE_MODEL_FIRST_ROWS:])
@@ -2937,7 +3245,7 @@ def main():
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
-                  gemma=gemma, sub4=sub4, seconds=time.perf_counter() - t_start,
+                  gemma=gemma, sub4=sub4, kv=kv, seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -17,9 +17,10 @@ directory (`--hf`) or a llama.cpp GGUF file (`--gguf`) and quantizes on the
 device; `--awq` (the activation-aware scale search) is not ported. The
 model defaults are the serving configuration of the port's main path: W4
 block-128 weights, an int4 lm head (a loaded checkpoint keeps the head it
-was converted with), an int8 KV cache (`--kv-bits 4` packs it to int4) and
-int8 prefill activations. Decode steps run through the whole-model decode
-kernel whenever the config is eligible; the mixture-of-experts models
+was converted with), an int8 KV cache (`--kv-bits 4` packs it to int4,
+`--kv-bits 3` gives the TQ3 codebook cache) and int8 prefill activations.
+Decode steps run through the whole-model decode kernel whenever the config
+is eligible; the mixture-of-experts models
 decode layer by layer through the fused expert kernel and prefill through
 the grouped one. `serve` answers OpenAI chat and completions requests
 (`serve/server.py`), one at a time through `Llm.stream`, or with `--batch`
@@ -51,8 +52,9 @@ def _add_model_args(p):
     p.add_argument("--top-p", type=float, default=0.9)
     p.add_argument("--penalty", type=float, default=1.0)
     p.add_argument("--no-kv-quant", action="store_true")
-    p.add_argument("--kv-bits", type=int, default=8, choices=(4, 8),
-                   help="quantized KV cache: int8 or nibble-packed int4")
+    p.add_argument("--kv-bits", type=int, default=8, choices=(3, 4, 8),
+                   help="quantized KV cache: int8, nibble-packed int4, or the "
+                        "TQ3 codebook (3)")
     p.add_argument("--lm-head-bits", type=int, default=4, choices=(0, 4, 8),
                    help="quantized output projection (0 = bf16 head)")
     p.add_argument("--prefill-act-bits", type=int, default=8,

@@ -486,7 +486,10 @@ def supports(config, params, cache, batch: int) -> bool:
         return False
     if c.mlp_act not in ("silu", "gelu_tanh"):
         return False
-    if cache.bits not in (4, 8, 16) or not 1 <= batch <= MAX_BATCH:
+    # a TQ3 or TQ4 codebook cache is refused, as in the JAX package: TQ4
+    # shares int4's layout, and the kernel's unpack knows no codebook
+    if cache.bits not in (4, 8, 16) or getattr(cache, "codebook", False) \
+            or not 1 <= batch <= MAX_BATCH:
         return False
     if c.head_dim not in (64, 128, 256) or (c.head_dim == 256 and cache.bits == 4):
         return False

@@ -28,8 +28,18 @@ query scale per layer; prefill, and decode over an int4 cache, go through
 `_attention_eager`, the counterpart of the JAX package's `_attention_xla`
 (its layer scan), never through the flash kernels.
 
-Not ported yet: multimodal rope, the Hadamard KV rotation, LoRA, tensor and
-expert parallelism, token-tree verify, PLE and deepstack.
+KV variants, as in the JAX package: under `kv_rotate` q, k and v are
+Hadamard-rotated after rope (scores are unchanged, the cache holds rotated
+rows) and the attention output is rotated back before `wo`. A TQ3 or TQ4
+codebook cache is unpacked to bf16 before attention: prefill dequantizes the
+window for the flash kernel, a decode step unpacks its layer and calls the
+flash decode kernel over it. Under either, neither decode kernel that
+quantizes its own rows runs (the whole-model and the decode-step kernel):
+the per-layer path appends the row and calls flash decode; gemma takes the
+eager attention.
+
+Not ported yet: multimodal rope, LoRA, tensor and expert parallelism,
+token-tree verify, PLE and deepstack.
 """
 
 from __future__ import annotations
@@ -46,8 +56,8 @@ from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from mnn_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from mnn_tpu_torch.models.config import ModelConfig
 from mnn_tpu_torch.models.layers import (apply_rope, geglu_tanh, rms_norm,
-                                         rope_cos_sin, softcap, split_gate_up,
-                                         swiglu)
+                                         rope_cos_sin, rotate_heads, softcap,
+                                         split_gate_up, swiglu)
 from mnn_tpu_torch.quant.quantize import QuantizedLinear, choose_block_size
 from mnn_tpu_torch.runtime import kvcache
 from mnn_tpu_torch.runtime.kvcache import KVCache
@@ -93,11 +103,10 @@ class Params:
 
 
 def _check_supported(c: ModelConfig):
-    if c.mrope_section or c.kv_rotate:
+    if c.mrope_section:
         raise NotImplementedError(
-            f"{c.name}: multimodal rope and the Hadamard KV rotation are not "
-            "ported (qwen/llama/gemma2/gemma3 configs, dense or mixture of "
-            "experts, are)")
+            f"{c.name}: multimodal rope is not ported (qwen/llama/gemma2/gemma3 "
+            "configs, dense or mixture of experts, are)")
     if c.mlp_act not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"{c.name}: mlp_act {c.mlp_act!r}")
 
@@ -425,17 +434,18 @@ def _moe_mlp_fused(c: ModelConfig, h2: torch.Tensor, layers: LayerParams,
 
 
 def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
-               kv_len, start, bits):
+               kv_len, start, bits, codebook=False):
     """Prefill (T > 1) attention of q [B, H, T, D] over one layer's cache,
-    which already holds the chunk's own K/V rows."""
-    kf = kvcache.dequant_kv(k_cache, k_scale, bits)
-    vf = kvcache.dequant_kv(v_cache, v_scale, bits)
+    which already holds the chunk's own K/V rows: the window dequantized to
+    bf16 (codebook values for TQ3 / TQ4), then the flash kernel."""
+    kf = kvcache.dequant_kv(k_cache, k_scale, bits, codebook=codebook)
+    vf = kvcache.dequant_kv(v_cache, v_scale, bits, codebook=codebook)
     return flash_attention(q, kf, vf, kv_len=kv_len[0], q_offset=start,
                            window=c.sliding_window, sink=c.attention_sink)
 
 
 def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
-                     kv_len, lengths, window: int, bits: int):
+                     kv_len, lengths, window: int, bits: int, codebook=False):
     """Dense masked attention in plain torch ops, the counterpart of the JAX
     package's `_attention_xla`: the path of gemma's prefill and of its
     decode over an int4 cache (score softcap, a per-layer window). q [B, H,
@@ -446,8 +456,8 @@ def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
     inequalities, an f32 softmax, the output rounded to q's dtype."""
     b, h, t, d = q.shape
     if bits < 16:
-        kf = kvcache.dequant_kv(k_cache, k_scale, bits)
-        vf = kvcache.dequant_kv(v_cache, v_scale, bits)
+        kf = kvcache.dequant_kv(k_cache, k_scale, bits, codebook=codebook)
+        vf = kvcache.dequant_kv(v_cache, v_scale, bits, codebook=codebook)
     else:
         kf, vf = k_cache, v_cache
     hkv, cap = kf.shape[1], kf.shape[2]
@@ -521,7 +531,11 @@ def forward(
     Gemma configs (`gemma_like`) take the JAX package's paths: prefill and
     decode over an int4 cache run `_attention_eager`, a decode step over an
     int8 or bf16 cache the whole-model kernel or the decode-step kernel,
-    with each layer's window, rope phases, softcap and query scale."""
+    with each layer's window, rope phases, softcap and query scale. Under
+    `kv_rotate` or a TQ3 / TQ4 cache, neither decode kernel that quantizes
+    its own rows runs (`fused` below): the per-layer path appends the row
+    and calls flash decode, and gemma takes `_attention_eager` for decode
+    too."""
     c = config
     _check_supported(c)
     b, t = tokens.shape
@@ -547,8 +561,13 @@ def forward(
             cos_lf = torch.cat([cos_l[:, 0], cos_l[:, 0]], dim=-1)
             sin_lf = torch.cat([sin_l[:, 0], sin_l[:, 0]], dim=-1)
 
-    # gemma's prefill and its decode over an int4 cache: plain attention
-    eager = gemma_like(c) and (t > 1 or cache.bits == 4)
+    # the decode kernels that quantize their own rows take neither a
+    # codebook cache nor rotated rows (the JAX package's `fused` and
+    # `gemma_fast` conditions)
+    self_quantizing = cache.bits not in (3, 4) and not c.kv_rotate
+    # gemma's prefill, and its decode where the decode-step kernel cannot
+    # serve it: plain attention
+    eager = gemma_like(c) and (t > 1 or not self_quantizing)
     eligible = (megakernel is not False and t == 1 and not eager
                 and decode_model.supports(c, params, cache, b))
     if megakernel is True and not eligible:
@@ -566,7 +585,8 @@ def forward(
             return ((logits, token), new_cache) if return_token else (logits, new_cache)
         return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
 
-    fused = t == 1 and cache.bits != 4 and not eager
+    fused = t == 1 and self_quantizing and not eager
+    tq = cache.bits == 3 or cache.codebook          # a TQ3 or TQ4 cache
     # a decode step of at most 8 rows takes the fused expert kernel
     moe_fast = c.is_moe and t == 1 and moe_decode.supports(c, layers, b)
     for i in range(c.num_layers):
@@ -598,8 +618,12 @@ def forward(
                 q = rms_norm(q, layers.q_norm[i], c.rms_norm_eps)
                 k = rms_norm(k, layers.k_norm[i], c.rms_norm_eps)
             cos_i, sin_i = (cos_l, sin_l) if local else (cos, sin)
-            q = apply_rope(q, cos_i, sin_i).contiguous()
+            q = apply_rope(q, cos_i, sin_i)
             k = apply_rope(k, cos_i, sin_i)
+            if c.kv_rotate:
+                # scores unchanged (H is orthonormal), outliers spread over D
+                q, k, v = rotate_heads(q), rotate_heads(k), rotate_heads(v)
+            q = q.contiguous()
             if eager:
                 if t == 1:
                     kvcache.append_decode_stacked(cache, i, k, v, cache.length)
@@ -609,10 +633,20 @@ def forward(
                     c, q, cache.k[i], cache.v[i],
                     None if cache.k_scale is None else cache.k_scale[i],
                     None if cache.v_scale is None else cache.v_scale[i],
-                    kv_len, cache.length, window_i, cache.bits)
+                    kv_len, cache.length, window_i, cache.bits, cache.codebook)
+            elif t == 1 and tq:
+                # TQ3 / TQ4: append the row, unpack the layer to bf16, attend
+                kvcache.append_decode_stacked(cache, i, k, v, cache.length)
+                kf = kvcache.dequant_kv(cache.k[i], cache.k_scale[i], cache.bits,
+                                        codebook=cache.codebook)
+                vf = kvcache.dequant_kv(cache.v[i], cache.v_scale[i], cache.bits,
+                                        codebook=cache.codebook)
+                att = decode_attention(q[:, :, 0], kf, vf, kv_len, window=window_i,
+                                       sink=c.attention_sink)[:, :, None]
             elif t == 1:
-                # int4 cache: quantize and append the row, then attend over
-                # the packed cache in place (the new token included)
+                # an int4 cache, or rotated rows: quantize and append the
+                # row, then attend over the cache in place (the new token
+                # included)
                 kvcache.append_decode_stacked(cache, i, k, v, cache.length)
                 att = decode_attention(
                     q[:, :, 0], cache.k, cache.v, kv_len,
@@ -625,7 +659,9 @@ def forward(
                     c, q, cache.k[i], cache.v[i],
                     None if cache.k_scale is None else cache.k_scale[i],
                     None if cache.v_scale is None else cache.v_scale[i],
-                    kv_len, start, cache.bits)
+                    kv_len, start, cache.bits, cache.codebook)
+            if c.kv_rotate:
+                att = rotate_heads(att, inverse=True)
             att = att.transpose(1, 2).reshape(b, t, c.q_dim)
         o = dequant_matmul(att, layers.wo, layer_index=i)
         if c.sandwich_norm:     # gemma: the attention output is normed

@@ -1,14 +1,14 @@
 """Layer primitives: RMSNorm, RoPE, SwiGLU, GeGLU-tanh, the tanh softcap,
-the gate/up column layout.
+the gate/up column layout, the Hadamard rotation of the head dim.
 
 Counterpart of `mnn_tpu/models/layers.py`, as plain PyTorch ops with the
 same rounding points (f32 math, result cast back to the input's dtype).
-Multimodal rope, the Hadamard rotation and `rotate_heads` are not ported
-yet.
+Multimodal rope is not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -109,3 +109,37 @@ def interleave_gate_up(wg, wu):
     stack = torch.stack if isinstance(wg, torch.Tensor) else np.stack
     stacked = stack([wg.reshape(k, i // blk, blk), wu.reshape(k, i // blk, blk)], 2)
     return stacked.reshape(k, 2 * i)
+
+
+@functools.lru_cache(maxsize=8)
+def hadamard(d: int) -> np.ndarray:
+    """Orthonormal Hadamard matrix [d, d] f32 (Sylvester; d a power of 2):
+    H @ H.T = I, entries +-1/sqrt(d). A numpy array, as in the JAX package;
+    `rotate_heads` moves it to the tensor's device."""
+    if d <= 0 or d & (d - 1):
+        raise ValueError(f"hadamard requires power-of-2 dim, got {d}")
+    h = np.ones((1, 1), np.float32)
+    while h.shape[0] < d:
+        h = np.block([[h, h], [h, -h]])
+    # the JAX package divides in f64 and casts to f32 where it multiplies
+    return (h / np.sqrt(d)).astype(np.float32)
+
+
+def rotate_heads(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Rotate the head dim of x [..., D] by the orthonormal Hadamard (its
+    transpose with `inverse`): the product in f32, cast to x's dtype.
+
+    On the card the product must run in full f32, with TF32 off (PyTorch's
+    default, `torch.backends.cuda.matmul.allow_tf32 = False`): TF32 would
+    round x to 10 mantissa bits first, and a rotated model's tokens would
+    leave the CPU's. So a CUDA call with TF32 on raises."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("rotate_heads needs full f32 products: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    h = _hadamard_on(x.shape[-1], x.device)
+    return torch.matmul(x.float(), h.T if inverse else h).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _hadamard_on(d: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(hadamard(d)).to(device)

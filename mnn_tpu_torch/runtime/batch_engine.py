@@ -40,6 +40,11 @@ experts in the fused expert kernel; more send every step through the
 capacity-grouped dispatch that prefill chunks take. Nothing enforces this,
 as the JAX engine enforces nothing.
 
+The cache is created as the JAX engine creates it: `rt.kv_bits` (3 for
+TQ3, 4, 8, or bf16 without `kv_quant`) and no codebook, so
+`rt.kv_codebook` is ignored here as it is there (the model's config carries
+`kv_rotate`: `Llm` sets it from `rt.kv_rotate`).
+
 Not ported: the JAX engine's `mesh` / `dp_axis` (the batch sharded over a
 data-parallel mesh). Sampled (non-greedy) ids differ from the JAX engine's:
 the two packages draw from different generators (`runtime/sampler.py`).
@@ -64,6 +69,7 @@ from mnn_tpu_torch.models.decoder import Params, forward
 from mnn_tpu_torch.runtime import kvcache, sampler
 from mnn_tpu_torch.runtime.generate import run_prefill
 from mnn_tpu_torch.runtime.kvcache import KVCache
+from mnn_tpu_torch.runtime.prefix_cache import _from_np, _to_np
 from mnn_tpu_torch.runtime.sampler import SamplerState
 
 
@@ -163,24 +169,6 @@ def _decode_block(
         return out
     return out + (torch.stack(lps, dim=1), torch.stack(tids, dim=1),
                   torch.stack(tvals, dim=1))
-
-
-def _to_np(t: torch.Tensor):
-    """(numpy array that `np.savez` can hold, dtype name): bf16 crosses as
-    its uint16 bits, as the JAX package's `prefix_cache._to_np` writes it."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-    a = t.numpy()
-    return a, str(a.dtype)
-
-
-def _from_np(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
-    """The inverse of `_to_np`, onto `device`."""
-    a = np.require(a, requirements=["C", "W"])
-    if dtype_name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
 
 
 class BatchEngine:
@@ -552,7 +540,8 @@ class BatchEngine:
                 k=get("k", str(z["k_dtype"])), v=get("v", str(z["v_dtype"])),
                 k_scale=get("k_scale") if quant else None,
                 v_scale=get("v_scale") if quant else None,
-                length=ints("length"), bits=int(z["bits"]))
+                length=ints("length"), bits=int(z["bits"]),
+                codebook=eng.cache.codebook)
             eng.last_tokens = ints("last_tokens")
             if "torch_generator" in z.files:
                 eng.generator.set_state(torch.from_numpy(z["torch_generator"]))

@@ -1,24 +1,32 @@
-"""Fixed-capacity KV cache: bf16, int8 or nibble-packed int4.
+"""Fixed-capacity KV cache: bf16, int8, nibble-packed int4, or the TQ3 /
+TQ4 codebook encodings.
 
 Counterpart of `mnn_tpu/runtime/kvcache.py`: one preallocated buffer per
-tensor, [L, B, Hkv, S, D] ([.., D/2] for int4), with a per-sequence valid
-length. Rollback and reset move the length only; positions at or past it
-are masked by every reader. Quantized storage keeps one f32 scale per
-(token, head), which the decode kernels fold into score and probability
-columns. An int4 byte j holds head dims (j, j + D/2), low nibble first, in
-unsigned form (q + 8), stored as signed int8.
+tensor, [L, B, Hkv, S, D] ([.., D/2] for int4 and TQ4, [.., 3D/8] for
+TQ3), with a per-sequence valid length. Rollback and reset move the length
+only; positions at or past it are masked by every reader. Quantized storage
+keeps one f32 scale per (token, head), which the decode kernels fold into
+score and probability columns. An int4 byte j holds head dims (j, j + D/2),
+low nibble first, in unsigned form (q + 8), stored as signed int8.
+
+TQ3 (`kv_bits=3`) and TQ4 (`kv_bits=4, kv_codebook=True`) store the index
+of the nearest level of a fixed Lloyd-Max codebook for N(0, 1), the row
+scaled by its RMS: TQ3 packs eight 3-bit codes into three bytes, TQ4 uses
+int4's nibble layout. No kernel reads them: attention unpacks a codebook
+layer to bf16 first (`dequant_kv`), as the JAX package does. A TQ4 cache
+looks like an int4 cache by its shape and bits, so every reader keyed on
+`bits == 4` must also check `codebook`.
 
 Unlike the JAX package, the writes here update the buffers IN PLACE
 (`index_copy_` / `index_put_`): a functional copy of the whole cache per
 token would cost its full size in memory traffic. Lengths stay on the
 cache's device, so no write waits for the host.
-
-The TQ3 and TQ4 codebook encodings are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -32,7 +40,8 @@ class KVCache:
     k_scale: Optional[torch.Tensor]   # [L, B, Hkv, S] f32 when quantized
     v_scale: Optional[torch.Tensor]
     length: torch.Tensor              # [B] int32 valid prefix length
-    bits: int = 16                    # 16 = bf16, 8 = int8, 4 = packed nibbles
+    bits: int = 16                    # 16 = bf16, 8 = int8, 4 = nibbles, 3 = TQ3
+    codebook: bool = False            # at bits 4: TQ4 codes, not uniform levels
 
     @property
     def capacity(self) -> int:
@@ -57,14 +66,18 @@ def create(
     quantized: bool = True,
     dtype=torch.bfloat16,
     kv_bits: int = 8,
+    kv_codebook: bool = False,
     device=None,
 ) -> KVCache:
     bits = kv_bits if quantized else 16
-    if bits not in (4, 8, 16):
-        raise ValueError(f"kv_bits={kv_bits} is not ported (4, 8 or bf16)")
+    if bits not in (3, 4, 8, 16):
+        raise ValueError(f"kv_bits={kv_bits}: 3, 4, 8 or bf16")
     if bits == 4 and head_dim % 2:
         raise ValueError("kv_bits=4 needs an even head_dim")
-    d_store = head_dim // 2 if bits == 4 else head_dim
+    if bits == 3 and head_dim % 8:
+        raise ValueError("kv_bits=3 needs head_dim % 8 == 0")
+    codebook = bool(kv_codebook) and bits == 4
+    d_store = {4: head_dim // 2, 3: head_dim * 3 // 8}.get(bits, head_dim)
     shape = (num_layers, batch, num_kv_heads, capacity, d_store)
     if quantized:
         k = torch.zeros(shape, dtype=torch.int8, device=device)
@@ -78,7 +91,7 @@ def create(
     return KVCache(k=k, v=v, k_scale=ks, v_scale=vs,
                    length=torch.zeros((batch,), dtype=torch.int32,
                                       device=device),
-                   bits=bits)
+                   bits=bits, codebook=codebook)
 
 
 def quantize_kv(x: torch.Tensor):
@@ -117,20 +130,100 @@ def unpack_kv4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1).float()
 
 
-def quantize_for(bits: int, x: torch.Tensor):
-    return quantize_kv4(x) if bits == 4 else quantize_kv(x)
+# TQ3: the 8-level Lloyd-Max quantizer for N(0, 1), applied to a row divided
+# by its RMS; eight 3-bit codes (code k at bits 3k..3k+2 of a 24-bit word)
+# fill three bytes, low byte first.
+TQ3_LEVELS = (-2.1519, -1.3439, -0.7560, -0.2451, 0.2451, 0.7560, 1.3439, 2.1519)
+# TQ4: the 16-level one, in int4's nibble layout (codes, not q + 8)
+TQ4_LEVELS = (-2.7326, -2.0690, -1.6180, -1.2562, -0.9423, -0.6568, -0.3880,
+              -0.1284, 0.1284, 0.3880, 0.6568, 0.9423, 1.2562, 1.6180, 2.0690,
+              2.7326)
+_SHIFTS3 = (0, 3, 6, 9, 12, 15, 18, 21)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor, made once a device: made per call, each
+    would be a copy from the host that waits for the device."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _nearest_code(x: torch.Tensor, levels):
+    """(index of the nearest level of x / rms(x) a value [..., D] int64, the
+    scale rms(x) [...]); the lowest index on a tie, as `jnp.argmin` takes.
+
+    The mean of squares and its root are taken in f64 and rounded once to
+    f32, so the card and the CPU give the same scale: the f64 sum of squared
+    bf16 values is exact in any order, and PyTorch's f32 sqrt on the CPU is
+    not always correctly rounded (its f64 sqrt, and the card's, are). The
+    JAX package sums in f32, in XLA's order: its scale lies within a few f32
+    ulps of this one (`tests/test_torch_kv_variants.py` bounds it)."""
+    rms = x.double().square().mean(dim=-1).sqrt().float()
+    scale = rms.masked_fill(rms == 0, 1.0)
+    xn = x.float() / scale[..., None]
+    lv = _const(levels, torch.float32, x.device)
+    return torch.argmin((xn[..., None] - lv).abs(), dim=-1), scale
+
+
+def quantize_kv3(x: torch.Tensor):
+    """Per-(token, head) TQ3: x [..., D] -> (packed [..., 3D/8] int8, scale).
+    A cast to int8 keeps a value's low byte, the wrap the JAX package
+    writes out."""
+    d = x.shape[-1]
+    idx, scale = _nearest_code(x, TQ3_LEVELS)
+    shifts = _const(_SHIFTS3, torch.int64, x.device)
+    # the codes' bits do not overlap, so their sum is their OR
+    val24 = (idx.reshape(*idx.shape[:-1], d // 8, 8) << shifts).sum(dim=-1)
+    bytes3 = (val24[..., None] >> _const((0, 8, 16), torch.int64, x.device)).to(torch.int8)
+    return bytes3.reshape(*idx.shape[:-1], d * 3 // 8), scale
+
+
+def unpack_kv3(packed: torch.Tensor) -> torch.Tensor:
+    """[..., 3D/8] int8 -> codebook values [..., D] f32 (scale not applied)."""
+    dev = packed.device
+    p = packed.to(torch.int32) & 0xFF
+    grp = p.reshape(*p.shape[:-1], p.shape[-1] // 3, 3)
+    val24 = (grp << _const((0, 8, 16), torch.int32, dev)).sum(dim=-1, dtype=torch.int32)
+    codes = (val24[..., None] >> _const(_SHIFTS3, torch.int32, dev)) & 0x7
+    codes = codes.reshape(*p.shape[:-1], grp.shape[-2] * 8)
+    return _const(TQ3_LEVELS, torch.float32, dev)[codes]
+
+
+def quantize_kv4cb(x: torch.Tensor):
+    """Per-(token, head) TQ4: x [..., D] -> (packed [..., D/2] int8, scale)."""
+    d = x.shape[-1]
+    idx, scale = _nearest_code(x, TQ4_LEVELS)
+    return (idx[..., :d // 2] | (idx[..., d // 2:] << 4)).to(torch.int8), scale
+
+
+def unpack_kv4cb(packed: torch.Tensor) -> torch.Tensor:
+    """[..., D/2] int8 -> codebook values [..., D] f32 (scale not applied)."""
+    p = packed.to(torch.int32) & 0xFF
+    codes = torch.cat([p & 0xF, p >> 4], dim=-1)
+    return _const(TQ4_LEVELS, torch.float32, packed.device)[codes]
+
+
+def quantize_for(bits: int, x: torch.Tensor, codebook: bool = False):
+    """The quantizer of a `bits`-bit cache (`codebook`: TQ4 at bits 4)."""
+    if bits == 4:
+        return quantize_kv4cb(x) if codebook else quantize_kv4(x)
+    return quantize_kv3(x) if bits == 3 else quantize_kv(x)
 
 
 def dequant_kv(cache_vals: torch.Tensor, scale: Optional[torch.Tensor],
-               bits: int, dtype=torch.bfloat16) -> torch.Tensor:
+               bits: int, dtype=torch.bfloat16, codebook: bool = False) -> torch.Tensor:
     """Dequantize a KV buffer slice back to floats (prefill / ref paths)."""
     if bits == 16:
         return cache_vals.to(dtype)
     if bits == 8:
-        return (cache_vals.float() * scale[..., None]).to(dtype)
-    if bits == 4:
-        return (unpack_kv4(cache_vals) * scale[..., None]).to(dtype)
-    raise ValueError(f"kv bits {bits} not ported")
+        vals = cache_vals.float()
+    elif bits == 4:
+        vals = unpack_kv4cb(cache_vals) if codebook else unpack_kv4(cache_vals)
+    elif bits == 3:
+        vals = unpack_kv3(cache_vals)
+    else:
+        raise ValueError(f"kv bits {bits}")
+    return (vals * scale[..., None]).to(dtype)
 
 
 def append_stacked(
@@ -146,8 +239,8 @@ def append_stacked(
     first = torch.clamp(start.long(), 0, cache.capacity - t)
     idx = first + torch.arange(t, device=k_new.device)
     if cache.quantized:
-        kq, ks = quantize_for(cache.bits, k_new)
-        vq, vs = quantize_for(cache.bits, v_new)
+        kq, ks = quantize_for(cache.bits, k_new, cache.codebook)
+        vq, vs = quantize_for(cache.bits, v_new, cache.codebook)
         cache.k[layer].index_copy_(2, idx, kq)
         cache.v[layer].index_copy_(2, idx, vq)
         cache.k_scale[layer].index_copy_(2, idx, ks)
@@ -172,8 +265,8 @@ def append_decode_stacked(
     pos = lengths.long().clamp(0, cache.capacity - 1)
     bi = torch.arange(b, device=pos.device)
     if cache.quantized:
-        kq, ks = quantize_for(cache.bits, k_new)
-        vq, vs = quantize_for(cache.bits, v_new)
+        kq, ks = quantize_for(cache.bits, k_new, cache.codebook)
+        vq, vs = quantize_for(cache.bits, v_new, cache.codebook)
         cache.k[layer, bi, :, pos] = kq[:, :, 0]
         cache.v[layer, bi, :, pos] = vq[:, :, 0]
         cache.k_scale[layer, bi, :, pos] = ks[:, :, 0]
@@ -230,7 +323,7 @@ def scatter_rows(
     return cache
 
 
-def cache_from_numpy(arrays, bits: int, device=None) -> KVCache:
+def cache_from_numpy(arrays, bits: int, device=None, codebook: bool = False) -> KVCache:
     """Build a KVCache from the JAX package's KVCache fields as numpy arrays
     (keys "k", "v", "k_scale", "v_scale", "length"; bf16 carried through its
     bits). The stored layouts are the same in both packages."""
@@ -247,7 +340,7 @@ def cache_from_numpy(arrays, bits: int, device=None) -> KVCache:
 
     return KVCache(k=get("k"), v=get("v"), k_scale=get("k_scale"),
                    v_scale=get("v_scale"), length=get("length").to(torch.int32),
-                   bits=int(bits))
+                   bits=int(bits), codebook=bool(codebook))
 
 
 def slot_view(cache: KVCache, slot: int) -> KVCache:
@@ -262,7 +355,8 @@ def slot_view(cache: KVCache, slot: int) -> KVCache:
     sl = lambda t: None if t is None else t[:, slot:slot + 1]
     return KVCache(k=sl(cache.k), v=sl(cache.v), k_scale=sl(cache.k_scale),
                    v_scale=sl(cache.v_scale),
-                   length=cache.length[slot:slot + 1].clone(), bits=cache.bits)
+                   length=cache.length[slot:slot + 1].clone(), bits=cache.bits,
+                   codebook=cache.codebook)
 
 
 def write_back(cache: KVCache, slot: int, view: KVCache) -> KVCache:
@@ -290,3 +384,40 @@ def rollback(cache: KVCache, n) -> KVCache:
 def reset(cache: KVCache) -> KVCache:
     """Clear all history (lengths to zero; data is masked by length)."""
     return with_length(cache, torch.zeros_like(cache.length))
+
+
+def compact_tail(cache: KVCache, start, sel, m) -> KVCache:
+    """Keep rows start + sel[i] of the appended tail, moved to start + i, and
+    set batch row 0's length to start + m (token-tree verify keeps the
+    accepted path's rows). Entries of `sel` at i >= m are junk: their rows
+    land past the new length, which every reader masks.
+
+    The JAX package's semantics, in place: the rows are gathered into a
+    temporary first, because a source row can be the target of another
+    (start + sel[i] moves to start + i); a row index outside [-S, S) gathers
+    the fill of `jnp.take` (NaN, or -128 in an int8 buffer) and one in
+    [-S, 0) counts from the end; the W rows are written at the first offset
+    that fits them, as a dynamic-update-slice clamps it. Only row 0's
+    length moves."""
+    s = cache.capacity
+    dev = cache.k.device
+    sel = torch.as_tensor(sel, dtype=torch.int64, device=dev)
+    start = torch.as_tensor(start, dtype=torch.int64, device=dev)
+    src = start + sel
+    inside = (src >= -s) & (src < s)
+    src = torch.where(inside, torch.remainder(src, s), torch.zeros_like(src))
+    first = torch.clamp(start, 0, s - sel.shape[0])
+    dst = first + torch.arange(sel.shape[0], device=dev)
+
+    def move(a: torch.Tensor):
+        rows = a.index_select(3, src)
+        fill = -128 if a.dtype == torch.int8 else float("nan")
+        keep = inside.reshape((1,) * 3 + (-1,) + (1,) * (a.dim() - 4))
+        a.index_copy_(3, dst, torch.where(keep, rows, torch.full_like(rows, fill)))
+
+    for a in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if a is not None:
+            move(a)
+    length = cache.length.clone()
+    length[0] = torch.clamp(start + torch.as_tensor(m, device=dev), max=s).to(length.dtype)
+    return with_length(cache, length)

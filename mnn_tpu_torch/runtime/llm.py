@@ -12,8 +12,11 @@ the card's output is held against).
 
 `from_pretrained` loads a converted checkpoint directory
 (`convert/checkpoint.py`), written by either package, straight onto the
-device. Not ported yet: speculative decoding, KV offload, embedding and
-rerank.
+device. `RuntimeConfig.kv_rotate` turns the config's Hadamard KV rotation
+on, and `kv_bits=3` / `kv_bits=4, kv_codebook=True` give a TQ3 / TQ4
+codebook cache. `shelve_context` / `restore_context` move a context's KV to
+a host pool (`runtime/kv_offload.py`) and back without a second prefill.
+Not ported yet: speculative decoding, embedding and rerank.
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ class Llm:
     ):
         self.device = resolve_device(device)
         self.rt = rt or RuntimeConfig()
+        if self.rt.kv_rotate and not config.kv_rotate:
+            config = dataclasses.replace(config, kv_rotate=True)
         self.config = config
         self.params = params
         self.tokenizer = tokenizer or load_tokenizer(None)
@@ -108,7 +113,8 @@ class Llm:
         return kvcache.create(
             c.num_layers, self.rt.max_batch, c.num_kv_heads,
             self.rt.max_seq_len, c.head_dim, quantized=self.rt.kv_quant,
-            kv_bits=self.rt.kv_bits, device=self.device)
+            kv_bits=self.rt.kv_bits, kv_codebook=self.rt.kv_codebook,
+            device=self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -148,6 +154,8 @@ class Llm:
             "param_bytes": nbytes(self.params),
             "kv_cache_bytes": self.cache.nbytes(),
             "kv_bits": self.cache.bits,
+            "kv_codebook": self.cache.codebook,
+            "kv_rotate": c.kv_rotate,
             # does the whole-model kernel serve decode steps, and its head?
             "decode_megakernel": decode_model.supports(
                 c, self.params, self.cache, self.rt.max_batch),
@@ -177,6 +185,26 @@ class Llm:
     @property
     def context_len(self) -> int:
         return int(self.cache.length[0])
+
+    # -- KV host offload ---------------------------------------------------
+
+    def shelve_context(self, key: str, pool, token_ids=None) -> int:
+        """Copy the current context's KV into the host pool `pool`
+        (`kv_offload.KVOffloadPool`) and reset the device cache; returns the
+        shelved token count. One device cache then serves many long-lived
+        sessions."""
+        n = pool.shelve(key, self.cache, token_ids or [0] * self.context_len)
+        self.reset()
+        return n
+
+    def restore_context(self, key: str, pool) -> bool:
+        """Write a shelved context back into the device cache, with no
+        second prefill. False if the pool has no such key."""
+        got = pool.restore(key, self.cache)
+        if got is None:
+            return False
+        self.cache, _ = got
+        return True
 
     # -- generation -------------------------------------------------------
 
@@ -270,3 +298,7 @@ class Llm:
         if ids and ids[-1] in eos:
             ids = ids[:-1]
         return self.tokenizer.decode(ids)
+
+    def response(self, prompt: str, **kw) -> str:
+        """A chat-style single-turn answer: `generate` through the template."""
+        return self.generate(prompt, use_template=True, **kw)

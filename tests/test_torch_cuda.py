@@ -1582,3 +1582,138 @@ def test_w23_decode_model_kernel_int4_len_old_0(dev, monkeypatch):
     print(f"W3 kv4 len_old 0,65: x rel-L2 {rel(got[0], want[0]):.3e} against the plain "
           f"version, {err:.3e} against it over the kernel's rows")
     assert err <= decode_model.PARITY_BOUNDS["x_rel"]
+
+
+# --------------------------------------------------------------------------
+# KV variants: row 5 over one bf16 layer and a stacked int8 cache, the
+# codebook quantizers, compact_tail, and a small model under each variant
+# --------------------------------------------------------------------------
+
+# (Hkv, G, D, kv_len, capacity): qwen2-0.5b's heads at 331 and 631 of 1,024
+# (the last decode step of the 300- and 600-token requests), then the
+# qwen1.5-moe-a2.7b heads and a window
+FLASH_DECODE_LAYER = [(2, 7, 64, 331, 1024), (2, 7, 64, 631, 1024),
+                      (16, 1, 128, 331, 1024), (2, 7, 64, 900, 1024)]
+
+
+@pytest.mark.parametrize("one_layer", [True, False])
+@pytest.mark.parametrize("hkv,grp,d,kv_len,s", FLASH_DECODE_LAYER)
+def test_flash_decode_over_one_bf16_layer_and_stacked_int8(dev, hkv, grp, d, kv_len, s,
+                                                           one_layer):
+    """Row 5 as a TQ3 / TQ4 decode step calls it, over one unpacked bf16
+    layer [B, Hkv, S, D] without `layer_index`, and as a rotated int8 decode
+    step calls it, over the stacked int8 cache with `layer_index`: one
+    launch a call, within rel-L2 3e-2 of the plain version, the same bits
+    twice."""
+    g = torch.Generator(device=dev).manual_seed(hkv * d + kv_len)
+    window = 256 if kv_len == 900 else 0
+    if one_layer:
+        kc, vc, ks, vs = rand_cache(g, dev, 1, 1, hkv, s, d, 16)
+        kc, vc, li = kc[0], vc[0], None
+    else:
+        kc, vc, ks, vs = rand_cache(g, dev, 4, 1, hkv, s, d, 8)
+        li = 2
+    q = (torch.randn((1, hkv * grp, d), device=dev, generator=g) * 2).to(torch.bfloat16)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    call = lambda: flash_attention.decode_attention(q, kc, vc, lens, k_scale=ks,
+                                                    v_scale=vs, layer_index=li,
+                                                    window=window, sink=4 if window else 0)
+    before = flash_attention.KERNEL_DECODE.launches
+    got, again = call(), call()
+    want = flash_attention.decode_attention_plain(q, kc, vc, lens, ks, vs, li, None,
+                                                  window, 4 if window else 0)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL_DECODE.launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert rel(got, want) <= 3e-2
+
+
+def test_codebook_quantizers_and_rotation_card_equal_cpu(dev):
+    """TQ3 and TQ4 give the CPU's bytes and scales on the card (the RMS is
+    summed in f64 and rounded once); `rotate_heads` within 1e-6 of the CPU
+    in f32 and refuses to run with TF32 on."""
+    from mnn_tpu_torch.models.layers import rotate_heads
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((64, 8, 128), generator=g)
+         * torch.rand((64, 8, 1), generator=g) * 6).to(torch.bfloat16)
+    x[0, 0] = 0
+    for fn in (kvcache.quantize_kv3, kvcache.quantize_kv4cb):
+        for a, c in zip(fn(x), fn(x.to(dev))):
+            assert torch.equal(a, c.cpu()), fn
+        packed, scale = fn(x)
+        bits, cb = (3, False) if fn is kvcache.quantize_kv3 else (4, True)
+        assert torch.equal(kvcache.dequant_kv(packed, scale, bits, codebook=cb),
+                           kvcache.dequant_kv(packed.to(dev), scale.to(dev), bits,
+                                              codebook=cb).cpu())
+    xf = x.float()
+    for inverse in (False, True):
+        got = rotate_heads(xf.to(dev), inverse=inverse).cpu()
+        assert (got - rotate_heads(xf, inverse=inverse)).abs().max() <= 1e-6
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            rotate_heads(xf.to(dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("bits", [8, 16, 3])
+def test_compact_tail_card_equals_cpu(dev, bits):
+    g = torch.Generator().manual_seed(bits)
+    kc, vc, ks, vs = rand_cache(g, "cpu", 2, 2, 2, 32, 64, bits)
+    cpu = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs,
+                          length=torch.tensor([20, 7], dtype=torch.int32), bits=bits)
+    card = kvcache.KVCache(k=kc.to(dev), v=vc.to(dev),
+                           k_scale=None if ks is None else ks.to(dev),
+                           v_scale=None if vs is None else vs.to(dev),
+                           length=cpu.length.to(dev), bits=bits)
+    sel = [0, 3, 1, 6, 2, 50, -2, 9]
+    want = kvcache.compact_tail(cpu, 12, torch.tensor(sel), 4)
+    got = kvcache.compact_tail(card, torch.tensor(12, device=dev),
+                               torch.tensor(sel, device=dev), 4)
+    for name in ("k", "v", "k_scale", "v_scale", "length"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert torch.equal(a.cpu(), b) or (b.is_floating_point() and torch.equal(
+                a.cpu().nan_to_num(7.0), b.nan_to_num(7.0))), name
+
+
+# (runtime flags): TQ3, TQ4, and the rotation over an int8 and an int4 cache
+KV_VARIANTS = [dict(kv_bits=3), dict(kv_bits=4, kv_codebook=True),
+               dict(kv_rotate=True), dict(kv_rotate=True, kv_bits=4)]
+
+
+@pytest.mark.parametrize("flags", KV_VARIANTS)
+def test_kv_variant_slice_card_matches_cpu(dev, flags):
+    """A small model (head_dim 64) under each KV variant through `Llm` on
+    the card and through the plain versions on the CPU: neither the
+    whole-model nor the decode-step kernel runs; flash decode once a layer a
+    step and flash prefill once a layer a chunk; the prefill logits within
+    rel-L2 5e-2 and the tokens equal where the CPU's margins are clear."""
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4,
+                       sampler="greedy", lm_head_bits=4, prefill_act_bits=8,
+                       max_new_tokens=6, **flags)
+    ids = list(range(3, 48))
+    runs = []
+    for device in (dev, "cpu"):
+        params = decoder.init_random_params(MK, torch.Generator().manual_seed(1),
+                                            scale=0.05, lm_head_bits=4, device=device)
+        llm = Llm(MK, params, rt, device=device)
+        info = llm.info()
+        assert not info["decode_megakernel"]
+        assert info["kv_rotate"] == bool(flags.get("kv_rotate"))
+        assert info["kv_codebook"] == bool(flags.get("kv_codebook"))
+        build.reset_launches()
+        toks = list(llm.stream(token_ids=ids))
+        runs.append((toks, llm.last_prefill_logits.float().cpu(),
+                     {k.name: k.launches for k in build.KERNELS}))
+    (card_toks, card, n), (cpu_toks, cpu, cpu_n) = runs
+    assert n["mnn_decode_model"] == n["mnn_decode_step"] == 0 and not any(cpu_n.values())
+    assert n["mnn_flash_decode"] == MK.num_layers * rt.max_new_tokens
+    assert n["mnn_flash_prefill"] == MK.num_layers * 2          # chunks of 32 and 16 -> 32
+    assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
+    top2 = cpu[0].topk(2).values
+    if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
+        assert card_toks[0] == cpu_toks[0]

@@ -215,10 +215,16 @@ def test_supports_takes_the_gemma_presets(preset, batch):
 
 @pytest.mark.parametrize("field", ["mrope_section", "kv_rotate"])
 def test_what_stays_refused(field):
+    """`forward` refuses multimodal rope; the Hadamard KV rotation is ported
+    and passes its check. The whole-model kernel takes neither, as in the
+    JAX package."""
     cfg = dataclasses.replace(PRESETS["gemma3-4b"],
                               **{field: (16, 24, 24) if field == "mrope_section" else True})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        decoder.forward(None, cfg, torch.zeros((1, 1), dtype=torch.int64), None)
+    if field == "mrope_section":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            decoder.forward(None, cfg, torch.zeros((1, 1), dtype=torch.int64), None)
+    else:
+        decoder._check_supported(cfg)
     view = type("CacheView", (), dict(capacity=1024, bits=8))()
     assert not decode_model.supports(cfg, meta_params(cfg), view, 1)
 

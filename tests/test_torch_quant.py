@@ -182,10 +182,14 @@ def test_cache_appends_bit_exact(data, ref, bits):
 
 
 def test_create_refuses_unported_kv_bits():
-    with pytest.raises(ValueError, match="kv_bits=3"):
-        tkv.create(1, 1, 1, 8, 32, kv_bits=3)
-    with pytest.raises(ValueError, match="not ported"):
-        tkv.dequant_kv(torch.zeros((1, 12), dtype=torch.int8), torch.ones(1), 3)
+    """kv_bits 3 is the TQ3 codebook cache; other widths stay refused, by
+    the cache and by the dequantizer."""
+    for bits in (2, 5):
+        with pytest.raises(ValueError, match=f"kv_bits={bits}"):
+            tkv.create(1, 1, 1, 8, 32, kv_bits=bits)
+    with pytest.raises(ValueError, match="kv bits 2"):
+        tkv.dequant_kv(torch.zeros((1, 12), dtype=torch.int8), torch.ones(1), 2)
+    assert tkv.create(1, 1, 1, 8, 32, kv_bits=3).k.shape[-1] == 12
 
 
 @pytest.mark.parametrize("k,req,shards", [(896, 128, 1), (4864, 128, 1),
