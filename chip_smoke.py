@@ -172,13 +172,39 @@ Phases, each of which exits non-zero on failure:
    the card, with the seconds and bytes of each move; (aa) card against CPU
    at full width and 4 layers under (x), (y) and (z) over int4, prefill and
    8 steps, phase 4's bounds and token rule.
+10. speculative decoding on full-size qwen2-0.5b (phase 3's weights and
+   runtime, greedy, nothing cut; random draft nets), each sub-phase with
+   the launch counts set to 0 before and read after. Phase 2's rows at its
+   shapes come first: the tile kernel at M = 5, 8 and 13 (verify rows) on
+   the four projections and the int4 head, flash prefill at Tq = 5 and 8
+   over q_offset 331 and 631, flash decode over the EAGLE draft's one bf16
+   layer at 300 and 600. Then the plain stream of each prompt (32 new
+   tokens) and its logit rows three ways (the decode steps, a chain verify,
+   a single-chain tree verify after the feature prefill): (cc)
+   `lookahead`, draft 7, over the 300-token request and 64 tokens of the
+   repeating [5, 6, 7] pattern; (dd) `eagle`, (ee) `eagle-tree` (fanout 3:
+   13 nodes), (ff) `mtp`, each at draft 4, and (gg) `dflash`, block 4, over
+   the 300-token request: each stream held to the plain one (equal up to
+   the first step whose margin is not above that step's largest difference
+   between the paths), with its `spec_stats`, rounds, prefill seconds,
+   decode tok/s, launches by kernel a round (the prefill's taken off), and
+   a traced run's device busy time and idle share a round; no decode step
+   of T = 1 runs. (hh) an oracle tree (the target's own chain, run ahead)
+   with the good chain first and last: every round accepted whole, the
+   accepted rows where `compact_tail` put them, byte for byte. (ii) card
+   against CPU at full width and 4 layers: the feature prefill of the
+   300-token request, one chain verify of 8 tokens and one tree verify of
+   13 nodes, features and logits within 5e-2, targets by phase 4's rule.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
 flash decode's phase 9 rows and launches under `kv_variants`)
 and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
 (phase 5's under `serve_batched`, phase 6's under `checkpoints`, phase
-7's under `gemma`, phase 8's under `sub4`, phase 9's under `kv`; the gemma rows of rows 6 and 7
+7's under `gemma`, phase 8's under `sub4`, phase 9's under `kv`, phase
+10's under `speculative`; phase 10's rows of rows 1b, 4 and 5 under
+`verify` / `draft_cache` of their kernel, with the launches of (cc) to
+(gg); the gemma rows of rows 6 and 7
 under `gemma` of their kernel in the kernels line, beside the sums of the
 earlier rows; under `weight_bits` the weight bits of the rows that ran each
 kernel in this run, and phase 8's rows and launches under `w3` and `w2`).
@@ -220,6 +246,7 @@ from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 from mnn_tpu_torch.runtime import batch_engine, evaluate, generate, kvcache
+from mnn_tpu_torch.runtime import speculative as spec
 from mnn_tpu_torch.runtime.kv_offload import KVOffloadPool
 from mnn_tpu_torch.runtime.llm import Llm
 from mnn_tpu_torch.runtime.prefix_cache import load_prefix, save_prefix
@@ -407,17 +434,26 @@ def int_mm_ms(ql, xq, nl):
     return time_ms(lambda i: torch._int_mm(xq, wq[i % nint]), calls=max(nint, 8))
 
 
-def phase_gemm(dev, g, results, *, a8: bool):
+# phase 10's verify rows of K1: a chain verify of 4 + 1 and 7 + 1 rows and a
+# 13-node tree, on qwen2-0.5b's four projections and its int4 head (f32 out)
+VERIFY_MS = (5, 8, 13)
+
+
+def phase_gemm(dev, g, results, *, a8: bool, verify: bool = False):
     """K1 (bf16 rows: at M = 1 the decode GEMVs and the lm head on the GEMV
     kernel; at M > 1 the tensor-core tile kernel, for qwen1.5-moe-a2.7b's
     shared expert at the 32-, 128- and 512-row buckets and qwen2-0.5b's
     projections at M = 512 under prefill_act_bits=16) or K2 (int8 rows,
     M = 512: prefill GEMMs; and qwen2-0.5b's gate/up at the 32- and
-    128-row buckets)."""
+    128-row buckets). With `verify`: K1 at phase 10's verify rows
+    (`VERIFY_MS`), under `dequant_matmul_verify`."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
     shapes = [(p, k, n, b, 512 if a8 else 1)
               for p, (k, n, b) in list(PROJ.items()) + list(MOE_PROJ.items())]
-    if a8:
+    if verify:
+        shapes = [(p, k, n, b, m) for m in VERIFY_MS
+                  for p, (k, n, b) in list(PROJ.items()) + [("lm_head", (896, 151936, False))]]
+    elif a8:
         shapes += [("wgu", *PROJ["wgu"], 32), ("wgu", *PROJ["wgu"], 128)]
     else:
         shapes += [("lm_head", 896, 151936, False, 1),
@@ -496,7 +532,7 @@ def phase_gemm(dev, g, results, *, a8: bool):
               f"bound {bound:.4f} ({bound_by}){extra}", flush=True)
         del ql, x, got, want
         torch.cuda.empty_cache()
-    results[name] = rows
+    results[name + ("_verify" if verify else "")] = rows
 
 
 def phase_flash(dev, g, results):
@@ -505,59 +541,73 @@ def phase_flash(dev, g, results):
     the short chunk over the long cache also at batch 2, and the chunk the
     300-token request sends the mixture-of-experts model in serving. Each
     row with the tiling the kernel took (`flash_attention.prefill_tile`)."""
-    cap = 1024
-    tol = 2e-2
-    rows = []
     # (B, H, Hkv, D, bucket, kv_len, q_offset): 17 -> 32, 300 -> 512,
     # 600 -> 512 + 128, kv_len the prompt's length. Serving appends the
     # whole padded bucket before attention (and rolls the tail back after),
     # so it runs kv_len = 32, 512 and 640: the last row is that shape for
     # the 300-token request on qwen1.5-moe-a2.7b.
-    for b, h, hkv, d, t, kv_len, q_off in (
+    results["flash_prefill"] = [flash_row(dev, g, *shape) for shape in (
             (1, 14, 2, 64, 32, 17, 0), (1, 14, 2, 64, 512, 300, 0), (1, 14, 2, 64, 512, 512, 0),
             (1, 14, 2, 64, 128, 600, 512), (1, 16, 16, 128, 512, 300, 0),
             (1, 16, 16, 128, 128, 600, 512), (2, 16, 16, 128, 128, 600, 512),
-            (1, 16, 16, 128, 512, 512, 0)):
-        q = torch.randn((b, h, t, d), device=dev, generator=g).to(torch.bfloat16)
-        k = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
-        v = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
-        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-        qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
-        got = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
-        want = flash_attention.flash_attention_plain(q, k, v, kl, qo)
-        torch.cuda.synchronize()
-        # rows past the prompt (padded bucket tail) are rolled back; the
-        # kernel's contract still covers them, so they are compared too
-        err, rel = max_abs(got, want), rel_l2(got, want)
-        check(bool(torch.isfinite(got).all()), "flash_prefill: non-finite output")
-        check(rel <= tol, f"flash_prefill B={b} T={t} kv={kv_len}: rel-L2 {rel:.3g} > {tol}")
-        ms = time_ms(lambda i: flash_attention.flash_attention(
-            q, k, v, kv_len=kl, q_offset=qo), calls=24)
-        plain_ms = time_ms(lambda i: flash_attention.flash_attention_plain(
-            q, k, v, kl, qo), calls=4, replays=2)
-        mask = flash_attention._mask(b, t, cap, kl, qo, True, 0, 0, dev)
-        kr = k.repeat_interleave(h // hkv, dim=1)
-        vr = v.repeat_interleave(h // hkv, dim=1)
-        lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mask), calls=24)
-        visible = sum(min(kv_len, q_off + r + 1) for r in range(t))
-        flops = 4 * b * h * d * visible
-        nbytes = 2 * b * (2 * h * t * d + 2 * hkv * kv_len * d)
-        bound, bound_by = bound_of(flops, nbytes)
-        rows_a_block, splits, bkv, smem, blocks = flash_attention.prefill_tile(b, h, t, d)
-        row = dict(shape=f"B={b} H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off} "
-                         f"S={cap}",
-                   max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                   bound_by=bound_by, tile=dict(rows=rows_a_block, kv_splits=splits,
-                                                kv_tile=bkv, smem=smem, blocks=blocks))
-        rows.append(row)
-        print(f"  flash_prefill      {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} ({bound_by}) | "
-              f"{rows_a_block} rows x {blocks} blocks, K/V in {splits} splits of "
-              f"{bkv}-position tiles, smem {smem}",
-              flush=True)
-    results["flash_prefill"] = rows
+            (1, 16, 16, 128, 512, 512, 0))]
+
+
+# phase 10's chain verify on K3: Tq = 5 and 8 (drafts of 4 and 7, plus the
+# root) at q_offset 331 and 631, kv_len = q_offset + Tq, qwen2-0.5b's heads
+VERIFY_FLASH_ROWS = [(t, q_off) for t in (5, 8) for q_off in (331, 631)]
+
+
+def phase_flash_verify(dev, g, results):
+    """K3 at VERIFY_FLASH_ROWS over a 1,024 cache: fewer query rows than one
+    warp's 16, far into the cache."""
+    results["flash_prefill_verify"] = [flash_row(dev, g, 1, 14, 2, 64, t, q_off + t, q_off)
+                                       for t, q_off in VERIFY_FLASH_ROWS]
+
+
+def flash_row(dev, g, b, h, hkv, d, t, kv_len, q_off, cap=1024):
+    """One K3 row: the kernel against its plain version (rel-L2 2e-2), its
+    time, the plain version's, SDPA's and the bound, and the tiling."""
+    tol = 2e-2
+    q = torch.randn((b, h, t, d), device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn((b, hkv, cap, d), device=dev, generator=g).to(torch.bfloat16)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    got = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    want = flash_attention.flash_attention_plain(q, k, v, kl, qo)
+    torch.cuda.synchronize()
+    # rows past the prompt (padded bucket tail) are rolled back; the
+    # kernel's contract still covers them, so they are compared too
+    err, rel = max_abs(got, want), rel_l2(got, want)
+    check(bool(torch.isfinite(got).all()), "flash_prefill: non-finite output")
+    check(rel <= tol, f"flash_prefill B={b} T={t} kv={kv_len}: rel-L2 {rel:.3g} > {tol}")
+    ms = time_ms(lambda i: flash_attention.flash_attention(
+        q, k, v, kv_len=kl, q_offset=qo), calls=24)
+    plain_ms = time_ms(lambda i: flash_attention.flash_attention_plain(
+        q, k, v, kl, qo), calls=4, replays=2)
+    mask = flash_attention._mask(b, t, cap, kl, qo, True, 0, 0, dev)
+    kr = k.repeat_interleave(h // hkv, dim=1)
+    vr = v.repeat_interleave(h // hkv, dim=1)
+    lib_ms = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask), calls=24)
+    visible = sum(min(kv_len, q_off + r + 1) for r in range(t))
+    flops = 4 * b * h * d * visible
+    nbytes = 2 * b * (2 * h * t * d + 2 * hkv * kv_len * d)
+    bound, bound_by = bound_of(flops, nbytes)
+    rows_a_block, splits, bkv, smem, blocks = flash_attention.prefill_tile(b, h, t, d)
+    row = dict(shape=f"B={b} H={h} Hkv={hkv} D={d} T={t} kv_len={kv_len} q_offset={q_off} "
+                     f"S={cap}",
+               max_abs_err=err, rel_l2=rel, tol=tol, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+               bound_by=bound_by, tile=dict(rows=rows_a_block, kv_splits=splits,
+                                            kv_tile=bkv, smem=smem, blocks=blocks))
+    print(f"  flash_prefill      {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} ({bound_by}) | "
+          f"{rows_a_block} rows x {blocks} blocks, K/V in {splits} splits of "
+          f"{bkv}-position tiles, smem {smem}",
+          flush=True)
+    return row
 
 
 # K4's rows: (batch, Hkv, G, D, len_old per sequence) at the last decode step
@@ -733,17 +783,22 @@ def phase_flash_decode(dev, g, results):
 # TQ3 / TQ4 step unpacks its layer first) and over the stacked 24-layer int8
 # cache (a rotated int8 step)
 FLASH_DECODE_KV_ROWS = [(True, 16, 331), (True, 16, 631), (False, 8, 331), (False, 8, 631)]
+# K5 as phase 10's EAGLE draft calls it: one bf16 layer [1, Hkv, 1,024, D]
+# (the draft's own cache) at kv_len 300 and 600
+FLASH_DECODE_DRAFT_ROWS = [(True, 16, 300), (True, 16, 600)]
 
 
-def phase_flash_decode_kv(dev, g, results):
-    """K5 at FLASH_DECODE_KV_ROWS, each held to its plain version (rel-L2
-    3e-2, the same bits twice), timed over 24 layers' rows (one layer a
-    call), beside SDPA over the same rows and the byte bound."""
+def phase_flash_decode_kv(dev, g, results, rows_of=FLASH_DECODE_KV_ROWS,
+                          key="flash_decode_kv"):
+    """K5 at `rows_of`, each held to its plain version (rel-L2 3e-2, the
+    same bits twice), timed over 24 layers' rows (one layer a call), beside
+    SDPA over the same rows and the byte bound; the rows go under `key`."""
     L, bsz, hkv, grp, d, cap = 24, 1, 2, 7, 64, 1024
     tol = 3e-2
     rows = []
-    caches = {bits: rand_cache(g, dev, L, bsz, hkv, cap, d, bits) for bits in (16, 8)}
-    for one, bits, n in FLASH_DECODE_KV_ROWS:
+    caches = {bits: rand_cache(g, dev, L, bsz, hkv, cap, d, bits) for bits in (16, 8)
+              if any(b == bits for _, b, _ in rows_of)}
+    for one, bits, n in rows_of:
         kq, vq, ks, vs = caches[bits]
         q = torch.randn((bsz, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
         lengths = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -789,7 +844,7 @@ def phase_flash_decode_kv(dev, g, results):
         print(f"  flash_decode       {row['shape']:46s} rel {rel:.2e} | kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound {bound:.5f} | {blocks_a_head} "
               f"blocks a KV head, {tile}-position tiles, {blocks} blocks", flush=True)
-    results["flash_decode_kv"] = rows
+    results[key] = rows
 
 
 def decode_model_bytes(cfg, lay, head, batch, kv_bits, lengths) -> int:
@@ -3015,6 +3070,399 @@ def phase_kv(dev, params, card_line):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: speculative decoding
+# --------------------------------------------------------------------------
+
+SPEC_NEW = NEW_TOKENS       # new tokens a request
+SPEC_MODES = {  # sub-phase -> (rt.speculative, draft_len)
+    "cc": ("lookahead", 7), "dd": ("eagle", 4), "ee": ("eagle-tree", 4), "ff": ("mtp", 4),
+    "gg": ("dflash", 4)}
+# the plain trace a mode is held to: its prefill's activation bits (lookahead
+# prefills as the runtime says, `prefill_act_bits=8`; the draft modes' feature
+# prefill takes bf16 rows, as in the JAX package) and its verify path
+SPEC_TRACE = {"lookahead": (8, "chain"), "eagle": (16, "chain"), "eagle-tree": (16, "tree"),
+              "mtp": (16, "chain"), "dflash": (16, "chain")}
+SPEC_TRACE_TOKENS = 2       # new tokens after the first in a traced run: 1 or 2 rounds
+SPEC_FANOUT = 3             # (ee), (hh): 1 + 3 x 4 = 13 nodes
+SPEC_PARITY_LAYERS = 4      # (ii): full width, cut depth on both sides
+SPEC_ORACLE_ROUNDS = 3      # (hh): rounds of the oracle tree, each accepted whole
+# the kernels each sub-phase must launch, and those it never may: no decode
+# step of T = 1 runs (every round is one verify of T > 1); the draft modes
+# prefill with bf16 rows (the features), lookahead at `prefill_act_bits=8`
+SPEC_NEVER = ("mnn_decode_model", "mnn_decode_step")
+SPEC_MUST = {
+    "cc": (PREFILL_KERNELS + ("mnn_dequant_matmul_bf16_tile",),
+           SPEC_NEVER + ("mnn_flash_decode",)),
+    "dd": (("mnn_dequant_matmul", "mnn_dequant_matmul_bf16_tile", "mnn_flash_prefill",
+            "mnn_flash_decode"), SPEC_NEVER + ("mnn_dequant_matmul_a8",)),
+    "ff": (("mnn_dequant_matmul", "mnn_dequant_matmul_bf16_tile", "mnn_flash_prefill"),
+           SPEC_NEVER + ("mnn_dequant_matmul_a8", "mnn_flash_decode")),
+}
+SPEC_MUST["ee"] = SPEC_MUST["dd"]
+SPEC_MUST["gg"] = SPEC_MUST["ff"]
+
+
+def spec_rt(mode: str = "none", draft_len: int = 7) -> RuntimeConfig:
+    """Phase 3's runtime (W4 block 128, int4 head, int8 KV, cache 1,024,
+    `prefill_act_bits=8`, greedy, batch 1) with `mode`."""
+    return dataclasses.replace(serving_rt(), speculative=mode, draft_len=draft_len,
+                               tree_fanout=SPEC_FANOUT)
+
+
+def spec_prompts(vocab) -> dict:
+    """The 300-token request, and 64 tokens of the JAX tests' [5, 6, 7]
+    pattern (lookahead's n-grams hit there)."""
+    return {"300": prompts(vocab)[1], "repeat64": ([5, 6, 7] * 22)[:64]}
+
+
+def spec_rows(llm, ids, toks, paths):
+    """The logit rows [N, V] along the plain stream's tokens `toks` on the
+    card, from llm's own prefill (its `prefill_act_bits`): `decode` by
+    decode steps (the plain stream's path, the whole-model kernel), and each
+    of `paths` ("chain", "tree": a single-chain tree) by one verify over
+    the trace from a prefill of its own. Row 0 is the prefill's."""
+    p, c, dev = llm.params, llm.config, llm.device
+    ids_t = torch.tensor([ids], device=dev)
+    rest = torch.tensor([toks[:-1]], device=dev)
+    t = len(toks) - 1
+    logits, cache = generate.run_prefill(p, c, llm.rt, ids_t, llm._new_cache())
+    dec = [logits[0]]
+    for tok in rest[0]:
+        logits, cache = decoder.forward(p, c, tok.reshape(1, 1), cache)
+        dec.append(logits[0])
+    out = {"decode": torch.stack(dec).float()}
+    ar = torch.arange(t, device=dev)
+    for name in paths:
+        tree = (ar, torch.ones(t, t, dtype=torch.bool, device=dev).tril()) \
+            if name == "tree" else None
+        first, cache = generate.run_prefill(p, c, llm.rt, ids_t, llm._new_cache())
+        rows, _ = decoder.forward(p, c, rest, cache, all_logits=True, tree=tree)
+        out[name] = torch.cat([first, rows[0]]).float()
+    return out
+
+
+def clear_steps(rows: dict, path: str) -> dict:
+    """The decode path's top-2 margins against the logit differences of
+    `path` (the verify a mode runs): `steps`, the leading steps whose margin
+    exceeds the largest difference of all rows (phase 4's rule), and
+    `step_rule`, those whose margin exceeds the difference at that step;
+    `margin` and `diff` per step."""
+    dec = rows["decode"]
+    per_step = (rows[path] - dec).abs().amax(dim=-1)
+    top2 = dec.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    lead = lambda ok: (ok.tolist() + [False]).index(False)
+    diff = float(per_step.max())
+    return dict(steps=lead(margin > diff), step_rule=lead(margin > per_step),
+                max_abs_diff=diff, margin=margin.tolist(), diff=per_step.tolist())
+
+
+def hold_to_plain(toks, plain, clear, label):
+    """A stream held to the plain stream: equal up to the first step whose
+    margin is not above that step's logit difference; a first difference
+    before it fails. Returns the steps equal."""
+    same = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b), len(toks))
+    if same < clear["step_rule"]:
+        fail(f"{label}: differs from the plain stream at step {same}, whose margin "
+             f"{clear['margin'][same]:.4g} exceeds the verify paths' difference "
+             f"{clear['diff'][same]:.4g} there")
+    return same
+
+
+class CountCalls:
+    """Counts the calls of module functions (the speculative loops' verify
+    passes: one a round) while it is entered."""
+
+    def __init__(self, module, *names):
+        self.module, self.names, self.calls = module, names, 0
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.orig.items():
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            setattr(self.module, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def spec_serve(llm, ids, label, plain, clear, must, never, card_line):
+    """One speculative stream through `Llm.stream`: its tokens held to the
+    plain stream's (`hold_to_plain`); its launches (every kernel
+    of `must`, none of `never`) and those of its rounds (the counts after
+    the first token, the prefill's, taken off); the wall of its rounds and,
+    from a traced second run, their device busy time."""
+    list(llm.stream(token_ids=ids[:8], max_new_tokens=2))        # warm-up, the drafter
+    torch.cuda.synchronize()
+    llm.reset()
+    build.reset_launches()
+    with CountCalls(spec, "verify_step", "verify_forward") as rounds:
+        stream = llm.stream(token_ids=ids, max_new_tokens=SPEC_NEW)
+        toks = [next(stream)]
+        prefill = {k.name: k.launches for k in build.KERNELS}
+        toks += list(stream)
+    torch.cuda.synchronize()
+    launches = read_launches(label, must, never=never)
+    n = rounds.calls
+    check(len(toks) == SPEC_NEW and all(0 <= t < llm.config.vocab_size for t in toks),
+          f"{label}: {len(toks)} tokens")
+    same = hold_to_plain(toks, plain, clear, label)
+    at = (f", first different at step {same}: margin {clear['margin'][same]:.4g}, "
+          f"difference {clear['diff'][same]:.4g}" if same < len(plain) else "")
+    p, stats = llm.perf, dict(llm.spec_stats)
+    # the traced run: its first rounds after the first token (a traced
+    # round of thousands of launches costs the script seconds)
+    llm.reset()
+    with CountCalls(spec, "verify_step", "verify_forward") as traced_rounds:
+        stream = llm.stream(token_ids=ids, max_new_tokens=1 + SPEC_TRACE_TOKENS)
+        next(stream)
+        torch.cuda.synchronize()
+        by_name, _, traced_s = profile_decode.traced(lambda: (list(stream),
+                                                              torch.cuda.synchronize()), 1)
+    nt = traced_rounds.calls
+    busy = sum(ms for _, ms, _ in by_name) / nt
+    wall_ms = p.decode_s * 1e3 / n
+    out = dict(tokens=toks, equal_steps=same, spec_stats=stats, rounds=n,
+               prefill_s=p.prefill_s, decode_s=p.decode_s, decode_tok_s=p.decode_tok_s,
+               wall_ms_per_round=wall_ms, device_busy_ms_per_round=busy,
+               device_idle_share=1 - busy / wall_ms, traced_rounds=nt,
+               traced_wall_ms_per_round=traced_s * 1e3 / nt,
+               launches=launches, prefill_launches=prefill,
+               launches_per_round={k: (launches[k] - prefill[k]) / n for k in launches
+                                   if launches[k] > prefill[k]},
+               traced_launches_per_round=sum(c for _, _, c in by_name) / nt,
+               kernels=[dict(name=k, ms=ms / nt, launches=c / nt) for k, ms, c in by_name[:8]])
+    print(f"  {label}: {len(ids)} prompt tokens, {stats}, {n} rounds; prefill "
+          f"{p.prefill_s * 1e3:.2f} ms, decode {p.decode_tok_s:.1f} tok/s; a round: wall "
+          f"{out['wall_ms_per_round']:.3f} ms, busy {out['device_busy_ms_per_round']:.3f} ms, "
+          f"idle {out['device_idle_share']:.3f}, launches "
+          f"{ {k: round(v, 2) for k, v in out['launches_per_round'].items()} }; equal to the "
+          f"plain stream for {same} of {SPEC_NEW} tokens (clear: {clear['steps']} by the largest "
+          f"difference, {clear['step_rule']} by each step's{at}) [{card_line}]",
+          flush=True)
+    return out
+
+
+class OracleTree(spec.TreeEagleDraft):
+    """(hh): a tree whose chain `good` is the target's own greedy chain
+    under this very verify (found by running the same 13-node verify ahead
+    on a copy of the cache, one node at a time: a node's target depends only
+    on its ancestors), the other chains junk. Accepted whole by construction,
+    and, where the plain stream's margins are clear, the plain run's next
+    tokens."""
+
+    def __init__(self, llm, good: int):
+        super().__init__(None, draft_len=4, fanout=SPEC_FANOUT)
+        self.llm, self.good = llm, good
+        self.depths, self.mask = (a.to(llm.device) for a in self.tree_layout())
+
+    def start(self, params, config, prompt_ids, feats):
+        self.params, self.config = params, config
+
+    def propose_tree(self, last_token, last_feat):
+        d, c = self.draft_len, self.llm.cache
+        chains = torch.zeros((self.fanout, d), dtype=torch.int64, device=self.llm.device)
+        junk = torch.arange(d, device=self.llm.device) + 7
+        for j in range(d):
+            cl = lambda t: None if t is None else t.clone()
+            cache = dataclasses.replace(c, k=cl(c.k), v=cl(c.v), k_scale=cl(c.k_scale),
+                                        v_scale=cl(c.v_scale))
+            for row in range(self.fanout):
+                if row != self.good:
+                    chains[row] = junk + row
+            nodes = torch.cat([torch.as_tensor(last_token, device=self.llm.device).long()
+                               .reshape(1), chains.reshape(-1)])[None]
+            targets, _, _ = spec.verify_forward(self.params, self.config, nodes, cache,
+                                                tree=(self.depths, self.mask))
+            src = 0 if j == 0 else 1 + self.good * d + j - 1
+            chains[self.good, j] = targets[0, src]
+        return chains
+
+    def commit(self, *a, **kw):
+        pass
+
+    def rollback(self, n):
+        pass
+
+
+class CompactCheck:
+    """Wraps `kvcache.compact_tail` while entered: the rows at start + sel[i]
+    before each call must sit at start + i after it, byte for byte, for the
+    m rows kept (K, V and their scales). Counts the calls and the rows that
+    moved (sel[i] != i)."""
+
+    def __enter__(self):
+        self.orig, self.calls, self.moved = kvcache.compact_tail, 0, 0
+
+        def checked(cache, start, sel, m):
+            s0 = int(start)
+            src = [s0 + i for i in sel[:m]]
+            names = ("k", "v", "k_scale", "v_scale")
+            before = [getattr(cache, f)[:, :, :, src].clone() for f in names]
+            out = self.orig(cache, start, sel, m)
+            after = [getattr(out, f)[:, :, :, s0:s0 + m] for f in names]
+            check(all(torch.equal(a, b) for a, b in zip(before, after)),
+                  "compact_tail: the kept rows are not the tree's rows")
+            self.calls += 1
+            self.moved += sum(i != j for i, j in enumerate(sel[:m]))
+            return out
+        kvcache.compact_tail = checked
+        return self
+
+    def __exit__(self, *exc):
+        kvcache.compact_tail = self.orig
+
+
+def phase_spec_oracle(llm, ids, plain, clear, card_line):
+    """(hh): SPEC_ORACLE_ROUNDS rounds of `tree_draft_generate` with the good
+    chain first and last: each round accepted whole, and (`CompactCheck`)
+    the accepted rows where `compact_tail` put them on the card (in place
+    for the first chain, moved for the last); the tokens held to the plain
+    stream's."""
+    n_tok = 1 + SPEC_ORACLE_ROUNDS * 5
+    out = {}
+    for good in (0, SPEC_FANOUT - 1):
+        llm.reset()
+        build.reset_launches()
+        with CompactCheck() as compact:
+            blocks = list(spec.tree_draft_generate(llm, ids, n_tok,
+                                                   drafter=OracleTree(llm, good)))
+        toks = [t for b in blocks for t in b]
+        check(llm.spec_stats["accept_rate"] == 1.0 and [len(b) for b in blocks] ==
+              [1] + [5] * SPEC_ORACLE_ROUNDS,
+              f"oracle tree (good chain {good}): {llm.spec_stats}, blocks "
+              f"{[len(b) for b in blocks]}")
+        check(compact.calls == SPEC_ORACLE_ROUNDS
+              and compact.moved == (0 if good == 0 else 4 * SPEC_ORACLE_ROUNDS),
+              f"oracle tree: {compact.calls} compactions moved {compact.moved} rows")
+        same = hold_to_plain(toks, plain, dict(clear, step_rule=min(clear["step_rule"], n_tok)),
+                             f"oracle tree (good chain {good})")
+        out[f"chain{good}"] = dict(tokens=toks, equal_steps=same, spec_stats=dict(llm.spec_stats),
+                                   rows_moved=compact.moved,
+                                   launches={k.name: k.launches for k in build.KERNELS})
+        print(f"  oracle tree, good chain {good}: {SPEC_ORACLE_ROUNDS} rounds of 13 nodes "
+              f"accepted whole, {compact.moved} rows moved by compact_tail and found in place, "
+              f"equal to the plain stream for {same} of {n_tok} tokens [{card_line}]",
+              flush=True)
+    return out
+
+
+def phase_spec_parity(dev, params):
+    """(ii): full width, the first SPEC_PARITY_LAYERS layers: the 300-token
+    feature prefill, then one chain verify of 8 tokens and one tree verify
+    of 13 nodes from it, on the card and through the plain versions on the
+    CPU: features and logits within PARITY_REL, the greedy targets equal
+    where the CPU's top-2 margin exceeds the largest logit difference."""
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=SPEC_PARITY_LAYERS)
+    cut = first_layers(params, SPEC_PARITY_LAYERS)
+    params = {dev: cut, "cpu": to_device(cut, "cpu")}
+    ids = prompts(cfg.vocab_size)[1]
+    rng = np.random.default_rng(17)
+    chain = rng.integers(0, cfg.vocab_size, 8).tolist()
+    nodes = rng.integers(0, cfg.vocab_size, 1 + SPEC_FANOUT * 4).tolist()
+    layout = spec.TreeEagleDraft(None, draft_len=4, fanout=SPEC_FANOUT).tree_layout()
+    got = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        p, tree = params[d], tuple(a.to(d) for a in layout)
+        llm = Llm(cfg, p, spec_rt(), device=d)
+        ids_t = torch.tensor([ids], device=d)
+        _, _, cache = spec.prefill_with_features(p, cfg, llm.rt, ids_t, llm._new_cache())
+        ctx = int(cache.length[0])
+        outs = []
+        for toks, tr in ((chain, None), (nodes, tree)):
+            targets, feats, after = spec.verify_forward(p, cfg, torch.tensor([toks], device=d),
+                                                        cache, tree=tr)
+            outs.append((targets[0].cpu(), feats[0].float().cpu(),
+                         decoder.head_logits(p, feats[0]).float().cpu()))
+            cache = kvcache.rollback(after, after.length - ctx)
+        got[d] = outs
+        print(f"    {d} side {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for i, name in enumerate(("chain", "tree")):
+        (ct, cf, cl), (pt, pf, pl) = got[dev][i], got["cpu"][i]
+        f_rel, l_rel = rel_l2(cf, pf), rel_l2(cl, pl)
+        diff = max_abs(cl, pl)
+        top2 = pl.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1] > diff)
+        check(f_rel <= PARITY_REL and l_rel <= PARITY_REL,
+              f"spec parity {name}: features rel-L2 {f_rel:.3g}, logits {l_rel:.3g}")
+        check(bool(torch.isfinite(cl).all()), f"spec parity {name}: non-finite logits")
+        check(bool((ct == pt)[clear].all()), f"spec parity {name}: targets {ct.tolist()} "
+              f"!= cpu {pt.tolist()} at clear margins")
+        out[name] = dict(features_rel_l2=f_rel, logits_rel_l2=l_rel, max_abs_diff=diff,
+                         tokens_checked=int(clear.sum()), rows=len(pt))
+        print(f"  {name} verify ({SPEC_PARITY_LAYERS} layers, full width, {len(pt)} rows) card "
+              f"vs cpu: features rel-L2 {f_rel:.2e}, logits {l_rel:.2e}, max |diff| "
+              f"{diff:.3g}, targets compared at {int(clear.sum())}/{len(pt)}", flush=True)
+    return out
+
+
+def phase_spec(dev, params, card_line):
+    """Phase 10 on full-size qwen2-0.5b with phase 3's weights and runtime."""
+    t0 = time.perf_counter()
+    cfg = PRESETS["qwen2-0.5b"]
+    asks = spec_prompts(cfg.vocab_size)
+    out = dict(plain={})
+    for bits, keys in ((8, asks), (16, ("300",))):
+        plain_llm = Llm(cfg, params, dataclasses.replace(spec_rt(), prefill_act_bits=bits),
+                        device=dev)
+        list(plain_llm.stream(token_ids=asks["300"][:8], max_new_tokens=2))   # warm-up
+        for key in keys:
+            plain_llm.reset()
+            ids = asks[key]
+            toks = list(plain_llm.stream(token_ids=ids, max_new_tokens=SPEC_NEW))
+            paths = ("chain",) if bits == 8 else ("chain", "tree")
+            rows = spec_rows(plain_llm, ids, toks, paths)
+            out["plain"][key, bits] = dict(
+                tokens=toks, clear={pth: clear_steps(rows, pth) for pth in paths},
+                prefill_s=plain_llm.perf.prefill_s, decode_tok_s=plain_llm.perf.decode_tok_s)
+            print(f"  plain {key}, prefill_act_bits={bits}: decode "
+                  f"{plain_llm.perf.decode_tok_s:.1f} tok/s; steps clear of the "
+                  + ", ".join(f"{pth} verify: {c['steps']} of {SPEC_NEW} by its largest "
+                              f"difference ({c['max_abs_diff']:.3g}), {c['step_rule']} by "
+                              f"each step's" for pth, c in
+                              out["plain"][key, bits]["clear"].items())
+                  + f" [{card_line}]", flush=True)
+    for sub, (mode, dl) in SPEC_MODES.items():
+        t1 = time.perf_counter()
+        llm = Llm(cfg, params, spec_rt(mode, dl), device=dev)
+        must, never = SPEC_MUST[sub]
+        out[sub] = {}
+        bits, path = SPEC_TRACE[mode]
+        for key in (("300", "repeat64") if mode == "lookahead" else ("300",)):
+            pl = out["plain"][key, bits]
+            out[sub][key] = spec_serve(llm, asks[key], f"({sub}) {mode} {key}", pl["tokens"],
+                                       pl["clear"][path], must, never, card_line)
+            out[sub][key]["equal_steps_act8"] = next(
+                (i for i, (a, b) in enumerate(zip(out[sub][key]["tokens"],
+                                                  out["plain"][key, 8]["tokens"])) if a != b),
+                SPEC_NEW)
+        if mode == "lookahead":
+            check(out[sub]["repeat64"]["spec_stats"]["accepted"] > 0,
+                  "lookahead: no draft accepted on the repeating prompt")
+        out[sub]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    pl = out["plain"]["300", 16]
+    out["hh"] = phase_spec_oracle(Llm(cfg, params, spec_rt(), device=dev), asks["300"],
+                                  pl["tokens"], pl["clear"]["tree"], card_line)
+    out["hh"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["ii"] = phase_spec_parity(dev, params)
+    out["ii"]["seconds"] = time.perf_counter() - t1
+    out["plain"] = {f"{key} act{bits}": v for (key, bits), v in out["plain"].items()}
+    print("  phase 10 by sub-phase, s: " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in out.items() if "seconds" in v), flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 10: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -3049,6 +3497,19 @@ COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_laye
               "mnn_moe_decode": "moe_int8", "mnn_moe_prefill": "moe_int8",
               "mnn_dequant_matmul_deq": "moe_deq_switch",
               "mnn_dequant_matmul_bf16_tile": "dense_act16"}
+
+
+# phase 10's rows in the kernels line: kernel -> (key, results key, C entry)
+SPEC_ROWS = {"dequant_matmul": ("verify", "dequant_matmul_verify",
+                                "mnn_dequant_matmul_bf16_tile"),
+             "flash_prefill": ("verify", "flash_prefill_verify", "mnn_flash_prefill"),
+             "flash_decode": ("draft_cache", "flash_decode_draft", "mnn_flash_decode")}
+
+
+def spec_launches(specd: dict, entry: str) -> int:
+    """The launches of `entry` in phase 10's streams, (cc) to (gg)."""
+    return sum(run["launches"][entry] for sub in SPEC_MODES
+               for key, run in specd[sub].items() if key != "seconds")
 
 
 def row_sums(rows) -> dict:
@@ -3099,11 +3560,14 @@ def main():
     print("phase 2: kernels against their plain versions", flush=True)
     phase_gemm(dev, g, results, a8=False)
     phase_gemm(dev, g, results, a8=True)
+    phase_gemm(dev, g, results, a8=False, verify=True)
     phase_flash(dev, g, results)
+    phase_flash_verify(dev, g, results)
     phase_decode(dev, g, results)
     phase_decode_gemma(dev, g, results)
     phase_flash_decode(dev, g, results)
     phase_flash_decode_kv(dev, g, results)
+    phase_flash_decode_kv(dev, g, results, FLASH_DECODE_DRAFT_ROWS, "flash_decode_draft")
     phase_gemm_deq(dev, g, results)
     phase_moe_decode(dev, g, results)
     phase_moe_prefill(dev, g, results)
@@ -3188,6 +3652,10 @@ def main():
 
     print("phase 9: KV variants and cache tiers on qwen2-0.5b", flush=True)
     kv = phase_kv(dev, params05, card_line)
+    torch.cuda.empty_cache()
+
+    print("phase 10: speculative decoding on qwen2-0.5b", flush=True)
+    specd = phase_spec(dev, params05, card_line)
     del params05
 
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
@@ -3212,6 +3680,12 @@ def main():
             # the first four rows alone, so a table compares like with like
             k["four_shapes"] = row_sums(rows[:DECODE_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[DECODE_FIRST_ROWS:])
+        # phase 10: the verify shapes and the draft cache, with the launches
+        # of (cc) to (gg)
+        spec_key, spec_rows_key, spec_entry = SPEC_ROWS.get(kname, (None,) * 3)
+        if spec_key:
+            k[spec_key] = dict(row_sums(results[spec_rows_key]), entry=spec_entry,
+                               launches=spec_launches(specd, spec_entry))
         if kname == "flash_decode":
             k["six_shapes"] = row_sums(rows[:FLASH_DECODE_FIRST_ROWS])
             k["added_rows"] = row_sums(rows[FLASH_DECODE_FIRST_ROWS:])
@@ -3245,7 +3719,8 @@ def main():
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
-                  gemma=gemma, sub4=sub4, kv=kv, seconds=time.perf_counter() - t_start,
+                  gemma=gemma, sub4=sub4, kv=kv, speculative=specd,
+                  seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

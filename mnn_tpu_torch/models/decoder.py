@@ -38,8 +38,15 @@ quantizes its own rows runs (the whole-model and the decode-step kernel):
 the per-layer path appends the row and calls flash decode; gemma takes the
 eager attention.
 
-Not ported yet: multimodal rope, LoRA, tensor and expert parallelism,
-token-tree verify, PLE and deepstack.
+Speculative decoding's verify passes, as in the JAX package:
+`return_hidden` returns the hidden states before the final norm (a decode
+step then runs the whole-model kernel without its head), and `tree`
+verifies a token tree: rope at `length + depth`, attention through
+`_attention_eager` under the tree's ancestor mask, on every config whose
+attention has no window or sink.
+
+Not ported yet: multimodal rope, LoRA, tensor and expert parallelism, PLE
+and deepstack.
 """
 
 from __future__ import annotations
@@ -248,6 +255,31 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def field_from(arrays: Mapping[str, object], key: str, device=None):
+    """arrays[key] (a numpy array, bf16 carried through its bits, or a
+    tensor) as a tensor copied to `device` (None: the CPU for an array, a
+    tensor's own device); None when the key is absent."""
+    a = arrays.get(key)
+    if a is None:
+        return None
+    if not isinstance(a, torch.Tensor):
+        return _tensor(np.asarray(a)).to(device or "cpu")
+    return a.to(device or a.device, copy=True)
+
+
+def ql_from(arrays: Mapping[str, object], prefix: str, device=None) -> QuantizedLinear:
+    """The QuantizedLinear under `prefix` ("<prefix>.packed", ".scale",
+    ".bias", ".out_bias", and the ints ".bits", ".block_size",
+    ".act_bits"), its bytes as they are."""
+    get = lambda key: field_from(arrays, key, device)
+    return QuantizedLinear(
+        packed=get(prefix + ".packed"), scale=get(prefix + ".scale"),
+        bias=get(prefix + ".bias"), out_bias=get(prefix + ".out_bias"),
+        bits=int(arrays[prefix + ".bits"]),
+        block_size=int(arrays[prefix + ".block_size"]),
+        act_bits=int(arrays.get(prefix + ".act_bits", 16)))
+
+
 def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
                       device=None) -> Params:
     """Build Params from the JAX package's Params fields as numpy arrays or
@@ -266,22 +298,8 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
     as it is read, so a mapping of file views never has a second host copy
     of the whole model made from it."""
     _check_supported(config)
-
-    def get(key):
-        a = arrays.get(key)
-        if a is None:
-            return None
-        if not isinstance(a, torch.Tensor):
-            return _tensor(np.asarray(a)).to(device or "cpu")
-        return a.to(device or a.device, copy=True)
-
-    def ql(prefix):
-        return QuantizedLinear(
-            packed=get(prefix + ".packed"), scale=get(prefix + ".scale"),
-            bias=get(prefix + ".bias"), out_bias=get(prefix + ".out_bias"),
-            bits=int(arrays[prefix + ".bits"]),
-            block_size=int(arrays[prefix + ".block_size"]),
-            act_bits=int(arrays.get(prefix + ".act_bits", 16)))
+    get = lambda key: field_from(arrays, key, device)
+    ql = lambda prefix: ql_from(arrays, prefix, device)
 
     def opt_ql(prefix):     # a projection the config may not have
         return ql(prefix) if prefix + ".packed" in arrays else None
@@ -445,15 +463,22 @@ def _attention(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
 
 
 def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
-                     kv_len, lengths, window: int, bits: int, codebook=False):
+                     kv_len, lengths, window: int, bits: int, codebook=False,
+                     tree=None):
     """Dense masked attention in plain torch ops, the counterpart of the JAX
     package's `_attention_xla`: the path of gemma's prefill and of its
-    decode over an int4 cache (score softcap, a per-layer window). q [B, H,
-    T, D] bf16 attends over one layer's whole cache [B, Hkv, S, D or D/2],
-    which already holds the new rows; each batch row masks by its own
-    pre-append length `lengths`. f32 scores times `query_scale` or D^-0.5,
-    the softcap, the causal, window and sink masks with the JAX package's
-    inequalities, an f32 softmax, the output rounded to q's dtype."""
+    decode over an int4 cache (score softcap, a per-layer window), and of
+    token-tree verify. q [B, H, T, D] bf16 attends over one layer's whole
+    cache [B, Hkv, S, D or D/2], which already holds the new rows; each
+    batch row masks by its own pre-append length `lengths`. f32 scores
+    times `query_scale` or D^-0.5, the softcap, the causal, window and sink
+    masks with the JAX package's inequalities, an f32 softmax, the output
+    rounded to q's dtype.
+
+    `tree` = (depths [T], mask [T, T] bool): the T new rows sit at
+    start..start+T-1 (start = lengths[0], batch 1), and a new row sees a
+    new row by the ancestor mask, every earlier row, and nothing at or past
+    `kv_len`."""
     b, h, t, d = q.shape
     if bits < 16:
         kf = kvcache.dequant_kv(k_cache, k_scale, bits, codebook=codebook)
@@ -466,9 +491,19 @@ def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
     s = softcap(torch.einsum("bkgtd,bksd->bkgts", qg, kf.float()) * scale,
                 c.attn_softcap)
     pos_k = torch.arange(cap, device=q.device)[None, None]          # [1, 1, S]
-    pos_q = (lengths.long()[:, None]
-             + torch.arange(t, device=q.device)[None])[..., None]   # [B, T, 1]
-    ok = (pos_k <= pos_q) & (pos_k < kv_len.long()[:, None, None])
+    seen = pos_k < kv_len.long()[:, None, None]
+    if tree is not None:
+        # position-causality cannot separate sibling branches: node-to-node
+        # visibility comes from the ancestor mask
+        rel = pos_k[0, 0] - lengths[0].long()                       # [S]
+        in_new = (rel >= 0) & (rel < t)
+        node_vis = tree[1][:, rel.clamp(0, t - 1)]                  # [T, S]
+        ok = torch.where(in_new[None], node_vis, (rel < 0)[None])[None] & seen
+        window = 0
+    else:
+        pos_q = (lengths.long()[:, None]
+                 + torch.arange(t, device=q.device)[None])[..., None]   # [B, T, 1]
+        ok = (pos_k <= pos_q) & seen
     if window > 0:
         win_ok = pos_k > pos_q - window
         if c.attention_sink:
@@ -481,11 +516,14 @@ def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
 
 
 def _decode_megakernel(params: Params, c: ModelConfig, x, cache: KVCache,
-                       cos_f, sin_f, kv_len, cos_lf=None, sin_lf=None):
+                       cos_f, sin_f, kv_len, cos_lf=None, sin_lf=None,
+                       fuse_head: bool = True):
     """One decode position through the whole-model kernel. Returns
-    (x [B, 1, hidden], cache, logits or None, token or None): logits and
-    token when the head is fused into the kernel."""
-    head = params.lm_head if decode_model.supports_head(c, params) else None
+    (x [B, 1, hidden] before the final norm, cache, logits or None, token
+    or None): logits and token when the head is fused into the kernel
+    (`fuse_head` and `supports_head`)."""
+    head = (params.lm_head if fuse_head and decode_model.supports_head(c, params)
+            else None)
     on_card = x.is_cuda
     outs = decode_model.fused_decode_model(
         x[:, 0], params.layers, cache.k, cache.v, cache.k_scale,
@@ -510,13 +548,26 @@ def forward(
     last_index: int = -1,
     megakernel: Optional[bool] = None,   # None = auto; False = per-layer path
     return_token: bool = False,          # also return the greedy next token
+    return_hidden: bool = False,         # skip the final norm and the head
+    tree=None,                           # (depths [T] int, mask [T, T] bool)
 ):
     """Run the model over `tokens`, appending T positions to the cache.
 
     Returns (logits, cache): logits [B, T, V] with `all_logits`, else the
     logits [B, V] of position `last_index`; with `return_token`,
-    ((logits, token [B] int32), cache). The cache's buffers are updated in
-    place; the returned cache carries the new lengths.
+    ((logits, token [B] int32), cache); with `return_hidden`, (the hidden
+    states [B, T, hidden] before the final norm, cache), and a decode step
+    on the whole-model kernel then leaves its head out. The cache's buffers
+    are updated in place; the returned cache carries the new lengths.
+
+    `tree` verifies a token tree (speculative decoding, batch 1): node i
+    takes rope position `length + depths[i]` and sees the cached rows and
+    the nodes that `mask[i]` marks (its ancestors and itself). Its T rows
+    are appended at length..length+T-1 in node order, as the JAX package
+    appends them (`kvcache.compact_tail` keeps the accepted path after). It
+    runs the per-layer loop with `_attention_eager`, as the JAX package's
+    layer scan runs `_attention_xla`, and raises NotImplementedError for a
+    config with a sliding window or an attention sink.
 
     `megakernel`: None sends a decode step (T = 1) through the whole-model
     decode kernel when `decode_model.supports()` accepts, False forces the
@@ -545,7 +596,15 @@ def forward(
     if c.embed_scale:   # gemma: the normalizer is cast to the activations' dtype first
         x = x * torch.tensor(c.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
     start = cache.length[0]
-    positions = cache.length[:, None].long() + torch.arange(t, device=x.device)[None]
+    if tree is not None:
+        if c.sliding_window or c.swa_every_other or c.attention_sink:
+            raise NotImplementedError(
+                "tree verify not supported with windowed attention")
+        tree = tuple(torch.as_tensor(a, device=x.device) for a in tree)
+        positions = cache.length[:, None].long() + tree[0].long()[None]
+    else:
+        positions = (cache.length[:, None].long()
+                     + torch.arange(t, device=x.device)[None])
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
                             scaling=c.rope_scaling)
     cos_l = sin_l = cos_lf = sin_lf = None
@@ -568,7 +627,7 @@ def forward(
     # gemma's prefill, and its decode where the decode-step kernel cannot
     # serve it: plain attention
     eager = gemma_like(c) and (t > 1 or not self_quantizing)
-    eligible = (megakernel is not False and t == 1 and not eager
+    eligible = (megakernel is not False and t == 1 and not eager and tree is None
                 and decode_model.supports(c, params, cache, b))
     if megakernel is True and not eligible:
         raise ValueError(
@@ -577,7 +636,10 @@ def forward(
             "megakernel=None for the automatic fallback")
     if eligible:
         x, new_cache, logits, token = _decode_megakernel(
-            params, c, x, cache, cos_f, sin_f, kv_len, cos_lf, sin_lf)
+            params, c, x, cache, cos_f, sin_f, kv_len, cos_lf, sin_lf,
+            fuse_head=not return_hidden)
+        if return_hidden:
+            return x, new_cache
         if logits is not None:
             logits = softcap(logits, c.final_softcap)
             if all_logits:
@@ -585,10 +647,11 @@ def forward(
             return ((logits, token), new_cache) if return_token else (logits, new_cache)
         return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
 
-    fused = t == 1 and self_quantizing and not eager
+    fused = t == 1 and self_quantizing and not eager and tree is None
     tq = cache.bits == 3 or cache.codebook          # a TQ3 or TQ4 cache
     # a decode step of at most 8 rows takes the fused expert kernel
-    moe_fast = c.is_moe and t == 1 and moe_decode.supports(c, layers, b)
+    moe_fast = (c.is_moe and t == 1 and tree is None
+                and moe_decode.supports(c, layers, b))
     for i in range(c.num_layers):
         # the window and the rope phases are Python-static per layer
         window_i, local = layer_window(c, i), local_rope(c, i)
@@ -624,7 +687,7 @@ def forward(
                 # scores unchanged (H is orthonormal), outliers spread over D
                 q, k, v = rotate_heads(q), rotate_heads(k), rotate_heads(v)
             q = q.contiguous()
-            if eager:
+            if eager or tree is not None:
                 if t == 1:
                     kvcache.append_decode_stacked(cache, i, k, v, cache.length)
                 else:
@@ -633,7 +696,8 @@ def forward(
                     c, q, cache.k[i], cache.v[i],
                     None if cache.k_scale is None else cache.k_scale[i],
                     None if cache.v_scale is None else cache.v_scale[i],
-                    kv_len, cache.length, window_i, cache.bits, cache.codebook)
+                    kv_len, cache.length, window_i, cache.bits, cache.codebook,
+                    tree=tree)
             elif t == 1 and tq:
                 # TQ3 / TQ4: append the row, unpack the layer to bf16, attend
                 kvcache.append_decode_stacked(cache, i, k, v, cache.length)
@@ -678,8 +742,10 @@ def forward(
             d = rms_norm(d, layers.post_ffn_norm[i], c.rms_norm_eps)
         x = x + d.to(x.dtype)
 
-    return _finish(params, c, x, kvcache.with_length(cache, kv_len), all_logits,
-                   last_index, return_token)
+    new_cache = kvcache.with_length(cache, kv_len)
+    if return_hidden:
+        return x, new_cache
+    return _finish(params, c, x, new_cache, all_logits, last_index, return_token)
 
 
 def _finish(params: Params, c: ModelConfig, x, new_cache, all_logits: bool,

@@ -16,7 +16,10 @@ device. `RuntimeConfig.kv_rotate` turns the config's Hadamard KV rotation
 on, and `kv_bits=3` / `kv_bits=4, kv_codebook=True` give a TQ3 / TQ4
 codebook cache. `shelve_context` / `restore_context` move a context's KV to
 a host pool (`runtime/kv_offload.py`) and back without a second prefill.
-Not ported yet: speculative decoding, embedding and rerank.
+`RuntimeConfig.speculative` ("lookahead", "eagle", "eagle-tree", "mtp",
+"dflash") serves greedy requests through `runtime/speculative.py`, with
+random draft weights unless `drafter` is set; any other sampler decodes
+plainly, as in the JAX package. Not ported yet: embedding and rerank.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ from mnn_tpu_torch.models.decoder import Params, init_random_params
 from mnn_tpu_torch.runtime import generate as gen
 from mnn_tpu_torch.runtime import kvcache, sampler
 from mnn_tpu_torch.runtime.tokenizer import load_tokenizer
+
+
+# the modes `stream` serves by speculative decoding (greedy only); any other
+# value of rt.speculative decodes plainly, as in the JAX package
+SPECULATIVE_MODES = ("lookahead", "eagle", "eagle-tree", "mtp", "dflash")
 
 
 @dataclasses.dataclass
@@ -73,6 +81,8 @@ class Llm:
         self.tokenizer = tokenizer or load_tokenizer(None)
         self.cache = self._new_cache()
         self.perf = PerfContext()
+        self.drafter = None         # the draft model of rt.speculative, made on first use
+        self.spec_stats: dict = {}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.rt.seed)
 
@@ -233,10 +243,10 @@ class Llm:
         EOS inside a block the block's unconsumed tail, already appended to
         the cache, is rolled back. `timeout_s` (default rt.timeout_s, 0 =
         none) is checked between blocks; on expiry perf.status is
-        "timeout"."""
+        "timeout". Under greedy sampling `rt.speculative` takes the
+        speculative loops instead (which check no deadline, as in the JAX
+        package)."""
         rt = self.rt
-        if rt.speculative != "none":
-            raise NotImplementedError("speculative decoding is not ported")
         if token_ids is None:
             text = prompt or ""
             if use_template:
@@ -252,6 +262,9 @@ class Llm:
         tokens = torch.tensor([token_ids] * rt.max_batch, dtype=torch.int64,
                               device=self.device)
         self.perf = PerfContext(prompt_len=len(token_ids))
+        if rt.sampler == "greedy" and rt.speculative in SPECULATIVE_MODES:
+            yield from self._stream_speculative(token_ids, max_new, eos)
+            return
 
         t0 = time.perf_counter()
         logits, cache = gen.run_prefill(self.params, self.config, rt, tokens,
@@ -291,6 +304,59 @@ class Llm:
                     cache = kvcache.rollback(cache, steps - consumed)
                 break
         self.cache = cache
+
+    def _make_drafter(self):
+        """The draft model of rt.speculative, from random weights seeded with
+        rt.seed + 1 (no draft checkpoint is configured): verification keeps
+        the output the plain greedy stream's, only acceptance is low."""
+        from mnn_tpu_torch.models import eagle as eagle_mod
+        from mnn_tpu_torch.models.dflash import init_random_dflash
+        from mnn_tpu_torch.runtime import speculative as spec
+
+        rt, c = self.rt, self.config
+        g = torch.Generator().manual_seed(rt.seed + 1)
+        if rt.speculative in ("eagle", "eagle-tree"):
+            ep = eagle_mod.init_random_eagle(c, g, bits=rt.quant_bits,
+                                             block_size=rt.quant_block, device=self.device)
+            if rt.speculative == "eagle-tree":
+                return spec.TreeEagleDraft(ep, draft_len=rt.draft_len,
+                                           capacity=rt.max_seq_len, fanout=rt.tree_fanout)
+            return spec.EagleDraft(ep, draft_len=rt.draft_len, capacity=rt.max_seq_len)
+        if rt.speculative == "dflash":
+            dp = init_random_dflash(c, g, block_size=rt.draft_len, device=self.device)
+            return spec.DFlashDraft(dp, capacity=rt.max_seq_len)
+        return spec.MtpDraft(eagle_mod.init_random_mtp(
+            c, g, num_heads=rt.draft_len, device=self.device))
+
+    def _stream_speculative(self, token_ids, max_new, eos):
+        """Greedy speculative decoding: lookahead, or a draft model
+        (`self.drafter`, made by `_make_drafter` when unset). Yields tokens
+        as each verify round completes; stops at EOS."""
+        from mnn_tpu_torch.runtime import speculative as spec
+
+        if self.rt.speculative == "lookahead":
+            rounds = spec.lookahead_generate(self, token_ids, max_new,
+                                             ngram=self.rt.ngram, draft_len=self.rt.draft_len)
+        else:
+            if self.drafter is None:
+                self.drafter = self._make_drafter()
+            gen_fn = (spec.tree_draft_generate if self.drafter.kind == "eagle-tree"
+                      else spec.draft_generate)
+            rounds = gen_fn(self, token_ids, max_new, drafter=self.drafter)
+        t0 = time.perf_counter()
+        first = True
+        for block in rounds:
+            if first:       # the first round's token ends the prefill
+                self.perf.prefill_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                first = False
+            for t in block:
+                self.perf.gen_len += 1
+                yield t
+                if t in eos:
+                    self.perf.decode_s = time.perf_counter() - t0
+                    return
+            self.perf.decode_s = time.perf_counter() - t0
 
     def generate(self, prompt: Optional[str] = None, **kw) -> str:
         ids = list(self.stream(prompt, **kw))

@@ -1717,3 +1717,216 @@ def test_kv_variant_slice_card_matches_cpu(dev, flags):
     top2 = cpu[0].topk(2).values
     if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
         assert card_toks[0] == cpu_toks[0]
+
+
+# --------------------------------------------------------------------------
+# speculative decoding: the verify shapes, the draft cache, a stream
+# --------------------------------------------------------------------------
+
+# (H, Hkv, Tq, S, q_offset, D): chain and tree verify, fewer query rows than
+# one warp's 16, far into the cache; kv_len = q_offset + Tq
+VERIFY_FLASH = [(14, 2, 5, 1024, 331, 64), (14, 2, 8, 1024, 631, 64),
+                (14, 2, 13, 1024, 500, 64), (4, 2, 1, 64, 40, 64),
+                (16, 16, 5, 1024, 1019, 128), (4, 2, 3, 256, 100, 32)]
+
+
+@pytest.mark.parametrize("h,hkv,t,s,q_off,d", VERIFY_FLASH)
+def test_flash_prefill_verify_shapes(dev, h, hkv, t, s, q_off, d):
+    """Row 4 at Tq < 16 with q_offset > 0: the plain version's output, the
+    same bits twice, and nothing written past the output rows (a guard
+    after the buffer keeps its fill)."""
+    g = torch.Generator(device=dev).manual_seed(h * t + q_off)
+    mk = lambda *shape: torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = mk(1, h, t, d), mk(1, hkv, s, d), mk(1, hkv, s, d)
+    kl = torch.tensor(q_off + t, dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    again = flash_attention.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    assert flash_attention.KERNEL.launches == before + 2
+    n = q.numel()
+    flat = torch.full((n + 64 * d,), 7.0, dtype=torch.bfloat16, device=dev)
+    lens = torch.stack([kl, qo])
+    flash_attention.KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), flat.data_ptr(),
+                           lens.data_ptr(), 1, h, hkv, t, s, d, 1, 0, 0, d ** -0.5)
+    want = flash_attention.flash_attention_plain(q, k, v, kl, qo)
+    torch.cuda.synchronize()
+    assert torch.equal(flat[:n].view_as(got), got) and bool((flat[n:] == 7.0).all())
+    err = rel(got, want)
+    print(f"verify flash prefill H={h} Hkv={hkv} T={t} q_off={q_off} D={d}: rel-L2 {err:.3e}")
+    assert torch.isfinite(got).all() and err <= 2e-2
+    assert torch.equal(got, again)
+
+
+# (M, K, N, out f32, out_bias): qwen2-0.5b's four projections and its int4
+# head at a chain verify of 4 + 1 and 7 + 1 rows and a 13-node tree
+VERIFY_ROWS = [(m, k, n, f32, ob) for m in (5, 8, 13)
+               for k, n, f32, ob in ((896, 1152, False, True), (896, 896, False, False),
+                                     (896, 9728, False, False), (4864, 896, False, False),
+                                     (896, 151936, True, False))]
+
+
+@pytest.mark.parametrize("m,k,n,f32,with_bias", VERIFY_ROWS)
+def test_dequant_matmul_verify_rows(dev, m, k, n, f32, with_bias):
+    """Row 1b at M = 5, 8 and 13: the tile kernel (not the GEMV), rel-L2
+    1e-2 to the plain version, the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    ql = rand_ql(g, dev, k, n, 4, 16, 1, with_bias)
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    assert dequant_matmul.bf16_tile(m, n, 4) is not None
+    before = dequant_matmul.KERNEL_BF16_TILE.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=0, out_dtype=out_dtype)
+    again = dequant_matmul.dequant_matmul(x, ql, layer_index=0, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(0), out_dtype)
+    torch.cuda.synchronize()
+    assert dequant_matmul.KERNEL_BF16_TILE.launches == before + 2
+    assert got.dtype == out_dtype and torch.isfinite(got).all()
+    assert rel(got, want) <= 1e-2 and torch.equal(got, again)
+
+
+# (Hkv, G, D, kv_len, S): the EAGLE draft's one-layer bf16 cache
+DRAFT_CACHE = [(2, 7, 64, 1, 1024), (2, 7, 64, 300, 1024), (2, 7, 64, 600, 1024),
+               (2, 2, 64, 64, 64), (4, 4, 128, 1000, 1024)]
+
+
+@pytest.mark.parametrize("hkv,grp,d,kv_len,s", DRAFT_CACHE)
+def test_flash_decode_over_the_draft_cache(dev, hkv, grp, d, kv_len, s):
+    """Row 5 over a one-layer bf16 cache [1, Hkv, S, D] (no layer index), as
+    `eagle_forward` calls it at t = 1: rel-L2 3e-2, the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(kv_len + s)
+    cache = eagle_draft_cache = kvcache.create(1, 1, hkv, s, d, quantized=False, device=dev)
+    eagle_draft_cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
+    eagle_draft_cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
+    q = torch.randn((1, hkv * grp, d), device=dev, generator=g).to(torch.bfloat16)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    before = flash_attention.KERNEL_DECODE.launches
+    got = flash_attention.decode_attention(q, cache.k[0], cache.v[0], lens)
+    again = flash_attention.decode_attention(q, cache.k[0], cache.v[0], lens)
+    want = flash_attention.decode_attention_plain(q, cache.k[0], cache.v[0], lens)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL_DECODE.launches == before + 2
+    assert rel(got, want) <= 3e-2 and torch.equal(got, again)
+
+
+def _verify_rows(llm, ids, toks):
+    """The logit rows [N, V] along `toks` three ways on llm's device: decode
+    steps after the runtime's prefill (the plain stream's path), and a chain
+    and a single-chain tree verify after the feature prefill (bf16 rows, the
+    draft modes' prefill)."""
+    from mnn_tpu_torch.runtime import generate
+    from mnn_tpu_torch.runtime import speculative as spec
+
+    p, c, rt = llm.params, llm.config, llm.rt
+    ids_t = torch.tensor([ids], device=llm.device)
+    logits, cache = generate.run_prefill(p, c, rt, ids_t, llm._new_cache())
+    dec = [logits[0]]
+    for tok in toks[:-1]:
+        logits, cache = decoder.forward(p, c, torch.tensor([[tok]], device=llm.device), cache)
+        dec.append(logits[0])
+    out = [torch.stack(dec).float()]
+    t = len(toks) - 1
+    ar = torch.arange(t, device=llm.device)
+    for tree in (None, (ar, torch.ones(t, t, dtype=torch.bool, device=llm.device).tril())):
+        first, _, cache = spec.prefill_with_features(p, c, rt, ids_t, llm._new_cache())
+        rows, _ = decoder.forward(p, c, torch.tensor([toks[:-1]], device=llm.device), cache,
+                                  all_logits=True, tree=tree)
+        out.append(torch.cat([first, rows[0]]).float())
+    return out
+
+
+class _OracleTree:
+    """A 3 x 3 tree whose chain `good` is the target's own greedy chain under
+    this very verify (the same 10-node verify run ahead on a copy of the
+    cache, a node at a time: a node's target depends on its ancestors only),
+    the others junk: accepted whole by construction."""
+
+    kind, draft_len, fanout = "eagle-tree", 3, 3
+
+    def __init__(self, llm, good):
+        from mnn_tpu_torch.runtime import speculative as spec
+
+        self.llm, self.good, self.spec = llm, good, spec
+        layout = spec.TreeEagleDraft(None, draft_len=3, fanout=3).tree_layout()
+        self.tree = tuple(a.to(llm.device) for a in layout)
+
+    def tree_layout(self):
+        return self.tree
+
+    def start(self, params, config, prompt_ids, feats):
+        self.params, self.config = params, config
+
+    def propose_tree(self, last_token, last_feat):
+        c, dev = self.llm.cache, self.llm.device
+        chains = (torch.arange(9, device=dev).reshape(3, 3) + 7).long()
+        for j in range(3):
+            cache = dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
+                                        k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+            nodes = torch.cat([torch.as_tensor(last_token, device=dev).long().reshape(1),
+                               chains.reshape(-1)])[None]
+            targets, _, _ = self.spec.verify_forward(self.params, self.config, nodes, cache,
+                                                     tree=self.tree)
+            chains[self.good, j] = targets[0, 0 if j == 0 else 1 + self.good * 3 + j - 1]
+        return chains
+
+    def commit(self, *a, **kw):
+        pass
+
+    def rollback(self, n):
+        pass
+
+
+def test_eagle_tree_stream_on_the_card_matches_plain(dev):
+    """A short `eagle-tree` stream of a small model (head_dim 64) on the
+    card: the plain greedy stream's tokens up to the first step whose margin
+    is not above that step's largest logit difference between the verify
+    paths and the decode path; the draft's t = 1 steps on flash decode, the
+    verify on the tile kernel and the eager attention, no whole-model
+    launch. Then an oracle tree whose last chain is the target's own: every
+    round accepted whole, the accepted rows moved by `compact_tail` on the
+    card to where the root's path continues, byte for byte."""
+    from mnn_tpu_torch.runtime import speculative as spec
+
+    rt = RuntimeConfig(max_seq_len=256, prefill_chunk=32, decode_block=4, sampler="greedy",
+                       lm_head_bits=4, prefill_act_bits=16, max_new_tokens=12)
+    params = decoder.init_random_params(MK, torch.Generator().manual_seed(1), scale=0.05,
+                                        lm_head_bits=4, device=dev)
+    ids = list(range(3, 48))
+    plain = Llm(MK, params, rt, device=dev)
+    want = list(plain.stream(token_ids=ids))
+    dec, chain, tree = _verify_rows(plain, ids, want)
+    diff = torch.maximum((chain - dec).abs().amax(-1), (tree - dec).abs().amax(-1))
+    top2 = dec.topk(2, dim=-1).values
+    n = ((top2[:, 0] - top2[:, 1] > diff).tolist() + [False]).index(False)
+    llm = Llm(MK, params, dataclasses.replace(rt, speculative="eagle-tree", draft_len=3),
+              device=dev)
+    build.reset_launches()
+    got = list(llm.stream(token_ids=ids))
+    counts = {k.name: k.launches for k in build.KERNELS}
+    same = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+    print(f"eagle-tree on the card: equal to the plain stream for {same} of 12 tokens, "
+          f"{n} clear")
+    assert n >= 1 and same >= n and len(got) == 12
+    assert counts["mnn_decode_model"] == counts["mnn_decode_step"] == 0
+    assert counts["mnn_flash_decode"] > 0 and counts["mnn_dequant_matmul_bf16_tile"] > 0
+    assert isinstance(llm.drafter, spec.TreeEagleDraft)
+
+    llm.reset()
+    moved = []
+    orig = kvcache.compact_tail
+
+    def checked(cache, start, sel, m):
+        s0 = int(start)
+        src = [s0 + i for i in sel[:m]]
+        before = [t[:, :, :, src].clone() for t in (cache.k, cache.v, cache.k_scale)]
+        out = orig(cache, start, sel, m)
+        after = [t[:, :, :, s0:s0 + m] for t in (out.k, out.v, out.k_scale)]
+        moved.append(all(torch.equal(a, b) for a, b in zip(before, after)))
+        return out
+    kvcache.compact_tail = checked
+    try:
+        blocks = list(spec.tree_draft_generate(llm, ids, 13, drafter=_OracleTree(llm, 2)))
+    finally:
+        kvcache.compact_tail = orig
+    assert [len(b) for b in blocks] == [1, 4, 4, 4] and llm.spec_stats["accept_rate"] == 1.0
+    assert moved == [True] * 3
