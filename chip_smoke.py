@@ -195,6 +195,37 @@ Phases, each of which exits non-zero on failure:
    against CPU at full width and 4 layers: the feature prefill of the
    300-token request, one chain verify of 8 tokens and one tree verify of
    13 nodes, features and logits within 5e-2, targets by phase 4's rule.
+11. multimodal input, run right after phase 2's whole-model rows on the
+   28-layer qwen2-7b weights they built (W4 block 128, int4 head), served
+   with Qwen2.5-VL / Omni's `mrope_section` (16, 24, 24) over an int8 cache
+   of 2,048 at `prefill_act_bits=8`, greedy; a Qwen2.5-VL tower at its
+   published widths (32 blocks of 1,280, 16 heads, out 3,584) and a whisper
+   encoder at whisper-large-v3's (128 mels, 32 layers of 1,280, 20 heads),
+   both from seeded HF-layout weights made on the card and mapped by the
+   port's `from_hf_*`; each sub-phase with the launch counts set to 0
+   before and read after. Phase 2 times row 2 at qwen2-7b's four
+   projections (M = 512), row 1a at the same four and its int4 head
+   (M = 1), row 4 at its heads over the 2,048 cache (the 601-token
+   prompt's two chunks) and row 6 at (ll)'s last decode step first. (jj) `Omni.stream_mm` of 17 text
+   tokens, a seeded 480 x 640 image (64 tokens), 10 s of seeded audio (500
+   tokens) and 20 text tokens, 32 new tokens: rows 2, 4 and 7 launched,
+   row 6 not; the tower, fbank and encoder times, prefill seconds and
+   decode tok/s. (kk) the exact Qwen2.5-VL route: `qwen2_preprocess` of a
+   seeded 700 x 1,036 image (3,700 patches, 925 tokens, windows padded),
+   the tower, `splice_embeds`, one prefill at `build_mrope_positions`, 16
+   decode steps at max(position) + 1 + s on the whole-model kernel, the
+   next step against the per-layer path (5e-2). (ll) deepstack (3 levels on
+   100 image rows of a 300-token prefill) and a PLE table of dim 256 at
+   qwen2-7b widths and 2 layers, card against CPU, 8 steps, phase 4's
+   bounds and token rule; the decode-step kernel runs, the whole-model
+   kernel does not. (mm) card against CPU: the 32-block tower on (jj)'s
+   256 patches, the encoder at 8 layers on (jj)'s mel, a CLIP ViT-L/14 at
+   2 layers (each f32, rel-L2 1e-3), and the LM at 4 layers under (jj)'s
+   spliced embeddings, prefill and 8 steps by phase 4's rule. (nn)
+   `Llm.embed` (last, mean) and `Llm.rerank` (yes-token, cosine) on
+   full-size qwen2-0.5b, card against CPU: vectors within rel-L2 5e-2,
+   each ranking's order equal wherever the CPU's score gaps exceed the
+   largest score difference.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -204,7 +235,9 @@ and, last, the device line. Details go to `chiprun_out/chip_smoke.json`
 7's under `gemma`, phase 8's under `sub4`, phase 9's under `kv`, phase
 10's under `speculative`; phase 10's rows of rows 1b, 4 and 5 under
 `verify` / `draft_cache` of their kernel, with the launches of (cc) to
-(gg); the gemma rows of rows 6 and 7
+(gg); phase 11's details under `multimodal`, its launches added to each
+kernel's count (also alone, `multimodal_launches`), phase 2's qwen2-7b rows
+of rows 1a, 2, 4 and 6 under `qwen2_7b` of their kernel; the gemma rows of rows 6 and 7
 under `gemma` of their kernel in the kernels line, beside the sums of the
 earlier rows; under `weight_bits` the weight bits of the rows that ran each
 kernel in this run, and phase 8's rows and launches under `w3` and `w2`).
@@ -236,16 +269,19 @@ import torch
 
 import mnn_tpu_torch
 from mnn_tpu_torch import profile_decode
+from mnn_tpu_torch.audio import audio as audio_mod
 from mnn_tpu_torch.convert import checkpoint, stfile
 from mnn_tpu_torch.convert.hf import convert_hf
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
                                    flash_attention, moe_decode, moe_prefill)
-from mnn_tpu_torch.models import decoder
+from mnn_tpu_torch.models import audio_encoder, decoder, qwen_vl_vision, vision_encoder
+from mnn_tpu_torch.models.audio_encoder import AudioEncoderConfig
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
 from mnn_tpu_torch.quant import quantize
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
-from mnn_tpu_torch.runtime import batch_engine, evaluate, generate, kvcache
+from mnn_tpu_torch.runtime import (batch_engine, evaluate, generate, kvcache, omni,
+                                   vision_preprocess)
 from mnn_tpu_torch.runtime import speculative as spec
 from mnn_tpu_torch.runtime.kv_offload import KVOffloadPool
 from mnn_tpu_torch.runtime.llm import Llm
@@ -434,35 +470,52 @@ def int_mm_ms(ql, xq, nl):
     return time_ms(lambda i: torch._int_mm(xq, wq[i % nint]), calls=max(nint, 8))
 
 
+def gemm_rows(a8: bool) -> list:
+    """Phase 2's own rows of K1 (bf16 rows: at M = 1 the decode GEMVs and
+    the lm head on the GEMV kernel; at M > 1 the tensor-core tile kernel,
+    for qwen1.5-moe-a2.7b's shared expert at the 32-, 128- and 512-row
+    buckets and qwen2-0.5b's projections at M = 512 under
+    prefill_act_bits=16) or of K2 (int8 rows, M = 512: prefill GEMMs; and
+    qwen2-0.5b's gate/up at the 32- and 128-row buckets), as (proj, K, N,
+    out_bias, M)."""
+    shapes = [(p, k, n, b, 512 if a8 else 1)
+              for p, (k, n, b) in list(PROJ.items()) + list(MOE_PROJ.items())]
+    if a8:
+        return shapes + [("wgu", *PROJ["wgu"], 32), ("wgu", *PROJ["wgu"], 128)]
+    shapes += [("lm_head", 896, 151936, False, 1), ("moe_lm_head", 2048, 151936, False, 1)]
+    # qwen1.5-moe-a2.7b's shared expert in a prefill chunk: bf16 rows
+    shapes += [(p, k, n, False, m) for m in (32, 128, 512)
+               for p, k, n in (("moe_shared_gu", 2048, 11264), ("moe_shared_dn", 5632, 2048))]
+    return shapes + [(p, k, n, b, 512) for p, (k, n, b) in PROJ.items()]
+
+
 # phase 10's verify rows of K1: a chain verify of 4 + 1 and 7 + 1 rows and a
 # 13-node tree, on qwen2-0.5b's four projections and its int4 head (f32 out)
 VERIFY_MS = (5, 8, 13)
+VERIFY_GEMM = [(p, k, n, b, m) for m in VERIFY_MS
+               for p, (k, n, b) in list(PROJ.items()) + [("lm_head", (896, 151936, False))]]
+
+# qwen2-7b's projections and int4 head (f32 out), served by phase 11: row 2
+# at the 512-row prefill chunk; row 1a at M = 1, the projections in (ll)'s
+# per-layer PLE decode and the head after every prefill of (jj) and (mm)
+QWEN7B_PROJ = {
+    "qwen7b_qkv": (3584, 4608, True),
+    "qwen7b_wo": (3584, 3584, False),
+    "qwen7b_wgu": (3584, 37888, False),
+    "qwen7b_wdown": (18944, 3584, False),
+}
+QWEN7B_PREFILL = [(p, k, n, b, 512) for p, (k, n, b) in QWEN7B_PROJ.items()]
+QWEN7B_GEMV = ([(p, k, n, b, 1) for p, (k, n, b) in QWEN7B_PROJ.items()]
+               + [("qwen7b_lm_head", 3584, 152064, False, 1)])
 
 
-def phase_gemm(dev, g, results, *, a8: bool, verify: bool = False):
-    """K1 (bf16 rows: at M = 1 the decode GEMVs and the lm head on the GEMV
-    kernel; at M > 1 the tensor-core tile kernel, for qwen1.5-moe-a2.7b's
-    shared expert at the 32-, 128- and 512-row buckets and qwen2-0.5b's
-    projections at M = 512 under prefill_act_bits=16) or K2 (int8 rows,
-    M = 512: prefill GEMMs; and qwen2-0.5b's gate/up at the 32- and
-    128-row buckets). With `verify`: K1 at phase 10's verify rows
-    (`VERIFY_MS`), under `dequant_matmul_verify`."""
+def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
+    """K1 (bf16 rows) or K2 (int8 rows, `a8`) at `shapes`, (proj, K, N,
+    out_bias, M) rows (None: `gemm_rows(a8)`), each held against its plain
+    version and timed beside a bf16 `torch.matmul`; the rows go to
+    results[key] (None: the kernel's name)."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
-    shapes = [(p, k, n, b, 512 if a8 else 1)
-              for p, (k, n, b) in list(PROJ.items()) + list(MOE_PROJ.items())]
-    if verify:
-        shapes = [(p, k, n, b, m) for m in VERIFY_MS
-                  for p, (k, n, b) in list(PROJ.items()) + [("lm_head", (896, 151936, False))]]
-    elif a8:
-        shapes += [("wgu", *PROJ["wgu"], 32), ("wgu", *PROJ["wgu"], 128)]
-    else:
-        shapes += [("lm_head", 896, 151936, False, 1),
-                   ("moe_lm_head", 2048, 151936, False, 1)]
-        # qwen1.5-moe-a2.7b's shared expert in a prefill chunk: bf16 rows
-        shapes += [(p, k, n, False, m) for m in (32, 128, 512)
-                   for p, k, n in (("moe_shared_gu", 2048, 11264),
-                                   ("moe_shared_dn", 5632, 2048))]
-        shapes += [(p, k, n, b, 512) for p, (k, n, b) in PROJ.items()]
+    shapes = gemm_rows(a8) if shapes is None else shapes
     tol = 1e-2
     rows = []
     for proj, k, n, with_bias, m in shapes:
@@ -532,7 +585,7 @@ def phase_gemm(dev, g, results, *, a8: bool, verify: bool = False):
               f"bound {bound:.4f} ({bound_by}){extra}", flush=True)
         del ql, x, got, want
         torch.cuda.empty_cache()
-    results[name + ("_verify" if verify else "")] = rows
+    results[key or name] = rows
 
 
 def phase_flash(dev, g, results):
@@ -551,6 +604,15 @@ def phase_flash(dev, g, results):
             (1, 14, 2, 64, 128, 600, 512), (1, 16, 16, 128, 512, 300, 0),
             (1, 16, 16, 128, 128, 600, 512), (2, 16, 16, 128, 128, 600, 512),
             (1, 16, 16, 128, 512, 512, 0))]
+
+
+def phase_flash_7b(dev, g, results):
+    """K3 at the chunks phase 11 (jj) serves on qwen2-7b's heads (28 query
+    heads, 4 KV heads, D = 128) over its 2,048 cache: the 601-token prompt's
+    512-bucket, then its 128-bucket at q_offset 512 (serving appends whole
+    buckets, so kv_len 512 and 640)."""
+    results["flash_prefill_7b"] = [flash_row(dev, g, 1, 28, 4, 128, t, kv, q_off, cap=MM_CAP)
+                                   for t, kv, q_off in ((512, 512, 0), (128, 640, 512))]
 
 
 # phase 10's chain verify on K3: Tq = 5 and 8 (drafts of 4 and 7, plus the
@@ -621,16 +683,16 @@ DECODE_ROWS = [(1, 2, 7, 64, (48,)), (1, 2, 7, 64, (331,)), (1, 2, 7, 64, (631,)
 DECODE_FIRST_ROWS = 4   # the rows the kernels line summed before the last three
 
 
-def phase_decode(dev, g, results):
-    """K4 at the rows of DECODE_ROWS over a 24-layer int8 cache of capacity
-    1024, each with the split the kernel took (`decode_step.split`): blocks a
-    cluster, positions a tile, shared bytes a block, blocks. Two calls must
-    give the same bits."""
-    L, cap = 24, 1024
+def phase_decode(dev, g, results, shapes=DECODE_ROWS, cap=1024, key="decode_step"):
+    """K4 at `shapes` over a 24-layer int8 cache of capacity `cap`, each with
+    the split the kernel took (`decode_step.split`): blocks a cluster,
+    positions a tile, shared bytes a block, blocks. Two calls must give the
+    same bits. The rows go to results[key]."""
+    L = 24
     tol = 3e-2
     rows = []
     kq = None
-    for bsz, hkv, grp, d, lens in DECODE_ROWS:
+    for bsz, hkv, grp, d, lens in shapes:
         if kq is None or kq.shape[1:4] != (bsz, hkv, cap):
             kq = vq = None
             kf = torch.randn((L, bsz, hkv, cap, d), device=dev, generator=g)
@@ -690,7 +752,7 @@ def phase_decode(dev, g, results):
               f"{blocks_a_cluster} blocks, {tile}-position tiles, smem {smem}, {blocks} blocks",
               flush=True)
     del kq, vq
-    results["decode_step"] = rows
+    results[key] = rows
 
 
 def rand_cache(g, dev, layers, batch, hkv, cap, d, bits):
@@ -887,7 +949,8 @@ def phase_decode_model(dev, g, results, params05):
     at the three requests' last steps, an int4 and a bf16 cache, and batch 4
     with unequal lengths; then two layers at qwen2-7b widths, and qwen2-7b at
     its full 28 layers. Each row prints the schedule the kernel walked, and
-    two calls must give the same bits."""
+    two calls must give the same bits. Returns the 28-layer qwen2-7b
+    weights, which phase 11 serves."""
     cap = 1024
     cfg05 = PRESETS["qwen2-0.5b"]
     cfg7 = dataclasses.replace(PRESETS["qwen2-7b"], num_layers=2)
@@ -970,9 +1033,12 @@ def phase_decode_model(dev, g, results, params05):
               f"slots ({sched['ring_bytes']} B a block, {sched['bytes_in_flight']} B in "
               f"flight), weight bytes a block {sched['max_block_bytes']} most / "
               f"{sched['mean_block_bytes']:.0f} mean", flush=True)
+        if name == "qwen2-7b":
+            params7 = params         # phase 11 serves these weights
         del kc, vc, ks, vs, cache, got, want, again, params
         torch.cuda.empty_cache()
     results["decode_model"] = rows
+    return params7
 
 
 def ql_nbytes(ql, count: int = 1) -> int:
@@ -1418,13 +1484,17 @@ def compare_traces(card, cpu, label="", sides="card vs cpu"):
     return dict(rel_l2=rels, max_abs_diff=diff, tokens_checked=checked)
 
 
-def greedy_trace(llm, ids, feed, megakernel=None):
+def greedy_trace(llm, ids, feed, megakernel=None, prefill=None):
     """Prefill + PARITY_STEPS decode steps on llm's device. `feed`: the
-    tokens to feed (teacher forcing), or None for the own argmax.
-    Returns (logit rows, fed tokens, the cache it leaves)."""
-    cache = llm._new_cache()
-    tokens = torch.tensor([ids], dtype=torch.int64, device=llm.device)
-    logits, cache = generate.run_prefill(llm.params, llm.config, llm.rt, tokens, cache)
+    tokens to feed (teacher forcing), or None for the own argmax;
+    `prefill(llm)` -> (logits, cache), when given, replaces the prefill of
+    the tokens `ids`. Returns (logit rows, fed tokens, the cache it leaves)."""
+    if prefill is not None:
+        logits, cache = prefill(llm)
+    else:
+        tokens = torch.tensor([ids], dtype=torch.int64, device=llm.device)
+        logits, cache = generate.run_prefill(llm.params, llm.config, llm.rt, tokens,
+                                             llm._new_cache())
     rows = [logits.float().cpu()]
     fed = []
     for s in range(PARITY_STEPS):
@@ -3463,6 +3533,441 @@ def phase_spec(dev, params, card_line):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: multimodal input on the card
+# --------------------------------------------------------------------------
+
+MM_SECTIONS = (16, 24, 24)   # Qwen2.5-VL / Omni's rope_scaling.mrope_section
+MM_CAP = 2048
+IMG_ID, AUD_ID = -1, -2      # the placeholders of an image and an audio run
+OMNI_IMAGE = (480, 640)      # (jj): downscaled to Omni's 224 x 224
+OMNI_AUDIO_S = 10            # (jj): 1,000 mel frames, 500 audio tokens
+OMNI_TEXT = (17, 20)         # (jj): text tokens before the image and after the audio
+VL_OMNI_GRID = (1, 16, 16)   # Omni's 224 x 224 pixels in 14-pixel patches: 64 tokens
+# whisper-large-v3's encoder widths
+WHISPER_L3 = AudioEncoderConfig(n_mels=128, hidden_size=1280, num_layers=32, num_heads=20,
+                                ffn_size=5120, max_positions=1500)
+KK_IMAGE = (700, 1036)       # (kk): grid (1, 50, 74), 25 x 37 merge units, 925 tokens
+KK_STEPS = 16
+LL_LAYERS, LL_PROMPT, LL_LEVELS, PLE_DIM = 2, 300, 3, 256   # (ll)
+# phase 2's row of K4 at (ll)'s last per-layer PLE decode step on qwen2-7b's
+# heads (28 query heads over 4 KV heads, D 128) over its int8 cache of 2,048
+DECODE_ROWS_7B = [(1, 4, 7, 128, (LL_PROMPT + PARITY_STEPS - 1,))]
+MM_LM_LAYERS, MM_AUDIO_LAYERS = 4, 8                          # (mm)
+CLIP_VIT_L = dict(hidden=1024, heads=16, patch=14, image=224, layers=2, inter=4096)
+TOWER_REL = 1e-3             # (mm): the towers, f32 on both sides
+MM_QUERY = "how do cats show that they are content"
+MM_DOCS = ["a purring cat is usually relaxed and content",
+           "the stock market closed higher on friday",
+           "dogs wag their tails when they are happy",
+           "cats purr, knead and slow-blink when at ease"]
+MM_YES = 89                  # the byte 'Y'
+MM_NEVER = ("mnn_moe_decode", "mnn_moe_prefill", "mnn_flash_decode")
+
+
+def mm_rt() -> RuntimeConfig:
+    return dataclasses.replace(serving_rt(), max_seq_len=MM_CAP)
+
+
+def vl_omni_encode(vlp, vcfg):
+    """Omni's vision tower: its [1, 3, 224, 224] pixels cut into
+    `qwen2_preprocess`'s patch layout (temporal fill 2, 14-pixel patches)."""
+    p, (gt, gh, gw) = vcfg.patch_size, VL_OMNI_GRID
+
+    def encode(pixels):
+        hwc = pixels[0].permute(1, 2, 0)
+        pt = torch.stack([hwc, hwc]).reshape(gt, 2, gh, p, gw, p, 3).permute(
+            0, 2, 4, 1, 3, 5, 6).reshape(gt * gh * gw, -1)
+        return qwen_vl_vision.qwen_vl_vision_forward(vlp, vcfg, pt, [VL_OMNI_GRID])
+    return encode
+
+
+def mm_inputs():
+    """(jj)'s seeded image and waveform, (kk)'s image."""
+    rng = np.random.default_rng(SEED + 11)
+    image = rng.integers(0, 256, (*OMNI_IMAGE, 3), dtype=np.uint8)
+    t = np.arange(16000 * OMNI_AUDIO_S) / 16000
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 0.5 * t)
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    return image, wav, rng.integers(0, 256, (*KK_IMAGE, 3), dtype=np.uint8)
+
+
+def phase_omni(dev, params7, cfg7, vlp, vcfg, ap, card_line):
+    """(jj): `Omni.stream_mm` of text + image + audio at qwen2-7b's 28
+    layers, 32 new tokens: rows 2, 4 and 7 launched, row 6 not."""
+    image, wav, _ = mm_inputs()
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    audio_proj = torch.randn((WHISPER_L3.hidden_size, cfg7.hidden_size), device=dev,
+                             generator=g) * 0.02
+    o = omni.Omni(cfg7, params7, mm_rt(), vision_encode=vl_omni_encode(vlp, vcfg),
+                  image_token_id=IMG_ID,
+                  audio_encode=lambda mel: audio_encoder.audio_encoder_forward(ap, WHISPER_L3, mel),
+                  audio_proj=audio_proj, audio_token_id=AUD_ID,
+                  audio_n_mels=WHISPER_L3.n_mels, device=dev)
+    # each step timed on its second call (the first builds cuBLAS and cuFFT
+    # plans); then one untimed request of 2 tokens (the whole-model kernel's
+    # schedule for this shape is made on its first step)
+    for _ in range(2):
+        pixels, pre_s = synced(lambda: omni.preprocess_image(image, device=dev))
+        feats, tower_s = synced(lambda: o.vision_encode(pixels))
+        mel, fbank_s = synced(lambda: audio_mod.whisper_fbank(
+            wav, n_mels=WHISPER_L3.n_mels, device=dev))
+        afeats, audio_s = synced(lambda: o.audio_encode(mel.t()[None]))
+    n_img, n_aud = feats.shape[0], afeats.shape[1]
+    check(tuple(feats.shape) == (64, cfg7.hidden_size), f"(jj) tower: {tuple(feats.shape)}")
+    check(tuple(mel.shape) == (100 * OMNI_AUDIO_S, WHISPER_L3.n_mels) and n_aud == 500,
+          f"(jj) audio: mel {tuple(mel.shape)}, {n_aud} tokens")
+    check(bool(torch.isfinite(feats).all() and torch.isfinite(afeats).all()),
+          "(jj) non-finite tower output")
+    rng = np.random.default_rng(SEED + 13)
+    text = rng.integers(0, cfg7.vocab_size, sum(OMNI_TEXT)).tolist()
+    ids = (text[:OMNI_TEXT[0]] + [IMG_ID] * n_img + [AUD_ID] * n_aud + text[OMNI_TEXT[0]:])
+    list(o.stream_mm(ids, images=[image], audios=[wav], max_new_tokens=2))
+    o.reset()
+    build.reset_launches()
+    toks = list(o.stream_mm(ids, images=[image], audios=[wav], max_new_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    counts = read_launches("(jj) Omni.stream_mm", ("mnn_dequant_matmul_a8", "mnn_flash_prefill",
+                                                   "mnn_decode_model"),
+                           never=("mnn_decode_step",) + MM_NEVER)
+    chunks = len(generate.prefill_buckets(len(ids), mm_rt().prefill_chunk))
+    check(counts["mnn_decode_model"] == len(toks) == NEW_TOKENS,
+          f"(jj) {counts['mnn_decode_model']} whole-model launches for {len(toks)} tokens")
+    check(counts["mnn_flash_prefill"] == cfg7.num_layers * chunks,
+          f"(jj) flash prefill {counts['mnn_flash_prefill']} != {cfg7.num_layers} x {chunks}")
+    check(bool(torch.isfinite(o.last_prefill_logits).all()), "(jj) non-finite prefill logits")
+    check(all(0 <= t < cfg7.vocab_size for t in toks), "(jj) token out of range")
+    p = o.perf
+    out = dict(prompt=dict(text=sum(OMNI_TEXT), image=n_img, audio=n_aud, total=len(ids)),
+               preprocess_ms=pre_s * 1e3, tower_ms=tower_s * 1e3, fbank_ms=fbank_s * 1e3,
+               audio_encoder_ms=audio_s * 1e3, prefill_s=p.prefill_s,
+               prefill_tok_s=p.prefill_tok_s, decode_tok_s=p.decode_tok_s, gen_len=p.gen_len,
+               prefill_chunks=chunks, launches=counts, card=card_line)
+    print(f"  (jj) Omni.stream_mm, qwen2-7b x{cfg7.num_layers} + mrope {MM_SECTIONS}: prompt "
+          f"{sum(OMNI_TEXT)} text + {n_img} image + {n_aud} audio = {len(ids)} | preprocess "
+          f"{pre_s * 1e3:.2f} ms, tower {tower_s * 1e3:.2f} ms, fbank {fbank_s * 1e3:.2f} ms, "
+          f"audio encoder {audio_s * 1e3:.2f} ms | prefill {p.prefill_s:.4f} s "
+          f"({p.prefill_tok_s:.1f} tok/s) | decode {p.gen_len} tok {p.decode_tok_s:.1f} tok/s "
+          f"[{card_line}]", flush=True)
+    return out, dict(pixels=pixels, mel=mel, ids=ids, image=image, wav=wav,
+                     audio_proj=audio_proj, omni=o)
+
+
+def phase_mrope_exact(dev, params7, cfg7, vlp, vcfg, card_line):
+    """(kk): the exact Qwen2.5-VL route: `qwen2_preprocess` of a 700 x 1,036
+    image (25 x 37 merge units pad the 4-unit windows), the full tower,
+    `splice_embeds`, one prefill at `build_mrope_positions`, then KK_STEPS
+    decode steps at max(position) + 1 + s on all three components: the
+    whole-model kernel with mrope phases, one launch a step."""
+    _, _, image = mm_inputs()
+    (vo, prep_s) = synced(lambda: vision_preprocess.qwen2_preprocess(image, device=dev))
+    check(tuple(vo.grid) == (1, 50, 74) and vo.pixels.shape[0] == 3700
+          and vo.num_tokens == 925, f"(kk) grid {vo.grid}, {vo.pixels.shape}, {vo.num_tokens}")
+    patches = torch.from_numpy(vo.pixels).to(dev)
+    feats, tower_s = synced(lambda: qwen_vl_vision.qwen_vl_vision_forward(
+        vlp, vcfg, patches, [vo.grid]))
+    check(tuple(feats.shape) == (925, cfg7.hidden_size) and bool(torch.isfinite(feats).all()),
+          f"(kk) tower output {tuple(feats.shape)}")
+    rng = np.random.default_rng(SEED + 14)
+    text = rng.integers(0, cfg7.vocab_size, sum(OMNI_TEXT)).tolist()
+    ids = text[:OMNI_TEXT[0]] + [IMG_ID] * 925 + text[OMNI_TEXT[0]:]
+    pos = vision_encoder.build_mrope_positions(ids, IMG_ID, grid_hw=(25, 37))
+    embeds = omni.splice_embeds(params7.embedding, ids, [feats], IMG_ID)
+    pos_t = torch.from_numpy(pos).to(dev)
+    rt = mm_rt()
+    pp = generate.prefill_params_view(params7, rt)
+    cache = Llm(cfg7, params7, rt, device=dev)._new_cache()
+    build.reset_launches()
+    zeros = torch.zeros((1, len(ids)), dtype=torch.int64, device=dev)
+    (logits, cache), prefill_s = synced(lambda: decoder.forward(
+        pp, cfg7, zeros, cache, inputs_embeds=embeds, position_ids=pos_t))
+    tok = decode_model.lowest_argmax(logits)[:, None].long()
+    nxt = int(pos.max()) + 1
+    toks = []
+
+    def steps(cache, tok):
+        for s in range(KK_STEPS):
+            p3 = torch.full((1, 1, 3), nxt + s, device=dev)
+            (_, t), cache = decoder.forward(params7, cfg7, tok, cache, position_ids=p3,
+                                            return_token=True)
+            toks.append(t)
+            tok = t[:, None].long()
+        return cache, tok
+    (cache, tok), decode_s = synced(lambda: steps(cache, tok))
+    counts = read_launches("(kk) mrope prefill + decode", ("mnn_dequant_matmul_a8",
+                                                          "mnn_flash_prefill", "mnn_decode_model"),
+                           never=("mnn_decode_step",) + MM_NEVER)
+    check(counts["mnn_decode_model"] == KK_STEPS, f"(kk) {counts['mnn_decode_model']} "
+          f"whole-model launches for {KK_STEPS} steps")
+    # the next step on the per-layer path (row 6) from a copy: the same mrope phases
+    p3 = torch.full((1, 1, 3), nxt + KK_STEPS, device=dev)
+    clone = lambda: dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone(),
+                                        k_scale=cache.k_scale.clone(),
+                                        v_scale=cache.v_scale.clone())
+    mk, _ = decoder.forward(params7, cfg7, tok, clone(), position_ids=p3, megakernel=True)
+    per_layer, _ = decoder.forward(params7, cfg7, tok, clone(), position_ids=p3,
+                                   megakernel=False)
+    paths = rel_l2(mk, per_layer)
+    check(paths <= PARITY_REL, f"(kk) whole-model vs per-layer path at mrope phases: "
+          f"rel-L2 {paths:.3g}")
+    out = dict(grid=list(vo.grid), patches=int(vo.pixels.shape[0]), image_tokens=925,
+               prompt=len(ids), max_position=int(pos.max()), preprocess_ms=prep_s * 1e3,
+               tower_ms=tower_s * 1e3, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=decode_s * 1e3 / KK_STEPS,
+               megakernel_vs_per_layer_rel_l2=paths, launches=counts, card=card_line)
+    print(f"  (kk) qwen2_preprocess {KK_IMAGE} -> grid {tuple(vo.grid)}, {vo.pixels.shape[0]} "
+          f"patches, 925 tokens; prompt {len(ids)}, max position {int(pos.max())} | preprocess "
+          f"(host) {prep_s * 1e3:.1f} ms, tower {tower_s * 1e3:.2f} ms, prefill "
+          f"{prefill_s * 1e3:.2f} ms, decode {decode_s * 1e3 / KK_STEPS:.3f} ms a step | "
+          f"whole-model vs per-layer path rel-L2 {paths:.2e} [{card_line}]", flush=True)
+    return out
+
+
+def timed_cpu(fn):
+    """A CPU side for the pool: (fn(), seconds)."""
+    def job():
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+    return job
+
+
+def phase_ple_deepstack(dev, params7, cfg7, pool, card_line):
+    """(ll): deepstack (LL_LEVELS levels on the image rows) and a PLE table
+    (PLE_DIM) at qwen2-7b widths and LL_LAYERS layers, a LL_PROMPT-token
+    prefill and PARITY_STEPS decode steps on the card, then through the
+    plain versions on the CPU (submitted to `pool`; the returned function
+    waits for it): phase 4's bounds and token rule; the PLE steps run the
+    decode-step kernel (row 6), never the whole-model kernel."""
+    cfg = dataclasses.replace(cfg7, num_layers=LL_LAYERS)
+    g = torch.Generator().manual_seed(SEED + 15)
+    table = torch.randn((cfg.vocab_size, LL_LAYERS, PLE_DIM), generator=g) * 0.02
+    proj = torch.randn((LL_LAYERS, PLE_DIM, cfg.hidden_size), generator=g) * 0.02
+    ds = torch.randn((LL_LEVELS, 1, LL_PROMPT, cfg.hidden_size), generator=g) * 0.02
+    ds[:, :, :100] = 0
+    ds[:, :, 200:] = 0                   # the image rows 100..199 only
+    cut = first_layers(params7, LL_LAYERS)
+    cut = dataclasses.replace(cut, ple_table=table.to(dev), layers=dataclasses.replace(
+        cut.layers, ple_proj=proj.to(dev)))
+    ids = np.random.default_rng(SEED + 16).integers(0, cfg.vocab_size, LL_PROMPT).tolist()
+
+    def prefill(llm):
+        d = llm.device
+        return decoder.forward(generate.prefill_params_view(llm.params, llm.rt), cfg,
+                               torch.tensor([ids], device=d), llm._new_cache(),
+                               deepstack=ds.to(d))
+
+    build.reset_launches()
+    card, fed, _ = greedy_trace(Llm(cfg, cut, mm_rt(), device=dev), None, None,
+                                prefill=prefill)
+    torch.cuda.synchronize()
+    counts = read_launches("(ll) PLE + deepstack", ("mnn_dequant_matmul_a8", "mnn_flash_prefill",
+                                                    "mnn_decode_step"),
+                           never=("mnn_decode_model",) + MM_NEVER)
+    check(counts["mnn_decode_step"] == LL_LAYERS * PARITY_STEPS,
+          f"(ll) decode-step launches {counts['mnn_decode_step']}")
+    cpu_params = to_device(cut, "cpu")
+    job = pool.submit(timed_cpu(lambda: greedy_trace(
+        Llm(cfg, cpu_params, mm_rt(), device="cpu"), None, fed, prefill=prefill)[0]))
+
+    def finish():
+        cpu, cpu_s = job.result()
+        res = compare_traces(card, cpu, f"(ll) PLE dim {PLE_DIM} + deepstack x{LL_LEVELS}, "
+                                        f"{LL_LAYERS} layers, full width ")
+        print(f"    cpu side {cpu_s:.1f} s", flush=True)
+        return dict(res, launches=counts, layers=LL_LAYERS, ple_dim=PLE_DIM,
+                    ple_table_bytes=table.numel() * 4, cpu_s=cpu_s, card=card_line)
+    return finish
+
+
+def phase_mm_parity(dev, params7, cfg7, vlp, vcfg, ap, jj, pool, card_line):
+    """(mm): the card against the plain versions on the CPU (each CPU side
+    submitted to `pool`; the returned function waits for them): the full
+    32-block tower on (jj)'s 256 patches, the audio encoder at
+    MM_AUDIO_LAYERS layers on (jj)'s mel (rel-L2 TOWER_REL each, f32 on
+    both sides), a CLIP ViT-L/14 at 2 layers on (jj)'s pixels, and the LM
+    at MM_LM_LAYERS layers under (jj)'s embeddings (prefill + PARITY_STEPS
+    steps, phase 4's bounds and token rule)."""
+    cpu_of = lambda d: {k: v.cpu() for k, v in d.items()}
+    towers = []
+
+    def tower_pair(name, fn_card, fn_cpu):
+        a = fn_card().float().cpu()
+        towers.append((name, a, pool.submit(timed_cpu(fn_cpu))))
+
+    vlp_cpu, pix = cpu_of(vlp), jj["pixels"].cpu()
+    enc_cpu = vl_omni_encode(vlp_cpu, vcfg)
+    tower_pair("qwen2.5-vl tower, 32 blocks, 256 patches",
+               lambda: vl_omni_encode(vlp, vcfg)(jj["pixels"]), lambda: enc_cpu(pix))
+    acfg = dataclasses.replace(WHISPER_L3, num_layers=MM_AUDIO_LAYERS)
+    ap_cpu = cpu_of({k: v for k, v in ap.items() if not k.startswith("layers.")
+                     or int(k.split(".")[1]) < MM_AUDIO_LAYERS})
+    mel = jj["mel"].t()[None]
+    mel_cpu = mel.cpu()
+    tower_pair(f"whisper encoder, {MM_AUDIO_LAYERS} layers, {mel.shape[2]} frames",
+               lambda: audio_encoder.audio_encoder_forward(ap, acfg, mel),
+               lambda: audio_encoder.audio_encoder_forward(ap_cpu, acfg, mel_cpu))
+    cp = vision_encoder.from_hf_clip(*vision_encoder.random_hf_clip(
+        torch.Generator(device=dev).manual_seed(SEED + 17), **CLIP_VIT_L))
+    cp_cpu = to_device(cp, "cpu")
+    tower_pair("clip vit-l/14, 2 layers, 224 px", lambda: vision_encoder.vit_forward(cp, jj["pixels"]),
+               lambda: vision_encoder.vit_forward(cp_cpu, pix))
+
+    # the LM at MM_LM_LAYERS layers under (jj)'s spliced embeddings
+    o = jj["omni"]
+    embeds = omni._splice_embeds_mixed(
+        params7.embedding, jj["ids"], [o.embed_image(jj["image"])], IMG_ID,
+        [o.embed_audio(jj["wav"])], AUD_ID).to(torch.bfloat16)
+    cfg = dataclasses.replace(cfg7, num_layers=MM_LM_LAYERS)
+    cut = first_layers(params7, MM_LM_LAYERS)
+
+    def prefill(llm):
+        return generate.run_prefill_embeds(llm.params, cfg, llm.rt, embeds.to(llm.device),
+                                           llm._new_cache())
+
+    build.reset_launches()
+    card, fed, _ = greedy_trace(Llm(cfg, cut, mm_rt(), device=dev), None, None,
+                                prefill=prefill)
+    torch.cuda.synchronize()
+    counts = read_launches(f"(mm) LM, {MM_LM_LAYERS} layers", (
+        "mnn_dequant_matmul_a8", "mnn_flash_prefill", "mnn_decode_model"),
+        never=("mnn_decode_step",) + MM_NEVER)
+    cpu_params = to_device(cut, "cpu")
+    lm_job = pool.submit(timed_cpu(lambda: greedy_trace(
+        Llm(cfg, cpu_params, mm_rt(), device="cpu"), None, fed, prefill=prefill)[0]))
+
+    def finish():
+        out = {}
+        for name, a, job in towers:
+            b, cpu_s = job.result()
+            r = rel_l2(a, b.float())
+            check(bool(torch.isfinite(a).all()) and r <= TOWER_REL,
+                  f"(mm) {name}: rel-L2 {r:.3g} > {TOWER_REL}")
+            out[name] = dict(rel_l2=r, tol=TOWER_REL, shape=list(a.shape), cpu_s=cpu_s)
+            print(f"  (mm) {name}: card vs cpu rel-L2 {r:.2e} (bound {TOWER_REL}), shape "
+                  f"{tuple(a.shape)}, cpu side {cpu_s:.1f} s", flush=True)
+        cpu, cpu_s = lm_job.result()
+        out["lm"] = dict(compare_traces(card, cpu, f"(mm) LM under (jj)'s embeddings, "
+                                                   f"{MM_LM_LAYERS} layers, full width "),
+                         layers=MM_LM_LAYERS, cpu_s=cpu_s)
+        print(f"    LM cpu side {cpu_s:.1f} s", flush=True)
+        out["card"] = card_line
+        out["launches"] = counts
+        return out
+    return finish
+
+
+def phase_embed_rerank(dev, params05, pool, card_line):
+    """(nn): `Llm.embed` (last, mean) and `Llm.rerank` (yes-token, cosine)
+    on full-size qwen2-0.5b, the card, then the plain versions on the CPU
+    (submitted to `pool`; the returned function waits for it): vectors
+    within rel-L2 5e-2, each rerank's order equal wherever the CPU's score
+    gaps exceed the largest score difference."""
+    cfg = PRESETS["qwen2-0.5b"]
+
+    def run(llm):
+        vecs = {pool_: torch.from_numpy(llm.embed(MM_QUERY, pooling=pool_))
+                for pool_ in ("last", "mean")}
+        return vecs, dict(yes=llm.rerank(MM_QUERY, MM_DOCS, yes_token_id=MM_YES),
+                          cosine=llm.rerank(MM_QUERY, MM_DOCS))
+
+    llm = Llm(cfg, params05, serving_rt(), device=dev)
+    build.reset_launches()
+    (cv, cs), card_s = synced(lambda: run(llm))
+    counts = read_launches("(nn) embed + rerank", (
+        "mnn_dequant_matmul_bf16_tile", "mnn_flash_prefill", "mnn_dequant_matmul"),
+        never=("mnn_decode_model", "mnn_decode_step") + MM_NEVER)
+    check(llm.context_len == 0, "(nn) the chat cache was touched")
+    cpu_params = to_device(params05, "cpu")
+    job = pool.submit(timed_cpu(lambda: run(Llm(cfg, cpu_params, serving_rt(), device="cpu"))))
+
+    def finish():
+        (pv, ps), cpu_s = job.result()
+        out = dict(launches=counts, card_s=card_s, cpu_s=cpu_s, card=card_line)
+        for pool_ in cv:
+            r = rel_l2(cv[pool_], pv[pool_])
+            check(r <= PARITY_REL, f"(nn) embed {pool_}: rel-L2 {r:.3g} > {PARITY_REL}")
+            out[f"embed_{pool_}_rel_l2"] = r
+        for kind in cs:
+            a, b = np.asarray(cs[kind]), np.asarray(ps[kind])
+            diff = float(np.abs(a - b).max())
+            pairs = [(i, j) for i in range(len(b)) for j in range(i + 1, len(b))
+                     if abs(b[i] - b[j]) > diff]
+            bad = [(i, j) for i, j in pairs if (a[i] > a[j]) != (b[i] > b[j])]
+            check(not bad, f"(nn) rerank {kind}: order differs at {bad}")
+            out[f"rerank_{kind}"] = dict(card=a.tolist(), cpu=b.tolist(), max_abs_diff=diff,
+                                         pairs_compared=len(pairs))
+        print(f"  (nn) embed rel-L2 last {out['embed_last_rel_l2']:.2e} mean "
+              f"{out['embed_mean_rel_l2']:.2e}; rerank yes-token {np.round(cs['yes'], 3).tolist()} "
+              f"(cpu {np.round(ps['yes'], 3).tolist()}, {out['rerank_yes']['pairs_compared']} "
+              f"pairs ordered), cosine {np.round(cs['cosine'], 4).tolist()} "
+              f"({out['rerank_cosine']['pairs_compared']} pairs) | card {card_s:.2f} s, cpu "
+              f"{cpu_s:.1f} s [{card_line}]", flush=True)
+        return out
+    return finish
+
+
+# the CPU sides of (ll), (mm) and (nn) run on this many threads at once,
+# beside each other and the card: the plain versions are bound by the host's
+# memory more than by its cores, so two streams finish sooner than one
+MM_CPU_STREAMS = 2
+
+
+def phase_multimodal(dev, params7, params05, card_line):
+    """Phase 11, (jj) to (nn), each sub-phase with its launch counts set to
+    0 before and read after. `params7`: phase 2's 28-layer qwen2-7b weights
+    (W4 block 128, int4 head), served with mrope_section MM_SECTIONS. The
+    card sides run first, in order; the CPU sides of (ll), (mm) and (nn) run
+    in a pool of MM_CPU_STREAMS threads as they are submitted, and their
+    comparisons come last."""
+    t11 = time.perf_counter()
+    cfg7 = dataclasses.replace(PRESETS["qwen2-7b"], mrope_section=MM_SECTIONS)
+    vcfg = qwen_vl_vision.QwenVLVisionConfig()
+    check(vcfg.out_hidden_size == cfg7.hidden_size, "tower width != LM width")
+    t0 = time.perf_counter()
+    gv = torch.Generator(device=dev).manual_seed(SEED + 18)
+    vlp = qwen_vl_vision.from_hf_qwen_vl_vision(qwen_vl_vision.random_hf_state_dict(vcfg, gv))
+    ap = audio_encoder.from_hf_whisper_encoder(audio_encoder.random_hf_whisper_encoder(
+        WHISPER_L3, torch.Generator(device=dev).manual_seed(SEED + 19)))
+    torch.cuda.synchronize()
+    print(f"  towers: qwen2.5-vl {vcfg.depth} blocks x {vcfg.hidden_size}, whisper encoder "
+          f"{WHISPER_L3.num_layers} x {WHISPER_L3.hidden_size}: HF-layout weights made on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    out, secs = {}, {}
+    with ThreadPoolExecutor(MM_CPU_STREAMS) as pool:
+        t0 = time.perf_counter()
+        out["jj"], jj = phase_omni(dev, params7, cfg7, vlp, vcfg, ap, card_line)
+        secs["jj"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["kk"] = phase_mrope_exact(dev, params7, cfg7, vlp, vcfg, card_line)
+        secs["kk"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        finish = dict(ll=phase_ple_deepstack(dev, params7, cfg7, pool, card_line),
+                      mm=phase_mm_parity(dev, params7, cfg7, vlp, vcfg, ap, jj, pool, card_line),
+                      nn=phase_embed_rerank(dev, params05, pool, card_line))
+        secs["card sides of ll, mm, nn"] = time.perf_counter() - t0
+        del jj
+        t0 = time.perf_counter()
+        for sub, fn in finish.items():
+            out[sub] = fn()
+        secs["cpu sides, after the card's"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t11
+    print("  phase 11 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 11: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def mm_launches(mm: dict) -> dict:
+    """Phase 11's launches by C entry, summed over (jj) to (nn)."""
+    total: dict = {}
+    for sub in ("jj", "kk", "ll", "mm", "nn"):
+        for k, v in mm[sub]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -3560,10 +4065,14 @@ def main():
     print("phase 2: kernels against their plain versions", flush=True)
     phase_gemm(dev, g, results, a8=False)
     phase_gemm(dev, g, results, a8=True)
-    phase_gemm(dev, g, results, a8=False, verify=True)
+    phase_gemm(dev, g, results, a8=False, shapes=VERIFY_GEMM, key="dequant_matmul_verify")
+    phase_gemm(dev, g, results, a8=True, shapes=QWEN7B_PREFILL, key="dequant_matmul_a8_7b")
+    phase_gemm(dev, g, results, a8=False, shapes=QWEN7B_GEMV, key="dequant_matmul_7b")
     phase_flash(dev, g, results)
     phase_flash_verify(dev, g, results)
+    phase_flash_7b(dev, g, results)
     phase_decode(dev, g, results)
+    phase_decode(dev, g, results, DECODE_ROWS_7B, MM_CAP, "decode_step_7b")
     phase_decode_gemma(dev, g, results)
     phase_flash_decode(dev, g, results)
     phase_flash_decode_kv(dev, g, results)
@@ -3578,7 +4087,14 @@ def main():
     print(f"  model: {cfg.num_layers} layers, hidden {cfg.hidden_size}, vocab "
           f"{cfg.vocab_size}; built in {time.perf_counter() - t0:.1f} s; "
           f"info {json.dumps(llm.info())}", flush=True)
-    phase_decode_model(dev, g, results, llm.params)
+    params7 = phase_decode_model(dev, g, results, llm.params)
+    torch.cuda.empty_cache()
+
+    # phase 11 runs here, on the qwen2-7b weights phase 2 built (28 layers)
+    print("phase 11: multimodal input on the card (qwen2-7b + mrope, Qwen2.5-VL and "
+          "whisper towers)", flush=True)
+    multimodal = phase_multimodal(dev, params7, llm.params, card_line)
+    del params7
     torch.cuda.empty_cache()
 
     print("phase 3: serving qwen2-0.5b on the card", flush=True)
@@ -3659,6 +4175,7 @@ def main():
     del params05
 
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
+    mm_counts = mm_launches(multimodal)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
@@ -3705,6 +4222,14 @@ def main():
                 v["int8"]["launches"][entry] for v in gemma["p"].values()))
         if kname in ("dequant_matmul", "dequant_matmul_a8"):
             k["gemma_launches"] = sum(gemma[p]["launches"][entry] for p in "no")
+        # phase 11's launches, (jj) to (nn), added to the row's count
+        k["multimodal_launches"] = mm_counts.get(entry, 0)
+        if kname == "dequant_matmul":
+            k["multimodal_launches"] += mm_counts.get("mnn_dequant_matmul_bf16_tile", 0)
+        k["launches"] += k["multimodal_launches"]
+        # phase 2's rows at the qwen2-7b shapes phase 11 serves
+        if f"{kname}_7b" in results:
+            k["qwen2_7b"] = row_sums(results[f"{kname}_7b"])
         if kname == "dequant_matmul":
             # one TPU kernel, two CUDA kernels: the GEMV kernel at M = 1 (the
             # decode GEMVs and the head) and the tensor-core tile kernel above
@@ -3719,7 +4244,7 @@ def main():
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
-                  gemma=gemma, sub4=sub4, kv=kv, speculative=specd,
+                  gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

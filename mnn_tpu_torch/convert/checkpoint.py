@@ -63,6 +63,7 @@ def flatten(params: Params) -> Tuple[dict, dict]:
     put("lm_head", params.lm_head)
     for f in dataclasses.fields(params.layers):
         put(f"layers.{f.name}", getattr(params.layers, f.name))
+    put("ple_table", params.ple_table)  # the JAX writer leaves it out
     return tensors, meta
 
 

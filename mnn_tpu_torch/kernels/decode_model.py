@@ -480,9 +480,10 @@ def supports(config, params, cache, batch: int) -> bool:
     Gemma's flags (gelu-tanh, sandwich norms, score softcap, alternating and
     N:1 windows, dual rope) are kernel flags; head_dim 256 takes an int8 or
     bf16 cache and up to 4 query heads a KV head. Weights: W2, W3, W4 or
-    W8, the same for all four projections."""
+    W8, the same for all four projections. Multimodal rope needs nothing of
+    the kernel (its phases come in as cos/sin), as in the JAX package."""
     c = config
-    if c.is_moe or c.kv_rotate or c.mrope_section:
+    if c.is_moe or c.kv_rotate:
         return False
     if c.mlp_act not in ("silu", "gelu_tanh"):
         return False

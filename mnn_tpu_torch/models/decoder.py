@@ -45,8 +45,17 @@ verifies a token tree: rope at `length + depth`, attention through
 `_attention_eager` under the tree's ancestor mask, on every config whose
 attention has no window or sink.
 
-Not ported yet: multimodal rope, LoRA, tensor and expert parallelism, PLE
-and deepstack.
+Multimodal input, as in the JAX package: `inputs_embeds` replaces the
+token lookup (gemma's embedding scale still multiplies it); `position_ids`
+[B, T, 3] gives a config with `mrope_section` its multimodal rope phases,
+also to the fused decode kernels at T = 1; `deepstack` [levels, B, T,
+hidden] adds level i to the residual stream after layer i; a PLE table
+(`Params.ple_table` [vocab, L, dim], `LayerParams.ple_proj` [L, dim,
+hidden]) adds each token's layer-i row, projected in f32, after layer i's
+MLP and before deepstack. Under deepstack or a PLE table the whole-model
+kernel is skipped and a decode step runs the per-layer path.
+
+Not ported yet: LoRA, tensor and expert parallelism.
 """
 
 from __future__ import annotations
@@ -63,8 +72,9 @@ from mnn_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from mnn_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from mnn_tpu_torch.models.config import ModelConfig
 from mnn_tpu_torch.models.layers import (apply_rope, geglu_tanh, rms_norm,
-                                         rope_cos_sin, rotate_heads, softcap,
-                                         split_gate_up, swiglu)
+                                         rope_cos_sin, rope_cos_sin_mrope,
+                                         rotate_heads, softcap, split_gate_up,
+                                         swiglu)
 from mnn_tpu_torch.quant.quantize import QuantizedLinear, choose_block_size
 from mnn_tpu_torch.runtime import kvcache
 from mnn_tpu_torch.runtime.kvcache import KVCache
@@ -98,6 +108,9 @@ class LayerParams:
     wgu_shared: Optional[QuantizedLinear] = None      # qwen2-moe shared expert
     wdown_shared: Optional[QuantizedLinear] = None
     shared_gate: Optional[torch.Tensor] = None        # [L, hidden] f32, sigmoid gate
+    # per-layer embeddings (PLE): each layer's projection of the token's row
+    # of `Params.ple_table` into the residual stream
+    ple_proj: Optional[torch.Tensor] = None           # [L, ple_dim, hidden]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,13 +120,10 @@ class Params:
     # [hidden, vocab] bf16, a quantized head, or None when tied
     lm_head: Union[torch.Tensor, QuantizedLinear, None]
     layers: LayerParams
+    ple_table: Optional[torch.Tensor] = None   # [vocab, L, ple_dim], PLE rows
 
 
 def _check_supported(c: ModelConfig):
-    if c.mrope_section:
-        raise NotImplementedError(
-            f"{c.name}: multimodal rope is not ported (qwen/llama/gemma2/gemma3 "
-            "configs, dense or mixture of experts, are)")
     if c.mlp_act not in ("silu", "gelu_tanh"):
         raise NotImplementedError(f"{c.name}: mlp_act {c.mlp_act!r}")
 
@@ -244,7 +254,7 @@ def params_to(params: Params, device) -> Params:
                                       for f in dataclasses.fields(lay)})
     return dataclasses.replace(
         params, embedding=mv(params.embedding), final_norm=mv(params.final_norm),
-        lm_head=mv(params.lm_head), layers=lay)
+        lm_head=mv(params.lm_head), layers=lay, ple_table=mv(params.ple_table))
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -290,7 +300,8 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
     ".bias" (quantized), "layers.input_norm", "layers.wqkv.packed",
     "layers.wqkv.out_bias", ...; for a mixture-of-experts config
     "layers.router", "layers.wgu_e.packed" ([L, E, ...] as it is),
-    "layers.wgu_shared.packed", "layers.shared_gate". A quantized linear's
+    "layers.wgu_shared.packed", "layers.shared_gate"; with per-layer
+    embeddings "ple_table" and "layers.ple_proj". A quantized linear's
     static metadata comes under the same prefix as ints:
     "layers.wqkv.bits", ".block_size", ".act_bits". Bytes are taken as they
     are: the packed layout is the same in both packages. Each value is
@@ -313,13 +324,13 @@ def params_from_numpy(arrays: Mapping[str, object], config: ModelConfig,
         wgu_e=opt_ql("layers.wgu_e"), wdown_e=opt_ql("layers.wdown_e"),
         wgu_shared=opt_ql("layers.wgu_shared"),
         wdown_shared=opt_ql("layers.wdown_shared"),
-        shared_gate=get("layers.shared_gate"))
+        shared_gate=get("layers.shared_gate"), ple_proj=get("layers.ple_proj"))
     if "lm_head.packed" in arrays:
         head = ql("lm_head")
     else:
         head = get("lm_head")
     return Params(embedding=get("embedding"), final_norm=get("final_norm"),
-                  lm_head=head, layers=layers)
+                  lm_head=head, layers=layers, ple_table=get("ple_table"))
 
 
 def _gated_act(c: ModelConfig, gu: torch.Tensor) -> torch.Tensor:
@@ -550,6 +561,9 @@ def forward(
     return_token: bool = False,          # also return the greedy next token
     return_hidden: bool = False,         # skip the final norm and the head
     tree=None,                           # (depths [T] int, mask [T, T] bool)
+    inputs_embeds: Optional[torch.Tensor] = None,   # [B, T, hidden]
+    position_ids: Optional[torch.Tensor] = None,    # [B, T, 3] mrope (t, h, w)
+    deepstack: Optional[torch.Tensor] = None,       # [levels, B, T, hidden]
 ):
     """Run the model over `tokens`, appending T positions to the cache.
 
@@ -568,6 +582,14 @@ def forward(
     runs the per-layer loop with `_attention_eager`, as the JAX package's
     layer scan runs `_attention_xla`, and raises NotImplementedError for a
     config with a sliding window or an attention sink.
+
+    `inputs_embeds` replaces the lookup of `tokens` (cast to the
+    embedding's dtype; gemma's scale still applies); `tokens` then only
+    index the PLE table. `position_ids` sets the rope phases of a config
+    with `mrope_section` (else positions are `length + arange(T)`), also at
+    T = 1 on the fused kernels. `deepstack` level i is added after layer i;
+    a PLE table's rows after each layer's MLP, before deepstack. Either
+    keeps a decode step off the whole-model kernel.
 
     `megakernel`: None sends a decode step (T = 1) through the whole-model
     decode kernel when `decode_model.supports()` accepts, False forces the
@@ -592,7 +614,10 @@ def forward(
     b, t = tokens.shape
     layers = params.layers
     group = c.num_heads // c.num_kv_heads
-    x = params.embedding[tokens]                                # [B, T, hidden]
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(params.embedding.dtype)
+    else:
+        x = params.embedding[tokens]                            # [B, T, hidden]
     if c.embed_scale:   # gemma: the normalizer is cast to the activations' dtype first
         x = x * torch.tensor(c.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
     start = cache.length[0]
@@ -605,8 +630,12 @@ def forward(
     else:
         positions = (cache.length[:, None].long()
                      + torch.arange(t, device=x.device)[None])
-    cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
-                            scaling=c.rope_scaling)
+    if position_ids is not None and c.mrope_section:
+        cos, sin = rope_cos_sin_mrope(position_ids.to(x.device), c.head_dim,
+                                      c.rope_theta, c.mrope_section)
+    else:
+        cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
+                                scaling=c.rope_scaling)
     cos_l = sin_l = cos_lf = sin_lf = None
     if c.swa_pattern:
         # gemma3's sliding layers rotate with the local theta, unscaled
@@ -627,12 +656,16 @@ def forward(
     # gemma's prefill, and its decode where the decode-step kernel cannot
     # serve it: plain attention
     eager = gemma_like(c) and (t > 1 or not self_quantizing)
+    # the per-layer splices (PLE, deepstack) live on the per-layer path
     eligible = (megakernel is not False and t == 1 and not eager and tree is None
+                and deepstack is None and params.ple_table is None
                 and decode_model.supports(c, params, cache, b))
     if megakernel is True and not eligible:
         raise ValueError(
-            "megakernel=True but decode_model.supports() rejects this "
-            f"(config={c.name}, batch={b}, T={t}, kv_bits={cache.bits}); use "
+            "megakernel=True but the whole-model kernel cannot serve this "
+            f"(config={c.name}, batch={b}, T={t}, kv_bits={cache.bits}, "
+            f"deepstack={deepstack is not None}, "
+            f"ple={params.ple_table is not None}); use "
             "megakernel=None for the automatic fallback")
     if eligible:
         x, new_cache, logits, token = _decode_megakernel(
@@ -652,6 +685,7 @@ def forward(
     # a decode step of at most 8 rows takes the fused expert kernel
     moe_fast = (c.is_moe and t == 1 and tree is None
                 and moe_decode.supports(c, layers, b))
+    ple_x = None if params.ple_table is None else params.ple_table[tokens]  # [B, T, L, dim]
     for i in range(c.num_layers):
         # the window and the rope phases are Python-static per layer
         window_i, local = layer_window(c, i), local_rope(c, i)
@@ -741,6 +775,10 @@ def forward(
         if c.sandwich_norm:
             d = rms_norm(d, layers.post_ffn_norm[i], c.rms_norm_eps)
         x = x + d.to(x.dtype)
+        if ple_x is not None:
+            x = x + (ple_x[:, :, i].float() @ layers.ple_proj[i].float()).to(x.dtype)
+        if deepstack is not None and i < deepstack.shape[0]:
+            x = x + deepstack[i].to(x.dtype)
 
     new_cache = kvcache.with_length(cache, kv_len)
     if return_hidden:

@@ -3,7 +3,6 @@ the gate/up column layout, the Hadamard rotation of the head dim.
 
 Counterpart of `mnn_tpu/models/layers.py`, as plain PyTorch ops with the
 same rounding points (f32 math, result cast back to the input's dtype).
-Multimodal rope is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +47,27 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
             wavelen > low_wl, freqs / factor,
             torch.where(wavelen < high_wl, freqs, mid))
     angles = positions.float()[..., None] * freqs      # [B, T, half]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_cos_sin_mrope(positions3: torch.Tensor, head_dim: int, theta: float,
+                       sections):
+    """Multimodal rope (qwen2-vl mrope): positions3 [B, T, 3], each token's
+    (temporal, height, width) position -> cos/sin [B, T, head_dim//2] f32.
+
+    The frequency bands are split by `sections` (summing to head_dim//2):
+    band i takes its angle from position component i. With all three
+    components equal this is exactly `rope_cos_sin` without scaling."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to {half}")
+    dev = positions3.device
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=dev) / half))
+    angles = positions3.float()[..., None] * freqs          # [B, T, 3, half]
+    sel = torch.tensor([i for i, s in enumerate(sections) for _ in range(s)],
+                       device=dev)
+    angles = angles.gather(2, sel.expand(*angles.shape[:2], 1, half))[:, :, 0]
     return torch.cos(angles), torch.sin(angles)
 
 

@@ -64,6 +64,41 @@ def prefill_chunk(params: Params, config: ModelConfig, tokens: torch.Tensor,
     return logits, kvcache.rollback(cache, bucket - valid)
 
 
+def prefill_chunk_embeds(params: Params, config: ModelConfig,
+                         embeds: torch.Tensor, cache: KVCache, valid: int):
+    """One prefill chunk over input embeddings [B, bucket, hidden] (the
+    multimodal splice), zero-padded past `valid`. The token ids are zeros,
+    as in the JAX package (they reach only a PLE table). Returns (logits of
+    the last real row [B, V], cache)."""
+    b, bucket, _ = embeds.shape
+    tokens = torch.zeros((b, bucket), dtype=torch.int64, device=embeds.device)
+    if valid == bucket:
+        return forward(params, config, tokens, cache, inputs_embeds=embeds)
+    # as `prefill_chunk`: the head runs on the last real row only, the row
+    # the JAX package takes out of all the chunk's logits
+    logits, cache = forward(params, config, tokens, cache, inputs_embeds=embeds,
+                            last_index=valid - 1)
+    return logits, kvcache.rollback(cache, bucket - valid)
+
+
+def run_prefill_embeds(params: Params, config: ModelConfig, rt: RuntimeConfig,
+                       embeds: torch.Tensor, cache: KVCache):
+    """Chunked, bucketed prefill over [B, T, hidden] embeddings: the buckets
+    of `run_prefill`, the last one zero-padded, under the prefill view."""
+    params = prefill_params_view(params, rt)
+    t = embeds.shape[1]
+    logits = None
+    off = 0
+    for bucket in prefill_buckets(t, rt.prefill_chunk):
+        valid = min(bucket, t - off)
+        chunk = embeds[:, off:off + valid]
+        if valid < bucket:
+            chunk = F.pad(chunk, (0, 0, 0, bucket - valid))
+        logits, cache = prefill_chunk_embeds(params, config, chunk, cache, valid)
+        off += valid
+    return logits, cache
+
+
 def prefill_params_view(params: Params, rt: RuntimeConfig) -> Params:
     """Prefill activation precision: with prefill_act_bits=8 the layers'
     projections run with dynamic int8 rows (W4A8) on the same packed

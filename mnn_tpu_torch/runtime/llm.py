@@ -19,7 +19,9 @@ a host pool (`runtime/kv_offload.py`) and back without a second prefill.
 `RuntimeConfig.speculative` ("lookahead", "eagle", "eagle-tree", "mtp",
 "dflash") serves greedy requests through `runtime/speculative.py`, with
 random draft weights unless `drafter` is set; any other sampler decodes
-plainly, as in the JAX package. Not ported yet: embedding and rerank.
+plainly, as in the JAX package. `embed` pools the final-normed hidden
+states into an L2-normalised vector and `rerank` scores documents by the
+yes-token log-probability or by cosine, each on a throwaway bf16 cache.
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ import dataclasses
 import time
 from typing import Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from mnn_tpu_torch.kernels import decode_model, moe_decode
 from mnn_tpu_torch.kernels.common import resolve_device
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
-from mnn_tpu_torch.models.decoder import Params, init_random_params
+from mnn_tpu_torch.models.decoder import Params, forward, init_random_params
+from mnn_tpu_torch.models.layers import rms_norm
 from mnn_tpu_torch.runtime import generate as gen
 from mnn_tpu_torch.runtime import kvcache, sampler
 from mnn_tpu_torch.runtime.tokenizer import load_tokenizer
@@ -272,7 +276,15 @@ class Llm:
         self._sync()
         self.perf.prefill_s = time.perf_counter() - t0
         self.last_prefill_logits = logits
+        yield from self._decode(logits, cache, max_new, eos, deadline, t_start)
 
+    def _decode(self, logits, cache, max_new: int, eos, deadline: float,
+                t_start: float) -> Iterator[int]:
+        """The decode loop after a prefill that left `logits` and `cache`:
+        blocks of rt.decode_block steps, one host read a block, the tail
+        rolled back on EOS, the deadline checked between blocks. Leaves the
+        cache in `self.cache`."""
+        rt = self.rt
         state = sampler.make_state(rt.max_batch, device=self.device)
         bias = self._logit_bias()
         t0 = time.perf_counter()
@@ -368,3 +380,51 @@ class Llm:
     def response(self, prompt: str, **kw) -> str:
         """A chat-style single-turn answer: `generate` through the template."""
         return self.generate(prompt, use_template=True, **kw)
+
+    # -- embedding and reranking -------------------------------------------
+
+    def _scratch_cache(self, n: int):
+        """A bf16 cache for one sequence of n tokens, of capacity
+        max(64, the next power of 2): the chat cache stays as it is."""
+        c = self.config
+        return kvcache.create(c.num_layers, 1, c.num_kv_heads,
+                              max(64, 1 << (n - 1).bit_length()), c.head_dim,
+                              quantized=False, device=self.device)
+
+    def embed(self, text: Optional[str] = None, *,
+              token_ids: Optional[List[int]] = None,
+              pooling: str = "last") -> np.ndarray:
+        """Sentence embedding [hidden] f32 from the final-normed hidden
+        states: the last token's ("last") or the mean over the tokens
+        ("mean"), L2-normalised."""
+        if token_ids is None:
+            token_ids = self.tokenizer.encode(text or "")
+        if not token_ids:
+            token_ids = [0]
+        tokens = torch.tensor([token_ids], dtype=torch.int64, device=self.device)
+        hidden, _ = forward(self.params, self.config, tokens,
+                            self._scratch_cache(len(token_ids)), return_hidden=True)
+        hidden = rms_norm(hidden, self.params.final_norm, self.config.rms_norm_eps)
+        v = hidden[0].float().mean(0) if pooling == "mean" else hidden[0, -1].float()
+        v = v / torch.clamp(torch.linalg.norm(v), min=1e-9)
+        return v.cpu().numpy()
+
+    def rerank(self, query: str, documents: List[str], *,
+               yes_token_id: Optional[int] = None,
+               template: str = "Query: {q}\nDocument: {d}\nRelevant:"
+               ) -> List[float]:
+        """Relevance score of each document to `query`: with `yes_token_id`,
+        that token's log-probability after the filled template; otherwise
+        the cosine of the two embeddings."""
+        if yes_token_id is None:
+            qv = self.embed(query)
+            return [float(np.dot(qv, self.embed(d))) for d in documents]
+        scores = []
+        for d in documents:
+            ids = self.tokenizer.encode(template.format(q=query, d=d)) or [0]
+            logits, _ = forward(self.params, self.config,
+                                torch.tensor([ids], dtype=torch.int64, device=self.device),
+                                self._scratch_cache(len(ids)))
+            logp = torch.log_softmax(logits[0].float(), dim=-1)
+            scores.append(float(logp[yes_token_id]))
+        return scores

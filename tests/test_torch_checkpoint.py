@@ -24,6 +24,7 @@ The JAX side is computed once, in one module-scoped fixture.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -265,11 +266,11 @@ def test_from_pretrained_needs_a_device_or_the_card(jax_ref):
         Llm.from_pretrained(jax_ref[CASES[0]]["dir"])
 
 
-def test_gemma_checkpoint_loads_and_mrope_raises(tmp_path):
+def test_gemma_checkpoint_loads_and_mrope_loads(tmp_path):
     """A tiny gemma3 checkpoint (sandwich norms, QK-norm, the N:1 pattern)
     written by the JAX `save_checkpoint` loads, byte-equal to
-    `params_from_numpy` of the same JAX params, with its config; a
-    multimodal-rope config raises."""
+    `params_from_numpy` of the same JAX params, with its config; the same
+    tensors under a multimodal-rope config load with its sections."""
     cfg = dataclasses.replace(J_PRESETS["gemma3-4b"], name="tiny-gemma3", vocab_size=256,
                               hidden_size=128, intermediate_size=256, num_layers=2,
                               head_dim=64)
@@ -280,12 +281,14 @@ def test_gemma_checkpoint_loads_and_mrope_raises(tmp_path):
     assert got_cfg == ModelConfig(**dataclasses.asdict(cfg))
     assert got.layers.pre_ffn_norm.shape == (2, 128) and got.layers.q_norm.shape == (2, 64)
     assert_params_equal(got, decoder.params_from_numpy(numpy_fields(p), got_cfg, "cpu"))
-    bad = tmp_path / "mrope"
-    bad.mkdir()
-    (bad / "config.json").write_text(json.dumps(
+    mrope = tmp_path / "mrope"
+    shutil.copytree(out, mrope)
+    (mrope / "config.json").write_text(json.dumps(
         {"mnn_tpu": True, **dataclasses.asdict(cfg), "mrope_section": [16, 24, 24]}))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        checkpoint.load_checkpoint(str(bad), device="cpu")
+    m_cfg, m_params, _ = checkpoint.load_checkpoint(str(mrope), device="cpu")
+    assert m_cfg.mrope_section == (16, 24, 24)
+    assert m_cfg == dataclasses.replace(got_cfg, mrope_section=(16, 24, 24))
+    assert_params_equal(m_params, got)
 
 
 # --------------------------------------------------------------------------

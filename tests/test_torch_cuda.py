@@ -1930,3 +1930,167 @@ def test_eagle_tree_stream_on_the_card_matches_plain(dev):
         kvcache.compact_tail = orig
     assert [len(b) for b in blocks] == [1, 4, 4, 4] and llm.spec_stats["accept_rate"] == 1.0
     assert moved == [True] * 3
+
+
+# --------------------------------------------------------------------------
+# multimodal input: mrope through the whole-model kernel, a tiny Omni, PLE
+# --------------------------------------------------------------------------
+
+MK_MROPE = dataclasses.replace(MK, name="mk-mrope", mrope_section=(8, 12, 12))
+
+
+def _margin_tokens_equal(card_toks, card_rows, cpu_toks, cpu_rows):
+    """Tokens equal up to the first step whose CPU top-2 margin is not above
+    the largest logit difference; returns the steps compared."""
+    diff = max(float((a - b).abs().max()) for a, b in zip(card_rows, cpu_rows))
+    n = 0
+    for a, b, row in zip(card_toks, cpu_toks, cpu_rows):
+        top2 = row.reshape(-1).topk(2).values
+        if float(top2[0] - top2[1]) <= diff:
+            break
+        assert a == b, n
+        n += 1
+    return n
+
+
+def test_multimodal_mrope_forward_card_matches_cpu(dev):
+    """Spliced embeddings at mrope positions (`build_mrope_positions`, a
+    6 x 4 image run) at int8 prefill rows, then 4 decode steps given
+    position_ids at max(position) + 1 + s on all three components: on the
+    card the prefill runs rows 2 and 4 and each step one whole-model launch
+    with the mrope phases; logits within rel-L2 5e-2 of the CPU's plain
+    versions, and the per-layer path (row 6) within 5e-2 of the whole-model
+    one."""
+    from mnn_tpu_torch.runtime.generate import prefill_params_view
+
+    from mnn_tpu_torch.models.vision_encoder import build_mrope_positions
+
+    img = -1
+    ids = list(range(3, 20)) + [img] * 24 + list(range(40, 60))
+    pos = torch.from_numpy(build_mrope_positions(ids, img, grid_hw=(6, 4)))
+    g = torch.Generator().manual_seed(4)
+    embeds = (torch.randn((1, len(ids), MK.hidden_size), generator=g) * 0.05).to(torch.bfloat16)
+    rows, toks = {}, {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        params = decoder.init_random_params(MK_MROPE, torch.Generator().manual_seed(1),
+                                            scale=0.05, lm_head_bits=4, device=device)
+        cache = kvcache.create(MK.num_layers, 1, MK.num_kv_heads, 128, MK.head_dim,
+                               device=device)
+        build.reset_launches()
+        logits, cache = decoder.forward(
+            prefill_params_view(params, RuntimeConfig(prefill_act_bits=8)), MK_MROPE,
+            torch.zeros((1, len(ids)), dtype=torch.int64, device=device),
+            cache, inputs_embeds=embeds.to(device), position_ids=pos.to(device))
+        out, tk = [logits.float().cpu()], []
+        nxt = int(pos.max()) + 1
+        for s in range(4):
+            tk.append(int(out[-1].argmax()))
+            p3 = torch.full((1, 1, 3), nxt + s, device=device)
+            step_args = (params, MK_MROPE, torch.tensor([[tk[-1]]], device=device))
+            if side == "card" and s == 3:     # the per-layer path from a copy
+                copy = dataclasses.replace(cache, **{
+                    f: getattr(cache, f).clone() for f in ("k", "v", "k_scale", "v_scale")})
+                alt, _ = decoder.forward(*step_args, copy, position_ids=p3, megakernel=False)
+            logits, cache = decoder.forward(*step_args, cache, position_ids=p3)
+            out.append(logits.float().cpu())
+        if side == "card":
+            n = {k.name: k.launches for k in build.KERNELS}
+            assert n["mnn_decode_model"] == 4 and n["mnn_decode_step"] == MK.num_layers
+            assert n["mnn_flash_prefill"] == MK.num_layers and n["mnn_dequant_matmul_a8"] > 0
+            assert rel(alt.float().cpu(), out[-1]) <= 5e-2
+        rows[side], toks[side] = out, tk
+    for a, b in zip(rows["card"], rows["cpu"]):
+        assert torch.isfinite(a).all() and rel(a, b) <= 5e-2
+    print("mrope steps compared:", _margin_tokens_equal(toks["card"], rows["card"][1:],
+                                                       toks["cpu"], rows["cpu"][1:]))
+
+
+def test_multimodal_tiny_omni_card_matches_cpu(dev):
+    """A small model (head_dim 64) as an `Omni` with a Qwen2.5-VL tower of
+    two blocks (patch 28: 16 image tokens) and a whisper encoder of one
+    layer (1 s: 50 audio tokens), on the card and through the plain
+    versions on the CPU: the towers' features within rel-L2 1e-3 (f32), the
+    prefill logits within 5e-2, the tokens equal while the CPU's margins
+    are clear; rows 2, 4 and 7 launched on the card, row 6 not."""
+    from mnn_tpu_torch.models import audio_encoder as ae
+    from mnn_tpu_torch.models import qwen_vl_vision as qv
+    from mnn_tpu_torch.runtime.omni import Omni
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vl = dataclasses.replace(qv.QwenVLVisionConfig.tiny(), patch_size=28, window_size=112,
+                             out_hidden_size=64)
+    acfg = ae.AudioEncoderConfig(n_mels=80, hidden_size=64, num_layers=1, num_heads=2,
+                                 ffn_size=128, max_positions=64)
+    rng = torch.Generator().manual_seed(9)
+    image = torch.randint(0, 256, (300, 400, 3), generator=rng, dtype=torch.uint8).numpy()
+    wav = (torch.randn(16000, generator=rng) * 0.1).numpy()
+    ids = list(range(3, 13)) + [-1] * 16 + list(range(20, 25)) + [-2] * 50 + [7, 8, 9]
+    rt = RuntimeConfig(max_seq_len=256, prefill_chunk=32, decode_block=4, sampler="greedy",
+                       lm_head_bits=4, prefill_act_bits=8, max_new_tokens=8)
+    runs = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        g = torch.Generator().manual_seed(2)
+        params = decoder.init_random_params(MK, g, scale=0.05, lm_head_bits=4, device=device)
+        vlp = qv.from_hf_qwen_vl_vision(
+            qv.random_hf_state_dict(vl, torch.Generator().manual_seed(3)), device)
+        ap = ae.from_hf_whisper_encoder(
+            ae.random_hf_whisper_encoder(acfg, torch.Generator().manual_seed(4)), device)
+
+        def encode(px, vlp=vlp):
+            hwc = px[0].permute(1, 2, 0)
+            pt = torch.stack([hwc, hwc]).reshape(1, 2, 8, 28, 8, 28, 3).permute(
+                0, 2, 4, 1, 3, 5, 6).reshape(64, -1)
+            return qv.qwen_vl_vision_forward(vlp, vl, pt, [(1, 8, 8)])
+
+        proj = torch.randn((64, MK.hidden_size), generator=torch.Generator().manual_seed(5))
+        o = Omni(MK, params, rt, vision_encode=encode, vision_proj=(proj * 0.05).to(device),
+                 image_token_id=-1, audio_encode=lambda mel, ap=ap: ae.audio_encoder_forward(
+                     ap, acfg, mel), audio_proj=(proj * 0.05).to(device), audio_token_id=-2,
+                 audio_n_mels=80, device=device)
+        feats = (o.embed_image(image).float().cpu(), o.embed_audio(wav).float().cpu())
+        build.reset_launches()
+        toks = list(o.stream_mm(ids, images=[image], audios=[wav]))
+        runs[side] = (
+            toks, o.last_prefill_logits.float().cpu(), feats,
+            {k.name: k.launches for k in build.KERNELS})
+    (card_toks, card, card_f, n), (cpu_toks, cpu, cpu_f, _) = runs["card"], runs["cpu"]
+    for a, b in zip(card_f, cpu_f):
+        assert rel(a, b) <= 1e-3
+    assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
+    assert n["mnn_decode_model"] == 8 and n["mnn_decode_step"] == 0
+    assert n["mnn_flash_prefill"] == MK.num_layers * 3 and n["mnn_dequant_matmul_a8"] > 0
+    top2 = cpu[0].topk(2).values
+    if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
+        assert card_toks[0] == cpu_toks[0]
+
+
+def test_multimodal_ple_decode_runs_the_decode_step_kernel(dev):
+    """A PLE table keeps decode off the whole-model kernel: each step runs
+    the decode-step kernel once a layer; the logits of a prefill and 4
+    steps within rel-L2 5e-2 of the CPU's."""
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4, sampler="greedy",
+                       lm_head_bits=4, prefill_act_bits=8, max_new_tokens=4)
+    ids = list(range(3, 48))
+    runs = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        g = torch.Generator().manual_seed(6)
+        params = decoder.init_random_params(MK, torch.Generator().manual_seed(1), scale=0.05,
+                                            lm_head_bits=4, device=device)
+        params = dataclasses.replace(
+            params, ple_table=(torch.randn((MK.vocab_size, MK.num_layers, 32), generator=g)
+                               * 0.05).to(device),
+            layers=dataclasses.replace(params.layers, ple_proj=(
+                torch.randn((MK.num_layers, 32, MK.hidden_size), generator=g) * 0.05).to(device)))
+        llm = Llm(MK, params, rt, device=device)
+        build.reset_launches()
+        toks = list(llm.stream(token_ids=ids))
+        runs[side] = (
+            toks, llm.last_prefill_logits.float().cpu(),
+            {k.name: k.launches for k in build.KERNELS})
+    (card_toks, card, n), (cpu_toks, cpu, _) = runs["card"], runs["cpu"]
+    assert n["mnn_decode_model"] == 0 and n["mnn_decode_step"] == MK.num_layers * 4
+    assert torch.isfinite(card).all() and rel(card, cpu) <= 5e-2
+    top2 = cpu[0].topk(2).values
+    if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
+        assert card_toks[0] == cpu_toks[0]

@@ -214,19 +214,22 @@ def test_supports_takes_the_gemma_presets(preset, batch):
 
 
 @pytest.mark.parametrize("field", ["mrope_section", "kv_rotate"])
-def test_what_stays_refused(field):
-    """`forward` refuses multimodal rope; the Hadamard KV rotation is ported
-    and passes its check. The whole-model kernel takes neither, as in the
+def test_mrope_and_kv_rotate_pass_the_check(field):
+    """Multimodal rope and the Hadamard KV rotation are ported and pass
+    `forward`'s check. The whole-model kernel takes multimodal rope as it
+    takes the config without it (its phases come in as cos/sin; the JAX
+    `supports` ignores `mrope_section`) and refuses the rotation, as in the
     JAX package."""
     cfg = dataclasses.replace(PRESETS["gemma3-4b"],
                               **{field: (16, 24, 24) if field == "mrope_section" else True})
-    if field == "mrope_section":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            decoder.forward(None, cfg, torch.zeros((1, 1), dtype=torch.int64), None)
-    else:
-        decoder._check_supported(cfg)
+    decoder._check_supported(cfg)
     view = type("CacheView", (), dict(capacity=1024, bits=8))()
-    assert not decode_model.supports(cfg, meta_params(cfg), view, 1)
+    got = decode_model.supports(cfg, meta_params(cfg), view, 1)
+    if field == "mrope_section":
+        plain = PRESETS["gemma3-4b"]
+        assert got == decode_model.supports(plain, meta_params(plain), view, 1)
+    else:
+        assert not got
 
 
 def test_gemma_slots_match_batch_one(port):
