@@ -226,6 +226,32 @@ Phases, each of which exits non-zero on failure:
    full-size qwen2-0.5b, card against CPU: vectors within rel-L2 5e-2,
    each ranking's order equal wherever the CPU's score gaps exceed the
    largest score difference.
+12. training and quantization tools on full-size qwen2-0.5b (phase 3's
+   W4 block-128 weights and int4 head), each sub-phase with the launch
+   counts set to 0 before and read after. Phase 2's rows of the tile kernel
+   (1b) at the training forward's shapes come first: the four projections
+   and the head (f32 out) at M = 4 x 256. (oo) LoRA fine-tuning: rank-8
+   adapters on qkv, o, gate/up and down, adamw at lr 5e-3, 12 steps over 4
+   sequences of 256 tokens (a seeded 16-token pattern, repeated): each
+   step's loss, milliseconds and launches (97 of the tile kernel, every
+   projection and the head inside `DequantMatmulFn`, no other kernel), the
+   allocator's peak; the last loss below 0.9 x the first. (pp) card against
+   CPU at full width and 2 layers, the same weights and numpy-made
+   adapters: the loss within rel 1e-2, every adapter gradient within
+   rel-L2 5e-2, the autograd node's dx at the five training shapes within
+   rel-L2 1e-2. (qq) `merge_lora` of (oo)'s adapters at the weights' 4
+   bits and at 8: the merged model's prefill logits of the 300-token
+   request against the adapter forward's (the W8 merge within rel-L2 5e-2,
+   the bound of the JAX test, whose weights are 8-bit), then that request
+   served by each, one whole-model launch a token. (rr) qwen2-0.5b in the HF layout converted on the card by
+   round to nearest and by `convert_hf(awq=True)` over seeded calibration
+   ids [4, 128]: the seconds, the mean NLL of 256 seeded tokens side by
+   side, the AWQ model serving the 300-token request; at 2 layers the
+   card's AWQ conversion against the CPU's (each layer's scale ratios side
+   by side, the loaded models' logits within rel-L2 5e-2). (ss) HQQ, ADMM
+   and OmniQuant on one qwen2-7b-width projection (3,584 x 18,944) against
+   round to nearest: seconds, weight and output MSE; `fake_quant_weight`
+   bit for bit `dequantize(quantize(w))` on the card.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -240,7 +266,10 @@ kernel's count (also alone, `multimodal_launches`), phase 2's qwen2-7b rows
 of rows 1a, 2, 4 and 6 under `qwen2_7b` of their kernel; the gemma rows of rows 6 and 7
 under `gemma` of their kernel in the kernels line, beside the sums of the
 earlier rows; under `weight_bits` the weight bits of the rows that ran each
-kernel in this run, and phase 8's rows and launches under `w3` and `w2`).
+kernel in this run, and phase 8's rows and launches under `w3` and `w2`;
+phase 12's under `training`, its launches added to each kernel's count (also
+alone, `training_launches`), and row 1b's rows at the training shapes under
+`train` of the bf16-row matmul, with (oo)'s launches).
 It imports no JAX and nothing of the JAX package.
 """
 
@@ -278,8 +307,9 @@ from mnn_tpu_torch.models import audio_encoder, decoder, qwen_vl_vision, vision_
 from mnn_tpu_torch.models.audio_encoder import AudioEncoderConfig
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
-from mnn_tpu_torch.quant import quantize
-from mnn_tpu_torch.quant.quantize import QuantizedLinear
+from mnn_tpu_torch.quant import calibrate, hqq, omni_quant
+from mnn_tpu_torch.quant.quantize import (QuantizedLinear, dequantize, quantize,
+                                          quantize_activations_int8, unpack_bits)
 from mnn_tpu_torch.runtime import (batch_engine, evaluate, generate, kvcache, omni,
                                    vision_preprocess)
 from mnn_tpu_torch.runtime import speculative as spec
@@ -287,6 +317,7 @@ from mnn_tpu_torch.runtime.kv_offload import KVOffloadPool
 from mnn_tpu_torch.runtime.llm import Llm
 from mnn_tpu_torch.runtime.prefix_cache import load_prefix, save_prefix
 from mnn_tpu_torch.serve.server import make_handler
+from mnn_tpu_torch.train import compress, lora, trainer
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_OPS_S = 989e12         # dense bf16 tensor-core peak
@@ -444,7 +475,7 @@ def a8_kernel_alone(ql, x, out_dtype, nl):
     """Device ms of `KERNEL_A8` alone, on rows quantized beforehand: the
     whole call also runs `quantize_activations_int8`'s torch ops."""
     m, k = x.shape
-    xq, xs = quantize.quantize_activations_int8(x)
+    xq, xs = quantize_activations_int8(x)
     xs = xs.reshape(m).contiguous()
     out = torch.empty((m, ql.out_features), dtype=out_dtype, device=x.device)
 
@@ -465,7 +496,7 @@ def int_mm_ms(ql, xq, nl):
     k, n = xq.shape[1], ql.out_features
     center = 1 << (ql.bits - 1)
     nint = copies_for(k * n, cap=nl)
-    wq = [(quantize.unpack_bits(ql.packed[i], ql.bits, ql.block_size) - center)
+    wq = [(unpack_bits(ql.packed[i], ql.bits, ql.block_size) - center)
           .to(torch.int8).t().contiguous().t() for i in range(nint)]
     return time_ms(lambda i: torch._int_mm(xq, wq[i % nint]), calls=max(nint, 8))
 
@@ -549,7 +580,7 @@ def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
             x, ql.layer(i % nl), out_dtype), calls=2, replays=2)
         # yardstick: one bf16 torch.matmul on weights dequantized beforehand
         nlib = copies_for(k * n * 2, cap=nl)
-        wlib = [quantize.dequantize(ql.layer(i), dtype=torch.bfloat16)
+        wlib = [dequantize(ql.layer(i), dtype=torch.bfloat16)
                 for i in range(nlib)]
         ob = ql.out_bias
         lib_ms = time_ms(lambda i: (
@@ -1099,15 +1130,15 @@ def phase_moe_decode(dev, g, results):
             # yardstick: the four products as bmm / matmul over the selected
             # experts' weights, dequantized to bf16 beforehand
             ids = sel.reshape(-1).long()
-            deq = lambda ql, idx: torch.stack([quantize.dequantize(QuantizedLinear(
+            deq = lambda ql, idx: torch.stack([dequantize(QuantizedLinear(
                 packed=ql.packed[1][j], scale=ql.scale[1][j], bias=ql.bias[1][j],
                 out_bias=None), dtype=torch.bfloat16) for j in idx])
             wg, wd = deq(lay.wgu_e, ids.tolist()), deq(lay.wdown_e, ids.tolist())
             xr = x.to(torch.bfloat16).repeat_interleave(k, 0)[:, None]
             ar = torch.randn((n * k, 1, mi), device=dev, generator=g).to(torch.bfloat16)
             if si:
-                sg = quantize.dequantize(lay.wgu_shared.layer(1), dtype=torch.bfloat16)
-                sd = quantize.dequantize(lay.wdown_shared.layer(1), dtype=torch.bfloat16)
+                sg = dequantize(lay.wgu_shared.layer(1), dtype=torch.bfloat16)
+                sd = dequantize(lay.wdown_shared.layer(1), dtype=torch.bfloat16)
                 a_s = torch.randn((n, si), device=dev, generator=g).to(torch.bfloat16)
 
             def lib(i):
@@ -1173,7 +1204,7 @@ def phase_moe_prefill(dev, g, results):
         plain_ms = time_ms(lambda i: moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn),
                            calls=1, replays=2)
         # yardstick: two bmm over all experts' weights dequantized beforehand
-        deq = lambda ql: torch.stack([quantize.dequantize(ql.layer(j), dtype=torch.bfloat16)
+        deq = lambda ql: torch.stack([dequantize(ql.layer(j), dtype=torch.bfloat16)
                                       for j in range(e)])
         wg, wd = deq(gu), deq(dn)
         act = torch.randn((e, cap, mi), device=dev, generator=g).to(torch.bfloat16)
@@ -1224,7 +1255,7 @@ def phase_gemm_deq(dev, g, results):
             plain_ms = time_ms(lambda i: dequant_matmul.dequant_matmul_plain(
                 x, ql.layer(i % nl), deq=True), calls=2, replays=2)
             nlib = copies_for(k * n * 2, cap=nl)
-            wlib = [quantize.dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
+            wlib = [dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
             ob = ql.out_bias
             lib_ms = time_ms(lambda i: (
                 torch.matmul(x, wlib[i % nlib]) if ob is None
@@ -2039,7 +2070,7 @@ def phase_head_rows(params, cfg):
     head, dev = params.lm_head, params.embedding.device
     k, n = cfg.hidden_size, cfg.vocab_size
     g = torch.Generator(device=dev).manual_seed(SEED)
-    wlib = quantize.dequantize(head, dtype=torch.bfloat16)
+    wlib = dequantize(head, dtype=torch.bfloat16)
     wbytes = sum(t.numel() * t.element_size() for t in (head.packed, head.scale, head.bias))
     rows = []
     for m in HEAD_ROWS:
@@ -2732,7 +2763,7 @@ def sub4_row(dev, g, bits, proj, k, n, with_bias, route):
     finally:
         dequant_matmul.DEQ_MIN_M = 1 << 30
     nlib = copies_for(k * n * 2, cap=nl)
-    wlib = [quantize.dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
+    wlib = [dequantize(ql.layer(i), dtype=torch.bfloat16) for i in range(nlib)]
     ob = ql.out_bias
     lib_ms = time_ms(lambda i: (
         torch.matmul(x, wlib[i % nlib]) if ob is None
@@ -3968,6 +3999,344 @@ def mm_launches(mm: dict) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 12: training and quantization tools
+# --------------------------------------------------------------------------
+
+TRAIN_RANK, TRAIN_LR, TRAIN_STEPS = 8, 5e-3, 12
+TRAIN_BATCH, TRAIN_PERIOD = (4, 256), 16    # 4 sequences of a seeded 16-token pattern
+TRAIN_DROP = 0.9            # the last loss below 0.9 x the first, tests/test_train.py:55
+TRAIN_PARITY_LAYERS = 2     # (pp), (rr): full width, cut depth on both sides
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_DX_REL = 1e-2, 5e-2, 1e-2
+MERGE_REL = 5e-2            # W8 merged vs adapter logits, tests/test_train.py:75
+AWQ_CALIB = (4, 128)        # seeded calibration ids, as the JAX CLI's default
+AWQ_REL = 5e-2              # (rr): the card's conversion against the cpu's
+TRAIN_M = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+# row 1b at the training forward's shapes: qwen2-0.5b's four projections and
+# its int4 head (f32 out) at M = B x T rows
+TRAIN_GEMM = ([(p, k, n, b, TRAIN_M) for p, (k, n, b) in PROJ.items()]
+              + [("lm_head", 896, 151936, False, TRAIN_M)])
+TOOLS_KN = (3584, 18944)    # (ss): qwen2-7b's gate (or up) projection
+TOOLS_ROWS = 512            # (ss): OmniQuant's calibration rows
+
+
+def train_tokens(vocab: int, dev) -> torch.Tensor:
+    """(oo)'s batch: each row a seeded random 16-token pattern, repeated."""
+    pat = np.random.default_rng(SEED + 20).integers(0, vocab, (TRAIN_BATCH[0], TRAIN_PERIOD))
+    return torch.from_numpy(np.tile(pat, (1, TRAIN_BATCH[1] // TRAIN_PERIOD))).to(dev)
+
+
+def numpy_lora(cfg, dev) -> decoder.LoraParams:
+    """(pp)'s adapters, made with numpy: a ~ N(0, 1/r), b ~ N(0, 0.01^2)."""
+    rng = np.random.default_rng(SEED + 21)
+    fields = {}
+    for name, (k, n) in lora.lora_dims(cfg).items():
+        fields["a_" + name] = torch.from_numpy(
+            (rng.standard_normal((cfg.num_layers, k, TRAIN_RANK)) / TRAIN_RANK ** 0.5)
+            .astype(np.float32)).to(dev)
+        fields["b_" + name] = torch.from_numpy(
+            (rng.standard_normal((cfg.num_layers, TRAIN_RANK, n)) * 0.01)
+            .astype(np.float32)).to(dev)
+    return decoder.LoraParams(scaling=16.0 / TRAIN_RANK, **fields)
+
+
+def loss_and_grads(params, cfg, adapters, tokens):
+    """lm_loss and every adapter's gradient (the adapters are copied)."""
+    lo = dataclasses.replace(adapters, **{
+        f.name: getattr(adapters, f.name).clone().requires_grad_(True)
+        for f in dataclasses.fields(adapters) if f.name != "scaling"})
+    loss = trainer.lm_loss(params, lo, cfg, tokens)
+    loss.backward()
+    return float(loss.detach()), {f.name: getattr(lo, f.name).grad.float().cpu()
+                                  for f in dataclasses.fields(lo) if f.name != "scaling"}
+
+
+def vjp_dx(x, ql, out_dtype, g):
+    """dx of `DequantMatmulFn` at rows x for the cotangent g."""
+    xs = x.clone().requires_grad_(True)
+    dequant_matmul.dequant_matmul(xs, ql, out_dtype=out_dtype).backward(g)
+    return xs.grad.float().cpu()
+
+
+def phase_train(params, cfg, pool, card_line):
+    """(oo) LoRA fine-tuning at full depth, and (pp) card against CPU at
+    TRAIN_PARITY_LAYERS layers (its CPU side submitted to `pool` after
+    (oo))."""
+    dev = params.embedding.device
+    tokens = train_tokens(cfg.vocab_size, dev)
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS)
+    p2 = first_layers(params, TRAIN_PARITY_LAYERS)
+    p2_cpu = to_device(p2, "cpu")
+    lora_np = numpy_lora(cfg2, "cpu")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    projs = [(name, getattr(p2.layers, attr).layer(0), torch.bfloat16)
+             for name, attr in (("qkv", "wqkv"), ("wo", "wo"), ("wgu", "wgu"),
+                                ("wdown", "wdown"))] + [("lm_head", p2.lm_head, torch.float32)]
+    dx_in = [(torch.randn((TRAIN_M, ql.packed.shape[0] * 8 // ql.bits), generator=g)
+              .to(torch.bfloat16), torch.randn((TRAIN_M, ql.out_features), generator=g).to(odt))
+             for _, ql, odt in projs]
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(p2_cpu, cfg2, lora_np, tokens.cpu())
+        dxs = [vjp_dx(x, ql.to("cpu"), odt, gy)
+               for (_, ql, odt), (x, gy) in zip(projs, dx_in)]
+        return loss, grads, dxs, time.perf_counter() - t0
+
+    # (oo) rank-8 adapters on all four targets, adamw, 12 steps
+    t_oo = time.perf_counter()
+    adapters = lora.init_lora(cfg, torch.Generator().manual_seed(SEED), rank=TRAIN_RANK,
+                              device=dev)
+    opt = trainer.make_optimizer("adamw", lr=TRAIN_LR)
+    state = opt.init(adapters)
+    step = trainer.make_lora_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, per_step = [], [], []
+    build.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in build.KERNELS}
+        t0 = time.perf_counter()
+        adapters, state, loss = step(params, adapters, state, tokens)
+        losses.append(float(loss))          # a host read: the step's end
+        secs.append(time.perf_counter() - t0)
+        per_step.append({k.name: k.launches - before[k.name] for k in build.KERNELS
+                         if k.launches != before[k.name]})
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches("(oo) LoRA training", ("mnn_dequant_matmul_bf16_tile",),
+                             never=("mnn_flash_prefill", "mnn_dequant_matmul_a8",
+                                    "mnn_decode_model", "mnn_decode_step"))
+    want = {"mnn_dequant_matmul_bf16_tile": 4 * cfg.num_layers + 1}
+    check(all(n == want for n in per_step),
+          f"(oo) launches a step {per_step[0]}, expected {want} (every projection and the "
+          f"head on the tile kernel, forward only)")
+    for i, (lv, s) in enumerate(zip(losses, secs)):
+        print(f"  (oo) step {i:2d}: loss {lv:.4f} | {s * 1e3:.1f} ms", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"(oo) non-finite loss: {losses}")
+    check(losses[-1] < TRAIN_DROP * losses[0],
+          f"(oo) loss {losses[0]:.4f} -> {losses[-1]:.4f}, not below {TRAIN_DROP} x the first")
+    oo = dict(losses=losses, step_s=secs, peak_bytes=peak, launches=launches,
+              launches_per_step=per_step[0], tokens=list(TRAIN_BATCH), rank=TRAIN_RANK,
+              lr=TRAIN_LR, seconds=time.perf_counter() - t_oo)
+    print(f"  (oo) {cfg.num_layers} layers, rank {TRAIN_RANK}, {TRAIN_BATCH[0]} x "
+          f"{TRAIN_BATCH[1]} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{np.median(secs[1:]) * 1e3:.1f} ms a step (median after the first); peak "
+          f"{peak / 1e9:.2f} GB allocated; {per_step[0]} launches a step | {card_line}",
+          flush=True)
+
+    # (pp): its CPU side in the pool once (oo)'s steps are timed (a step is
+    # host-bound, and the host's cores would be shared), then the card's
+    fut = pool.submit(cpu_side)
+    loss, grads = loss_and_grads(p2, cfg2, numpy_lora(cfg2, dev), tokens)
+    dxs = [vjp_dx(x.to(dev), ql, odt, gy.to(dev))
+           for (_, ql, odt), (x, gy) in zip(projs, dx_in)]
+    loss_cpu, grads_cpu, dxs_cpu, cpu_s = fut.result()
+    gap = abs(loss - loss_cpu) / abs(loss_cpu)
+    grad_rel = {f: rel_l2(grads[f], grads_cpu[f]) for f in grads}
+    dx_rel = {name: rel_l2(a, b) for (name, _, _), a, b in zip(projs, dxs, dxs_cpu)}
+    print(f"  (pp) {TRAIN_PARITY_LAYERS} layers, card vs cpu: loss {loss:.5f} vs "
+          f"{loss_cpu:.5f} (rel {gap:.2e}); adapter gradients rel-L2 max "
+          f"{max(grad_rel.values()):.2e}; VJP dx rel-L2 {json.dumps(dx_rel)} at M = "
+          f"{TRAIN_M}; cpu side {cpu_s:.1f} s", flush=True)
+    check(gap <= TRAIN_LOSS_REL, f"(pp) loss rel {gap:.3g} > {TRAIN_LOSS_REL}")
+    check(max(grad_rel.values()) <= TRAIN_GRAD_REL,
+          f"(pp) adapter gradients rel-L2 {grad_rel} > {TRAIN_GRAD_REL}")
+    check(max(dx_rel.values()) <= TRAIN_DX_REL, f"(pp) dx rel-L2 {dx_rel} > {TRAIN_DX_REL}")
+    pp = dict(loss=loss, loss_cpu=loss_cpu, loss_rel=gap, grad_rel_l2=grad_rel,
+              dx_rel_l2=dx_rel, cpu_s=cpu_s)
+    return adapters, oo, pp
+
+
+def phase_merge(params, cfg, adapters, card_line):
+    """(qq) the trained adapters merged into the weights, at their own 4
+    bits and at 8, and each merged model served. The 8-bit merge is held to
+    the JAX test's bound (its weights are 8-bit); the 4-bit one is printed:
+    there every weight is rounded again on a grid that the delta moved."""
+    dev = params.embedding.device
+    ids = prompts(cfg.vocab_size)[1]
+    tok = torch.tensor([ids], device=dev)
+
+    def prefill(p, lo):
+        cache = kvcache.create(cfg.num_layers, 1, cfg.num_kv_heads, len(ids), cfg.head_dim,
+                               quantized=False, device=dev)
+        with torch.no_grad():
+            return decoder.forward(p, cfg, tok, cache, all_logits=True, lora=lo)[0]
+
+    want = prefill(params, adapters)
+    moved = rel_l2(prefill(params, None), want)
+    out = dict(adapters_moved=moved)
+    for bits in (4, 8):
+        merged, s = timed(lambda: lora.merge_lora(params, adapters, bits=bits))
+        rel = rel_l2(prefill(merged, None), want)
+        llm = Llm(cfg, merged, serving_rt(), device=dev)
+        check(llm.info()["decode_megakernel"],
+              f"(qq) the W{bits} merged model is not on the whole-model kernel")
+        list(llm.stream(token_ids=ids[:8], max_new_tokens=2))          # warm-up
+        torch.cuda.synchronize()
+        build.reset_launches()
+        _, perf = serve(llm, [ids], f"(qq) merged W{bits}")
+        got_n = read_launches(f"(qq) merged W{bits}", PREFILL_KERNELS + ("mnn_decode_model",),
+                              never=("mnn_decode_step", "mnn_flash_decode"))
+        check(got_n["mnn_decode_model"] == NEW_TOKENS,
+              f"(qq) {got_n['mnn_decode_model']} whole-model launches for {NEW_TOKENS} tokens")
+        print(f"  (qq) merge_lora at W{bits} on the card {s:.2f} s; prefill logits of the "
+              f"{len(ids)}-token request, merged vs adapters: rel-L2 {rel:.2e} (the adapters "
+              f"moved them {moved:.2e} from the base model) | {card_line}", flush=True)
+        out[f"w{bits}"] = dict(merge_s=s, rel_l2=rel, serve=perf, launches=got_n)
+        del llm, merged
+    check(out["w8"]["rel_l2"] <= MERGE_REL,
+          f"(qq) W8 merged vs adapter logits rel-L2 {out['w8']['rel_l2']:.3g} > {MERGE_REL}")
+    out["launches"] = {k: out["w4"]["launches"][k] + out["w8"]["launches"][k]
+                       for k in out["w4"]["launches"]}
+    return out
+
+
+def awq_ratios(out_dir) -> list:
+    with open(os.path.join(out_dir, "awq_search.json")) as f:
+        return [layer["ratios"] for layer in json.load(f)["layers"]]
+
+
+def phase_awq(dev, root, pool, card_line):
+    """(rr) AWQ conversion on the card at full depth, its NLL beside round
+    to nearest's, a served request; at TRAIN_PARITY_LAYERS layers the card's
+    conversion against the CPU's (its CPU side submitted to `pool` once the
+    card's conversions are timed)."""
+    preset = PRESETS["qwen2-0.5b"]
+    calib = np.random.default_rng(SEED + 23).integers(0, 1000, AWQ_CALIB).astype(np.int32)
+    kw = dict(bits=4, block_size=128, lm_head_bits=4)
+    cfg2 = dataclasses.replace(preset, num_layers=TRAIN_PARITY_LAYERS)
+    hf2 = os.path.join(root, "hf2")
+    write_hf_dir(cfg2, hf2, dev, CKPT_SEED)
+    hf_dir = os.path.join(root, "hf")
+    write_hf_dir(preset, hf_dir, dev, CKPT_SEED)
+    _, rtn_s = timed(lambda: convert_hf(hf_dir, os.path.join(root, "rtn"), device=dev, **kw))
+    (cfg, _), awq_s = timed(lambda: convert_hf(hf_dir, os.path.join(root, "awq"), awq=True,
+                                               calib_tokens=calib, device=dev, **kw))
+    # the CPU side once the card's conversions are timed
+    fut = pool.submit(timed_cpu(lambda: convert_hf(
+        hf2, os.path.join(root, "awq2cpu"), awq=True, calib_tokens=calib, device="cpu", **kw)))
+    ids = np.random.default_rng(SEED + 6).integers(0, cfg.vocab_size, NLL_TOKENS).tolist()
+    nll = {}
+    for name in ("rtn", "awq"):
+        _, p, _ = checkpoint.load_checkpoint(os.path.join(root, name), device=dev)
+        total, count = evaluate.sequence_nll(p, cfg, ids, chunk=NLL_CHUNK)
+        nll[name] = total / count
+        del p
+    print(f"  (rr) convert_hf on the card, {cfg.num_layers} layers: round to nearest "
+          f"{rtn_s:.2f} s, AWQ (calibration {AWQ_CALIB[0]} x {AWQ_CALIB[1]}) {awq_s:.2f} s; "
+          f"mean NLL of {NLL_TOKENS} seeded tokens: rtn {nll['rtn']:.5f}, awq "
+          f"{nll['awq']:.5f} | {card_line}", flush=True)
+    llm = Llm.from_pretrained(os.path.join(root, "awq"), rt=serving_rt(), device=dev)
+    check(llm.info()["decode_megakernel"], "(rr) the AWQ model is not on the whole-model kernel")
+    ids300 = prompts(cfg.vocab_size)[1]
+    list(llm.stream(token_ids=ids300[:8], max_new_tokens=2))          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    _, perf = serve(llm, [ids300], "(rr) awq")
+    got_n = read_launches("(rr) AWQ model", PREFILL_KERNELS + ("mnn_decode_model",),
+                          never=("mnn_decode_step", "mnn_flash_decode"))
+    check(got_n["mnn_decode_model"] == NEW_TOKENS,
+          f"(rr) {got_n['mnn_decode_model']} whole-model launches for {NEW_TOKENS} tokens")
+    del llm
+    # the card's 2-layer conversion against the cpu's
+    convert_hf(hf2, os.path.join(root, "awq2"), awq=True, calib_tokens=calib, device=dev, **kw)
+    _, cpu_s = fut.result()
+    card_r, cpu_r = awq_ratios(os.path.join(root, "awq2")), awq_ratios(os.path.join(root, "awq2cpu"))
+    for i, (a, b) in enumerate(zip(card_r, cpu_r)):
+        print(f"  (rr) layer {i} scale ratios, card | cpu: " + ", ".join(
+            f"{k} {a[k]:.2f} | {b[k]:.2f}" for k in a), flush=True)
+    logits = []
+    for name, d in (("awq2", dev), ("awq2cpu", "cpu")):
+        c2, p, _ = checkpoint.load_checkpoint(os.path.join(root, name), device=d)
+        cache = kvcache.create(c2.num_layers, 1, c2.num_kv_heads, len(ids300), c2.head_dim,
+                               quantized=False, device=d)
+        with torch.no_grad():
+            logits.append(decoder.forward(p, c2, torch.tensor([ids300], device=d), cache,
+                                          all_logits=True)[0].float().cpu())
+    rel = rel_l2(logits[0], logits[1])
+    print(f"  (rr) {TRAIN_PARITY_LAYERS} layers, AWQ on the card vs the cpu ({cpu_s:.1f} s): "
+          f"logits of the {len(ids300)}-token request rel-L2 {rel:.2e}", flush=True)
+    check(rel <= AWQ_REL, f"(rr) card vs cpu AWQ conversion: logits rel-L2 {rel:.3g} > {AWQ_REL}")
+    return dict(rtn_s=rtn_s, awq_s=awq_s, nll=nll, serve=perf, launches=got_n,
+                ratios_card=card_r, ratios_cpu=cpu_r, parity_rel_l2=rel, cpu_s=cpu_s)
+
+
+def phase_quant_tools(dev, card_line):
+    """(ss) HQQ, ADMM and OmniQuant on one qwen2-7b-width projection
+    against round to nearest; `fake_quant_weight` on the card against
+    dequantize(quantize(w)), bit for bit."""
+    k, n = TOOLS_KN
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    w = torch.randn((k, n), device=dev, generator=g) * 0.02
+    # heavy tails: a few large weights and a few salient input channels
+    w.view(-1)[torch.randint(0, k * n, (k * n // 1000,), device=dev, generator=g)] *= 8
+    x = torch.randn((TOOLS_ROWS, k), device=dev, generator=g)
+    x[:, torch.randint(0, k, (16,), device=dev, generator=g)] *= 20
+    y_ref = x @ w
+    out = {}
+
+    def report(name, fn):
+        ql_s, s = timed(fn)
+        ql, sv = ql_s if isinstance(ql_s, tuple) else (ql_s, None)
+        deq = dequantize(ql)
+        xs = x if sv is None else x / sv
+        out[name] = dict(seconds=s, weight_mse=float(((deq - w) ** 2).mean()),
+                         output_mse=float(((xs @ deq - y_ref) ** 2).mean()))
+        print(f"  (ss) {name:10s} {k} x {n}: {s:.3f} s | weight MSE "
+              f"{out[name]['weight_mse']:.4e}, output MSE {out[name]['output_mse']:.4e}",
+              flush=True)
+
+    report("rtn", lambda: quantize(w, bits=4, block_size=128))
+    report("rtn_sym", lambda: quantize(w, bits=4, block_size=128, sym=True))
+    report("hqq", lambda: hqq.quantize_hqq(w, bits=4, block_size=128))
+    report("admm", lambda: calibrate.admm_quantize_weight(w, bits=4, block_size=128))
+    report("omniquant", lambda: omni_quant.omni_quantize(w, x, bits=4, block_size=128))
+    check(out["hqq"]["weight_mse"] < out["rtn"]["weight_mse"]
+          and out["admm"]["weight_mse"] < out["rtn_sym"]["weight_mse"]
+          and out["omniquant"]["output_mse"] < out["rtn"]["output_mse"],
+          f"(ss) a tool does not beat round to nearest: {out}")
+    fq = compress.fake_quant_weight(w, bits=4, block_size=128)
+    deq = dequantize(quantize(w, bits=4, block_size=128))
+    check(torch.equal(fq, deq), "(ss) fake_quant_weight differs from dequantize(quantize(w))")
+    print(f"  (ss) fake_quant_weight on the card: bit for bit dequantize(quantize(w)) | "
+          f"{card_line}", flush=True)
+    out["fake_quant_equal"] = True
+    return out
+
+
+def phase_training(dev, params05, card_line):
+    """Phase 12, (oo) to (ss), each sub-phase with its launch counts set to
+    0 before and read after; the CPU sides of (pp) and (rr) run in a pool of
+    two threads while the card works."""
+    t12 = time.perf_counter()
+    cfg = PRESETS["qwen2-0.5b"]
+    root = tempfile.mkdtemp(prefix="mnn_tpu_torch_train_")
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            adapters, oo, pp = phase_train(params05, cfg, pool, card_line)
+            out = dict(oo=oo, pp=pp)
+            out["qq"] = phase_merge(params05, cfg, adapters, card_line)
+            del adapters
+            torch.cuda.empty_cache()
+            out["rr"] = phase_awq(dev, root, pool, card_line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["ss"] = phase_quant_tools(dev, card_line)
+    out["seconds"] = time.perf_counter() - t12
+    print(f"  phase 12: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def training_launches(tr: dict) -> dict:
+    """Phase 12's launches by C entry, summed over (oo), (qq) and (rr)."""
+    total: dict = {}
+    for sub in ("oo", "qq", "rr"):
+        for k, v in tr[sub]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -4172,10 +4541,17 @@ def main():
 
     print("phase 10: speculative decoding on qwen2-0.5b", flush=True)
     specd = phase_spec(dev, params05, card_line)
+    torch.cuda.empty_cache()
+
+    print("phase 12: training and quantization tools on qwen2-0.5b", flush=True)
+    print("phase 2, row 1b at the training forward's shapes", flush=True)
+    phase_gemm(dev, g, results, a8=False, shapes=TRAIN_GEMM, key="dequant_matmul_train")
+    training = phase_training(dev, params05, card_line)
     del params05
 
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
+    tr_counts = training_launches(training)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
@@ -4227,6 +4603,15 @@ def main():
         if kname == "dequant_matmul":
             k["multimodal_launches"] += mm_counts.get("mnn_dequant_matmul_bf16_tile", 0)
         k["launches"] += k["multimodal_launches"]
+        # phase 12's launches, (oo) to (rr), added too; row 1b's rows at the
+        # training forward's shapes with (oo)'s launches
+        k["training_launches"] = tr_counts.get(entry, 0)
+        if kname == "dequant_matmul":
+            k["training_launches"] += tr_counts.get("mnn_dequant_matmul_bf16_tile", 0)
+            k["train"] = dict(row_sums(results["dequant_matmul_train"]),
+                              entry="mnn_dequant_matmul_bf16_tile",
+                              launches=training["oo"]["launches"]["mnn_dequant_matmul_bf16_tile"])
+        k["launches"] += k["training_launches"]
         # phase 2's rows at the qwen2-7b shapes phase 11 serves
         if f"{kname}_7b" in results:
             k["qwen2_7b"] = row_sums(results[f"{kname}_7b"])
@@ -4245,6 +4630,7 @@ def main():
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
+                  training=training,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

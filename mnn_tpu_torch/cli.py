@@ -14,7 +14,9 @@ PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
 `convert`, or from the JAX package's converter) and wins over
 `--synthetic` (also `--preset`), a random-weight preset. `convert` reads a HuggingFace
 directory (`--hf`) or a llama.cpp GGUF file (`--gguf`) and quantizes on the
-device; `--awq` (the activation-aware scale search) is not ported. The
+device; `--awq` runs the activation-aware scale search and clipping first,
+on the lines of `--calib-data FILE` (at most 16, 256 tokens each) or,
+without it, on seeded random tokens [4, 128], as the JAX CLI does. The
 model defaults are the serving configuration of the port's main path: W4
 block-128 weights, an int4 lm head (a loaded checkpoint keeps the head it
 was converted with), an int8 KV cache (`--kv-bits 4` packs it to int4,
@@ -137,7 +139,9 @@ def cmd_convert(args):
     t0 = time.time()
     kw = dict(bits=args.bits, block_size=args.block, sym=args.sym,
               tp_shards=args.tp, act_bits=args.act_bits,
-              lm_head_bits=args.lm_head_bits, awq=args.awq, device=args.device)
+              lm_head_bits=args.lm_head_bits, device=args.device)
+    if args.awq:
+        kw.update(awq=True, calib_tokens=_calib_tokens(args))
     if args.gguf:
         from mnn_tpu_torch.convert.gguf import convert_gguf
 
@@ -150,6 +154,26 @@ def cmd_convert(args):
         src = args.hf
     print(f"converted {src} -> {args.out} "
           f"(int{args.bits}, block {args.block}, {time.time() - t0:.1f}s)")
+
+
+def _calib_tokens(args):
+    """AWQ calibration ids [B, T] int32: the first 16 non-empty lines of
+    `--calib-data`, tokenized with the source model's tokenizer (256 ids
+    at most each, zero-padded), or seeded random ids [4, 128]."""
+    import numpy as np
+
+    if not args.calib_data:
+        return np.random.default_rng(0).integers(0, 1000, (4, 128)).astype(np.int32)
+    from mnn_tpu_torch.runtime.tokenizer import load_tokenizer
+
+    tok = load_tokenizer(args.hf)
+    with open(args.calib_data) as f:
+        lines = [ln.strip() for ln in f if ln.strip()][:16]
+    ids = [tok.encode(ln)[:256] for ln in lines]
+    calib = np.zeros((len(ids), max(len(i) for i in ids)), np.int32)
+    for r, i in enumerate(ids):
+        calib[r, :len(i)] = i
+    return calib
 
 
 def cmd_eval(args):
@@ -208,7 +232,11 @@ def main(argv=None):
     p.add_argument("--tp", type=int, default=1,
                    help="target tensor-parallel shards (affects block sizes)")
     p.add_argument("--awq", action="store_true",
-                   help="activation-aware scale search (not ported: refused)")
+                   help="activation-aware scale search and clipping before "
+                        "quantizing (dense pre-norm models)")
+    p.add_argument("--calib-data",
+                   help="--awq calibration text, one sample a line (default: "
+                        "seeded random tokens)")
     p.add_argument("--device", default=None,
                    help="where to quantize: cuda (default) or cpu")
     p.set_defaults(fn=cmd_convert)

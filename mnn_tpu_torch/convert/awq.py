@@ -14,7 +14,7 @@ Layouts (as autoawq / gptqmodel write them):
 
 Both dequantize as w[k, n] = (q[k, n] - zero[g, n]) * scale[g, n] with
 g = k // group. The activation-aware scale search (`awq=True` of the
-converter) is not ported.
+converter) lives in `quant/awq_search.py`.
 """
 
 from __future__ import annotations

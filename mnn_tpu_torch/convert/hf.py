@@ -22,8 +22,18 @@ Layout re-packing (as `models/decoder.py` `LayerParams` reads it):
 Unlike the JAX converter, which holds every layer's f32 matrices at once,
 this one quantizes on `device` one layer at a time and keeps only the
 packed results; each `quantize` call depends on its matrix alone, so the
-bytes are the same. The activation-aware scale search (`awq=True`) is not
-ported (ROADMAP.md, Queue 1 item 10).
+bytes are the same.
+
+`awq=True` runs the activation-aware scale search of the JAX converter
+(`_awq_transform` there) on `device`, within the same walk over the
+layers: one float forward of the calibration tokens, layer by layer with
+the original weights (the folds are exact, so the stream is the one the
+transformed model would see); at each dense pre-norm layer the inputs of
+its four projections (at most 512 rows each, drawn with the JAX
+converter's numpy generator) go to `quant/awq_search.awq_scale_block`,
+and the transformed matrices and norms are quantized in place of the
+originals. What the search chose (each layer's scale ratios and clip
+steps) is written beside the checkpoint, to `awq_search.json`.
 """
 
 from __future__ import annotations
@@ -43,8 +53,12 @@ from mnn_tpu_torch.convert.stfile import StDir
 from mnn_tpu_torch.kernels.common import resolve_device
 from mnn_tpu_torch.models.config import ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.decoder import LayerParams, Params, _check_supported
-from mnn_tpu_torch.models.layers import interleave_gate_up
+from mnn_tpu_torch.models.layers import (apply_rope, gu_block_for, interleave_gate_up,
+                                         rms_norm, rope_cos_sin, split_gate_up, swiglu)
+from mnn_tpu_torch.quant.awq_search import awq_scale_block
 from mnn_tpu_torch.quant.quantize import QuantizedLinear, choose_block_size, quantize
+
+AWQ_MAX_ROWS = 512      # calibration rows a projection's search sees
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -82,6 +96,8 @@ def convert_hf(
     hf_config: Optional[dict] = None,
     tensors: Optional[Mapping] = None,
     awq: bool = False,
+    awq_clip: bool = True,
+    calib_tokens=None,          # [B, T] int token ids
     device=None,
 ):
     """Convert and quantize an HF decoder checkpoint (qwen2 / qwen3 /
@@ -89,11 +105,11 @@ def convert_hf(
     `device` (None: the card)
     and write it to `out_dir`. `hf_config` / `tensors` stand in for the
     files on disk (the GGUF importer feeds its decoded tensors so).
+    `awq=True` searches AWQ scales (and with `awq_clip` clips) on
+    `calib_tokens` before quantizing: dense pre-norm decoders only.
     Returns (config, params): what was written, as it lies on `device`."""
-    if awq:
-        raise NotImplementedError(
-            "awq=True (the activation-aware scale search) is not ported: "
-            "ROADMAP.md, Queue 1 item 10")
+    if awq and calib_tokens is None:
+        raise ValueError("awq=True needs calib_tokens [B, T] int32")
     dev = resolve_device(device)
     if hf_config is not None:
         hf_cfg = hf_config
@@ -104,23 +120,102 @@ def convert_hf(
             else hf_cfg.get("architectures", ["model"])[0])
     config = ModelConfig.from_hf_config(hf_cfg, name=name)
     _check_supported(config)
+    if awq and (config.is_moe or config.sandwich_norm):
+        raise NotImplementedError("AWQ search covers dense pre-norm decoders")
+    awq_log = [] if awq else None
     src = StDir(model_dir) if tensors is None else None
     try:
         params = _convert(config, hf_cfg, src if src is not None else tensors,
                           dev, bits=bits, block_size=block_size, sym=sym,
                           tp_shards=tp_shards, act_bits=act_bits,
-                          lm_head_bits=lm_head_bits)
+                          lm_head_bits=lm_head_bits, calib_tokens=calib_tokens,
+                          awq_clip=awq_clip, awq_log=awq_log)
     finally:
         if src is not None:
             src.close()
     rt = (rt or RuntimeConfig()).merge(
         quant_bits=bits, quant_block=block_size, quant_sym=sym, act_bits=act_bits)
     save_checkpoint(out_dir, config, params, rt, tokenizer_src=model_dir)
+    if awq_log is not None:
+        with open(os.path.join(out_dir, "awq_search.json"), "w") as f:
+            json.dump({"calib_tokens": list(np.shape(calib_tokens)), "clip": awq_clip,
+                       "layers": awq_log}, f, indent=1)
     return config, params
 
 
+class _AwqPass:
+    """The calibration stream of `awq=True`: x [B, T, hidden] f32 on the
+    device, advanced one layer at a time with that layer's original float
+    weights, as the JAX converter's `_awq_transform` runs it."""
+
+    def __init__(self, c: ModelConfig, tokens, emb: torch.Tensor, *, bits, block_size,
+                 sym, clip):
+        dev = emb.device
+        self.c, self.kw = c, dict(bits=bits, block_size=block_size, sym=sym, clip=clip)
+        ids = torch.as_tensor(np.asarray(tokens, np.int32), device=dev).long()
+        b, t = ids.shape
+        self.x = emb[ids]
+        self.cos, self.sin = rope_cos_sin(
+            torch.arange(t, device=dev)[None].expand(b, t), c.head_dim, c.rope_theta,
+            scaling=c.rope_scaling)
+        self.causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+        g, d, hkv = c.num_heads // c.num_kv_heads, c.head_dim, c.num_kv_heads
+        stride = (g + 2) * d
+        self.v_cols = np.concatenate([np.arange(h * stride + (g + 1) * d,
+                                                h * stride + (g + 2) * d)
+                                      for h in range(hkv)])
+        blk = gu_block_for(c.intermediate_size)
+        self.up_cols = np.concatenate([np.arange(2 * i * blk + blk, 2 * i * blk + 2 * blk)
+                                       for i in range(c.intermediate_size // blk)])
+        # attention channel (head i, dim k) reads V column (KV head i // g, dim k)
+        self.o_groups = np.concatenate([np.arange(d) + (i // g) * d
+                                        for i in range(c.num_heads)])
+        self.rng = np.random.default_rng(0)
+
+    def _rows(self, a: torch.Tensor) -> torch.Tensor:
+        a = a.reshape(-1, a.shape[-1])
+        if a.shape[0] <= AWQ_MAX_ROWS:
+            return a
+        idx = self.rng.choice(a.shape[0], size=AWQ_MAX_ROWS, replace=False)
+        return a[torch.as_tensor(idx, device=a.device)]
+
+    def layer(self, wqkv, qkv_bias, wo, wgu, wdown, in_norm, post_norm, q_norm, k_norm):
+        """Advance the stream through one layer and search its transform."""
+        c, x = self.c, self.x
+        b, t, _ = x.shape
+        g, d = c.num_heads // c.num_kv_heads, c.head_dim
+        h = rms_norm(x, in_norm, c.rms_norm_eps)
+        qkv = h @ wqkv
+        if qkv_bias is not None:
+            qkv = qkv + qkv_bias
+        qkv5 = qkv.reshape(b, t, c.num_kv_heads, g + 2, d)
+        q = qkv5[..., :g, :].reshape(b, t, c.num_heads, d).transpose(1, 2)
+        k = qkv5[..., g, :].transpose(1, 2)
+        v = qkv5[..., g + 1, :].transpose(1, 2)
+        if q_norm is not None:
+            q = rms_norm(q, q_norm, c.rms_norm_eps)
+            k = rms_norm(k, k_norm, c.rms_norm_eps)
+        q = apply_rope(q, self.cos, self.sin)
+        k = apply_rope(k, self.cos, self.sin).repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+        s = torch.einsum("bhtd,bhsd->bhts", q, k) * (1.0 / d ** 0.5)
+        s = torch.where(self.causal[None, None], s, torch.full_like(s, -1e30))
+        att = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1), v)
+        att = att.transpose(1, 2).reshape(b, t, c.q_dim)
+        x = x + att @ wo
+        h2 = rms_norm(x, post_norm, c.rms_norm_eps)
+        act = swiglu(*split_gate_up(h2 @ wgu))
+        self.x = x + act @ wdown
+        acts = {"qkv": self._rows(h), "o": self._rows(att), "gu": self._rows(h2),
+                "down": self._rows(act)}
+        return awq_scale_block(acts, wqkv, wo, wgu, wdown, in_norm, post_norm,
+                               v_cols=self.v_cols, up_cols=self.up_cols,
+                               qkv_bias=qkv_bias, o_groups=self.o_groups, **self.kw)
+
+
 def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
-             bits, block_size, sym, tp_shards, act_bits, lm_head_bits) -> Params:
+             bits, block_size, sym, tp_shards, act_bits, lm_head_bits,
+             calib_tokens=None, awq_clip=True, awq_log=None) -> Params:
     g = c.num_heads // c.num_kv_heads
     d = c.head_dim
     hkv = c.num_kv_heads
@@ -179,6 +274,10 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
     else:
         bs_down = choose_block_size(c.intermediate_size, block_size, tp_shards)
 
+    awq_pass = None
+    if awq_log is not None:
+        awq_pass = _AwqPass(c, calib_tokens, get("model.embed_tokens.weight"), bits=bits,
+                       block_size=block_size, sym=sym, clip=awq_clip)
     acc = {k: [] for k in (
         "wqkv", "qkv_bias", "wo", "wgu", "wdown", "input_norm", "post_norm",
         "pre_ffn_norm", "post_ffn_norm", "q_norm", "k_norm", "router", "wgu_e", "wdown_e", "wgu_shared",
@@ -191,16 +290,23 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
         hidden = wq.shape[0]
         wqkv = torch.cat([wq.reshape(hidden, hkv, g, d), wk.reshape(hidden, hkv, 1, d),
                           wv.reshape(hidden, hkv, 1, d)], dim=2).reshape(hidden, -1)
-        acc["wqkv"].append(q(wqkv, bs_qkv))
-        del wq, wk, wv, wqkv
+        del wq, wk, wv
+        qkv_bias = None
         bq = maybe(p + "self_attn.q_proj.bias")
         if bq is not None:
             bk = get(p + "self_attn.k_proj.bias")
             bv = get(p + "self_attn.v_proj.bias")
-            acc["qkv_bias"].append(torch.cat(
-                [bq.reshape(hkv, g, d), bk.reshape(hkv, 1, d), bv.reshape(hkv, 1, d)],
-                dim=1).reshape(-1))
-        acc["wo"].append(q(get(p + "self_attn.o_proj.weight").T, bs_wo))
+            qkv_bias = torch.cat([bq.reshape(hkv, g, d), bk.reshape(hkv, 1, d),
+                                  bv.reshape(hkv, 1, d)], dim=1).reshape(-1)
+        wo = get(p + "self_attn.o_proj.weight").T
+        norms = {"input_norm": get_norm(p + "input_layernorm.weight"),
+                 "post_norm": get_norm(p + "post_attention_layernorm.weight")}
+        if c.sandwich_norm:
+            norms["pre_ffn_norm"] = get_norm(p + "pre_feedforward_layernorm.weight")
+            norms["post_ffn_norm"] = get_norm(p + "post_feedforward_layernorm.weight")
+        if c.qk_norm:
+            norms["q_norm"] = get_norm(p + "self_attn.q_norm.weight")
+            norms["k_norm"] = get_norm(p + "self_attn.k_norm.weight")
 
         if c.is_moe:
             acc["router"].append(get(p + "mlp.gate.weight").T)   # [H, E]
@@ -220,17 +326,23 @@ def _convert(c: ModelConfig, hf_cfg: dict, t: Mapping, dev: torch.device, *,
         else:
             gu = interleave_gate_up(get(p + "mlp.gate_proj.weight").T,
                                     get(p + "mlp.up_proj.weight").T)
+            down = get(p + "mlp.down_proj.weight").T
+            if awq_pass is not None:
+                res = awq_pass.layer(wqkv, qkv_bias, wo, gu, down, norms["input_norm"],
+                                norms["post_norm"], norms.get("q_norm"), norms.get("k_norm"))
+                wqkv, qkv_bias, wo, gu, down = (res.wqkv, res.qkv_bias, res.wo, res.wgu,
+                                                res.wdown)
+                norms.update(input_norm=res.input_norm, post_norm=res.post_norm)
+                awq_log.append(dict(ratios=res.ratios, clip_steps=res.clip_steps))
             acc["wgu"].append(q(gu, bs_gu))
-            acc["wdown"].append(q(get(p + "mlp.down_proj.weight").T, bs_down))
-
-        acc["input_norm"].append(get_norm(p + "input_layernorm.weight"))
-        acc["post_norm"].append(get_norm(p + "post_attention_layernorm.weight"))
-        if c.sandwich_norm:
-            acc["pre_ffn_norm"].append(get_norm(p + "pre_feedforward_layernorm.weight"))
-            acc["post_ffn_norm"].append(get_norm(p + "post_feedforward_layernorm.weight"))
-        if c.qk_norm:
-            acc["q_norm"].append(get_norm(p + "self_attn.q_norm.weight"))
-            acc["k_norm"].append(get_norm(p + "self_attn.k_norm.weight"))
+            acc["wdown"].append(q(down, bs_down))
+        acc["wqkv"].append(q(wqkv, bs_qkv))
+        acc["wo"].append(q(wo, bs_wo))
+        if qkv_bias is not None:
+            acc["qkv_bias"].append(qkv_bias)
+        for key, v in norms.items():
+            acc[key].append(v)
+        del wqkv, wo
 
     def stack(key):
         return torch.stack(acc[key]) if acc[key] else None

@@ -83,7 +83,7 @@ import torch
 
 from mnn_tpu_torch.kernels.build import I, P, kernel, library
 from mnn_tpu_torch.kernels.common import check, use_kernel
-from mnn_tpu_torch.quant.quantize import (QuantizedLinear,
+from mnn_tpu_torch.quant.quantize import (QuantizedLinear, dequantize,
                                           quantize_activations_int8,
                                           unpack_bits)
 
@@ -286,6 +286,37 @@ def _launch(x2: torch.Tensor, ql: QuantizedLinear, out_dtype,
     return out
 
 
+def _call(x2: torch.Tensor, ql: QuantizedLinear, out_dtype) -> torch.Tensor:
+    """One layer's product on rows x2 [M, K]: the kernel for a CUDA tensor,
+    the plain version for a CPU one."""
+    deq = x2.shape[0] >= DEQ_MIN_M
+    if use_kernel(x2, ql.packed):
+        return _launch(x2, ql, out_dtype, deq)
+    return dequant_matmul_plain(x2, ql, out_dtype, deq)
+
+
+class DequantMatmulFn(torch.autograd.Function):
+    """The product as an autograd node, the counterpart of the JAX
+    wrapper's `jax.custom_vjp`: the forward is the kernel call (the plain
+    version on the CPU), the backward the JAX VJP, dx = g.bf16 @
+    dequantize(ql, bf16).T accumulated in f32 and cast to x's dtype, by
+    `torch.matmul` (the JAX package computes it with `jnp.dot` outside any
+    kernel). The packed weights are frozen: they get no gradient. `ql` is
+    one layer, read in place as the forward reads it."""
+
+    @staticmethod
+    def forward(ctx, x2, ql, out_dtype):
+        ctx.ql, ctx.x_dtype = ql, x2.dtype
+        # autograd may hand over a view with other strides
+        return _call(x2.contiguous(), ql, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = dequantize(ctx.ql, dtype=torch.bfloat16)
+        dx = torch.matmul(g.to(torch.bfloat16).float(), w.float().T)
+        return dx.to(ctx.x_dtype), None, None
+
+
 def dequant_matmul(
     x: torch.Tensor,
     ql: QuantizedLinear,
@@ -298,14 +329,17 @@ def dequant_matmul(
     With `layer_index`, ql's tensors carry a leading layer axis [L, ...]
     and layer `layer_index` is read in place: its views start at the
     stacked buffers' base plus the layer's offset, with no copy. From
-    `DEQ_MIN_M` rows on, the dequantize-tile kernel takes the call."""
+    `DEQ_MIN_M` rows on, the dequantize-tile kernel takes the call.
+
+    Differentiable in x: when autograd records (`torch.is_grad_enabled()`
+    and `x.requires_grad`), the call goes through `DequantMatmulFn`, whose
+    forward launches the same kernel; otherwise nothing is recorded."""
     if layer_index is not None:
         ql = ql.layer(layer_index)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    deq = x2.shape[0] >= DEQ_MIN_M
-    if use_kernel(x2, ql.packed):
-        y = _launch(x2, ql, out_dtype, deq)
+    if torch.is_grad_enabled() and x2.requires_grad:
+        y = DequantMatmulFn.apply(x2, ql, out_dtype)
     else:
-        y = dequant_matmul_plain(x2, ql, out_dtype, deq)
+        y = _call(x2, ql, out_dtype)
     return y.reshape(*lead, ql.out_features)

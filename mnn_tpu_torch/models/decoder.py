@@ -55,7 +55,19 @@ hidden]) adds each token's layer-i row, projected in f32, after layer i's
 MLP and before deepstack. Under deepstack or a PLE table the whole-model
 kernel is skipped and a decode step runs the per-layer path.
 
-Not ported yet: LoRA, tensor and expert parallelism.
+LoRA, as in the JAX package: `forward(lora=LoraParams)` adds each
+adapter's low-rank delta, (h.f32 @ a) @ b * scaling cast to the
+projection's dtype, after qkv, o, gate/up and down (`_add_lora`). With
+adapters the whole-model kernel, the fused decode step and the fused
+expert kernel are off (the JAX package's `lora is None` conditions), and
+attention takes `_attention_eager`, which autograd can differentiate (the
+flash kernels have no backward, here or in the JAX package); every
+projection stays on `dequant_matmul`, whose autograd node
+(`DequantMatmulFn`) launches the same kernel and gives x its gradient.
+Over a bf16 cache the chunk's own K/V rows reach attention as the live
+tensors, not as the cache's copies, so gradients flow through them.
+
+Not ported yet: tensor and expert parallelism.
 """
 
 from __future__ import annotations
@@ -121,6 +133,39 @@ class Params:
     lm_head: Union[torch.Tensor, QuantizedLinear, None]
     layers: LayerParams
     ple_table: Optional[torch.Tensor] = None   # [vocab, L, ple_dim], PLE rows
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraParams:
+    """Low-rank adapters per projection, stacked on the layer axis, the
+    JAX package's `LoraParams`: y = frozen_quantized(x) + (x @ a) @ b *
+    scaling. Any pair may be None to leave a projection unadapted."""
+
+    a_qkv: Optional[torch.Tensor]    # [L, hidden, r] f32
+    b_qkv: Optional[torch.Tensor]    # [L, r, qkv_n] f32
+    a_o: Optional[torch.Tensor]
+    b_o: Optional[torch.Tensor]
+    a_gu: Optional[torch.Tensor]
+    b_gu: Optional[torch.Tensor]
+    a_down: Optional[torch.Tensor]
+    b_down: Optional[torch.Tensor]
+    scaling: float = 1.0
+
+    def tensors(self) -> list:
+        """The adapter tensors that are set, in field order."""
+        return [t for f in dataclasses.fields(self) if f.name != "scaling"
+                for t in [getattr(self, f.name)] if t is not None]
+
+
+def _add_lora(y: torch.Tensor, h: torch.Tensor, lora: Optional[LoraParams],
+              name: str, i: int) -> torch.Tensor:
+    """y plus layer i's adapter `name` applied to the projection's input h:
+    (h.f32 @ a) @ b * scaling in f32, cast to y's dtype."""
+    a = None if lora is None else getattr(lora, "a_" + name)
+    if a is None:
+        return y
+    delta = (h.float() @ a[i]) @ getattr(lora, "b_" + name)[i] * lora.scaling
+    return y + delta.to(y.dtype)
 
 
 def _check_supported(c: ModelConfig):
@@ -526,6 +571,28 @@ def _attention_eager(c: ModelConfig, q, k_cache, v_cache, k_scale, v_scale,
     return o.reshape(b, h, t, d).to(q.dtype)
 
 
+def _with_live_rows(cache: KVCache, buf: torch.Tensor, rows: torch.Tensor,
+                    start: torch.Tensor) -> torch.Tensor:
+    """One layer's bf16 cache `buf` [B, Hkv, S, D], which already holds the
+    values of the appended rows [B, Hkv, T, D], as a copy in which those
+    rows are the live tensor, so that autograd reaches them. The positions
+    are the appends' own: start.. clamped for a chunk, each row's length
+    for a decode step."""
+    if cache.quantized:
+        raise NotImplementedError(
+            "gradients through attention need a bf16 cache (quantized=False)")
+    out = buf.clone()
+    t = rows.shape[2]
+    if t == 1:
+        pos = cache.length.long().clamp(0, cache.capacity - 1)
+        out[torch.arange(buf.shape[0], device=buf.device), :, pos] = \
+            rows[:, :, 0].to(buf.dtype)
+    else:
+        first = torch.clamp(start.long(), 0, cache.capacity - t)
+        out[:, :, first + torch.arange(t, device=buf.device)] = rows.to(buf.dtype)
+    return out
+
+
 def _decode_megakernel(params: Params, c: ModelConfig, x, cache: KVCache,
                        cos_f, sin_f, kv_len, cos_lf=None, sin_lf=None,
                        fuse_head: bool = True):
@@ -564,6 +631,7 @@ def forward(
     inputs_embeds: Optional[torch.Tensor] = None,   # [B, T, hidden]
     position_ids: Optional[torch.Tensor] = None,    # [B, T, 3] mrope (t, h, w)
     deepstack: Optional[torch.Tensor] = None,       # [levels, B, T, hidden]
+    lora: Optional[LoraParams] = None,
 ):
     """Run the model over `tokens`, appending T positions to the cache.
 
@@ -608,7 +676,14 @@ def forward(
     `kv_rotate` or a TQ3 / TQ4 cache, neither decode kernel that quantizes
     its own rows runs (`fused` below): the per-layer path appends the row
     and calls flash decode, and gemma takes `_attention_eager` for decode
-    too."""
+    too.
+
+    `lora` adds the adapters' deltas to qkv, o, gate/up and down (not to
+    the experts of a mixture-of-experts layer, as in the JAX package) and
+    runs every layer through `_attention_eager`, with no fused decode
+    kernel; `megakernel=True` then raises. Under autograd the adapters get
+    their gradients through the projections' autograd node; the cache must
+    then be bf16 (NotImplementedError otherwise)."""
     c = config
     _check_supported(c)
     b, t = tokens.shape
@@ -654,8 +729,8 @@ def forward(
     # `gemma_fast` conditions)
     self_quantizing = cache.bits not in (3, 4) and not c.kv_rotate
     # gemma's prefill, and its decode where the decode-step kernel cannot
-    # serve it: plain attention
-    eager = gemma_like(c) and (t > 1 or not self_quantizing)
+    # serve it, and every step under adapters: plain attention
+    eager = (gemma_like(c) and (t > 1 or not self_quantizing)) or lora is not None
     # the per-layer splices (PLE, deepstack) live on the per-layer path
     eligible = (megakernel is not False and t == 1 and not eager and tree is None
                 and deepstack is None and params.ple_table is None
@@ -665,7 +740,7 @@ def forward(
             "megakernel=True but the whole-model kernel cannot serve this "
             f"(config={c.name}, batch={b}, T={t}, kv_bits={cache.bits}, "
             f"deepstack={deepstack is not None}, "
-            f"ple={params.ple_table is not None}); use "
+            f"ple={params.ple_table is not None}, lora={lora is not None}); use "
             "megakernel=None for the automatic fallback")
     if eligible:
         x, new_cache, logits, token = _decode_megakernel(
@@ -683,14 +758,14 @@ def forward(
     fused = t == 1 and self_quantizing and not eager and tree is None
     tq = cache.bits == 3 or cache.codebook          # a TQ3 or TQ4 cache
     # a decode step of at most 8 rows takes the fused expert kernel
-    moe_fast = (c.is_moe and t == 1 and tree is None
+    moe_fast = (c.is_moe and t == 1 and tree is None and lora is None
                 and moe_decode.supports(c, layers, b))
     ple_x = None if params.ple_table is None else params.ple_table[tokens]  # [B, T, L, dim]
     for i in range(c.num_layers):
         # the window and the rope phases are Python-static per layer
         window_i, local = layer_window(c, i), local_rope(c, i)
         h = rms_norm(x, layers.input_norm[i], c.rms_norm_eps)
-        qkv = dequant_matmul(h, layers.wqkv, layer_index=i)
+        qkv = _add_lora(dequant_matmul(h, layers.wqkv, layer_index=i), h, lora, "qkv", i)
         if fused:
             qkv_g = qkv.reshape(b, c.num_kv_heads, group + 2, c.head_dim)
             att, k_row, v_row, k_sc, v_sc = fused_decode_attention(
@@ -722,12 +797,18 @@ def forward(
                 q, k, v = rotate_heads(q), rotate_heads(k), rotate_heads(v)
             q = q.contiguous()
             if eager or tree is not None:
+                # the cache keeps values: no autograd history goes into it
                 if t == 1:
-                    kvcache.append_decode_stacked(cache, i, k, v, cache.length)
+                    kvcache.append_decode_stacked(cache, i, k.detach(), v.detach(),
+                                                  cache.length)
                 else:
-                    kvcache.append_stacked(cache, i, k, v, start)
+                    kvcache.append_stacked(cache, i, k.detach(), v.detach(), start)
+                k_i, v_i = cache.k[i], cache.v[i]
+                if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+                    k_i = _with_live_rows(cache, k_i, k, start)
+                    v_i = _with_live_rows(cache, v_i, v, start)
                 att = _attention_eager(
-                    c, q, cache.k[i], cache.v[i],
+                    c, q, k_i, v_i,
                     None if cache.k_scale is None else cache.k_scale[i],
                     None if cache.v_scale is None else cache.v_scale[i],
                     kv_len, cache.length, window_i, cache.bits, cache.codebook,
@@ -761,7 +842,7 @@ def forward(
             if c.kv_rotate:
                 att = rotate_heads(att, inverse=True)
             att = att.transpose(1, 2).reshape(b, t, c.q_dim)
-        o = dequant_matmul(att, layers.wo, layer_index=i)
+        o = _add_lora(dequant_matmul(att, layers.wo, layer_index=i), att, lora, "o", i)
         if c.sandwich_norm:     # gemma: the attention output is normed
             o = rms_norm(o, layers.post_norm[i], c.rms_norm_eps)
         x = x + o.to(x.dtype)
@@ -770,8 +851,11 @@ def forward(
         if c.is_moe:
             d = (_moe_mlp_fused if moe_fast else _moe_mlp)(c, h2, layers, i)
         else:
-            gu = dequant_matmul(h2, layers.wgu, layer_index=i)
-            d = dequant_matmul(_gated_act(c, gu), layers.wdown, layer_index=i)
+            gu = _add_lora(dequant_matmul(h2, layers.wgu, layer_index=i), h2, lora,
+                           "gu", i)
+            act = _gated_act(c, gu)
+            d = _add_lora(dequant_matmul(act, layers.wdown, layer_index=i), act, lora,
+                          "down", i)
         if c.sandwich_norm:
             d = rms_norm(d, layers.post_ffn_norm[i], c.rms_norm_eps)
         x = x + d.to(x.dtype)

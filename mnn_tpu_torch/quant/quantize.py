@@ -28,6 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mnn_tpu_torch.kernels.common import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedLinear:
@@ -191,6 +193,24 @@ def unpack_bits(packed: torch.Tensor, bits: int, block_size: int,
     raise ValueError(f"W{bits} has no packed layout")
 
 
+def as_f32(a, device=None) -> torch.Tensor:
+    """A tensor or an array as f32 on `device`, for the offline tools'
+    entry points. With device None a tensor stays on its own device and an
+    array goes to the card (raises where there is none)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().float()
+        return a if device is None else a.to(device)
+    return torch.from_numpy(np.array(a, np.float32)).to(resolve_device(device))
+
+
+def pack_q(q: torch.Tensor, bits: int, block_size: int) -> torch.Tensor:
+    """Unsigned codes [K, N] -> the packed int8 rows of `bits` (W8: the
+    byte as it is)."""
+    if bits in (2, 3, 4):
+        return {2: pack_int2, 3: pack_int3, 4: pack_int4}[bits](q, block_size)
+    return q.to(torch.uint8).view(torch.int8)
+
+
 def _bf16_bits(b: torch.Tensor) -> torch.Tensor:
     return b.view(torch.int16).to(torch.int32) & 0xFFFF
 
@@ -260,13 +280,8 @@ def quantize(
         q = q.clamp(0, qmax)
         bias = wmin
 
-    q = q.to(torch.int32).reshape(k, n)
-    if bits in (2, 3, 4):
-        packed = {2: pack_int2, 3: pack_int3, 4: pack_int4}[bits](q, block_size)
-    else:
-        packed = q.to(torch.uint8).view(torch.int8)
     return QuantizedLinear(
-        packed=packed,
+        packed=pack_q(q.to(torch.int32).reshape(k, n), bits, block_size),
         scale=scale.to(torch.bfloat16),
         bias=bias.to(torch.bfloat16),
         out_bias=None if out_bias is None

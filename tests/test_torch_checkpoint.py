@@ -298,15 +298,22 @@ def test_gemma_checkpoint_loads_and_mrope_loads(tmp_path):
 NEW_MODULES = ("mnn_tpu_torch.convert.stfile", "mnn_tpu_torch.convert.checkpoint",
                "mnn_tpu_torch.convert.awq", "mnn_tpu_torch.convert.hf",
                "mnn_tpu_torch.convert.gguf", "mnn_tpu_torch.runtime.evaluate",
-               "mnn_tpu_torch.runtime.llm", "mnn_tpu_torch.cli")
+               "mnn_tpu_torch.runtime.llm", "mnn_tpu_torch.cli",
+               "mnn_tpu_torch.train", "mnn_tpu_torch.train.lora",
+               "mnn_tpu_torch.train.trainer", "mnn_tpu_torch.train.datasets",
+               "mnn_tpu_torch.train.compress", "mnn_tpu_torch.quant",
+               "mnn_tpu_torch.quant.awq_search", "mnn_tpu_torch.quant.calibrate",
+               "mnn_tpu_torch.quant.hqq", "mnn_tpu_torch.quant.omni_quant",
+               "mnn_tpu_torch.quant.smooth")
 
 
 def test_new_modules_import_without_optional_packages(jax_ref, tmp_path):
     """Import every new module, and load a checkpoint, with `safetensors`,
-    `transformers`, `tokenizers`, `ml_dtypes` and JAX blocked."""
+    `transformers`, `tokenizers`, `ml_dtypes`, JAX, optax and PIL blocked."""
     code = f"""
 import sys
-for m in ("safetensors", "transformers", "tokenizers", "ml_dtypes", "jax", "mnn_tpu"):
+for m in ("safetensors", "transformers", "tokenizers", "ml_dtypes", "jax", "mnn_tpu",
+          "optax", "PIL"):
     sys.modules[m] = None
 import importlib
 for m in {NEW_MODULES!r}:

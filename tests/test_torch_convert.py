@@ -204,14 +204,6 @@ def test_load_awq_weight_matches_jax(kind, v2):
     assert awq.AWQ_ORDER == tuple(jawq._AWQ_ORDER)
 
 
-def test_awq_search_refused(hf, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        convert_hf(hf["models"]["qwen2"][1], str(tmp_path / "x"), awq=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["convert", "--hf", hf["models"]["qwen2"][1], "--out",
-                  str(tmp_path / "y"), "--awq", "--device", "cpu"])
-
-
 def test_gemma2_conversion_offsets_norms(tmp_path):
     """A tiny Gemma2 HF directory converts, its norms carrying gemma's `1 + w`
     offset and its sandwich norms in place (`tests/test_torch_gemma_convert.py`
@@ -279,7 +271,7 @@ def test_cli_chat_model(cli_model, capsys, monkeypatch):
     monkeypatch.setattr("sys.stdin", io.StringIO("hello\n/reset\nhi\n/exit\nnever\n"))
     cli.main(["chat", "--model", cli_model, *MODEL_ARGS])
     captured = capsys.readouterr()
-    assert captured.err.count("decode 3") == 0      # the chat prints rates only
+    assert captured.err.count("decode 3 tok") == 0  # the chat prints rates only
     assert captured.err.count("tok/s]") == 2 and "[context cleared]" in captured.err
     assert captured.out.count("> ") == 4             # hello, /reset, hi, /exit
 

@@ -32,6 +32,7 @@ import dataclasses
 import json
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -2094,3 +2095,123 @@ def test_multimodal_ple_decode_runs_the_decode_step_kernel(dev):
     top2 = cpu[0].topk(2).values
     if float(top2[0] - top2[1]) > float((card - cpu).abs().max()):
         assert card_toks[0] == cpu_toks[0]
+
+
+# --------------------------------------------------------------------------
+# training: the projection's autograd node, a LoRA step, merge and serve
+# --------------------------------------------------------------------------
+
+def _lora_arrays(cfg, rank, b_scale, seed):
+    """numpy-made adapters on all four projections, as tensors on the CPU."""
+    from mnn_tpu_torch.train.lora import lora_dims
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (k, n) in lora_dims(cfg).items():
+        out["a_" + name] = torch.from_numpy(
+            (rng.standard_normal((cfg.num_layers, k, rank)) / rank ** 0.5).astype(np.float32))
+        out["b_" + name] = torch.from_numpy(
+            (rng.standard_normal((cfg.num_layers, rank, n)) * b_scale).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,f32", [(1024, 896, 1152, False), (1024, 4864, 896, False),
+                                       (96, 896, 8200, True), (1, 896, 1152, False)])
+def test_train_dequant_matmul_vjp(dev, m, k, n, f32):
+    """`DequantMatmulFn` on the card: the forward is the kernel (the tile
+    kernel above M = 1, the GEMV at M = 1: one launch), dx (the JAX VJP)
+    within rel-L2 1e-2 of the same Function's on the CPU, where it wraps
+    the plain version."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    ql = rand_ql(g, dev, k, n, 4, 16, 2, True)
+    odt = torch.float32 if f32 else torch.bfloat16
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    gy = torch.randn((m, n), device=dev, generator=g).to(odt)
+    outs = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        xs = x.detach().to(d).requires_grad_(True)   # a leaf on each side
+        ql_d = ql.to(d)
+        build.reset_launches()
+        y = dequant_matmul.dequant_matmul(xs, ql_d, layer_index=1, out_dtype=odt)
+        n_launch = {kk.name: kk.launches for kk in build.KERNELS}
+        y.backward(gy.to(d))
+        outs[side] = (y.detach().float().cpu(), xs.grad.float().cpu(), n_launch)
+    (y, dx, launches), (y_cpu, dx_cpu, cpu_launches) = outs["card"], outs["cpu"]
+    entry = "mnn_dequant_matmul" if m == 1 else "mnn_dequant_matmul_bf16_tile"
+    assert launches[entry] == 1 and sum(launches.values()) == 1
+    assert not any(cpu_launches.values())
+    assert rel(y, y_cpu) <= 1e-2 and rel(dx, dx_cpu) <= 1e-2
+
+
+def test_train_lora_step_card_matches_cpu(dev):
+    """One LoRA step (adamw) at 2 layers, W4 and an int4 head, the same
+    params and numpy-made adapters on both sides: the loss within rel
+    1e-2, every adapter gradient within rel-L2 5e-2, every projection and
+    the head on the tile kernel (4 a layer + 1, forward only), no flash
+    kernel, and the adapters after the step within rel-L2 5e-2."""
+    from mnn_tpu_torch.models.decoder import LoraParams
+    from mnn_tpu_torch.train import lm_loss, make_lora_train_step, make_optimizer
+
+    cfg = dataclasses.replace(MK, num_layers=2, tie_word_embeddings=False)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(3))
+    arrays = _lora_arrays(cfg, 8, 0.01, 4)
+    runs = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        params = decoder.init_random_params(cfg, torch.Generator().manual_seed(1), scale=0.05,
+                                            lm_head_bits=4, device=d)
+        lora = LoraParams(scaling=2.0, **{k: v.clone().to(d) for k, v in arrays.items()})
+        for t in lora.tensors():
+            t.requires_grad_(True)
+        build.reset_launches()
+        loss = lm_loss(params, lora, cfg, tokens.to(d))
+        n = {k.name: k.launches for k in build.KERNELS}
+        loss.backward()
+        grads = {f: getattr(lora, f).grad.float().cpu() for f in arrays}
+        lora = LoraParams(scaling=2.0, **{k: v.clone().to(d) for k, v in arrays.items()})
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = opt.init(lora)
+        make_lora_train_step(cfg, opt)(params, lora, state, tokens.to(d))
+        after = {f: getattr(lora, f).detach().cpu() for f in arrays}
+        runs[side] = (float(loss.detach()), grads, n, after)
+    (loss, grads, n, after), (loss_cpu, grads_cpu, _, after_cpu) = runs["card"], runs["cpu"]
+    assert n["mnn_dequant_matmul_bf16_tile"] == 4 * cfg.num_layers + 1
+    assert n["mnn_flash_prefill"] == 0 and n["mnn_dequant_matmul_a8"] == 0
+    assert abs(loss - loss_cpu) <= 1e-2 * abs(loss_cpu)
+    for f in arrays:
+        assert rel(grads[f], grads_cpu[f]) <= 5e-2, f
+        assert rel(after[f], after_cpu[f]) <= 5e-2, f
+
+
+def test_train_merged_model_decodes_on_the_whole_model_kernel(dev):
+    """`merge_lora` on the card gives the CPU's bytes but for rounding ties
+    (at most 1 % of the codes), and the merged model decodes through the
+    whole-model kernel, one launch a step, its logits within rel-L2 5e-2 of
+    the per-layer path's."""
+    from mnn_tpu_torch.models.decoder import LoraParams
+    from mnn_tpu_torch.train import merge_lora
+
+    cfg = MK
+    arrays = _lora_arrays(cfg, 8, 0.002, 5)
+    merged = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        params = decoder.init_random_params(cfg, torch.Generator().manual_seed(1), scale=0.05,
+                                            lm_head_bits=4, device=d)
+        lora = LoraParams(scaling=2.0, **{k: v.to(d) for k, v in arrays.items()})
+        merged[side] = merge_lora(params, lora)
+    for name in ("wqkv", "wo", "wgu", "wdown"):
+        a = getattr(merged["card"].layers, name).packed.cpu()
+        b = getattr(merged["cpu"].layers, name).packed
+        assert (a != b).float().mean() <= 0.01, name
+    rt = RuntimeConfig(max_seq_len=128, prefill_chunk=32, decode_block=4, sampler="greedy",
+                       lm_head_bits=4, prefill_act_bits=8, max_new_tokens=4)
+    llm = Llm(cfg, merged["card"], rt, device=dev)
+    assert llm.info()["decode_megakernel"]
+    build.reset_launches()
+    toks = list(llm.stream(token_ids=list(range(3, 40))))
+    assert build.KERNELS and {k.name: k.launches for k in build.KERNELS}[
+        "mnn_decode_model"] == rt.max_new_tokens
+    tok = torch.tensor([[toks[-1]]], device=dev)
+    ref, _ = decoder.forward(llm.params, cfg, tok, _clone(llm.cache), megakernel=False)
+    mk, _ = decoder.forward(llm.params, cfg, tok, _clone(llm.cache), megakernel=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(mk).all() and rel(mk, ref) <= 5e-2

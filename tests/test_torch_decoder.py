@@ -246,14 +246,18 @@ def test_cli_run_int4_cache_on_cpu(capsys):
 
 
 def test_port_imports_no_jax():
-    """The port and its chip script import neither JAX nor the JAX package."""
+    """The port and its chip script import neither JAX, optax nor the JAX
+    package, and PIL only inside a function (`ImageFolderDataset`)."""
     files = sorted((ROOT / "mnn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     names = {f.name for f in files}
     assert {"decode_model.py", "flash_attention.py", "kvcache.py", "profile_decode.py",
-            "chip_smoke.py", "batch_engine.py", "server.py"} <= names
-    bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmnn_tpu\.|"
-                     r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)", re.M)
+            "chip_smoke.py", "batch_engine.py", "server.py", "trainer.py", "lora.py",
+            "datasets.py", "compress.py", "awq_search.py", "omni_quant.py",
+            "calibrate.py", "hqq.py", "smooth.py"} <= names
+    bad = re.compile(r"^\s*(import\s+(jax|optax)\b|from\s+(jax|optax)\b)|\bmnn_tpu\.|"
+                     r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)|"
+                     r"^(import|from)\s+PIL\b", re.M)
     for f in files:
         hits = [m.group(0) for m in bad.finditer(f.read_text())]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from mnn_tpu.runtime import kvcache as jkv
-from mnn_tpu_torch.quant import quantize as tq
 from mnn_tpu_torch.runtime import kvcache as tkv
 
-# the package re-exports a function named `quantize` over the module's name
+# the modules: each package re-exports a function named `quantize` over
+# the module's name
+tq = importlib.import_module("mnn_tpu_torch.quant.quantize")
 jq = importlib.import_module("mnn_tpu.quant.quantize")
 
 BS = 128

@@ -25,10 +25,11 @@ import pytest
 import torch
 
 from mnn_tpu_torch.kernels import dequant_matmul
-from mnn_tpu_torch.quant import quantize as tq
 from mnn_tpu_torch.quant.quantize import QuantizedLinear
 
-# the module: the package re-exports the function under the same name
+# the modules: each package re-exports a function named `quantize` over
+# the module's name
+tq = importlib.import_module("mnn_tpu_torch.quant.quantize")
 jq = importlib.import_module("mnn_tpu.quant.quantize")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
