@@ -252,6 +252,29 @@ Phases, each of which exits non-zero on failure:
    and OmniQuant on one qwen2-7b-width projection (3,584 x 18,944) against
    round to nearest: seconds, weight and output MSE; `fake_quant_weight`
    bit for bit `dequantize(quantize(w))` on the card.
+13. generative output, run right after phase 11 on its qwen2-7b thinker,
+   each sub-phase with the launch counts set to 0 before and read after.
+   (tt) `Omni.respond_mm(speak=True)` of phase 11's 37 text tokens, 32 new:
+   a talker on qwen2-0.5b's stack at full width (24 layers) over a codec
+   vocabulary of 8,448 (the JAX stop ids 8,292 and 8,294 inside; W4 block
+   128, an int4 head, `act_bits` 16, a bf16 cache of 2,048), up to 128
+   codec tokens, the conv mel denoiser over 10 flow-matching steps and
+   BigVGAN at `VocoderConfig()` (80 mels, 1,536 channels, hop 256): the
+   thinker's rows 2, 4, 1a and 7, the talker's 1b (4 a layer), 4, 1a (its
+   head after the prefill) and one row 7 launch a codec token with the
+   head fused; thinker prefill seconds and tok/s, talker prefill seconds
+   and codec tok/s, mel and vocoder ms, samples/s, the allocator's peak.
+   (uu) card against CPU: the talker at 2 layers (phase 4's bounds and
+   token rule over 8 codec steps), the mel ODE from the same noise (1e-4)
+   and the vocoder on 16 mel frames (1e-3). (vv) SD 1.5 at its published
+   widths (`UNetConfig()`, `VAEConfig()`, `ClipTextConfig()`, seeded random
+   weights) in bf16: `txt2img` 512 x 512, 20 DDIM steps, CFG 7.5: seconds,
+   it/s, ms a CFG step (the UNet at batch 2), text-encoder and VAE-decode
+   ms, the allocator's peak, a uint8 512 x 512 x 3 image. (ww) in f32 on
+   both sides, card against CPU within rel-L2 1e-3: one CFG step on a 32 x
+   32 latent, its VAE decode, CLIP on 77 tokens. (xx) `cli txt2img` on the
+   card from a tiny diffusers-layout directory written here, 3 steps at
+   64 px. It prints its seconds.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -269,7 +292,9 @@ earlier rows; under `weight_bits` the weight bits of the rows that ran each
 kernel in this run, and phase 8's rows and launches under `w3` and `w2`;
 phase 12's under `training`, its launches added to each kernel's count (also
 alone, `training_launches`), and row 1b's rows at the training shapes under
-`train` of the bf16-row matmul, with (oo)'s launches).
+`train` of the bf16-row matmul, with (oo)'s launches; phase 13's under
+`generative`, (tt)'s launches added to each kernel's count, also alone,
+`generative_launches`).
 It imports no JAX and nothing of the JAX package.
 """
 
@@ -297,13 +322,19 @@ import numpy as np
 import torch
 
 import mnn_tpu_torch
-from mnn_tpu_torch import profile_decode
+from mnn_tpu_torch import cli, profile_decode
 from mnn_tpu_torch.audio import audio as audio_mod
+from mnn_tpu_torch.audio import vocoder
 from mnn_tpu_torch.convert import checkpoint, stfile
 from mnn_tpu_torch.convert.hf import convert_hf
+from mnn_tpu_torch.diffusion import StableDiffusion, clip_text
+from mnn_tpu_torch.diffusion import unet as unet_mod
+from mnn_tpu_torch.diffusion import vae as vae_mod
+from mnn_tpu_torch.diffusion.nn import no_tf32
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
                                    flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import audio_encoder, decoder, qwen_vl_vision, vision_encoder
+from mnn_tpu_torch.models import talker as talker_mod
 from mnn_tpu_torch.models.audio_encoder import AudioEncoderConfig
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
@@ -4337,6 +4368,370 @@ def training_launches(tr: dict) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 13: generative output (speech out, Stable Diffusion)
+# --------------------------------------------------------------------------
+
+TALKER_VOCAB = 8448          # the codec vocabulary, 66 x 128: the head fuses into row 7
+TALKER_EOS = (8292, 8294)    # the JAX package's stop ids, inside it
+TALKER_CAP = 2048            # the talker's bf16 cache
+TALKER_NEW = 128             # (tt): the talker's max_new_tokens
+SPEAK_NEW = 32               # (tt): the thinker's new tokens
+MEL_STEPS = 10               # the flow-matching ODE's steps
+UU_LAYERS, UU_FRAMES = 2, 16  # (uu): the talker's depth, the vocoder's mel frames
+MEL_TOL, VOC_TOL = 1e-4, 1e-3  # (uu): mel and waveform, max |card - cpu|
+SD_PROMPT = "a photograph of an astronaut riding a horse"
+SD_SIZE, SD_STEPS, SD_CFG = 512, 20, 7.5   # (vv)
+WW_LATENT, WW_REL = 32, 1e-3  # (ww): a 32 x 32 latent, f32 on both sides
+XX_SIZE, XX_STEPS = 64, 3    # (xx)
+GEN_NEVER = ("mnn_moe_decode", "mnn_moe_prefill", "mnn_decode_step", "mnn_flash_decode")
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in build.KERNELS}
+
+
+def counted(obj, name: str, store: dict):
+    """Wrap obj.name: the launches of each call go to store[name]."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        before = launch_counts()
+        out = fn(*a, **k)
+        after = launch_counts()
+        store[name] = {n: after[n] - before[n] for n in after}
+        return out
+    setattr(obj, name, wrapped)
+
+
+def vocoder_weights(g, dev) -> dict:
+    """BigVGAN at `VocoderConfig()` from `g`, every convolution weight at 0.75
+    / sqrt(fan-in): a waveform of std about 0.15, not saturated in tanh (the
+    init's 0.05 puts every sample at +-1 at this width)."""
+    p = vocoder.init_vocoder_params(vocoder.VocoderConfig(), g, dev)
+    return {k: v * 0.75 / (0.05 * math.sqrt(v.shape[1] * v.shape[2])) if v.dim() == 3 else v
+            for k, v in p.items()}
+
+
+def make_talker(dev, params, thinker_hidden, vocoder_params, denoiser, in_proj):
+    """A talker on `params` (qwen2-0.5b's stack on the codec vocabulary, at
+    the depth `params` has) with the conv mel denoiser and BigVGAN."""
+    tm = dataclasses.replace(PRESETS["qwen2-0.5b"], vocab_size=TALKER_VOCAB,
+                             num_layers=params.layers.input_norm.shape[0])
+    tcfg = talker_mod.TalkerConfig(model=tm, thinker_hidden=thinker_hidden,
+                                   codec_eos_ids=TALKER_EOS, max_new_tokens=TALKER_NEW)
+    return talker_mod.Talker(tcfg, params, in_proj,
+                             mel_denoiser=talker_mod.conv_mel_denoiser(denoiser, tcfg),
+                             vocoder_params=vocoder_params, vocoder_cfg=vocoder.VocoderConfig(),
+                             device=dev)
+
+
+def talker_rows(tk, hidden, thinker_tokens, feed):
+    """The talker's logit rows, as `generate_codec` makes them: its prefill
+    over the reply's embeddings, then a decode step fed each of `feed`."""
+    m, dev = tk.cfg.model, tk.device
+    with no_tf32():
+        embeds = hidden.to(dev).float() @ tk.in_proj
+    ids = torch.as_tensor(np.asarray(thinker_tokens) % m.vocab_size, device=dev)
+    embeds = embeds + tk.params.embedding[ids].float()
+    cache = kvcache.create(m.num_layers, 1, m.num_kv_heads, TALKER_CAP, m.head_dim,
+                           quantized=False, device=dev)
+    logits, cache = decoder.forward(tk.params, m, torch.zeros(
+        (1, embeds.shape[0]), dtype=torch.int64, device=dev), cache,
+        inputs_embeds=embeds[None].to(torch.bfloat16))
+    rows = [logits.float().cpu()]
+    for tok in feed:
+        logits, cache = decoder.forward(tk.params, m, torch.tensor([[tok]], device=dev), cache)
+        rows.append(logits.float().cpu())
+    return rows
+
+
+def phase_speech(dev, params7, cfg7, card_line):
+    """(tt) `Omni.respond_mm(speak=True)` on the 28-layer qwen2-7b thinker
+    with a full-width talker, the mel ODE and BigVGAN; (uu) the talker at
+    2 layers, the ODE and the vocoder on 16 mel frames, card against CPU."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    t0 = time.perf_counter()
+    tm = dataclasses.replace(PRESETS["qwen2-0.5b"], vocab_size=TALKER_VOCAB)
+    tparams = decoder.init_random_params(tm, torch.Generator().manual_seed(SEED + 31),
+                                         quant_bits=4, quant_block=128, lm_head_bits=4,
+                                         act_bits=16, device=dev)
+    check(decode_model.supports_head(tm, tparams), "(tt) the talker's head does not fuse")
+    in_proj = torch.randn((cfg7.hidden_size, tm.hidden_size), device=dev, generator=g) * 0.02
+    probe = talker_mod.TalkerConfig(model=tm)
+    denoiser = talker_mod.init_conv_mel_denoiser(probe, TALKER_VOCAB, g, device=dev)
+    vparams = vocoder_weights(g, dev)
+    tk = make_talker(dev, tparams, cfg7.hidden_size, vparams, denoiser, in_proj)
+    o = omni.Omni(cfg7, params7, mm_rt(), talker=tk, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text = np.random.default_rng(SEED + 13).integers(0, cfg7.vocab_size, sum(OMNI_TEXT)).tolist()
+    # one untimed call first: cuBLAS and cuDNN plans, the talker cache's
+    # whole-model schedule
+    o.respond_mm(text, max_new_tokens=2, speak=True)
+    o.reset()
+    parts: dict = {}
+    counted(tk, "generate_codec", parts)
+    counted(tk, "token2wav", parts)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    (toks, wav), total_s = synced(lambda: o.respond_mm(text, max_new_tokens=SPEAK_NEW,
+                                                       speak=True))
+    counts = read_launches("(tt) Omni.respond_mm(speak=True)",
+                           ("mnn_dequant_matmul_a8", "mnn_flash_prefill", "mnn_decode_model",
+                            "mnn_dequant_matmul", "mnn_dequant_matmul_bf16_tile"),
+                           never=GEN_NEVER)
+    peak = torch.cuda.max_memory_allocated()
+    talk = parts["generate_codec"]
+    thinker = {k: counts[k] - talk[k] - parts["token2wav"][k] for k in counts}
+    codec_n = tk.perf.codec_tokens
+    chunks = len(generate.prefill_buckets(len(text), mm_rt().prefill_chunk))
+    check(len(toks) == SPEAK_NEW, f"(tt) {len(toks)} thinker tokens")
+    check(thinker["mnn_decode_model"] == SPEAK_NEW,
+          f"(tt) thinker: {thinker['mnn_decode_model']} whole-model launches")
+    check(thinker["mnn_dequant_matmul_a8"] == 4 * cfg7.num_layers * chunks
+          and thinker["mnn_flash_prefill"] == cfg7.num_layers * chunks,
+          f"(tt) thinker prefill launches {thinker}")
+    check(talk["mnn_dequant_matmul_bf16_tile"] == 4 * tm.num_layers
+          and talk["mnn_flash_prefill"] == tm.num_layers and talk["mnn_dequant_matmul"] == 1
+          and talk["mnn_dequant_matmul_a8"] == 0,
+          f"(tt) talker prefill launches {talk}")
+    check(talk["mnn_decode_model"] == codec_n and 0 < codec_n <= TALKER_NEW,
+          f"(tt) {talk['mnn_decode_model']} whole-model launches for {codec_n} codec tokens")
+    check(not any(parts["token2wav"].values()), "(tt) token2wav launched a kernel")
+    check(isinstance(wav, np.ndarray) and wav.dtype == np.float32 and wav.ndim == 1
+          and wav.shape[0] == 2 * codec_n * 256 and bool(np.isfinite(wav).all())
+          and float(np.abs(wav).max()) <= 1.0, f"(tt) wav {getattr(wav, 'shape', None)}")
+    saturated = float((np.abs(wav) > 0.99).mean())
+    p, tp = o.perf, tk.perf
+    out = dict(thinker_prefill_s=p.prefill_s, thinker_decode_tok_s=p.decode_tok_s,
+               thinker_tokens=len(toks), talker_prompt=tp.prompt_len,
+               talker_prefill_s=tp.prefill_s, codec_tokens=codec_n,
+               codec_tok_s=tp.codec_tok_s, mel_ms=tp.mel_s * 1e3, vocoder_ms=tp.vocoder_s * 1e3,
+               samples=tp.samples, samples_per_s=tp.samples / tp.vocoder_s,
+               wav_std=float(wav.std()), wav_saturated=saturated,
+               total_s=total_s, peak_bytes=peak, build_s=build_s,
+               launches=counts, launches_thinker=thinker, launches_talker=talk,
+               card=card_line)
+    print(f"  (tt) speech out: thinker qwen2-7b x{cfg7.num_layers} prefill {p.prefill_s:.4f} s "
+          f"(37 tokens), decode {p.decode_tok_s:.1f} tok/s | talker x{tm.num_layers} "
+          f"prefill {tp.prefill_s:.4f} s ({tp.prompt_len} positions), {codec_n} codec tokens "
+          f"at {tp.codec_tok_s:.1f} tok/s | mel ODE {tp.mel_s * 1e3:.2f} ms, vocoder "
+          f"{tp.vocoder_s * 1e3:.2f} ms, {tp.samples} samples ({tp.samples / tp.vocoder_s:.0f} "
+          f"samples/s, std {wav.std():.3f}, {saturated:.4f} at +-1) | {total_s:.3f} s in all, "
+          f"peak {peak} B [{card_line}]", flush=True)
+
+    # (uu): card against CPU at full width, the talker cut to UU_LAYERS
+    t0 = time.perf_counter()
+    hidden = params7.embedding[torch.tensor(toks, device=dev)].float()
+    p2 = first_layers(tparams, UU_LAYERS)
+    sides = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        mv = (lambda v: v.to(d)) if side == "cpu" else (lambda v: v)
+        tk2 = make_talker(d, decoder.params_to(p2, d) if side == "cpu" else p2,
+                          cfg7.hidden_size, {k: mv(v) for k, v in vparams.items()},
+                          {k: mv(v) for k, v in denoiser.items()}, mv(in_proj))
+        codec = tk2.generate_codec(hidden.to(d), thinker_tokens=toks, max_new=PARITY_STEPS)
+        sides[side] = (tk2, codec)
+    (tk_card, codec_card), (tk_cpu, codec_cpu) = sides["card"], sides["cpu"]
+    check(len(codec_cpu) > 0, "(uu) the CPU talker stopped at once")
+    rows = {s: talker_rows(tk2_, hidden, toks, codec_cpu) for s, (tk2_, _) in sides.items()}
+    par = compare_traces(rows["card"], rows["cpu"], "(uu) talker ")
+    diff = par["max_abs_diff"]
+    same = 0
+    for s, row in enumerate(rows["cpu"][:len(codec_cpu)]):
+        top2 = row[0].topk(2).values
+        if float(top2[0] - top2[1]) <= diff or s >= len(codec_card):
+            break
+        check(codec_card[s] == codec_cpu[s], f"(uu) codec token {s}: {codec_card[s]} != "
+              f"cpu {codec_cpu[s]}")
+        same += 1
+    mel = {s: tk2_.codec_to_mel(codec_cpu, num_steps=MEL_STEPS).cpu()
+           for s, (tk2_, _) in sides.items()}
+    mel_err = max_abs(mel["card"], mel["cpu"])
+    check(mel_err <= MEL_TOL, f"(uu) mel ODE: max |diff| {mel_err:.3g} > {MEL_TOL}")
+    frames = torch.randn((1, 80, UU_FRAMES), generator=torch.Generator().manual_seed(SEED + 32))
+    wavs = {s: vocoder.vocoder_forward(tk2_.vocoder_params, vocoder.VocoderConfig(),
+                                       frames.to(tk2_.device)).cpu()
+            for s, (tk2_, _) in sides.items()}
+    voc_err = max_abs(wavs["card"], wavs["cpu"])
+    check(tuple(wavs["card"].shape) == (1, UU_FRAMES * 256) and voc_err <= VOC_TOL,
+          f"(uu) vocoder: max |diff| {voc_err:.3g} > {VOC_TOL}")
+    # the bound means something only where tanh has not saturated
+    check(float((wavs["cpu"].abs() > 0.99).float().mean()) < 0.01
+          and float(wavs["cpu"].std()) > 0.05, f"(uu) the CPU waveform is saturated or flat "
+          f"(std {float(wavs['cpu'].std()):.3g})")
+    uu = dict(parity=par, codec_card=codec_card, codec_cpu=codec_cpu, tokens_compared=same,
+              mel_max_abs=mel_err, vocoder_max_abs=voc_err, seconds=time.perf_counter() - t0)
+    print(f"  (uu) card vs cpu, talker x{UU_LAYERS}: codec {codec_card} / {codec_cpu} "
+          f"({same} compared) | mel max |diff| {mel_err:.3g} | vocoder on {UU_FRAMES} frames "
+          f"max |diff| {voc_err:.3g} | {uu['seconds']:.1f} s", flush=True)
+    return out, uu
+
+
+def sd_state_dict(params: dict, shapes: dict) -> dict:
+    """Port-layout parameters back in a diffusers checkpoint's layouts
+    (linears [out, in]), on the CPU."""
+    return {k: (v.t() if len(shapes[k]) == 2 else v).contiguous().cpu() for k, v in params.items()}
+
+
+def write_sd_dir(root: str, g) -> None:
+    """A tiny diffusers-layout directory (the JAX tests' tiny UNet, VAE and
+    CLIP text) written with the port's safetensors writer."""
+    ucfg, vcfg = unet_mod.UNetConfig.tiny(), vae_mod.VAEConfig.tiny()
+    tcfg = clip_text.ClipTextConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                                    num_layers=1, num_heads=2, max_position_embeddings=8,
+                                    eos_token_id=2)
+    parts = {
+        "unet": (unet_mod.init_unet_params(ucfg, g, "cpu"), unet_mod.param_shapes(ucfg),
+                 dict(in_channels=4, out_channels=4, block_out_channels=[32, 64],
+                      down_block_types=["CrossAttnDownBlock2D", "DownBlock2D"],
+                      layers_per_block=1, cross_attention_dim=32, attention_head_dim=2,
+                      norm_num_groups=8), "diffusion_pytorch_model.safetensors"),
+        "vae": (vae_mod.init_vae_params(vcfg, g, "cpu"), vae_mod.param_shapes(vcfg),
+                dict(latent_channels=4, block_out_channels=[16, 32], layers_per_block=1,
+                     norm_num_groups=4), "diffusion_pytorch_model.safetensors"),
+    }
+    tp = clip_text.init_clip_text_params(tcfg, g, "cpu")
+    parts["text_encoder"] = (tp, {k: tuple(v.shape) for k, v in tp.items()},
+                             dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+                                  num_hidden_layers=1, num_attention_heads=2,
+                                  max_position_embeddings=8, eos_token_id=2), "model.safetensors")
+    for sub, (params, shapes, cfg, fname) in parts.items():
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        sd = sd_state_dict(params, shapes)
+        if sub == "text_encoder":   # embeddings stay [rows, dim]
+            sd = {("text_model." + k): (params[k].cpu() if "embedding" in k else v)
+                  for k, v in sd.items()}
+        stfile.save_file(sd, os.path.join(root, sub, fname))
+
+
+def phase_sd(dev, card_line):
+    """(vv) SD 1.5 at its published widths in bf16, txt2img 512 x 512, 20
+    DDIM steps, CFG 7.5; (ww) one CFG step, the VAE decode of a 32 x 32
+    latent and CLIP on 77 tokens in f32, card against CPU; (xx) `cli
+    txt2img` from a tiny directory written here."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    ucfg, vcfg, tcfg = unet_mod.UNetConfig(), vae_mod.VAEConfig(), clip_text.ClipTextConfig()
+    f32 = dict(unet_params=unet_mod.init_unet_params(ucfg, g, dev), unet_cfg=ucfg,
+               text_params=clip_text.init_clip_text_params(tcfg, g, dev), text_cfg=tcfg,
+               vae_params=vae_mod.init_vae_params(vcfg, g, dev), vae_cfg=vcfg)
+    sd = StableDiffusion(**f32, scheduler="ddim", dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for k in ("unet_params", "text_params", "vae_params")
+                   for v in f32[k].values())
+    # one untimed 1-step image first: cuDNN and cuBLAS plans for these shapes
+    sd.txt2img(SD_PROMPT, num_steps=1, height=SD_SIZE, width=SD_SIZE, guidance_scale=SD_CFG)
+    _, enc_s = synced(lambda: sd.encode_prompt(SD_PROMPT))
+    stamps, last = [], {}
+
+    def cb(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        last["latent"] = latent
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = sd.txt2img(SD_PROMPT, num_steps=SD_STEPS, height=SD_SIZE, width=SD_SIZE,
+                     guidance_scale=SD_CFG, callback=cb)
+    total_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches("(vv) StableDiffusion.txt2img", ())
+    check(not any(counts.values()), f"(vv) a hand-written kernel ran: {counts}")
+    _, dec_s = synced(lambda: vae_mod.vae_decode(sd.vae_params, vcfg,
+                                                 last["latent"].to(torch.bfloat16)))
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    check(len(stamps) == SD_STEPS and bool(torch.isfinite(last["latent"]).all()),
+          "(vv) non-finite latent")
+    check(img.dtype == np.uint8 and img.shape == (SD_SIZE, SD_SIZE, 3), f"(vv) image {img.shape}")
+    vv = dict(seconds=total_s, it_s=SD_STEPS / total_s, step_ms=step_ms,
+              step_ms_median=float(np.median(step_ms)), text_encoder_ms=enc_s * 1e3,
+              vae_decode_ms=dec_s * 1e3, peak_bytes=peak, params=n_params, build_s=build_s,
+              image_mean=float(img.mean()), launches=counts, card=card_line)
+    print(f"  (vv) SD 1.5 bf16 {SD_SIZE} x {SD_SIZE}, {SD_STEPS} DDIM steps, CFG {SD_CFG}: "
+          f"{total_s:.3f} s ({vv['it_s']:.2f} it/s) | CFG step (UNet at batch 2) median "
+          f"{vv['step_ms_median']:.2f} ms | text encoder {enc_s * 1e3:.2f} ms | VAE decode "
+          f"{dec_s * 1e3:.2f} ms | peak {peak} B | {n_params} params [{card_line}]", flush=True)
+    del sd
+    torch.cuda.empty_cache()
+
+    # (ww): f32 on both sides, the same weights
+    t0 = time.perf_counter()
+    cpu = {k: ({n: v.cpu() for n, v in p.items()} if k.endswith("params") else p)
+           for k, p in f32.items()}
+    res = {}
+    lat = torch.randn((1, 4, WW_LATENT, WW_LATENT), generator=torch.Generator().manual_seed(SEED + 41))
+    for side, d, parts in (("card", dev, f32), ("cpu", torch.device("cpu"), cpu)):
+        s = StableDiffusion(**parts, scheduler="ddim", dtype=torch.float32, device=d)
+        ids = torch.tensor([s.prompt_ids(SD_PROMPT)], device=d)
+        text, _ = clip_text.clip_text_forward(s.text_params, tcfg, ids)
+        ctx2 = torch.cat([s.encode_prompt(""), text])
+        step = s.denoise_step(lat.to(d), 951, 901, ctx2, SD_CFG, torch.Generator())
+        img = vae_mod.vae_decode(s.vae_params, vcfg, lat.to(d))
+        res[side] = [x.float().cpu() for x in (text, step, img)]
+        del s
+    rels = {n: rel_l2(a, b) for n, a, b in zip(("clip_77", "cfg_step", "vae_decode"),
+                                                res["card"], res["cpu"])}
+    for n, r in rels.items():
+        check(r <= WW_REL, f"(ww) {n}: rel-L2 {r:.3g} > {WW_REL}")
+    ww = dict(rel_l2=rels, seconds=time.perf_counter() - t0)
+    print(f"  (ww) SD 1.5 f32 card vs cpu: CLIP on 77 tokens {rels['clip_77']:.3g}, one CFG "
+          f"step on a {WW_LATENT} x {WW_LATENT} latent {rels['cfg_step']:.3g}, its VAE decode "
+          f"{rels['vae_decode']:.3g} | {ww['seconds']:.1f} s", flush=True)
+    del cpu, f32
+    torch.cuda.empty_cache()
+
+    # (xx): the CLI on a tiny directory
+    root = tempfile.mkdtemp(prefix="mnn_tpu_torch_sd_")
+    try:
+        write_sd_dir(root, torch.Generator().manual_seed(SEED + 42))
+        out = os.path.join(root, "out.png")
+        t0 = time.perf_counter()
+        cli.main(["txt2img", "--model", root, "--steps", str(XX_STEPS), "--size", str(XX_SIZE),
+                  "--out", out, SD_PROMPT])
+        xx_s = time.perf_counter() - t0
+        saved = out if os.path.exists(out) else out + ".npy"
+        check(os.path.exists(saved) and os.path.getsize(saved) > 0, "(xx) no image written")
+        xx = dict(seconds=xx_s, file=os.path.basename(saved), bytes=os.path.getsize(saved))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  (xx) cli txt2img {XX_SIZE} px, {XX_STEPS} steps on the card: {xx['file']} "
+          f"({xx['bytes']} B) in {xx_s:.2f} s", flush=True)
+    return vv, ww, xx
+
+
+def phase_generative(dev, params7, card_line):
+    """Phase 13, (tt) to (xx), each sub-phase with its launch counts set to
+    0 before and read after."""
+    t13 = time.perf_counter()
+    cfg7 = dataclasses.replace(PRESETS["qwen2-7b"], mrope_section=MM_SECTIONS)
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["tt"], out["uu"] = phase_speech(dev, params7, cfg7, card_line)
+    secs["tt, uu"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["vv"], out["ww"], out["xx"] = phase_sd(dev, card_line)
+    secs["vv, ww, xx"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t13
+    print("  phase 13 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 13: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def generative_launches(gen: dict) -> dict:
+    """Phase 13's launches by C entry: (tt)'s (the others launch none)."""
+    return dict(gen["tt"]["launches"])
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -4463,6 +4858,11 @@ def main():
     print("phase 11: multimodal input on the card (qwen2-7b + mrope, Qwen2.5-VL and "
           "whisper towers)", flush=True)
     multimodal = phase_multimodal(dev, params7, llm.params, card_line)
+    torch.cuda.empty_cache()
+    # phase 13 runs here too, on the same qwen2-7b thinker
+    print("phase 13: generative output on the card (speech out through the talker, "
+          "BigVGAN and the mel ODE; Stable Diffusion 1.5)", flush=True)
+    generative = phase_generative(dev, params7, card_line)
     del params7
     torch.cuda.empty_cache()
 
@@ -4552,6 +4952,7 @@ def main():
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
     tr_counts = training_launches(training)
+    gen_counts = generative_launches(generative)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
@@ -4612,6 +5013,11 @@ def main():
                               entry="mnn_dequant_matmul_bf16_tile",
                               launches=training["oo"]["launches"]["mnn_dequant_matmul_bf16_tile"])
         k["launches"] += k["training_launches"]
+        # phase 13's launches, (tt)'s (thinker and talker), added too
+        k["generative_launches"] = gen_counts.get(entry, 0)
+        if kname == "dequant_matmul":
+            k["generative_launches"] += gen_counts.get("mnn_dequant_matmul_bf16_tile", 0)
+        k["launches"] += k["generative_launches"]
         # phase 2's rows at the qwen2-7b shapes phase 11 serves
         if f"{kname}_7b" in results:
             k["qwen2_7b"] = row_sums(results[f"{kname}_7b"])
@@ -4630,7 +5036,7 @@ def main():
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
-                  training=training,
+                  training=training, generative=generative,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

@@ -1,5 +1,5 @@
-"""mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert` and `eval`
-subcommands of `mnn_tpu/cli.py` on the port.
+"""mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert`, `eval` and
+`txt2img` subcommands of `mnn_tpu/cli.py` on the port.
 
     python -m mnn_tpu_torch.cli convert --hf HF_DIR --out OUT --lm-head-bits 4
     python -m mnn_tpu_torch.cli run --model OUT "prompt"
@@ -8,6 +8,7 @@ subcommands of `mnn_tpu/cli.py` on the port.
     python -m mnn_tpu_torch.cli eval --model OUT --file text.txt
     python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
     python -m mnn_tpu_torch.cli serve --preset gemma2-2b --batch 4
+    python -m mnn_tpu_torch.cli txt2img --model SD_DIR "a red bicycle" --out out.png
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
@@ -27,7 +28,9 @@ decode layer by layer through the fused expert kernel and prefill through
 the grouped one. `serve` answers OpenAI chat and completions requests
 (`serve/server.py`), one at a time through `Llm.stream`, or with `--batch`
 > 1 side by side through the continuous-batching engine; `--dp` > 1 is not
-ported. `eval` prints {"tokens": n, "perplexity": p} of a text.
+ported. `eval` prints {"tokens": n, "perplexity": p} of a text. `txt2img`
+runs Stable Diffusion from a diffusers-format directory (bf16, classifier-
+free guidance) and saves a PNG, or `<out>.npy` when PIL is missing.
 """
 
 from __future__ import annotations
@@ -190,6 +193,28 @@ def cmd_eval(args):
     print(json.dumps({"tokens": len(ids), "perplexity": round(ppl, 4)}))
 
 
+def cmd_txt2img(args):
+    import numpy as np
+
+    from mnn_tpu_torch.diffusion import StableDiffusion
+
+    sd = StableDiffusion.from_pretrained(args.model, scheduler=args.scheduler,
+                                         device=args.device)
+    t0 = time.time()
+    img = sd.txt2img(args.prompt, negative_prompt=args.negative, num_steps=args.steps,
+                     seed=args.seed, guidance_scale=args.cfg, height=args.size,
+                     width=args.size,
+                     callback=lambda i, _: print(f"step {i + 1}/{args.steps}", flush=True))
+    dt = time.time() - t0
+    try:
+        from PIL import Image
+
+        Image.fromarray(img).save(args.out)
+    except ImportError:
+        np.save(args.out + ".npy", img)
+    print(f"saved {args.out} ({dt:.1f}s, {args.steps / dt:.2f} it/s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mnn-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -247,6 +272,21 @@ def main(argv=None):
     p.add_argument("--text")
     p.add_argument("--max-tokens-eval", type=int, default=4096)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("txt2img", help="diffusion text-to-image")
+    p.add_argument("--model", required=True, help="diffusers-format SD checkpoint dir")
+    p.add_argument("prompt")
+    p.add_argument("--negative", default="")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cfg", type=float, default=7.5)
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--scheduler", default="ddim",
+                   choices=["ddim", "ddpm", "euler", "flow_match"])
+    p.add_argument("--out", default="out.png")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (plain PyTorch versions)")
+    p.set_defaults(fn=cmd_txt2img)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -1,4 +1,4 @@
-"""Omni: multimodal input (text + images + audio in, text out).
+"""Omni: multimodal input (text + images + audio in), text and speech out.
 
 Counterpart of the JAX package's `runtime/omni.py`:
 
@@ -17,7 +17,13 @@ Positions are sequential (`cache.length + t`) for prefill and decode, as in
 the JAX package. Exact Qwen2-VL mrope runs through `decoder.forward(
 position_ids=...)` with `vision_encoder.build_mrope_positions`, and decode
 continues at max(position) + 1 with all three components equal (the HF
-convention). Speech out (the talker and its vocoder) is not ported yet.
+convention).
+
+Speech out: with a `models/talker.Talker` attached, `respond_mm(speak=True)`
+renders the reply, as the JAX package does: the talker is conditioned on
+the thinker's embedding rows of the reply (f32) and its tokens, generates
+codec tokens, integrates the flow-matching mel ODE and runs the BigVGAN
+vocoder; it returns (tokens, wav), the wav a 1-D f32 numpy array.
 """
 
 from __future__ import annotations
@@ -88,8 +94,9 @@ def _splice_embeds_mixed(embedding, token_ids, img_feats, img_id, aud_feats, aud
 
 
 class Omni(Llm):
-    """Text + images + audio in, text out: `Llm` with a vision and an audio
-    tower and their projections into the LLM's width."""
+    """Text + images + audio in, text (and speech through an attached
+    talker) out: `Llm` with a vision and an audio tower and their
+    projections into the LLM's width."""
 
     def __init__(self, config, params, rt=None, tokenizer=None, *,
                  vision_encode=None,       # pixels [1, 3, H, W] -> [n, D_v]
@@ -99,6 +106,7 @@ class Omni(Llm):
                  audio_proj: Optional[torch.Tensor] = None,    # [D_a, hidden]
                  audio_token_id: int = -2,
                  audio_n_mels: int = 128,
+                 talker=None,              # models.talker.Talker: speech out
                  device=None):
         super().__init__(config, params, rt, tokenizer=tokenizer, device=device)
         self.vision_encode = vision_encode
@@ -108,6 +116,7 @@ class Omni(Llm):
         self.audio_proj = audio_proj
         self.audio_token_id = audio_token_id
         self.audio_n_mels = audio_n_mels
+        self.talker = talker
 
     # -- modality embeddings ---------------------------------------------
 
@@ -164,12 +173,25 @@ class Omni(Llm):
         yield from self._decode(logits, cache, max_new, eos, 0.0, t0)
 
     def respond_mm(self, token_ids, *, images=(), audios=(), max_new_tokens=None,
-                   speak: bool = False) -> List[int]:
-        """The tokens of `stream_mm`, all at once. `speak=True` (speech out
-        through a talker) raises: it is not ported yet."""
-        if speak:
-            raise NotImplementedError(
-                "speech out (the talker, its vocoder and the flow-matching "
-                "scheduler) is not ported yet: ROADMAP.md Q1.9b")
-        return list(self.stream_mm(token_ids, images=images, audios=audios,
-                                   max_new_tokens=max_new_tokens))
+                   speak: bool = False):
+        """The tokens of `stream_mm`, all at once; with `speak=True`, (tokens,
+        wav) rendered by the attached talker (the reference's interleaved
+        thinker / talker loop, run one after the other). Raises ValueError
+        with no talker attached or when its `thinker_hidden` is not the
+        model's hidden size."""
+        out = list(self.stream_mm(token_ids, images=images, audios=audios,
+                                  max_new_tokens=max_new_tokens))
+        if not speak:
+            return out
+        if self.talker is None:
+            raise ValueError("no talker attached")
+        # the reply's embedding rows condition the talker (the reference
+        # feeds the thinker's embeddings and hidden states; the embeddings
+        # are what streaming keeps)
+        table = self.params.embedding
+        hidden = table[torch.tensor(out, dtype=torch.int64, device=table.device)].float()
+        if hidden.shape[-1] != self.talker.cfg.thinker_hidden:
+            raise ValueError("talker thinker_hidden != model hidden")
+        codec = self.talker.generate_codec(hidden, thinker_tokens=out)
+        wav = self.talker.token2wav(codec or [0])
+        return out, wav

@@ -2215,3 +2215,106 @@ def test_train_merged_model_decodes_on_the_whole_model_kernel(dev):
     mk, _ = decoder.forward(llm.params, cfg, tok, _clone(llm.cache), megakernel=True)
     torch.cuda.synchronize()
     assert torch.isfinite(mk).all() and rel(mk, ref) <= 5e-2
+
+
+# --------------------------------------------------------------------------
+# generative output: the vocoder, a Stable Diffusion step, the talker
+# --------------------------------------------------------------------------
+
+def test_generative_vocoder_card_matches_cpu(dev):
+    """BigVGAN at 80 mels and its six upsampling rates (256 channels at the
+    first, so the CPU side stays short), 16 mel frames, with and without the
+    anti-aliased activations: the card's waveform within 1e-3 of the CPU's.
+    TF32 stays off inside the call whatever the caller set, and the
+    caller's flags come back after."""
+    from mnn_tpu_torch.audio import vocoder as voc
+
+    cfg = dataclasses.replace(voc.VocoderConfig(), upsample_initial_channel=256)
+    p = voc.init_vocoder_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    # weights at 0.75 / sqrt(fan-in): a waveform of std about 0.15, not
+    # saturated in tanh (at 0.05 every sample sits at +-1)
+    p = {k: v * 0.75 / (0.05 * math.sqrt(v.shape[1] * v.shape[2])) if v.dim() == 3 else v
+         for k, v in p.items()}
+    mel = torch.randn((1, 80, 16), generator=torch.Generator().manual_seed(1))
+    for aa in (False, True):
+        c = dataclasses.replace(cfg, use_aa_filters=aa)
+        want = voc.vocoder_forward(p, c, mel)
+        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = voc.vocoder_forward({k: v.to(dev) for k, v in p.items()}, c, mel.to(dev))
+            assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        assert got.shape == want.shape == (1, 16 * 256)
+        assert float((want.abs() > 0.99).float().mean()) < 0.01 and float(want.std()) > 0.05
+        assert float((got.cpu() - want).abs().max()) <= 1e-3, aa
+
+
+def test_generative_sd_step_card_matches_cpu(dev):
+    """One CFG step of a small SD (the tiny UNet at 128 channels, a 32 x 32
+    latent) in f32, card against CPU within rel-L2 1e-3; a 2-step tiny
+    txt2img from the same seed gives the same latents within 1e-3 (the
+    noise is the CPU generator's on both sides) and a uint8 image."""
+    from mnn_tpu_torch.diffusion import StableDiffusion, clip_text, unet, vae
+
+    ucfg = dataclasses.replace(unet.UNetConfig.tiny(), block_out_channels=(128, 256),
+                               groups=32, cross_attention_dim=64)
+    tcfg = clip_text.ClipTextConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                                    num_layers=2, num_heads=2, max_position_embeddings=16,
+                                    eos_token_id=511)
+    g = torch.Generator().manual_seed(0)
+    parts = dict(unet_params=unet.init_unet_params(ucfg, g, "cpu"), unet_cfg=ucfg,
+                 text_params=clip_text.init_clip_text_params(tcfg, g, "cpu"), text_cfg=tcfg,
+                 vae_params=vae.init_vae_params(vae.VAEConfig.tiny(), g, "cpu"),
+                 vae_cfg=vae.VAEConfig.tiny())
+    sides = {d: StableDiffusion(**parts, dtype=torch.float32, device=d) for d in (dev, "cpu")}
+    outs = {}
+    for d, s in sides.items():
+        ctx2 = torch.cat([s.encode_prompt(""), s.encode_prompt("a cat")])
+        lat = torch.randn((1, 4, 32, 32), generator=torch.Generator().manual_seed(2)).to(d)
+        s.scheduler.set_timesteps(20)
+        step = s.denoise_step(lat, 951, 901, ctx2, 7.5, torch.Generator().manual_seed(3))
+        latent = s.txt2img("a cat", num_steps=2, height=32, width=32, output="latent")
+        outs[str(d)] = (step.cpu(), latent, s.txt2img("a cat", num_steps=2, height=32, width=32))
+    (step, latent, img), (step_cpu, latent_cpu, img_cpu) = outs[str(dev)], outs["cpu"]
+    assert rel(step, step_cpu) <= 1e-3
+    assert rel(torch.from_numpy(latent), torch.from_numpy(latent_cpu)) <= 1e-3
+    assert img.dtype == np.uint8 and img.shape == img_cpu.shape == (32, 32, 3)
+
+
+def test_generative_talker_decodes_on_the_whole_model_kernel(dev):
+    """A talker on the mk-test stack with a 512-code vocabulary, W4, an int4
+    head and a bf16 cache: its prefill runs the tile kernel 4 times a layer
+    and flash prefill once a layer, the head on the GEMV; every codec token
+    is one whole-model launch with the head fused; the next step's logits
+    on the whole-model kernel within rel-L2 5e-2 of `megakernel=False` from
+    the same cache."""
+    from mnn_tpu_torch.models.talker import Talker, TalkerConfig
+
+    cfg = TalkerConfig(model=MK, thinker_hidden=96, codec_eos_ids=(511,), max_new_tokens=12)
+    params = decoder.init_random_params(MK, torch.Generator().manual_seed(1), scale=0.05,
+                                        lm_head_bits=4, device=dev)
+    assert decoder.decode_model.supports_head(MK, params)
+    tk = Talker(cfg, params, np.random.default_rng(0).standard_normal((96, 256)) * 0.05,
+                device=dev)
+    hidden = np.random.default_rng(1).standard_normal((21, 96)).astype(np.float32)
+    build.reset_launches()
+    codec = tk.generate_codec(hidden, thinker_tokens=list(range(21)), capacity=512)
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in build.KERNELS}
+    assert 0 < len(codec) <= 12 and tk.perf.codec_tokens == len(codec)
+    assert n["mnn_decode_model"] == len(codec)
+    assert n["mnn_dequant_matmul_bf16_tile"] == 4 * MK.num_layers
+    assert n["mnn_flash_prefill"] == MK.num_layers and n["mnn_dequant_matmul"] == 1
+    assert n["mnn_decode_step"] == 0 and n["mnn_dequant_matmul_a8"] == 0
+    cache = kvcache.create(MK.num_layers, 1, MK.num_kv_heads, 512, MK.head_dim,
+                           quantized=False, device=dev)
+    embeds = torch.from_numpy(hidden).to(dev) @ tk.in_proj
+    _, cache = decoder.forward(params, MK, torch.zeros((1, 21), dtype=torch.int64, device=dev),
+                               cache, inputs_embeds=embeds[None].to(torch.bfloat16))
+    tok = torch.tensor([[codec[0] if codec else 0]], device=dev)
+    ref, _ = decoder.forward(params, MK, tok, _clone(cache), megakernel=False)
+    mk, _ = decoder.forward(params, MK, tok, _clone(cache), megakernel=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(mk).all() and rel(mk, ref) <= 5e-2

@@ -254,7 +254,9 @@ def test_port_imports_no_jax():
     assert {"decode_model.py", "flash_attention.py", "kvcache.py", "profile_decode.py",
             "chip_smoke.py", "batch_engine.py", "server.py", "trainer.py", "lora.py",
             "datasets.py", "compress.py", "awq_search.py", "omni_quant.py",
-            "calibrate.py", "hqq.py", "smooth.py"} <= names
+            "calibrate.py", "hqq.py", "smooth.py", "talker.py", "vocoder.py",
+            "scheduler.py", "unet.py", "vae.py", "clip_text.py", "sd.py",
+            "pipeline.py"} <= names
     bad = re.compile(r"^\s*(import\s+(jax|optax)\b|from\s+(jax|optax)\b)|\bmnn_tpu\.|"
                      r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)|"
                      r"^(import|from)\s+PIL\b", re.M)
