@@ -170,7 +170,7 @@ Phases, each of which exits non-zero on failure:
    reloads); and through `save_prefix` / `load_prefix` into a fresh `Llm`:
    each continued request's tokens equal those of a run that never left
    the card, with the seconds and bytes of each move; (aa) card against CPU
-   at full width and 4 layers under (x), (y) and (z) over int4, prefill and
+   at full width and 2 layers under (x), (y) and (z) over int4, prefill and
    8 steps, phase 4's bounds and token rule.
 10. speculative decoding on full-size qwen2-0.5b (phase 3's weights and
    runtime, greedy, nothing cut; random draft nets), each sub-phase with
@@ -220,7 +220,7 @@ Phases, each of which exits non-zero on failure:
    bounds and token rule; the decode-step kernel runs, the whole-model
    kernel does not. (mm) card against CPU: the 32-block tower on (jj)'s
    256 patches, the encoder at 8 layers on (jj)'s mel, a CLIP ViT-L/14 at
-   2 layers (each f32, rel-L2 1e-3), and the LM at 4 layers under (jj)'s
+   2 layers (each f32, rel-L2 1e-3), and the LM at 2 layers under (jj)'s
    spliced embeddings, prefill and 8 steps by phase 4's rule. (nn)
    `Llm.embed` (last, mean) and `Llm.rerank` (yes-token, cosine) on
    full-size qwen2-0.5b, card against CPU: vectors within rel-L2 5e-2,
@@ -275,6 +275,32 @@ Phases, each of which exits non-zero on failure:
    32 latent, its VAE decode, CLIP on 77 tokens. (xx) `cli txt2img` on the
    card from a tiny diffusers-layout directory written here, 3 steps at
    64 px. It prints its seconds.
+14. the rest of diffusion, the CV library and the native library, run last,
+   each sub-phase with the launch counts set to 0 before and read after: no
+   hand-written kernel runs (none of these modules reaches a TPU kernel in
+   the JAX package), and the kernels line stays as it is. Weights are
+   seeded random at each config's defaults, bf16 with the JAX package's f32
+   products (TF32 off). (yy) SD3-medium's MMDiT (`MMDiTConfig()`: 24
+   blocks of 1,536, 24 heads, QK norm, 2.04 B parameters) on a 16 x 128 x
+   128 latent (a 1,024 x 1,024 image) and 333 context tokens, CFG at batch
+   2, 4 `FlowMatchEulerScheduler(shift=3.0)` steps: ms a step, TFLOP/s from
+   an operation count (17.8 TFLOP a step), the allocator's peak. (zz) Sana
+   (`SanaConfig()`: 12 blocks of 1,152) on a 64 x 64 x 32 latent and 300
+   text tokens, `SanaPipeline` for 4 steps and the DC-AE decode at 32x (the
+   init's width 32, 5 stages) to 2,048 x 2,048: ms a step, decode ms,
+   peak. (aaa) Wan 2.1 (`WanConfig()`: 30 blocks of 1,536) on a (5, 60,
+   104) latent, 7,800 tokens, 512 text tokens of which 40 live under the
+   mask, `WanPipeline` for 2 steps and the causal 3-D VAE (width 16, 3
+   spatial stages: 10 frames of 480 x 832): ms a step, decode ms, peak.
+   (bbb) f32 card against CPU within rel-L2 1e-3: each DiT at its full
+   widths and 2 blocks, one CFG call on a small latent, and both decoders.
+   (ccc) every exported `cv` function on a seeded 1,080 x 1,920 x 3 image,
+   card against CPU: integer outputs equal, uint8 resamples within one
+   level, floats within rel-L2 1e-5; `ImageProcess` to a 224 x 224 NCHW
+   input, ms a call; `solve_pnp`'s pose within 1e-3. (ddd) the native
+   library built from `native/` with g++ (a failed build fails), phase 6's
+   checkpoints read by its `StFile` to the same bytes as `convert/stfile`,
+   and phase 10 (cc)'s lookahead through its n-gram index.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -294,13 +320,14 @@ phase 12's under `training`, its launches added to each kernel's count (also
 alone, `training_launches`), and row 1b's rows at the training shapes under
 `train` of the bf16-row matmul, with (oo)'s launches; phase 13's under
 `generative`, (tt)'s launches added to each kernel's count, also alone,
-`generative_launches`).
+`generative_launches`; phase 14's under `dit_cv`).
 It imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -323,14 +350,19 @@ import torch
 
 import mnn_tpu_torch
 from mnn_tpu_torch import cli, profile_decode
+from mnn_tpu_torch import cv as cvlib
 from mnn_tpu_torch.audio import audio as audio_mod
 from mnn_tpu_torch.audio import vocoder
 from mnn_tpu_torch.convert import checkpoint, stfile
 from mnn_tpu_torch.convert.hf import convert_hf
+from mnn_tpu_torch.cv import calib3d
 from mnn_tpu_torch.diffusion import StableDiffusion, clip_text
+from mnn_tpu_torch.diffusion import mmdit, sana, wan
 from mnn_tpu_torch.diffusion import unet as unet_mod
 from mnn_tpu_torch.diffusion import vae as vae_mod
 from mnn_tpu_torch.diffusion.nn import no_tf32
+from mnn_tpu_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from mnn_tpu_torch.diffusion.scheduler import noise as sched_noise
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
                                    flash_attention, moe_decode, moe_prefill)
 from mnn_tpu_torch.models import audio_encoder, decoder, qwen_vl_vision, vision_encoder
@@ -349,6 +381,7 @@ from mnn_tpu_torch.runtime.llm import Llm
 from mnn_tpu_torch.runtime.prefix_cache import load_prefix, save_prefix
 from mnn_tpu_torch.serve.server import make_handler
 from mnn_tpu_torch.train import compress, lora, trainer
+from mnn_tpu_torch.utils import native
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_OPS_S = 989e12         # dense bf16 tensor-core peak
@@ -2168,6 +2201,10 @@ def phase_checkpoint_dense(dev, root):
     llm, s = timed(lambda: Llm.from_pretrained(w4, rt=serving_rt(), device=dev))
     check_same_params(llm.params, params, "(j) loaded vs converted")
     out["load_s"], out["load_gb_s"], out["ckpt_bytes"] = s, ckpt_bytes / s / 1e9, ckpt_bytes
+    # phase 14 (ddd): the same files through the native reader
+    out["native_stfile"] = native_stfile_check(
+        sorted(glob.glob(os.path.join(hf_dir, "*.safetensors")))
+        + [os.path.join(w4, "model.safetensors")])
     print(f"  (j) Llm.from_pretrained: {ckpt_bytes / 1e9:.3f} GB in {s:.2f} s, "
           f"{ckpt_bytes / s / 1e9:.2f} GB/s; byte-equal to the converter's", flush=True)
 
@@ -3000,7 +3037,7 @@ def phase_sub4(dev, g, results, bits):
 KV_CODEBOOKS = {"tq3": dict(kv_bits=3), "tq4": dict(kv_bits=4, kv_codebook=True)}
 KV_ROTATED = {"rot_int8": dict(kv_rotate=True, kv_bits=8),
               "rot_int4": dict(kv_rotate=True, kv_bits=4)}
-KV_PARITY_LAYERS = 4        # (aa): full width, cut depth on both sides
+KV_PARITY_LAYERS = 2        # (aa): full width, cut depth on both sides
 OFFLOAD_NEW = 8             # (bb): new tokens of the continued request
 # (x), (y): traced decode steps. A traced step of these per-layer paths is
 # some thousands of launches and costs the script about 4 s; (z) is not traced
@@ -3615,7 +3652,7 @@ LL_LAYERS, LL_PROMPT, LL_LEVELS, PLE_DIM = 2, 300, 3, 256   # (ll)
 # phase 2's row of K4 at (ll)'s last per-layer PLE decode step on qwen2-7b's
 # heads (28 query heads over 4 KV heads, D 128) over its int8 cache of 2,048
 DECODE_ROWS_7B = [(1, 4, 7, 128, (LL_PROMPT + PARITY_STEPS - 1,))]
-MM_LM_LAYERS, MM_AUDIO_LAYERS = 4, 8                          # (mm)
+MM_LM_LAYERS, MM_AUDIO_LAYERS = 2, 8                          # (mm)
 CLIP_VIT_L = dict(hidden=1024, heads=16, patch=14, image=224, layers=2, inter=4096)
 TOWER_REL = 1e-3             # (mm): the towers, f32 on both sides
 MM_QUERY = "how do cats show that they are content"
@@ -4732,6 +4769,533 @@ def generative_launches(gen: dict) -> dict:
     return dict(gen["tt"]["launches"])
 
 
+# --------------------------------------------------------------------------
+# phase 14: the diffusion transformers and the CV library on the card
+# --------------------------------------------------------------------------
+
+MMDIT_LATENT = (16, 128, 128)   # (yy): a 1,024 x 1,024 image under SD3's 8x VAE
+MMDIT_CTX = 333                 # 77 CLIP + 256 T5 tokens
+MMDIT_STEPS, MMDIT_SHIFT, MMDIT_CFG = 4, 3.0, 7.0
+SANA_LATENT = (64, 64)          # (zz): 2,048 x 2,048 under the 32x DC-AE
+SANA_TEXT, SANA_STEPS, SANA_CFG = 300, 4, 4.5
+DCAE_STAGES = 5                 # 2^5 = 32x
+WAN_LATENT = (5, 60, 104)       # (aaa): 7,800 tokens at the (1, 2, 2) patch
+WAN_TEXT, WAN_LIVE, WAN_STEPS, WAN_CFG = 512, 40, 2, 5.0
+WAN_VAE_STAGES = 3              # 8x: 60 x 104 -> 480 x 832
+DIT_PARITY_BLOCKS = 2           # (bbb): full widths, cut depth on both sides
+DIT_REL = 1e-3
+CV_SIZE = (1080, 1920)          # (ccc)
+CV_REL = 1e-5
+CV_RUNS = 5                     # (ccc): timed calls of ImageProcess
+CV_MIN_LABELS = 100             # (ccc): the blob mask's components, at least
+IP_SIZE = (224, 224)
+
+
+def lin_ops(tokens: int, din: int, dout: int) -> float:
+    return 2.0 * tokens * din * dout
+
+
+def mmdit_ops(cfg, n_img: int, n_ctx: int, batch: int) -> float:
+    """Multiply-adds x 2 of one `mmdit_forward`: every linear on its rows,
+    and QK^T and AV over the joint stream."""
+    d, cp = cfg.hidden_size, cfg.in_channels * cfg.patch_size ** 2
+    ops = lin_ops(n_img, cp, d) + lin_ops(n_ctx, cfg.context_dim, d) + lin_ops(n_img, d, cp)
+    for i in range(cfg.depth):
+        last = i == cfg.depth - 1
+        ops += lin_ops(n_img, d, 12 * d) + lin_ops(n_ctx, d, (3 if last else 12) * d)
+        ops += 4.0 * (n_img + n_ctx) ** 2 * d
+    return ops * batch
+
+
+def sana_ops(cfg, n: int, n_text: int, batch: int) -> float:
+    d, e = cfg.dim, int(cfg.dim * cfg.ffn_expand)
+    hd = d // cfg.num_heads
+    ops = lin_ops(n, cfg.in_channels, d) * 2 + lin_ops(n_text, cfg.text_dim, d)
+    per = (lin_ops(n, d, 4 * d) + 4.0 * n * hd * d      # q k v o, K^T V and the product
+           + lin_ops(n, d, 2 * d) + lin_ops(n_text, d, 2 * d) + 4.0 * n * n_text * d
+           + lin_ops(n, d, 2 * e) + 18.0 * n * 2 * e + lin_ops(n, e, d))
+    return (ops + cfg.depth * per) * batch
+
+
+def wan_ops(cfg, n: int, n_text: int, batch: int) -> float:
+    d, e = cfg.dim, int(cfg.dim * cfg.ffn_expand)
+    pdim = int(np.prod(cfg.patch)) * cfg.in_channels
+    ops = lin_ops(n, pdim, d) * 2 + lin_ops(n_text, cfg.text_dim, d)
+    per = (lin_ops(n, d, 4 * d) + 4.0 * n * n * d
+           + lin_ops(n, d, 2 * d) + lin_ops(n_text, d, 2 * d) + 4.0 * n * n_text * d
+           + lin_ops(n, d, e) + lin_ops(n, e, d))
+    return (ops + cfg.depth * per) * batch
+
+
+def bf16_params(params: dict) -> dict:
+    return {k: v.to(torch.bfloat16) for k, v in params.items()}
+
+
+def stamped_run(fn):
+    """fn(callback) on the card: (its result, seconds from the start to each
+    callback, the total seconds), each stamp after a synchronize."""
+    stamps = []
+
+    def cb(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(cb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    return out, [b - a for a, b in zip([t0] + stamps, stamps)], t1 - stamps[-1], t1 - t0
+
+
+def phase_mmdit(dev, card_line):
+    """(yy) SD3-medium's MMDiT at `MMDiTConfig()` in bf16 weights (f32
+    products), a 16 x 128 x 128 latent and 333 context tokens, CFG at batch
+    2, 4 flow-matching Euler steps at shift 3."""
+    cfg = mmdit.MMDiTConfig()
+    t0 = time.perf_counter()
+    p = bf16_params(mmdit.init_mmdit_params(cfg, torch.Generator(dev).manual_seed(SEED + 50), dev))
+    torch.cuda.empty_cache()
+    n_params = sum(v.numel() for v in p.values())
+    gen = torch.Generator().manual_seed(SEED + 51)
+    ctx2 = sched_noise(gen, (2, MMDIT_CTX, cfg.context_dim), dev).to(torch.bfloat16)
+    pooled2 = sched_noise(gen, (2, cfg.pooled_dim), dev).to(torch.bfloat16)
+    x0 = sched_noise(gen, (1, *MMDIT_LATENT), dev)
+    build_s = time.perf_counter() - t0
+    sch = FlowMatchEulerScheduler(shift=MMDIT_SHIFT)
+    sch.set_timesteps(MMDIT_STEPS)
+
+    def run(cb, steps=MMDIT_STEPS):
+        x = x0
+        for i in range(steps):
+            v = mmdit.mmdit_forward(p, cfg, torch.cat([x, x]).to(torch.bfloat16),
+                                    float(sch.timesteps[i]), ctx2, pooled2).float()
+            v_u, v_c = v.chunk(2)
+            x = sch.step_index(v_u + MMDIT_CFG * (v_c - v_u), i, x)
+            cb(i, x)
+        return x
+
+    run(lambda i, x: None, 1)          # cuBLAS plans for these shapes
+    torch.cuda.reset_peak_memory_stats()
+    x, step_s, _, total_s = stamped_run(run)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(x.shape) == (1, *MMDIT_LATENT) and bool(torch.isfinite(x).all()),
+          "(yy) MMDiT latent not finite")
+    n_img = (MMDIT_LATENT[1] // cfg.patch_size) * (MMDIT_LATENT[2] // cfg.patch_size)
+    ops = mmdit_ops(cfg, n_img, MMDIT_CTX, 2)
+    step_ms = [s * 1e3 for s in step_s]
+    med = float(np.median(step_ms))
+    yy = dict(step_ms=step_ms, step_ms_median=med, tflop_step=ops / 1e12,
+              tflop_s=ops / (med * 1e-3) / 1e12, peak_bytes=peak, params=n_params,
+              seconds=total_s, build_s=build_s, image_tokens=n_img, card=card_line)
+    print(f"  (yy) MMDiT (SD3-medium, {cfg.depth} blocks of {cfg.hidden_size}) bf16 weights, "
+          f"latent {MMDIT_LATENT}, {n_img} + {MMDIT_CTX} tokens, CFG {MMDIT_CFG} at batch 2, "
+          f"{MMDIT_STEPS} flow-match steps (shift {MMDIT_SHIFT}): median {med:.2f} ms a step, "
+          f"{ops / 1e12:.2f} TFLOP a step, {yy['tflop_s']:.2f} TFLOP/s | peak {peak} B | "
+          f"{n_params} params [{card_line}]", flush=True)
+    del p
+    torch.cuda.empty_cache()
+    return yy
+
+
+def phase_sana(dev, card_line):
+    """(zz) Sana at `SanaConfig()` in bf16 weights: a 64 x 64 x 32 latent
+    and 300 text tokens, `SanaPipeline` for 4 steps and the DC-AE decode at
+    32x (the init's width 32, 5 stages)."""
+    cfg = sana.SanaConfig()
+    g = torch.Generator(dev).manual_seed(SEED + 52)
+    p = bf16_params(sana.init_sana_params(cfg, g, dev))
+    dc = bf16_params(sana.init_dcae_decoder(g, latent_ch=cfg.in_channels, stages=DCAE_STAGES,
+                                            device=dev))
+    gen = torch.Generator().manual_seed(SEED + 53)
+    text = sched_noise(gen, (1, SANA_TEXT, cfg.text_dim), dev)
+    uncond = sched_noise(gen, (1, SANA_TEXT, cfg.text_dim), dev)
+    pipe = sana.SanaPipeline(cfg, p, dc, dcae_stages=DCAE_STAGES)
+    kw = dict(latent_hw=SANA_LATENT, guidance=SANA_CFG, seed=SEED)
+    pipe(text, uncond, steps=1, **kw)  # cuBLAS / cuDNN plans for these shapes
+    torch.cuda.reset_peak_memory_stats()
+    img, step_s, dec_s, total_s = stamped_run(
+        lambda cb: pipe(text, uncond, steps=SANA_STEPS, callback=cb, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    side = SANA_LATENT[0] * 2 ** DCAE_STAGES
+    check(tuple(img.shape) == (1, side, side, 3) and bool(torch.isfinite(img).all()),
+          f"(zz) Sana image {tuple(img.shape)}")
+    n = SANA_LATENT[0] * SANA_LATENT[1]
+    ops = sana_ops(cfg, n, SANA_TEXT, 2)
+    step_ms = [s * 1e3 for s in step_s]
+    med = float(np.median(step_ms))
+    zz = dict(step_ms=step_ms, step_ms_median=med, decode_ms=dec_s * 1e3, seconds=total_s,
+              tflop_step=ops / 1e12, tflop_s=ops / (med * 1e-3) / 1e12, peak_bytes=peak,
+              params=sum(v.numel() for v in p.values()), image=side, card=card_line)
+    print(f"  (zz) Sana ({cfg.depth} blocks of {cfg.dim}) bf16 weights, latent "
+          f"{SANA_LATENT} x {cfg.in_channels}, {SANA_TEXT} text tokens, {SANA_STEPS} steps: "
+          f"median {med:.2f} ms a CFG step, {zz['tflop_s']:.2f} TFLOP/s | DC-AE decode to "
+          f"{side} x {side}: {dec_s * 1e3:.2f} ms | peak {peak} B [{card_line}]", flush=True)
+    del p, dc, pipe
+    torch.cuda.empty_cache()
+    return zz
+
+
+def wan_mask(dev) -> torch.Tensor:
+    m = torch.zeros((1, WAN_TEXT), device=dev)
+    m[:, :WAN_LIVE] = 1
+    return m
+
+
+def phase_wan(dev, card_line):
+    """(aaa) Wan 2.1 at `WanConfig()` in bf16 weights: a (5, 60, 104) latent
+    (7,800 tokens), 512 text tokens of which 40 live under the mask,
+    `WanPipeline` for 2 steps and the causal 3-D VAE decode (width 16, 3
+    spatial stages: 10 frames of 480 x 832)."""
+    cfg = wan.WanConfig()
+    g = torch.Generator(dev).manual_seed(SEED + 54)
+    p = bf16_params(wan.init_wan_params(cfg, g, dev))
+    vae = bf16_params(wan.init_wan_vae(g, latent_ch=cfg.in_channels, width=16,
+                                       spatial_stages=WAN_VAE_STAGES, device=dev))
+    gen = torch.Generator().manual_seed(SEED + 55)
+    text = sched_noise(gen, (1, WAN_TEXT, cfg.text_dim), dev)
+    uncond = sched_noise(gen, (1, WAN_TEXT, cfg.text_dim), dev)
+    pipe = wan.WanPipeline(cfg, p, vae, vae_stages=WAN_VAE_STAGES)
+    kw = dict(latent_thw=WAN_LATENT, guidance=WAN_CFG, seed=SEED, text_mask=wan_mask(dev))
+    pipe(text, uncond, steps=1, **kw)  # cuBLAS / cuDNN plans for these shapes
+    torch.cuda.reset_peak_memory_stats()
+    vid, step_s, dec_s, total_s = stamped_run(
+        lambda cb: pipe(text, uncond, steps=WAN_STEPS, callback=cb, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    t, h, w = WAN_LATENT
+    want = (1, 2 * t, h * 2 ** WAN_VAE_STAGES, w * 2 ** WAN_VAE_STAGES, 3)
+    check(tuple(vid.shape) == want and bool(torch.isfinite(vid).all()),
+          f"(aaa) Wan frames {tuple(vid.shape)}")
+    pt, ph, pw = cfg.patch
+    n = (t // pt) * (h // ph) * (w // pw)
+    ops = wan_ops(cfg, n, WAN_TEXT, 2)
+    step_ms = [s * 1e3 for s in step_s]
+    med = float(np.median(step_ms))
+    aaa = dict(step_ms=step_ms, step_ms_median=med, decode_ms=dec_s * 1e3, seconds=total_s,
+               tokens=n, tflop_step=ops / 1e12, tflop_s=ops / (med * 1e-3) / 1e12,
+               peak_bytes=peak, params=sum(v.numel() for v in p.values()), frames=want[1:4],
+               card=card_line)
+    print(f"  (aaa) Wan ({cfg.depth} blocks of {cfg.dim}) bf16 weights, latent {WAN_LATENT} "
+          f"({n} tokens), {WAN_TEXT} text tokens ({WAN_LIVE} live), {WAN_STEPS} steps: median "
+          f"{med:.2f} ms a CFG step, {ops / 1e12:.2f} TFLOP a step, {aaa['tflop_s']:.2f} "
+          f"TFLOP/s | 3-D VAE decode to {want[1]} x {want[2]} x {want[3]}: {dec_s * 1e3:.2f} "
+          f"ms | peak {peak} B [{card_line}]", flush=True)
+    del p, vae, pipe
+    torch.cuda.empty_cache()
+    return aaa
+
+
+def phase_dit_parity(dev):
+    """(bbb) f32 on both sides, card against CPU: each DiT at its full
+    widths and 2 blocks, one CFG forward at batch 2 on a small latent, and
+    both decoders."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 56)
+    cpu = torch.device("cpu")
+    runs = {}
+    mcfg = dataclasses.replace(mmdit.MMDiTConfig(), depth=DIT_PARITY_BLOCKS)
+    scfg = dataclasses.replace(sana.SanaConfig(), depth=DIT_PARITY_BLOCKS)
+    wcfg = dataclasses.replace(wan.WanConfig(), depth=DIT_PARITY_BLOCKS)
+    g = torch.Generator(dev).manual_seed(SEED + 57)
+    params = {"mmdit": mmdit.init_mmdit_params(mcfg, g, dev),
+              "sana": sana.init_sana_params(scfg, g, dev),
+              "wan": wan.init_wan_params(wcfg, g, dev),
+              "dcae": sana.init_dcae_decoder(g, latent_ch=scfg.in_channels, stages=DCAE_STAGES,
+                                             device=dev),
+              "wan_vae": wan.init_wan_vae(g, latent_ch=wcfg.in_channels, width=16,
+                                          spatial_stages=WAN_VAE_STAGES, device=dev)}
+    shapes = {
+        "mmdit": ((2, mcfg.in_channels, 32, 32), (2, MMDIT_CTX, mcfg.context_dim),
+                  (2, mcfg.pooled_dim)),
+        "sana": ((2, 16, 16, scfg.in_channels), (2, SANA_TEXT, scfg.text_dim)),
+        "wan": ((2, 2, 16, 16, wcfg.in_channels), (2, WAN_TEXT, wcfg.text_dim)),
+        "dcae": ((1, 16, 16, scfg.in_channels),),
+        "wan_vae": ((1, 2, 16, 16, wcfg.in_channels),),
+    }
+    inputs = {k: [sched_noise(gen, s, cpu) for s in v] for k, v in shapes.items()}
+    mask = torch.cat([wan_mask(cpu), torch.ones((1, WAN_TEXT))])
+    calls = {
+        "mmdit": lambda p, x, c, pl: mmdit.mmdit_forward(p, mcfg, x, 951.0, c, pl),
+        "sana": lambda p, x, c: sana.sana_forward(p, scfg, x, torch.full((2,), 951.0,
+                                                                         device=x.device), c),
+        "wan": lambda p, x, c: wan.wan_forward(p, wcfg, x, torch.full((2,), 951.0,
+                                                                      device=x.device), c,
+                                               mask.to(x.device)),
+        "dcae": lambda p, z: sana.dcae_decode(p, z, stages=DCAE_STAGES),
+        "wan_vae": lambda p, z: wan.wan_vae_decode(p, z, spatial_stages=WAN_VAE_STAGES),
+    }
+    for name, fn in calls.items():
+        card = fn(params[name], *[a.to(dev) for a in inputs[name]]).cpu()
+        p_cpu = {k: v.cpu() for k, v in params[name].items()}
+        t1 = time.perf_counter()
+        want = fn(p_cpu, *inputs[name])
+        r = rel_l2(card, want)
+        check(bool(torch.isfinite(card).all()) and r <= DIT_REL,
+              f"(bbb) {name}: rel-L2 {r:.3g} > {DIT_REL}")
+        runs[name] = dict(rel_l2=r, shape=list(want.shape), cpu_s=time.perf_counter() - t1)
+    del params
+    torch.cuda.empty_cache()
+    bbb = dict(runs=runs, seconds=time.perf_counter() - t0)
+    print(f"  (bbb) f32 card vs cpu, {DIT_PARITY_BLOCKS} blocks at full widths: " + ", ".join(
+        f"{k} {v['rel_l2']:.3g}" for k, v in runs.items()) + f" | {bbb['seconds']:.1f} s",
+        flush=True)
+    return bbb
+
+
+def cv_inputs(img: torch.Tensor, dev) -> tuple:
+    """(ccc)'s inputs, made on the CPU from one seeded uint8 RGB image, and
+    the same tensors on `dev`: its gray, a [0, 1) float copy, a second
+    image, a mask, NV12 planes, and a blob mask (the blurred gray above
+    147: about a tenth of the pixels, in components of tens of pixels, not
+    one spanning cluster)."""
+    img = img.cpu()
+    gray = cvlib.rgb_to_gray(img)
+    blurred = cvlib.gaussian_blur(gray, (7, 7), 0.0)
+    cpu = dict(img=img, gray=gray, fimg=img.float() / 255.0, img2=img.flip(0),
+               mask=(gray > 127).to(torch.uint8), binary=(blurred > 147).to(torch.uint8),
+               uv=img[::2, ::2, :2].contiguous())
+    return {k: v.to(dev) for k, v in cpu.items()}, cpu
+
+
+CV_ROT = np.array([[0.8, 0.45, -100.0], [-0.45, 0.8, 400.0]], np.float32)
+CV_IP = dict(source_format="bgr", mean=(123.675, 116.28, 103.53),
+             normal=(1 / 58.395, 1 / 57.12, 1 / 57.375), target_size=IP_SIZE)
+# (ccc): name -> (bound kind, the call on a side's inputs)
+CV_CASES = {
+    "cvt_color": ("int", lambda d: [cvlib.cvt_color(d["img"], "rgb", "bgr"),
+                                    cvlib.cvt_color(d["img"], "bgr", "gray"),
+                                    cvlib.cvt_color(d["gray"], "gray", "rgb"),
+                                    cvlib.cvt_color(cvlib.cvt_color(d["img"], "rgb", "rgba"), "rgba",
+                                                 "rgb")]),
+    "rgb_to_bgr": ("int", lambda d: cvlib.rgb_to_bgr(d["img"])),
+    "rgb_to_gray": (("int", "float"), lambda d: [cvlib.rgb_to_gray(d["img"]),
+                                                 cvlib.rgb_to_gray(d["fimg"])]),
+    "yuv_nv12_to_rgb": ("int", lambda d: cvlib.yuv_nv12_to_rgb(d["gray"], d["uv"])),
+    "yuv_nv21_to_rgb": ("int", lambda d: cvlib.yuv_nv21_to_rgb(d["gray"], d["uv"])),
+    "crop": ("int", lambda d: cvlib.crop(d["img"], 100, 200, 500, 700)),
+    "center_crop": ("int", lambda d: cvlib.center_crop(d["img"], (720, 1280))),
+    "flip": ("int", lambda d: [cvlib.flip(d["img"]), cvlib.flip(d["img"], False)]),
+    "rotate90": ("int", lambda d: cvlib.rotate90(d["img"], 3)),
+    "pad": ("int", lambda d: cvlib.pad(d["img"], 4, 8, 16, 0, 114)),
+    "resize": ("resample", lambda d: [cvlib.resize(d["img"], (540, 960)),
+                                      cvlib.resize(d["img"], (1440, 2560)),
+                                      cvlib.resize(d["gray"], (333, 777), "nearest")]),
+    "warp_affine": ("resample", lambda d: [cvlib.warp_affine(d["img"], CV_ROT, (1080, 1920)),
+                                           cvlib.warp_affine(d["img"], CV_ROT, (720, 1280),
+                                                          method="nearest", fill=7.0)]),
+    "filter2d": ("float", lambda d: cvlib.filter2d(d["img"], np.array(
+        [[0, -1, 0], [-1, 5, -1], [0, -1, 0]], np.float32))),
+    "sep_filter2d": ("float", lambda d: cvlib.sep_filter2d(d["gray"], [1.0, 2.0, 1.0],
+                                                        [0.5, 0.0, -0.5])),
+    "gaussian_blur": ("float", lambda d: [cvlib.gaussian_blur(d["img"], (5, 5), 0.0),
+                                          cvlib.gaussian_blur(d["img"], (9, 9), 2.0)]),
+    "box_filter": ("float", lambda d: cvlib.box_filter(d["img"], (5, 5))),
+    "blur": ("float", lambda d: cvlib.blur(d["fimg"], (3, 3))),
+    "sqr_box_filter": ("float", lambda d: cvlib.sqr_box_filter(d["gray"], (3, 3))),
+    "sobel": ("float", lambda d: [cvlib.sobel(d["gray"], 1, 0), cvlib.sobel(d["gray"], 0, 2, 5)]),
+    "scharr": ("float", lambda d: cvlib.scharr(d["gray"], 1, 0)),
+    "laplacian": ("float", lambda d: [cvlib.laplacian(d["gray"]), cvlib.laplacian(d["gray"], 3)]),
+    "spatial_gradient": ("float", lambda d: list(cvlib.spatial_gradient(d["gray"]))),
+    "erode": ("int", lambda d: cvlib.erode(d["img"], cvlib.get_structuring_element(2, (5, 5)))),
+    "dilate": ("int", lambda d: cvlib.dilate(d["gray"], cvlib.get_structuring_element(1, (3, 3)))),
+    "morphology_ex": ("float", lambda d: [cvlib.morphology_ex(d["gray"], op, np.ones((3, 3)))
+                                          for op in ("open", "close", "gradient", "tophat",
+                                                     "blackhat")]),
+    "pyr_down": ("float", lambda d: cvlib.pyr_down(d["img"])),
+    "pyr_up": ("float", lambda d: cvlib.pyr_up(d["gray"][:540, :960])),
+    "bilateral_filter": ("float", lambda d: cvlib.bilateral_filter(d["img"], 5, 30.0, 2.0)),
+    "calc_hist": ("int", lambda d: [cvlib.calc_hist(d["img"], c) for c in range(3)]
+                  + [cvlib.calc_hist(d["gray"], bins=32, mask=d["mask"])]),
+    "equalize_hist": ("int", lambda d: cvlib.equalize_hist(d["gray"])),
+    "threshold": ("int", lambda d: [cvlib.threshold(d["gray"], 100.0, 255.0, t) for t in range(5)]),
+    "adaptive_threshold": ("int", lambda d: [cvlib.adaptive_threshold(d["gray"], 255.0, 0, 0, 5, 2.5),
+                                             cvlib.adaptive_threshold(d["gray"], 255.0, 1, 1, 5, 3.0)]),
+    "integral": ("float", lambda d: cvlib.integral(d["gray"])),
+    "blend_linear": ("float", lambda d: cvlib.blend_linear(d["img"], d["img2"], d["fimg"][..., 0],
+                                                        d["fimg"][..., 1])),
+    "connected_components": ("int", lambda d: cvlib.connected_components(d["binary"])),
+    "connected_components_with_stats": (("int", "int", "int", "float"), lambda d: list(
+        cvlib.connected_components_with_stats(d["binary"], 4))),
+    "ImageProcess": ("resample", lambda d: cvlib.ImageProcess(cvlib.ImageProcessConfig(
+        source_format="bgr", target_size=IP_SIZE))(d["img"])),
+}
+# exported but not run on the card: the codecs (PIL, not on the card's
+# machine), host-side numpy geometry, and the small kernel helpers (CPU
+# tensors; every filter above runs them)
+CV_HOST = {"imread", "imwrite", "bounding_rect", "box_points", "contour_area", "convex_hull",
+           "min_area_rect", "get_affine_transform", "get_deriv_kernels", "get_gaussian_kernel",
+           "get_structuring_element", "ImageProcessConfig"}
+
+
+def flat_outputs(out) -> list:
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in flat_outputs(x)]
+    return [out if isinstance(out, torch.Tensor) else torch.tensor(out)]
+
+
+CV_BOUNDS = {"int": 0.0, "resample": 1.0, "float": CV_REL}
+
+
+def cv_compare(name, kinds, card, cpu) -> dict:
+    """The largest difference of each kind (levels for ints and uint8
+    resamples, rel-L2 for floats) over a case's outputs; fails past its
+    bound. `kinds`: one kind for every output, or one for each."""
+    card, cpu = flat_outputs(card), flat_outputs(cpu)
+    kinds = [kinds] * len(cpu) if isinstance(kinds, str) else list(kinds)
+    check(len(card) == len(cpu) == len(kinds), f"(ccc) {name}: {len(card)} outputs")
+    worst = {}
+    for kind, a, b in zip(kinds, card, cpu):
+        a = a.cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"(ccc) {name}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+        if kind == "float":
+            d = rel_l2(a, b)
+        else:
+            d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        check(d <= CV_BOUNDS[kind], f"(ccc) {name}: {d:.3g} > {CV_BOUNDS[kind]} ({kind})")
+        worst[kind] = max(worst.get(kind, 0.0), d)
+    return worst
+
+
+def phase_cv(dev, card_line):
+    """(ccc) every exported `cv` function on a seeded 1,080 x 1,920 x 3
+    uint8 image, card against CPU; `ImageProcess` to a 224 x 224 NCHW
+    input, ms a call; `solve_pnp` on the card against the CPU."""
+    t0 = time.perf_counter()
+    exported = set(cvlib.__all__) | {n for n in dir(cvlib) if not n.startswith("_")
+                                     and callable(getattr(cvlib, n))}
+    missing = sorted(exported - set(CV_CASES) - CV_HOST - {"ImageProcess"})
+    check(not missing, f"(ccc) exported functions not run: {missing}")
+    g = torch.Generator(dev).manual_seed(SEED + 58)
+    img = torch.randint(0, 256, (*CV_SIZE, 3), generator=g, device=dev, dtype=torch.uint8)
+    sides = dict(zip(("card", "cpu"), cv_inputs(img, dev)))
+    rows = {}
+    for name, (kind, fn) in CV_CASES.items():
+        fn(sides["card"])                         # plans, caches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card = fn(sides["card"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        cpu = fn(sides["cpu"])
+        cpu_ms = (time.perf_counter() - t1) * 1e3
+        rows[name] = dict(worst=cv_compare(name, kind, card, cpu), ms=ms, cpu_ms=cpu_ms)
+    n_cc = int(cvlib.connected_components(sides["card"]["binary"])[0])
+    check(n_cc > CV_MIN_LABELS, f"(ccc) only {n_cc} labels in the blob mask")
+    ip = cvlib.ImageProcess(cvlib.ImageProcessConfig(**CV_IP))
+    ip(img)
+    times = []
+    for _ in range(CV_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ip(img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    check(tuple(out.shape) == (1, 3, *IP_SIZE), f"(ccc) ImageProcess {tuple(out.shape)}")
+    # solve_pnp: a known pose from 12 seeded points, half a pixel of noise
+    r = np.random.default_rng(SEED + 59)
+    obj = r.uniform(-1, 1, (12, 3)).astype(np.float32)
+    cam = np.array([[1000.0, 0, 960], [0, 1000.0, 540], [0, 0, 1]], np.float32)
+    rvec, tvec = np.array([0.2, -0.1, 0.05], np.float32), np.array([0.1, -0.2, 5.0], np.float32)
+    pts = (calib3d._project(torch.from_numpy(obj), torch.from_numpy(rvec), torch.from_numpy(tvec),
+                            torch.from_numpy(cam)).numpy() + r.normal(0, 0.5, (12, 2)))
+    pnp_ms = []
+    for _ in range(2):      # the first call pays for cuSOLVER's and torch.func's set-up
+        t1 = time.perf_counter()
+        pose_card = calib3d.solve_pnp(obj, pts, cam, device=dev)
+        pnp_ms.append((time.perf_counter() - t1) * 1e3)
+    pose_cpu = calib3d.solve_pnp(obj, pts, cam, device="cpu")
+    pnp_diff = max(float(np.abs(a - b).max()) for a, b in zip(pose_card, pose_cpu))
+    check(pnp_diff <= 1e-3 and float(np.abs(pose_card[1] - tvec).max()) < 0.1,
+          f"(ccc) solve_pnp: card vs cpu {pnp_diff:.3g}")
+    ccc = dict(rows=rows, labels=n_cc, image_process_ms=times,
+               image_process_ms_median=float(np.median(times)), solve_pnp_ms=pnp_ms,
+               solve_pnp_diff=pnp_diff, seconds=time.perf_counter() - t0, card=card_line)
+    worst = {k: max((v["worst"].get(k, 0.0) for v in rows.values()), default=0.0)
+             for k in CV_BOUNDS}
+    print(f"  (ccc) cv on a {CV_SIZE[0]} x {CV_SIZE[1]} x 3 image, {len(rows)} functions card "
+          f"vs cpu: ints equal ({worst['int']:.3g}), uint8 resamples within "
+          f"{worst['resample']:.3g} level, floats within rel-L2 {worst['float']:.3g}; "
+          f"{n_cc} components | ImageProcess {CV_SIZE[0]}p -> {IP_SIZE[0]} NCHW median "
+          f"{ccc['image_process_ms_median']:.3f} ms a call | solve_pnp {pnp_ms[1]:.1f} ms "
+          f"(first call {pnp_ms[0]:.1f}), "
+          f"card vs cpu {pnp_diff:.3g} | {ccc['seconds']:.1f} s [{card_line}]", flush=True)
+    print("  (ccc) card ms a call: " + ", ".join(f"{k} {v['ms']:.3f}" for k, v in rows.items()),
+          flush=True)
+    return ccc
+
+
+def native_stfile_check(paths) -> dict:
+    """Every tensor of each safetensors file through the native reader and
+    through `convert/stfile`: the same names, dtypes, shapes and bytes."""
+    t0 = time.perf_counter()
+    native.load(raise_on_error=True)
+    n = nbytes = 0
+    for path in paths:
+        ref = stfile.StFile(path)
+        with native.StFile(path) as nf:
+            check(nf.names == ref.names and nf.metadata() == ref.metadata(),
+                  f"native StFile: {path}: names or metadata differ")
+            for name in ref.names:
+                a, b = nf.tensor(name), ref.tensor(name)
+                check(a.dtype == b.dtype and a.shape == b.shape
+                      and torch.equal(a.reshape(-1).view(torch.uint8),
+                                      b.reshape(-1).view(torch.uint8)),
+                      f"native StFile: {path}: {name} differs")
+                n += 1
+                nbytes += b.numel() * b.element_size()
+        ref.close()
+    return dict(files=len(paths), tensors=n, bytes=nbytes, seconds=time.perf_counter() - t0)
+
+
+def phase_native(ckpt_check: dict, specd: dict, native_indexes: int):
+    """(ddd) the library built from `native/` (a failed build fails), phase
+    6's checkpoint read by the native `StFile` to the same bytes as
+    `convert/stfile`, and phase 10 (cc)'s lookahead through the native
+    n-gram index."""
+    t0 = time.perf_counter()
+    native.load(raise_on_error=True)
+    check(native.available(), "(ddd) native library unavailable")
+    check(native_indexes > 0, "(ddd) phase 10's lookahead did not take the native index")
+    cc = {key: dict(equal_steps=run["equal_steps"], spec_stats=run["spec_stats"])
+          for key, run in specd["cc"].items() if key != "seconds"}
+    ddd = dict(library=str(native._lib_path().relative_to(HERE)), stfile=ckpt_check,
+               native_indexes=native_indexes, lookahead=cc, seconds=time.perf_counter() - t0)
+    print(f"  (ddd) native library {ddd['library']}: StFile read {ckpt_check['tensors']} tensors "
+          f"({ckpt_check['bytes']} B) of phase 6's checkpoints byte-equal to convert/stfile in "
+          f"{ckpt_check['seconds']:.2f} s; phase 10 (cc) built {native_indexes} native n-gram "
+          f"indexes; its streams equal to plain greedy for " + ", ".join(
+              f"{k}: {v['equal_steps']} of {SPEC_NEW} steps" for k, v in cc.items()), flush=True)
+    return ddd
+
+
+def phase_dit_cv(dev, card_line, ckpt_check, specd, native_indexes):
+    """Phase 14, (yy) to (ddd), each sub-phase with its launch counts set to
+    0 before and read after: none launches a hand-written kernel."""
+    t14 = time.perf_counter()
+    out, secs = {}, {}
+    for key, fn in (("yy", lambda: phase_mmdit(dev, card_line)),
+                    ("zz", lambda: phase_sana(dev, card_line)),
+                    ("aaa", lambda: phase_wan(dev, card_line)),
+                    ("bbb", lambda: phase_dit_parity(dev)),
+                    ("ccc", lambda: phase_cv(dev, card_line)),
+                    ("ddd", lambda: phase_native(ckpt_check, specd, native_indexes))):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        out[key] = fn()
+        counts = launch_counts()
+        check(not any(counts.values()), f"({key}) a hand-written kernel ran: {counts}")
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t14
+    print("  phase 14 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 14: {out['seconds']:.1f} s; no hand-written kernel launched", flush=True)
+    return out
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -4940,7 +5504,8 @@ def main():
     torch.cuda.empty_cache()
 
     print("phase 10: speculative decoding on qwen2-0.5b", flush=True)
-    specd = phase_spec(dev, params05, card_line)
+    with CountCalls(native, "NativeNgramIndex") as native_indexes:
+        specd = phase_spec(dev, params05, card_line)
     torch.cuda.empty_cache()
 
     print("phase 12: training and quantization tools on qwen2-0.5b", flush=True)
@@ -4948,6 +5513,12 @@ def main():
     phase_gemm(dev, g, results, a8=False, shapes=TRAIN_GEMM, key="dequant_matmul_train")
     training = phase_training(dev, params05, card_line)
     del params05
+    torch.cuda.empty_cache()
+
+    print("phase 14: the diffusion transformers (SD3's MMDiT, Sana and its DC-AE, Wan and "
+          "its 3-D VAE), the CV library and the native library on the card", flush=True)
+    dit_cv = phase_dit_cv(dev, card_line, checkpoints["dense"]["native_stfile"], specd,
+                          native_indexes.calls)
 
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
@@ -5036,7 +5607,7 @@ def main():
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
-                  training=training, generative=generative,
+                  training=training, generative=generative, dit_cv=dit_cv,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

@@ -1,15 +1,24 @@
-"""Image resize, with the JAX package's `jax.image.resize` arithmetic.
+"""Geometric image transforms: resize, crop, flip, rotate, pad, warpAffine.
 
-Counterpart of `resize` in the JAX package's `cv/geometric.py` (the rest of
-`cv/` is not ported yet). Its "linear" method antialiases when it
-downsamples: each axis is a matrix of triangle-kernel weights widened by the
-scale factor and normalised per output pixel (JAX's `scale_and_translate`). The two
-per-axis matrices are built here as JAX builds them, in f32, and applied as
-two products: on the CPU this stays within 1e-6 of the 0-255 range of the
-JAX resize where `F.interpolate(antialias=True)`, whose sample coordinates
-round differently, misses it by more than 1e-5 (480 x 640 -> 1344 x 1792,
+Counterpart of the JAX package's `cv/geometric.py`. Functions take a tensor
+or an array (`common.as_image`) and return a tensor.
+
+`resize` keeps `jax.image.resize`'s arithmetic. Its "linear" method
+antialiases when it downsamples: each axis is a matrix of triangle-kernel
+weights widened by the scale factor and normalised per output pixel (JAX's
+`scale_and_translate`). The two per-axis matrices are built here as JAX
+builds them, in f32, and applied as two products: on the CPU this stays
+within 1e-6 of the 0-255 range of the JAX resize where
+`F.interpolate(antialias=True)`, whose sample coordinates round differently,
+misses it by more than 1e-5 (480 x 640 -> 1344 x 1792,
 `tests/test_torch_vision.py`). An axis whose size does not change is left
 as it is, as in JAX.
+
+`warp_affine` maps each output pixel through the inverse of the src -> dst
+matrix (taken in float64 numpy, then f32, as the JAX package takes it) and
+samples bilinearly or by the nearest pixel, the sample coordinates in f32
+in the JAX package's order of operations; uint8 comes back rounded and
+clipped.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from mnn_tpu_torch.kernels.common import resolve_device
+from mnn_tpu_torch.cv.common import as_image, host
 
 
 def _linear_weights(in_size: int, out_size: int, device) -> torch.Tensor:
@@ -57,10 +66,7 @@ def resize(img, size: Tuple[int, int], method: str = "bilinear", device=None):
     "bilinear" / "linear" (JAX's antialiased linear) or "nearest". Float
     math in f32; uint8 in gives uint8 out (rounded half to even, clipped to
     0..255). Returns a tensor."""
-    if isinstance(img, torch.Tensor):
-        x = img if device is None else img.to(device)
-    else:
-        x = torch.as_tensor(np.asarray(img), device=resolve_device(device))
+    x = as_image(img, device)
     dtype = x.dtype
     hwc = x[..., None] if x.dim() == 2 else x
     out = hwc.float()
@@ -81,3 +87,90 @@ def resize(img, size: Tuple[int, int], method: str = "bilinear", device=None):
     if dtype == torch.uint8:
         out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     return out[..., 0] if x.dim() == 2 else out
+
+
+def crop(img, y: int, x: int, h: int, w: int, device=None):
+    return as_image(img, device)[y:y + h, x:x + w]
+
+
+def center_crop(img, size: Tuple[int, int], device=None):
+    h, w = size
+    x = as_image(img, device)
+    top = max((x.shape[0] - h) // 2, 0)
+    left = max((x.shape[1] - w) // 2, 0)
+    return crop(x, top, left, h, w)
+
+
+def flip(img, horizontal: bool = True, device=None):
+    return as_image(img, device).flip(1 if horizontal else 0)
+
+
+def rotate90(img, k: int = 1, device=None):
+    return torch.rot90(as_image(img, device), k, dims=(0, 1))
+
+
+def pad(img, top: int, bottom: int, left: int, right: int, value=0, device=None):
+    x = as_image(img, device)
+    widths = (0, 0) * (x.dim() - 2) + (left, right, top, bottom)
+    return torch.nn.functional.pad(x, widths, value=value)
+
+
+def get_affine_transform(center, angle_deg: float, scale: float = 1.0,
+                         translate=(0.0, 0.0)) -> np.ndarray:
+    """2 x 3 rotation matrix (cv2.getRotationMatrix2D semantics), f32 numpy."""
+    a = np.deg2rad(angle_deg)
+    alpha, beta = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    return np.array([
+        [alpha, beta, (1 - alpha) * cx - beta * cy + translate[0]],
+        [-beta, alpha, beta * cx + (1 - alpha) * cy + translate[1]],
+    ], np.float32)
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    a = np.vstack([m, [0, 0, 1]]).astype(np.float64)
+    return np.linalg.inv(a)[:2].astype(np.float32)
+
+
+def warp_affine(img, matrix, out_size: Tuple[int, int], method: str = "bilinear",
+                fill=0.0, device=None):
+    """matrix: 2 x 3 src -> dst affine; out_size = (height, width)."""
+    src = as_image(img, device)
+    oh, ow = out_size
+    x = (src[..., None] if src.dim() == 2 else src).float()
+    h, w, _ = x.shape
+    dev = x.device
+    inv = torch.from_numpy(_invert_affine(host(matrix))).to(dev)
+    ys, xs = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    fill_t = torch.tensor(float(fill), dtype=torch.float32, device=dev)
+
+    if method == "nearest":
+        ix = torch.round(sx).to(torch.int32)
+        iy = torch.round(sy).to(torch.int32)
+        valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        ix = torch.clamp(ix, 0, w - 1).long()
+        iy = torch.clamp(iy, 0, h - 1).long()
+        out = torch.where(valid[..., None], x[iy, ix], fill_t)
+    else:
+        x0 = torch.floor(sx)
+        y0 = torch.floor(sy)
+        fx = sx - x0
+        fy = sy - y0
+
+        def sample(yy, xx):
+            valid = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+            xi = torch.clamp(xx.to(torch.int32), 0, w - 1).long()
+            yi = torch.clamp(yy.to(torch.int32), 0, h - 1).long()
+            return torch.where(valid[..., None], x[yi, xi], fill_t)
+
+        out = (sample(y0, x0) * ((1 - fx) * (1 - fy))[..., None]
+               + sample(y0, x0 + 1) * (fx * (1 - fy))[..., None]
+               + sample(y0 + 1, x0) * ((1 - fx) * fy)[..., None]
+               + sample(y0 + 1, x0 + 1) * (fx * fy)[..., None])
+
+    if src.dtype == torch.uint8:
+        out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return out[..., 0] if src.dim() == 2 else out

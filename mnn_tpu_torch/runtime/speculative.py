@@ -13,8 +13,9 @@ The bookkeeping is the JAX package's: the same padding of lookahead drafts,
 the same trimming at the token budget, the same `spec_stats` keys. Draft
 tokens stay on the device until the round's one host read, which takes the
 draft and the targets together (the JAX drafters read each draft token on
-its own). Lookahead uses `NgramDraft`; the JAX package prefers its native
-n-gram index when that library builds, and both propose the same tokens.
+its own). Lookahead takes the native n-gram index (`utils/native.py`) when
+that library builds, else `NgramDraft`, as the JAX package does; both
+propose the same tokens.
 
 Precision as in the JAX package: `lookahead_generate` prefills through
 `generate.run_prefill` (which honours `prefill_act_bits`), while
@@ -35,6 +36,7 @@ from mnn_tpu_torch.models.dflash import dflash_block_logits, fc_forward
 from mnn_tpu_torch.models.layers import rms_norm
 from mnn_tpu_torch.runtime import generate as gen
 from mnn_tpu_torch.runtime import kvcache
+from mnn_tpu_torch.utils import native
 
 
 class NgramDraft:
@@ -100,7 +102,10 @@ def lookahead_generate(llm, token_ids: List[int], max_new_tokens: int, *,
     """Greedy lookahead decoding: yields the accepted tokens of each round.
 
     llm: `runtime.llm.Llm` (its params, config, runtime and cache)."""
-    draft_tab = NgramDraft(ngram=ngram, draft_len=draft_len)
+    if native.available():
+        draft_tab = native.NativeNgramIndex(max_n=4, draft_len=draft_len)
+    else:
+        draft_tab = NgramDraft(ngram=ngram, draft_len=draft_len)
     draft_tab.extend(token_ids)
 
     tokens = torch.tensor([token_ids], dtype=torch.int64, device=llm.device)

@@ -2318,3 +2318,108 @@ def test_generative_talker_decodes_on_the_whole_model_kernel(dev):
     mk, _ = decoder.forward(params, MK, tok, _clone(cache), megakernel=True)
     torch.cuda.synchronize()
     assert torch.isfinite(mk).all() and rel(mk, ref) <= 5e-2
+
+
+# --------------------------------------------------------------------------
+# the diffusion transformers, their decoders and the CV library
+# --------------------------------------------------------------------------
+
+def _dit_case(name):
+    """(fn(params, *inputs), params on the CPU, CPU inputs) of one DiT
+    forward at batch 2 (one CFG call) or one decoder, narrow widths."""
+    from mnn_tpu_torch.diffusion import mmdit, sana, wan
+
+    g = torch.Generator().manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g)
+    if name == "mmdit":
+        cfg = dataclasses.replace(mmdit.MMDiTConfig(), hidden_size=256, num_heads=4, depth=2,
+                                  context_dim=512, pooled_dim=256, pos_embed_max=32)
+        return (lambda p, x, c, pl: mmdit.mmdit_forward(p, cfg, x, 951.0, c, pl),
+                mmdit.init_mmdit_params(cfg, g, "cpu"), [rnd(2, 16, 24, 40), rnd(2, 77, 512),
+                                                         rnd(2, 256)])
+    if name == "sana":
+        cfg = dataclasses.replace(sana.SanaConfig(), dim=256, num_heads=4, cross_heads=4,
+                                  depth=2, text_dim=512)
+        return (lambda p, x, c: sana.sana_forward(p, cfg, x, torch.tensor(
+            [951.0, 951.0], device=x.device), c),
+                sana.init_sana_params(cfg, g, "cpu"), [rnd(2, 16, 24, 32), rnd(2, 40, 512)])
+    if name == "wan":
+        cfg = dataclasses.replace(wan.WanConfig(), dim=256, num_heads=2, depth=2, text_dim=512)
+        mask = torch.ones((2, 30))
+        mask[0, 12:] = 0
+        return (lambda p, x, c: wan.wan_forward(p, cfg, x, torch.tensor(
+            [951.0, 951.0], device=x.device), c, mask.to(x.device)),
+                wan.init_wan_params(cfg, g, "cpu"), [rnd(2, 3, 16, 20, 16), rnd(2, 30, 512)])
+    if name == "dcae":
+        return (lambda p, z: sana.dcae_decode(p, z, stages=4),
+                sana.init_dcae_decoder(g, latent_ch=32, stages=4, device="cpu"), [rnd(1, 8, 8, 32)])
+    return (lambda p, z: wan.wan_vae_decode(p, z, spatial_stages=3),
+            wan.init_wan_vae(g, latent_ch=16, width=16, spatial_stages=3, device="cpu"),
+            [rnd(1, 2, 8, 8, 16)])
+
+
+@pytest.mark.parametrize("name", ["mmdit", "sana", "wan", "dcae", "wan_vae"])
+def test_dit_card_matches_cpu(dev, name):
+    """Each DiT forward (a CFG call at batch 2) and both decoders in f32,
+    card against CPU within rel-L2 1e-3 (chip_smoke (bbb)'s bound), with
+    TF32 on in the caller: each entry point turns it off for its products."""
+    fn, params, inputs = _dit_case(name)
+    want = fn(params, *inputs)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn({k: v.to(dev) for k, v in params.items()}, *[a.to(dev) for a in inputs])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert torch.isfinite(got).all() and rel(got.cpu(), want) <= 1e-3
+
+
+def test_dit_pipelines_card_match_cpu(dev):
+    """`SanaPipeline` and `WanPipeline` from one seed: the noise is the CPU
+    generator's on both sides, the images within rel-L2 1e-3."""
+    from mnn_tpu_torch.diffusion import sana, wan
+
+    g = torch.Generator().manual_seed(8)
+    scfg, wcfg = sana.SanaConfig.tiny(), wan.WanConfig.tiny()
+    sp = (sana.init_sana_params(scfg, g, "cpu"), sana.init_dcae_decoder(g, stages=2, device="cpu"))
+    wp = (wan.init_wan_params(wcfg, g, "cpu"), wan.init_wan_vae(g, spatial_stages=1, device="cpu"))
+    txt = torch.randn((1, 6, 32), generator=g)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        on = lambda p: {k: v.to(d) for k, v in p.items()}
+        img = sana.SanaPipeline(scfg, on(sp[0]), on(sp[1]), dcae_stages=2)(
+            txt.to(d), torch.zeros_like(txt).to(d), latent_hw=(6, 8), steps=3, seed=5)
+        vid = wan.WanPipeline(wcfg, on(wp[0]), on(wp[1]), vae_stages=1)(
+            txt.to(d), torch.zeros_like(txt).to(d), latent_thw=(2, 4, 6), steps=3, seed=5,
+            text_mask=torch.tensor([[1, 1, 1, 1, 0, 0.0]], device=d))
+        outs[d.type] = (img.cpu(), vid.cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and rel(a, b) <= 1e-3
+
+
+def test_cv_card_matches_cpu(dev):
+    """Every case of chip_smoke (ccc) on a seeded 270 x 480 image, card
+    against CPU: integer outputs equal, uint8 resamples within one level,
+    float outputs within rel-L2 1e-5."""
+    import chip_smoke
+
+    img = torch.randint(0, 256, (270, 480, 3), generator=torch.Generator().manual_seed(9),
+                        dtype=torch.uint8)
+    card, cpu = chip_smoke.cv_inputs(img, dev)
+    for name, (kinds, fn) in chip_smoke.CV_CASES.items():
+        chip_smoke.cv_compare(name, kinds, fn(card), fn(cpu))
+
+
+def test_native_library_builds_and_reads_a_checkpoint(dev, tmp_path):
+    """On the card's machine the native library builds from `native/` with
+    g++; its StFile reads what `convert/stfile` reads."""
+    import chip_smoke
+    from mnn_tpu_torch.convert import stfile
+    from mnn_tpu_torch.utils import native
+
+    native.load(raise_on_error=True)
+    path = str(tmp_path / "x.safetensors")
+    stfile.save_file({"w": torch.randn(64, 32).bfloat16(), "b": torch.arange(5)}, path)
+    got = chip_smoke.native_stfile_check([path])
+    assert got["tensors"] == 2 and got["bytes"] == 64 * 32 * 2 + 5 * 8

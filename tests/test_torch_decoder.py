@@ -256,7 +256,8 @@ def test_port_imports_no_jax():
             "datasets.py", "compress.py", "awq_search.py", "omni_quant.py",
             "calibrate.py", "hqq.py", "smooth.py", "talker.py", "vocoder.py",
             "scheduler.py", "unet.py", "vae.py", "clip_text.py", "sd.py",
-            "pipeline.py"} <= names
+            "pipeline.py", "mmdit.py", "sana.py", "wan.py", "filter.py", "structural.py",
+            "native.py"} <= names
     bad = re.compile(r"^\s*(import\s+(jax|optax)\b|from\s+(jax|optax)\b)|\bmnn_tpu\.|"
                      r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)|"
                      r"^(import|from)\s+PIL\b", re.M)
