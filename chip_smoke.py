@@ -301,6 +301,34 @@ Phases, each of which exits non-zero on failure:
    library built from `native/` with g++ (a failed build fails), phase 6's
    checkpoints read by its `StFile` to the same bytes as `convert/stfile`,
    and phase 10 (cc)'s lookahead through its n-gram index.
+15. the graph frontends and CNN inference, run last, each sub-phase with
+   the launch counts set to 0 before and read after: only the plugin path
+   launches a hand-written kernel (row 10). The models are `models/vision.py`
+   at their published widths (224 x 224, 1,000 classes) from torch's init
+   under seed 0. (eee) `cli bench-cnn` for MobileNetV2, SqueezeNet 1.0 and
+   ResNet-50 at batch 1 and 32 (the torch.fx frontend, bf16 params and
+   input, `utils/benchit.chain`): latency, images/s, TFLOP/s from each
+   model's MAC count (`cnn_macs`, its Conv2d and Linear shapes), the
+   allocator's peak. (fff) each model at batch 2, card against the CPU run
+   of the same converted function: f32 (TF32 off) within rel-L2 1e-4; bf16
+   within 5e-2 of the f32 CPU logits, top-1 equal wherever the CPU's top-2
+   margin exceeds the largest logit difference. (ggg) ResNet-50 written node
+   by node with the port's `onnx_pb2` (`onnx_of_module`: Conv,
+   BatchNormalization, Relu, MaxPool, Add, GlobalAveragePool, Flatten,
+   Gemm), serialized, parsed and converted on the card: logits within 1e-4
+   of the fx path's; then `onnx_cases()`, twelve graphs that reach every op
+   of the frontend's table (If / Loop / Scan bodies, GridSample, RoiAlign,
+   NonMaxSuppression and the quantize ops included), card against CPU:
+   ints and bools equal, floats within 1e-5. The plugin path: the example
+   op `MnnTpuSoftShrink` registered through `plugin.register_op`, backed by
+   row 10, converted and run at the plugin test's (2, 8, 128) in f32 and
+   bf16 and on a ResNet-50 activation [32, 256, 56, 56] bf16, each output
+   the plain version's bits. (hhh) `ops/nms.nms` over 5,000 seeded boxes,
+   card against CPU (kept indices equal), its ms; 64 seeded 240 x 320
+   images through `preprocess_classification` and `topk_eval` with
+   MobileNetV2 in f32, top-1 by (fff)'s rule. Then row 10 against its plain
+   version at those three shapes (equal bits): its time, the plain
+   version's, `F.softshrink`'s and its byte bound.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -320,14 +348,18 @@ phase 12's under `training`, its launches added to each kernel's count (also
 alone, `training_launches`), and row 1b's rows at the training shapes under
 `train` of the bf16-row matmul, with (oo)'s launches; phase 13's under
 `generative`, (tt)'s launches added to each kernel's count, also alone,
-`generative_launches`; phase 14's under `dit_cv`).
+`generative_launches`; phase 14's under `dit_cv`; phase 15's under `cnn`,
+row 10's rows under `kernels` / `softshrink`, and the kernels line's
+`softshrink` entry with its launches on the plugin path).
 It imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
+import io
 import json
 import math
 import os
@@ -349,12 +381,14 @@ import numpy as np
 import torch
 
 import mnn_tpu_torch
-from mnn_tpu_torch import cli, profile_decode
+from mnn_tpu_torch import cli, plugin, profile_decode
 from mnn_tpu_torch import cv as cvlib
 from mnn_tpu_torch.audio import audio as audio_mod
 from mnn_tpu_torch.audio import vocoder
-from mnn_tpu_torch.convert import checkpoint, stfile
+from mnn_tpu_torch.convert import checkpoint, onnx_frontend, onnx_pb2, stfile
 from mnn_tpu_torch.convert.hf import convert_hf
+from mnn_tpu_torch.convert.onnx_frontend import convert_onnx
+from mnn_tpu_torch.convert.torch_fx import convert_torch_module
 from mnn_tpu_torch.cv import calib3d
 from mnn_tpu_torch.diffusion import StableDiffusion, clip_text
 from mnn_tpu_torch.diffusion import mmdit, sana, wan
@@ -364,16 +398,18 @@ from mnn_tpu_torch.diffusion.nn import no_tf32
 from mnn_tpu_torch.diffusion.scheduler import FlowMatchEulerScheduler
 from mnn_tpu_torch.diffusion.scheduler import noise as sched_noise
 from mnn_tpu_torch.kernels import (build, decode_model, decode_step, dequant_matmul,
-                                   flash_attention, moe_decode, moe_prefill)
+                                   flash_attention, moe_decode, moe_prefill, softshrink)
 from mnn_tpu_torch.models import audio_encoder, decoder, qwen_vl_vision, vision_encoder
 from mnn_tpu_torch.models import talker as talker_mod
 from mnn_tpu_torch.models.audio_encoder import AudioEncoderConfig
 from mnn_tpu_torch.models.config import PRESETS, ModelConfig, RuntimeConfig
 from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
+from mnn_tpu_torch.models.vision import VISION_MODELS
+from mnn_tpu_torch.ops import nms as nms_mod
 from mnn_tpu_torch.quant import calibrate, hqq, omni_quant
 from mnn_tpu_torch.quant.quantize import (QuantizedLinear, dequantize, quantize,
                                           quantize_activations_int8, unpack_bits)
-from mnn_tpu_torch.runtime import (batch_engine, evaluate, generate, kvcache, omni,
+from mnn_tpu_torch.runtime import (batch_engine, classify, evaluate, generate, kvcache, omni,
                                    vision_preprocess)
 from mnn_tpu_torch.runtime import speculative as spec
 from mnn_tpu_torch.runtime.kv_offload import KVOffloadPool
@@ -385,6 +421,7 @@ from mnn_tpu_torch.utils import native
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_OPS_S = 989e12         # dense bf16 tensor-core peak
+F32_OPS_S = 67e12           # f32 outside the tensor cores
 INT8_OPS_S = 1979e12        # dense int8 tensor-core peak
 L2_ROTATE_BYTES = 128 << 20  # rotate over this many weight bytes: > 50 MB L2
 
@@ -5296,6 +5333,830 @@ def phase_dit_cv(dev, card_line, ckpt_check, specd, native_indexes):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the graph frontends and CNN inference on the card
+# --------------------------------------------------------------------------
+
+ONNX_DTYPE = {np.dtype(np.float32): onnx_pb2.TensorProto.FLOAT,
+              np.dtype(np.int64): onnx_pb2.TensorProto.INT64,
+              np.dtype(np.int32): onnx_pb2.TensorProto.INT32,
+              np.dtype(np.int8): onnx_pb2.TensorProto.INT8,
+              np.dtype(np.uint8): onnx_pb2.TensorProto.UINT8,
+              np.dtype(np.bool_): onnx_pb2.TensorProto.BOOL}
+
+
+def onnx_tensor(name: str, arr) -> "onnx_pb2.TensorProto":
+    arr = np.asarray(arr)
+    t = onnx_pb2.TensorProto(name=name, data_type=ONNX_DTYPE[arr.dtype])
+    t.dims.extend(arr.shape)
+    t.raw_data = np.ascontiguousarray(arr).tobytes()
+    return t
+
+
+def onnx_node(op_type: str, inputs, outputs, **attrs) -> "onnx_pb2.NodeProto":
+    """A NodeProto; attributes by their Python type (a GraphProto is a
+    GRAPH attribute, an array a TENSOR)."""
+    O = onnx_pb2
+    n = O.NodeProto(op_type=op_type)
+    n.input.extend(inputs)
+    n.output.extend(outputs)
+    for k, v in attrs.items():
+        a = n.attribute.add(name=k)
+        if isinstance(v, float):
+            a.type, a.f = O.AttributeProto.FLOAT, v
+        elif isinstance(v, (bool, int)):
+            a.type, a.i = O.AttributeProto.INT, int(v)
+        elif isinstance(v, str):
+            a.type, a.s = O.AttributeProto.STRING, v.encode()
+        elif isinstance(v, O.GraphProto):
+            a.type = O.AttributeProto.GRAPH
+            a.g.CopyFrom(v)
+        elif isinstance(v, np.ndarray):
+            a.type = O.AttributeProto.TENSOR
+            a.t.CopyFrom(onnx_tensor("", v))
+        elif all(isinstance(x, int) for x in v):
+            a.type = O.AttributeProto.INTS
+            a.ints.extend(v)
+        else:
+            a.type = O.AttributeProto.FLOATS
+            a.floats.extend(v)
+    return n
+
+
+def onnx_graph(name, nodes, inputs, outputs, inits=()) -> "onnx_pb2.GraphProto":
+    g = onnx_pb2.GraphProto(name=name)
+    for n in nodes:
+        g.node.append(n)
+    for i in inputs:
+        g.input.add(name=i)
+    for o in outputs:
+        g.output.add(name=o)
+    for t in inits:
+        g.initializer.append(t)
+    return g
+
+
+def onnx_model(nodes, inputs, outputs, inits=()) -> bytes:
+    """A ModelProto (opset 17) serialized: what a file would hold."""
+    m = onnx_pb2.ModelProto(ir_version=8, producer_name="chip_smoke")
+    m.opset_import.add(version=17)
+    m.graph.CopyFrom(onnx_graph("g", nodes, inputs, outputs, inits))
+    return m.SerializeToString()
+
+
+def onnx_cases(seed: int = SEED + 70) -> dict:
+    """The breadth graphs: every op of the ONNX frontend's table at least
+    once (also inside If / Loop / Scan bodies), on seeded inputs. name ->
+    (model bytes, [(input name, array, static)], output names). A static
+    input is fed as a numpy array, the rest as tensors."""
+    r = np.random.default_rng(seed)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)
+    i64 = lambda v: np.asarray(v, np.int64)
+    T, node = onnx_tensor, onnx_node
+    cases = {}
+
+    def case(name, nodes, feeds, outputs, inits=()):
+        cases[name] = (onnx_model(nodes, [f[0] for f in feeds], outputs, inits),
+                       [(n, a, s) for n, a, s in feeds], list(outputs))
+
+    x, q, k = f32(5, 8), f32(1, 4, 8), f32(1, 4, 8)
+    case("mlp", [
+        node("Gemm", ["x", "w1", "b1"], ["h"], transB=1),
+        node("Relu", ["h"], ["a"]),
+        node("Gemm", ["a", "w2", "c"], ["gemm"], transB=1, alpha=0.5, beta=2.0),
+        node("Transpose", ["x"], ["xt"]),
+        node("Gemm", ["xt", "e"], ["gemm_ta"], transA=1),
+        node("Transpose", ["k"], ["kt"], perm=[0, 2, 1]),
+        node("MatMul", ["q", "kt"], ["s"]),
+        node("Softmax", ["s"], ["p"], axis=-1),
+        node("MatMul", ["p", "k"], ["att"]),
+        node("LogSoftmax", ["s"], ["lsm"], axis=1),
+        node("Einsum", ["q", "kt"], ["ein"], equation="bij,bjk->bik")],
+        [("x", x, False), ("q", q, False), ("k", k, False)],
+        ["gemm", "gemm_ta", "att", "lsm", "ein"],
+        [T("w1", f32(16, 8)), T("b1", f32(16)), T("w2", f32(4, 16)), T("c", f32(4)),
+         T("e", f32(8, 6))])
+
+    pos = lambda *s: (r.random(s) + 0.5).astype(np.float32)
+    conv_inits = [
+        T("w", f32(8, 3, 3, 3) * 0.2), T("b", f32(8) * 0.1), T("bs", pos(8)),
+        T("bb", f32(8) * 0.1), T("bm", f32(8) * 0.1), T("bv", pos(8))]
+    stem = [node("Conv", ["x", "w", "b"], ["c"], pads=[1, 1, 1, 1], kernel_shape=[3, 3]),
+            node("BatchNormalization", ["c", "bs", "bb", "bm", "bv"], ["n"], epsilon=1e-5),
+            node("Relu", ["n"], ["r"]),
+            node("MaxPool", ["r"], ["p"], kernel_shape=[2, 2], strides=[2, 2])]
+    xc = f32(2, 3, 16, 16)
+    case("convnet", stem + [
+        node("GlobalAveragePool", ["p"], ["g"]),
+        node("Flatten", ["g"], ["f"], axis=1),
+        node("Gemm", ["f", "wfc"], ["logits"], transB=1),
+        node("Conv", ["r", "wg"], ["conv_grouped"], group=4, pads=[0, 1, 2, 1], strides=[2, 2]),
+        node("Conv", ["r", "wd"], ["conv_dilated"], dilations=[2, 2], auto_pad="SAME_UPPER"),
+        node("Conv", ["x1", "w1d"], ["conv_1d"], pads=[1, 1], strides=[2]),
+        node("ConvTranspose", ["p", "wt", "bt"], ["convt"], strides=[2, 2], pads=[1, 1, 1, 1],
+             output_padding=[1, 1]),
+        node("ConvTranspose", ["p", "wtg"], ["convt_grouped"], group=2, strides=[2, 2],
+             pads=[1, 0, 0, 1], output_padding=[1, 0]),
+        node("AveragePool", ["r"], ["avgpool"], kernel_shape=[3, 3], strides=[2, 2],
+             pads=[1, 1, 1, 1]),
+        node("GlobalMaxPool", ["r"], ["gmaxpool"]),
+        node("MaxPool", ["r"], ["maxpool_ceil"], kernel_shape=[3, 3], strides=[2, 2],
+             ceil_mode=1),
+        node("MaxPool", ["r"], ["maxpool_asym"], kernel_shape=[3, 3], pads=[1, 0, 1, 2],
+             strides=[1, 1]),
+        node("Dropout", ["c"], ["dropout"])],
+        [("x", xc, False), ("x1", f32(2, 3, 20), False)],
+        ["logits", "conv_grouped", "conv_dilated", "conv_1d", "convt", "convt_grouped",
+         "avgpool", "gmaxpool", "maxpool_ceil", "maxpool_asym", "dropout"],
+        conv_inits + [
+            T("wfc", f32(10, 8) * 0.3), T("wg", f32(8, 2, 3, 3) * 0.3),
+            T("wd", f32(8, 8, 3, 3) * 0.2), T("w1d", f32(4, 3, 3)),
+            T("wt", f32(8, 3, 3, 3) * 0.3), T("bt", f32(3)), T("wtg", f32(8, 2, 3, 3) * 0.3)])
+    case("norm_resize", stem + [
+        node("PRelu", ["c", "slope"], ["prelu"]),
+        node("InstanceNormalization", ["c", "is", "ib"], ["inorm"]),
+        node("LayerNormalization", ["c", "ls", "lb"], ["lnorm"], axis=-1, epsilon=1e-5),
+        node("GroupNormalization", ["c", "gs", "gb"], ["gnorm"], num_groups=4),
+        node("LRN", ["c"], ["lrn"], size=3, alpha=2e-4, beta=0.6, bias=1.2),
+        node("Resize", ["p", "", "", "sizes"], ["resize_nearest"], mode="nearest"),
+        node("Resize", ["p", "", "down"], ["resize_down"], mode="linear"),
+        node("Resize", ["p", "", "up"], ["resize_up"], mode="linear",
+             coordinate_transformation_mode="align_corners"),
+        node("Upsample", ["p", "up"], ["upsample"], mode="nearest"),
+        node("DepthToSpace", ["c"], ["d2s_dcr"], blocksize=2, mode="DCR"),
+        node("DepthToSpace", ["c"], ["d2s_crd"], blocksize=2, mode="CRD"),
+        node("SpaceToDepth", ["c"], ["s2d"], blocksize=2)],
+        [("x", xc, False)],
+        ["prelu", "inorm", "lnorm", "gnorm", "lrn", "resize_nearest", "resize_down",
+         "resize_up", "upsample", "d2s_dcr", "d2s_crd", "s2d"],
+        conv_inits + [
+            T("slope", f32(8, 1, 1) * 0.2), T("is", pos(8)), T("ib", f32(8)), T("ls", pos(16)),
+            T("lb", f32(16)), T("gs", pos(8)), T("gb", f32(8)), T("sizes", i64([2, 8, 20, 12])),
+            T("down", np.asarray([1, 1, 0.5, 0.5], np.float32)),
+            T("up", np.asarray([1, 1, 2, 2], np.float32))])
+
+    x4 = f32(3, 4, 5, 2)
+    case("shapes", [
+        node("Shape", ["x"], ["sh"]),
+        node("Gather", ["sh", "zero"], ["b0"], axis=0),
+        node("Unsqueeze", ["b0", "ax0"], ["b1"]),
+        node("Concat", ["b1", "neg1"], ["tgt"], axis=0),
+        node("Reshape", ["x", "tgt"], ["flat"]),
+        node("Size", ["x"], ["size"]),
+        node("Slice", ["x", "st", "en", "axs", "steps"], ["slice"]),
+        node("Slice", ["x", "rst", "ren", "rax", "rsteps"], ["slice_rev"]),
+        node("Split", ["x", "split"], ["split_a", "split_b"], axis=1),
+        node("Split", ["x"], ["half_a", "half_b"], axis=3),
+        node("Squeeze", ["half_a", "ax3"], ["squeezed"]),
+        node("Unsqueeze", ["squeezed", "ax0m1"], ["unsqueezed"]),
+        node("Transpose", ["x"], ["transposed"]),
+        node("Expand", ["small", "exshape"], ["expanded"]),
+        node("Tile", ["x", "reps"], ["tiled"]),
+        node("ConstantOfShape", ["cshape"], ["filled"], value=np.asarray([1.5], np.float32)),
+        node("Range", ["r0", "r1", "r2"], ["range_static"]),
+        node("Range", ["fs", "fl", "fd"], ["range_dynamic"]),
+        node("Constant", [], ["kconst"], value=f32(1, 4, 1, 1)),
+        node("Constant", [], ["kfloats"], value_floats=[0.5, -1.5]),
+        node("Add", ["x", "kconst"], ["plus_const"]),
+        node("Cast", ["x"], ["cast_i64"], to=onnx_pb2.TensorProto.INT64),
+        node("Cast", ["sh"], ["cast_static"], to=onnx_pb2.TensorProto.FLOAT),
+        node("Cast", ["x"], ["cast_bool"], to=onnx_pb2.TensorProto.BOOL),
+        node("Cast", ["x"], ["cast_f64"], to=onnx_pb2.TensorProto.DOUBLE),
+        node("CastLike", ["x", "iref"], ["castlike"]),
+        node("Identity", ["kfloats"], ["identity"]),
+        node("Pad", ["x", "pads", "pval"], ["pad_const"]),
+        node("Pad", ["x", "pads"], ["pad_reflect"], mode="reflect"),
+        node("Pad", ["x", "pads"], ["pad_edge"], mode="edge"),
+        node("Flatten", ["x"], ["flatten2"], axis=2),
+        node("Flatten", ["x"], ["flatten0"], axis=0)],
+        [("x", x4, False), ("small", f32(4, 1, 1), False),
+         ("fs", np.asarray(0.5, np.float32), False), ("fl", np.asarray(3.0, np.float32), False),
+         ("fd", np.asarray(0.75, np.float32), False),
+         ("iref", np.asarray([1], np.int32), False)],
+        ["flat", "size", "slice", "slice_rev", "split_a", "split_b", "half_a", "unsqueezed",
+         "transposed", "expanded", "tiled", "filled", "range_static", "range_dynamic",
+         "plus_const", "cast_i64", "cast_static", "cast_bool", "cast_f64", "castlike",
+         "identity", "pad_const", "pad_reflect", "pad_edge", "flatten2", "flatten0"],
+        [T("zero", i64(0)), T("ax0", i64([0])), T("neg1", i64([-1])), T("st", i64([1, 0])),
+         T("en", i64([3, -1])), T("axs", i64([1, 2])), T("steps", i64([1, 2])),
+         T("rst", i64([-1])), T("ren", i64([-1000])), T("rax", i64([1])), T("rsteps", i64([-1])),
+         T("split", i64([1, 3])), T("ax3", i64([3])), T("ax0m1", i64([0, -1])),
+         T("exshape", i64([2, 1, 4, 5, 2])), T("reps", i64([1, 2, 1, 1])),
+         T("cshape", i64([2, 3])), T("r0", i64(1)), T("r1", i64(10)), T("r2", i64(3)),
+         T("pads", i64([0, 1, 0, 1, 0, 0, 1, 0])), T("pval", np.asarray(0.5, np.float32))])
+
+    xu = (r.random((4, 6)) * 1.8 - 0.9).astype(np.float32)
+    xp = (r.random((4, 6)) * 3 + 0.1).astype(np.float32)
+    xa = (r.random((4, 6)) * 2 + 1.1).astype(np.float32)
+    xn = f32(4, 6)
+    xn[1, 2] = np.nan
+    un = ["Relu", "Sigmoid", "Tanh", "Exp", "Neg", "Abs", "Floor", "Ceil", "Erf", "Softplus",
+          "Sin", "Cos", "Sign", "Mish", "Tan", "Atan", "Asin", "Acos", "Sinh", "Cosh",
+          "Asinh", "Atanh", "Softsign", "HardSwish", "Selu"]
+    nodes = [node(o, ["x"], [o.lower()]) for o in un]
+    nodes += [
+        node("Log", ["xp"], ["log"]), node("Sqrt", ["xp"], ["sqrt"]),
+        node("Reciprocal", ["xp"], ["reciprocal"]), node("Acosh", ["xa"], ["acosh"]),
+        node("Round", ["x5"], ["round"]), node("IsNaN", ["xn"], ["isnan"]),
+        node("Not", ["xb"], ["not"]),
+        node("Gelu", ["x"], ["gelu"]), node("Gelu", ["x"], ["gelu_tanh"], approximate="tanh"),
+        node("LeakyRelu", ["x"], ["leakyrelu"], alpha=0.2),
+        node("Elu", ["x"], ["elu"], alpha=0.7),
+        node("HardSigmoid", ["x"], ["hardsigmoid"], alpha=0.3, beta=0.4),
+        node("Clip", ["x", "lo", "hi"], ["clip"]), node("Clip", ["x", "", "hi"], ["clip_hi"]),
+        node("Clip", ["x"], ["clip_none"]),
+        node("Celu", ["x"], ["celu"], alpha=0.5),
+        node("ThresholdedRelu", ["x"], ["thresholdedrelu"], alpha=0.3),
+        node("Shrink", ["x"], ["shrink"], lambd=0.5, bias=0.1),
+        node("Hardmax", ["x"], ["hardmax"], axis=-1),
+        node("Hardmax", ["x"], ["hardmax0"], axis=0)]
+    outs = [o.lower() for o in un] + [
+        "log", "sqrt", "reciprocal", "acosh", "round", "isnan", "not", "gelu", "gelu_tanh",
+        "leakyrelu", "elu", "hardsigmoid", "clip", "clip_hi", "clip_none", "celu",
+        "thresholdedrelu", "shrink", "hardmax", "hardmax0"]
+    case("unary", nodes,
+         [("x", xu, False), ("xp", xp, False), ("xa", xa, False),
+          ("x5", (f32(4, 6) * 5).astype(np.float32), False), ("xn", xn, False),
+          ("xb", r.random((4, 6)) > 0.5, False)],
+         outs, [T("lo", np.asarray(-0.4, np.float32)), T("hi", np.asarray(0.6, np.float32))])
+
+    a, b = f32(3, 4), f32(3, 4)
+    bpos = pos(3, 4)
+    ia = r.integers(-9, 10, (3, 4)).astype(np.int32)
+    ib = r.integers(1, 5, (3, 4)).astype(np.int32) * np.where(r.random((3, 4)) > 0.5, 1, -1)
+    ba, bb = r.random((3, 4)) > 0.5, r.random((3, 4)) > 0.5
+    case("binary", [
+        node("Add", ["a", "b"], ["add"]), node("Sub", ["a", "v"], ["sub"]),
+        node("Mul", ["a", "b"], ["mul"]), node("Div", ["a", "bpos"], ["div"]),
+        node("Pow", ["bpos", "b"], ["pow"]), node("Greater", ["a", "b"], ["greater"]),
+        node("Less", ["a", "v"], ["less"]), node("Equal", ["ia", "ib"], ["equal"]),
+        node("Min", ["a", "b", "v"], ["min"]), node("Max", ["a", "b"], ["max"]),
+        node("And", ["ba", "bb"], ["and"]), node("Or", ["ba", "bb"], ["or"]),
+        node("Xor", ["ba", "bb"], ["xor"]), node("Mod", ["ia", "ib"], ["mod_int"]),
+        node("Mod", ["a", "bpos"], ["mod_float"], fmod=1),
+        node("Sum", ["a", "b", "v"], ["sum"]), node("Mean", ["a", "b", "v"], ["mean"]),
+        node("Where", ["ba", "a", "b"], ["where"]),
+        node("Add", ["k3", "k4"], ["add_static"]), node("Mul", ["ia", "k3"], ["mul_mixed"])],
+        [("a", a, False), ("b", b, False), ("v", f32(4), False), ("bpos", bpos, False),
+         ("ia", ia, False), ("ib", ib.astype(np.int32), False), ("ba", ba, False),
+         ("bb", bb, False)],
+        ["add", "sub", "mul", "div", "pow", "greater", "less", "equal", "min", "max", "and",
+         "or", "xor", "mod_int", "mod_float", "sum", "mean", "where", "add_static", "mul_mixed"],
+        [T("k3", i64(3)), T("k4", i64([1, 2]))])
+
+    xr = pos(3, 4, 5)
+    xt = np.round(f32(3, 7) * 2).astype(np.float32)        # ties for TopK
+    case("reduce", [
+        node("ReduceMean", ["x"], ["mean"], axes=[1]),
+        node("ReduceSum", ["x", "ax02"], ["sum"], keepdims=0),
+        node("ReduceMax", ["x"], ["max"]),
+        node("ReduceMin", ["x"], ["min"], axes=[-1]),
+        node("ReduceProd", ["x"], ["prod"], axes=[1, 2]),
+        node("ReduceL2", ["x"], ["l2"], axes=[2]),
+        node("ReduceL1", ["x"], ["l1"], axes=[0]),
+        node("ReduceSumSquare", ["x"], ["sumsq"], axes=[1]),
+        node("ReduceLogSum", ["x"], ["logsum"], axes=[1]),
+        node("ReduceLogSumExp", ["x"], ["logsumexp"], axes=[2]),
+        node("ReduceSum", ["xi"], ["sum_int"], axes=[1]),
+        node("ArgMax", ["x"], ["argmax"], axis=1, keepdims=0),
+        node("ArgMin", ["x"], ["argmin"], axis=2),
+        node("TopK", ["xt", "k3"], ["topk_v", "topk_i"]),
+        node("CumSum", ["xt", "ax1"], ["cumsum"]),
+        node("CumSum", ["xt", "ax1"], ["cumsum_ex"], exclusive=1),
+        node("CumSum", ["xt", "ax1"], ["cumsum_rev"], reverse=1),
+        node("CumSum", ["xi", "ax1"], ["cumsum_ex_rev_int"], exclusive=1, reverse=1)],
+        [("x", xr, False), ("xi", r.integers(-5, 6, (3, 4, 5)).astype(np.int32), False),
+         ("xt", xt, False)],
+        ["mean", "sum", "max", "min", "prod", "l2", "l1", "sumsq", "logsum", "logsumexp",
+         "sum_int", "argmax", "argmin", "topk_v", "topk_i", "cumsum", "cumsum_ex",
+         "cumsum_rev", "cumsum_ex_rev_int"],
+        [T("ax02", i64([0, 2])), T("k3", i64([3])), T("ax1", i64([1]))])
+
+    data = f32(2, 3, 4)
+    case("index", [
+        node("Gather", ["d", "gi"], ["gather"], axis=1),
+        node("GatherElements", ["d", "ge"], ["gather_elements"], axis=2),
+        node("GatherND", ["d", "gnd"], ["gather_nd"]),
+        node("ScatterND", ["z", "snd", "supd"], ["scatter_nd"]),
+        node("ScatterElements", ["z", "se", "seu"], ["scatter_elements"], axis=1),
+        node("ScatterElements", ["d", "se2", "seu2"], ["scatter_add"], axis=2, reduction="add"),
+        node("OneHot", ["oi", "depth", "ovals"], ["onehot"], axis=-1),
+        node("OneHot", ["oi", "depth", "ovals"], ["onehot0"], axis=0),
+        node("Trilu", ["m"], ["tril"], upper=0),
+        node("Trilu", ["m", "one"], ["triu1"]),
+        node("EyeLike", ["m"], ["eyelike"], k=1)],
+        [("d", data, False), ("gi", i64([[0, -1], [2, 1]]), False),
+         ("ge", r.integers(0, 4, (2, 3, 2)).astype(np.int64), False),
+         ("gnd", i64([[0, 1], [1, 2]]), False), ("z", np.zeros((4, 3), np.float32), False),
+         ("snd", i64([[1], [3]]), False), ("supd", f32(2, 3), False),
+         ("se", i64([[0, 2], [1, 0], [2, 1], [0, 1]]), False), ("seu", f32(4, 2), False),
+         ("se2", r.integers(0, 4, (2, 3, 3)).astype(np.int64), False),
+         ("seu2", f32(2, 3, 3), False), ("oi", i64([0, 2, -1, 3]), False),
+         ("m", f32(4, 5), False)],
+        ["gather", "gather_elements", "gather_nd", "scatter_nd", "scatter_elements",
+         "scatter_add", "onehot", "onehot0", "tril", "triu1", "eyelike"],
+        [T("depth", i64([4])), T("ovals", np.asarray([-1.0, 2.0], np.float32)),
+         T("one", i64(1))])
+
+    n_box = 200
+    xy = r.uniform(0, 100, (n_box, 2)).astype(np.float32)
+    wh = r.uniform(5, 30, (n_box, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], 1)[None]
+    case("quant_nms", [
+        node("QuantizeLinear", ["xq", "s", "zq"], ["quant"]),
+        node("QuantizeLinear", ["xq", "s"], ["quant_nozero"]),
+        node("QuantizeLinear", ["xs", "sv", "zv"], ["quant_axis"], axis=1),
+        node("DequantizeLinear", ["qi", "s", "zi"], ["dequant"]),
+        node("DequantizeLinear", ["q8", "sv", "zv"], ["dequant_axis"], axis=1),
+        node("NonMaxSuppression", ["boxes", "scores", "maxo", "iou", "sth"], ["nms"])],
+        [("xq", (r.random((3, 4)) * 10).astype(np.float32), False), ("xs", f32(3, 4), False),
+         ("qi", r.integers(0, 256, (3, 4)).astype(np.int32), False),
+         ("q8", r.integers(-128, 128, (3, 4)).astype(np.int8), False),
+         ("boxes", boxes, False), ("scores", r.random((1, 2, n_box)).astype(np.float32), False)],
+        ["quant", "quant_nozero", "quant_axis", "dequant", "dequant_axis", "nms"],
+        [T("s", np.asarray(0.1, np.float32)), T("zq", np.asarray(5, np.uint8)),
+         T("sv", np.asarray([0.01, 0.02, 0.05, 0.1], np.float32)),
+         T("zv", np.asarray([0, 3, -2, 1], np.int8)), T("zi", np.asarray(5, np.int32)),
+         T("maxo", i64([20])), T("iou", np.asarray([0.5], np.float32)),
+         T("sth", np.asarray([0.2], np.float32))])
+
+    then_g = onnx_graph("then", [node("Mul", ["xc", "xc"], ["o"])], [], ["o"])
+    else_g = onnx_graph("else", [node("Neg", ["xc"], ["o"])], [], ["o"])
+    loop_body = onnx_graph("body", [
+        node("Add", ["s", "lv"], ["s2"]),
+        node("Identity", ["cond_in"], ["cond_out"]),
+        node("Cast", ["iter"], ["itf"], to=onnx_pb2.TensorProto.FLOAT),
+        node("Mul", ["itf", "s2"], ["y_out"])],
+        ["iter", "cond_in", "s"], ["cond_out", "s2", "y_out"])
+    skip_body = onnx_graph("skip", [node("Identity", ["cond_in"], ["cond_out"]),
+                                    node("Add", ["s", "s"], ["s2"])],
+                           ["iter", "cond_in", "s"], ["cond_out", "s2"])
+    scan_body = onnx_graph("scan", [node("Add", ["st", "xi"], ["st2"]),
+                                    node("Identity", ["st2"], ["yi"])],
+                           ["st", "xi"], ["st2", "yi"])
+    for name, dyn in (("control_static", False), ("control_dynamic", True)):
+        case(name, [
+            node("If", ["cond"], ["if_out"], then_branch=then_g, else_branch=else_g),
+            node("If", ["ncond"], ["if_else"], then_branch=then_g, else_branch=else_g),
+            node("Loop", ["trip", "go", "s0"], ["loop_final", "loop_ys"], body=loop_body),
+            node("Loop", ["trip", "stop", "s0"], ["loop_skipped"], body=skip_body),
+            node("Scan", ["s0", "xs"], ["scan_final", "scan_ys"], body=scan_body,
+                 num_scan_inputs=1, scan_input_directions=[1], scan_output_directions=[1])],
+            [("cond", np.asarray(True), not dyn), ("ncond", np.asarray(False), not dyn),
+             ("go", np.asarray(True), True), ("stop", np.asarray(False), True),
+             ("xc", f32(2, 3), False), ("lv", f32(3), False), ("s0", f32(3), False),
+             ("xs", f32(5, 3), False)],
+            ["if_out", "if_else", "loop_final", "loop_ys", "loop_skipped", "scan_final",
+             "scan_ys"],
+            [T("trip", i64(4))])
+
+    nodes, outs = [], []
+    for mode in ("bilinear", "nearest"):
+        for padding in ("zeros", "border"):
+            for align in (0, 1):
+                nm = f"grid_{mode}_{padding}_{align}"
+                nodes.append(node("GridSample", ["gx", "grid"], [nm], mode=mode,
+                                  padding_mode=padding, align_corners=align))
+                outs.append(nm)
+    nodes += [node("RoiAlign", ["rx", "rois", "bi"], ["roi_avg"], output_height=4,
+                   output_width=4, sampling_ratio=2, spatial_scale=0.5,
+                   coordinate_transformation_mode="half_pixel"),
+              node("RoiAlign", ["rx", "rois", "bi"], ["roi_max"], output_height=3,
+                   output_width=5, mode="max", coordinate_transformation_mode="output_half_pixel")]
+    case("sample", nodes,
+         [("gx", f32(2, 3, 8, 9), False),
+          ("grid", r.uniform(-1.3, 1.3, (2, 5, 6, 2)).astype(np.float32), False),
+          ("rx", f32(2, 3, 16, 16), False),
+          ("rois", np.asarray([[1, 1, 10, 12], [0, 2, 15, 9], [3, 0, 7, 4]], np.float32), False),
+          ("bi", i64([0, 1, 1]), False)],
+         outs + ["roi_avg", "roi_max"])
+    return cases
+
+
+def onnx_ops_of(model_bytes: bytes) -> set:
+    """Every op type of a model, If / Loop / Scan bodies included."""
+    def walk(g):
+        for n in g.node:
+            yield n.op_type
+            for a in n.attribute:
+                if a.type == onnx_pb2.AttributeProto.GRAPH:
+                    yield from walk(a.g)
+    return set(walk(onnx_pb2.ModelProto.FromString(model_bytes).graph))
+
+
+def run_onnx_case(case, dev) -> list:
+    """Convert and run one case on `dev`; the outputs as numpy arrays."""
+    model, feeds, outs = case
+    fn, params = convert_onnx(onnx_pb2.ModelProto.FromString(model), device=dev)
+    args = [a if static else torch.from_numpy(np.array(a)).to(dev) for _, a, static in feeds]
+    with no_tf32():
+        got = fn(params, *args)
+    got = got if isinstance(got, tuple) else (got,)
+    return [np.asarray(g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else g)
+            for g in got]
+
+
+def onnx_worst(got: list, want: list, names) -> float:
+    """Integer and bool outputs must be equal (value and dtype); the worst
+    float difference, max |got - want| over max(1, max |want|)."""
+    worst = 0.0
+    for g, w, name in zip(got, want, names):
+        g, w = np.asarray(g), np.asarray(w)
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"onnx {name}: {g.dtype}{g.shape} vs {w.dtype}{w.shape}")
+        if w.dtype.kind in "biu":
+            check(np.array_equal(g, w),
+                  f"onnx {name}: {g.dtype} {g.ravel()[:8]} vs {w.dtype} {w.ravel()[:8]}")
+            continue
+        same_nan = np.array_equal(np.isnan(g), np.isnan(w))
+        check(same_nan, f"onnx {name}: NaNs differ")
+        ok = ~np.isnan(w)
+        if ok.any():
+            scale = max(1.0, float(np.abs(w[ok]).max()))
+            worst = max(worst, float(np.abs(g[ok].astype(np.float64) - w[ok]).max()) / scale)
+    return worst
+
+
+def onnx_of_module(mod) -> bytes:
+    """A ResNet-style module (eval mode) written node by node as an ONNX
+    model with the port's own `onnx_pb2`, one input "x" and one output "y",
+    from a torch.fx trace: Conv, BatchNormalization, Relu, MaxPool, Add,
+    GlobalAveragePool, Flatten, Gemm."""
+    import operator
+
+    import torch.fx as fx
+    import torch.nn as nn
+
+    gm = fx.symbolic_trace(mod.eval())
+    modules = dict(gm.named_modules())
+    nodes, inits, names = [], [], {}
+
+    def init(name, t):
+        inits.append(onnx_tensor(name, t.detach().float().cpu().numpy()))
+        return name
+
+    def arg(a):
+        return names[a.name]
+
+    for n in gm.graph.nodes:
+        out = n.name
+        if n.op == "placeholder":
+            names[n.name] = "x"
+            continue
+        if n.op == "output":        # the last node writes the graph output
+            last = arg(n.args[0])
+            for nd in nodes:
+                for field in (nd.input, nd.output):
+                    for i, v in enumerate(field):
+                        if v == last:
+                            field[i] = "y"
+            continue
+        names[n.name] = out
+        if n.op == "call_module":
+            m, src, p = modules[n.target], arg(n.args[0]), n.target.replace(".", "_")
+            if isinstance(m, nn.Conv2d):
+                ins = [src, init(p + "_w", m.weight)] + (
+                    [init(p + "_b", m.bias)] if m.bias is not None else [])
+                nodes.append(onnx_node(
+                    "Conv", ins, [out], kernel_shape=list(m.kernel_size), strides=list(m.stride),
+                    pads=[m.padding[0], m.padding[1]] * 2, dilations=list(m.dilation),
+                    group=m.groups))
+            elif isinstance(m, nn.BatchNorm2d):
+                nodes.append(onnx_node(
+                    "BatchNormalization", [src, init(p + "_s", m.weight), init(p + "_b", m.bias),
+                                           init(p + "_m", m.running_mean),
+                                           init(p + "_v", m.running_var)],
+                    [out], epsilon=float(m.eps)))
+            elif isinstance(m, nn.ReLU):
+                nodes.append(onnx_node("Relu", [src], [out]))
+            elif isinstance(m, nn.MaxPool2d):
+                k, s, pd = (v if isinstance(v, tuple) else (v, v)
+                            for v in (m.kernel_size, m.stride, m.padding))
+                nodes.append(onnx_node("MaxPool", [src], [out], kernel_shape=list(k),
+                                       strides=list(s), pads=[pd[0], pd[1]] * 2,
+                                       ceil_mode=int(m.ceil_mode)))
+            elif isinstance(m, nn.AdaptiveAvgPool2d) and m.output_size in (1, (1, 1)):
+                nodes.append(onnx_node("GlobalAveragePool", [src], [out]))
+            elif isinstance(m, nn.Linear):
+                nodes.append(onnx_node("Gemm", [src, init(p + "_w", m.weight),
+                                                init(p + "_b", m.bias)], [out], transB=1))
+            else:
+                raise NotImplementedError(f"onnx_of_module: {type(m).__name__}")
+        elif n.target in (operator.add, torch.add):
+            nodes.append(onnx_node("Add", [arg(n.args[0]), arg(n.args[1])], [out]))
+        elif n.target is torch.flatten and n.args[1:] == (1,):
+            nodes.append(onnx_node("Flatten", [arg(n.args[0])], [out], axis=1))
+        else:
+            raise NotImplementedError(f"onnx_of_module: {n.op} {n.target}")
+    return onnx_model(nodes, ["x"], ["y"], inits)
+
+
+CNN_NAMES = ("mobilenet_v2", "squeezenet_v1.0", "resnet50")
+CNN_SIZE = 224               # the published input
+CNN_CLASSES = 1000
+CNN_BATCHES = (1, 32)        # (eee)
+CNN_PARITY_BATCH = 2         # (fff), (ggg)
+CNN_F32_REL = 1e-4           # (fff): f32 card vs the CPU run, TF32 off
+CNN_BF16_REL = 5e-2          # (fff): bf16 card vs f32 CPU
+ONNX_TOL = 1e-5              # (ggg): floats card vs CPU (ints equal)
+NMS_BOXES = 5000             # (hhh)
+NMS_MAX_OUT = 300
+CLS_IMAGES = 64              # (hhh)
+CLS_IMAGE = (240, 320)
+SOFTSHRINK_LAM = 0.3         # tests/test_plugin.py's
+SOFTSHRINK_SHAPES = (((2, 8, 128), torch.float32), ((2, 8, 128), torch.bfloat16),
+                     ((32, 256, 56, 56), torch.bfloat16))   # the last: a ResNet-50 activation
+PLUGIN_OP = "MnnTpuSoftShrink"
+
+
+def cnn_macs(mod, size: int) -> int:
+    """Multiply-adds of one image, from each Conv2d's and Linear's shapes
+    (a forward pass on the meta device, no weights read)."""
+    import copy
+
+    import torch.nn as nn
+
+    macs = [0]
+
+    def hook(m, inp, out):
+        if isinstance(m, nn.Conv2d):
+            macs[0] += out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+        else:
+            macs[0] += out.numel() * m.in_features
+
+    meta = copy.deepcopy(mod).to("meta")
+    for m in meta.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        meta(torch.empty(1, 3, size, size, device="meta"))
+    return macs[0]
+
+
+def seeded_module(name: str):
+    torch.manual_seed(SEED)
+    return VISION_MODELS[name](CNN_CLASSES).eval()
+
+
+def phase_bench_cnn(dev, card_line):
+    """(eee) `cli bench-cnn` per model and batch (bf16 params, the seeded
+    torch init), with the allocator's peak and TFLOP/s from the MAC count."""
+    rows = {}
+    for name in CNN_NAMES:
+        macs = cnn_macs(seeded_module(name), CNN_SIZE)
+        for batch in CNN_BATCHES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["bench-cnn", "--models", name, "--batch", str(batch),
+                          "--size", str(CNN_SIZE)])
+            rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+            check(rep["model"] == name and rep["batch"] == batch, f"(eee) report {rep}")
+            sec = rep["latency_ms"] / 1e3
+            rows[f"{name}_b{batch}"] = dict(
+                rep, macs_per_image=macs, tflops=2 * macs * batch / sec / 1e12,
+                peak_bytes=torch.cuda.max_memory_allocated())
+            print(f"  (eee) {name} batch {batch}: {rep['latency_ms']:.3f} ms, "
+                  f"{rep['images_per_s']:.1f} images/s, "
+                  f"{rows[f'{name}_b{batch}']['tflops']:.2f} TFLOP/s "
+                  f"({2 * macs / 1e9:.3f} GFLOP an image), peak "
+                  f"{rows[f'{name}_b{batch}']['peak_bytes']} B [{card_line}]", flush=True)
+    return rows
+
+
+def top1_rule(card: torch.Tensor, cpu: torch.Tensor) -> dict:
+    """Top-1 equal wherever the CPU's top-2 margin exceeds the largest logit
+    difference (phase 4's token rule, for logits)."""
+    diff = float((card.double() - cpu.double()).abs().max())
+    top2 = torch.topk(cpu.double(), 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > diff
+    same = card.argmax(-1) == cpu.argmax(-1)
+    return dict(max_diff=diff, clear=int(clear.sum()), rows=int(cpu.shape[0]),
+                equal_where_clear=bool(same[clear].all()), equal=int(same.sum()))
+
+
+def phase_cnn_parity(dev):
+    """(fff) the three CNNs at full width, batch 2, card against the CPU run
+    of the same converted function: f32 with TF32 off within rel-L2 1e-4;
+    bf16 params and input within 5e-2 of the f32 CPU logits, top-1 by
+    `top1_rule`. Returns the rows and ResNet-50's card f32 logits."""
+    g = torch.Generator().manual_seed(SEED + 71)
+    x = torch.randn(CNN_PARITY_BATCH, 3, CNN_SIZE, CNN_SIZE, generator=g)
+    rows, logits = {}, {}
+    for name in CNN_NAMES:
+        mod = seeded_module(name)
+        fn_card, p_card = convert_torch_module(mod, device=dev)
+        fn_cpu, p_cpu = convert_torch_module(mod, device="cpu")
+        with torch.no_grad(), no_tf32():
+            card = fn_card(p_card, x.to(dev)).float().cpu()
+            cpu = fn_cpu(p_cpu, x)
+            card16 = fn_card(cli._bf16_params(p_card), x.to(dev, torch.bfloat16)).float().cpu()
+        rows[name] = dict(f32_rel=rel_l2(card, cpu), bf16_rel=rel_l2(card16, cpu),
+                          top1=top1_rule(card16, cpu))
+        logits[name] = card
+        check(rows[name]["f32_rel"] <= CNN_F32_REL,
+              f"(fff) {name} f32 card vs cpu rel-L2 {rows[name]['f32_rel']:.3g}")
+        check(rows[name]["bf16_rel"] <= CNN_BF16_REL and rows[name]["top1"]["equal_where_clear"],
+              f"(fff) {name} bf16 vs f32 cpu {rows[name]}")
+        print(f"  (fff) {name} batch {CNN_PARITY_BATCH}: f32 card vs cpu rel-L2 "
+              f"{rows[name]['f32_rel']:.3g}; bf16 card vs f32 cpu {rows[name]['bf16_rel']:.3g}, "
+              f"top-1 {rows[name]['top1']}", flush=True)
+    return rows, x, logits["resnet50"]
+
+
+def phase_onnx(dev, x, fx_logits):
+    """(ggg) ResNet-50 written by `onnx_of_module`, parsed and converted by
+    the port on the card, against the fx path's card logits (f32, 1e-4);
+    then every breadth case card against CPU (ints equal, floats 1e-5)."""
+    t0 = time.perf_counter()
+    model = onnx_of_module(seeded_module("resnet50"))
+    parsed = onnx_pb2.ModelProto.FromString(model)
+    check(parsed.SerializeToString() == model, "(ggg) ResNet-50 bytes do not round-trip")
+    fn, params = convert_onnx(parsed, device=dev)
+    with torch.no_grad(), no_tf32():
+        got = fn(params, x.to(dev)).float().cpu()
+    resnet = dict(bytes=len(model), nodes=len(parsed.graph.node), ops=sorted(onnx_ops_of(model)),
+                  rel_to_fx=rel_l2(got, fx_logits))
+    check(resnet["rel_to_fx"] <= CNN_F32_REL,
+          f"(ggg) ONNX ResNet-50 vs the fx path rel-L2 {resnet['rel_to_fx']:.3g}")
+    cases, worst = onnx_cases(), {}
+    covered = set().union(*(onnx_ops_of(m) for m, _, _ in cases.values()))
+    check(covered == set(onnx_frontend._OPS) - {PLUGIN_OP},
+          f"(ggg) ops not covered: {sorted(set(onnx_frontend._OPS) - covered)}")
+    for name, case in cases.items():
+        worst[name] = onnx_worst(run_onnx_case(case, dev), run_onnx_case(case, "cpu"), case[2])
+        check(worst[name] <= ONNX_TOL, f"(ggg) {name}: card vs cpu {worst[name]:.3g}")
+    out = dict(resnet50=resnet, cases=worst, ops=len(covered), seconds=time.perf_counter() - t0)
+    print(f"  (ggg) ONNX ResNet-50 ({len(model)} B, {resnet['nodes']} nodes, written and read by "
+          f"the port's codec) vs the fx path rel-L2 {resnet['rel_to_fx']:.3g}; {len(cases)} "
+          f"breadth graphs over all {len(covered)} ops card vs cpu, ints equal, floats within "
+          f"{max(worst.values()):.3g} | {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def plugin_model() -> bytes:
+    """x -> MnnTpuSoftShrink -> y, the plugin example's graph."""
+    n = onnx_node(PLUGIN_OP, ["x"], ["y"])
+    n.domain = "custom"
+    return onnx_model([n], ["x"], ["y"])
+
+
+def phase_plugin(dev):
+    """(ggg) the plugin path: `MnnTpuSoftShrink` registered, backed by row
+    10, converted and run at the plugin test's (2, 8, 128) in f32 and bf16
+    and on a ResNet-50 activation [32, 256, 56, 56] bf16; each output the
+    plain version's bits."""
+    model = onnx_pb2.ModelProto.FromString(plugin_model())
+    try:
+        convert_onnx(model, device=dev)
+        fail("(ggg) the unregistered plugin op converted")
+    except NotImplementedError:
+        pass
+    plugin.register_op(PLUGIN_OP, lambda ctx, node, x: softshrink.softshrink(
+        ctx.t(x), SOFTSHRINK_LAM))
+    try:
+        fn, params = convert_onnx(model, device=dev)
+        g = torch.Generator(dev).manual_seed(SEED + 72)
+        for shape, dt in SOFTSHRINK_SHAPES:
+            xin = torch.randn(shape, generator=g, device=dev).to(dt)
+            y = fn(params, xin)
+            check(torch.equal(y.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                              softshrink.softshrink_plain(xin, SOFTSHRINK_LAM).view(
+                                  torch.int16 if dt == torch.bfloat16 else torch.int32)),
+                  f"(ggg) plugin {shape} {dt}: not the plain version's bits")
+    finally:
+        plugin.unregister_op(PLUGIN_OP)
+    check(PLUGIN_OP not in plugin.registered_ops(), "(ggg) plugin op still registered")
+    return dict(shapes=[list(s) for s, _ in SOFTSHRINK_SHAPES])
+
+
+def phase_softshrink_rows(dev, results):
+    """Row 10 against its plain version (equal bits) at the plugin test's
+    shape in f32 and bf16 and at a ResNet-50 activation in bf16; its time,
+    the plain version's, `F.softshrink`'s and the byte bound."""
+    g = torch.Generator(dev).manual_seed(SEED + 73)
+    rows = []
+    for shape, dt in SOFTSHRINK_SHAPES:
+        n = math.prod(shape)
+        esz = torch.finfo(dt).bits // 8
+        copies = copies_for(2 * n * esz, cap=64)
+        xs = [torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(copies)]
+        ys = [torch.empty_like(x) for x in xs]
+        got = softshrink.softshrink(xs[0], SOFTSHRINK_LAM)
+        want = softshrink.softshrink_plain(xs[0], SOFTSHRINK_LAM)
+        ib = torch.int16 if dt == torch.bfloat16 else torch.int32
+        check(torch.equal(got.view(ib), want.view(ib)), f"row 10 {shape} {dt}: bits differ")
+        ms = time_ms(lambda i: softshrink._KERNEL(xs[i % copies].data_ptr(),
+                                                  ys[i % copies].data_ptr(), n,
+                                                  float(torch.tensor(SOFTSHRINK_LAM, dtype=dt)),
+                                                  softshrink.DTYPES[dt]), 20)
+        plain_ms = time_ms(lambda i: softshrink.softshrink_plain(xs[i % copies], SOFTSHRINK_LAM), 20)
+        lib_ms = time_ms(lambda i: torch.nn.functional.softshrink(xs[i % copies], SOFTSHRINK_LAM), 20)
+        bound, by = bound_of(4.0 * n, 2.0 * n * esz, F32_OPS_S)   # abs, sub, max, mul
+        rows.append(dict(shape=list(shape), dtype=str(dt).split(".")[-1], max_abs_err=max_abs(
+            got.float(), want.float()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=by))
+        print(f"  row 10 softshrink {list(shape)} {rows[-1]['dtype']}: same bits; kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, F.softshrink "
+              f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by})", flush=True)
+    results["softshrink"] = rows
+
+
+def cls_images(seed: int) -> tuple:
+    r = np.random.default_rng(seed)
+    return [r.integers(0, 256, (*CLS_IMAGE, 3), dtype=np.uint8) for _ in range(CLS_IMAGES)]
+
+
+def phase_nms_cls(dev, card_line):
+    """(hhh) `ops/nms.nms` over 5,000 seeded boxes, card against CPU (kept
+    indices equal), its ms; `preprocess_classification` + `topk_eval` of 64
+    seeded 240 x 320 images through MobileNetV2 in f32, card against CPU
+    (top-1 by `top1_rule`)."""
+    r = np.random.default_rng(SEED + 74)
+    xy = r.uniform(0, 1000, (NMS_BOXES, 2)).astype(np.float32)
+    wh = r.uniform(10, 80, (NMS_BOXES, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], 1))
+    scores = torch.from_numpy(r.random(NMS_BOXES).astype(np.float32))
+    want, _ = nms_mod.nms(boxes, scores, 0.5, 0.05, NMS_MAX_OUT)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, valid = nms_mod.nms(boxes.to(dev), scores.to(dev), 0.5, 0.05, NMS_MAX_OUT)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    check(torch.equal(got.cpu(), want), "(hhh) nms: kept indices differ from the cpu's")
+    nms_row = dict(boxes=NMS_BOXES, kept=int(valid.sum()), ms=times)
+
+    images = cls_images(SEED + 75)
+    mod = seeded_module("mobilenet_v2")
+    sides = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        fn, params = convert_torch_module(mod, device=d)
+        xs = [classify.preprocess_classification(im, device=d) for im in images]
+        with torch.no_grad(), no_tf32():
+            logits = torch.cat([fn(params, torch.stack(xs[i:i + 32])).float().cpu()
+                                for i in range(0, CLS_IMAGES, 32)])
+        sides[side] = (fn, params, xs, logits)
+    labels = sides["cpu"][3].argmax(-1).tolist()
+    evals = {side: classify.topk_eval(lambda x, s=side: sides[s][0](sides[s][1], x),
+                                      sides[side][2], labels, k=5, batch_size=32,
+                                      device=dev if side == "card" else "cpu")
+             for side in sides}
+    rule = top1_rule(sides["card"][3], sides["cpu"][3])
+    pre = max(rel_l2(a.cpu(), b) for a, b in zip(sides["card"][2], sides["cpu"][2]))
+    check(rule["equal_where_clear"] and evals["cpu"]["top1"] == 1.0
+          and evals["card"]["top1"] >= rule["clear"] / CLS_IMAGES,
+          f"(hhh) classification card vs cpu: {rule} {evals}")
+    out = dict(nms=nms_row, preprocess_rel=pre, top1=rule, topk_eval=evals)
+    print(f"  (hhh) nms over {NMS_BOXES} boxes: {nms_row['kept']} kept, indices equal to the "
+          f"cpu's, {min(times):.2f} ms (calls {', '.join(f'{t:.2f}' for t in times)}) | "
+          f"{CLS_IMAGES} images {CLS_IMAGE}: preprocess card vs cpu rel-L2 {pre:.3g}; top-1 "
+          f"{rule['equal']} of {CLS_IMAGES} equal ({rule['clear']} clear), topk_eval card "
+          f"{evals['card']}, cpu {evals['cpu']} [{card_line}]", flush=True)
+    return out
+
+
+def phase_cnn(dev, card_line, results):
+    """Phase 15, (eee) to (hhh), each sub-phase with its launch counts set to
+    0 before and read after: only the plugin path launches row 10."""
+    t15 = time.perf_counter()
+    out, secs, counts = {}, {}, {}
+    shared = {}
+
+    def parity():
+        rows, shared["x"], shared["fx"] = phase_cnn_parity(dev)
+        return rows
+
+    for key, fn in (("eee", lambda: phase_bench_cnn(dev, card_line)),
+                    ("fff", parity),
+                    ("ggg", lambda: phase_onnx(dev, shared["x"], shared["fx"])),
+                    ("plugin", lambda: phase_plugin(dev)),
+                    ("hhh", lambda: phase_nms_cls(dev, card_line))):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        out[key] = fn()
+        counts[key] = launch_counts()
+        must = {"mnn_softshrink"} if key == "plugin" else set()
+        check(all(counts[key][k] > 0 for k in must)
+              and not any(v for k, v in counts[key].items() if k not in must),
+              f"({key}) launches {counts[key]}")
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["launches"] = counts
+    t0 = time.perf_counter()
+    phase_softshrink_rows(dev, results)
+    secs["row10"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t15
+    print("  phase 15 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 15: {out['seconds']:.1f} s; row 10 launched "
+          f"{counts['plugin']['mnn_softshrink']} times on the plugin path", flush=True)
+    return out
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -5520,6 +6381,11 @@ def main():
     dit_cv = phase_dit_cv(dev, card_line, checkpoints["dense"]["native_stfile"], specd,
                           native_indexes.calls)
 
+    print("phase 15: the graph frontends and CNN inference on the card (torch.fx and ONNX, "
+          "MobileNetV2 / SqueezeNet / ResNet-50, NMS, classification, the plugin kernel)",
+          flush=True)
+    cnn = phase_cnn(dev, card_line, results)
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
     tr_counts = training_launches(training)
@@ -5601,13 +6467,19 @@ def main():
                     ("m_gt1", [r for r in rows if r["m"] > 1], "mnn_dequant_matmul_bf16_tile")):
                 k[key] = dict(entry=ent, launches=launches[ent], **row_sums(sub))
         kernels.append(k)
+    # row 10, the plugin example kernel: launched by phase 15's plugin path only
+    kernels.append(dict(name="softshrink", route="cuda",
+                        source="mnn_tpu_torch/csrc/plugin_softshrink.cu",
+                        replaces="tests/test_plugin.py:19",
+                        launches=cnn["launches"]["plugin"]["mnn_softshrink"],
+                        **row_sums(results["softshrink"])))
     detail = dict(card=card_line, torch=torch.__version__, build_s=build_s,
                   kernels=results, serve=perf, serve_batched=serve_batched,
                   launches=launches,
                   launches_by_path=counts,
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
-                  training=training, generative=generative, dit_cv=dit_cv,
+                  training=training, generative=generative, dit_cv=dit_cv, cnn=cnn,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

@@ -1,5 +1,6 @@
-"""mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert`, `eval` and
-`txt2img` subcommands of `mnn_tpu/cli.py` on the port.
+"""mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert`, `eval`,
+`txt2img`, `bench-cnn` and `eval-cls` subcommands of `mnn_tpu/cli.py` on
+the port.
 
     python -m mnn_tpu_torch.cli convert --hf HF_DIR --out OUT --lm-head-bits 4
     python -m mnn_tpu_torch.cli run --model OUT "prompt"
@@ -9,6 +10,8 @@
     python -m mnn_tpu_torch.cli run --synthetic qwen1.5-moe-a2.7b "prompt"
     python -m mnn_tpu_torch.cli serve --preset gemma2-2b --batch 4
     python -m mnn_tpu_torch.cli txt2img --model SD_DIR "a red bicycle" --out out.png
+    python -m mnn_tpu_torch.cli bench-cnn --models resnet50 --batch 32
+    python -m mnn_tpu_torch.cli eval-cls --dir IMAGENET_VAL --net resnet50 --weights r50.pt
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
@@ -31,6 +34,11 @@ the grouped one. `serve` answers OpenAI chat and completions requests
 ported. `eval` prints {"tokens": n, "perplexity": p} of a text. `txt2img`
 runs Stable Diffusion from a diffusers-format directory (bf16, classifier-
 free guidance) and saves a PNG, or `<out>.npy` when PIL is missing.
+`bench-cnn` converts each vision model (`models/vision.py`, seeded torch
+init) through the torch.fx frontend, casts its f32 params to bf16 and times
+it on a seeded bf16 batch with `utils/benchit.chain`, one JSON line per
+model: model, batch, latency_ms, images_per_s. `eval-cls` prints the top-1
+/ top-k accuracy of a vision model in bf16 over an ImageFolder tree.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import argparse
 import json
 import sys
 import time
+
+import torch
 
 
 def _add_model_args(p):
@@ -215,6 +225,58 @@ def cmd_txt2img(args):
     print(f"saved {args.out} ({dt:.1f}s, {args.steps / dt:.2f} it/s)")
 
 
+def _bf16_params(params):
+    """f32 tensors of a converted model's params as bf16, as the JAX CLI
+    casts its pytree."""
+    if isinstance(params, dict):
+        return {k: _bf16_params(v) for k, v in params.items()}
+    return params.to(torch.bfloat16) if params.dtype == torch.float32 else params
+
+
+def cmd_bench_cnn(args):
+    import numpy as np
+
+    from mnn_tpu_torch.convert.torch_fx import convert_torch_module
+    from mnn_tpu_torch.kernels.common import resolve_device
+    from mnn_tpu_torch.models.vision import VISION_MODELS
+    from mnn_tpu_torch.utils.benchit import chain
+
+    dev = resolve_device(args.device)
+    names = args.models.split(",") if args.models else list(VISION_MODELS)
+    for name in names:
+        torch.manual_seed(0)
+        mod = VISION_MODELS[name]().eval()
+        fn, params = convert_torch_module(mod, device=dev)
+        params = _bf16_params(params)
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (args.batch, 3, args.size, args.size)).astype(np.float32)).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            t = chain(lambda xx: fn(params, xx), x, iters=20, warmup=2)
+        print(json.dumps({
+            "model": name, "batch": args.batch,
+            "latency_ms": round(t * 1e3, 3),
+            "images_per_s": round(args.batch / t, 1),
+        }), flush=True)
+
+
+def cmd_eval_cls(args):
+    from mnn_tpu_torch.convert.torch_fx import convert_torch_module
+    from mnn_tpu_torch.kernels.common import resolve_device
+    from mnn_tpu_torch.models.vision import VISION_MODELS
+    from mnn_tpu_torch.runtime.classify import eval_folder
+
+    dev = resolve_device(args.device)
+    torch.manual_seed(0)
+    mod = VISION_MODELS[args.net]().eval()
+    if args.weights:
+        mod.load_state_dict(torch.load(args.weights, map_location="cpu"))
+    fn, params = convert_torch_module(mod, device=dev)
+    params = _bf16_params(params)
+    r = eval_folder(lambda x: fn(params, x.to(torch.bfloat16)), args.dir, size=args.size,
+                    k=args.k, batch_size=args.batch, limit=args.limit, device=dev)
+    print(json.dumps({"net": args.net, **r}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mnn-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -287,6 +349,27 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
     p.set_defaults(fn=cmd_txt2img)
+
+    p = sub.add_parser("bench-cnn", help="vision model latency (bf16)")
+    p.add_argument("--models", help="comma list (default: all)")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--size", type=int, default=224)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench_cnn)
+
+    p = sub.add_parser("eval-cls", help="top-k classification accuracy over "
+                                        "an ImageFolder tree")
+    p.add_argument("--dir", required=True)
+    p.add_argument("--net", default="mobilenet_v2")
+    p.add_argument("--weights", default="", help="torch state_dict .pt")
+    p.add_argument("--size", type=int, default=224)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_cls)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -2423,3 +2423,102 @@ def test_native_library_builds_and_reads_a_checkpoint(dev, tmp_path):
     stfile.save_file({"w": torch.randn(64, 32).bfloat16(), "b": torch.arange(5)}, path)
     got = chip_smoke.native_stfile_check([path])
     assert got["tensors"] == 2 and got["bytes"] == 64 * 32 * 2 + 5 * 8
+
+
+# --------------------------------------------------------------------------
+# the graph frontends, CNN inference and row 10 (the plugin example kernel)
+# --------------------------------------------------------------------------
+
+# (shape, dtype): the plugin test's, a ResNet-50 activation, a ragged tail
+SOFTSHRINK = [((2, 8, 128), torch.float32), ((2, 8, 128), torch.bfloat16),
+              ((32, 256, 56, 56), torch.bfloat16), ((1000003,), torch.float32),
+              ((7, 13), torch.bfloat16), ((3, 5), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dt", SOFTSHRINK)
+def test_plugin_softshrink_kernel(dev, shape, dt):
+    """Row 10: one launch a call, the plain version's bits (signed zeros,
+    x = +-lam and the bf16 rounding of lam included), also from a pointer
+    off 16 bytes (the scalar path)."""
+    from mnn_tpu_torch.kernels import softshrink
+
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=dev).to(dt)
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 0.3, -0.3], device=dev).to(dt)
+    ib = torch.int16 if dt == torch.bfloat16 else torch.int32
+    for xin in (x, x.view(-1)[1:]):
+        before = softshrink._KERNEL.launches
+        got = softshrink.softshrink(xin, 0.3)
+        assert softshrink._KERNEL.launches == before + 1
+        want = softshrink.softshrink_plain(xin, 0.3)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(ib), want.view(ib))
+
+
+def test_onnx_breadth_card_matches_cpu(dev):
+    """Every case of chip_smoke's ONNX breadth set (every op of the
+    frontend's table) card against CPU: ints equal, floats within 1e-5."""
+    import chip_smoke
+
+    for name, case in chip_smoke.onnx_cases().items():
+        worst = chip_smoke.onnx_worst(chip_smoke.run_onnx_case(case, dev),
+                                      chip_smoke.run_onnx_case(case, "cpu"), case[2])
+        assert worst <= chip_smoke.ONNX_TOL, (name, worst)
+
+
+def test_onnx_plugin_on_the_card(dev):
+    """The plugin op backed by row 10 through the ONNX frontend on the card."""
+    import chip_smoke
+    from mnn_tpu_torch.kernels import softshrink
+
+    before = softshrink._KERNEL.launches
+    chip_smoke.phase_plugin(dev)
+    assert softshrink._KERNEL.launches == before + len(chip_smoke.SOFTSHRINK_SHAPES)
+
+
+@pytest.mark.parametrize("name", ["mobilenet_v2", "squeezenet_v1.0", "resnet50"])
+def test_cnn_card_matches_cpu(dev, name):
+    """A vision model through the fx frontend at 96 x 96, 16 classes: f32
+    card vs CPU within rel-L2 1e-4 (TF32 off), bf16 within 5e-2 of the f32
+    CPU logits; ResNet-50 also through the port's ONNX writer and reader."""
+    import chip_smoke
+    from mnn_tpu_torch.convert import onnx_pb2
+    from mnn_tpu_torch.convert.onnx_frontend import convert_onnx
+    from mnn_tpu_torch.convert.torch_fx import convert_torch_module
+    from mnn_tpu_torch.diffusion.nn import no_tf32
+    from mnn_tpu_torch.models.vision import VISION_MODELS
+
+    torch.manual_seed(0)
+    mod = VISION_MODELS[name](num_classes=16).eval()
+    x = torch.randn(2, 3, 96, 96, generator=torch.Generator().manual_seed(1))
+    fn, p_card = convert_torch_module(mod, device=dev)
+    _, p_cpu = convert_torch_module(mod, device="cpu")
+    with torch.no_grad(), no_tf32():
+        card = fn(p_card, x.to(dev)).float().cpu()
+        cpu = fn(p_cpu, x)
+        card16 = fn(chip_smoke.cli._bf16_params(p_card), x.to(dev, torch.bfloat16)).float().cpu()
+        assert rel(card, cpu) <= 1e-4 and rel(card16, cpu) <= 5e-2
+        if name == "resnet50":
+            ofn, oparams = convert_onnx(onnx_pb2.ModelProto.FromString(
+                chip_smoke.onnx_of_module(mod)), device=dev)
+            assert rel(ofn(oparams, x.to(dev)).float().cpu(), card) <= 1e-4
+
+
+def test_nms_and_classify_card_match_cpu(dev):
+    """NMS over 2,000 seeded boxes (kept indices equal) and the
+    classification preprocessing (rel-L2 1e-5), card against CPU."""
+    from mnn_tpu_torch.ops.nms import nms
+    from mnn_tpu_torch.runtime.classify import preprocess_classification
+
+    r = np.random.default_rng(0)
+    xy = r.uniform(0, 500, (2000, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + r.uniform(10, 60, (2000, 2))], 1)
+                             .astype(np.float32))
+    scores = torch.from_numpy(r.random(2000).astype(np.float32))
+    got = nms(boxes.to(dev), scores.to(dev), 0.5, 0.05, 300)
+    want = nms(boxes, scores, 0.5, 0.05, 300)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    img = r.integers(0, 256, (300, 451, 3), dtype=np.uint8)
+    card = preprocess_classification(img, device=dev).cpu()
+    cpu = preprocess_classification(img, device="cpu")
+    assert card.shape == (3, 224, 224) and rel(card, cpu) <= 1e-5
