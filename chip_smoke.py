@@ -301,7 +301,7 @@ Phases, each of which exits non-zero on failure:
    library built from `native/` with g++ (a failed build fails), phase 6's
    checkpoints read by its `StFile` to the same bytes as `convert/stfile`,
    and phase 10 (cc)'s lookahead through its n-gram index.
-15. the graph frontends and CNN inference, run last, each sub-phase with
+15. the graph frontends and CNN inference, each sub-phase with
    the launch counts set to 0 before and read after: only the plugin path
    launches a hand-written kernel (row 10). The models are `models/vision.py`
    at their published widths (224 x 224, 1,000 classes) from torch's init
@@ -328,7 +328,32 @@ Phases, each of which exits non-zero on failure:
    images through `preprocess_classification` and `topk_eval` with
    MobileNetV2 in f32, top-1 by (fff)'s rule. Then row 10 against its plain
    version at those three shapes (equal bits): its time, the plain
-   version's, `F.softshrink`'s and its byte bound.
+   version's, `F.softshrink`'s and its byte bound;
+16. quant blocks of 256, run last, each sub-phase with the launch counts
+   set to 0 before and read after: qwen2-7b as bench.py:78-99 runs its
+   --q-block 256 row (28 layers at published widths, random weights from
+   seed 0, W4 at quant_block 256 for every projection and the int4 head,
+   an int8 cache of 1,024, int8 prefill rows in chunks of 512, greedy).
+   (iii) one 512-token prompt and 128 new tokens through `Llm.stream`
+   (rows 2 and 4 in the prefill, row 1a for the head, row 7 a token),
+   beside the same model at block 128 (phase 2's 28-layer weights, kept
+   for this), in the order 128, 256, 256, 128: prefill s and decode tok/s
+   of each; then on the block-256 weights 8 decode steps with
+   megakernel=False (rows 1a and 6, one decode-step launch a layer a
+   step), a prefill at prefill_act_bits=16 (row 1b, 4 launches a layer)
+   and one with `dequant_matmul.DEQ_MIN_M = 512` (row 3, 4 a layer).
+   (jjj) its first two layers on the card and through the plain versions
+   on the CPU (in a thread, while phase 2's block-256 rows take the card),
+   a 512-token prefill on bf16 rows and 8 decode steps fed the card's
+   tokens, both decode paths, by phase 4's bounds and token rule; beside
+   it, not held, the int8-row prefill's logits at block 256 and at block
+   128, card against CPU. Phase 2's block-256
+   rows: rows 1a, 1b and 2 at qwen2-7b's shapes (row 2 also at block 176
+   on qwen1.5-moe-a2.7b's down projection, K = 1,408; its rows must give
+   the plain version's bits, as every row-2 row must), row 3 on one
+   projection, row 9 at qwen1.5-moe-a2.7b's (blocks 256 / 176) and
+   qwen3-moe-30b-a3b's widths, row 8 at qwen3-moe-30b-a3b's, row 7 on two
+   and on all 28 layers.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -350,7 +375,10 @@ alone, `training_launches`), and row 1b's rows at the training shapes under
 `generative`, (tt)'s launches added to each kernel's count, also alone,
 `generative_launches`; phase 14's under `dit_cv`; phase 15's under `cnn`,
 row 10's rows under `kernels` / `softshrink`, and the kernels line's
-`softshrink` entry with its launches on the plugin path).
+`softshrink` entry with its launches on the plugin path; phase 16's under
+`block256`, its launches added to each kernel's count, also alone,
+`block256_launches`, and each kernel's block-256 rows summed under
+`block256` of its entry).
 It imports no JAX and nothing of the JAX package.
 """
 
@@ -407,8 +435,8 @@ from mnn_tpu_torch.models.layers import rms_norm, rope_cos_sin
 from mnn_tpu_torch.models.vision import VISION_MODELS
 from mnn_tpu_torch.ops import nms as nms_mod
 from mnn_tpu_torch.quant import calibrate, hqq, omni_quant
-from mnn_tpu_torch.quant.quantize import (QuantizedLinear, dequantize, quantize,
-                                          quantize_activations_int8, unpack_bits)
+from mnn_tpu_torch.quant.quantize import (QuantizedLinear, choose_block_size, dequantize,
+                                          quantize, quantize_activations_int8, unpack_bits)
 from mnn_tpu_torch.runtime import (batch_engine, classify, evaluate, generate, kvcache, omni,
                                    vision_preprocess)
 from mnn_tpu_torch.runtime import speculative as spec
@@ -641,25 +669,27 @@ QWEN7B_GEMV = ([(p, k, n, b, 1) for p, (k, n, b) in QWEN7B_PROJ.items()]
                + [("qwen7b_lm_head", 3584, 152064, False, 1)])
 
 
-def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
+def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None, bs=128):
     """K1 (bf16 rows) or K2 (int8 rows, `a8`) at `shapes`, (proj, K, N,
-    out_bias, M) rows (None: `gemm_rows(a8)`), each held against its plain
-    version and timed beside a bf16 `torch.matmul`; the rows go to
-    results[key] (None: the kernel's name)."""
+    out_bias, M) rows (None: `gemm_rows(a8)`), W4 in quant blocks of `bs`
+    (a row may end in its own block), each held against its plain version
+    and timed beside a bf16 `torch.matmul`; the rows go to results[key]
+    (None: the kernel's name). K2 rows must give the plain version's bits."""
     name = "dequant_matmul_a8" if a8 else "dequant_matmul"
     shapes = gemm_rows(a8) if shapes is None else shapes
     tol = 1e-2
     rows = []
-    for proj, k, n, with_bias, m in shapes:
+    for proj, k, n, with_bias, m, *row_bs in shapes:
+        bs_row = row_bs[0] if row_bs else bs
         # the shared expert's down projection gives f32 rows, as in the model
         out_dtype = (torch.float32 if proj.endswith("lm_head") or proj == "moe_shared_dn"
                      else torch.bfloat16)
-        wbytes = k * n // 2 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
+        wbytes = k * n // 2 + 2 * (k // bs_row) * n * 2 + (n * 4 if with_bias else 0)
         nl = copies_for(wbytes)
-        ql = rand_quantized(g, dev, k, n, layers=nl,
+        ql = rand_quantized(g, dev, k, n, layers=nl, bs=bs_row,
                             with_bias=with_bias, act_bits=8 if a8 else 16)
         x = (torch.randn((m, k), device=dev, generator=g)).to(torch.bfloat16)
-        tile = None if a8 else dequant_matmul.bf16_tile(m, n, ql.bits)
+        tile = None if a8 else dequant_matmul.bf16_tile(m, n, ql.bits, bs_row)
         kern = (dequant_matmul.KERNEL_A8 if a8 else
                 dequant_matmul.KERNEL_BF16_TILE if tile else dequant_matmul.KERNEL_BF16)
         before = kern.launches
@@ -675,6 +705,8 @@ def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
         err, rel = max_abs(got, want), rel_l2(got, want)
         check(bool(torch.isfinite(got).all()), f"{name} {proj}: non-finite output")
         check(rel <= tol, f"{name} {proj} M={m}: rel-L2 {rel:.3g} > {tol}")
+        check(not a8 or err == 0.0,
+              f"{name} {proj} M={m} block {bs_row}: max |diff| {err:.3g} from the plain version")
         ms = time_ms(lambda i: dequant_matmul.dequant_matmul(
             x, ql, layer_index=i % nl, out_dtype=out_dtype), calls=max(nl, 8))
         plain_ms = time_ms(lambda i: dequant_matmul.dequant_matmul_plain(
@@ -693,7 +725,8 @@ def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
         nbytes = (m * k + m * 4 if a8 else m * k * 2) + wbytes + out_b
         bound, bound_by = bound_of(2 * m * k * n, nbytes,
                                    INT8_OPS_S if a8 else BF16_OPS_S)
-        row = dict(shape=f"{proj} M={m} K={k} N={n}", m=m, bits=ql.bits, max_abs_err=err,
+        row = dict(shape=f"{proj} M={m} K={k} N={n}" + (f" block {bs_row}" if bs_row != 128 else ""),
+                   m=m, bits=ql.bits, block=bs_row, max_abs_err=err,
                    rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                    l2_rotation=nl, kernel=kern.name)
@@ -702,13 +735,13 @@ def phase_gemm(dev, g, results, *, a8: bool, shapes=None, key=None):
             row["tile"] = tile
             extra = f" | tile {tile[0]}x{tile[1]} smem {tile[2]}"
         elif not a8:
-            cols, ranges, blocks, smem = dequant_matmul.gemv_split(k, n, ql.bits, ql.block_size)
+            cols, ranges, blocks, smem = dequant_matmul.gemv_split(k, n, ql.bits, bs_row)
             row["split"] = dict(tile=cols, k_ranges=ranges, blocks=blocks, smem=smem)
             extra = f" | {cols}-column tiles x {ranges} K ranges, {blocks} blocks, smem {smem}"
         if a8:
             row["kernel_alone_ms"], xq = a8_kernel_alone(ql, x, out_dtype, nl)
             row["int_mm_ms"] = int_mm_ms(ql, xq, nl)
-            row["tile"] = dequant_matmul.a8_tile(m, n, ql.bits)
+            row["tile"] = dequant_matmul.a8_tile(m, n, ql.bits, bs_row)
             extra = (f" | alone {row['kernel_alone_ms']:.4f} int_mm {row['int_mm_ms']:.4f} "
                      f"tile {row['tile'][0]}x{row['tile'][1]} smem {row['tile'][2]}")
         rows.append(row)
@@ -1075,6 +1108,72 @@ def step_inputs(params, cfg, lengths, dev, g):
 DECODE_MODEL_FIRST_ROWS = 7   # the rows the kernels line summed before the 28-layer one
 
 
+def decode_model_row(dev, g, name, cfg, params, kv_bits, lengths, cap):
+    """One K7 row of phase 2: the whole-model kernel against its plain
+    version from the same random state (`lengths` positions of a cache of
+    `cap`), timed beside the plain version and the per-layer path's device
+    time, with the schedule the kernel walked; two calls give the same
+    bits."""
+    b = len(lengths)
+    kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
+                                cfg.head_dim, kv_bits)
+    tok, x, lens, cos_f, sin_f = step_inputs(params, cfg, lengths, dev, g)
+    args = (x, params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
+    kw = dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
+    check(decode_model.supports_head(cfg, params), f"{name}: head not fusable")
+    got = decode_model.fused_decode_model(*args, **kw)
+    want = decode_model.fused_decode_model_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+          f"decode_model {name}: non-finite output")
+    m = decode_model.parity_metrics(got, want, kv_bits)
+    # x_out is held at three layers by the tests; at full depth the
+    # residual stream's bf16 noise compounds (x rel-L2 ~3e-2) and only
+    # the logits are held. An int4 level is 18 times an int8 level's
+    # size, so that noise, far below one level, still flips some: over
+    # all layers int4 rows stay within one LEVEL of the plain version's,
+    # and their dequantized rel-L2 within 1.5e-1 instead of 3e-2.
+    deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
+    bad = decode_model.parity_failures(m, skip=("x_rel",), **deep4)
+    check(not bad, f"decode_model {name} kv{kv_bits} lengths {lengths}: {bad} in {m}")
+    ms = event_ms(lambda i: decode_model.fused_decode_model(*args, **kw), calls=20)
+    plain_ms = event_ms(lambda i: decode_model.fused_decode_model_plain(*args, **kw),
+                        calls=2)
+    # no single PyTorch call computes this function; beside it, the
+    # per-layer path's device time for the same step (its kernels' sum)
+    cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs, length=lens,
+                            bits=kv_bits)
+    per_layer_ms, per_layer_n = profiled_device_ms(lambda: decoder.forward(
+        params, cfg, tok[:, None], cache, megakernel=False), calls=3)
+    nbytes = decode_model_bytes(cfg, params.layers, params.lm_head, b, kv_bits, lengths)
+    bound = nbytes / HBM_BYTES_S * 1e3
+    again = decode_model.fused_decode_model(*args, **kw)
+    same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    check(same, f"decode_model {name}: two calls gave different bits")
+    sched = decode_model.schedule_info(cfg, params.layers, params.lm_head, b, cap, dev)
+    row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))}",
+               bits=params.layers.wqkv.bits, max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
+               tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
+               bytes=nbytes, per_layer_path_device_ms=per_layer_ms,
+               per_layer_path_launches=per_layer_n, same_twice=same,
+               schedule={k: v for k, v in sched.items() if k != "units"})
+    print(f"  decode_model       {row['shape']:44s} logits rel {m['logits_rel']:.2e} "
+          f"x {m['x_rel']:.1e} rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl "
+          f"tokens {m['tokens_compared']}/{b} | kernel {ms:.4f} ms plain {plain_ms:.2f} "
+          f"bound {bound:.4f} | per-layer path (device) {per_layer_ms:.3f} ms, "
+          f"{per_layer_n:.0f} launches", flush=True)
+    print(f"    schedule: {sched['grid']} blocks, items a phase (layer 0) "
+          f"{sched['items_a_layer']}, K ranges a cut tile {sched['k_ranges']} "
+          f"(tiles cut {sched['cut_tiles']}), "
+          f"{sched['grid_waits_a_layer']} grid-wide waits a layer, ring {sched['slots']} "
+          f"slots ({sched['ring_bytes']} B a block, {sched['bytes_in_flight']} B in "
+          f"flight), weight bytes a block {sched['max_block_bytes']} most / "
+          f"{sched['mean_block_bytes']:.0f} mean", flush=True)
+    del kc, vc, ks, vs, cache, got, want, again
+    return row
+
+
 def phase_decode_model(dev, g, results, params05):
     """K7: the whole-model decode kernel against its plain version from the
     same state. Full-size qwen2-0.5b (the serving weights) over an int8 cache
@@ -1108,66 +1207,10 @@ def phase_decode_model(dev, g, results, params05):
                 cfg, torch.Generator().manual_seed(SEED + 1), lm_head_bits=4, device=dev)
             print(f"  qwen2-7b, {cfg.num_layers} layers: built in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-        b = len(lengths)
-        kc, vc, ks, vs = rand_cache(g, dev, cfg.num_layers, b, cfg.num_kv_heads, cap,
-                                    cfg.head_dim, kv_bits)
-        tok, x, lens, cos_f, sin_f = step_inputs(params, cfg, lengths, dev, g)
-        args = (x, params.layers, kc, vc, ks, vs, lens, cos_f, sin_f)
-        kw = dict(config=cfg, head=params.lm_head, final_norm=params.final_norm)
-        check(decode_model.supports_head(cfg, params), f"{name}: head not fusable")
-        got = decode_model.fused_decode_model(*args, **kw)
-        want = decode_model.fused_decode_model_plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
-              f"decode_model {name}: non-finite output")
-        m = decode_model.parity_metrics(got, want, kv_bits)
-        # x_out is held at three layers by the tests; at full depth the
-        # residual stream's bf16 noise compounds (x rel-L2 ~3e-2) and only
-        # the logits are held. An int4 level is 18 times an int8 level's
-        # size, so that noise, far below one level, still flips some: over
-        # all layers int4 rows stay within one LEVEL of the plain version's,
-        # and their dequantized rel-L2 within 1.5e-1 instead of 3e-2.
-        deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
-        bad = decode_model.parity_failures(m, skip=("x_rel",), **deep4)
-        check(not bad, f"decode_model {name} kv{kv_bits} lengths {lengths}: {bad} in {m}")
-        ms = event_ms(lambda i: decode_model.fused_decode_model(*args, **kw), calls=20)
-        plain_ms = event_ms(lambda i: decode_model.fused_decode_model_plain(*args, **kw),
-                            calls=2)
-        # no single PyTorch call computes this function; beside it, the
-        # per-layer path's device time for the same step (its kernels' sum)
-        cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs, length=lens,
-                                bits=kv_bits)
-        per_layer_ms, per_layer_n = profiled_device_ms(lambda: decoder.forward(
-            params, cfg, tok[:, None], cache, megakernel=False), calls=3)
-        nbytes = decode_model_bytes(cfg, params.layers, params.lm_head, b, kv_bits, lengths)
-        bound = nbytes / HBM_BYTES_S * 1e3
-        again = decode_model.fused_decode_model(*args, **kw)
-        same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
-        check(same, f"decode_model {name}: two calls gave different bits")
-        sched = decode_model.schedule_info(cfg, params.layers, params.lm_head, b, cap, dev)
-        row = dict(shape=f"{name} B={b} kv{kv_bits} len_old={','.join(map(str, lengths))}",
-                   bits=params.layers.wqkv.bits, max_abs_err=m["logits_max_abs"], rel_l2=m["logits_rel"],
-                   tol=decode_model.PARITY_BOUNDS["logits_rel"], parity=m, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by="bytes",
-                   bytes=nbytes, per_layer_path_device_ms=per_layer_ms,
-                   per_layer_path_launches=per_layer_n, same_twice=same,
-                   schedule={k: v for k, v in sched.items() if k != "units"})
-        rows.append(row)
-        print(f"  decode_model       {row['shape']:44s} logits rel {m['logits_rel']:.2e} "
-              f"x {m['x_rel']:.1e} rows {m['rows_rel']:.1e} row0 {m['row0_levels']:.0f} lvl "
-              f"tokens {m['tokens_compared']}/{b} | kernel {ms:.4f} ms plain {plain_ms:.2f} "
-              f"bound {bound:.4f} | per-layer path (device) {per_layer_ms:.3f} ms, "
-              f"{per_layer_n:.0f} launches", flush=True)
-        print(f"    schedule: {sched['grid']} blocks, items a phase (layer 0) "
-              f"{sched['items_a_layer']}, K ranges a cut tile {sched['k_ranges']} "
-              f"(tiles cut {sched['cut_tiles']}), "
-              f"{sched['grid_waits_a_layer']} grid-wide waits a layer, ring {sched['slots']} "
-              f"slots ({sched['ring_bytes']} B a block, {sched['bytes_in_flight']} B in "
-              f"flight), weight bytes a block {sched['max_block_bytes']} most / "
-              f"{sched['mean_block_bytes']:.0f} mean", flush=True)
+        rows.append(decode_model_row(dev, g, name, cfg, params, kv_bits, lengths, cap))
         if name == "qwen2-7b":
             params7 = params         # phase 11 serves these weights
-        del kc, vc, ks, vs, cache, got, want, again, params
+        del params
         torch.cuda.empty_cache()
     results["decode_model"] = rows
     return params7
@@ -1191,13 +1234,14 @@ MOE_SHAPES = {   # preset -> (E, k, mi, si); H = 2048 for both
 }
 
 
-def phase_moe_decode(dev, g, results):
+def phase_moe_decode(dev, g, results, presets=tuple(MOE_SHAPES), bs=128, key="moe_decode"):
     """K8 at n = 1 and n = 4: qwen1.5-moe-a2.7b's widths (shared expert
-    under its gate) and qwen3-moe-30b-a3b's (none). A call reads other
-    experts than the one before: the layer index rotates over a stack
-    larger than L2."""
+    under its gate) and qwen3-moe-30b-a3b's (none), W4 in quant blocks of
+    `bs`. A call reads other experts than the one before: the layer index
+    rotates over a stack larger than L2."""
     rows = []
-    for preset, (e, k, mi, si) in MOE_SHAPES.items():
+    for preset in presets:
+        e, k, mi, si = MOE_SHAPES[preset]
         cfg = PRESETS[preset]
         h = cfg.hidden_size
         check((cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_intermediate_size,
@@ -1205,10 +1249,10 @@ def phase_moe_decode(dev, g, results):
         nl = 4 if si else 8
         lay = decoder.LayerParams(
             wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
-            wgu_e=rand_experts(g, dev, (nl, e), h, 2 * mi),
-            wdown_e=rand_experts(g, dev, (nl, e), mi, h),
-            wgu_shared=rand_experts(g, dev, (nl,), h, 2 * si) if si else None,
-            wdown_shared=rand_experts(g, dev, (nl,), si, h) if si else None)
+            wgu_e=rand_experts(g, dev, (nl, e), h, 2 * mi, bs),
+            wdown_e=rand_experts(g, dev, (nl, e), mi, h, bs),
+            wgu_shared=rand_experts(g, dev, (nl,), h, 2 * si, bs) if si else None,
+            wdown_shared=rand_experts(g, dev, (nl,), si, h, bs) if si else None)
         for n in (1, 4):
             check(moe_decode.supports(cfg, lay, n), f"moe_decode {preset}: unsupported")
             x = torch.randn((n, h), device=dev, generator=g) * 0.5
@@ -1233,7 +1277,8 @@ def phase_moe_decode(dev, g, results):
             ids = sel.reshape(-1).long()
             deq = lambda ql, idx: torch.stack([dequantize(QuantizedLinear(
                 packed=ql.packed[1][j], scale=ql.scale[1][j], bias=ql.bias[1][j],
-                out_bias=None), dtype=torch.bfloat16) for j in idx])
+                out_bias=None, bits=ql.bits, block_size=ql.block_size),
+                dtype=torch.bfloat16) for j in idx])
             wg, wd = deq(lay.wgu_e, ids.tolist()), deq(lay.wdown_e, ids.tolist())
             xr = x.to(torch.bfloat16).repeat_interleave(k, 0)[:, None]
             ar = torch.randn((n * k, 1, mi), device=dev, generator=g).to(torch.bfloat16)
@@ -1257,7 +1302,8 @@ def phase_moe_decode(dev, g, results):
                       + 2 * n * h * 4 + n * k * 8 + n * 4)
             ops = 2 * 3 * h * (n * k * mi + n * si)
             bound, bound_by = bound_of(ops, nbytes)
-            row = dict(shape=f"{preset} n={n} E={e} k={k} mi={mi} si={si}",
+            row = dict(shape=f"{preset} n={n} E={e} k={k} mi={mi} si={si}"
+                       + (f" block {bs}" if bs != 128 else ""),
                        bits=lay.wgu_e.bits, max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                        bound_by=bound_by, bytes=nbytes,
@@ -1269,28 +1315,33 @@ def phase_moe_decode(dev, g, results):
             del wg, wd
         del lay
         torch.cuda.empty_cache()
-    results["moe_decode"] = rows
+    results[key] = rows
 
 
-def phase_moe_prefill(dev, g, results):
+MOE_PREFILL_ROWS = [("qwen1.5-moe-a2.7b", 8), ("qwen1.5-moe-a2.7b", 24),
+                    ("qwen1.5-moe-a2.7b", 72), ("qwen1.5-moe-a2.7b", 144),
+                    ("qwen3-moe-30b-a3b", 64)]
+
+
+def phase_moe_prefill(dev, g, results, cases=MOE_PREFILL_ROWS, block=128, key="moe_prefill"):
     """K9 at the capacities of qwen1.5-moe-a2.7b's chunks: C = 8, 24 and 72
     (the 32-, 128- and 512-token buckets of the three requests: partial
     products) and C = 144 (a 1024-token chunk: dequantized blocks); and of a
-    512-token chunk of qwen3-moe-30b-a3b (C = 64)."""
+    512-token chunk of qwen3-moe-30b-a3b (C = 64). Each product's quant
+    block is `choose_block_size(K, block)`, as the model's weights have it."""
     rows = []
-    for preset, cap in (("qwen1.5-moe-a2.7b", 8), ("qwen1.5-moe-a2.7b", 24),
-                        ("qwen1.5-moe-a2.7b", 72), ("qwen1.5-moe-a2.7b", 144),
-                        ("qwen3-moe-30b-a3b", 64)):
+    for preset, cap in cases:
         e, k, mi, _ = MOE_SHAPES[preset]
         h = PRESETS[preset].hidden_size
-        gu = rand_experts(g, dev, (e,), h, 2 * mi)
-        dn = rand_experts(g, dev, (e,), mi, h)
+        bs_h, bs_mi = choose_block_size(h, block), choose_block_size(mi, block)
+        gu = rand_experts(g, dev, (e,), h, 2 * mi, bs_h)
+        dn = rand_experts(g, dev, (e,), mi, h, bs_mi)
         check(moe_prefill.supports(gu, dn, h, cap), f"moe_prefill {preset}: unsupported")
         xe = (torch.randn((e, cap, h), device=dev, generator=g) * 0.5).to(torch.bfloat16)
         w_e = torch.rand((e, cap), device=dev, generator=g)
         xe[:, -cap // 8:] = 0              # empty slots: zero rows, weight 0
         w_e[:, -cap // 8:] = 0
-        tile = moe_prefill.tile(e, cap, h, mi, gu.bits)
+        tile = moe_prefill.tile(e, cap, h, mi, gu.bits, bs_h)
         got = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
         again = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
         want = moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn)
@@ -1314,10 +1365,11 @@ def phase_moe_prefill(dev, g, results):
         nbytes = (ql_nbytes(gu, e) + ql_nbytes(dn, e) + e * cap * (h * 2 + 4 + h * 4))
         bound, bound_by = bound_of(2 * e * cap * 3 * h * mi, nbytes)
         algebra = "/".join("partial" if cap < q.block_size else "dequant" for q in (gu, dn))
-        row = dict(shape=f"{preset} E={e} C={cap} H={h} mi={mi} ({algebra})",
+        row = dict(shape=f"{preset} E={e} C={cap} H={h} mi={mi} ({algebra})"
+                   + (f" blocks {bs_h} / {bs_mi}" if block != 128 else ""),
                    bits=gu.bits, max_abs_err=err, rel_l2=rel, tol=MOE_TOL, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
-                   tile=dict(rows=tile[0], cols=tile[1], smem=tile[2]))
+                   tile=dict(rows=tile[0], cols=tile[1], smem=tile[2]), blocks=[bs_h, bs_mi])
         rows.append(row)
         print(f"  moe_prefill        {row['shape']:58s} rel {rel:.2e} (tol {MOE_TOL}) | "
               f"kernel {ms:.4f} ms plain {plain_ms:.2f} lib {lib_ms:.4f} "
@@ -1325,22 +1377,25 @@ def phase_moe_prefill(dev, g, results):
               f"{tile[2]} B shared", flush=True)
         del gu, dn, xe, got
         torch.cuda.empty_cache()
-    results["moe_prefill"] = rows
+    results[key] = rows
 
 
-def phase_gemm_deq(dev, g, results):
-    """K3 behind its switch, at M = 512: qwen1.5-moe-a2.7b's shared expert
-    and its qkv projection."""
+DEQ_ROWS = [("moe_shared_gu", 2048, 11264, False), ("moe_shared_dn", 5632, 2048, False),
+            ("moe_qkv", 2048, 6144, True)]
+
+
+def phase_gemm_deq(dev, g, results, shapes=DEQ_ROWS, bs=128, key="dequant_matmul_deq"):
+    """K3 behind its switch, at M = 512 (W4 in quant blocks of `bs`):
+    qwen1.5-moe-a2.7b's shared expert and its qkv projection."""
     tol, m = 1e-2, 512
     rows = []
     dequant_matmul.DEQ_MIN_M = m
     try:
-        for proj, k, n, with_bias in (("moe_shared_gu", 2048, 11264, False),
-                                      ("moe_shared_dn", 5632, 2048, False),
-                                      ("moe_qkv", 2048, 6144, True)):
-            wbytes = k * n // 2 + 2 * (k // 128) * n * 2 + (n * 4 if with_bias else 0)
+        for proj, k, n, with_bias in shapes:
+            wbytes = k * n // 2 + 2 * (k // bs) * n * 2 + (n * 4 if with_bias else 0)
             nl = copies_for(wbytes)
-            ql = rand_quantized(g, dev, k, n, layers=nl, with_bias=with_bias, act_bits=8)
+            ql = rand_quantized(g, dev, k, n, layers=nl, with_bias=with_bias, act_bits=8,
+                                bs=bs)
             x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
             before = dequant_matmul.KERNEL_DEQ.launches
             got = dequant_matmul.dequant_matmul(x, ql, layer_index=0)
@@ -1364,11 +1419,12 @@ def phase_gemm_deq(dev, g, results):
                 calls=max(nlib, 8))
             del wlib
             bound, bound_by = bound_of(2 * m * k * n, m * k * 2 + wbytes + m * n * 2)
-            tile = dequant_matmul.bf16_tile(m, n, ql.bits)   # the tile kernel's tiles
-            row = dict(shape=f"{proj} M={m} K={k} N={n}", bits=ql.bits, max_abs_err=err,
+            tile = dequant_matmul.bf16_tile(m, n, ql.bits, bs)   # the tile kernel's tiles
+            row = dict(shape=f"{proj} M={m} K={k} N={n}" + (f" block {bs}" if bs != 128 else ""),
+                       bits=ql.bits, block=bs, max_abs_err=err,
                        rel_l2=rel, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by, l2_rotation=nl,
-                       tile=dict(rows=tile[0], cols=tile[1]))
+                       tile=dict(rows=tile[0], cols=tile[1], smem=tile[2]))
             rows.append(row)
             print(f"  dequant_matmul_deq {row['shape']:36s} rel {rel:.2e} | kernel {ms:.4f} ms "
                   f"plain {plain_ms:.4f} lib {lib_ms:.4f} bound {bound:.4f} ({bound_by}) | "
@@ -1377,7 +1433,7 @@ def phase_gemm_deq(dev, g, results):
             torch.cuda.empty_cache()
     finally:
         dequant_matmul.DEQ_MIN_M = 1 << 30
-    results["dequant_matmul_deq"] = rows
+    results[key] = rows
 
 
 # --------------------------------------------------------------------------
@@ -6157,6 +6213,244 @@ def phase_cnn(dev, card_line, results):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: quant blocks of 256 (bench.py's qwen2-7b --q-block 256 row)
+# --------------------------------------------------------------------------
+
+B256_PROMPT = 512           # (iii): bench.py's pp512 ...
+B256_NEW = 128              # ... and tg128, one prompt
+B256_PARITY_LAYERS = 2      # (jjj): full width, cut depth on both sides
+B256_NEVER = ("mnn_moe_decode", "mnn_moe_prefill", "mnn_flash_decode")
+# phase 2's block-256 rows: qwen2-7b's projections and head at M = 1 (row
+# 1a) and at the 512-row chunk (rows 1b and 2), row 2 also at block 176 on
+# qwen1.5-moe-a2.7b's down projection (K = 1,408: `choose_block_size(1408,
+# 256)`), one qwen2-7b projection on row 3
+QWEN7B_PREFILL_B256 = QWEN7B_PREFILL + [("moe_down", 1408, 2048, False, 512, 176)]
+DEQ_ROWS_B256 = [("qwen7b_wo", 3584, 3584, False)]
+MOE_PREFILL_ROWS_B256 = [("qwen1.5-moe-a2.7b", 72), ("qwen3-moe-30b-a3b", 64)]
+
+
+def b256_rt(block: int) -> RuntimeConfig:
+    """bench.py:78-99's runtime at --q-block `block`: W4, an int4 head, an
+    int8 cache of 1,024, int8 prefill rows in chunks of 512, greedy."""
+    return RuntimeConfig(
+        max_seq_len=1024, prefill_chunk=512, decode_block=B256_NEW, sampler="greedy",
+        kv_quant=True, kv_bits=8, quant_bits=4, quant_block=block, lm_head_bits=4,
+        prefill_act_bits=8, max_new_tokens=B256_NEW)
+
+
+def b256_serve(llm, ids, label, card_line):
+    """(iii): one request of `ids` and B256_NEW greedy tokens through
+    `Llm.stream`, launch counts set to 0 before and read after: rows 2 and
+    4 in the prefill, row 1a for the head after it, row 7 a token."""
+    build.reset_launches()
+    llm.reset()
+    toks = list(llm.stream(token_ids=ids, max_new_tokens=B256_NEW))
+    counts = read_launches(label, ("mnn_dequant_matmul_a8", "mnn_flash_prefill",
+                                   "mnn_dequant_matmul", "mnn_decode_model"),
+                           never=B256_NEVER + ("mnn_decode_step", "mnn_dequant_matmul_bf16_tile",
+                                               "mnn_dequant_matmul_deq"))
+    check(len(toks) == B256_NEW and counts["mnn_decode_model"] == B256_NEW,
+          f"{label}: {len(toks)} tokens, {counts['mnn_decode_model']} whole-model launches")
+    check(bool(torch.isfinite(llm.last_prefill_logits).all()), f"{label}: non-finite logits")
+    p = llm.perf
+    print(f"  {label}: {p.prompt_len} prompt tokens, prefill {p.prefill_s:.4f} s "
+          f"({p.prefill_tok_s:.1f} tok/s) | decode {p.gen_len} tokens {p.decode_tok_s:.1f} "
+          f"tok/s [{card_line}]", flush=True)
+    return toks, dict(prefill_s=p.prefill_s, prefill_tok_s=p.prefill_tok_s, gen_len=p.gen_len,
+                      decode_s=p.decode_s, decode_tok_s=p.decode_tok_s, launches=counts)
+
+
+def b256_prefill(llm, ids, rt, label, must, never):
+    """One prefill of `ids` under `rt` on llm's weights, host-timed to a
+    synchronize, with its launch counts."""
+    tokens = torch.tensor([ids], dtype=torch.int64, device=llm.device)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = generate.run_prefill(llm.params, llm.config, rt, tokens, llm._new_cache())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_launches(label, must, never=never)
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    print(f"  {label}: {len(ids)} tokens in {secs:.4f} s", flush=True)
+    return dict(prefill_s=secs, launches=counts), logits
+
+
+def phase_block256(dev, g, results, params7, card_line):
+    """Phase 16: qwen2-7b at quant_block 256 as bench.py:261 runs it (28
+    layers, published widths, random weights from seed 0), each sub-phase
+    with its launch counts set to 0 before and read after. (iii) one
+    512-token prompt and 128 greedy tokens, beside the same model at block
+    128 (`params7`, phase 2's 28-layer weights), in the order 128, 256, 256,
+    128; then on the block-256 weights 8 decode steps with megakernel=False
+    (rows 1a and 6), a prefill at prefill_act_bits=16 (row 1b) and one with
+    `DEQ_MIN_M = 512` (row 3). (jjj) the first two layers on the card and on
+    the CPU, a bf16-row prefill (row 1b) and both decode paths, by phase 4's
+    bounds and token rule; beside it, not held, the int8-row prefill's
+    logits card against CPU at block 256 and at block 128 (row 2 gives the
+    plain version's bits, but its int8 rows quantize the attention's output,
+    whose summation order differs, and a level flipped there moves the
+    logits by 3e-2 to 6e-2 at these widths, at either block). Its CPU side
+    runs in a thread while phase 2's block-256 rows (rows 1a, 1b, 2, 3, 7,
+    8, 9, and 1b and 3 at block 128 on the same shapes) take the card."""
+    t16 = time.perf_counter()
+    secs, out = {}, {}
+    cfg = PRESETS["qwen2-7b"]
+    t0 = time.perf_counter()
+    params256 = decoder.init_random_params(cfg, torch.Generator().manual_seed(SEED),
+                                           quant_block=256, lm_head_bits=4, device=dev)
+    lay = params256.layers
+    blocks = {n: getattr(lay, n).block_size for n in ("wqkv", "wo", "wgu", "wdown")}
+    blocks["lm_head"] = params256.lm_head.block_size
+    check(set(blocks.values()) == {256}, f"block-256 qwen2-7b: blocks {blocks}")
+    secs["weights"] = time.perf_counter() - t0
+    print(f"  qwen2-7b at quant_block 256: {cfg.num_layers} layers built in "
+          f"{secs['weights']:.1f} s; blocks {blocks}", flush=True)
+    ids = np.random.default_rng(SEED + 24).integers(0, cfg.vocab_size, B256_PROMPT).tolist()
+
+    # (iii) block 128 and block 256, each after an untimed request of 2
+    # tokens (cuBLAS handles, the whole-model schedule at this capacity)
+    t0 = time.perf_counter()
+    llms = {b: Llm(cfg, p, b256_rt(b), device=dev) for b, p in ((128, params7), (256, params256))}
+    for llm in llms.values():
+        list(llm.stream(token_ids=ids[:8], max_new_tokens=2))
+    torch.cuda.synchronize()
+    runs = {128: [], 256: []}
+    toks = {}
+    for b in (128, 256, 256, 128):
+        toks[b], perf = b256_serve(llms[b], ids, f"(iii) qwen2-7b block {b}", card_line)
+        runs[b].append(perf)
+    out["iii"] = dict(prompt=B256_PROMPT, new_tokens=B256_NEW, card=card_line, block=runs,
+                      blocks=blocks)
+    for b in (128, 256):
+        pre = [r["prefill_s"] for r in runs[b]]
+        dec = [r["decode_tok_s"] for r in runs[b]]
+        print(f"  (iii) block {b}: prefill {pre[0]:.4f} / {pre[1]:.4f} s, decode "
+              f"{dec[0]:.1f} / {dec[1]:.1f} tok/s [{card_line}]", flush=True)
+    secs["iii"] = time.perf_counter() - t0
+
+    # (jjj) the card's two paths from the same bf16-row prefill, then the
+    # CPU's plain versions fed the card's tokens, in a thread; beside them,
+    # unheld, the int8-row prefill's logits at block 256 and at block 128
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=B256_PARITY_LAYERS)
+    rt16 = dataclasses.replace(b256_rt(256), prefill_act_bits=16)
+    card2 = Llm(cfg2, first_layers(params256, B256_PARITY_LAYERS), rt16, device=dev)
+    card_mk, fed, _ = greedy_trace(card2, ids, None)
+    card_pl, _, _ = greedy_trace(card2, ids, fed, megakernel=False)
+    cpu_llm = Llm(cfg2, decoder.params_to(card2.params, "cpu"), rt16, device="cpu")
+    act8 = {}
+    for b, p in ((256, card2.params), (128, first_layers(params7, B256_PARITY_LAYERS))):
+        llm8 = Llm(cfg2, p, b256_rt(b), device=dev)
+        logits, _ = generate.run_prefill(p, cfg2, llm8.rt, torch.tensor([ids], device=dev),
+                                         llm8._new_cache())
+        act8[b] = (logits.float().cpu(), Llm(cfg2, decoder.params_to(p, "cpu"), b256_rt(b),
+                                             device="cpu"))
+
+    def cpu_side():
+        rows = greedy_trace(cpu_llm, ids, fed)[0]
+        prefills = {b: generate.run_prefill(llm.params, cfg2, llm.rt, torch.tensor([ids]),
+                                            llm._new_cache())[0].float()
+                    for b, (_, llm) in act8.items()}
+        return rows, prefills
+    secs["jjj card"] = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(timed_cpu(cpu_side))
+
+        # the block-256 model's other paths
+        t0 = time.perf_counter()
+        llm = llms[256]
+        build.reset_launches()
+        rows, _, _ = greedy_trace(llm, ids, None, megakernel=False)
+        torch.cuda.synchronize()
+        steps = read_launches("(iii) per-layer decode, block 256",
+                              ("mnn_dequant_matmul", "mnn_decode_step"),
+                              never=B256_NEVER + ("mnn_decode_model",))
+        check(steps["mnn_decode_step"] == cfg.num_layers * PARITY_STEPS
+              and all(bool(torch.isfinite(r).all()) for r in rows),
+              f"(iii) per-layer decode: {steps['mnn_decode_step']} decode-step launches")
+        out["iii"]["per_layer"] = dict(steps=PARITY_STEPS, launches=steps)
+        out["iii"]["act16"], _ = b256_prefill(
+            llm, ids, dataclasses.replace(llm.rt, prefill_act_bits=16),
+            "(iii) prefill_act_bits=16, block 256",
+            ("mnn_dequant_matmul_bf16_tile", "mnn_flash_prefill"),
+            B256_NEVER + ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_deq"))
+        check(out["iii"]["act16"]["launches"]["mnn_dequant_matmul_bf16_tile"]
+              == 4 * cfg.num_layers, "(iii) act16: tile-kernel launches")
+        dequant_matmul.DEQ_MIN_M = B256_PROMPT
+        try:
+            out["iii"]["deq"], _ = b256_prefill(
+                llm, ids, llm.rt, "(iii) DEQ_MIN_M = 512, block 256",
+                ("mnn_dequant_matmul_deq", "mnn_flash_prefill"),
+                B256_NEVER + ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_bf16_tile"))
+        finally:
+            dequant_matmul.DEQ_MIN_M = 1 << 30
+        check(out["iii"]["deq"]["launches"]["mnn_dequant_matmul_deq"] == 4 * cfg.num_layers,
+              "(iii) DEQ_MIN_M: dequantize-tile launches")
+        del llms, llm
+        secs["iii other paths"] = time.perf_counter() - t0
+
+        # phase 2's block-256 rows
+        t0 = time.perf_counter()
+        print("phase 2, block-256 rows of rows 1a, 1b, 2, 3, 7, 8 and 9", flush=True)
+        results["decode_model_b256"] = [
+            decode_model_row(dev, g, "qwen2-7b x2 layers, block 256", cfg2,
+                             first_layers(params256, B256_PARITY_LAYERS), 8,
+                             (B256_PROMPT + 7,), 1024),
+            decode_model_row(dev, g, "qwen2-7b, block 256", cfg, params256, 8,
+                             (B256_PROMPT + 7,), 1024)]
+        del params256
+        torch.cuda.empty_cache()
+        phase_gemm(dev, g, results, a8=False, shapes=QWEN7B_GEMV, bs=256,
+                   key="dequant_matmul_b256")
+        # rows 1b and 3 at block 128 on the same shapes, beside their block-256
+        # rows (rows 1a, 2, 7, 8 and 9 have theirs in phase 2)
+        phase_gemm(dev, g, results, a8=False, shapes=QWEN7B_PREFILL, key="dequant_matmul_tile_7b")
+        phase_gemm(dev, g, results, a8=False, shapes=QWEN7B_PREFILL, bs=256,
+                   key="dequant_matmul_tile_b256")
+        phase_gemm_deq(dev, g, results, DEQ_ROWS_B256, key="dequant_matmul_deq_7b")
+        phase_gemm(dev, g, results, a8=True, shapes=QWEN7B_PREFILL_B256, bs=256,
+                   key="dequant_matmul_a8_b256")
+        phase_gemm_deq(dev, g, results, DEQ_ROWS_B256, bs=256, key="dequant_matmul_deq_b256")
+        phase_moe_prefill(dev, g, results, MOE_PREFILL_ROWS_B256, block=256,
+                          key="moe_prefill_b256")
+        phase_moe_decode(dev, g, results, ("qwen3-moe-30b-a3b",), bs=256, key="moe_decode_b256")
+        secs["phase 2 rows"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        (cpu, cpu_act8), cpu_s = job.result()
+    secs["jjj cpu wait"] = time.perf_counter() - t0
+    label = (f"(jjj) qwen2-7b block 256, {B256_PARITY_LAYERS} layers, {B256_PROMPT} prompt "
+             f"tokens, bf16 prefill rows, ")
+    out["jjj"] = dict(layers=B256_PARITY_LAYERS, prompt=B256_PROMPT, prefill_act_bits=16,
+                      cpu_s=cpu_s, **{path: compare_traces(card_rows, cpu, f"{label}{path} ")
+                                      for path, card_rows in (("whole-model", card_mk),
+                                                              ("per-layer", card_pl))})
+    out["jjj"]["act8_prefill_rel_l2"] = {b: rel_l2(act8[b][0], cpu_act8[b]) for b in act8}
+    print("  (jjj) int8-row prefill logits, card vs cpu, not held: " + ", ".join(
+        f"block {b} rel-L2 {v:.3e}" for b, v in out["jjj"]["act8_prefill_rel_l2"].items()),
+        flush=True)
+    print(f"    cpu side {cpu_s:.1f} s", flush=True)
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t16
+    print("  phase 16 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 16: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def block256_launches(b256: dict) -> dict:
+    """Phase 16's launches by C entry, summed over its sub-phases."""
+    iii = b256["iii"]
+    parts = [r["launches"] for runs in iii["block"].values() for r in runs]
+    parts += [iii[k]["launches"] for k in ("per_layer", "act16", "deq")]
+    total: dict = {}
+    for counts in parts:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -6191,6 +6485,14 @@ COUNTED_IN = {"mnn_decode_step": "per_layer_int8", "mnn_flash_decode": "per_laye
               "mnn_moe_decode": "moe_int8", "mnn_moe_prefill": "moe_int8",
               "mnn_dequant_matmul_deq": "moe_deq_switch",
               "mnn_dequant_matmul_bf16_tile": "dense_act16"}
+
+
+# phase 16's block-256 rows (and row 2's block-176 one) by kernel
+B256_ROWS = {"dequant_matmul": ("dequant_matmul_b256", "dequant_matmul_tile_b256"),
+             "dequant_matmul_a8": ("dequant_matmul_a8_b256",),
+             "dequant_matmul_deq": ("dequant_matmul_deq_b256",),
+             "decode_model": ("decode_model_b256",), "moe_decode": ("moe_decode_b256",),
+             "moe_prefill": ("moe_prefill_b256",)}
 
 
 # phase 10's rows in the kernels line: kernel -> (key, results key, C entry)
@@ -6288,8 +6590,7 @@ def main():
     print("phase 13: generative output on the card (speech out through the talker, "
           "BigVGAN and the mel ODE; Stable Diffusion 1.5)", flush=True)
     generative = phase_generative(dev, params7, card_line)
-    del params7
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()       # params7 stays for phase 16's block-128 run
 
     print("phase 3: serving qwen2-0.5b on the card", flush=True)
     reqs, outs, perf, counts = phase_serve(llm)
@@ -6386,10 +6687,19 @@ def main():
           flush=True)
     cnn = phase_cnn(dev, card_line, results)
 
+    print("phase 16: qwen2-7b at quant_block 256 on the card (bench.py's --q-block 256 row: "
+          "pp512 + tg128 beside block 128, the per-layer, act-16 and dequantize-tile paths, "
+          "2 layers against the CPU; phase 2's block-256 rows)", flush=True)
+    torch.cuda.empty_cache()
+    b256 = phase_block256(dev, g, results, params7, card_line)
+    del params7
+    torch.cuda.empty_cache()
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
     tr_counts = training_launches(training)
     gen_counts = generative_launches(generative)
+    b256_counts = block256_launches(b256)
     kernels = []
     for kname, (src, repl, entry) in KERNEL_INFO.items():
         rows = results[kname]
@@ -6455,6 +6765,15 @@ def main():
         if kname == "dequant_matmul":
             k["generative_launches"] += gen_counts.get("mnn_dequant_matmul_bf16_tile", 0)
         k["launches"] += k["generative_launches"]
+        # phase 16's launches, (iii), added too; the kernel's block-256 rows
+        k["block256_launches"] = b256_counts.get(entry, 0)
+        if kname == "dequant_matmul":
+            k["block256_launches"] += b256_counts.get("mnn_dequant_matmul_bf16_tile", 0)
+        k["launches"] += k["block256_launches"]
+        b256_rows = [r for key in B256_ROWS.get(kname, ()) for r in results[key]]
+        if b256_rows:
+            k["block256"] = dict(row_sums(b256_rows), blocks=sorted(
+                {b for r in b256_rows for b in r.get("blocks", [r.get("block", 256)])}))
         # phase 2's rows at the qwen2-7b shapes phase 11 serves
         if f"{kname}_7b" in results:
             k["qwen2_7b"] = row_sums(results[f"{kname}_7b"])
@@ -6480,6 +6799,7 @@ def main():
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
                   training=training, generative=generative, dit_cv=dit_cv, cnn=cnn,
+                  block256=b256,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

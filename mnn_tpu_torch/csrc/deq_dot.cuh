@@ -46,6 +46,18 @@
 // and of the pattern. Rows past M are zero in shared memory. What holds it
 // on the H100 (clock64 stamps, PERF.md): the unpack and the ldmatrix
 // traffic of shared memory, each a few thousand cycles a quant block.
+//
+// Quant blocks of 136 to 256 K-values take a second build of the body
+// (KMAX = 256): a ring stage holds the whole block (its packed rows
+// interleave across it), and the block is unpacked in two chunks of K-rows,
+// 0..127 and 128..bs-1, into the same [BF_KMAX][BN] buffer. The partial
+// algebras' product and row sum run on across both chunks and take the f32
+// step once per quant block, as the JAX kernel does; the chunks are steps of
+// the schedules above (two more barriers a block with one buffer; with two,
+// chunk 0 then chunk 1 of block kb, each unpacked under the other's
+// products). Three ring stages where they fit in a block's shared memory,
+// else two. Blocks of up to 128 keep the first build: the same stages,
+// tiles and code.
 #pragma once
 
 #include <type_traits>
@@ -55,6 +67,7 @@
 namespace mnn {
 
 constexpr int A8_STAGES = 3;    // quant blocks in flight in the copy ring
+constexpr int SMEM_BLOCK_MAX = 232448;   // dynamic shared memory a block may take
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -137,14 +150,14 @@ inline int sm_count() {
 // One thread's share of filling a ring stage with quant block kb, the same
 // for every block but for its offset: a column piece of every w_step-th
 // packed row, of every x_step-th row of x, and at most one piece of the
-// scale or bias row. A stage is [packed rows of the largest block][BN]
-// bytes, then [BM][XSTR] bytes of x (E bytes a K-value, XROW bytes for the
+// scale or bias row. A stage (STAGES of them) is [packed rows of the
+// largest block][BN] bytes, then [BM][XSTR] bytes of x (E bytes a K-value, XROW bytes for the
 // largest block; rows K values apart from row m0 on, M rows in all), then
 // the block's scale and bias rows of BN bf16 each. vx, vw, vp: the bytes
 // per copy of x, of the packed rows and of the scale/bias rows (16, 8 or 4,
 // as their alignment allows).
 template <int E, int XROW, int XSTR, int BM, int BN, int THREADS, int W_BYTES, int X_BYTES,
-          int STAGE>
+          int STAGE, int STAGES = A8_STAGES>
 struct Ring {
   int w_r0, w_c, w_step, x_r0, x_c, x_step, p_plane, p_c, vx, vw, vp;
   bool w_ok, p_ok;
@@ -171,7 +184,7 @@ struct Ring {
   // the copies never write there, and a zero adds nothing to any product
   __device__ __forceinline__ static void zero_pad(unsigned char* smem, int from, int to, int tid) {
     const int pad = (to - from) >> 3;
-    for (int i = tid; i < A8_STAGES * BM * pad; i += THREADS) {
+    for (int i = tid; i < STAGES * BM * pad; i += THREADS) {
       const int s = i / (BM * pad), r = (i / pad) % BM, j = i % pad;
       *reinterpret_cast<uint2*>(smem + s * STAGE + W_BYTES + r * XSTR + from + 8 * j) =
           make_uint2(0u, 0u);
@@ -236,8 +249,8 @@ __device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t t, uint32_t s2, uint
                    __fadd_rn(__fmul_rn(u2f(t >> 16), s1), b1));
 }
 
-constexpr int BF_KMAX = 128;    // K-values of the largest quant block
-constexpr int BF_XSTR = 272;    // bytes per staged x row: 256 + 16, so ldmatrix is conflict-free
+constexpr int BF_KMAX = 128;    // K-rows of the unpacked buffer: a chunk of a quant block
+constexpr int BLOCK_MAX = 2 * BF_KMAX;   // the largest quant block (the KMAX = 256 build)
 
 constexpr int ALG_ROWS = 0, ALG_PARTIAL = 1, ALG_DEQUANT = 2;
 
@@ -257,21 +270,25 @@ __host__ __device__ constexpr int sm_blocks(int smem, int threads) {
   return 233472 / (smem + 1024) < 2048 / threads ? 233472 / (smem + 1024) : 2048 / threads;
 }
 
-// Shared memory of one tile shape: A8_STAGES stages of [raw packed rows of
-// one quant block][BN] bytes, [BM][BF_XSTR] bytes of x and the block's scale
-// and bias rows, then the unpacked block (two in turn where pipe(alg)) as
-// [BF_KMAX][BN] bf16, one K-value a row (rows BTS bytes apart, an odd
-// multiple of 16, so ldmatrix.trans is conflict-free). MT x NT m16n8 tiles
-// a warp, WM x WN warps.
-template <int BITS, int MT, int NT, int WM, int WN>
+// Shared memory of one tile shape for quant blocks of up to KMAX (128 or
+// 256) K-values: STAGES stages of [raw packed rows of one quant block][BN]
+// bytes, [BM][XSTR] bytes of x and the block's scale and bias rows, then
+// the unpacked chunk (two in turn where pipe(alg)) as [BF_KMAX][BN] bf16,
+// one K-value a row (rows BTS bytes apart, an odd multiple of 16, so
+// ldmatrix.trans is conflict-free). MT x NT m16n8 tiles a warp, WM x WN
+// warps. Three stages, or two where three do not fit in a block.
+template <int BITS, int MT, int NT, int WM, int WN, int KMAX = BF_KMAX>
 struct Bf16Tile {
   static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = 32 * WM * WN;
-  static constexpr int W_BYTES = BF_KMAX * BITS / 8 * BN;
-  static constexpr int X_BYTES = BM * BF_XSTR;
+  static constexpr int CHUNKS = KMAX / BF_KMAX;
+  static constexpr int XSTR = 2 * KMAX + 16;   // bytes per staged x row: 272 or 528, conflict-free
+  static constexpr int W_BYTES = KMAX * BITS / 8 * BN;
+  static constexpr int X_BYTES = BM * XSTR;
   static constexpr int STAGE = W_BYTES + X_BYTES + 2 * BN * 2;
   static constexpr int BTS = BN == 8 ? 16 : 2 * BN + 16;
   static constexpr int BT_BYTES = BF_KMAX * BTS;
-  static constexpr int SMEM = A8_STAGES * STAGE + BT_BYTES;   // one unpacked buffer
+  static constexpr int STAGES = 3 * STAGE + BT_BYTES <= SMEM_BLOCK_MAX ? 3 : 2;
+  static constexpr int SMEM = STAGES * STAGE + BT_BYTES;   // one unpacked buffer
   __host__ __device__ static constexpr bool pipe(int alg) {
     return alg != ALG_ROWS && MNN_DD_PIPE &&
            sm_blocks(SMEM + BT_BYTES, THREADS) >= sm_blocks(SMEM, THREADS);
@@ -304,8 +321,9 @@ static __device__ long long dd_clocks[8];
 // writes K rows i + m bs/4, m = 0..3, from bit pair 2m; at W3 it first joins
 // the 1-bit plane's bit, row bs/4 + i % (bs/8), bit i / (bs/8) + 2m, into
 // q = lo + 4 hi < 8. The dequantize algebra writes bf16(q * s + m), the
-// others q.
-template <int BITS, int ALG, int IB, int BN, int BTS, int THREADS>
+// others q. With CHUNKS > 1 only the K rows of the chunk from K0 on are
+// written, at row k - K0.
+template <int BITS, int ALG, int IB, int BN, int BTS, int THREADS, int CHUNKS, int K0>
 __device__ __forceinline__ void unpack_sub4(const unsigned char* st, const bf16* sp,
                                             unsigned char* bt, int bs, int tid) {
   constexpr int CQ = BN / IB, IW = IB / 4;
@@ -339,6 +357,8 @@ __device__ __forceinline__ void unpack_sub4(const unsigned char* st, const bf16*
     }
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
+      const int row = i + m * q4 - K0;   // the K row in the chunk
+      if (CHUNKS > 1 && (unsigned)row >= (unsigned)BF_KMAX) continue;
       uint32_t out[2 * IW];
 #pragma unroll
       for (int j = 0; j < IW; ++j)
@@ -354,7 +374,7 @@ __device__ __forceinline__ void unpack_sub4(const unsigned char* st, const bf16*
           else
             out[2 * j + hf] = nibbles_bf16x2(q);
         }
-      uint4* d = reinterpret_cast<uint4*>(bt + (i + m * q4) * BTS + 2 * IB * c);
+      uint4* d = reinterpret_cast<uint4*>(bt + row * BTS + 2 * IB * c);
 #pragma unroll
       for (int q = 0; q < IW / 2; ++q)
         d[q] = make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
@@ -367,39 +387,46 @@ __device__ __forceinline__ void unpack_sub4(const unsigned char* st, const bf16*
 // accumulator; row_w = (warp / WN) * 16 MT, col_w = (warp % WN) * 8 NT).
 // x: M rows of K bf16 (16-byte copies need a 16-byte aligned x);
 // packed/scale/bias: one weight matrix [K * BITS / 8, N], [K / bs, N];
-// bs <= BF_KMAX, a multiple of 8 (16 for ALG_DEQUANT), dividing K; N a
-// multiple of 4. smem: Bf16Tile::smem(ALG) bytes. vx, vw, vp: the bytes
-// per asynchronous copy of x, of the packed rows and of the scale/bias rows.
+// bs <= KMAX (above BF_KMAX when KMAX is 256), a multiple of 8 (16 for
+// ALG_DEQUANT), dividing K; N a multiple of 4. smem: Bf16Tile::smem(ALG)
+// bytes. vx, vw, vp: the bytes per asynchronous copy of x, of the packed
+// rows and of the scale/bias rows.
 // Ends with every warp still possibly reading the last ring stage: a caller
 // that reuses the shared memory synchronizes first.
-template <int BITS, int MT, int NT, int WM, int WN, int ALG>
+template <int BITS, int MT, int NT, int WM, int WN, int ALG, int KMAX = BF_KMAX>
 __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __restrict__ x, int m0,
                                           int M, int K, const uint8_t* __restrict__ packed,
                                           const bf16* __restrict__ scale,
                                           const bf16* __restrict__ bias, int N, int bs, int n0,
                                           int vx, int vw, int vp, float (&acc)[MT][NT][4]) {
-  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  constexpr int BN = T::BN, BTS = T::BTS, THREADS = T::THREADS;
+  using T = Bf16Tile<BITS, MT, NT, WM, WN, KMAX>;
+  constexpr int BN = T::BN, BTS = T::BTS, THREADS = T::THREADS, STAGES = T::STAGES;
+  constexpr int NC = T::CHUNKS;
+  static_assert(NC == 1 || NC == 2, "blocks of up to 256 K-values: one or two chunks");
   constexpr bool PIPE = T::pipe(ALG);
-  unsigned char* bt0 = smem + A8_STAGES * T::STAGE;
+  unsigned char* bt0 = smem + STAGES * T::STAGE;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tig = lane & 3;
   const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
   const int nb = K / bs, kp = (bs + 15) & ~15;   // K-values per block, padded to the mma depth
   const int rows_w = bs * BITS / 8;              // packed rows per quant block
+  // the last chunk's K-values and their count padded to the mma depth
+  const int kl = bs - (NC - 1) * BF_KMAX, kpl = kp - (NC - 1) * BF_KMAX;
 
-  using R = Ring<2, 2 * BF_KMAX, BF_XSTR, T::BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE>;
+  using R = Ring<2, 2 * KMAX, T::XSTR, T::BM, BN, THREADS, T::W_BYTES, T::X_BYTES, T::STAGE,
+                 STAGES>;
   R::zero_pad(smem, 2 * bs, 2 * kp, tid);
-  // the pattern's rows from bs to kp are zeros too: a zero x times stale
-  // shared memory could be NaN
+  // the pattern's rows from kl to kpl are zeros too: a zero x times stale
+  // shared memory could be NaN (with one buffer and two chunks, chunk 0
+  // leaves finite values there)
   for (int b = 0; b < (PIPE ? 2 : 1); ++b)
-    for (int i = tid; i < (kp - bs) * BTS / 16; i += THREADS)
-      reinterpret_cast<uint4*>(bt0 + b * T::BT_BYTES + bs * BTS)[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < (kpl - kl) * BTS / 16; i += THREADS)
+      reinterpret_cast<uint4*>(bt0 + b * T::BT_BYTES + kl * BTS)[i] = make_uint4(0u, 0u, 0u, 0u);
   const R ring(tid, n0, N, scale, bias, vx, vw, vp);
   auto load = [&](int kb) {
     if (kb < nb)
-      ring.load(smem + (kb % A8_STAGES) * T::STAGE, kb, packed, rows_w,
+      ring.load(smem + (kb % STAGES) * T::STAGE, kb, packed, rows_w,
                 reinterpret_cast<const unsigned char*>(x), m0, M, K, bs, N, n0);
     cp_async_commit();   // an empty group past the last block keeps the count
   };
@@ -415,26 +442,35 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
   // values 0-7, lanes 16-31 the same rows at 8-15. B (.trans): lanes 0-15 K
   // rows 0-15 of the first n8 tile of a pair, lanes 16-31 of the second.
   const unsigned xr0 =
-      smem_u32(smem + T::W_BYTES + (row_w + (lane & 15)) * BF_XSTR + (lane >> 4) * 16);
+      smem_u32(smem + T::W_BYTES + (row_w + (lane & 15)) * T::XSTR + (lane >> 4) * 16);
   const unsigned br0 = smem_u32(bt0 + (lane & 15) * BTS + (col_w + 8 * (lane >> 4)) * 2);
 
-  // Unpack quant block kb from its ring stage into the buffer at bt, once
-  // per tile: a thread takes IB columns of one packed row and writes them as
-  // bf16 K-rows: W4 the low nibbles to row i and the high ones to row
-  // i + bs/2 (the pairing of the packed layout), W8 the bytes to row i. The
-  // dequantize algebra writes bf16(q * s + m) with the columns' scale and
-  // bias from the stage, the others the pattern q. IB = 8 (the new
-  // algebras, and tiles 8 wide): eight threads store 128 consecutive bytes,
-  // free of bank conflicts; ALG_ROWS keeps its 16.
-  auto unpack = [&](int kb, unsigned char* bt) {
-    const unsigned char* st = smem + (kb % A8_STAGES) * T::STAGE;
+  // Unpack chunk ch (K-values k0 = 128 ch on) of quant block kb from its
+  // ring stage into the buffer at bt, once per tile: a thread takes IB
+  // columns of one packed row and writes them as bf16 K-rows: W4 the low
+  // nibbles to row i and the high ones to row i + bs/2 (the pairing of the
+  // packed layout), W8 the bytes to row i, each less k0 and where it falls
+  // in the chunk. The dequantize algebra writes bf16(q * s + m) with the
+  // columns' scale and bias from the stage, the others the pattern q. IB = 8
+  // (the new algebras, and tiles 8 wide): eight threads store 128
+  // consecutive bytes, free of bank conflicts; ALG_ROWS keeps its 16.
+  auto unpack = [&](int kb, auto ch, unsigned char* bt) {
+    const unsigned char* st = smem + (kb % STAGES) * T::STAGE;
     const bf16* sp = reinterpret_cast<const bf16*>(st + T::W_BYTES + T::X_BYTES);
     constexpr int IB = BN < 16 || ALG != ALG_ROWS ? 8 : 16, CQ = BN / IB, IW = IB / 4;
+    constexpr int k0 = decltype(ch)::value * BF_KMAX;
     if constexpr (BITS < 4) {
-      unpack_sub4<BITS, ALG, IB, BN, BTS, THREADS>(st, sp, bt, bs, tid);
+      unpack_sub4<BITS, ALG, IB, BN, BTS, THREADS, NC, k0>(st, sp, bt, bs, tid);
       return;
     }
-    for (int u = tid; u < rows_w * CQ; u += THREADS) {
+    // the packed rows with a K-value in the chunk: W8's rows k0.., W4's
+    // rows whose low (i) or high (i + bs/2) K-value is there
+    int i0 = 0, i1 = rows_w;
+    if constexpr (NC > 1) {
+      i0 = BITS == 8 ? k0 : max(0, k0 - rows_w);
+      i1 = min(rows_w, k0 + BF_KMAX);
+    }
+    for (int u = tid + i0 * CQ; u < i1 * CQ; u += THREADS) {
       const int i = u / CQ, c = u - i * CQ;
       uint32_t w[IW], s2[2 * IW], m2[2 * IW];
       if constexpr (IW == 4) {
@@ -476,12 +512,13 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
           lo[2 * j + 1] = pack_bf16(u2f(t1 & 0xFFFFu), u2f(t1 >> 16));
         }
       }
-      uint4* d = reinterpret_cast<uint4*>(bt + i * BTS + 2 * IB * c);
+      uint4* d = reinterpret_cast<uint4*>(bt + (i - k0) * BTS + 2 * IB * c);
+      if (NC == 1 || (unsigned)(i - k0) < (unsigned)BF_KMAX)
 #pragma unroll
-      for (int q = 0; q < IW / 2; ++q)
-        d[q] = make_uint4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
-      if (BITS == 4) {
-        d = reinterpret_cast<uint4*>(bt + (i + (bs >> 1)) * BTS + 2 * IB * c);
+        for (int q = 0; q < IW / 2; ++q)
+          d[q] = make_uint4(lo[4 * q], lo[4 * q + 1], lo[4 * q + 2], lo[4 * q + 3]);
+      if (BITS == 4 && (NC == 1 || (unsigned)(i + (bs >> 1) - k0) < (unsigned)BF_KMAX)) {
+        d = reinterpret_cast<uint4*>(bt + (i + (bs >> 1) - k0) * BTS + 2 * IB * c);
 #pragma unroll
         for (int q = 0; q < IW / 2; ++q)
           d[q] = make_uint4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2], hi[4 * q + 3]);
@@ -491,12 +528,15 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
 
   // The products of quant block kb: x rows from its stage, the pattern or
   // weights from the unpacked buffer at br (this lane's ldmatrix address),
-  // then, for the partial algebras, the block's f32 step. Rows past M are
-  // zeros in shared memory: their tiles add nothing, and computing them
-  // keeps the loop free of branches.
-  auto products = [&](int kb, unsigned br) {
-    const int stage = (kb % A8_STAGES) * T::STAGE;
-    const unsigned xr = xr0 + stage;
+  // then, for the partial algebras, the block's f32 step. With two chunks a
+  // block, chunk 0's products, then between() (the barrier and the unpack
+  // that make chunk 1 ready, in the buffer at br1), then chunk 1's, all
+  // into the same sums. Rows past M are zeros in shared memory: their tiles
+  // add nothing, and computing them keeps the loop free of branches.
+  auto products = [&](int kb, unsigned br, [[maybe_unused]] unsigned br1,
+                      [[maybe_unused]] auto between) {
+    const int stage = (kb % STAGES) * T::STAGE;
+    unsigned xr = xr0 + stage;
     // every fragment of a K-step of 16, then the products
     auto fragments = [&](int ks, uint32_t (&a)[MT][4], uint32_t (&b)[NT][2]) {
 #pragma unroll
@@ -515,18 +555,31 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
         b[NT - 1][1] = t[1];
       }
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * BF_XSTR);
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xr + ks * 32 + mt * 16 * T::XSTR);
     };
 
     if constexpr (ALG == ALG_DEQUANT) {
 #pragma unroll 4
-      for (int ks = 0; ks < (kp >> 4); ++ks) {
+      for (int ks = 0; ks < ((NC == 1 ? kp : BF_KMAX) >> 4); ++ks) {   // chunk 0
         uint32_t a[MT][4], b[NT][2];
         fragments(ks, a, b);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+      }
+      if constexpr (NC > 1) {
+        between();
+        br = br1, xr += 2 * BF_KMAX;
+#pragma unroll 4
+        for (int ks = 0; ks < kpl >> 4; ++ks) {
+          uint32_t a[MT][4], b[NT][2];
+          fragments(ks, a, b);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+        }
       }
     } else {
       const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};   // bf16 1.0 pairs
@@ -540,7 +593,7 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
           for (int nt = 0; nt < NT; ++nt) part[mt][nt][i] = 0.f;
         }
 #pragma unroll 4
-      for (int ks = 0; ks < (kp >> 4); ++ks) {
+      for (int ks = 0; ks < ((NC == 1 ? kp : BF_KMAX) >> 4); ++ks) {   // chunk 0
         uint32_t a[MT][4], b[NT][2];
         fragments(ks, a, b);
 #pragma unroll
@@ -548,6 +601,21 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
           mma_bf16_16816(rs[mt], a[mt], ones);   // every column: the row's sum
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt]);
+        }
+      }
+      if constexpr (NC > 1) {
+        between();
+        br = br1, xr += 2 * BF_KMAX;
+#pragma unroll 4
+        for (int ks = 0; ks < kpl >> 4; ++ks) {
+          uint32_t a[MT][4], b[NT][2];
+          fragments(ks, a, b);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16_16816(rs[mt], a[mt], ones);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt]);
+          }
         }
       }
 
@@ -584,35 +652,64 @@ __device__ __forceinline__ void tile_body(unsigned char* smem, const bf16* __res
   const long long clk_start = clk_last;
 #endif
 #pragma unroll
-  for (int s = 0; s < A8_STAGES - 1; ++s) load(s);
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
 
-  if constexpr (PIPE) {
+  constexpr std::integral_constant<int, 0> C0{};   // the chunks of a block
+  constexpr std::integral_constant<int, 1> C1{};
+  auto none = [] {};
+  if constexpr (PIPE && NC == 1) {
     // block kb + 1 is unpacked into one buffer while block kb's products
     // read the other; the copy of block kb + 2 runs under both
-    cp_async_wait<A8_STAGES - 2>();
+    static_assert(STAGES == 3, "the copy of block kb + 1 lands a block ahead");
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    unpack(0, bt0);
+    unpack(0, C0, bt0);
     for (int kb = 0; kb < nb; ++kb) {
       cp_async_wait<0>();
       __syncthreads();   // block kb is unpacked, kb + 1 has landed; every warp is done with kb - 1
       MNN_DD_STAMP(0)
-      load(kb + A8_STAGES - 1);
-      if (kb + 1 < nb) unpack(kb + 1, bt0 + ((kb + 1) & 1) * T::BT_BYTES);
+      load(kb + STAGES - 1);
+      if (kb + 1 < nb) unpack(kb + 1, C0, bt0 + ((kb + 1) & 1) * T::BT_BYTES);
       MNN_DD_STAMP(1)
-      products(kb, br0 + (kb & 1) * T::BT_BYTES);
+      products(kb, br0 + (kb & 1) * T::BT_BYTES, 0u, none);
+      MNN_DD_STAMP(3)
+    }
+  } else if constexpr (PIPE) {
+    // two chunks a block: chunk 1 of block kb is unpacked into buffer 1
+    // while chunk 0's products read buffer 0, then chunk 0 of block kb + 1
+    // into buffer 0 while chunk 1's read buffer 1; the copy of block
+    // kb + STAGES - 1 runs under all four
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    unpack(0, C0, bt0);
+    for (int kb = 0; kb < nb; ++kb) {
+      __syncthreads();   // chunk 0 of block kb is unpacked; every warp is done with kb - 1
+      MNN_DD_STAMP(0)
+      load(kb + STAGES - 1);
+      unpack(kb, C1, bt0 + T::BT_BYTES);
+      MNN_DD_STAMP(1)
+      products(kb, br0, br0 + T::BT_BYTES, [&] {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();   // chunk 1 is unpacked, block kb + 1 has landed; chunk 0 is done
+        if (kb + 1 < nb) unpack(kb + 1, C0, bt0);
+      });
       MNN_DD_STAMP(3)
     }
   } else {
     for (int kb = 0; kb < nb; ++kb) {
-      cp_async_wait<A8_STAGES - 2>();
+      cp_async_wait<STAGES - 2>();
       __syncthreads();   // block kb has landed; every warp is done with kb - 1
       MNN_DD_STAMP(0)
-      load(kb + A8_STAGES - 1);
-      unpack(kb, bt0);
+      load(kb + STAGES - 1);
+      unpack(kb, C0, bt0);
       MNN_DD_STAMP(1)
-      __syncthreads();   // the unpacked block is complete
+      __syncthreads();   // the unpacked block (or its chunk 0) is complete
       MNN_DD_STAMP(2)
-      products(kb, br0);
+      products(kb, br0, br0, [&] {
+        __syncthreads();   // every warp is done with chunk 0
+        unpack(kb, C1, bt0);
+        __syncthreads();   // chunk 1 is complete
+      });
       MNN_DD_STAMP(3)
     }
   }

@@ -26,126 +26,9 @@
 // rounded values meet through the freed ring memory after the K loop.
 #include <algorithm>
 
-#include "deq_dot.cuh"
+#include "moe_prefill.cuh"
 
 namespace mnn {
-
-struct MoeArgs {
-  const bf16* xe;
-  const float* w_e;
-  const uint8_t* gu_p;
-  const bf16* gu_s;
-  const bf16* gu_b;
-  const uint8_t* dn_p;
-  const bf16* dn_s;
-  const bf16* dn_b;
-  bf16* act;
-  float* y;
-  int E, C, H, mi, bs_h, bs_mi;
-};
-
-template <int BITS, int MT, int NT, int WM, int WN, int ALG>
-__global__ void __launch_bounds__(32 * WM * WN)
-moe_prefill_gu_kernel(const bf16* __restrict__ xe, const uint8_t* __restrict__ packed,
-                      const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-                      bf16* __restrict__ act, int C, int H, int mi, int bs, int vx, int vw,
-                      int vp) {
-  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  static_assert(T::BN == 128, "a gate/up tile is 64 gate columns and their 64 up columns");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long e = blockIdx.z;
-  const int N = 2 * mi, m0 = blockIdx.y * T::BM;
-  float acc[MT][NT][4];
-  tile_body<BITS, MT, NT, WM, WN, ALG>(smem_raw, xe + e * C * H, m0, C, H,
-                                       packed + e * ((long)H * BITS / 8) * N,
-                                       scale + e * (H / bs) * (long)N, bias + e * (H / bs) * (long)N,
-                                       N, bs, blockIdx.x * T::BN, vx, vw, vp, acc);
-
-  // the tile's gate/up values, rounded to bf16, staged in the ring's memory
-  constexpr int GS = T::BN + 8;   // bf16 a staged row: 272 bytes, conflict-free
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
-  __syncthreads();   // every warp is done with the ring
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<__nv_bfloat162*>(gs + (row_w + mt * 16 + gid + 8 * h) * GS + col_w +
-                                           nt * 8 + 2 * tig) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-  __syncthreads();
-  // act = bf16(bf16(g * sigmoid(g)) * u), two columns a thread: gate column
-  // j of the tile and its up column 64 + j
-  for (int i = threadIdx.x; i < T::BM * 32; i += T::THREADS) {
-    const int r = i >> 5, j = 2 * (i & 31);
-    if (m0 + r >= C) break;
-    const __nv_bfloat162 g2 = *reinterpret_cast<const __nv_bfloat162*>(gs + r * GS + j);
-    const __nv_bfloat162 u2 = *reinterpret_cast<const __nv_bfloat162*>(gs + r * GS + 64 + j);
-    float a[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const float g = bf2f(k ? g2.y : g2.x), up = bf2f(k ? u2.y : u2.x);
-      const float si = round_bf16(__fmul_rn(g, 1.f / (1.f + expf(-g))));
-      a[k] = __fmul_rn(si, up);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(&act[(e * C + m0 + r) * mi + blockIdx.x * 64 + j]) =
-        __floats2bfloat162_rn(a[0], a[1]);
-  }
-}
-
-template <int BITS, int MT, int NT, int WM, int WN, int ALG>
-__global__ void __launch_bounds__(32 * WM * WN)
-moe_prefill_down_kernel(const bf16* __restrict__ act, const float* __restrict__ w_e,
-                        const uint8_t* __restrict__ packed, const bf16* __restrict__ scale,
-                        const bf16* __restrict__ bias, float* __restrict__ y, int C, int H, int mi,
-                        int bs, int vx, int vw, int vp) {
-  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long e = blockIdx.z;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  float acc[MT][NT][4];
-  tile_body<BITS, MT, NT, WM, WN, ALG>(smem_raw, act + e * C * mi, m0, C, mi,
-                                       packed + e * ((long)mi * BITS / 8) * H,
-                                       scale + e * (mi / bs) * (long)H, bias + e * (mi / bs) * (long)H,
-                                       H, bs, n0, vx, vw, vp, acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row_w = (warp / WN) * MT * 16, col_w = (warp % WN) * NT * 8;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + row_w + mt * 16 + gid + 8 * h;
-      if (row >= C) continue;
-      const float w = w_e[e * C + row];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + col_w + nt * 8 + 2 * tig;   // and col + 1: H is even
-        if (col < H)
-          *reinterpret_cast<float2*>(&y[(e * C + row) * H + col]) =
-              make_float2(__fmul_rn(acc[mt][nt][2 * h], w), __fmul_rn(acc[mt][nt][2 * h + 1], w));
-      }
-    }
-}
-
-// The tile shapes as (MT, NT, WM, WN), every one 128 columns wide (a gate/up
-// tile pairs 64 gate columns with their up columns) with 32 columns a warp:
-// 80 rows (twenty warps of 16 x 32), 64 (eight of 32 x 32), 32 (eight of
-// 16 x 32) and 16 (four of 16 x 32). Each warp holds at most 32 x 32 of the
-// sum, and as much again of the partial algebra's per-block products. (96
-// rows, twelve warps of 32 x 32, took 612 us against 80 rows' 590 at
-// qwen1.5-moe-a2.7b's C = 72 on an H100 80GB HBM3 at 700 W, and no served
-// capacity needs it.)
-#define MNN_MP_TILES(X) X(0, 1, 4, 5, 4) X(1, 2, 4, 2, 4) X(2, 1, 4, 2, 4) X(3, 1, 4, 1, 4)
-#define MNN_MP_BM(t, MT, NT, WM, WN) Bf16Tile<4, MT, NT, WM, WN>::BM,
-constexpr int MP_TILE_BM[] = {MNN_MP_TILES(MNN_MP_BM)};
-constexpr int MP_NTILES = sizeof(MP_TILE_BM) / sizeof(int);
-#undef MNN_MP_BM
-constexpr int MP_TILE_BN = 128;
 
 // The tile for E experts of C rows: of those that give every SM a block in
 // the narrower product, the one with the least slabs * (rows + 16), the
@@ -172,43 +55,6 @@ static int moe_tile(int E, int C, int H, int mi) {
 #endif
 }
 
-template <int BITS, int MT, int NT, int WM, int WN, int ALG_GU, int ALG_DN>
-static cudaError_t launch_moe_prefill(const MoeArgs& a, cudaStream_t st) {
-  using T = Bf16Tile<BITS, MT, NT, WM, WN>;
-  auto gu = moe_prefill_gu_kernel<BITS, MT, NT, WM, WN, ALG_GU>;
-  auto dn = moe_prefill_down_kernel<BITS, MT, NT, WM, WN, ALG_DN>;
-  constexpr int SMEM_GU = T::smem(ALG_GU), SMEM_DN = T::smem(ALG_DN);
-  static size_t granted_gu = 0, granted_dn = 0;
-  cudaError_t err = allow_smem(gu, SMEM_GU, granted_gu);
-  if (err == cudaSuccess) err = allow_smem(dn, SMEM_DN, granted_dn);
-  if (err != cudaSuccess) return err;
-  const int slabs = (a.C + T::BM - 1) / T::BM, N = 2 * a.mi;
-  gu<<<dim3(N / T::BN, slabs, a.E), T::THREADS, SMEM_GU, st>>>(
-      a.xe, a.gu_p, a.gu_s, a.gu_b, a.act, a.C, a.H, a.mi, a.bs_h,
-      copy_width((uintptr_t)a.xe | (uintptr_t)(2 * a.H) | (uintptr_t)(2 * a.bs_h)),
-      std::min(copy_width((uintptr_t)a.gu_p | (uintptr_t)N), T::BN),
-      copy_width((uintptr_t)a.gu_s | (uintptr_t)a.gu_b | (uintptr_t)(2 * N)));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dn<<<dim3((a.H + T::BN - 1) / T::BN, slabs, a.E), T::THREADS, SMEM_DN, st>>>(
-      a.act, a.w_e, a.dn_p, a.dn_s, a.dn_b, a.y, a.C, a.H, a.mi, a.bs_mi,
-      copy_width((uintptr_t)a.act | (uintptr_t)(2 * a.mi) | (uintptr_t)(2 * a.bs_mi)),
-      std::min(copy_width((uintptr_t)a.dn_p | (uintptr_t)a.H), T::BN),
-      copy_width((uintptr_t)a.dn_s | (uintptr_t)a.dn_b | (uintptr_t)(2 * a.H)));
-  return cudaGetLastError();
-}
-
-// One tile shape, each product in the algebra its flag picks
-template <int BITS, int MT, int NT, int WM, int WN>
-static cudaError_t launch_moe_prefill_algs(bool pg, bool pd, const MoeArgs& a, cudaStream_t st) {
-  constexpr int P = ALG_PARTIAL, D = ALG_DEQUANT;
-  if (pg)
-    return pd ? launch_moe_prefill<BITS, MT, NT, WM, WN, P, P>(a, st)
-              : launch_moe_prefill<BITS, MT, NT, WM, WN, P, D>(a, st);
-  return pd ? launch_moe_prefill<BITS, MT, NT, WM, WN, D, P>(a, st)
-            : launch_moe_prefill<BITS, MT, NT, WM, WN, D, D>(a, st);
-}
-
 }  // namespace mnn
 
 using namespace mnn;
@@ -222,7 +68,7 @@ MNN_API int mnn_moe_prefill(const void* xe, const void* w_e, const void* gu_p, c
                             void* stream) {
   if (E < 1 || C < 1 || mi % 64 || H % 8 || (bits != 4 && bits != 8))
     return (int)cudaErrorInvalidValue;
-  if (bs_h > BF_KMAX || bs_mi > BF_KMAX || bs_h % 16 || bs_mi % 16 || H % bs_h || mi % bs_mi)
+  if (bs_h > BLOCK_MAX || bs_mi > BLOCK_MAX || bs_h % 16 || bs_mi % 16 || H % bs_h || mi % bs_mi)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)xe | (uintptr_t)gu_p | (uintptr_t)gu_s | (uintptr_t)gu_b | (uintptr_t)dn_p |
        (uintptr_t)dn_s | (uintptr_t)dn_b | (uintptr_t)act) % 4)
@@ -234,30 +80,32 @@ MNN_API int mnn_moe_prefill(const void* xe, const void* w_e, const void* gu_p, c
                   static_cast<bf16*>(act),         static_cast<float*>(y),
                   E, C, H, mi, bs_h, bs_mi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool pg = partial_gu != 0, pd = partial_dn != 0;
   const int tile = moe_tile(E, C, H, mi);
-#define MNN_MP_CASE(t, MT, NT, WM, WN)                                               \
-  if (tile == t)                                                                    \
-    return (int)(bits == 4 ? launch_moe_prefill_algs<4, MT, NT, WM, WN>(pg, pd, a, st) \
-                           : launch_moe_prefill_algs<8, MT, NT, WM, WN>(pg, pd, a, st));
-  MNN_MP_TILES(MNN_MP_CASE)
-#undef MNN_MP_CASE
-  return (int)cudaErrorInvalidValue;
+  // gate/up, then down, on the caller's stream, each in the build its block takes
+  const bool pg = partial_gu != 0, pd = partial_dn != 0;
+  int err = bs_h > BF_KMAX ? launch_moe_product_k256(tile, bits, true, pg, a, st)
+                           : launch_moe_product_tile<BF_KMAX>(tile, bits, true, pg, a, st);
+  if (err) return err;
+  return bs_mi > BF_KMAX ? launch_moe_product_k256(tile, bits, false, pd, a, st)
+                         : launch_moe_product_tile<BF_KMAX>(tile, bits, false, pd, a, st);
 }
 
 // The tile mnn_moe_prefill takes for E experts of C rows, H and mi: rows,
-// columns and dynamic shared memory per block of both products (the same
-// in both algebras), in out[0..2]. Launches nothing.
-MNN_API int mnn_moe_prefill_tile(int E, int C, int H, int mi, int bits, int* out) {
-  if (E < 1 || C < 1 || mi < 64 || H < 8 || (bits != 4 && bits != 8))
+// columns and dynamic shared memory per block of a product whose quant
+// block is bs (the same in both algebras), in out[0..2]. Launches nothing.
+MNN_API int mnn_moe_prefill_tile(int E, int C, int H, int mi, int bits, int bs, int* out) {
+  if (E < 1 || C < 1 || mi < 64 || H < 8 || (bits != 4 && bits != 8) || bs > BLOCK_MAX)
     return (int)cudaErrorInvalidValue;
   const int tile = moe_tile(E, C, H, mi);
 #define MNN_MP_INFO(t, MT, NT, WM, WN)                                                         \
   if (tile == t) {                                                                            \
     out[0] = Bf16Tile<4, MT, NT, WM, WN>::BM;                                                 \
     out[1] = Bf16Tile<4, MT, NT, WM, WN>::BN;                                                 \
-    out[2] = bits == 4 ? Bf16Tile<4, MT, NT, WM, WN>::smem(ALG_PARTIAL)                       \
-                       : Bf16Tile<8, MT, NT, WM, WN>::smem(ALG_PARTIAL);                      \
+    out[2] = bs > BF_KMAX                                                                     \
+                 ? (bits == 4 ? Bf16Tile<4, MT, NT, WM, WN, BLOCK_MAX>::smem(ALG_PARTIAL)     \
+                              : Bf16Tile<8, MT, NT, WM, WN, BLOCK_MAX>::smem(ALG_PARTIAL))    \
+                 : (bits == 4 ? Bf16Tile<4, MT, NT, WM, WN>::smem(ALG_PARTIAL)                \
+                              : Bf16Tile<8, MT, NT, WM, WN>::smem(ALG_PARTIAL));              \
     return 0;                                                                                 \
   }
   MNN_MP_TILES(MNN_MP_INFO)

@@ -4,7 +4,8 @@ Replaces the TPU kernels `mnn_tpu/kernels/dequant_matmul.py::_kernel`
 (bf16 activations), `::_kernel_a8` (dynamic int8 activations) and
 `::_kernel_deq` (the dequantize-tile variant for many bf16 rows), all
 launched from the `pallas_call` in `_dequant_matmul_pallas`. CUDA sources:
-`csrc/dequant_matmul.cu`, `csrc/deq_dot.cuh`.
+`csrc/dequant_matmul.cu`, `csrc/dequant_matmul.cuh`, `csrc/deq_dot.cuh`,
+and `csrc/dequant_matmul_k256.cu` (quant blocks of 136 to 256 K-values).
 
 The first two follow the Pallas algebra. With per-block affine weights
 w = q * s_b + m_b (q unsigned), a quant block's contribution is
@@ -71,6 +72,13 @@ What bounds it on the H100, and what the simple design does about it:
   It rounds the weight, which the other two never do, so its plain version
   is `deq_dot_plain`, shared with the grouped mixture-of-experts prefill
   kernel, and not the loop above.
+* Quant blocks of up to `MAX_BLOCK` = 256 K-values, as the JAX kernels take
+  them (any multiple of 8 that divides K; the dequantize-tile kernel and the
+  grouped expert kernel multiples of 16). The three tensor-core kernels have
+  a second build for blocks above 128 that stages the whole block (its
+  packed rows interleave across it) and unpacks it in two chunks of K-rows;
+  the block's partial sums run on across both and its f32 step comes once,
+  as the JAX kernel's does. A block above 256 raises on the card.
 """
 
 from __future__ import annotations
@@ -102,34 +110,36 @@ KERNEL_BF16_TILE = kernel("mnn_dequant_matmul_bf16_tile",
 # int mnn_dequant_matmul_deq(...): the same operands as mnn_dequant_matmul
 KERNEL_DEQ = kernel("mnn_dequant_matmul_deq", [P, P, P, P, P, P, I, I, I, I, I, I])
 
-MAX_BLOCK = 128   # largest quant block the kernels stage in shared memory
+MAX_BLOCK = 256   # largest quant block the kernels stage in shared memory
 
 # Rows at or above which the dequantize-tile kernel replaces the other two.
 # Off by default, as in the JAX package; a caller or a test sets it lower.
 DEQ_MIN_M = 1 << 30
 
 
-def a8_tile(m: int, n: int, bits: int) -> tuple[int, int, int]:
+def a8_tile(m: int, n: int, bits: int, bs: int = 128) -> tuple[int, int, int]:
     """(rows, columns, dynamic shared bytes) of the tile that `KERNEL_A8`
-    takes for m rows and n columns on this card. Launches nothing."""
+    takes for m rows and n columns at quant block bs on this card. Launches
+    nothing."""
     fn = library().mnn_dequant_matmul_a8_tile
-    fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
-    if fn(m, n, bits, out):
+    if fn(m, n, bits, bs, out):
         raise ValueError(f"no a8 tile for M={m} N={n}")
     return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
-def bf16_tile(m: int, n: int, bits: int) -> Optional[tuple[int, int, int]]:
+def bf16_tile(m: int, n: int, bits: int,
+              bs: int = 128) -> Optional[tuple[int, int, int]]:
     """(rows, columns, dynamic shared bytes) of the tile in which
-    `KERNEL_BF16_TILE` takes bf16 rows at m rows and n columns on this card,
-    or None where the GEMV kernel (`KERNEL_BF16`, M = 1) takes them.
-    Launches nothing."""
+    `KERNEL_BF16_TILE` takes bf16 rows at m rows and n columns at quant
+    block bs on this card, or None where the GEMV kernel (`KERNEL_BF16`,
+    M = 1) takes them. Launches nothing."""
     fn = library().mnn_dequant_matmul_tile
-    fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
-    if fn(m, n, bits, out):
+    if fn(m, n, bits, bs, out):
         raise ValueError(f"no bf16 tile for M={m} N={n}")
     return tuple(out) if out[0] else None
 
@@ -156,8 +166,9 @@ def _check_weights(ql: QuantizedLinear, k: int):
         raise ValueError(f"W{ql.bits} has no CUDA kernel")
     bs = ql.block_size
     if bs > MAX_BLOCK or bs % 8 or k % bs:
-        raise ValueError(f"block_size {bs} unsupported (multiple of 8, "
-                         f"<= {MAX_BLOCK}, dividing K={k})")
+        raise ValueError(f"block_size {bs} unsupported: the CUDA kernels take "
+                         f"quant blocks of at most {MAX_BLOCK} K-values, a "
+                         f"multiple of 8 dividing K={k}")
     n = ql.out_features
     if n % 4:
         raise ValueError(f"N={n} must be a multiple of 4 (32-bit weight loads)")

@@ -2,7 +2,10 @@
 one layer in one kernel entry.
 
 Replaces the TPU kernel `mnn_tpu/kernels/moe_prefill.py::_kernel` (with its
-`_deq_dot`). CUDA sources: `csrc/moe_prefill.cu`, `csrc/deq_dot.cuh`.
+`_deq_dot`). CUDA sources: `csrc/moe_prefill.cu`, `csrc/moe_prefill.cuh`,
+`csrc/deq_dot.cuh`, and `csrc/moe_prefill_k256.cu` (a product whose quant
+block is 144 to 256 K-values: the whole block staged, unpacked in two
+chunks, one f32 step a block).
 
 The caller (`models/decoder.py::_moe_mlp`) sorts the (token, expert) pairs,
 gathers the rows into xe [E, C, H] (C the capacity; empty slots are zero rows
@@ -58,14 +61,16 @@ KERNEL = kernel("mnn_moe_prefill", [P] * 10 + [I] * 9)
 
 
 @functools.lru_cache(maxsize=None)
-def tile(e: int, cap: int, h: int, mi: int, bits: int) -> tuple[int, int, int]:
+def tile(e: int, cap: int, h: int, mi: int, bits: int,
+         bs: int = 128) -> tuple[int, int, int]:
     """(rows, columns, dynamic shared bytes) of the block tile in which
     `KERNEL` takes both products for e experts of cap rows, hidden h and
-    intermediate mi, on this card. Launches nothing."""
+    intermediate mi, on this card; the shared bytes those of a product
+    whose quant block is bs. Launches nothing."""
     fn = library().mnn_moe_prefill_tile
-    fn.argtypes = [I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [I] * 6 + [ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
-    if fn(e, cap, h, mi, bits, out):
+    if fn(e, cap, h, mi, bits, bs, out):
         raise ValueError(f"no grouped-expert tile for E={e} C={cap} H={h} mi={mi}")
     return tuple(out)
 

@@ -25,7 +25,11 @@ tree's headers (`git show HEAD~1:mnn_tpu_torch/csrc/dequant_matmul.cu`),
 or a directory that holds another version of the whole `csrc/`, built with
 its own headers (`git archive HEAD~1 mnn_tpu_torch/csrc | tar -x -C DIR`,
 then `DIR/mnn_tpu_torch/csrc`): a source whose headers changed since needs
-the directory.
+the directory. `--block B` takes quant blocks of B K-values in place of
+128 (each K's block as the quantizer picks it, `choose_block_size`: at 256,
+qwen2-0.5b's K = 896 takes 224 and qwen1.5-moe-a2.7b's mi = 1,408 takes
+176), in the `a8`, `rows`, `deq`, `moe` and `mdec` kernels; both versions
+must take it.
 
 * `--kernel a8` (the default): `mnn_dequant_matmul_a8` of both, on rows
   quantized beforehand, at the shapes of `chip_smoke.py` phase 2:
@@ -50,6 +54,7 @@ the directory.
 * `--kernel deq`: `mnn_dequant_matmul_deq` of both (the dequantize-tile
   matmul), at the shapes of `chip_smoke.py` phase 2 (qwen1.5-moe-a2.7b's
   shared expert, gate/up and down, and qkv, at M = 512; no output bias),
+  and at M = 16 and 32, where it takes its 16 x 32 and 32 x 64 tiles;
   checked to rel-L2 1e-2 a pair; whether they give the same bits is printed.
 * `--kernel moe`: `mnn_moe_prefill` of both (the grouped expert MLP, two
   launches a call), at the shapes of `chip_smoke.py` phase 2:
@@ -153,7 +158,7 @@ from pathlib import Path
 import torch
 
 from mnn_tpu_torch.kernels import build
-from mnn_tpu_torch.quant.quantize import quantize_activations_int8
+from mnn_tpu_torch.quant.quantize import choose_block_size, quantize_activations_int8
 
 SHAPES = [  # (M, K, N)
     (512, 896, 1152), (512, 896, 896), (512, 896, 9728), (512, 4864, 896),
@@ -194,7 +199,9 @@ FDEC_SHAPES += [(2, 2, 7, 64, 8, (332, 632), 1024), (1, 16, 1, 128, 4, (4000,), 
 # (E, C, H, mi): chip_smoke.py phase 2's grouped expert rows
 MOE_SHAPES = [(60, 8, 2048, 1408), (60, 24, 2048, 1408), (60, 72, 2048, 1408),
               (60, 144, 2048, 1408), (128, 64, 2048, 768)]
-DEQ_SHAPES = [(512, 2048, 11264, False), (512, 5632, 2048, False), (512, 2048, 6144, False)]
+# phase 2's, then M = 16 and 32, which take the 16 x 32 and 32 x 64 tiles
+DEQ_SHAPES = [(512, 2048, 11264, False), (512, 5632, 2048, False), (512, 2048, 6144, False),
+              (16, 2048, 6144, False), (32, 2048, 9728, False)]
 L2_ROTATE_BYTES = 128 << 20
 ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, other)
          "rows": ("mnn_dequant_matmul_bf16_tile", "mnn_dequant_matmul"),
@@ -234,14 +241,23 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
                       str(Path(src) / cu)] for cu, o in zip(SOURCE[kind], objs)]
             links.append([*flags, "-shared", "-o", str(work / "lib.so"), *map(str, objs)])
             continue
+        # a source's second build for quant blocks above 128, where it has one
+        # (dequant_matmul_k256.cu beside dequant_matmul.cu)
+        k256 = Path(SOURCE[kind]).stem + "_k256.cu"
         if Path(src).is_dir():
             cu, inc = Path(src) / SOURCE[kind], Path(src)
+            cus = [cu] + [inc / k256] * (inc / k256).exists()
         else:
             for h in build.CSRC.glob("*.cuh"):
                 shutil.copy(h, work / h.name)
             cu, inc = work / SOURCE[kind], work
             shutil.copy(src, cu)
-        cmds.append([*flags, "-shared", "-I", str(inc), "-o", str(work / "lib.so"), str(cu)])
+            cus = [cu]
+            if (Path(src).parent / k256).exists():
+                shutil.copy(Path(src).parent / k256, work / k256)
+                cus.append(work / k256)
+        cmds.append([*flags, "-shared", "-I", str(inc), "-o", str(work / "lib.so"),
+                     *map(str, cus)])
     if links:       # each object's nvcc output under its path: registers, stack, spills
         procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)) for c in cmds]
@@ -675,13 +691,14 @@ def _clock_line(c: dict) -> str:
         + f" ({c['quant_blocks']} blocks, {c['loop_cycles']} cycles in the K loops)")
 
 
-def _moe_weights(g, lead, k, n):
-    """A W4 block-128 expert stack [*lead, ...] as chip_smoke.py makes them."""
+def _moe_weights(g, lead, k, n, bs=128):
+    """A W4 expert stack [*lead, ...] of quant blocks of bs, as chip_smoke.py
+    makes them."""
     packed = torch.randint(-128, 128, (*lead, k // 2, n), dtype=torch.int8, device=g.device,
                            generator=g)
-    scale = (torch.rand((*lead, k // 128, n), device=g.device, generator=g) * 2e-3
+    scale = (torch.rand((*lead, k // bs, n), device=g.device, generator=g) * 2e-3
              + 1e-3).to(torch.bfloat16)
-    bias = (-7.5 * scale.float() + torch.randn((*lead, k // 128, n), device=g.device,
+    bias = (-7.5 * scale.float() + torch.randn((*lead, k // bs, n), device=g.device,
                                                 generator=g) * 1e-3).to(torch.bfloat16)
     return packed, scale, bias
 
@@ -694,15 +711,16 @@ def _moe(fns: dict, order: list, card: str, args) -> None:
     times = {ver: [] for ver in versions}
     rels, tiles, same, zeros, clocks = [], [], [], True, []
     for e, cap, h, mi in MOE_SHAPES:
-        gp, gs, gb = _moe_weights(g, (e,), h, 2 * mi)
-        dp, ds, db = _moe_weights(g, (e,), mi, h)
+        bs_h, bs_mi = choose_block_size(h, args.block), choose_block_size(mi, args.block)
+        gp, gs, gb = _moe_weights(g, (e,), h, 2 * mi, bs_h)
+        dp, ds, db = _moe_weights(g, (e,), mi, h, bs_mi)
         xe = (torch.randn((e, cap, h), device=dev, generator=g) * 0.5).to(torch.bfloat16)
         w_e = torch.rand((e, cap), device=dev, generator=g)
         xe[:, -cap // 8:] = 0              # empty slots: zero rows, weight 0
         w_e[:, -cap // 8:] = 0
         act = torch.empty((e, cap, mi), dtype=torch.bfloat16, device=dev)
         out = (ctypes.c_int * 3)()
-        LIBS["this"].mnn_moe_prefill_tile(e, cap, h, mi, 4, out)
+        LIBS["this"].mnn_moe_prefill_tile(e, cap, h, mi, 4, max(bs_h, bs_mi), out)
         tiles.append(tuple(out))
         outs, row = {}, {ver: [] for ver in versions}
         for ver in order:
@@ -711,8 +729,9 @@ def _moe(fns: dict, order: list, card: str, args) -> None:
             def call(i, fn=fn, y=y, ver=ver):
                 err = fn(xe.data_ptr(), w_e.data_ptr(), gp.data_ptr(), gs.data_ptr(),
                          gb.data_ptr(), dp.data_ptr(), ds.data_ptr(), db.data_ptr(),
-                         act.data_ptr(), y.data_ptr(), e, cap, h, mi, 4, 128, 128,
-                         int(cap < 128), int(cap < 128), torch.cuda.current_stream().cuda_stream)
+                         act.data_ptr(), y.data_ptr(), e, cap, h, mi, 4, bs_h, bs_mi,
+                         int(cap < bs_h), int(cap < bs_mi),
+                         torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{ver}: CUDA launch error {err}")
             call(0)
@@ -729,7 +748,7 @@ def _moe(fns: dict, order: list, card: str, args) -> None:
         zeros = zeros and all(bool((outs[ver][:, -cap // 8:] == 0).all()) for ver in versions)
         for ver in versions:
             times[ver].append(row[ver])
-        print(f"E={e} C={cap} H={h} mi={mi} ({'partial' if cap < 128 else 'dequant'}), this "
+        print(f"E={e} C={cap} H={h} mi={mi} (blocks {bs_h} / {bs_mi}, {'partial' if cap < bs_h else 'dequant'} / {'partial' if cap < bs_mi else 'dequant'}), this "
               f"tile {tiles[-1]}: " + ", ".join(
                   f"{ver} {' / '.join(f'{x:.2f}' for x in row[ver])} us" for ver in versions)
               + f", largest rel-L2 to other {rel:.3e}, same bits {same[-1]}", flush=True)
@@ -1000,7 +1019,7 @@ class _MdecEntry:
         self.launches += 1
 
 
-def _mdec_case(dev, g, preset, e, k, mi, si, nl, n):
+def _mdec_case(dev, g, preset, e, k, mi, si, nl, n, block=128):
     """(config, LayerParams, x, sel, wsel, gate) of one phase-2 row, W4
     block 128, as chip_smoke.py makes them."""
     from mnn_tpu_torch.models import decoder
@@ -1010,9 +1029,10 @@ def _mdec_case(dev, g, preset, e, k, mi, si, nl, n):
     h = cfg.hidden_size
 
     def stack(lead, kd, nd):
-        p, s, b = _moe_weights(g, lead, kd, nd)
+        bs = choose_block_size(kd, block)
+        p, s, b = _moe_weights(g, lead, kd, nd, bs)
         return QuantizedLinear(packed=p, scale=s, bias=b, out_bias=None, bits=4,
-                               block_size=128, act_bits=16)
+                               block_size=bs, act_bits=16)
     lay = decoder.LayerParams(
         wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
         wgu_e=stack((nl, e), h, 2 * mi), wdown_e=stack((nl, e), mi, h),
@@ -1065,7 +1085,8 @@ def _mdec(fns: dict, order: list, card: str, args) -> None:
 
     try:
         for preset, e, k, mi, si, nl, n in MDEC_ROWS:
-            cfg, lay, x, sel, wsel, gate = _mdec_case(dev, g, preset, e, k, mi, si, nl, n)
+            cfg, lay, x, sel, wsel, gate = _mdec_case(dev, g, preset, e, k, mi, si, nl, n,
+                                                      args.block)
             want = moe_decode.moe_decode_mlp_plain(x, lay, sel, wsel, 1, gate, config=cfg)
             outs, same, by_name, clocks = {}, {}, {}, {}
             row, host = {ver: [] for ver in versions}, {ver: [] for ver in versions}
@@ -1169,6 +1190,9 @@ def main():
                     help="step, fdec: comma-separated caps on the blocks a KV head "
                          "(8, 4, 1); rows: on the K ranges a tile at M = 1; each built "
                          "and timed beside this source's own choice")
+    ap.add_argument("--block", type=int, default=128,
+                    help="a8, rows, deq, moe, mdec: quant blocks of this many K-values "
+                         "(each K's as choose_block_size picks it) in place of 128")
     ap.add_argument("--tiles", default="",
                     help="moe only: comma-separated indices into MNN_MP_TILES (0 to 3) "
                          "to build and time this source at, besides its own choice")
@@ -1248,11 +1272,12 @@ def main():
         inner = mid1 if m == 1 else mid
         order = ["other"] + inner + inner[::-1] + ["other"]
         nl = max(1, min(256, math.ceil(L2_ROTATE_BYTES / (k * n // 2))))
+        bs = choose_block_size(k, args.block)
         packed = torch.randint(-128, 128, (nl, k // 2, n), dtype=torch.int8, device=dev,
                                generator=g)
-        scale = (torch.rand((nl, k // 128, n), device=dev, generator=g) * 2e-3
+        scale = (torch.rand((nl, k // bs, n), device=dev, generator=g) * 2e-3
                  + 1e-3).to(torch.bfloat16)
-        bias = (-7.5 * scale.float() + torch.randn((nl, k // 128, n), device=dev,
+        bias = (-7.5 * scale.float() + torch.randn((nl, k // bs, n), device=dev,
                                                     generator=g) * 1e-3).to(torch.bfloat16)
         x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
         if a8:
@@ -1263,7 +1288,7 @@ def main():
         outs, row = {}, {ver: [] for ver in versions}
         if m == 1 and args.kernel == "rows":
             split4 = (ctypes.c_int * 4)()
-            LIBS["this"].mnn_dequant_matmul_gemv_split(k, n, 4, 128, split4)
+            LIBS["this"].mnn_dequant_matmul_gemv_split(k, n, 4, bs, split4)
             gemv_splits.append(tuple(split4))
         for version in order:
             fn = fns[version]
@@ -1274,7 +1299,7 @@ def main():
 
             def call(i, fn=fn, out=out, version=version):   # on the current stream
                 err = fn(*rows, packed[i % nl].data_ptr(), scale[i % nl].data_ptr(),
-                         bias[i % nl].data_ptr(), None, out.data_ptr(), m, k, n, 4, 128,
+                         bias[i % nl].data_ptr(), None, out.data_ptr(), m, k, n, 4, bs,
                          int(f32), torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{version}: CUDA launch error {err}")
@@ -1297,7 +1322,7 @@ def main():
             rels.append(rel)
         for version in here:
             times[version].append(row[version])
-        print(f"M={m} K={k} N={n}: " + ", ".join(
+        print(f"M={m} K={k} N={n} block {bs}: " + ", ".join(
             f"{ver} {' / '.join(f'{t:.2f}' for t in row[ver])} us" for ver in here)
             + f", rel-L2 {rel:.3e}"
             + (f", this split {gemv_splits[-1]}" if m == 1 and args.kernel == "rows" else ""),
@@ -1310,7 +1335,7 @@ def main():
         print(f"M = 1: every pair within rel-L2 1e-2: {max(m1_rels) <= 1e-2} "
               f"(largest {max(m1_rels):.3e}); same bits {m1_same}")
     print(card)
-    result = dict(card=card, kernel=args.kernel, shapes=shapes, us=times,
+    result = dict(card=card, kernel=args.kernel, block=args.block, shapes=shapes, us=times,
                   same_bits=same, rel_l2=rels, m1_rel_l2=m1_rels, m1_same_bits=m1_same,
                   gemv_splits=gemv_splits, agree=ok, against=str(args.against),
                   other_entry=fns["other"].entry, clocks=clocks)

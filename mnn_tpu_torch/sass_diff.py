@@ -1,6 +1,7 @@
 """Whether two versions of CUDA sources compile to the same machine code.
 
     python -m mnn_tpu_torch.sass_diff --against OLD/csrc moe_decode decode_model_b1
+    python -m mnn_tpu_torch.sass_diff --common --against OLD/csrc dequant_matmul
 
 Compiles each named `csrc/<name>.cu` of this tree and of another `csrc/`
 (`git archive <commit> mnn_tpu_torch/csrc | tar -x -C DIR`, then
@@ -11,7 +12,11 @@ lines of `cuobjdump -sass`: every function's name and every instruction with
 its address. The same instructions in the same functions mean that the
 kernels give the same bits on the same inputs and launch; it says nothing of
 the host code that picks the launch. It prints one line a source and exits
-1 if any differ. Needs nvcc and cuobjdump, no card.
+1 if any differ. With `--common` it compares only the functions that both
+versions of a source have, function by function (each function's
+addresses start at 0), and names those that only one has: a source that
+gained kernels still shows whether the ones it kept compile as before.
+Needs nvcc and cuobjdump, no card.
 """
 
 from __future__ import annotations
@@ -42,6 +47,27 @@ def instructions(sass: str) -> list[str]:
             for line in sass.splitlines() if (m := _LINE.match(line))]
 
 
+def functions(lines: list[str]) -> dict[str, list[str]]:
+    """`instructions` output -> {function name: its instruction lines}."""
+    out: dict[str, list[str]] = {}
+    for line in lines:
+        if line.startswith("Function : "):
+            body = out.setdefault(line[len("Function : "):], [])
+        else:
+            body.append(line)
+    return out
+
+
+def compare_common(this: list[str], other: list[str]) -> tuple[list[str], list[str], list[str],
+                                                                list[str]]:
+    """(functions both have with the same instructions, both have with other
+    instructions, only `this` has, only `other` has), each sorted."""
+    a, b = functions(this), functions(other)
+    both = sorted(a.keys() & b.keys())
+    return ([f for f in both if a[f] == b[f]], [f for f in both if a[f] != b[f]],
+            sorted(a.keys() - b.keys()), sorted(b.keys() - a.keys()))
+
+
 def compile_all(names, csrc_dirs, out: Path) -> None:
     nvcc = build._nvcc()
     cmds = [[nvcc, *FLAGS, "-I", str(d), "-cubin", "-o", str(out / f"{n}.{i}.cubin"),
@@ -53,6 +79,8 @@ def compile_all(names, csrc_dirs, out: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, required=True, help="another csrc/ directory")
+    ap.add_argument("--common", action="store_true",
+                    help="compare only the functions both versions of a source have")
     ap.add_argument("names", nargs="+", help="sources of csrc/, without .cu")
     args = ap.parse_args()
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
@@ -65,6 +93,13 @@ def main() -> int:
                 [cuobjdump, "-sass", str(out / f"{n}.{i}.cubin")], check=True,
                 capture_output=True, text=True).stdout) for i in (0, 1))
             funcs = sum(x.startswith("Function : ") for x in this)
+            if args.common:
+                same, diff, mine, theirs = compare_common(this, other)
+                differ = differ or bool(diff)
+                print(f"sass {n}: {len(same)} common functions the same, {len(diff)} "
+                      f"different{': ' + ', '.join(diff) if diff else ''}; "
+                      f"{len(mine)} only in this tree, {len(theirs)} only in the other")
+                continue
             if this == other:
                 print(f"sass {n}: same ({len(this) - funcs} instructions in {funcs} functions)")
                 continue

@@ -2522,3 +2522,169 @@ def test_nms_and_classify_card_match_cpu(dev):
     card = preprocess_classification(img, device=dev).cpu()
     cpu = preprocess_classification(img, device="cpu")
     assert card.shape == (3, 224, 224) and rel(card, cpu) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# Quant blocks of up to 256 K-values. Blocks of 136 to 256 take the second
+# build of the three tensor-core kernels and of the grouped expert kernel
+# (the whole block in a ring stage, unpacked in two chunks of K-rows, one f32
+# step a block); the GEMV and the whole-model and fused expert kernels take
+# them in their one build. Blocks of 256 at qwen2-7b's widths (K = 3,584 and
+# 18,944; the head, N = 152,064) and qwen3-moe-30b-a3b's; 176 at
+# qwen1.5-moe-a2.7b's K = 1,408 (`choose_block_size(1408, 256)`); 136 and 176
+# leave a last chunk of 8 or 48 K-values, padded to the mma depth; W3 at 176
+# and W2 at 136 take the a8 unpack's byte path.
+# --------------------------------------------------------------------------
+
+# (route, bits, M, K, N, block, out f32, out_bias): gemv row 1a, tile row 1b,
+# a8 row 2, deq row 3
+BLOCK256 = [
+    ("gemv", 4, 1, 3584, 4608, 256, False, True), ("gemv", 4, 1, 18944, 3584, 256, False, False),
+    ("gemv", 4, 1, 3584, 152064, 256, True, False), ("gemv", 4, 1, 1408, 2048, 176, False, False),
+    ("gemv", 8, 1, 512, 200, 256, True, True), ("gemv", 3, 1, 768, 1028, 256, False, False),
+    ("gemv", 2, 1, 1056, 200, 176, True, True),
+    ("tile", 4, 512, 3584, 4608, 256, False, True), ("tile", 4, 512, 18944, 3584, 256, False, False),
+    ("tile", 4, 2, 512, 200, 256, False, True), ("tile", 4, 130, 1408, 1028, 176, True, True),
+    ("tile", 8, 33, 768, 132, 256, False, False), ("tile", 4, 64, 1088, 2048, 136, False, False),
+    ("tile", 3, 40, 512, 200, 256, True, False), ("tile", 2, 16, 528, 1028, 176, False, True),
+    ("a8", 4, 512, 3584, 4608, 256, False, True), ("a8", 4, 512, 18944, 3584, 256, False, False),
+    ("a8", 4, 512, 1408, 2048, 176, False, False), ("a8", 8, 77, 512, 200, 256, True, True),
+    ("a8", 4, 1, 1088, 200, 136, False, True), ("a8", 3, 64, 768, 1028, 256, False, False),
+    ("a8", 3, 40, 528, 200, 176, True, True), ("a8", 2, 130, 1056, 132, 176, False, False),
+    ("a8", 2, 33, 1088, 200, 136, False, True),
+    ("deq", 4, 512, 3584, 3584, 256, False, False), ("deq", 4, 90, 1408, 1028, 176, True, True),
+    ("deq", 8, 33, 512, 132, 256, False, True), ("deq", 3, 64, 768, 200, 256, False, False),
+    ("deq", 2, 7, 1056, 200, 176, True, False),
+]
+
+
+@pytest.mark.parametrize("route,bits,m,k,n,bs,f32,with_bias", BLOCK256)
+def test_block256_dequant_matmul(dev, route, bits, m, k, n, bs, f32, with_bias, monkeypatch):
+    """Rows 1a, 1b, 2 and 3 at blocks above 128: the route's kernel launched
+    once a call, rel-L2 1e-2 against the plain version, the same bits twice;
+    row 2 the plain version's bits."""
+    g = torch.Generator(device=dev).manual_seed(m * n + bits + bs)
+    ql = rand_ql(g, dev, k, n, bits, 8 if route == "a8" else 16, 2, with_bias, bs)
+    ql = dataclasses.replace(ql, bias=(ql.bias.float() + torch.randn(
+        ql.bias.shape, device=dev, generator=g) * 1e-3).to(torch.bfloat16))
+    x = torch.randn((m, k), device=dev, generator=g).to(torch.bfloat16)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    kern = {"gemv": dequant_matmul.KERNEL_BF16, "tile": dequant_matmul.KERNEL_BF16_TILE,
+            "a8": dequant_matmul.KERNEL_A8, "deq": dequant_matmul.KERNEL_DEQ}[route]
+    if route == "deq":
+        monkeypatch.setattr(dequant_matmul, "DEQ_MIN_M", m)
+    tile = (dequant_matmul.a8_tile(m, n, bits, bs) if route == "a8" else
+            dequant_matmul.bf16_tile(m, n, bits, bs))
+    assert (tile is None) == (route == "gemv")
+    before = kern.launches
+    got = dequant_matmul.dequant_matmul(x, ql, layer_index=1, out_dtype=out_dtype)
+    again = dequant_matmul.dequant_matmul(x, ql, layer_index=1, out_dtype=out_dtype)
+    want = dequant_matmul.dequant_matmul_plain(x, ql.layer(1), out_dtype, deq=route == "deq")
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert got.dtype == out_dtype and got.shape == (m, n) and torch.isfinite(got).all()
+    err = rel(got, want)
+    print(f"block {bs} {route} W{bits} M={m} K={k} N={n} tile={tile}: rel-L2 {err:.3e}")
+    assert err <= 1e-2
+    assert torch.equal(got, again)
+    if route == "a8":
+        assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
+def test_block_above_256_raises_on_the_card(dev):
+    """A block of 264 raises before any launch, naming the limit; the
+    grouped expert kernel declines it."""
+    g = torch.Generator(device=dev).manual_seed(264)
+    x = torch.randn((4, 528), device=dev, generator=g).to(torch.bfloat16)
+    for act_bits in (16, 8):
+        ql = rand_ql(g, dev, 528, 200, 4, act_bits, 1, False, bs=264).layer(0)
+        with pytest.raises(ValueError, match="at most 256"):
+            dequant_matmul.dequant_matmul(x, ql)
+    gu = rand_experts(g, dev, (2,), 528, 256, 4, 264)
+    dn = rand_experts(g, dev, (2,), 128, 528, 4, 128)
+    assert not moe_prefill.supports(gu, dn, 528, 8)
+
+
+# (bits, E, C, H, mi, block of gate/up, block of down): qwen1.5-moe-a2.7b's
+# and qwen3-moe-30b-a3b's widths at quant_block 256, the partial algebra
+# (C below the block) and the dequantize one, a 256 product beside a 128 one
+BLOCK256_MOE = [(4, 4, 72, 2048, 1408, 256, 176), (4, 8, 64, 2048, 768, 256, 256),
+                (8, 2, 300, 512, 256, 256, 256), (4, 2, 200, 512, 704, 256, 176),
+                (4, 3, 17, 256, 320, 256, 160), (4, 2, 144, 1024, 512, 256, 128)]
+
+
+@pytest.mark.parametrize("bits,e,cap,h,mi,bs_h,bs_mi", BLOCK256_MOE)
+def test_block256_moe_prefill(dev, bits, e, cap, h, mi, bs_h, bs_mi):
+    """Row 9 at blocks above 128: two launches a call, rel-L2 2e-2, empty
+    slots zero, the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(e * cap + h + bs_mi)
+    gu = rand_experts(g, dev, (e,), h, 2 * mi, bits, bs_h)
+    dn = rand_experts(g, dev, (e,), mi, h, bits, bs_mi)
+    xe = torch.randn((e, cap, h), device=dev, generator=g).to(torch.bfloat16)
+    w_e = torch.rand((e, cap), device=dev, generator=g)
+    xe[:, cap - 3:] = 0
+    w_e[:, cap - 3:] = 0
+    assert moe_prefill.supports(gu, dn, h, cap)
+    tile = moe_prefill.tile(e, cap, h, mi, bits, bs_h)
+    before = moe_prefill.KERNEL.launches
+    got = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
+    again = moe_prefill.moe_prefill_mlp(xe, w_e, gu, dn)
+    want = moe_prefill.moe_prefill_mlp_plain(xe, w_e, gu, dn)
+    torch.cuda.synchronize()
+    assert moe_prefill.KERNEL.launches == before + 2
+    assert got.shape == (e, cap, h) and torch.isfinite(got).all()
+    err = rel(got, want)
+    print(f"grouped experts blocks {bs_h}/{bs_mi} E={e} C={cap} H={h} mi={mi} W{bits} "
+          f"tile={tile}: rel-L2 {err:.3e}")
+    assert err <= 2e-2
+    assert (got[:, cap - 3:] == 0).all()
+    assert torch.equal(got, again)
+
+
+QWEN7B_2L = dict(hidden_size=3584, intermediate_size=18944, num_layers=2, num_heads=28,
+                 num_kv_heads=4, head_dim=128, vocab_size=1024)
+
+
+# (config changes, weight bits, kv bits, head bits, lengths): qwen2-7b's
+# widths at 2 layers with the head fused, and the mk-test shape at batch 1
+# to 8, W4 and W8
+BLOCK256_MODEL = [(QWEN7B_2L, 4, 8, 4, (331,)), (QWEN7B_2L, 4, 8, 4, (40, 9, 127, 0)),
+                  ({}, 4, 8, 4, (9,)), ({}, 8, 4, 8, (33, 5)),
+                  ({}, 4, 16, 4, (1, 63, 64, 65, 127, 0, 9, 100))]
+
+
+@pytest.mark.parametrize("changes,bits,kv_bits,head_bits,lengths", BLOCK256_MODEL)
+def test_block256_decode_model(dev, changes, bits, kv_bits, head_bits, lengths):
+    """Row 7 at quant_block 256 (every projection and the head): within
+    `decode_model.PARITY_BOUNDS` of the plain version, the same bits twice."""
+    deep4 = dict(rows_levels=1.0, rows_rel=1.5e-1) if kv_bits == 4 else {}
+    check_decode_model(dev, changes, bits, kv_bits, head_bits, lengths, quant_block=256,
+                       **deep4)
+
+
+@pytest.mark.parametrize("bits,n", [(4, 1), (4, 4), (8, 1)])
+def test_block256_moe_decode(dev, bits, n):
+    """Row 8 at qwen3-moe-30b-a3b's widths (H 2,048, 128 experts top-8 of
+    768) at quant_block 256: rel-L2 2e-2, the same bits twice."""
+    e, k, h, mi = 128, 8, 2048, 768
+    cfg = moe_cfg(h, e, k, mi, 0)
+    g = torch.Generator(device=dev).manual_seed(n * h + bits)
+    lay = decoder.LayerParams(
+        wqkv=None, wo=None, wgu=None, wdown=None, input_norm=None, post_norm=None,
+        wgu_e=rand_experts(g, dev, (cfg.num_layers, e), h, 2 * mi, bits, 256),
+        wdown_e=rand_experts(g, dev, (cfg.num_layers, e), mi, h, bits, 256))
+    x = torch.randn((n, h), device=dev, generator=g) * 0.5
+    sel = torch.stack([torch.randperm(e, device=dev, generator=g)[:k] for _ in range(n)])
+    wsel = torch.rand((n, k), device=dev, generator=g)
+    assert moe_decode.supports(cfg, lay, n)
+    before = moe_decode.KERNEL.launches
+    got = moe_decode.moe_decode_mlp(x, lay, sel, wsel, 2, None, config=cfg)
+    again = moe_decode.moe_decode_mlp(x, lay, sel, wsel, 2, None, config=cfg)
+    want = moe_decode.moe_decode_mlp_plain(x, lay, sel, wsel, 2, None, config=cfg)
+    torch.cuda.synchronize()
+    assert moe_decode.KERNEL.launches == before + 2
+    assert got.shape == (n, h) and torch.isfinite(got).all()
+    err = rel(got, want)
+    print(f"fused experts block 256 n={n} W{bits}: rel-L2 {err:.3e}")
+    assert err <= 2e-2
+    assert torch.equal(got, again)

@@ -47,3 +47,22 @@ def test_instructions_blank_anonymous_namespace_hashes():
     assert got == sass_diff.instructions(dump("0123abcd", "89abcdef"))
     assert got[0] == "Function : " + ANON.format("########", "########")
     assert got != sass_diff.instructions(dump("aa1480e7", "d0c757ef").replace("Li128E", "Li64E"))
+
+
+def test_common_functions_compare_one_by_one():
+    """`--common` splits the dump into functions and compares those both
+    versions have: a kernel one version adds, or the order of the
+    functions, changes nothing; an instruction changed in a shared one is
+    named."""
+    second = SASS.replace("dqmm_gemv_kernelILi4EE", "dqmm_gemv_kernelILi8EE")
+    new = sass_diff.instructions(SASS + second.split("code for sm_90a")[1])
+    old = sass_diff.instructions(SASS)
+    same, diff, mine, theirs = sass_diff.compare_common(new, old)
+    gemv4 = "_ZN3mnn16dqmm_gemv_kernelILi4EEEvPK13__nv_bfloat16"
+    gemv8 = gemv4.replace("Li4E", "Li8E")
+    assert (same, diff, mine, theirs) == ([gemv4], [], [gemv8], [])
+    assert list(sass_diff.functions(new)) == [gemv4, gemv8]
+    assert len(sass_diff.functions(new)[gemv8]) == 3
+    changed = sass_diff.instructions(SASS.replace("S2R R0", "S2R R2"))
+    assert sass_diff.compare_common(changed, new)[1] == [gemv4]
+    assert sass_diff.compare_common(new[4:] + new[:4], new)[:2] == ([gemv4, gemv8], [])
