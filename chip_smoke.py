@@ -327,9 +327,11 @@ Phases, each of which exits non-zero on failure:
    card against CPU (kept indices equal), its ms; 64 seeded 240 x 320
    images through `preprocess_classification` and `topk_eval` with
    MobileNetV2 in f32, top-1 by (fff)'s rule. Then row 10 against its plain
-   version at those three shapes (equal bits): its time, the plain
+   version at those three shapes, at [32, 256, 56, 56] f32, on a bf16 view
+   off 16 bytes (x[1:] of a flat tensor) and at a ragged 2^20 + 7 (equal
+   bits, signed zeros, +-lam and a NaN planted): its time, the plain
    version's, `F.softshrink`'s and its byte bound;
-16. quant blocks of 256, run last, each sub-phase with the launch counts
+16. quant blocks of 256, each sub-phase with the launch counts
    set to 0 before and read after: qwen2-7b as bench.py:78-99 runs its
    --q-block 256 row (28 layers at published widths, random weights from
    seed 0, W4 at quant_block 256 for every projection and the int4 head,
@@ -354,6 +356,36 @@ Phases, each of which exits non-zero on failure:
    projection, row 9 at qwen1.5-moe-a2.7b's (blocks 256 / 176) and
    qwen3-moe-30b-a3b's widths, row 8 at qwen3-moe-30b-a3b's, row 7 on two
    and on all 28 layers.
+17. the TF, TFLite and Caffe frontends, run last, each sub-phase with the
+   launch counts set to 0 before and read after: only the plugin paths
+   launch a hand-written kernel (row 10). Every graph is written here by
+   the port's own codecs (no TensorFlow, protobuf or flatbuffers package),
+   with `models/vision.py`'s seeded weights. (kkk) SqueezeNet 1.0's
+   published deploy prototxt (`squeezenet_prototxt`: 227 x 227, CEIL max
+   pools, the eight Fire modules, dropout, conv10, global average pool,
+   softmax; fillers and a comment left in for the text parser) and a
+   caffemodel of the module's weights: logits (the net without `prob`)
+   card against CPU at batch 1 and 32 and against the fx path of the same
+   module, f32 with TF32 off, within rel-L2 1e-4; the caffemodel's read
+   seconds; card ms at batch 1 and 32. (lll) ResNet-50 as a frozen NHWC
+   GraphDef (`resnet50_graphdef`: Pad, Conv2D, FusedBatchNormV3, Relu,
+   MaxPool, AddV2, Mean, MatMul, BiasAdd, Softmax), the same bounds at batch
+   2; card ms; at batch 32 the layout kernels' share of the device time by
+   torch.profiler, beside the fx path (NCHW). (mmm) MobileNetV2 1.0 at 224
+   as a .tflite (`mobilenet_v2_tflite`, a FlatBuffers writer of its own:
+   batch norm folded into CONV_2D / DEPTHWISE_CONV_2D with fused RELU6,
+   PAD, ADD, MEAN, FULLY_CONNECTED, SOFTMAX), its batch norms calibrated on a
+   seeded batch (`calibrated_mobilenet_v2`), the same bounds; then the same
+   net with int8 per-channel weights, card against CPU within 1e-4. (nnn)
+   `tf_cases()`, `tfl_cases()` and `caffe_cases()`: small graphs that reach
+   every entry of the three tables (101 TF ops, 88 TFLite builtin codes,
+   27 Caffe layer types), card against CPU: ints and bools equal, floats
+   within 1e-5. (ooo) softshrink registered in the `tf` table (a NodeDef op
+   `MnnTpuSoftShrink`), the `caffe` table (a layer type) and the `tflite`
+   table (builtin code 20, RELU_N1_TO_1, a unary op the table lacks),
+   backed by row 10: each graph refused
+   before registration, then run on a [32, 256, 56, 56] bf16 activation
+   with the plain version's bits.
 
 It then prints one JSON line with every kernel's numbers (the bf16-row
 matmul also split into `m1`, the GEMV kernel, and `m_gt1`, the tile kernel;
@@ -375,7 +407,8 @@ alone, `training_launches`), and row 1b's rows at the training shapes under
 `generative`, (tt)'s launches added to each kernel's count, also alone,
 `generative_launches`; phase 14's under `dit_cv`; phase 15's under `cnn`,
 row 10's rows under `kernels` / `softshrink`, and the kernels line's
-`softshrink` entry with its launches on the plugin path; phase 16's under
+`softshrink` entry with its launches on the plugin paths of phases 15 and
+17; phase 17's under `frontends`; phase 16's under
 `block256`, its launches added to each kernel's count, also alone,
 `block256_launches`, and each kernel's block-256 rows summed under
 `block256` of its entry).
@@ -392,6 +425,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -413,7 +447,9 @@ from mnn_tpu_torch import cli, plugin, profile_decode
 from mnn_tpu_torch import cv as cvlib
 from mnn_tpu_torch.audio import audio as audio_mod
 from mnn_tpu_torch.audio import vocoder
-from mnn_tpu_torch.convert import checkpoint, onnx_frontend, onnx_pb2, stfile
+from mnn_tpu_torch.convert import (caffe_frontend, caffe_pb2, checkpoint, graphdef_pb2,
+                                   onnx_frontend, onnx_pb2, stfile, tf_frontend,
+                                   tflite_frontend)
 from mnn_tpu_torch.convert.hf import convert_hf
 from mnn_tpu_torch.convert.onnx_frontend import convert_onnx
 from mnn_tpu_torch.convert.torch_fx import convert_torch_module
@@ -6087,34 +6123,46 @@ def phase_plugin(dev):
     return dict(shapes=[list(s) for s, _ in SOFTSHRINK_SHAPES])
 
 
+# row 10's own rows: phase 15's three, then [32, 256, 56, 56] f32, a bf16 view
+# off 16 bytes (x[1:] of a flat tensor) and a ragged length: (shape, dtype,
+# elements off the allocation's start)
+SOFTSHRINK_ROWS = [(s, dt, 0) for s, dt in SOFTSHRINK_SHAPES] + [
+    ((32, 256, 56, 56), torch.float32, 0), ((32 * 256 * 56 * 56,), torch.bfloat16, 1),
+    (((1 << 20) + 7,), torch.bfloat16, 0)]
+
+
 def phase_softshrink_rows(dev, results):
-    """Row 10 against its plain version (equal bits) at the plugin test's
-    shape in f32 and bf16 and at a ResNet-50 activation in bf16; its time,
-    the plain version's, `F.softshrink`'s and the byte bound."""
+    """Row 10 against its plain version (equal bits, signed zeros, +-lam and
+    a NaN planted) at SOFTSHRINK_ROWS; its time, the plain version's,
+    `F.softshrink`'s and the byte bound."""
     g = torch.Generator(dev).manual_seed(SEED + 73)
     rows = []
-    for shape, dt in SOFTSHRINK_SHAPES:
+    for shape, dt, off in SOFTSHRINK_ROWS:
         n = math.prod(shape)
         esz = torch.finfo(dt).bits // 8
         copies = copies_for(2 * n * esz, cap=64)
-        xs = [torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(copies)]
-        ys = [torch.empty_like(x) for x in xs]
+        bufs = [torch.randn(n + off, generator=g, device=dev).to(dt) for _ in range(copies)]
+        bufs[0][off:off + 5] = torch.tensor([0.0, -0.0, SOFTSHRINK_LAM, -SOFTSHRINK_LAM,
+                                             float("nan")], device=dev).to(dt)
+        xs = [b[off:].view(shape) for b in bufs]
+        ys = [torch.empty_like(b)[off:] for b in bufs]      # at x's offset, as the wrapper places y
         got = softshrink.softshrink(xs[0], SOFTSHRINK_LAM)
         want = softshrink.softshrink_plain(xs[0], SOFTSHRINK_LAM)
         ib = torch.int16 if dt == torch.bfloat16 else torch.int32
-        check(torch.equal(got.view(ib), want.view(ib)), f"row 10 {shape} {dt}: bits differ")
+        check(torch.equal(got.view(ib), want.view(ib)), f"row 10 {shape} {dt} off {off}: bits differ")
+        lam = float(torch.tensor(SOFTSHRINK_LAM, dtype=dt))
         ms = time_ms(lambda i: softshrink._KERNEL(xs[i % copies].data_ptr(),
-                                                  ys[i % copies].data_ptr(), n,
-                                                  float(torch.tensor(SOFTSHRINK_LAM, dtype=dt)),
+                                                  ys[i % copies].data_ptr(), n, lam,
                                                   softshrink.DTYPES[dt]), 20)
         plain_ms = time_ms(lambda i: softshrink.softshrink_plain(xs[i % copies], SOFTSHRINK_LAM), 20)
         lib_ms = time_ms(lambda i: torch.nn.functional.softshrink(xs[i % copies], SOFTSHRINK_LAM), 20)
         bound, by = bound_of(4.0 * n, 2.0 * n * esz, F32_OPS_S)   # abs, sub, max, mul
-        rows.append(dict(shape=list(shape), dtype=str(dt).split(".")[-1], max_abs_err=max_abs(
-            got.float(), want.float()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound, bound_by=by))
-        print(f"  row 10 softshrink {list(shape)} {rows[-1]['dtype']}: same bits; kernel "
-              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, F.softshrink "
+        ok = ~torch.isnan(want.float())
+        rows.append(dict(shape=list(shape), dtype=str(dt).split(".")[-1], off=off,
+                         max_abs_err=max_abs(got.float()[ok], want.float()[ok]), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by))
+        print(f"  row 10 softshrink {list(shape)} {rows[-1]['dtype']} off {off}: same bits; "
+              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, F.softshrink "
               f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by})", flush=True)
     results["softshrink"] = rows
 
@@ -6451,6 +6499,1165 @@ def block256_launches(b256: dict) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 17: the TF, TFLite and Caffe frontends on the card
+# --------------------------------------------------------------------------
+
+# -- a GraphDef writer (the port's codec) --------------------------------------
+
+TF_DTYPE = {np.dtype(np.float32): graphdef_pb2.DT_FLOAT, np.dtype(np.int32): graphdef_pb2.DT_INT32,
+            np.dtype(np.int64): graphdef_pb2.DT_INT64, np.dtype(np.bool_): graphdef_pb2.DT_BOOL,
+            np.dtype(np.float16): graphdef_pb2.DT_HALF, np.dtype(np.uint8): graphdef_pb2.DT_UINT8}
+
+
+class TfType(int):
+    """An attr value that is a DataType (`type`), not an int (`i`)."""
+
+
+def tf_tensor(arr) -> "graphdef_pb2.TensorProto":
+    arr = np.asarray(arr)
+    t = graphdef_pb2.TensorProto(dtype=TF_DTYPE[arr.dtype])
+    for d in arr.shape:
+        t.tensor_shape.dim.add(size=d)
+    t.tensor_shape._mark()
+    t.tensor_content = np.ascontiguousarray(arr).tobytes()
+    return t
+
+
+def tf_node(op: str, name: str, inputs=(), **attrs) -> "graphdef_pb2.NodeDef":
+    """A NodeDef; attributes by their Python type (TfType a DataType, an
+    array a tensor, a list of ints `list.i`, of floats `list.f`)."""
+    n = graphdef_pb2.NodeDef(name=name, op=op)
+    n.input.extend(inputs)
+    for k, v in attrs.items():
+        a = n.attr[k]
+        if isinstance(v, TfType):
+            a.type = int(v)
+        elif isinstance(v, bool):
+            a.b = v
+        elif isinstance(v, int):
+            a.i = v
+        elif isinstance(v, float):
+            a.f = v
+        elif isinstance(v, str):
+            a.s = v.encode()
+        elif isinstance(v, np.ndarray):
+            a.tensor.CopyFrom(tf_tensor(v))
+            a.tensor._mark()
+        elif all(isinstance(x, int) for x in v):
+            a.list.i.extend(v)
+        else:
+            a.list.f.extend(v)
+    return n
+
+
+def tf_const(name: str, arr) -> "graphdef_pb2.NodeDef":
+    arr = np.asarray(arr)
+    return tf_node("Const", name, value=arr, dtype=TfType(TF_DTYPE[arr.dtype]))
+
+
+def tf_placeholder(name: str, dtype=np.float32) -> "graphdef_pb2.NodeDef":
+    return tf_node("Placeholder", name, dtype=TfType(TF_DTYPE[np.dtype(dtype)]))
+
+
+def tf_graph(nodes) -> bytes:
+    g = graphdef_pb2.GraphDef()
+    for n in nodes:
+        g.node.append(n)
+    g.versions.producer = 1882
+    return g.SerializeToString()
+
+
+# -- a minimal FlatBuffers writer and a TFLite model writer --------------------
+
+class FbTable:
+    """A FlatBuffers table: {field id: (struct format, value) or a child}."""
+
+    def __init__(self, fields=None):
+        self.fields = dict(fields or {})
+
+
+class FbVec:
+    """A vector: of scalars (a struct format and the items) or of tables."""
+
+    def __init__(self, fmt, items):
+        self.fmt, self.items = fmt, items
+
+
+class FbStr:
+    def __init__(self, s: str):
+        self.s = s
+
+
+class FbWriter:
+    """Lays objects out parent first and children after, so every offset
+    points forward, as the TFLite reader (`tflite_frontend._FB`) follows
+    them: a vtable before each table, little-endian scalars aligned to
+    their size."""
+
+    def __init__(self):
+        self.buf = bytearray(4)                       # the root offset
+
+    def _pad(self, n: int, extra: int = 0):
+        self.buf += bytes(-(len(self.buf) + extra) % n)
+
+    def finish(self, root: FbTable) -> bytes:
+        pos = self._emit(root)
+        struct.pack_into("<I", self.buf, 0, pos)
+        return bytes(self.buf)
+
+    def _emit(self, obj) -> int:
+        if isinstance(obj, FbStr):
+            self._pad(4)
+            pos = len(self.buf)
+            data = obj.s.encode()
+            self.buf += struct.pack("<I", len(data)) + data + b"\0"
+            return pos
+        if isinstance(obj, FbVec):
+            if obj.fmt == "t":
+                self._pad(4)
+                pos = len(self.buf)
+                self.buf += struct.pack("<I", len(obj.items)) + bytes(4 * len(obj.items))
+                for i, child in enumerate(obj.items):
+                    cpos = self._emit(child)
+                    struct.pack_into("<I", self.buf, pos + 4 + 4 * i, cpos - (pos + 4 + 4 * i))
+                return pos
+            data = np.asarray(obj.items, np.dtype(obj.fmt).newbyteorder("<")).tobytes()
+            self._pad(max(4, np.dtype(obj.fmt).itemsize), 4)
+            pos = len(self.buf)
+            self.buf += struct.pack("<I", len(obj.items)) + data
+            return pos
+        fids = sorted(obj.fields)
+        offs, off = {}, 4
+        for fid in fids:
+            v = obj.fields[fid]
+            size = struct.calcsize("<" + v[0]) if isinstance(v, tuple) else 4
+            off += -off % size
+            offs[fid] = off
+            off += size
+        self._pad(2)
+        vt = len(self.buf)
+        nslots = (fids[-1] + 1) if fids else 0
+        self.buf += struct.pack(f"<HH{nslots}H", 4 + 2 * nslots, off,
+                                *[offs.get(f, 0) for f in range(nslots)])
+        self._pad(8)
+        pos = len(self.buf)
+        self.buf += struct.pack("<i", pos - vt) + bytes(off - 4)
+        children = []
+        for fid in fids:
+            v = obj.fields[fid]
+            if isinstance(v, tuple):
+                struct.pack_into("<" + v[0], self.buf, pos + offs[fid], v[1])
+            else:
+                children.append((pos + offs[fid], v))
+        for at, child in children:
+            struct.pack_into("<I", self.buf, at, self._emit(child) - at)
+        return pos
+
+
+TFL_TYPE = {np.dtype(np.float32): 0, np.dtype(np.float16): 1, np.dtype(np.int32): 2,
+            np.dtype(np.uint8): 3, np.dtype(np.int64): 4, np.dtype(np.bool_): 6,
+            np.dtype(np.int16): 7, np.dtype(np.int8): 9}
+
+
+class TflModel:
+    """A one-subgraph TFLite model, built op by op: what the TFLite reader
+    (`tflite_frontend._parse`) reads, field ids of schema.fbs."""
+
+    def __init__(self):
+        self.tensors, self.buffers, self.ops, self.codes = [], [None], [], []
+        self.inputs, self.outputs = [], []
+
+    def tensor(self, shape=(), dtype=np.float32, data=None, name="", quant=None) -> int:
+        fields = {0: FbVec("i4", list(shape)), 1: ("b", TFL_TYPE[np.dtype(dtype)]),
+                  3: FbStr(name or f"t{len(self.tensors)}")}
+        if data is not None:
+            self.buffers.append(np.ascontiguousarray(data).view(np.uint8).reshape(-1))
+            fields[2] = ("I", len(self.buffers) - 1)
+        if quant is not None:
+            scale, zero, dim = quant
+            fields[4] = FbTable({2: FbVec("f4", list(np.atleast_1d(scale))),
+                                 3: FbVec("i8", list(np.atleast_1d(zero))), 6: ("i", dim)})
+        self.tensors.append(FbTable(fields))
+        return len(self.tensors) - 1
+
+    def const(self, arr, name="", quant=None) -> int:
+        arr = np.asarray(arr)
+        return self.tensor(arr.shape, arr.dtype, arr, name, quant)
+
+    def input(self, shape, dtype=np.float32, name="") -> int:
+        i = self.tensor(shape, dtype, name=name)
+        self.inputs.append(i)
+        return i
+
+    def op(self, code: int, ins, n_out: int = 1, opts=None, out_dtype=np.float32):
+        """Add an operator; `opts` is its options table {field id: (format,
+        value) or FbVec}. Returns the output index (a list if n_out > 1)."""
+        if code not in self.codes:
+            self.codes.append(code)
+        outs = [self.tensor((), out_dtype) for _ in range(n_out)]
+        fields = {0: ("I", self.codes.index(code)), 1: FbVec("i4", list(ins)),
+                  2: FbVec("i4", outs)}
+        if opts:
+            fields[4] = FbTable(opts)
+        self.ops.append(FbTable(fields))
+        return outs[0] if n_out == 1 else outs
+
+    def to_bytes(self) -> bytes:
+        sub = FbTable({0: FbVec("t", self.tensors), 1: FbVec("i4", self.inputs),
+                       2: FbVec("i4", self.outputs), 3: FbVec("t", self.ops),
+                       4: FbStr("main")})
+        codes = [FbTable({0: ("b", min(c, 127)), 2: ("i", 1), 3: ("i", c)}) for c in self.codes]
+        bufs = [FbTable({} if b is None else {0: FbVec("u1", b)}) for b in self.buffers]
+        model = FbTable({0: ("I", 3), 1: FbVec("t", codes), 2: FbVec("t", [sub]),
+                         3: FbStr("chip_smoke"), 4: FbVec("t", bufs)})
+        return FbWriter().finish(model)
+
+
+def quantize_per_channel(w: np.ndarray, dim: int):
+    """Symmetric int8 weights along `dim`: (q, scales, zero points)."""
+    axes = tuple(a for a in range(w.ndim) if a != dim)
+    scale = (np.abs(w).max(axis=axes) / 127.0).astype(np.float32)
+    scale = np.where(scale > 0, scale, np.float32(1.0)).astype(np.float32)
+    shape = [1] * w.ndim
+    shape[dim] = -1
+    q = np.clip(np.round(w / scale.reshape(shape)), -127, 127).astype(np.int8)
+    return q, scale, np.zeros_like(scale, dtype=np.int64)
+
+
+# -- the breadth graphs of the three tables ------------------------------------
+
+def tf_cases(seed: int = SEED + 80) -> dict:
+    """Every op of the TF frontend's table at least once, on seeded inputs.
+    name -> (GraphDef bytes, [(placeholder, array)], output refs)."""
+    r = np.random.default_rng(seed)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)
+    pos = lambda *s: (r.random(s) + 0.5).astype(np.float32)
+    i32 = lambda v: np.asarray(v, np.int32)
+    N_, C_ = tf_node, tf_const
+    cases = {}
+
+    def case(name, nodes, feeds, outputs):
+        ph = [tf_placeholder(n, a.dtype) for n, a in feeds]
+        cases[name] = (tf_graph(ph + nodes), list(feeds), list(outputs))
+
+    unary = ["Relu", "Relu6", "Sigmoid", "Tanh", "Elu", "Selu", "Softplus", "Softsign", "Exp",
+             "Neg", "Abs", "Square", "Erf", "Floor", "Ceil", "Round", "Sign", "Sin", "Cos",
+             "Identity", "StopGradient", "ZerosLike", "OnesLike", "Softmax", "LogSoftmax"]
+    positive = ["Log", "Sqrt", "Rsqrt", "Reciprocal"]
+    binary = ["AddV2", "Add", "Sub", "Mul", "RealDiv", "Div", "Maximum", "Minimum",
+              "SquaredDifference", "FloorDiv", "FloorMod"]
+    compare = ["Equal", "NotEqual", "Less", "LessEqual", "Greater", "GreaterEqual"]
+    x = f32(3, 5)
+    x[0, :3] = [0.0, -0.0, 2.5]
+    nodes = ([N_(op, f"u_{op}", ["x"]) for op in unary]
+             + [N_(op, f"p_{op}", ["y"]) for op in positive]
+             + [N_(op, f"b_{op}", ["x", "y"]) for op in binary]
+             + [N_(op, f"c_{op}", ["x", "y"]) for op in compare]
+             + [N_("Pow", "pow", ["y", "x"]), N_("LeakyRelu", "leaky", ["x"], alpha=0.1),
+                C_("bias", f32(5)), N_("BiasAdd", "biasadd", ["x", "bias"]),
+                N_("LogicalAnd", "and", ["c_Less", "c_GreaterEqual"]),
+                N_("LogicalOr", "or", ["c_Less", "c_Equal"]),
+                N_("LogicalNot", "not", ["c_Less"]),
+                N_("Select", "select", ["c_Less", "x", "y"]),
+                N_("SelectV2", "selectv2", ["c_Greater", "x", "y"]),
+                N_("FloorDiv", "floordiv_i", ["i", "j"]), N_("FloorMod", "floormod_i", ["i", "j"])])
+    outs = ([f"u_{op}" for op in unary] + [f"p_{op}" for op in positive]
+            + [f"b_{op}" for op in binary] + [f"c_{op}" for op in compare]
+            + ["pow", "leaky", "biasadd", "and", "or", "not", "select", "selectv2",
+               "floordiv_i", "floormod_i"])
+    case("elementwise", nodes,
+         [("x", x), ("y", pos(3, 5)), ("i", i32(r.integers(-9, 9, (3, 5)))),
+          ("j", i32(r.integers(1, 4, (3, 5)) * r.choice([-1, 1], (3, 5))))], outs)
+
+    xc = f32(2, 9, 9, 3)
+    bn = [C_(f"bn_{k}", pos(8) if k in ("s", "v") else f32(8) * 0.1) for k in "sbmv"]
+    nodes = [
+        C_("w", f32(3, 3, 3, 8) * 0.3), C_("wd", f32(3, 3, 3, 2) * 0.3),
+        C_("wt", f32(3, 3, 4, 8) * 0.3), C_("tshape", i32([2, 10, 10, 4])),
+        N_("Conv2D", "conv_same", ["x", "w"], strides=[1, 2, 2, 1], padding="SAME",
+           data_format="NHWC"),
+        N_("Conv2D", "conv_dil", ["x", "w"], strides=[1, 1, 1, 1], padding="VALID",
+           dilations=[1, 2, 2, 1]),
+        N_("Conv2D", "conv_explicit", ["x", "w"], strides=[1, 1, 2, 1], padding="EXPLICIT",
+           explicit_paddings=[0, 0, 1, 2, 0, 1, 0, 0]),
+        N_("DepthwiseConv2dNative", "dwconv", ["x", "wd"], strides=[1, 2, 2, 1],
+           padding="SAME"),
+        N_("Conv2DBackpropInput", "deconv", ["tshape", "wt", "conv_same"],
+           strides=[1, 2, 2, 1], padding="SAME"),
+        N_("MaxPool", "maxpool", ["conv_dil"], ksize=[1, 3, 3, 1], strides=[1, 2, 2, 1],
+           padding="SAME"),
+        N_("AvgPool", "avgpool_same", ["conv_dil"], ksize=[1, 3, 3, 1], strides=[1, 2, 2, 1],
+           padding="SAME"),
+        N_("AvgPool", "avgpool_valid", ["conv_dil"], ksize=[1, 2, 2, 1],
+           strides=[1, 2, 2, 1], padding="VALID")] + bn + [
+        N_(op, f"bn_{op}", ["conv_same"] + [f"bn_{k}" for k in "sbmv"], epsilon=1e-3,
+           is_training=False)
+        for op in ("FusedBatchNormV3", "FusedBatchNorm", "FusedBatchNormV2")] + [
+        C_("mw", f32(5, 4)), C_("ma", f32(2, 3, 5)), C_("mb", f32(2, 4, 5)),
+        N_("MatMul", "matmul", ["m", "mw"]),
+        N_("MatMul", "matmul_t", ["mw", "m"], transpose_a=True, transpose_b=True),
+        N_("BatchMatMulV2", "bmm2", ["ma", "mb"], adj_y=True),
+        N_("BatchMatMul", "bmm", ["mb", "ma"], adj_x=False, adj_y=True),
+        N_("BatchMatMulV3", "bmm3", ["ma", "mb"], adj_y=True)]
+    case("convnet", nodes, [("x", xc), ("m", f32(3, 5))],
+         ["conv_same", "conv_dil", "conv_explicit", "dwconv", "deconv", "maxpool",
+          "avgpool_same", "avgpool_valid", "bn_FusedBatchNormV3", "bn_FusedBatchNorm",
+          "bn_FusedBatchNormV2", "matmul", "matmul_t", "bmm2", "bmm", "bmm3"])
+
+    xs = f32(2, 4, 6)
+    nodes = [
+        C_("shape", i32([4, 12])), N_("Reshape", "reshape", ["x", "shape"]),
+        C_("perm", i32([2, 0, 1])), N_("Transpose", "transpose", ["x", "perm"]),
+        C_("ax1", i32(1)), C_("ax0", i32(0)), C_("ax2", i32(2)), C_("axm1", i32(-1)),
+        N_("ConcatV2", "concat", ["x", "x", "ax1"]),
+        N_("Split", "split", ["ax2", "x"], num_split=2),
+        C_("sizes", i32([1, 3, 2])), N_("SplitV", "splitv", ["x", "sizes", "ax2"]),
+        C_("pads", i32([[0, 1], [2, 0], [1, 1]])), C_("padval", np.float32(1.5)),
+        N_("Pad", "pad", ["x", "pads"]), N_("PadV2", "padv2", ["x", "pads", "padval"]),
+        N_("MirrorPad", "mpad_r", ["x", "pads"], mode="REFLECT"),
+        N_("MirrorPad", "mpad_s", ["x", "pads"], mode="SYMMETRIC"),
+        N_("ExpandDims", "expand", ["x", "ax1"]),
+        N_("Squeeze", "squeeze", ["expand"], squeeze_dims=[1]),
+        C_("b", i32([1, 0, 5])), C_("e", i32([2, 4, 0])), C_("s", i32([1, 1, -2])),
+        N_("StridedSlice", "sslice", ["x", "b", "e", "s"], begin_mask=2, end_mask=0,
+           shrink_axis_mask=1, new_axis_mask=0),
+        C_("b2", i32([0, 0, 0])), C_("e2", i32([2, 3, 6])), C_("s2", i32([1, 2, 1])),
+        N_("StridedSlice", "sslice_new", ["x", "b2", "e2", "s2"], new_axis_mask=4),
+        C_("sb", i32([0, 1, 2])), C_("ss", i32([-1, 2, 3])),
+        N_("Slice", "slice", ["x", "sb", "ss"]),
+        N_("Pack", "pack", ["x", "x"], axis=1), N_("Unpack", "unpack", ["x"], num=4, axis=1),
+        C_("idx", i32([3, 0, 2])), N_("GatherV2", "gather", ["x", "idx", "ax1"]),
+        N_("Gather", "gather1", ["t", "idx"]),
+        C_("ndi", i32([[1, 2], [0, 3]])), N_("GatherNd", "gathernd", ["x", "ndi"]),
+        C_("reps", i32([1, 2, 1])), N_("Tile", "tile", ["x", "reps"]),
+        C_("fshape", i32([2, 3])), C_("fval", np.float32(0.25)),
+        N_("Fill", "fill", ["fshape", "fval"]),
+        N_("Shape", "shapeof", ["x"]), N_("Rank", "rank", ["x"]), N_("Size", "size", ["x"]),
+        C_("r0", i32(1)), C_("r1", i32(9)), C_("r2", i32(3)),
+        N_("Range", "range", ["r0", "r1", "r2"]),
+        N_("Cast", "cast_i", ["x"], DstT=TfType(graphdef_pb2.DT_INT32)),
+        N_("Cast", "cast_f", ["cast_i"], DstT=TfType(graphdef_pb2.DT_FLOAT)),
+        N_("Cast", "cast_b", ["cast_i"], DstT=TfType(graphdef_pb2.DT_BOOL)),
+        C_("rax", i32([0, 2])),
+        N_("Mean", "mean", ["x", "rax"], keep_dims=True), N_("Sum", "sum", ["x", "rax"]),
+        N_("Max", "max", ["x", "ax1"]), N_("Min", "min", ["x", "axm1"], keep_dims=True),
+        N_("Prod", "prod", ["x", "ax2"]), N_("All", "all", ["cast_b", "rax"]),
+        N_("Any", "any", ["cast_b", "ax1"]),
+        N_("ArgMax", "argmax", ["x", "ax2"]), N_("ArgMin", "argmin", ["x", "ax1"]),
+        C_("rsize", i32([7, 5])), C_("dsize", i32([3, 2])),
+        N_("ResizeBilinear", "resize_bl", ["img", "rsize"]),
+        N_("ResizeBilinear", "resize_bl_down", ["img", "dsize"]),
+        N_("ResizeNearestNeighbor", "resize_nn", ["img", "rsize"])]
+    case("shapes", nodes, [("x", xs), ("t", f32(5, 3)), ("img", f32(1, 4, 6, 2))],
+         ["reshape", "transpose", "concat", "split:0", "split:1", "splitv:0", "splitv:1",
+          "splitv:2", "pad", "padv2", "mpad_r", "mpad_s", "squeeze", "sslice", "sslice_new",
+          "slice", "pack", "unpack:0", "unpack:3", "gather", "gather1", "gathernd", "tile",
+          "fill", "shapeof", "rank", "size", "range", "cast_f", "cast_b", "mean", "sum", "max",
+          "min", "prod", "all", "any", "argmax", "argmin", "resize_bl", "resize_bl_down",
+          "resize_nn"])
+    return cases
+
+
+def tf_ops_of(graph: bytes) -> set:
+    return {n.op for n in graphdef_pb2.GraphDef.FromString(graph).node} - {"Const", "Placeholder"}
+
+
+def run_tf_case(case, dev) -> list:
+    """Convert and run one TF case on `dev`; the outputs as numpy arrays."""
+    graph, feeds, outs = case
+    fn, params = tf_frontend.convert_graphdef(graph, outputs=outs, device=dev)
+    with no_tf32():
+        got = fn(params, *[torch.from_numpy(np.array(a)).to(dev) for _, a in feeds])
+    got = got if isinstance(got, tuple) else (got,)
+    return [np.asarray(g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else g)
+            for g in got]
+
+
+def tfl_cases(seed: int = SEED + 81) -> dict:
+    """Every builtin code of the TFLite frontend's table at least once, on
+    seeded inputs. name -> (model bytes, [(input name, array)], output names)."""
+    r = np.random.default_rng(seed)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)
+    pos = lambda *s: (r.random(s) + 0.5).astype(np.float32)
+    i32 = lambda v: np.asarray(v, np.int32)
+    cases = {}
+
+    def finish(name, m, feeds, outs: dict):
+        m.outputs = list(outs.values())
+        for n, i in outs.items():
+            m.tensors[i].fields[3] = FbStr(n)
+        cases[name] = (m.to_bytes(), feeds, list(outs))
+
+    m = TflModel()
+    x, y = m.input((3, 5), name="x"), m.input((3, 5), name="y")
+    bi = m.input((3, 5), np.bool_, name="c")
+    act = lambda a: {0: ("b", a)}
+    outs = {}
+    for name, code, ins, opts in [
+            ("add_relu", 0, [x, y], act(1)), ("sub", 41, [x, y], act(0)),
+            ("mul_relu6", 18, [x, y], act(3)), ("div_tanh", 42, [x, y], act(4)),
+            ("add_n1", 0, [x, y], act(2)),
+            ("logistic", 14, [x], None), ("relu", 19, [x], None), ("relu6", 21, [x], None),
+            ("tanh", 28, [x], None), ("softmax", 25, [x], {0: ("f", 0.5)}),
+            ("log_softmax", 50, [x], None), ("exp", 47, [x], None), ("log", 73, [y], None),
+            ("sqrt", 75, [y], None), ("rsqrt", 76, [y], None), ("pow", 78, [y, x], None),
+            ("neg", 59, [x], None), ("abs", 101, [x], None), ("square", 92, [x], None),
+            ("sqdiff", 99, [x, y], None), ("floor", 8, [x], None), ("ceil", 104, [x], None),
+            ("round", 116, [x], None), ("floordiv", 90, [x, y], None),
+            ("floormod", 95, [x, y], None), ("maximum", 55, [x, y], None),
+            ("minimum", 57, [x, y], None), ("less", 58, [x, y], None),
+            ("greater", 61, [x, y], None), ("equal", 71, [x, x], None),
+            ("not_equal", 72, [x, y], None), ("greater_equal", 62, [x, y], None),
+            ("less_equal", 63, [x, y], None), ("prelu", 54, [x, y], None),
+            ("leaky", 98, [x], {0: ("f", 0.2)}), ("elu", 111, [x], None),
+            ("hard_swish", 117, [x], None), ("gelu", 150, [x], {0: ("B", 1)}),
+            ("gelu_exact", 150, [x], None), ("l2norm", 11, [x], None), ("sin", 66, [x], None),
+            ("cos", 108, [x], None), ("zeros_like", 93, [x], None),
+            ("add_n", 106, [x, y, x], None), ("select", 64, [bi, x, y], None),
+            ("select_v2", 123, [bi, x, y], None)]:
+        outs[name] = m.op(code, ins, opts=opts)
+    lo, gt = outs["less"], outs["greater"]
+    outs["or"] = m.op(84, [lo, gt])
+    outs["and"] = m.op(86, [lo, bi])
+    outs["not"] = m.op(87, [lo])
+    outs["cast_i"] = m.op(53, [x], opts={0: ("b", 0), 1: ("b", 2)}, out_dtype=np.int32)
+    wq, sc, zp = quantize_per_channel(f32(3, 5), 0)
+    outs["dequantize"] = m.op(6, [m.const(wq, "wq", (sc, zp, 0))])
+    outs["quantize"] = m.op(114, [x])
+    finish("elementwise", m, [("x", f32(3, 5)), ("y", pos(3, 5)),
+                              ("c", r.random((3, 5)) > 0.5)], outs)
+
+    m = TflModel()
+    x = m.input((2, 9, 9, 3), name="x")
+    w = m.const(f32(8, 3, 3, 3) * 0.3, "w")                 # OHWI
+    b = m.const(f32(8) * 0.1, "b")
+    wd = m.const(f32(1, 3, 3, 6) * 0.3, "wd")               # [1, kh, kw, c x 2]
+    wq, sc, zp = quantize_per_channel(f32(8, 3, 3, 3) * 0.3, 0)
+    wq8 = m.const(wq, "wq8", (sc, zp, 0))
+    wu = (r.integers(0, 256, (8, 3, 3, 3))).astype(np.uint8)
+    wu8 = m.const(wu, "wu8", (np.float32(0.01), np.int64(128), 0))
+    conv = lambda pad, sw, sh, act_, dw=1, dh=1: {0: ("b", pad), 1: ("i", sw), 2: ("i", sh),
+                                                  3: ("b", act_), 4: ("i", dw), 5: ("i", dh)}
+    outs = {}
+    outs["conv_same"] = m.op(3, [x, w, b], opts=conv(0, 2, 2, 1))
+    outs["conv_dil"] = m.op(3, [x, w], opts=conv(1, 1, 1, 0, 2, 2))
+    outs["conv_int8"] = m.op(3, [x, wq8, b], opts=conv(0, 1, 1, 3))
+    outs["conv_uint8"] = m.op(3, [x, wu8], opts=conv(1, 2, 1, 0))
+    outs["dwconv"] = m.op(4, [x, wd], opts={0: ("b", 0), 1: ("i", 2), 2: ("i", 2),
+                                             3: ("i", 2), 4: ("b", 1)})
+    tshape = m.const(i32([2, 10, 10, 8]), "tshape")
+    wt = m.const(f32(8, 3, 3, 8) * 0.3, "wt")
+    outs["tconv"] = m.op(67, [tshape, wt, outs["conv_same"]],
+                         opts={0: ("b", 0), 1: ("i", 2), 2: ("i", 2)})
+    pool = lambda pad, s, k, act_: {0: ("b", pad), 1: ("i", s), 2: ("i", s), 3: ("i", k),
+                                     4: ("i", k), 5: ("b", act_)}
+    outs["avgpool"] = m.op(1, [outs["conv_dil"]], opts=pool(0, 2, 3, 0))
+    outs["maxpool"] = m.op(17, [outs["conv_dil"]], opts=pool(1, 1, 2, 1))
+    fw = m.const(f32(4, 8 * 5 * 5) * 0.1, "fw")
+    outs["fc"] = m.op(9, [outs["conv_same"], fw, m.const(f32(4), "fb")], opts={0: ("b", 1)})
+    ax12, ax3 = m.const(i32([1, 2]), "ax12"), m.const(i32([3]), "ax3")
+    outs["mean"] = m.op(40, [outs["conv_same"], ax12], opts={0: ("B", 1)})
+    outs["sum"] = m.op(74, [outs["conv_same"], ax3])
+    outs["rmax"] = m.op(82, [outs["conv_same"], ax12])
+    outs["rmin"] = m.op(89, [outs["conv_same"], ax3], opts={0: ("B", 1)})
+    outs["rprod"] = m.op(81, [outs["dwconv"], ax3])
+    size = m.const(i32([7, 11]), "size")
+    outs["resize_bl"] = m.op(23, [outs["conv_same"], size])
+    outs["resize_nn"] = m.op(97, [outs["conv_same"], size])
+    s2d = m.op(26, [m.input((1, 4, 6, 2), name="img")], opts={0: ("i", 2)})
+    outs["space_to_depth"] = s2d
+    outs["depth_to_space"] = m.op(5, [s2d], opts={0: ("i", 2)})
+    outs["concat"] = m.op(2, [outs["conv_same"], outs["conv_same"]],
+                          opts={0: ("i", 3), 1: ("b", 1)})
+    ba, bb = m.const(f32(2, 3, 4), "ba"), m.const(f32(2, 5, 4), "bb")
+    outs["bmm"] = m.op(126, [ba, bb], opts={1: ("B", 1)})
+    finish("convnet", m, [("x", f32(2, 9, 9, 3)), ("img", f32(1, 4, 6, 2))], outs)
+
+    m = TflModel()
+    x = m.input((2, 4, 6), name="x")
+    t = m.input((5, 3), name="t")
+    c = m.const
+    outs = {}
+    outs["reshape_opt"] = m.op(22, [x], opts={0: FbVec("i4", [4, 12])})
+    outs["reshape_in"] = m.op(22, [x, c(i32([6, -1]), "rs")])
+    pads = c(i32([[0, 1], [2, 0], [1, 1]]), "pads")
+    outs["pad"] = m.op(34, [x, pads])
+    outs["padv2"] = m.op(60, [x, pads, c(np.float32(-2.0), "pv")])
+    outs["mpad_r"] = m.op(100, [x, pads], opts={0: ("b", 0)})
+    outs["mpad_s"] = m.op(100, [x, pads], opts={0: ("b", 1)})
+    outs["transpose"] = m.op(39, [x, c(i32([2, 0, 1]), "perm")])
+    ex = m.op(70, [x, c(i32(1), "one")])
+    outs["squeeze"] = m.op(43, [ex], opts={0: FbVec("i4", [1])})
+    outs["sslice"] = m.op(45, [x, c(i32([1, 0, 5]), "sb"), c(i32([2, 4, 0]), "se"),
+                               c(i32([1, 1, -2]), "ss")],
+                          opts={0: ("i", 2), 1: ("i", 0), 4: ("i", 1)})
+    outs["slice"] = m.op(65, [x, c(i32([0, 1, 2]), "lb"), c(i32([-1, 2, 3]), "ls")])
+    outs["gather"] = m.op(36, [x, c(i32([3, 0, 2]), "gi")], opts={0: ("i", 1)})
+    outs["gather_nd"] = m.op(107, [x, c(i32([[1, 2], [0, 3]]), "ndi")])
+    outs["tile"] = m.op(69, [t, c(i32([2, 1]), "reps")])
+    outs["shape"] = m.op(77, [x], out_dtype=np.int32)
+    outs["rank"] = m.op(110, [x], out_dtype=np.int32)
+    outs["fill"] = m.op(94, [c(i32([2, 3]), "fs"), c(np.float32(0.5), "fv")])
+    outs["pack"] = m.op(83, [t, t], opts={0: ("i", 2), 1: ("i", 1)})
+    un = m.op(88, [x], n_out=4, opts={0: ("i", 4), 1: ("i", 1)})
+    outs["unpack0"], outs["unpack3"] = un[0], un[3]
+    sp = m.op(49, [c(i32(2), "two"), x], n_out=2, opts={0: ("i", 2)})
+    outs["split0"], outs["split1"] = sp
+    sv = m.op(102, [x, c(i32([1, 3, 2]), "svs"), c(i32(2), "two2")], n_out=3,
+              opts={0: ("i", 3)})
+    outs["splitv0"], outs["splitv2"] = sv[0], sv[2]
+    outs["argmax"] = m.op(56, [x, c(i32(2), "a2")], out_dtype=np.int32)
+    outs["argmin"] = m.op(79, [x, c(i32(1), "a1")], out_dtype=np.int32)
+    finish("shapes", m, [("x", f32(2, 4, 6)), ("t", f32(5, 3))], outs)
+    return cases
+
+
+def tfl_codes_of(model: bytes) -> set:
+    from mnn_tpu_torch.convert.tflite_frontend import _parse
+    return {o.code for o in _parse(model)[4]}
+
+
+def run_tfl_case(case, dev) -> list:
+    model, feeds, outs = case
+    fn, params = tflite_frontend.convert_tflite(model, device=dev)
+    with no_tf32():
+        got = fn(params, *[torch.from_numpy(np.array(a)).to(dev) for _, a in feeds])
+    got = got if isinstance(got, tuple) else (got,)
+    return [np.asarray(g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else g)
+            for g in got]
+
+
+def caffe_layer(net, name, type_, bottoms, tops, blobs=(), **params):
+    """Add a LayerParameter; `params` maps a `*_param` field to a dict of
+    its fields (a list extends a repeated field, a dict fills a message)."""
+    layer = net.layer.add(name=name, type=type_)
+    layer.bottom.extend(bottoms)
+    layer.top.extend(tops)
+    for arr in blobs:
+        b = layer.blobs.add()
+        b.shape.dim.extend(arr.shape)
+        b.data.extend(np.asarray(arr, np.float32).reshape(-1))
+    for pname, fields in params.items():
+        p = getattr(layer, pname)
+        for k, v in fields.items():
+            if isinstance(v, (list, tuple)):
+                getattr(p, k).extend(v)
+            elif isinstance(v, dict):
+                for kk, vv in v.items():
+                    getattr(getattr(p, k), kk).extend(vv)
+            else:
+                setattr(p, k, v)
+        p._mark()
+    return layer
+
+
+def caffe_cases(seed: int = SEED + 82) -> dict:
+    """Every layer type of the Caffe frontend's table at least once, as
+    NetParameters with their blobs. name -> (NetParameter bytes,
+    [(input, array)], output tops)."""
+    r = np.random.default_rng(seed)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)
+    pos = lambda *s: (r.random(s) + 0.5).astype(np.float32)
+    cases = {}
+    net = caffe_pb2.NetParameter(name="breadth")
+    net.input.append("data")
+    net.input_shape.add().dim.extend([2, 4, 9, 9])
+    L = lambda *a, **k: caffe_layer(net, *a, **k)
+    L("conv", "Convolution", ["data"], ["conv"], [f32(6, 2, 3, 3) * 0.3, f32(6) * 0.1],
+      convolution_param=dict(num_output=6, kernel_size=[3], pad=[1], stride=[2], group=2))
+    L("conv_dil", "Convolution", ["data"], ["conv_dil"], [f32(4, 4, 3, 3) * 0.3],
+      convolution_param=dict(num_output=4, kernel_size=[3], dilation=[2], bias_term=False,
+                             pad_h=1, pad_w=0))
+    L("deconv", "Deconvolution", ["conv"], ["deconv"], [f32(6, 2, 4, 4) * 0.2, f32(4) * 0.1],
+      convolution_param=dict(num_output=4, kernel_size=[4], stride=[2], pad=[1], group=2))
+    L("pool_max", "Pooling", ["data"], ["pool_max"],
+      pooling_param=dict(pool=caffe_pb2.PoolingParameter.MAX, kernel_size=3, stride=2))
+    L("pool_ave", "Pooling", ["data"], ["pool_ave"],
+      pooling_param=dict(pool=caffe_pb2.PoolingParameter.AVE, kernel_size=3, stride=2, pad=1))
+    L("pool_floor", "Pooling", ["data"], ["pool_floor"],
+      pooling_param=dict(pool=caffe_pb2.PoolingParameter.AVE, kernel_h=2, kernel_w=3, stride_h=2,
+                         stride_w=1, pad=1, round_mode=caffe_pb2.PoolingParameter.FLOOR))
+    L("pool_global", "Pooling", ["conv"], ["pool_global"],
+      pooling_param=dict(pool=caffe_pb2.PoolingParameter.MAX, global_pooling=True))
+    L("ip", "InnerProduct", ["pool_max"], ["ip"], [f32(5, 64) * 0.1, f32(5)],
+      inner_product_param=dict(num_output=5))
+    L("ip_t", "InnerProduct", ["pool_max"], ["ip_t"], [f32(16, 7) * 0.1],
+      inner_product_param=dict(num_output=7, axis=2, transpose=True, bias_term=False))
+    L("bn", "BatchNorm", ["conv"], ["bn"], [f32(6) * 2, pos(6) * 2, np.float32([2.0])])
+    L("scale", "Scale", ["bn"], ["scale"], [f32(6), f32(6)], scale_param=dict(bias_term=True))
+    L("ip6", "InnerProduct", ["pool_max"], ["ip6"], [f32(6, 64) * 0.1, f32(6)],
+      inner_product_param=dict(num_output=6))
+    L("scale2", "Scale", ["conv", "ip6"], ["scale2"], scale_param=dict(axis=0))
+    L("lrn", "LRN", ["data"], ["lrn"], lrn_param=dict(local_size=3, alpha=1e-2, beta=0.75,
+                                                      k=2.0))
+    L("split", "Split", ["data"], ["sa", "sb"])
+    L("sum", "Eltwise", ["sa", "sb", "data"], ["sum"], eltwise_param=dict(coeff=[0.5, -1.0, 2.0]))
+    L("prod", "Eltwise", ["sa", "sb"], ["prod"],
+      eltwise_param=dict(operation=caffe_pb2.EltwiseParameter.PROD))
+    L("emax", "Eltwise", ["sa", "sb"], ["emax"],
+      eltwise_param=dict(operation=caffe_pb2.EltwiseParameter.MAX))
+    L("relu", "ReLU", ["data"], ["relu"], relu_param=dict(negative_slope=0.1))
+    L("relu0", "ReLU", ["data"], ["relu0"])
+    L("relu6", "ReLU6", ["data"], ["relu6"])
+    L("prelu", "PReLU", ["data"], ["prelu"], [f32(4)])
+    L("prelu_s", "PReLU", ["data"], ["prelu_s"], [np.float32([0.25])])
+    L("elu", "ELU", ["data"], ["elu"], elu_param=dict(alpha=0.5))
+    for t in ("Sigmoid", "TanH", "AbsVal", "BNLL", "Exp"):
+        L(t.lower(), t, ["data"], [t.lower()])
+    L("log", "Log", ["exp"], ["log"])
+    L("power", "Power", ["absval"], ["power"], power_param=dict(power=1.5, scale=0.5,
+                                                               shift=0.25))
+    L("softmax", "Softmax", ["data"], ["softmax"])
+    L("concat", "Concat", ["data", "relu"], ["concat"], concat_param=dict(axis=1))
+    L("slice", "Slice", ["data"], ["s1", "s2", "s3"], slice_param=dict(slice_point=[1, 3],
+                                                                        axis=1))
+    L("slice_even", "Slice", ["data"], ["e1", "e2"], slice_param=dict(axis=1))
+    L("reshape", "Reshape", ["data"], ["reshape"],
+      reshape_param=dict(shape={"dim": [0, -1]}, axis=1))
+    L("flatten", "Flatten", ["data"], ["flatten"])
+    L("drop", "Dropout", ["data"], ["drop"])
+    L("argmax", "ArgMax", ["data"], ["argmax"], argmax_param=dict(axis=1))
+    consumed = {b for layer in net.layer for b in layer.bottom}
+    outs = [t for layer in net.layer for t in layer.top if t not in consumed]
+    cases["breadth"] = (net.SerializeToString(), [("data", f32(2, 4, 9, 9))], outs)
+    return cases
+
+
+# -- the three models, written from `models/vision.py`'s modules ---------------
+
+SQUEEZE_SIZE = 227           # SqueezeNet 1.0's deploy net input
+P17_BATCHES = (1, 32)        # (kkk), (lll), (mmm): card ms at these batches
+P17_PARITY_BATCH = 2         # (lll), (mmm): card against the CPU and the fx path
+# a unary builtin code the TFLite table lacks (RELU_N1_TO_1), the plugin standing
+# in for it; not CUSTOM (32): the table reads no custom_code, so a plugin there
+# would take every custom op of a model
+PLUGIN_TFLITE_CODE = 20
+
+
+def _fire_names(i: int):
+    return [f"fire{i}/{n}" for n in ("squeeze1x1", "expand1x1", "expand3x3")]
+
+
+def squeezenet_prototxt(batch: int) -> str:
+    """SqueezeNet 1.0's published deploy net (github.com/forresti/SqueezeNet,
+    SqueezeNet_v1.0/deploy.prototxt), written out at `batch` x 3 x 227 x 227,
+    fillers and all, as the text a user would hand over."""
+    out = ['# SqueezeNet v1.0 deploy net', 'name: "SqueezeNet_v1.0"',
+           'layer {', '  name: "data"', '  type: "Input"', '  top: "data"',
+           f'  input_param {{ shape: {{ dim: {batch} dim: 3 dim: {SQUEEZE_SIZE} '
+           f'dim: {SQUEEZE_SIZE} }} }}', '}']
+
+    def conv(name, bottom, n, k, stride=1, pad=0):
+        out.extend(['layer {', f'  name: "{name}"', '  type: "Convolution"',
+                    f'  bottom: "{bottom}"', f'  top: "{name}"',
+                    '  convolution_param {', f'    num_output: {n}']
+                   + ([f'    pad: {pad}'] if pad else []) + [f'    kernel_size: {k}']
+                   + ([f'    stride: {stride}'] if stride != 1 else [])
+                   + ['    weight_filler {', '      type: "xavier"', '    }', '  }', '}'])
+
+    def relu(name, top):
+        out.extend(['layer {', f'  name: "{name}"', '  type: "ReLU"', f'  bottom: "{top}"',
+                    f'  top: "{top}"', '}'])
+
+    def pool(name, bottom, kind="MAX", k=3, stride=2, glob=False):
+        body = ([f'    pool: {kind}', '    global_pooling: true'] if glob else
+                [f'    pool: {kind}', f'    kernel_size: {k}', f'    stride: {stride}'])
+        out.extend(['layer {', f'  name: "{name}"', '  type: "Pooling"', f'  bottom: "{bottom}"',
+                    f'  top: "{name}"', '  pooling_param {'] + body + ['  }', '}'])
+
+    def fire(i, bottom, s, e):
+        sq, e1, e3 = _fire_names(i)
+        conv(sq, bottom, s, 1)
+        relu(f"fire{i}/relu_squeeze1x1", sq)
+        conv(e1, sq, e, 1)
+        relu(f"fire{i}/relu_expand1x1", e1)
+        conv(e3, sq, e, 3, pad=1)
+        relu(f"fire{i}/relu_expand3x3", e3)
+        out.extend(['layer {', f'  name: "fire{i}/concat"', '  type: "Concat"',
+                    f'  bottom: "{e1}"', f'  bottom: "{e3}"', f'  top: "fire{i}/concat"', '}'])
+        return f"fire{i}/concat"
+
+    conv("conv1", "data", 96, 7, stride=2)
+    relu("relu_conv1", "conv1")
+    pool("pool1", "conv1")
+    x = fire(2, "pool1", 16, 64)
+    x = fire(3, x, 16, 64)
+    x = fire(4, x, 32, 128)
+    pool("pool4", x)
+    x = fire(5, "pool4", 32, 128)
+    x = fire(6, x, 48, 192)
+    x = fire(7, x, 48, 192)
+    x = fire(8, x, 64, 256)
+    pool("pool8", x)
+    x = fire(9, "pool8", 64, 256)
+    out.extend(['layer {', '  name: "drop9"', '  type: "Dropout"', f'  bottom: "{x}"',
+                f'  top: "{x}"', '  dropout_param {', '    dropout_ratio: 0.5', '  }', '}'])
+    conv("conv10", x, 1000, 1)
+    relu("relu_conv10", "conv10")
+    pool("pool10", "conv10", "AVE", glob=True)
+    out.extend(['layer {', '  name: "prob"', '  type: "Softmax"', '  bottom: "pool10"',
+                '  top: "prob"', '}'])
+    return "\n".join(out) + "\n"
+
+
+def squeezenet_caffemodel(mod) -> bytes:
+    """The weights of `models/vision.squeezenet_v1_0` as a caffemodel (a
+    NetParameter of named layers with their blobs), by the port's codec."""
+    import torch.nn as nn
+
+    net = caffe_pb2.NetParameter(name="SqueezeNet_v1.0")
+    feats = list(mod.features)
+    convs = [("conv1", feats[0])]
+    fires = [m for m in feats if not isinstance(m, (nn.Conv2d, nn.ReLU, nn.MaxPool2d))]
+    for i, f in zip(range(2, 10), fires):
+        convs += list(zip(_fire_names(i), (f.squeeze, f.e1, f.e3)))
+    convs.append(("conv10", mod.classifier[1]))
+    for name, conv in convs:
+        caffe_layer(net, name, "Convolution", [], [],
+                    [conv.weight.detach().numpy(), conv.bias.detach().numpy()])
+    return net.SerializeToString()
+
+
+def resnet50_graphdef(mod) -> bytes:
+    """`models/vision.resnet50` as a frozen NHWC GraphDef: Conv2D (a Pad op
+    first where TF's SAME would pad otherwise than the module),
+    FusedBatchNormV3, Relu, MaxPool, AddV2, Mean, MatMul, BiasAdd, Softmax;
+    outputs "logits" and "prob"."""
+    nodes = [tf_placeholder("input")]
+    t = lambda v: np.ascontiguousarray(v.detach().numpy())
+
+    def conv_bn(x, name, conv, bn, relu):
+        k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+        nodes.append(tf_const(f"{name}/w", t(conv.weight).transpose(2, 3, 1, 0)))
+        pad = "VALID"
+        if p and (k == 1 or s == 1) and 2 * p == k - 1:
+            pad = "SAME"                     # TF's SAME is the module's padding here
+        elif p:
+            nodes.append(tf_const(f"{name}/pads", np.asarray(
+                [[0, 0], [p, p], [p, p], [0, 0]], np.int32)))
+            nodes.append(tf_node("Pad", f"{name}/pad", [x, f"{name}/pads"]))
+            x = f"{name}/pad"
+        nodes.append(tf_node("Conv2D", f"{name}/conv", [x, f"{name}/w"],
+                             strides=[1, s, s, 1], padding=pad, data_format="NHWC",
+                             T=TfType(graphdef_pb2.DT_FLOAT)))
+        for k_, v in (("gamma", bn.weight), ("beta", bn.bias), ("mean", bn.running_mean),
+                      ("var", bn.running_var)):
+            nodes.append(tf_const(f"{name}/bn/{k_}", t(v)))
+        nodes.append(tf_node("FusedBatchNormV3", f"{name}/bn",
+                             [f"{name}/conv"] + [f"{name}/bn/{k_}" for k_ in
+                                                 ("gamma", "beta", "mean", "var")],
+                             epsilon=float(bn.eps), is_training=False, data_format="NHWC"))
+        if not relu:
+            return f"{name}/bn"
+        nodes.append(tf_node("Relu", f"{name}/relu", [f"{name}/bn"]))
+        return f"{name}/relu"
+
+    x = conv_bn("input", "stem", mod.stem[0], mod.stem[1], True)
+    nodes.append(tf_const("stem/pool/pads", np.asarray([[0, 0], [1, 1], [1, 1], [0, 0]],
+                                                       np.int32)))
+    nodes.append(tf_node("Pad", "stem/pool/pad", [x, "stem/pool/pads"]))   # 0 after a ReLU
+    nodes.append(tf_node("MaxPool", "stem/pool", ["stem/pool/pad"], ksize=[1, 3, 3, 1],
+                         strides=[1, 2, 2, 1], padding="VALID", data_format="NHWC"))
+    x = "stem/pool"
+    for li, layer in enumerate((mod.layer1, mod.layer2, mod.layer3, mod.layer4), 1):
+        for bi, blk in enumerate(layer):
+            p = f"layer{li}/{bi}"
+            idn = x if blk.down is None else conv_bn(x, f"{p}/down", blk.down[0],
+                                                     blk.down[1], False)
+            y = conv_bn(x, f"{p}/c1", blk.c1, blk.b1, True)
+            y = conv_bn(y, f"{p}/c2", blk.c2, blk.b2, True)
+            y = conv_bn(y, f"{p}/c3", blk.c3, blk.b3, False)
+            nodes.append(tf_node("AddV2", f"{p}/add", [y, idn]))
+            nodes.append(tf_node("Relu", f"{p}/out", [f"{p}/add"]))
+            x = f"{p}/out"
+    nodes += [tf_const("pool/axes", np.asarray([1, 2], np.int32)),
+              tf_node("Mean", "pool", [x, "pool/axes"], keep_dims=False),
+              tf_const("fc/w", t(mod.fc.weight).T), tf_const("fc/b", t(mod.fc.bias)),
+              tf_node("MatMul", "fc/matmul", ["pool", "fc/w"]),
+              tf_node("BiasAdd", "logits", ["fc/matmul", "fc/b"], data_format="NHWC"),
+              tf_node("Softmax", "prob", ["logits"])]
+    return tf_graph(nodes)
+
+
+def mobilenet_v2_tflite(mod, int8: bool = False) -> bytes:
+    """`models/vision.mobilenet_v2` as a TFLite model, batch norm folded into
+    the convolutions (f64, then f32), as TFLite's converter folds it:
+    CONV_2D and DEPTHWISE_CONV_2D with fused RELU6, a PAD before each
+    stride-2 3 x 3 (TFLite's SAME would pad otherwise than the module), ADD,
+    MEAN, FULLY_CONNECTED, SOFTMAX; outputs "logits" and "prob". `int8`:
+    every weight int8 per output channel (symmetric, TFLite's
+    `quantized_dimension`)."""
+    import torch.nn as nn
+
+    m = TflModel()
+    x = m.input((1, 224, 224, 3), name="input")
+    n_w = [0]
+
+    def weight(arr, qdim):
+        n_w[0] += 1
+        if not int8:
+            return m.const(arr.astype(np.float32), f"w{n_w[0]}")
+        q, sc, zp = quantize_per_channel(arr.astype(np.float32), qdim)
+        return m.const(q, f"w{n_w[0]}", (sc, zp, qdim))
+
+    def conv_bn(x, conv, bn, act):
+        w = conv.weight.detach().double().numpy()
+        s = (bn.weight.detach().double() / torch.sqrt(bn.running_var.detach().double()
+                                                       + bn.eps)).numpy()
+        b = (bn.bias.detach().double().numpy() - bn.running_mean.detach().double().numpy() * s)
+        w = w * s[:, None, None, None]
+        k, st = conv.kernel_size[0], conv.stride[0]
+        pad = 1 if k == 1 else 0                       # VALID / SAME
+        if k == 3 and st == 2:
+            x = m.op(34, [x, m.const(np.asarray([[0, 0], [1, 1], [1, 1], [0, 0]], np.int32))])
+            pad = 1
+        bias = m.const(b.astype(np.float32), f"b{n_w[0] + 1}")
+        if conv.groups == 1:
+            opts = {0: ("b", pad), 1: ("i", st), 2: ("i", st), 3: ("b", act)}
+            return m.op(3, [x, weight(w.transpose(0, 2, 3, 1), 0), bias], opts=opts)
+        opts = {0: ("b", pad), 1: ("i", st), 2: ("i", st), 3: ("i", 1), 4: ("b", act)}
+        return m.op(4, [x, weight(w[:, 0].transpose(1, 2, 0)[None], 3), bias], opts=opts)
+
+    def seq(x, mods):
+        i = 0
+        while i < len(mods):
+            relu6 = i + 2 < len(mods) and isinstance(mods[i + 2], nn.ReLU6)
+            x = conv_bn(x, mods[i], mods[i + 1], 3 if relu6 else 0)
+            i += 3 if relu6 else 2
+        return x
+
+    for blk in mod.features:
+        if isinstance(blk, nn.Sequential):               # conv_bn
+            x = seq(x, list(blk))
+        else:                                            # an inverted residual
+            mods = [mm for sub in blk.conv for mm in (sub if isinstance(sub, nn.Sequential)
+                                                       else [sub])]
+            y = seq(x, mods)
+            x = m.op(0, [x, y], opts={0: ("b", 0)}) if blk.use_res else y
+    x = m.op(40, [x, m.const(np.asarray([1, 2], np.int32))], opts={0: ("B", 0)})
+    fw = mod.classifier.weight.detach().numpy()
+    logits = m.op(9, [x, weight(fw, 0), m.const(mod.classifier.bias.detach().numpy(), "fc_b")],
+                  opts={0: ("b", 0)})
+    prob = m.op(25, [logits], opts={0: ("f", 1.0)})
+    m.outputs = [logits, prob]
+    m.tensors[logits].fields[3] = FbStr("logits")
+    m.tensors[prob].fields[3] = FbStr("prob")
+    return m.to_bytes()
+
+
+def fx_logits(mod, x: torch.Tensor, dev):
+    """Phase 15's fx path of the same module on the card, f32, TF32 off."""
+    fn, p = convert_torch_module(mod, device=dev)
+    with torch.no_grad(), no_tf32():
+        return fn(p, x.to(dev)).float().cpu()
+
+
+def layout_share(fn, calls: int = 3) -> dict:
+    """Device time of one call by torch.profiler, and the share of it in
+    layout kernels: copies (a weight laid out for cuDNN, a permuted tensor
+    made contiguous) and cuDNN's NCHW / NHWC transposes."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(evs), "the profiler recorded no device time")
+    layout = [e for e in evs if any(s in e.key for s in ("copy", "nchwToNhwc", "nhwcToNchw",
+                                                         "ranspose"))]
+    total = sum(e.self_device_time_total for e in evs) / 1e3 / calls
+    lay = sum(e.self_device_time_total for e in layout) / 1e3 / calls
+    return dict(device_ms=total, layout_ms=lay, layout_share=lay / total,
+                layout_kernels={e.key[:120]: e.self_device_time_total / 1e3 / calls
+                                for e in layout})
+
+
+def calibrated_mobilenet_v2():
+    """`models/vision.mobilenet_v2` (seeded) with batch norms as trained
+    weights have them: seeded gamma / beta and the running statistics of one
+    training-mode pass over a seeded batch. With the default statistics its
+    activations vanish and the logits are the classifier's bias."""
+    import torch.nn as nn
+
+    mod = seeded_module("mobilenet_v2")
+    g = torch.Generator().manual_seed(SEED + 94)
+    with torch.no_grad():
+        for m in mod.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.momentum = 1.0
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+        mod.train()
+        mod(torch.randn(8, 3, CNN_SIZE, CNN_SIZE, generator=g))
+    return mod.eval()
+
+
+def _frontend_model(label, convert, run, x_of, mod, fx_x, dev, card_line, cpu_batches):
+    """Convert on the card and the CPU, hold card logits to the CPU's at the
+    given batches and to the fx path's (all within rel-L2 1e-4, TF32 off),
+    and time the card at P17_BATCHES."""
+    t0 = time.perf_counter()
+    fn_card, p_card = convert(dev)
+    convert_s = time.perf_counter() - t0
+    fn_cpu, p_cpu = convert("cpu")
+    row = dict(convert_s=convert_s, rel_to_cpu={}, ms={})
+    g = torch.Generator().manual_seed(SEED + 90)
+    for b in cpu_batches:
+        xb = x_of(torch.randn(b, 3, *fx_x.shape[2:], generator=g))
+        with torch.no_grad(), no_tf32():
+            card = run(fn_card, p_card, xb.to(dev)).float().cpu()
+            cpu = run(fn_cpu, p_cpu, xb).float()
+        row["rel_to_cpu"][b] = rel_l2(card, cpu)
+        check(row["rel_to_cpu"][b] <= CNN_F32_REL,
+              f"({label}) batch {b} card vs cpu rel-L2 {row['rel_to_cpu'][b]:.3g}")
+    with torch.no_grad(), no_tf32():
+        card = run(fn_card, p_card, x_of(fx_x).to(dev)).float().cpu()
+    row["rel_to_fx"] = rel_l2(card, fx_logits(mod, fx_x, dev))
+    check(row["rel_to_fx"] <= CNN_F32_REL,
+          f"({label}) vs the fx path rel-L2 {row['rel_to_fx']:.3g}")
+    for b in P17_BATCHES:
+        xb = x_of(torch.randn(b, 3, *fx_x.shape[2:], generator=g)).to(dev)
+        with torch.no_grad():
+            row["ms"][b] = event_ms(lambda i: run(fn_card, p_card, xb), 10)
+    return fn_card, p_card, row
+
+
+def phase_caffe_squeezenet(dev, card_line):
+    """(kkk) SqueezeNet 1.0's deploy prototxt and a caffemodel of
+    `models/vision.squeezenet_v1_0`'s weights, read and converted by the
+    port; logits (the net without its `prob` layer) card against CPU at
+    batch 1 and 32 and against the fx path; the read seconds; card ms."""
+    mod = seeded_module("squeezenet_v1.0")
+    model = squeezenet_caffemodel(mod)
+    t0 = time.perf_counter()
+    parsed = caffe_pb2.NetParameter.FromString(model)
+    read_s = time.perf_counter() - t0
+    check(parsed.SerializeToString() == model, "(kkk) caffemodel bytes do not round-trip")
+    net = caffe_frontend.load_prototxt(squeezenet_prototxt(1))
+    check(len(net.layer) == 67 and net.layer[-1].type == "Softmax",
+          f"(kkk) the deploy net parsed to {len(net.layer)} layers")
+    logits_net = caffe_pb2.NetParameter()
+    logits_net.CopyFrom(net)
+    del logits_net.layer[-1]                  # pool10's output: the logits
+
+    def convert(d):
+        return caffe_frontend.convert_caffe(logits_net, model, device=d)
+
+    run = lambda fn, p, x: fn(p, x).reshape(x.shape[0], -1)
+    x = torch.randn(P17_PARITY_BATCH, 3, SQUEEZE_SIZE, SQUEEZE_SIZE,
+                    generator=torch.Generator().manual_seed(SEED + 91))
+    fn, p, row = _frontend_model("kkk", convert, run, lambda v: v, mod, x, dev, card_line,
+                                 P17_BATCHES)
+    fnp, pp = caffe_frontend.convert_caffe(net, model, device=dev)
+    with torch.no_grad(), no_tf32():
+        prob = fnp(pp, x.to(dev)).reshape(x.shape[0], -1).float().cpu()
+        want = torch.softmax(run(fn, p, x.to(dev)).float().cpu(), -1)
+    row.update(caffemodel_bytes=len(model), caffemodel_read_s=read_s, layers=len(net.layer),
+               prob_rel=rel_l2(prob, want))
+    check(row["prob_rel"] <= 1e-5, f"(kkk) prob vs softmax(logits) {row['prob_rel']:.3g}")
+    print(f"  (kkk) Caffe SqueezeNet 1.0 ({len(net.layer)} layers, caffemodel {len(model)} B "
+          f"read in {read_s:.3f} s): card vs cpu rel-L2 {row['rel_to_cpu']}, vs the fx path "
+          f"{row['rel_to_fx']:.3g}; ms {row['ms']} [{card_line}]", flush=True)
+    return row
+
+
+def phase_tf_resnet50(dev, card_line):
+    """(lll) ResNet-50 as a frozen NHWC GraphDef written by the port's codec:
+    logits card against CPU and against the fx path; ms at batch 1 and 32;
+    the layout kernels' share of the card's time at batch 32."""
+    mod = seeded_module("resnet50")
+    t0 = time.perf_counter()
+    graph = resnet50_graphdef(mod)
+    write_s = time.perf_counter() - t0
+    check(graphdef_pb2.GraphDef.FromString(graph).SerializeToString() == graph,
+          "(lll) GraphDef bytes do not round-trip")
+
+    def convert(d):
+        return tf_frontend.convert_graphdef(graph, outputs=["logits"], device=d)
+
+    nhwc = lambda v: v.permute(0, 2, 3, 1).contiguous()
+    x = torch.randn(P17_PARITY_BATCH, 3, CNN_SIZE, CNN_SIZE,
+                    generator=torch.Generator().manual_seed(SEED + 71))
+    fn, p, row = _frontend_model("lll", convert, lambda f, pp, v: f(pp, v), nhwc, mod, x, dev,
+                                 card_line, (P17_PARITY_BATCH,))
+    x32 = nhwc(torch.randn(32, 3, CNN_SIZE, CNN_SIZE)).to(dev)
+    fx_fn, fx_p = convert_torch_module(mod, device=dev)
+    x32n = torch.randn(32, 3, CNN_SIZE, CNN_SIZE).to(dev)
+    with torch.no_grad():
+        row["layout_b32"] = layout_share(lambda: fn(p, x32))
+        row["fx_b32"] = layout_share(lambda: fx_fn(fx_p, x32n))
+    row.update(graph_bytes=len(graph), write_s=write_s,
+               nodes=len(graphdef_pb2.GraphDef.FromString(graph).node), ops=sorted(tf_ops_of(graph)))
+    print(f"  (lll) TF ResNet-50 ({row['nodes']} nodes, {len(graph)} B): card vs cpu rel-L2 "
+          f"{row['rel_to_cpu']}, vs the fx path {row['rel_to_fx']:.3g}; ms {row['ms']}; at "
+          f"batch 32 device {row['layout_b32']['device_ms']:.2f} ms, layout kernels "
+          f"{row['layout_b32']['layout_ms']:.2f} ms ({100 * row['layout_b32']['layout_share']:.1f} "
+          f"%), the fx path (NCHW) {row['fx_b32']['device_ms']:.2f} ms [{card_line}]", flush=True)
+    return row
+
+
+def phase_tflite_mobilenet(dev, card_line):
+    """(mmm) MobileNetV2 1.0 at 224 as a TFLite model (batch norm folded),
+    written by `mobilenet_v2_tflite` from `calibrated_mobilenet_v2`: logits
+    card against CPU and against the fx path of the same module; then the
+    int8 per-channel model card against CPU."""
+    mod = calibrated_mobilenet_v2()
+    model = mobilenet_v2_tflite(mod)
+    nhwc = lambda v: v.permute(0, 2, 3, 1).contiguous()
+    run = lambda f, p, v: f(p, v)[0]
+
+    def convert(d, m=model):
+        return tflite_frontend.convert_tflite(m, device=d)
+
+    x = torch.randn(P17_PARITY_BATCH, 3, CNN_SIZE, CNN_SIZE,
+                    generator=torch.Generator().manual_seed(SEED + 92))
+    _, _, row = _frontend_model("mmm", convert, run, nhwc, mod, x, dev, card_line,
+                                (P17_PARITY_BATCH,))
+    q = mobilenet_v2_tflite(mod, int8=True)
+    fq, pq = convert(dev, q)
+    fc, pc = convert("cpu", q)
+    with torch.no_grad(), no_tf32():
+        card = run(fq, pq, nhwc(x).to(dev)).float().cpu()
+        cpu = run(fc, pc, nhwc(x)).float()
+        f32_card = run(*convert(dev), nhwc(x).to(dev)).float().cpu()
+    row.update(model_bytes=len(model), int8_bytes=len(q), int8_rel_to_cpu=rel_l2(card, cpu),
+               int8_rel_to_f32=rel_l2(card, f32_card), codes=sorted(tfl_codes_of(model)))
+    check(row["int8_rel_to_cpu"] <= CNN_F32_REL,
+          f"(mmm) int8 card vs cpu rel-L2 {row['int8_rel_to_cpu']:.3g}")
+    print(f"  (mmm) TFLite MobileNetV2 ({len(model)} B): card vs cpu rel-L2 {row['rel_to_cpu']}, "
+          f"vs the fx path {row['rel_to_fx']:.3g}; ms {row['ms']}; int8 per-channel ({len(q)} B) "
+          f"card vs cpu {row['int8_rel_to_cpu']:.3g}, vs the f32 model "
+          f"{row['int8_rel_to_f32']:.3g} [{card_line}]", flush=True)
+    return row
+
+
+def phase_frontend_breadth(dev):
+    """(nnn) every entry of the three tables in small graphs, card against
+    CPU: integers equal, floats within 1e-5."""
+    out = {}
+    for label, cases, ops_of, table, runner in (
+            ("tf", tf_cases(), tf_ops_of, tf_frontend._OPS, run_tf_case),
+            ("tflite", tfl_cases(), tfl_codes_of, tflite_frontend._OPS, run_tfl_case),
+            ("caffe", caffe_cases(), caffe_types_of, caffe_frontend._LAYERS, run_caffe_case)):
+        covered = set().union(*(ops_of(c[0]) for c in cases.values()))
+        check(covered == set(table), f"(nnn) {label} entries not covered: "
+                                     f"{sorted(set(table) - covered, key=str)}")
+        worst = {}
+        for name, case in cases.items():
+            worst[name] = onnx_worst(runner(case, dev), runner(case, "cpu"), case[2])
+            check(worst[name] <= ONNX_TOL, f"(nnn) {label} {name}: card vs cpu {worst[name]:.3g}")
+        out[label] = dict(cases=worst, entries=len(covered))
+    print("  (nnn) breadth, card vs cpu (ints equal): " + "; ".join(
+        f"{k} {v['entries']} entries, floats within {max(v['cases'].values()):.3g}"
+        for k, v in out.items()), flush=True)
+    return out
+
+
+def caffe_types_of(net: bytes) -> set:
+    return {layer.type for layer in caffe_pb2.NetParameter.FromString(net).layer}
+
+
+def run_caffe_case(case, dev) -> list:
+    net, feeds, outs = case
+    fn, params = caffe_frontend.convert_caffe(caffe_pb2.NetParameter.FromString(net), device=dev)
+    with no_tf32():
+        got = fn(params, *[torch.from_numpy(np.array(a)).to(dev) for _, a in feeds])
+    got = got if isinstance(got, tuple) else (got,)
+    return [g.detach().cpu().numpy() for g in got]
+
+
+def plugin_graphs(shape) -> dict:
+    """x -> the plugin op -> y in each of the three formats: a NodeDef op
+    `MnnTpuSoftShrink`, a Caffe layer type `MnnTpuSoftShrink`, a TFLite
+    operator of builtin code `PLUGIN_TFLITE_CODE`."""
+    net = caffe_pb2.NetParameter(name="plugin")
+    net.input.append("x")
+    net.input_shape.add().dim.extend(shape)
+    caffe_layer(net, "shrink", PLUGIN_OP, ["x"], ["y"])
+    m = TflModel()
+    x = m.input(shape, name="x")
+    m.outputs = [m.op(PLUGIN_TFLITE_CODE, [x])]
+    return dict(tf=tf_graph([tf_placeholder("x"), tf_node(PLUGIN_OP, "y", ["x"])]),
+                caffe=net.SerializeToString(), tflite=m.to_bytes())
+
+
+def convert_plugin_graph(frontend: str, graph: bytes, dev):
+    if frontend == "tf":
+        return tf_frontend.convert_graphdef(graph, device=dev)
+    if frontend == "caffe":
+        return caffe_frontend.convert_caffe(caffe_pb2.NetParameter.FromString(graph), device=dev)
+    return tflite_frontend.convert_tflite(graph, device=dev)
+
+
+PLUGIN_KEYS = {"tf": PLUGIN_OP, "caffe": PLUGIN_OP, "tflite": PLUGIN_TFLITE_CODE}
+PLUGIN_FNS = {  # softshrink backed by row 10, in each table's signature
+    "tf": lambda ctx, node, x: softshrink.softshrink(ctx.t(x), SOFTSHRINK_LAM),
+    "tflite": lambda ctx, op, x: softshrink.softshrink(ctx.t(x), SOFTSHRINK_LAM),
+    "caffe": lambda ctx, layer, blobs, x: softshrink.softshrink(x, SOFTSHRINK_LAM)}
+
+
+def phase_frontend_plugins(dev, shape=(32, 256, 56, 56)):
+    """(ooo) softshrink registered in the tf, caffe and tflite tables, backed
+    by row 10: each converted graph refused before registration, then run on
+    a [32, 256, 56, 56] bf16 activation with the plain version's bits."""
+    out = {}
+    g = torch.Generator(dev).manual_seed(SEED + 93)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    want = softshrink.softshrink_plain(x, SOFTSHRINK_LAM).view(torch.int16)
+    for frontend, graph in plugin_graphs(list(shape)).items():
+        key = PLUGIN_KEYS[frontend]
+        try:
+            convert_plugin_graph(frontend, graph, dev)
+            fail(f"(ooo) the unregistered {frontend} plugin op converted")
+        except NotImplementedError:
+            pass
+        plugin.register_op(key, PLUGIN_FNS[frontend], frontend=frontend)
+        try:
+            fn, params = convert_plugin_graph(frontend, graph, dev)
+            y = fn(params, x)
+            check(torch.equal(y.view(torch.int16), want),
+                  f"(ooo) {frontend} plugin: not the plain version's bits")
+        finally:
+            plugin.unregister_op(key, frontend=frontend)
+        check(key not in plugin.registered_ops(frontend), f"(ooo) {frontend} still registered")
+        out[frontend] = dict(key=key, shape=list(shape))
+    return out
+
+
+def phase_frontends(dev, card_line):
+    """Phase 17, (kkk) to (ooo), each sub-phase with its launch counts set
+    to 0 before and read after: only the plugin path launches row 10."""
+    t17 = time.perf_counter()
+    out, secs, counts = {}, {}, {}
+    for key, fn in (("kkk", lambda: phase_caffe_squeezenet(dev, card_line)),
+                    ("lll", lambda: phase_tf_resnet50(dev, card_line)),
+                    ("mmm", lambda: phase_tflite_mobilenet(dev, card_line)),
+                    ("nnn", lambda: phase_frontend_breadth(dev)),
+                    ("ooo", lambda: phase_frontend_plugins(dev))):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        out[key] = fn()
+        counts[key] = launch_counts()
+        must = {"mnn_softshrink"} if key == "ooo" else set()
+        check(all(counts[key][k] > 0 for k in must)
+              and not any(v for k, v in counts[key].items() if k not in must),
+              f"({key}) launches {counts[key]}")
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["launches"] = counts
+    out["seconds_by_part"] = secs
+    out["seconds"] = time.perf_counter() - t17
+    print("  phase 17 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(f"  phase 17: {out['seconds']:.1f} s; row 10 launched "
+          f"{counts['ooo']['mnn_softshrink']} times on the three plugin paths", flush=True)
+    return out
+
+
 KERNEL_INFO = {  # kernel -> (source, TPU kernel it replaces, C entry)
     "dequant_matmul": ("mnn_tpu_torch/csrc/dequant_matmul.cu",
                        "mnn_tpu/kernels/dequant_matmul.py:156", "mnn_dequant_matmul"),
@@ -6695,6 +7902,11 @@ def main():
     del params7
     torch.cuda.empty_cache()
 
+    print("phase 17: the TF, TFLite and Caffe frontends on the card (SqueezeNet 1.0 from a "
+          "prototxt and caffemodel, ResNet-50 from a GraphDef, MobileNetV2 from a .tflite "
+          "f32 and int8, every table entry, softshrink plugins in each table)", flush=True)
+    frontends = phase_frontends(dev, card_line)
+
     gen_tokens = sum(len(o) for o in outs) + sum(p["gen_len"] for p in moe_perf)
     mm_counts = mm_launches(multimodal)
     tr_counts = training_launches(training)
@@ -6786,11 +7998,15 @@ def main():
                     ("m_gt1", [r for r in rows if r["m"] > 1], "mnn_dequant_matmul_bf16_tile")):
                 k[key] = dict(entry=ent, launches=launches[ent], **row_sums(sub))
         kernels.append(k)
-    # row 10, the plugin example kernel: launched by phase 15's plugin path only
+    # row 10, the plugin example kernel: launched by the plugin paths only,
+    # phase 15's (ONNX) and phase 17's (TF, TFLite, Caffe)
     kernels.append(dict(name="softshrink", route="cuda",
                         source="mnn_tpu_torch/csrc/plugin_softshrink.cu",
                         replaces="tests/test_plugin.py:19",
-                        launches=cnn["launches"]["plugin"]["mnn_softshrink"],
+                        launches=cnn["launches"]["plugin"]["mnn_softshrink"]
+                        + frontends["launches"]["ooo"]["mnn_softshrink"],
+                        onnx_launches=cnn["launches"]["plugin"]["mnn_softshrink"],
+                        frontends_launches=frontends["launches"]["ooo"]["mnn_softshrink"],
                         **row_sums(results["softshrink"])))
     detail = dict(card=card_line, torch=torch.__version__, build_s=build_s,
                   kernels=results, serve=perf, serve_batched=serve_batched,
@@ -6799,7 +8015,7 @@ def main():
                   generated_tokens=gen_tokens, parity=parity, checkpoints=checkpoints,
                   gemma=gemma, sub4=sub4, kv=kv, speculative=specd, multimodal=multimodal,
                   training=training, generative=generative, dit_cv=dit_cv, cnn=cnn,
-                  block256=b256,
+                  block256=b256, frontends=frontends,
                   seconds=time.perf_counter() - t_start,
                   note="kernel ms/plain_ms/library_ms/bound_ms in the kernels "
                        "line are sums of one call at each listed shape")

@@ -1,6 +1,6 @@
 """mnn-tpu-torch CLI: the `chat`, `run`, `serve`, `convert`, `eval`,
-`txt2img`, `bench-cnn` and `eval-cls` subcommands of `mnn_tpu/cli.py` on
-the port.
+`txt2img`, `bench-cnn`, `eval-cls`, `download`, `search` and `list`
+subcommands of `mnn_tpu/cli.py` on the port.
 
     python -m mnn_tpu_torch.cli convert --hf HF_DIR --out OUT --lm-head-bits 4
     python -m mnn_tpu_torch.cli run --model OUT "prompt"
@@ -12,6 +12,8 @@ the port.
     python -m mnn_tpu_torch.cli txt2img --model SD_DIR "a red bicycle" --out out.png
     python -m mnn_tpu_torch.cli bench-cnn --models resnet50 --batch 32
     python -m mnn_tpu_torch.cli eval-cls --dir IMAGENET_VAL --net resnet50 --weights r50.pt
+    python -m mnn_tpu_torch.cli download qwen2-0.5b
+    python -m mnn_tpu_torch.cli list
 
 Runs on the CUDA card by default; `--device cpu` runs the kernels' plain
 PyTorch versions instead. `--model DIR` loads a converted checkpoint (from
@@ -39,6 +41,10 @@ init) through the torch.fx frontend, casts its f32 params to bf16 and times
 it on a seeded bf16 batch with `utils/benchit.chain`, one JSON line per
 model: model, batch, latency_ms, images_per_s. `eval-cls` prints the top-1
 / top-k accuracy of a vision model in bf16 over an ImageFolder tree.
+`download` fetches a model from the hub by alias or repo id into the local
+registry and prints its directory, `search` lists hub models, `list` the
+registry's (offline); the first two need `huggingface_hub` and a network,
+and say so when either is missing (`convert/download.py`).
 """
 
 from __future__ import annotations
@@ -277,6 +283,26 @@ def cmd_eval_cls(args):
     print(json.dumps({"net": args.net, **r}))
 
 
+def cmd_download(args):
+    from mnn_tpu_torch.convert.download import download
+
+    print(download(args.name, out=args.out))
+
+
+def cmd_search(args):
+    from mnn_tpu_torch.convert.download import search
+
+    for hit in search(args.query, limit=args.limit):
+        print(f"{hit['id']}  (downloads {hit['downloads']}, likes {hit['likes']})")
+
+
+def cmd_list(args):
+    from mnn_tpu_torch.convert.download import list_local
+
+    for name in list_local():
+        print(name)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mnn-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -370,6 +396,19 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_eval_cls)
+
+    p = sub.add_parser("download", help="fetch a model from the hub")
+    p.add_argument("name", help="alias (e.g. qwen2-0.5b) or HF repo id")
+    p.add_argument("--out", help="target dir (default: the local registry)")
+    p.set_defaults(fn=cmd_download)
+
+    p = sub.add_parser("search", help="search the model hub")
+    p.add_argument("query")
+    p.add_argument("--limit", type=int, default=20)
+    p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("list", help="list the models of the local registry")
+    p.set_defaults(fn=cmd_list)
     args = ap.parse_args(argv)
     args.fn(args)
 

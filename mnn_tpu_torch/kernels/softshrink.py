@@ -2,9 +2,11 @@
 
 Replaces the Pallas kernel of the JAX package's plugin example
 (`tests/test_plugin.py:19` `_softshrink_kernel`, `docs/plugins.md`): the
-kernel a user backs an ONNX op with through `plugin.register_op`. CUDA
-source: `csrc/plugin_softshrink.cu` (an elementwise grid-stride loop with
-16-byte loads and stores; bound by bytes).
+kernel a user backs an op of the ONNX, TF, TFLite or Caffe table with
+through `plugin.register_op`. CUDA source: `csrc/plugin_softshrink.cu`
+(bound by bytes: one 16-byte vector a thread on a grid that covers the
+tensor, evict-first loads and streaming stores; the source records the
+designs that were timed against it and lost).
 
 Rounding points, JAX's: `lam` is a weak-typed Python scalar there, so it
 takes x's dtype before the subtraction (bf16(lam) for bf16 x), |x| - lam is
@@ -43,7 +45,10 @@ def softshrink(x: torch.Tensor, lam: float) -> torch.Tensor:
     if x.dtype not in DTYPES:
         raise TypeError(f"softshrink kernel takes f32 or bf16, got {x.dtype}")
     x = x.contiguous()
-    y = torch.empty_like(x)
+    # y at x's offset within 16 bytes, so that both take the vector path
+    off = (x.data_ptr() & 15) // x.element_size()
+    y = (torch.empty_like(x) if not off else
+         torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[off:].view(x.shape))
     lam_x = float(torch.tensor(lam, dtype=x.dtype))      # JAX's rounding of lam
     _KERNEL(x.data_ptr(), y.data_ptr(), x.numel(), lam_x, DTYPES[x.dtype])
     return y

@@ -14,6 +14,7 @@
     python -m mnn_tpu_torch.profile_a8 --kernel model --against OLD/csrc [--clocks] [--deep]
     python -m mnn_tpu_torch.profile_a8 --kernel step|model --gemma --against OLD/...
     python -m mnn_tpu_torch.profile_a8 --kernel mdec --against OLD/csrc [--clocks]
+    python -m mnn_tpu_torch.profile_a8 --kernel softshrink --against OLD/plugin_softshrink.cu
 
 Builds this tree's source of the kernel (`csrc/dequant_matmul.cu`,
 `flash_prefill.cu`, `decode_step.cu`, `flash_decode.cu` or `moe_prefill.cu`) and another
@@ -31,6 +32,12 @@ qwen2-0.5b's K = 896 takes 224 and qwen1.5-moe-a2.7b's mi = 1,408 takes
 176), in the `a8`, `rows`, `deq`, `moe` and `mdec` kernels; both versions
 must take it.
 
+* `--kernel softshrink`: `mnn_softshrink` (row 10, the plugin kernel) of
+  both, at the plugin test's (2, 8, 128) in f32 and bf16, a ResNet-50
+  activation [32, 256, 56, 56] in bf16 and f32, a bf16 view off 16 bytes
+  and a ragged length of 2^20 + 7; each output must be the plain version's
+  bits (signed zeros, +-lam and a NaN planted); the plain version's time,
+  `F.softshrink`'s and the byte bound beside them.
 * `--kernel a8` (the default): `mnn_dequant_matmul_a8` of both, on rows
   quantized beforehand, at the shapes of `chip_smoke.py` phase 2:
   qwen2-0.5b's qkv, wo, gate/up and down and qwen1.5-moe-a2.7b's qkv and wo
@@ -211,10 +218,12 @@ ENTRY = {"a8": ("mnn_dequant_matmul_a8", "mnn_dequant_matmul_a8"),   # (this, ot
          "moe": ("mnn_moe_prefill", "mnn_moe_prefill"),
          "deq": ("mnn_dequant_matmul_deq", "mnn_dequant_matmul_deq"),
          "model": ("mnn_decode_model", "mnn_decode_model"),
-         "mdec": ("mnn_moe_decode", "mnn_moe_decode")}
+         "mdec": ("mnn_moe_decode", "mnn_moe_decode"),
+         "softshrink": ("mnn_softshrink", "mnn_softshrink")}
 SOURCE = {"a8": "dequant_matmul.cu", "rows": "dequant_matmul.cu", "flash": "flash_prefill.cu",
           "step": "decode_step.cu", "fdec": "flash_decode.cu", "moe": "moe_prefill.cu",
           "deq": "dequant_matmul.cu", "mdec": "moe_decode.cu",
+          "softshrink": "plugin_softshrink.cu",
           "model": ("decode_model.cu", "decode_model_b1.cu", "decode_model_b2.cu",
                     "decode_model_b4.cu", "decode_model_b8.cu")}
 
@@ -287,6 +296,10 @@ def _libraries(specs, out_dir: Path, kind: str) -> dict:
                            + [ctypes.c_void_p])
         elif kind == "moe":
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        elif kind == "softshrink":
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_float,
+                                                   ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         elif kind == "model":
             fn = _ModelEntry(LIBS[name], name)
         elif kind == "mdec":
@@ -510,6 +523,74 @@ def _flash(fns: dict, order: list, card: str, args) -> None:
     (out / "flash_against.json").write_text(json.dumps(result, indent=1))
     if not ok:
         raise SystemExit("the versions disagree")
+
+
+# row 10: (shape, dtype, elements off x's 16-byte boundary): the plugin test's,
+# a ResNet-50 activation in bf16 and f32, a bf16 view off 16 bytes (x[1:] of a
+# flat tensor) and a ragged length
+SOFTSHRINK_SHAPES = [((2, 8, 128), torch.float32, 0), ((2, 8, 128), torch.bfloat16, 0),
+                     ((32, 256, 56, 56), torch.bfloat16, 0), ((32, 256, 56, 56), torch.float32, 0),
+                     ((32 * 256 * 56 * 56,), torch.bfloat16, 1), (((1 << 20) + 7,), torch.bfloat16, 0)]
+SOFTSHRINK_LAM = 0.3
+HBM_BYTES_S = 3.35e12
+
+
+def _softshrink(fns: dict, order: list, card: str, args) -> None:
+    """--kernel softshrink: every version in `order` at row 10's shapes, each
+    output the plain version's bits; the plain version, `F.softshrink` and
+    the byte bound beside them."""
+    from mnn_tpu_torch.kernels import softshrink
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = list(dict.fromkeys(order))
+    rows, same = [], True
+    for shape, dt, off in SOFTSHRINK_SHAPES:
+        n, esz = math.prod(shape), torch.finfo(dt).bits // 8
+        copies = max(2, min(16, math.ceil(L2_ROTATE_BYTES / (2 * n * esz))))
+        xs = [torch.randn(n + off, device=dev, generator=g).to(dt) for _ in range(copies)]
+        xs[0][off:off + 4] = torch.tensor([0.0, -0.0, SOFTSHRINK_LAM, -SOFTSHRINK_LAM]).to(dt)
+        xs[0][off + 4] = float("nan")
+        ys = [torch.empty_like(x) for x in xs]
+        lam = float(torch.tensor(SOFTSHRINK_LAM, dtype=dt))
+        ib = torch.int16 if dt == torch.bfloat16 else torch.int32
+        want = softshrink.softshrink_plain(xs[0][off:], SOFTSHRINK_LAM).view(ib)
+        row = dict(shape=list(shape), dtype=str(dt).split(".")[-1], off=off, us={})
+        for ver in order:
+            fn = fns[ver]
+
+            def call(i, fn=fn, ver=ver):
+                err = fn(xs[i % copies].data_ptr() + off * esz, ys[i % copies].data_ptr()
+                         + off * esz, n, lam, softshrink.DTYPES[dt],
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{ver}: CUDA launch error {err}")
+            call(0)
+            torch.cuda.synchronize()
+            ok = torch.equal(ys[0][off:].view(ib), want)
+            same = same and ok
+            row.setdefault("same_bits", {})[ver] = ok
+            row["us"].setdefault(ver, []).append(_time_us(call, max(8, copies)))
+        row["plain_us"] = _time_us(lambda i: softshrink.softshrink_plain(
+            xs[i % copies][off:], SOFTSHRINK_LAM), max(8, copies))
+        row["library_us"] = _time_us(lambda i: torch.nn.functional.softshrink(
+            xs[i % copies][off:], SOFTSHRINK_LAM), max(8, copies))
+        row["bound_us"] = 2 * n * esz / HBM_BYTES_S * 1e6
+        rows.append(row)
+        print(f"{list(shape)} {row['dtype']} off {off}: " + ", ".join(
+            f"{ver} {' / '.join(f'{t:.2f}' for t in row['us'][ver])} us" for ver in versions)
+            + f"; plain {row['plain_us']:.2f} us, F.softshrink {row['library_us']:.2f} us, "
+            f"bound {row['bound_us']:.2f} us; same bits {all(row['same_bits'].values())}",
+            flush=True)
+    print(f"every version gives the plain version's bits: {same}")
+    print(card)
+    result = dict(card=card, kernel="softshrink", order=order, rows=rows, same_bits=same,
+                  against=str(args.against))
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "softshrink_against.json").write_text(json.dumps(result, indent=1))
+    if not same:
+        raise SystemExit("a version gives other bits than the plain version")
 
 
 def _step_clocks(fn, qkv, kq, vq, ks, vs, cos, sin, lengths, b, hkv, grp, d) -> list:
@@ -1252,10 +1333,11 @@ def main():
         specs.append(("clk", src, ENTRY[args.kernel][0], ("MNN_DD_CLOCKS",)))
     fns = _libraries(specs, out_dir, args.kernel)
     extra = [name for name, _ in variants]
-    if args.kernel in ("flash", "step", "fdec", "moe"):
+    if args.kernel in ("flash", "step", "fdec", "moe", "softshrink"):
         mid = (["this"] + forced + [f"p{p}" for p in caps] + [f"t{t}" for t in tiles]
                + extra)
-        run = {"flash": _flash, "step": _step, "fdec": _fdec, "moe": _moe}[args.kernel]
+        run = {"flash": _flash, "step": _step, "fdec": _fdec, "moe": _moe,
+               "softshrink": _softshrink}[args.kernel]
         return run(fns, ["other"] + mid + mid[::-1] + ["other"], card, args)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)

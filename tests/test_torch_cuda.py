@@ -2429,22 +2429,24 @@ def test_native_library_builds_and_reads_a_checkpoint(dev, tmp_path):
 # the graph frontends, CNN inference and row 10 (the plugin example kernel)
 # --------------------------------------------------------------------------
 
-# (shape, dtype): the plugin test's, a ResNet-50 activation, a ragged tail
+# (shape, dtype): the plugin test's, a ResNet-50 activation in bf16 and f32,
+# ragged tails
 SOFTSHRINK = [((2, 8, 128), torch.float32), ((2, 8, 128), torch.bfloat16),
               ((32, 256, 56, 56), torch.bfloat16), ((1000003,), torch.float32),
-              ((7, 13), torch.bfloat16), ((3, 5), torch.float32)]
+              ((7, 13), torch.bfloat16), ((3, 5), torch.float32),
+              ((32, 256, 56, 56), torch.float32), (((1 << 20) + 7,), torch.bfloat16)]
 
 
 @pytest.mark.parametrize("shape,dt", SOFTSHRINK)
 def test_plugin_softshrink_kernel(dev, shape, dt):
     """Row 10: one launch a call, the plain version's bits (signed zeros,
-    x = +-lam and the bf16 rounding of lam included), also from a pointer
-    off 16 bytes (the scalar path)."""
+    x = +-lam, a NaN and the bf16 rounding of lam included), also from a
+    pointer off 16 bytes (x[1:]: a scalar head, the vector body, a tail)."""
     from mnn_tpu_torch.kernels import softshrink
 
     g = torch.Generator(dev).manual_seed(0)
     x = torch.randn(shape, generator=g, device=dev).to(dt)
-    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 0.3, -0.3], device=dev).to(dt)
+    x.view(-1)[:5] = torch.tensor([0.0, -0.0, 0.3, -0.3, float("nan")], device=dev).to(dt)
     ib = torch.int16 if dt == torch.bfloat16 else torch.int32
     for xin in (x, x.view(-1)[1:]):
         before = softshrink._KERNEL.launches
@@ -2474,6 +2476,31 @@ def test_onnx_plugin_on_the_card(dev):
     before = softshrink._KERNEL.launches
     chip_smoke.phase_plugin(dev)
     assert softshrink._KERNEL.launches == before + len(chip_smoke.SOFTSHRINK_SHAPES)
+
+
+@pytest.mark.parametrize("frontend", ["tf", "tflite", "caffe"])
+def test_frontend_breadth_card_matches_cpu(dev, frontend):
+    """Every entry of the TF, TFLite and Caffe tables in chip_smoke's small
+    graphs, card against CPU: ints equal, floats within 1e-5."""
+    import chip_smoke
+
+    cases, run = {"tf": (chip_smoke.tf_cases, chip_smoke.run_tf_case),
+                  "tflite": (chip_smoke.tfl_cases, chip_smoke.run_tfl_case),
+                  "caffe": (chip_smoke.caffe_cases, chip_smoke.run_caffe_case)}[frontend]
+    for name, case in cases().items():
+        worst = chip_smoke.onnx_worst(run(case, dev), run(case, "cpu"), case[2])
+        assert worst <= chip_smoke.ONNX_TOL, (name, worst)
+
+
+def test_frontend_plugins_on_the_card(dev):
+    """Softshrink registered in the tf, tflite and caffe tables, backed by
+    row 10, in a converted graph of each: the plain version's bits."""
+    import chip_smoke
+    from mnn_tpu_torch.kernels import softshrink
+
+    before = softshrink._KERNEL.launches
+    chip_smoke.phase_frontend_plugins(dev, shape=(4, 64, 28, 28))
+    assert softshrink._KERNEL.launches == before + 3
 
 
 @pytest.mark.parametrize("name", ["mobilenet_v2", "squeezenet_v1.0", "resnet50"])

@@ -247,9 +247,12 @@ def test_cli_run_int4_cache_on_cpu(capsys):
 
 def test_port_imports_no_jax():
     """The port and its chip script import neither JAX, optax, the JAX
-    package nor `google.protobuf` (the card's machine has none: the ONNX
-    codec is the port's own), and PIL only inside a function
-    (`ImageFolderDataset`, `classify.eval_folder`)."""
+    package nor `google.protobuf` (the card's machine has none: the ONNX,
+    Caffe and GraphDef codecs are the port's own); no module imports
+    `tensorflow`, `flatbuffers` or `huggingface_hub` at its top (the TFLite
+    reader is the port's own; `download` imports `huggingface_hub` inside
+    its functions), and PIL only inside a function (`ImageFolderDataset`,
+    `classify.eval_folder`)."""
     files = sorted((ROOT / "mnn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     names = {f.name for f in files}
@@ -260,11 +263,13 @@ def test_port_imports_no_jax():
             "scheduler.py", "unet.py", "vae.py", "clip_text.py", "sd.py",
             "pipeline.py", "mmdit.py", "sana.py", "wan.py", "filter.py", "structural.py",
             "native.py", "onnx_frontend.py", "onnx_pb2.py", "torch_fx.py", "nn_ops.py",
-            "nms.py", "vision.py", "classify.py", "benchit.py", "plugin.py"} <= names
+            "nms.py", "vision.py", "classify.py", "benchit.py", "plugin.py", "protowire.py",
+            "caffe_pb2.py", "caffe_frontend.py", "graphdef_pb2.py", "tf_frontend.py",
+            "tflite_frontend.py", "download.py"} <= names
     bad = re.compile(r"^\s*(import\s+(jax|optax)\b|from\s+(jax|optax)\b)|\bmnn_tpu\.|"
                      r"^\s*(import|from)\s+mnn_tpu\b(?!_torch)|"
                      r"^\s*(import\s+google\b|from\s+google\b)|import_module\(['\"]google\b|"
-                     r"^(import|from)\s+PIL\b", re.M)
+                     r"^(import|from)\s+(PIL|tensorflow|flatbuffers|huggingface_hub)\b", re.M)
     for f in files:
         hits = [m.group(0) for m in bad.finditer(f.read_text())]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"

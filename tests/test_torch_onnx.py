@@ -13,7 +13,7 @@
   difference over max(1, max |JAX|); the JAX ONNX tests hold 1e-5 to 2e-4
   against their oracles, 1e-3 for convolutions).
 * The plugin: the registration rules of the JAX package's `plugin.py`; the
-  TF / TFLite / Caffe tables refused until ROADMAP Q1.12b; the example op
+  TF / TFLite / Caffe tables reachable with the JAX tables' entries; the example op
   `MnnTpuSoftShrink` backed by `kernels/softshrink.py`, whose plain version
   must give the bits of the JAX package's Pallas kernel
   (`tests/test_plugin.py:19`, interpret mode) in f32 and in bf16, on inputs
@@ -390,13 +390,25 @@ def test_plugin_registration_rules_match_jax():
 
 
 @pytest.mark.parametrize("frontend", ["tf", "tflite", "caffe"])
-def test_plugin_other_frontends_wait_for_q1_12b(frontend):
-    """Pinned until ROADMAP Q1.12b ports these frontends: then this flips to
-    the JAX test's `registered_ops(frontend)` being non-empty."""
-    with pytest.raises(NotImplementedError, match="Q1.12b"):
-        plugin.registered_ops(frontend)
-    with pytest.raises(NotImplementedError, match="Q1.12b"):
-        plugin.register_op("X", lambda ctx, n, x: x, frontend=frontend)
+def test_plugin_other_frontends_tables_reachable(frontend):
+    """The JAX test's check (`tests/test_plugin.py:88-91`): each table is
+    reachable and non-empty, here with the JAX table's entries; an op
+    registers there and unregisters, and a built-in is not shadowed."""
+    from mnn_tpu import plugin as jplugin
+
+    ops = plugin.registered_ops(frontend)
+    assert ops and ops == jplugin.registered_ops(frontend)
+    if frontend == "tf":
+        assert "MaxPool" in ops
+    new = 32 if frontend == "tflite" else "MnnTpuSoftShrink"
+    plugin.register_op(new, lambda ctx, n, x: x, frontend=frontend)
+    try:
+        assert new in plugin.registered_ops(frontend)
+        with pytest.raises(ValueError):
+            plugin.register_op(ops[0], lambda ctx, n, x: x, frontend=frontend)
+    finally:
+        plugin.unregister_op(new, frontend=frontend)
+    assert plugin.registered_ops(frontend) == ops
 
 
 def test_plugin_softshrink_op_end_to_end(ref):
